@@ -46,7 +46,6 @@ namespace {
 constexpr int kThreads = 512;  // 16 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileElems = 32768;   // Nt * D
-constexpr int kFragsPerWarp = kTileElems / 256 / kWarps;  // 16x16 fragments per warp = 8
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
 
 // Shared-memory row strides, padded 16 bytes (8 bf16 / 4 f32) past a
@@ -137,9 +136,15 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
 
   // the normalised dictionary tile, resident for the whole block
   if constexpr (kAdam) {
-    for (int idx = tid; idx < kTileElems; idx += kThreads) {
+    // four elements per step: one 16-byte load, two bf16 pairs stored
+#pragma unroll 4
+    for (int idx = tid * 4; idx < kTileElems; idx += kThreads * 4) {
       const int r = idx / D, d = idx % D;
-      dj_s[r * ldD + d] = __float2bfloat16_rn(__fdiv_rn(d_raw[row0 * D + idx], nrm[row0 + r]));
+      const float4 v = *reinterpret_cast<const float4*>(d_raw + row0 * D + idx);
+      const float nr = nrm[row0 + r];
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dj_s + r * ldD + d);
+      dst[0] = __floats2bfloat162_rn(__fdiv_rn(v.x, nr), __fdiv_rn(v.y, nr));
+      dst[1] = __floats2bfloat162_rn(__fdiv_rn(v.z, nr), __fdiv_rn(v.w, nr));
     }
   } else {
     for (int idx = tid * 8; idx < kTileElems; idx += kThreads * 8)
@@ -147,13 +152,18 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
           *reinterpret_cast<const uint4*>(dhat_b + row0 * D + idx);
   }
 
-  // this warp's 8 gradient fragments share one 16-row band of the tile
-  const int cols16 = D / 16;
-  const int fr = (warp * kFragsPerWarp) / cols16;
-  const int fc0 = (warp * kFragsPerWarp) % cols16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFragsPerWarp];
-  for (int i = 0; i < kFragsPerWarp; ++i) wmma::fill_fragment(acc[i], 0.f);
-  float gb = 0.f;  // bias gradient of dict row n0 + tid (tid < Nt)
+  // this warp's 8 gradient fragments: 2 row bands x 4 column blocks of the
+  // [Nt, D] tile (each A fragment then feeds 4 MMAs, each B fragment 2);
+  // (Nt / 32) * (D / 64) = 16 warps at every width
+  const int col_groups = D / 64;
+  const int fr0 = 2 * (warp / col_groups);
+  const int fc0 = 4 * (warp % col_groups);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  // bias gradient of dict row n0 + tid (tid < Nt), in 4 independent chains
+  // over the rows of a tile (r % 4), added pairwise at the end
+  float gb[4] = {0.f, 0.f, 0.f, 0.f};
   const int dc_frags = (tb / 16) * (Nt / 16);
   const int half = D / 2;
 
@@ -198,29 +208,35 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
     __syncthreads();
 
     if (tid < Nt)
-      for (int r = 0; r < tb; ++r) gb = __fadd_rn(gb, dcf0_s[r * ldNf + tid]);
+      for (int r = 0; r < tb; r += 4)
+        for (int q = 0; q < 4; ++q) gb[q] = __fadd_rn(gb[q], dcf0_s[(r + q) * ldNf + tid]);
 
     // g_dhat += c^T . dxh + dc_b^T . x  (depth tb)
     for (int kk = 0; kk < tb; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ac, ad;
-      wmma::load_matrix_sync(ac, cs + kk * ldN + fr * 16, ldN);
-      wmma::load_matrix_sync(ad, dcb_s + kk * ldN + fr * 16, ldN);
-      for (int i = 0; i < kFragsPerWarp; ++i) {
-        const int fc = fc0 + i;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ac[2], ad[2];
+      for (int i = 0; i < 2; ++i) {
+        wmma::load_matrix_sync(ac[i], cs + kk * ldN + (fr0 + i) * 16, ldN);
+        wmma::load_matrix_sync(ad[i], dcb_s + kk * ldN + (fr0 + i) * 16, ldN);
+      }
+      for (int j = 0; j < 4; ++j) {
+        const int fc = fc0 + j;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bd, bx;
         wmma::load_matrix_sync(bd, ds + kk * ldD + fc * 16, ldD);
         wmma::load_matrix_sync(bx, xs + kk * ldD + fc * 16, ldD);
-        wmma::mma_sync(acc[i], ac, bd, acc[i]);
-        wmma::mma_sync(acc[i], ad, bx, acc[i]);
+        for (int i = 0; i < 2; ++i) {
+          wmma::mma_sync(acc[i][j], ac[i], bd, acc[i][j]);
+          wmma::mma_sync(acc[i][j], ad[i], bx, acc[i][j]);
+        }
       }
     }
     __syncthreads();  // stage st and the dc buffers consumed before reuse
   }
   __pipeline_wait_prior(0);
-  for (int i = 0; i < kFragsPerWarp; ++i)
-    wmma::store_matrix_sync(g_s + fr * 16 * ldDf + (fc0 + i) * 16, acc[i], ldDf,
-                            wmma::mem_row_major);
-  if (tid < Nt) g_bias[row0 + tid] = gb;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j)
+      wmma::store_matrix_sync(g_s + (fr0 + i) * 16 * ldDf + (fc0 + j) * 16, acc[i][j], ldDf,
+                              wmma::mem_row_major);
+  if (tid < Nt) g_bias[row0 + tid] = __fadd_rn(__fadd_rn(gb[0], gb[1]), __fadd_rn(gb[2], gb[3]));
   __syncthreads();
 
   // radial component <g_dhat, Dj> per row: one warp per row, fixed shuffle tree
@@ -239,34 +255,70 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
     bc2 = bc[2 * m + 1];
     b1_bf = __bfloat162float(__float2bfloat16_rn(b1));
   }
-  for (int idx = tid; idx < kTileElems; idx += kThreads) {
+  // the VJP and the Adam epilogue, four consecutive elements of one row per
+  // step (16-byte loads and stores); per element the arithmetic follows
+  // `_adam_epilogue` term for term
+#pragma unroll 2
+  for (int idx = tid * 4; idx < kTileElems; idx += kThreads * 4) {
     const int r = idx / D, d = idx % D;
     const size_t o = row0 * D + idx;
-    const float djf = __bfloat162float(dj_s[r * ldD + d]);
-    const float g =
-        __fdiv_rn(__fsub_rn(g_s[r * ldDf + d], __fmul_rn(djf, radial_s[r])), nrm[row0 + r]);
+    const float rad = radial_s[r], nr = nrm[row0 + r];
+    float g[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float djf = __bfloat162float(dj_s[r * ldD + d + e]);
+      g[e] = __fdiv_rn(__fsub_rn(g_s[r * ldDf + d + e], __fmul_rn(djf, rad)), nr);
+    }
     if constexpr (!kAdam) {
-      g_enc[o] = g;
+      *reinterpret_cast<float4*>(g_enc + o) = make_float4(g[0], g[1], g[2], g[3]);
       continue;
     }
-    float mu_new;
+    const float4 dr4 = *reinterpret_cast<const float4*>(d_raw + o);
+    const float4 nv4 = *reinterpret_cast<const float4*>(nu + o);
+    float dr[4] = {dr4.x, dr4.y, dr4.z, dr4.w};
+    float nv[4] = {nv4.x, nv4.y, nv4.z, nv4.w};
+    float mu_prev[4];
     if constexpr (kMuBf16) {
-      bf16* mu = static_cast<bf16*>(mu_v);
-      const float p = __bfloat162float(
-          __float2bfloat16_rn(__fmul_rn(b1_bf, __bfloat162float(mu[o]))));
-      mu_new = __fadd_rn(p, __fmul_rn(omb1, g));
-      mu[o] = __float2bfloat16_rn(mu_new);
+      const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<bf16*>(mu_v) + o);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+      mu_prev[0] = __low2float(lo);
+      mu_prev[1] = __high2float(lo);
+      mu_prev[2] = __low2float(hi);
+      mu_prev[3] = __high2float(hi);
     } else {
-      float* mu = static_cast<float*>(mu_v);
-      mu_new = __fadd_rn(__fmul_rn(b1, mu[o]), __fmul_rn(omb1, g));
-      mu[o] = mu_new;
+      const float4 mv = *reinterpret_cast<const float4*>(static_cast<float*>(mu_v) + o);
+      mu_prev[0] = mv.x;
+      mu_prev[1] = mv.y;
+      mu_prev[2] = mv.z;
+      mu_prev[3] = mv.w;
     }
-    const float nu_new = __fadd_rn(__fmul_rn(b2, nu[o]), __fmul_rn(__fmul_rn(omb2, g), g));
-    nu[o] = nu_new;
-    const float mhat = __fdiv_rn(mu_new, bc1);
-    const float vhat = __fdiv_rn(nu_new, bc2);
-    const float upd = __fdiv_rn(__fmul_rn(lr, mhat), __fadd_rn(__fsqrt_rn(vhat), eps));
-    d_raw[o] = __fsub_rn(d_raw[o], upd);
+    float mu_new[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kMuBf16) {
+        const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(b1_bf, mu_prev[e])));
+        mu_new[e] = __fadd_rn(p, __fmul_rn(omb1, g[e]));
+      } else {
+        mu_new[e] = __fadd_rn(__fmul_rn(b1, mu_prev[e]), __fmul_rn(omb1, g[e]));
+      }
+      nv[e] = __fadd_rn(__fmul_rn(b2, nv[e]), __fmul_rn(__fmul_rn(omb2, g[e]), g[e]));
+      const float mhat = __fdiv_rn(mu_new[e], bc1);
+      const float vhat = __fdiv_rn(nv[e], bc2);
+      const float upd = __fdiv_rn(__fmul_rn(lr, mhat), __fadd_rn(__fsqrt_rn(vhat), eps));
+      dr[e] = __fsub_rn(dr[e], upd);
+    }
+    *reinterpret_cast<float4*>(d_raw + o) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+    *reinterpret_cast<float4*>(nu + o) = make_float4(nv[0], nv[1], nv[2], nv[3]);
+    if constexpr (kMuBf16) {
+      uint2 raw;
+      *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(mu_new[0], mu_new[1]);
+      *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(mu_new[2], mu_new[3]);
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(mu_v) + o) = raw;
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(mu_v) + o) =
+          make_float4(mu_new[0], mu_new[1], mu_new[2], mu_new[3]);
+    }
   }
 }
 
