@@ -105,6 +105,18 @@ def unstack_pytree(tree: Params, n: int) -> List[Params]:
     return [{k: None if v is None else v[i] for k, v in tree.items()} for i in range(n)]
 
 
+def _map_tensors(v, fn):
+    """``fn`` applied to every tensor of a state (dicts and dataclasses
+    rebuilt around them; None and scalars kept)."""
+    if isinstance(v, torch.Tensor):
+        return fn(v)
+    if isinstance(v, dict):
+        return {k: _map_tensors(x, fn) for k, x in v.items()}
+    if dataclasses.is_dataclass(v):
+        return type(v)(**{f.name: _map_tensors(getattr(v, f.name), fn) for f in dataclasses.fields(v)})
+    return v
+
+
 @dataclasses.dataclass
 class EnsembleState:
     """The full training state of a stacked ensemble. Every tensor has
@@ -258,15 +270,6 @@ class Ensemble:
 
     def state_dict(self) -> Dict[str, Any]:
         """Checkpointable description; the state is copied to the host."""
-        def cpu(v):
-            if isinstance(v, torch.Tensor):
-                return v.detach().cpu().clone()
-            if isinstance(v, dict):
-                return {k: cpu(x) for k, x in v.items()}
-            if dataclasses.is_dataclass(v):
-                return type(v)(**{f.name: cpu(getattr(v, f.name)) for f in dataclasses.fields(v)})
-            return v
-
         return {
             "n_models": self.n_models,
             "sig": f"{self.sig.__module__}.{self.sig.__qualname__}",
@@ -275,7 +278,7 @@ class Ensemble:
             "compute_dtype": None if self.compute_dtype is None else str(self.compute_dtype).split(".")[-1],
             "fused": self.fused,
             "l1_warmup_steps": self.l1_warmup_steps,
-            "state": cpu(self.state),
+            "state": _map_tensors(self.state, lambda t: t.detach().cpu().clone()),
         }
 
     @staticmethod
@@ -291,15 +294,6 @@ class Ensemble:
                 raise ValueError(f"unknown signature {state_dict['sig']!r}")
             sig = sigs[name]
 
-        def dev(v):
-            if isinstance(v, torch.Tensor):
-                return v.to(device)
-            if isinstance(v, dict):
-                return {k: dev(x) for k, x in v.items()}
-            if dataclasses.is_dataclass(v):
-                return type(v)(**{f.name: dev(getattr(v, f.name)) for f in dataclasses.fields(v)})
-            return v
-
         self = Ensemble.__new__(Ensemble)
         self.sig = sig
         self.n_models = state_dict["n_models"]
@@ -309,7 +303,7 @@ class Ensemble:
         self.fused = bool(state_dict.get("fused", False))
         self.l1_warmup_steps = int(state_dict.get("l1_warmup_steps", 0))
         self.tx = optim_str_to_func(self.optimizer_name)(**self.optimizer_kwargs)
-        self.state = dev(state_dict["state"])
+        self.state = _map_tensors(state_dict["state"], lambda t: t.to(device))
         self.fused_adam = self._fused_adam_config()
         return self
 
