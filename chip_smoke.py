@@ -1,14 +1,19 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100, end to end.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA H100, end to end.
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `sparse_coding__tpu_torch/ops/csrc`,
-holds each against its plain PyTorch version at the main path's shapes and
-times it, trains the tied-SAE L1-sweep ensemble (8 members, 512 -> 4096,
-batch 2048, Adam lr 1e-3 with bf16 mu, bf16 compute) through
-`ensemble_train_loop` over a synthetic chunk store, checks that every kernel
-of the path launched, evaluates and exports the dictionaries. Prints one JSON
-line per phase, then the `kernels` line, the `nvidia-smi` line, and last
+Builds the hand-written kernels from `sparse_coding__tpu_torch/ops/csrc`
+(one nvcc per source, all at once), holds each against its plain PyTorch
+version at its path's shapes and times it, then drives two paths through
+`ensemble_train_loop` over a synthetic chunk store, each with the launch
+counts set to 0 just before it and read just after:
+  - the tied-SAE L1-sweep (8 members, 512 -> 4096, batch 2048, Adam lr 1e-3
+    with bf16 mu, bf16 compute): K1 + K2 every step, K1 + K3 on a masked step;
+  - the TopK k-sweep of BASELINE config 4 (7 members k 1..151, 768 -> 12288,
+    batch 2048, Adam lr 1e-3 with f32 moments, bf16 compute): K_s + K_d + K2
+    every step, K_s + K_d + K3 on a masked step;
+and evaluates and exports each path's dictionaries. Prints one JSON line per
+phase, then the `kernels` line, the `nvidia-smi` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. Needs a CUDA device; never
 falls back to the CPU. Imports nothing of JAX or of `sparse_coding__tpu`.
@@ -26,8 +31,30 @@ import time
 from pathlib import Path
 
 M, D, N, B = 8, 512, 4096, 2048
-LR = 1e-3
+LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
 L1_GRID = [10 ** (-4 + 0.25 * i) for i in range(M)]
+# TopK k-sweep, BASELINE config 4 (GPT-2-small residual, 16x dictionary)
+TOPK_KS = [1, 11, 31, 61, 91, 121, 151]
+TM, TD, TN, TB = len(TOPK_KS), 768, 12288, 2048
+# the two paths driven end to end: the ensemble to build, its synthetic data,
+# the forward kernels of its fused step, and each member's bound on L0 (None:
+# no bound)
+TIED = dict(
+    path="tied_l1_sweep", prefix="", sig="FunctionalTiedSAE", members=M, width=D, batch=B,
+    hparams=[{"l1_alpha": a} for a in L1_GRID],
+    build=dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16",
+               activation_size=D, n_dict_components=N),
+    data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=0),
+    fwd_kernels=("tied_sae_fwd",), l0_max=None,
+)
+TOPK = dict(
+    path="topk_k_sweep", prefix="topk_", sig="TopKEncoderApprox", members=TM, width=TD, batch=TB,
+    hparams=[{"sparsity": k} for k in TOPK_KS],
+    build=dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16",
+               d_activation=TD, n_features=TN, sparsity_cap=max(TOPK_KS)),
+    data=dict(n_ground_truth_components=4096, feature_num_nonzero=32, feature_prob_decay=0.999, key=1),
+    fwd_kernels=("topk_scores", "topk_decode"), l0_max=TOPK_KS,
+)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPO = Path(__file__).resolve().parent
@@ -58,7 +85,8 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 def bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the larger of operations over the bf16 peak and
-    bytes over the memory rate."""
+    bytes over the memory rate. Products with the code c count only its
+    non-zero entries: the work this run's data needs."""
     t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -75,7 +103,11 @@ def bf16_close(torch, a, b):
 
 
 def grads_close(torch, a, b, what: str, max_rel: float = 1e-2, min_cos: float = 0.9999):
+    # scaled to b's largest magnitude first, so the guards against a zero
+    # norm stay negligible at any scale (Adam's nu is ~1e-16 an element)
     a, b = a.double().flatten(), b.double().flatten()
+    s = float(b.abs().max()) or 1.0
+    a, b = a / s, b / s
     cos = float(a @ b / (a.norm() * b.norm() + 1e-30))
     rel = float((a - b).abs().max() / (a.abs().max() + 1e-30))
     check(cos > min_cos and rel < max_rel, f"{what}: cos {cos}, max rel {rel}")
@@ -89,11 +121,11 @@ def parse_ptxas(log: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(encode_kernel|decode_kernel|bwd_kernel)", name)
-            tmpl = re.search(r"ILb(\d)ELb(\d)E", name)
+            short = re.search(r"(encode_kernel|decode_kernel|bwd_kernel|scores_kernel|select_kernel)", name)
+            tmpl = re.search(r"ILb(\d)ELb(\d)ELi(\d)E", name)
             label = short.group(1) if short else name
             if tmpl:
-                label += f"<adam={tmpl.group(1)},mu_bf16={tmpl.group(2)}>"
+                label += f"<adam={tmpl.group(1)},mu_bf16={tmpl.group(2)},cols={tmpl.group(3)}>"
             cur = {"function": label}
             out.append(cur)
             continue
@@ -152,30 +184,21 @@ def phase_kernels(torch, tk):
         plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
     )
+    nnz = int((c_k != 0).sum())
     k1["bound_ms"], k1["bound_by"] = bound(
-        2 * 2 * M * B * N * D,
+        2 * M * B * N * D + 2 * nnz * D,
         B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4,
     )
     emit("kernel", name="tied_sae_fwd", c_frac_differ=frac_c, dxh_frac_differ=frac_d,
-         max_abs_err_dxh=k1_err, lrec=lrec_k.tolist(), ll1=ll1_k.tolist())
+         max_abs_err_dxh=k1_err, c_nonzero_frac=nnz / c_k.numel(), lrec=lrec_k.tolist(),
+         ll1=ll1_k.tolist())
     rows.append(k1)
 
     l1b = torch.tensor(L1_GRID, device=dev) / B
-    bc = torch.tensor([[0.1, 0.001]] * M, device=dev)
 
     def k2_case(batch, mu_dtype, c, dxh, xb_, d_raw_, nrm_):
-        mu = (torch.randn((M, N, D), generator=g, device=dev) * 1e-3).to(mu_dtype)
-        nu = torch.rand((M, N, D), generator=g, device=dev) * 1e-6
-        args = lambda: (xb_, dxh, c, nrm_, d_raw_.clone(), mu.clone(), nu.clone(), l1b, bc,
-                        LR, 0.9, 0.999, 1e-8)
-        dk, mk, nk, gbk = tk.tied_sae_bwd_adam(*args())
-        dp, mp, np_, gbp = _k2_plain(tk, *args())
-        torch.cuda.synchronize()
-        dmax = float((dk - dp).abs().max())
-        check(dmax <= 2 * LR, f"K2 B={batch} mu={mu_dtype}: |d_new diff| {dmax} > 2 lr")
-        grads_close(torch, gbk, gbp, f"K2 B={batch} g_bias")
-        grads_close(torch, mk.float(), mp.float(), f"K2 B={batch} mu")
-        grads_close(torch, nk, np_, f"K2 B={batch} nu")
+        args, dmax = check_k2(torch, tk, g, mu_dtype, (xb_, dxh, c, nrm_), d_raw_, l1b,
+                              f"B={batch} mu={mu_dtype}")
         emit("kernel", name="tied_sae_bwd_adam", batch=batch, mu_dtype=str(mu_dtype),
              max_abs_err_d_new=dmax)
         return args, dmax
@@ -193,7 +216,7 @@ def phase_kernels(torch, tk):
                                            torch.bmm(ct, xbt)), 10),
     )
     k2["bound_ms"], k2["bound_by"] = bound(
-        3 * 2 * M * B * N * D,
+        6 * nnz * D,
         B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4
         + 2 * (M * N * D * (4 + 2 + 4)) + M * N * 4 + 3 * M * 4,
     )
@@ -223,12 +246,78 @@ def phase_kernels(torch, tk):
                                            torch.bmm(ct, xbt)), 10),
     )
     k3["bound_ms"], k3["bound_by"] = bound(
-        3 * 2 * M * B * N * D,
+        6 * nnz * D,
         B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + M * N * D * 2
         + M * N * D * 4 + M * N * 4 + M * 4,
     )
     rows.append(k3)
     return rows
+
+
+def k2_args(fwd, d_raw, mu, nu, l1b, bc):
+    """A maker of fresh K2 arguments (K2 updates d_raw, mu and nu in place);
+    ``fwd`` is (xb, dxh, c, nrm)."""
+    return lambda: (*fwd, d_raw.clone(), mu.clone(), nu.clone(), l1b, bc, LR, B1, B2, EPS)
+
+
+def adam_bc(torch, members: int, t: int, dev):
+    """The bias corrections (1 - b1^t, 1 - b2^t) of Adam step t, per member."""
+    return torch.tensor([[1 - B1 ** t, 1 - B2 ** t]] * members, device=dev)
+
+
+def ulp(torch, t):
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def check_k2(torch, tk, gen, mu_dtype, fwd, d_raw, l1b, what: str):
+    """K2 against its plain version on the same inputs, at two Adam steps:
+      - step 1, from zero moments: mu_new = (1 - b1)·g exactly, so the moments
+        hold the kernel's gradient against the plain one, member by member
+        (cosine > 0.9999, max error < 1e-2 of the max);
+      - step 10, from moments drawn at each member's gradient scale, so the
+        decayed moments and g weigh alike in the update.
+    At both, d_new is held elementwise against the Adam update recomputed
+    from the kernel's own new moments (`hold_k2`), and within 2 lr of the
+    plain d_new. Returns (a maker of step 10's arguments, the largest |d_new|
+    difference from the plain version)."""
+    M, dev = d_raw.shape[0], d_raw.device
+    zeros = torch.zeros_like(d_raw)
+    first = k2_args(fwd, d_raw, zeros.to(mu_dtype), zeros, l1b, adam_bc(torch, M, 1, dev))
+    err1, mu1 = hold_k2(torch, tk, first, f"{what} step 1")
+    g_rms = mu1.float().pow(2).mean(dim=(1, 2), keepdim=True).sqrt() / (1 - B1)
+    mu = (torch.randn(d_raw.shape, generator=gen, device=dev) * g_rms).to(mu_dtype)
+    nu = torch.rand(d_raw.shape, generator=gen, device=dev) * g_rms * g_rms
+    later = k2_args(fwd, d_raw, mu, nu, l1b, adam_bc(torch, M, 10, dev))
+    err10, _ = hold_k2(torch, tk, later, f"{what} step 10")
+    return later, max(err1, err10)
+
+
+def hold_k2(torch, tk, args, what: str):
+    """One K2 launch against `_k2_plain`: g_bias and, per member, the new
+    moments as gradients; d_new within 2 ulp of d_raw - lr·m̂/(√v̂ + eps) on
+    the kernel's own new moments (plus 2^-8 of the update with bf16 mu: the
+    kernel steps from the f32 mu before its bf16 store). Returns (the largest
+    |d_new| difference from plain, the plain mu_new)."""
+    p = args()
+    dk, mk, nk, gbk = tk.tied_sae_bwd_adam(*args())
+    dp, mp, np_, gbp = _k2_plain(tk, *p)
+    torch.cuda.synchronize()
+    grads_close(torch, gbk, gbp, f"K2 {what} g_bias")
+    for m in range(mk.shape[0]):
+        grads_close(torch, mk[m].float(), mp[m].float(), f"K2 {what} mu[{m}]")
+        grads_close(torch, nk[m], np_[m], f"K2 {what} nu[{m}]")
+    bc = p[8]
+    upd = LR * (mk.float() / bc[:, 0, None, None]) / (torch.sqrt(nk / bc[:, 1, None, None]) + EPS)
+    d_own = p[4] - upd
+    slack = 2 * ulp(torch, d_own) + 2 * ulp(torch, upd)
+    if mk.dtype == torch.bfloat16:
+        slack = slack + upd.abs() * 2.0 ** -8
+    excess = float(((dk - d_own).abs() - slack).max())
+    check(excess <= 0, f"K2 {what}: d_new off its own moments' update by {excess} past the slack")
+    dmax = float((dk - dp).abs().max())
+    check(dmax <= 2 * LR, f"K2 {what}: |d_new diff| {dmax} > 2 lr")
+    return dmax, mp
 
 
 def _k2_plain(tk, xb, dxh, c, nrm, d_raw, mu, nu, l1b, bc, lr, b1, b2, eps):
@@ -240,84 +329,85 @@ def _k2_plain(tk, xb, dxh, c, nrm, d_raw, mu, nu, l1b, bc, lr, b1, b2, eps):
     return (*tk._adam_plain(gr, d_raw, mu, nu, bc, lr, b1, b2, eps), g_bias)
 
 
-def phase_train(torch, pkg):
-    """The main path: chunk store → ensemble_train_loop → masked step."""
+def build_path(pkg, cfg, key: int):
+    return pkg.build_ensemble(getattr(pkg, cfg["sig"]), key, cfg["hparams"], **cfg["build"])
+
+
+def phase_train(torch, pkg, cfg):
+    """A path's main run: chunk store → ensemble_train_loop → one masked
+    step. Every step of the loop launches the path's forward kernels and K2;
+    the masked step launches the forward kernels and K3; nothing else runs."""
     from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
     from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
     from sparse_coding__tpu_torch.utils import precision as px
 
-    sig = pkg.FunctionalTiedSAE
-    tmp = tempfile.TemporaryDirectory(prefix="sc_chip_smoke_")
-    root = Path(tmp.name)
-    gen = RandomDatasetGenerator(
-        activation_dim=D, n_ground_truth_components=1024, batch_size=4096,
-        feature_num_nonzero=8, feature_prob_decay=0.996, correlated=False, key=0,
-    )
+    sig, members, width, batch = getattr(pkg, cfg["sig"]), cfg["members"], cfg["width"], cfg["batch"]
+    tmp = tempfile.TemporaryDirectory(prefix=f"sc_chip_smoke_{cfg['prefix']}")
+    gen = RandomDatasetGenerator(activation_dim=width, batch_size=4096, correlated=False, **cfg["data"])
     rows_per_chunk = 65536
-    store = generate_synthetic_chunks(gen, root / "store", 2, chunk_size_gb=rows_per_chunk * D * 2 / 1024**3)
+    store = generate_synthetic_chunks(gen, Path(tmp.name) / "store", 2,
+                                      chunk_size_gb=rows_per_chunk * width * 2 / 1024**3)
     check(store.indices() == [0, 1], f"store indices {store.indices()}")
     eval_batch = torch.cat([next(gen) for _ in range(2)])
 
-    ens = pkg.build_ensemble(
-        sig, 0, [{"l1_alpha": a} for a in L1_GRID],
-        optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
-        compute_dtype="bfloat16", activation_size=D, n_dict_components=N,
-    )
+    ens = build_path(pkg, cfg, 0)
     check(ens.fused and ens.fused_adam is not None, f"fused {ens.fused}, fused_adam {ens.fused_adam}")
+    leaf = next(iter(ens.state.params))  # the dictionary: "encoder" or "dict"
 
     def eval_loss():
         st = ens.state
         with torch.no_grad(), px.compute(torch.bfloat16):
-            total, _ = sig.loss(st.params, st.buffers, eval_batch[:B])
+            total, _ = sig.loss(st.params, st.buffers, eval_batch[:batch])
         return total
 
     loss0 = eval_loss()
     tk.reset_launches()
+    kk.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps, last = 0, None
     for i, chunk in enumerate(store.iter_chunks([0, 1])):
-        last = ensemble_train_loop(ens, chunk, B, key=i)
-        steps += chunk.shape[0] // B
+        last = ensemble_train_loop(ens, chunk, batch, key=i)
+        steps += chunk.shape[0] // batch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    loop_launches = {**tk.LAUNCHES, **kk.LAUNCHES}
+    want = {name: 0 for name in loop_launches}
+    want.update({name: steps for name in (*cfg["fwd_kernels"], "tied_sae_bwd_adam")})
+    check(loop_launches == want, f"launches {loop_launches} after {steps} steps, want {want}")
     # one masked step: the fused-Adam kernel gives way to fused grads (K3)
-    frozen = ens.state.params["encoder"][M - 1].clone()
-    ens.set_update_mask([1.0] * (M - 1) + [0.0])
-    masked_loss, _ = ens.step_batch(eval_batch[B:2 * B])
+    frozen = ens.state.params[leaf][members - 1].clone()
+    ens.set_update_mask([1.0] * (members - 1) + [0.0])
+    masked_loss, _ = ens.step_batch(eval_batch[batch:2 * batch])
     torch.cuda.synchronize()
-    launches = dict(tk.LAUNCHES)
-    check(launches["tied_sae_bwd_adam"] == steps, f"K2 launches {launches} != {steps} steps")
-    check(launches["tied_sae_fwd"] == steps + 1, f"K1 launches {launches} != {steps} + 1")
-    check(launches["tied_sae_bwd_grads"] == 1, f"K3 launches {launches} != 1")
-    check(torch.equal(frozen, ens.state.params["encoder"][M - 1]), "masked member moved")
+    launches = {**tk.LAUNCHES, **kk.LAUNCHES}
+    want.update({name: steps + 1 for name in cfg["fwd_kernels"]}, tied_sae_bwd_grads=1)
+    check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
+    check(torch.equal(frozen, ens.state.params[leaf][members - 1]), "masked member moved")
     loss1 = eval_loss()
     finite = all(bool(torch.isfinite(v).all()) for v in (*last.values(), *masked_loss.values(), loss1))
     check(finite, "non-finite loss")
     check(float(loss1.mean()) < float(loss0.mean()), f"mean loss did not fall: {loss0} -> {loss1}")
     emit(
-        "train", steps=steps, batch=B, members=M, wall_s=wall,
-        activations_per_s=steps * B * M / wall, loss_before=loss0.tolist(),
-        loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(), launches=launches,
+        f"{cfg['prefix']}train", path=cfg["path"], steps=steps, batch=batch, members=members,
+        wall_s=wall, activations_per_s=steps * batch * members / wall, loss_before=loss0.tolist(),
+        loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(),
+        launches_after_loop=loop_launches, launches=launches,
     )
     return ens, gen, eval_batch, tmp, launches
 
 
-def phase_step_time(torch, pkg):
+def phase_step_time(torch, ens, batch: int, width: int, phase: str = "step", reps: int = 20):
     """The fused-Adam step on a batch already on the card: CUDA-event time
     per step beside the host's time to enqueue it (enqueue << step means the
     card, not the host, sets the pace)."""
-    ens = pkg.build_ensemble(
-        pkg.FunctionalTiedSAE, 1, [{"l1_alpha": a} for a in L1_GRID],
-        optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
-        compute_dtype="bfloat16", activation_size=D, n_dict_components=N,
-    )
-    x = torch.randn((B, D), device="cuda")
+    check(ens.fused_adam is not None, f"{phase}: the fused-Adam path is off")
+    x = torch.randn((batch, width), device="cuda")
     for _ in range(3):
         ens.step_batch(x)
-    reps = 20
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -328,49 +418,181 @@ def phase_step_time(torch, pkg):
     enqueue = time.perf_counter() - t0
     end.synchronize()
     wall = time.perf_counter() - t0
-    emit("step", steps=reps, ms_per_step=start.elapsed_time(end) / reps,
+    emit(phase, steps=reps, ms_per_step=start.elapsed_time(end) / reps,
          host_enqueue_ms_per_step=enqueue * 1e3 / reps, wall_ms_per_step=wall * 1e3 / reps,
-         activations_per_s=reps * B * M / wall)
+         activations_per_s=reps * batch * ens.n_models / wall)
 
 
-def phase_small_parity(torch, pkg):
-    """A few fused steps at a small shape on the card and on the CPU (the
-    plain versions) from the same state must agree."""
-    sig = pkg.FunctionalTiedSAE
-    kw = dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
-              compute_dtype="bfloat16", activation_size=128, n_dict_components=512)
-    ens_c = pkg.build_ensemble(sig, 3, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], device="cpu", **kw)
-    ens_g = pkg.build_ensemble(sig, 3, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], device="cpu", **kw)
+def phase_small_parity(torch, pkg, sig, hparams, **kw):
+    """A few fused steps at a small shape (D 128, N 512, batch 256) on the
+    card and on the CPU (the plain versions) from the same state must agree:
+    losses within 1e-3, the dictionary within 2 lr per step."""
+    kw = dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16", **kw)
+    ens_c = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
+    ens_g = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
     ens_g = pkg.Ensemble.from_state(ens_g.state_dict(), device="cuda")
+    check(ens_g.fused_adam is not None, f"small parity {sig.__name__}: the fused-Adam path is off")
+    leaf = next(iter(ens_c.state.params))  # the dictionary: "encoder" or "dict"
     x = torch.randn((3, 256, 128), generator=torch.Generator().manual_seed(5))
     worst_loss, worst_param = 0.0, 0.0
     for k in range(3):
         lc, _ = ens_c.step_batch(x[k])
         lg, _ = ens_g.step_batch(x[k].cuda())
         worst_loss = max(worst_loss, float(((lg["loss"].cpu() - lc["loss"]) / lc["loss"]).abs().max()))
-        dp = float((ens_g.state.params["encoder"].cpu() - ens_c.state.params["encoder"]).abs().max())
+        dp = float((ens_g.state.params[leaf].cpu() - ens_c.state.params[leaf]).abs().max())
         worst_param = max(worst_param, dp)
-        check(worst_loss < 1e-3, f"small parity: loss rel {worst_loss}")
-        check(dp <= 2 * LR * (k + 1), f"small parity: encoder diff {dp} after {k + 1} steps")
-    emit("small_parity", steps=3, max_loss_rel=worst_loss, max_encoder_diff=worst_param)
+        check(worst_loss < 1e-3, f"small parity {sig.__name__}: loss rel {worst_loss}")
+        check(dp <= 2 * LR * (k + 1), f"small parity {sig.__name__}: {leaf} diff {dp} after {k + 1} steps")
+    emit("small_parity", sig=sig.__name__, steps=3, max_loss_rel=worst_loss, max_dict_diff=worst_param)
 
 
-def phase_eval_export(torch, ens, gen, eval_batch, tmp):
+def phase_eval_export(torch, cfg, ens, gen, eval_batch, tmp):
+    """A path's learned dictionaries: finite metrics (each member's mean L0
+    within its bound, where the path has one), and a save/load round trip
+    that keeps the class, the hyperparameters and the codes."""
     from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts, mmcs_to_fixed
     from sparse_coding__tpu_torch.train.checkpoint import load_learned_dicts, save_learned_dicts
 
     lds = ens.to_learned_dicts()
     metrics = evaluate_dicts(lds, eval_batch)
     mmcs = [float(mmcs_to_fixed(ld, gen.feats)) for ld in lds]
-    for row in metrics:
+    for i, row in enumerate(metrics):
         check(math.isfinite(row["fvu"]) and math.isfinite(row["l0"]), f"metrics {row}")
+        if cfg["l0_max"] is not None:
+            check(row["l0"] <= cfg["l0_max"][i], f"member {i}: mean L0 {row['l0']} > {cfg['l0_max'][i]}")
     path = Path(tmp.name) / "learned_dicts.pkl"
-    save_learned_dicts(path, [(ld, {"l1_alpha": a}) for ld, a in zip(lds, L1_GRID)])
+    save_learned_dicts(path, list(zip(lds, cfg["hparams"])))
     loaded = load_learned_dicts(path, verify=True)
-    check(len(loaded) == M, "export lost members")
-    for ld, (ld2, _) in zip(lds, loaded):
+    check(len(loaded) == cfg["members"], "export lost members")
+    for ld, hp, (ld2, hp2) in zip(lds, cfg["hparams"], loaded):
+        check(type(ld2) is type(ld) and hp2 == hp, f"loaded {type(ld2).__name__} {hp2}, saved {hp}")
         check(torch.equal(ld.encode(eval_batch[:256]), ld2.encode(eval_batch[:256])), "codes differ after export")
-    emit("eval_export", fvu=[r["fvu"] for r in metrics], l0=[r["l0"] for r in metrics], mmcs=mmcs)
+    emit(f"{cfg['prefix']}eval_export", path=cfg["path"], hparams=cfg["hparams"],
+         fvu=[r["fvu"] for r in metrics], l0=[r["l0"] for r in metrics], mmcs=mmcs)
+
+
+def phase_topk_kernels(torch, tk, kk):
+    """K_s and K_d, and K2/K3 at D 768, against their plain versions at the
+    TopK path's shapes (BASELINE config 4), timed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    d_raw = torch.randn((TM, TN, TD), generator=g, device=dev)
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    xb = torch.randn((TB, TD), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.tensor(TOPK_KS, dtype=torch.int32, device=dev)
+    scale = 2.0 / (TB * TD)
+    src = "sparse_coding__tpu_torch/ops/csrc/topk_fwd.cu"
+    shape = f"M={TM},B={TB},N={TN},D={TD}"
+    rows = []
+
+    # K_s: the scores within 1 ulp of the plain GEMM's; the plain select on
+    # the kernel's own scores gives the same threshold bits
+    s_k, th_k = kk.topk_scores(xb, db, k)
+    s_p, _ = kk._topk_scores_plain(xb, db, k)
+    th_p = kk._select_plain(s_k, k)
+    torch.cuda.synchronize()
+    frac_s, ulp_s = bf16_close(torch, s_k, s_p)
+    check(ulp_s and frac_s < 1e-3, f"K_s s: {frac_s} differ, within 1 ulp: {ulp_s}")
+    check(torch.equal(th_k.view(torch.int32), th_p.view(torch.int32)),
+          "K_s thresholds differ from the plain select on the kernel's scores")
+    ks_err = float((s_k.float() - s_p.float()).abs().max())
+    del s_p, th_p
+    xbm = xb.expand(TM, TB, TD)
+    dbt = db.transpose(1, 2)
+    row = dict(
+        name="topk_scores", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:98",
+        max_abs_err=ks_err, shape=shape,
+        ms=time_ms(torch, lambda: kk.topk_scores(xb, db, k), 10),
+        plain_ms=time_ms(torch, lambda: kk._topk_scores_plain(xb, db, k), 3),
+        library_ms=time_ms(torch, lambda: torch.topk(torch.bmm(xbm, dbt), max(TOPK_KS), dim=-1), 10),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * TM * TB * TN * TD,
+        TB * TD * 2 + TM * TN * TD * 2 + TM * 4 + TM * TB * TN * 2 + TM * TB * 4,
+    )
+    emit("kernel", name="topk_scores", s_frac_differ=frac_s, max_abs_err_s=ks_err,
+         thresholds_bit_equal=True)
+    rows.append(row)
+
+    # K_d on the kernel's own scores and thresholds: c bit-equal, dxh within
+    # 1 ulp, the loss sum within 1e-3
+    c_k, dxh_k, lrec_k = kk.topk_decode(s_k, th_k, db, xb, scale)
+    c_p, dxh_p, lrec_p = kk._topk_decode_plain(s_k, th_k, db, xb, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(c_k.view(torch.int16), c_p.view(torch.int16)), "K_d c differs from the plain version")
+    frac_d, ulp_d = bf16_close(torch, dxh_k, dxh_p)
+    check(ulp_d and frac_d < 1e-2, f"K_d dxh: {frac_d} differ, within 1 ulp: {ulp_d}")
+    rel = float(((lrec_k - lrec_p).abs() / lrec_p.abs()).max())
+    check(rel < 1e-3, f"K_d l_rec: max rel {rel}")
+    kd_err = float((dxh_k.float() - dxh_p.float()).abs().max())
+    del c_p, dxh_p
+    nnz = int((c_k != 0).sum())
+    l0 = (c_k != 0).sum(-1).float().mean(-1)
+    row = dict(
+        name="topk_decode", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:144",
+        max_abs_err=kd_err, shape=shape,
+        ms=time_ms(torch, lambda: kk.topk_decode(s_k, th_k, db, xb, scale), 10),
+        plain_ms=time_ms(torch, lambda: kk._topk_decode_plain(s_k, th_k, db, xb, scale), 3),
+        library_ms=time_ms(torch, lambda: torch.bmm(c_k, db), 10),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * nnz * TD,
+        2 * TM * TB * TN * 2 + TM * TB * 4 + TM * TN * TD * 2 + TB * TD * 2 + TM * TB * TD * 2 + TM * 4,
+    )
+    emit("kernel", name="topk_decode", c_bit_equal=True, dxh_frac_differ=frac_d, max_abs_err_dxh=kd_err,
+         lrec_max_rel=rel, c_nonzero_frac=nnz / c_k.numel(), mean_l0=l0.tolist(), k=TOPK_KS)
+    rows.append(row)
+    del s_k, th_k
+
+    # K2 and K3 at D 768, l1 = 0: the TopK path's backward
+    l1b = torch.zeros(TM, device=dev)
+    fwd = (xb, dxh_k, c_k, nrm)
+    args, k2_err = check_k2(torch, tk, g, torch.float32, fwd, d_raw, l1b, "D=768 mu=f32")
+    emit("kernel", name="tied_sae_bwd_adam", shape=shape, mu_dtype="torch.float32", max_abs_err_d_new=k2_err)
+    held = args()
+    xbt = xb.expand(TM, TB, TD)
+    ct = c_k.transpose(1, 2)
+    gemms = lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt))
+    src_bwd = "sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu"
+    row = dict(
+        name="tied_sae_bwd_adam", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255",
+        max_abs_err=k2_err, shape=shape,
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 5),
+        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
+        library_ms=time_ms(torch, gemms, 5),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        6 * nnz * TD,
+        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
+        + 2 * (TM * TN * TD * (4 + 4 + 4)) + TM * TN * 4 + 3 * TM * 4,
+    )
+    rows.append(row)
+    del held
+    check_k2(torch, tk, g, torch.bfloat16, fwd, d_raw, l1b, "D=768 mu=bf16")
+
+    gk, gbk = tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b)
+    gp, gbp = tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b)
+    torch.cuda.synchronize()
+    cos, rel = grads_close(torch, gk, gp, "K3 D=768 g_enc")
+    grads_close(torch, gbk, gbp, "K3 D=768 g_bias")
+    k3_err = float((gk - gp).abs().max())
+    del gk, gbk, gp, gbp
+    emit("kernel", name="tied_sae_bwd_grads", shape=shape, cos=cos, max_rel=rel, max_abs_err=k3_err)
+    row = dict(
+        name="tied_sae_bwd_grads", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201",
+        max_abs_err=k3_err, shape=shape,
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 5),
+        plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b), 3),
+        library_ms=time_ms(torch, gemms, 5),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        6 * nnz * TD,
+        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4 + TM * TN * TD * 2
+        + TM * TN * TD * 4 + TM * TN * 4 + TM * 4,
+    )
+    rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -383,6 +605,7 @@ def main() -> int:
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.ops import _build
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
     # plain versions and references in exact f32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -400,20 +623,40 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: parse_ptxas(v) for k, v in _build.ptxas_log().items()})
 
+    # tied-SAE L1-sweep path
     rows = phase_kernels(torch, tk)
     torch.cuda.empty_cache()
-    phase_small_parity(torch, pkg)
-    phase_step_time(torch, pkg)
+    phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}],
+                       activation_size=128, n_dict_components=512)
+    phase_step_time(torch, build_path(pkg, TIED, 1), B, D)
     torch.cuda.empty_cache()
-    ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg)
-    phase_eval_export(torch, ens, gen, eval_batch, tmp)
+    ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, TIED)
+    phase_eval_export(torch, TIED, ens, gen, eval_batch, tmp)
     tmp.cleanup()
+    del ens, gen, eval_batch
+    for row in rows:
+        row.update(path=TIED["path"], shape=f"M={M},B={B},N={N},D={D}", launches=launches[row["name"]])
+
+    # TopK k-sweep path (BASELINE config 4)
+    torch.cuda.empty_cache()
+    topk_rows = phase_topk_kernels(torch, tk, kk)
+    torch.cuda.empty_cache()
+    phase_small_parity(torch, pkg, pkg.TopKEncoderApprox, [{"sparsity": 7}, {"sparsity": 31}],
+                       d_activation=128, n_features=512, sparsity_cap=31)
+    ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, TOPK)
+    phase_eval_export(torch, TOPK, ens, gen, eval_batch, tmp)
+    tmp.cleanup()
+    del ens, gen, eval_batch
+    torch.cuda.empty_cache()
+    phase_step_time(torch, build_path(pkg, TOPK, 1), TB, TD, phase="topk_step", reps=10)
+    for row in topk_rows:
+        row.update(path=TOPK["path"], launches=launches[row["name"]])
+    rows += topk_rows
 
     for row in rows:
         row["route"] = "cuda"
-        row["launches"] = launches[row["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"]
+            "bound_ms", "bound_by", "library_ms", "path", "shape"]
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

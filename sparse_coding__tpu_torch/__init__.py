@@ -13,5 +13,9 @@ from sparse_coding__tpu_torch.ensemble import (
     build_ensemble,
 )
 from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
+from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox, TopKLearnedDict
 
-__all__ = ["Ensemble", "EnsembleState", "build_ensemble", "FunctionalTiedSAE"]
+__all__ = [
+    "Ensemble", "EnsembleState", "build_ensemble", "FunctionalTiedSAE",
+    "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict",
+]

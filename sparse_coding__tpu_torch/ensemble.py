@@ -5,11 +5,13 @@ of tensors stacked on a leading member axis; the batch is shared by all
 members. A step picks one of three paths, by the JAX package's rules and
 independent of the device:
 
-  - fused Adam (K1 + K2 of `ops.tied_sae_kernel`): bf16 compute, a fused
-    signature, a supported shape, no centering, an Adam whose kwargs the
-    kernel implements, and no update mask;
-  - fused grads (K1 + K3) + the port's Adam (+ the NaN-safe update mask):
-    the same, with a masked ensemble or an optimizer the kernel cannot fuse;
+  - fused Adam (tied SAE: K1 + K2 of `ops.tied_sae_kernel`; TopK: K_s + K_d
+    of `ops.topk_kernel` + K2): bf16 compute, a fused signature, a supported
+    shape, no centering, an Adam whose kwargs the kernel implements, and no
+    update mask;
+  - fused grads (K1 or K_s + K_d, then K3) + the port's Adam (+ the
+    NaN-safe update mask): the same, with a masked ensemble or an optimizer
+    the kernel cannot fuse;
   - autograd of the signature's loss under the precision policy otherwise
     (exact f32 with ``compute_dtype=None``).
 
@@ -172,7 +174,7 @@ class Ensemble:
 
     @property
     def device(self) -> torch.device:
-        return self.state.params["encoder"].device
+        return next(iter(self.state.params.values())).device
 
     def _fused_adam_config(self) -> Optional[Dict[str, float]]:
         """The kernel's Adam constants, or None when the fused-Adam kernel
@@ -283,13 +285,16 @@ class Ensemble:
 
     @staticmethod
     def from_state(state_dict: Dict[str, Any], sig=None, device=None) -> "Ensemble":
-        """Rebuild from `state_dict` on ``device`` (None = cuda)."""
+        """Rebuild from `state_dict` on ``device`` (None = cuda). The
+        signature is found by its class name among the port's own (a record
+        of either package names them alike), unless ``sig`` is given."""
         from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
+        from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
 
         device = resolve_device(device)
         if sig is None:
             name = state_dict["sig"].rpartition(".")[2]
-            sigs = {"FunctionalTiedSAE": FunctionalTiedSAE}
+            sigs = {s.__name__: s for s in (FunctionalTiedSAE, TopKEncoder, TopKEncoderApprox)}
             if name not in sigs:
                 raise ValueError(f"unknown signature {state_dict['sig']!r}")
             sig = sigs[name]

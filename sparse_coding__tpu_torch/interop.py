@@ -33,16 +33,17 @@ def state_from_jax_numpy(
     step: int = 0,
     device=None,
 ) -> EnsembleState:
-    """params ``{"encoder", "encoder_bias"}``, buffers (None for absent
-    centering), and optax's ``(ScaleByAdamState(count, mu, nu), EmptyState())``
-    flattened to ``{"count", "mu", "nu"}`` — mu may be bf16 and stays so. With
+    """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
+    a TopK signature), buffers (None for absent centering), and optax's
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
+    ``{"count", "mu", "nu"}`` — mu may be bf16 and stays so. With
     ``opt_state=None`` the moments start at zero. Every array carries the
     leading member axis."""
     device = resolve_device(device)
     p = {k: _tensor(v, device) for k, v in params.items()}
     b = {k: _tensor(v, device) for k, v in buffers.items()}
     if opt_state is None:
-        n = p["encoder"].shape[0]
+        n = next(iter(p.values())).shape[0]
         adam = AdamState(
             count=torch.zeros(n, dtype=torch.int32, device=device),
             mu={k: torch.zeros_like(v) for k, v in p.items()},

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds). The libraries go to ``build/sc_torch_kernels/`` beside the package,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one is loaded as it is. All sources compile at once, one
+named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds and an unchanged one is loaded
+as it is. All sources compile at once, one
 ``nvcc`` each. Nothing is built at import time: the first CUDA launch calls
 `load`. A missing or failing ``nvcc`` raises with the compiler's output.
 """
@@ -20,12 +21,14 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from sparse_coding__tpu_torch.ops._wrap import MAX_SMEM
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sc_torch_kernels"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DSC_MAX_SMEM={MAX_SMEM}",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +40,8 @@ SIGNATURES = {
     "sc_tied_sae_fwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     "sc_tied_sae_bwd_adam": [_P] * 6 + [_I, _P, _P, _P, _P] + [_F] * 6 + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_grads": [_P] * 8 + [_I] * 4 + [_P],
+    "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
+    "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 _LOCK = threading.Lock()
@@ -55,7 +60,10 @@ def _nvcc() -> str:
 
 
 def _tag(src: Path) -> str:
+    """Hash of the source, the shared headers it may include, and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -6,6 +6,8 @@
 //         `_bwd_adam_accum_kernel`: every block here already loops over the
 //         whole batch, so one kernel covers both TPU dispatches);
 //   K3 <- `_bwd_kernel`.
+// Also the backward of the TopK step (ops/topk_kernel.py), called with l1 = 0
+// as the Pallas `topk_grads_stacked` / `topk_adam_step_stacked` call these.
 // One block owns (member m, a tile of Nt dictionary rows) and walks the batch
 // in tiles of 32 rows (16 at D = 1024):
 //   dc     = [c > 0] * (dxh . Dj^T + l1/B)       f32; mask on the stored bf16 c
@@ -17,14 +19,25 @@
 // the TPU kernel aliases them).
 //
 // What bounds it on the card: 3 GEMMs, 206 GFLOP at M=8, B=2048, N=4096,
-// D=512 against ~490 MB of traffic, so it is compute-bound. The TPU kernel
+// D=512 against ~490 MB of traffic, so it is compute-bound; on the TopK path
+// (M=7, N=12288, D=768) the code holds ~k of N entries per row, so the work
+// its data needs is small and the ~2 GB of dictionary, moments and code it
+// must move bound it. The TPU kernel
 // holds the whole batch in VMEM; here x, dxh and c stream through two
 // shared-memory stages by cp.async, the next tile loading while the current
 // one computes (re-read from L2 by every dictionary tile of a member), while
-// the [Nt, D] gradient stays in WMMA accumulator registers: Nt * D = 32768,
-// 16 warps x 8 fragments, whatever D is. The gradient never reaches device
-// memory. The bias-gradient sums run in a fixed order per column, so results
-// are the same from run to run. No wgmma/TMA yet: that is later work.
+// the [Nt, D] gradient stays in WMMA accumulator registers: 16 warps x
+// (2 row bands x kCols column blocks) fragments, so Nt * D = 8192 * kCols —
+// 32768 (kCols 4) at D in {128, 256, 512, 1024}, 24576 (kCols 3, Nt 32) at
+// D = 768. The gradient never reaches device memory. dc's depth D is split
+// into kParts slices so that enough warps share its dependent MMA chains
+// (2 with 4 column blocks; 4 at D 768, whose dc tile is only 32 x 32),
+// summed in a fixed order. At D = 768 two stages of x and dxh do not fit
+// beside the dictionary tile, so x is single-buffered there (kSplitX): tile
+// t's x is copied at the top of tile t and waited for only before the
+// gradient GEMMs, behind dc and the mask, while dxh and c load a tile ahead. The bias-gradient sums run in a fixed
+// order per column, so results are the same from run to run. No wgmma/TMA
+// yet: that is later work.
 //
 // Rounding points follow the Pallas code: Dj = bf16(d_raw / |d|) (K2) or the
 // caller's bf16 rows (K3); the epilogue uses __f*_rn intrinsics so no
@@ -45,8 +58,11 @@ namespace {
 
 constexpr int kThreads = 512;  // 16 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileElems = 32768;   // Nt * D
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
+constexpr int kElemsPerCol = kWarps * 2 * 256;  // Nt * D per column block of a warp
+#ifndef SC_MAX_SMEM
+#error "build with -DSC_MAX_SMEM=<bytes> (ops/_build.py passes ops/_wrap.py's MAX_SMEM)"
+#endif
+constexpr size_t kMaxSmem = SC_MAX_SMEM;  // shared memory a block may use on sm_90
 
 // Shared-memory row strides, padded 16 bytes (8 bf16 / 4 f32) past a
 // multiple of 128 so the 16 rows of a WMMA fragment spread over the banks.
@@ -54,33 +70,35 @@ __host__ __device__ constexpr int ld_bf16(int cols) { return cols + 8; }
 __host__ __device__ constexpr int ld_f32(int cols) { return cols + 4; }
 
 // One block's shared memory, in bytes: the dictionary tile; then a region
-// used by the batch loop (two stages of x/dxh/c tiles, so the next tile
-// loads while this one computes, plus the dc buffers) and afterwards by the
-// f32 gradient tile; then the radial sums.
+// used by the batch loop (two stages of x/dxh/c tiles — x in a single buffer
+// of its own with split_x — so the next tile loads while this one computes,
+// plus the dc buffers: one f32 slice per depth part and the bf16 copy) and
+// afterwards by the f32 gradient tile; then the radial sums.
 struct Plan {
   int tb;  // batch rows per stage
-  size_t dj, stage, loop, g, total;
+  size_t dj, stage, xbuf, loop, g, total;
 };
 
-Plan make_plan(int D, int Nt, int tb) {
+Plan make_plan(int D, int Nt, int tb, int parts, bool split_x) {
   Plan p;
   p.tb = tb;
   p.dj = (size_t)Nt * ld_bf16(D) * sizeof(bf16);
-  p.stage = (size_t)tb * (2 * ld_bf16(D) + ld_bf16(Nt)) * sizeof(bf16);
-  p.loop = 2 * p.stage + (size_t)tb * ld_bf16(Nt) * sizeof(bf16) +
-           2 * (size_t)tb * ld_f32(Nt) * sizeof(float);
+  p.stage = (size_t)tb * ((split_x ? 1 : 2) * ld_bf16(D) + ld_bf16(Nt)) * sizeof(bf16);
+  p.xbuf = split_x ? (size_t)tb * ld_bf16(D) * sizeof(bf16) : 0;
+  p.loop = 2 * p.stage + p.xbuf + (size_t)tb * ld_bf16(Nt) * sizeof(bf16) +
+           (size_t)parts * tb * ld_f32(Nt) * sizeof(float);
   p.g = (size_t)Nt * ld_f32(D) * sizeof(float);
   p.total = p.dj + (p.loop > p.g ? p.loop : p.g) + (size_t)Nt * sizeof(float);
   return p;
 }
 
 // 32-row stages where they fit (every D but 1024), else 16-row stages
-Plan choose_plan(int D, int Nt) {
-  const Plan p = make_plan(D, Nt, 32);
-  return p.total <= kMaxSmem ? p : make_plan(D, Nt, 16);
+Plan choose_plan(int D, int Nt, int parts, bool split_x) {
+  const Plan p = make_plan(D, Nt, 32, parts, split_x);
+  return p.total <= kMaxSmem ? p : make_plan(D, Nt, 16, parts, split_x);
 }
 
-template <bool kAdam, bool kMuBf16>
+template <bool kAdam, bool kMuBf16, int kCols>
 __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
     const bf16* __restrict__ x,       // [B, D]
     const bf16* __restrict__ dxh,     // [M, B, D]
@@ -96,18 +114,26 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
     const float* __restrict__ bc,     // [M, 2] bias corrections (K2)
     float lr, float b1, float b2, float eps, float omb1, float omb2,
     int B, int N, int D, int Nt, Plan pl) {
+  constexpr int kTileElems = kElemsPerCol * kCols;  // Nt * D
+  constexpr int kParts = kCols == 3 ? 4 : 2;          // depth slices of dc
+  constexpr bool kSplitX = kCols == 3;                // x single-buffered (D = 768)
   extern __shared__ __align__(128) unsigned char smem[];
   const int tb = pl.tb;
   const int ldD = ld_bf16(D), ldN = ld_bf16(Nt), ldDf = ld_f32(D), ldNf = ld_f32(Nt);
   bf16* dj_s = reinterpret_cast<bf16*>(smem);                 // [Nt][ldD]
   unsigned char* u = smem + pl.dj;                            // loop region / gradient tile
-  bf16* dcb_s = reinterpret_cast<bf16*>(u + 2 * pl.stage);    // [tb][ldN]
-  float* dcf0_s = reinterpret_cast<float*>(dcb_s + tb * ldN);  // [tb][ldNf], first half of D
-  float* dcf1_s = dcf0_s + tb * ldNf;                         // [tb][ldNf], second half of D
+  bf16* x1_s = reinterpret_cast<bf16*>(u + 2 * pl.stage);     // [tb][ldD], kSplitX only
+  bf16* dcb_s = reinterpret_cast<bf16*>(u + 2 * pl.stage + pl.xbuf);  // [tb][ldN]
+  float* dcf_s = reinterpret_cast<float*>(dcb_s + tb * ldN);  // [kParts][tb][ldNf], one per depth slice
   float* g_s = reinterpret_cast<float*>(u);                   // [Nt][ldDf], after the batch loop
   float* radial_s = reinterpret_cast<float*>(u + (pl.loop > pl.g ? pl.loop : pl.g));  // [Nt]
-  // stage st: x [tb][ldD], dxh [tb][ldD], c [tb][ldN]
-  auto x_st = [&](int st) { return reinterpret_cast<bf16*>(u + st * pl.stage); };
+  // stage st: x [tb][ldD] (unless kSplitX), dxh [tb][ldD], c [tb][ldN]
+  auto x_st = [&](int st) {
+    return kSplitX ? x1_s : reinterpret_cast<bf16*>(u + st * pl.stage);
+  };
+  auto dxh_st = [&](int st) {
+    return reinterpret_cast<bf16*>(u + st * pl.stage) + (kSplitX ? 0 : tb * ldD);
+  };
 
   const int m = blockIdx.y, n0 = blockIdx.x * Nt;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -116,20 +142,25 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
   const bf16* dxh_m = dxh + (size_t)m * B * D;
   const bf16* c_m = c + (size_t)m * B * N;
 
-  // copies of batch tile b0 into stage st, 16 bytes per cp.async
+  // copies of batch tile b0 into stage st (x too, unless kSplitX), 16 bytes
+  // per cp.async
   auto issue = [&](int st, int b0) {
-    bf16* xs = x_st(st);
-    bf16* ds = xs + tb * ldD;
+    bf16* ds = dxh_st(st);
     bf16* cs = ds + tb * ldD;
     for (int idx = tid * 8; idx < tb * D; idx += kThreads * 8) {
       const int so = (idx / D) * ldD + idx % D;
-      __pipeline_memcpy_async(xs + so, x + (size_t)b0 * D + idx, 16);
+      if constexpr (!kSplitX) __pipeline_memcpy_async(x_st(st) + so, x + (size_t)b0 * D + idx, 16);
       __pipeline_memcpy_async(ds + so, dxh_m + (size_t)b0 * D + idx, 16);
     }
     for (int idx = tid * 8; idx < tb * Nt; idx += kThreads * 8) {
       const int r = idx / Nt, j = idx % Nt;
       __pipeline_memcpy_async(cs + r * ldN + j, c_m + (size_t)(b0 + r) * N + n0 + j, 16);
     }
+  };
+  // kSplitX: copies of batch tile b0's x into the single x buffer
+  auto copy_x = [&](int b0) {
+    for (int idx = tid * 8; idx < tb * D; idx += kThreads * 8)
+      __pipeline_memcpy_async(x1_s + (idx / D) * ldD + idx % D, x + (size_t)b0 * D + idx, 16);
   };
   issue(0, 0);
   __pipeline_commit();
@@ -152,64 +183,73 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
           *reinterpret_cast<const uint4*>(dhat_b + row0 * D + idx);
   }
 
-  // this warp's 8 gradient fragments: 2 row bands x 4 column blocks of the
-  // [Nt, D] tile (each A fragment then feeds 4 MMAs, each B fragment 2);
-  // (Nt / 32) * (D / 64) = 16 warps at every width
-  const int col_groups = D / 64;
+  // this warp's 2 x kCols gradient fragments: 2 row bands x kCols column
+  // blocks of the [Nt, D] tile (each A fragment then feeds kCols MMAs, each
+  // B fragment 2); (Nt / 32) * (D / (16 kCols)) = 16 warps at every width
+  const int col_groups = D / (16 * kCols);
   const int fr0 = 2 * (warp / col_groups);
-  const int fc0 = 4 * (warp % col_groups);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  const int fc0 = kCols * (warp % col_groups);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kCols];
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < kCols; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   // bias gradient of dict row n0 + tid (tid < Nt), in 4 independent chains
   // over the rows of a tile (r % 4), added pairwise at the end
   float gb[4] = {0.f, 0.f, 0.f, 0.f};
   const int dc_frags = (tb / 16) * (Nt / 16);
-  const int half = D / 2;
+  const int depth = D / kParts;
 
   const int n_tiles = B / tb;
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
+    if constexpr (kSplitX) {  // the buffer's last reader was tile t - 1
+      copy_x(t * tb);
+      __pipeline_commit();
+    }
     if (t + 1 < n_tiles) issue(st ^ 1, (t + 1) * tb);
     __pipeline_commit();
-    __pipeline_wait_prior(1);  // this thread's copies of tile t have landed
-    __syncthreads();           // ... and everyone's (and dj_s is written)
+    // this thread's dxh and c copies of tile t have landed (x may not, with kSplitX)
+    __pipeline_wait_prior(kSplitX ? 2 : 1);
+    __syncthreads();  // ... and everyone's (and dj_s is written)
     const bf16* xs = x_st(st);
-    const bf16* ds = xs + tb * ldD;
+    const bf16* ds = dxh_st(st);
     const bf16* cs = ds + tb * ldD;
 
-    // dc = dxh . Dj^T ([tb, Nt]): each fragment's depth D split in two
-    // halves, so all 16 warps work
-    for (int item = warp; item < 2 * dc_frags; item += kWarps) {
+    // dc = dxh . Dj^T ([tb, Nt]): each fragment's depth D split into
+    // kParts slices, so all 16 warps work
+    for (int item = warp; item < kParts * dc_frags; item += kWarps) {
       const int h = item / dc_frags, f = item % dc_frags;
       const int r = f / (Nt / 16), cn = f % (Nt / 16);
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> dacc;
       wmma::fill_fragment(dacc, 0.f);
-      for (int k = h * half; k < (h + 1) * half; k += 16) {
+      for (int k = h * depth; k < (h + 1) * depth; k += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
         wmma::load_matrix_sync(a, ds + r * 16 * ldD + k, ldD);
         wmma::load_matrix_sync(b, dj_s + cn * 16 * ldD + k, ldD);
         wmma::mma_sync(dacc, a, b, dacc);
       }
-      wmma::store_matrix_sync((h ? dcf1_s : dcf0_s) + r * 16 * ldNf + cn * 16, dacc, ldNf,
+      wmma::store_matrix_sync(dcf_s + h * tb * ldNf + r * 16 * ldNf + cn * 16, dacc, ldNf,
                               wmma::mem_row_major);
     }
     __syncthreads();
 
-    // relu mask on the stored code, l1 term, bf16 copy for the GEMM
+    // relu mask on the stored code, l1 term, bf16 copy for the GEMM; the
+    // masked f32 dc goes back into slice 0
     for (int idx = tid; idx < tb * Nt; idx += kThreads) {
       const int r = idx / Nt, j = idx % Nt;
-      const float dc = __fadd_rn(dcf0_s[r * ldNf + j], dcf1_s[r * ldNf + j]);
+      float dc = dcf_s[r * ldNf + j];
+#pragma unroll
+      for (int h = 1; h < kParts; ++h) dc = __fadd_rn(dc, dcf_s[h * tb * ldNf + r * ldNf + j]);
       const float v = __bfloat162float(cs[r * ldN + j]) > 0.f ? __fadd_rn(dc, l1b) : 0.f;
-      dcf0_s[r * ldNf + j] = v;
+      dcf_s[r * ldNf + j] = v;
       dcb_s[r * ldN + j] = __float2bfloat16_rn(v);
     }
+    if constexpr (kSplitX) __pipeline_wait_prior(1);  // tile t's x has landed
     __syncthreads();
 
     if (tid < Nt)
       for (int r = 0; r < tb; r += 4)
-        for (int q = 0; q < 4; ++q) gb[q] = __fadd_rn(gb[q], dcf0_s[(r + q) * ldNf + tid]);
+        for (int q = 0; q < 4; ++q) gb[q] = __fadd_rn(gb[q], dcf_s[(r + q) * ldNf + tid]);
 
     // g_dhat += c^T . dxh + dc_b^T . x  (depth tb)
     for (int kk = 0; kk < tb; kk += 16) {
@@ -218,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
         wmma::load_matrix_sync(ac[i], cs + kk * ldN + (fr0 + i) * 16, ldN);
         wmma::load_matrix_sync(ad[i], dcb_s + kk * ldN + (fr0 + i) * 16, ldN);
       }
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kCols; ++j) {
         const int fc = fc0 + j;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bd, bx;
         wmma::load_matrix_sync(bd, ds + kk * ldD + fc * 16, ldD);
@@ -233,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
   }
   __pipeline_wait_prior(0);
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kCols; ++j)
       wmma::store_matrix_sync(g_s + (fr0 + i) * 16 * ldDf + (fc0 + j) * 16, acc[i][j], ldDf,
                               wmma::mem_row_major);
   if (tid < Nt) g_bias[row0 + tid] = __fadd_rn(__fadd_rn(gb[0], gb[1]), __fadd_rn(gb[2], gb[3]));
@@ -322,15 +362,19 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
   }
 }
 
-template <bool kAdam, bool kMuBf16>
-int launch(const void* x, const void* dxh, const void* c, const void* nrm, const void* dhat_b,
-           void* d_raw, void* mu, void* nu, void* g_enc, void* g_bias, const void* l1b,
-           const void* bc, float lr, float b1, float b2, float eps, float omb1, float omb2,
-           int M, int B, int N, int D, cudaStream_t st) {
-  const int Nt = kTileElems / D;
-  const Plan p = choose_plan(D, Nt);
-  if (p.total > kMaxSmem || B % p.tb) return (int)cudaErrorInvalidValue;
-  auto kern = bwd_kernel<kAdam, kMuBf16>;
+template <bool kAdam, bool kMuBf16, int kCols>
+int launch_cols(const void* x, const void* dxh, const void* c, const void* nrm,
+                const void* dhat_b, void* d_raw, void* mu, void* nu, void* g_enc, void* g_bias,
+                const void* l1b, const void* bc, float lr, float b1, float b2, float eps,
+                float omb1, float omb2, int M, int B, int N, int D, cudaStream_t st) {
+  constexpr int tile = kElemsPerCol * kCols;
+  if (D % (16 * kCols) || tile % D || (tile / D) % 32) return (int)cudaErrorInvalidValue;
+  const int Nt = tile / D;
+  constexpr int kParts = kCols == 3 ? 4 : 2;
+  const Plan p = choose_plan(D, Nt, kParts, kCols == 3);
+  if (p.total > kMaxSmem || B % p.tb || N % Nt || (D / 16) % kParts)
+    return (int)cudaErrorInvalidValue;
+  auto kern = bwd_kernel<kAdam, kMuBf16, kCols>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
   if (e != cudaSuccess) return (int)e;
@@ -343,6 +387,19 @@ int launch(const void* x, const void* dxh, const void* c, const void* nrm, const
   return (int)cudaGetLastError();
 }
 
+// 3 column blocks a warp where 32768 / D is no multiple of 32 (D = 768)
+template <bool kAdam, bool kMuBf16>
+int launch(const void* x, const void* dxh, const void* c, const void* nrm, const void* dhat_b,
+           void* d_raw, void* mu, void* nu, void* g_enc, void* g_bias, const void* l1b,
+           const void* bc, float lr, float b1, float b2, float eps, float omb1, float omb2,
+           int M, int B, int N, int D, cudaStream_t st) {
+  if (D % 3 == 0)
+    return launch_cols<kAdam, kMuBf16, 3>(x, dxh, c, nrm, dhat_b, d_raw, mu, nu, g_enc, g_bias,
+                                          l1b, bc, lr, b1, b2, eps, omb1, omb2, M, B, N, D, st);
+  return launch_cols<kAdam, kMuBf16, 4>(x, dxh, c, nrm, dhat_b, d_raw, mu, nu, g_enc, g_bias,
+                                        l1b, bc, lr, b1, b2, eps, omb1, omb2, M, B, N, D, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -351,9 +408,9 @@ extern "C" {
 // f32, d_raw [M, N, D] f32, mu [M, N, D] f32 (mu_bf16 = 0) or bf16
 // (mu_bf16 = 1), nu [M, N, D] f32 — d_raw, mu and nu are updated in place —
 // g_bias [M, N] f32 out, l1_over_b [M] f32, bc [M, 2] f32. Needs D in
-// {128, 256, 512, 1024}, N % (32768 / D) == 0, B % 32 == 0 (the Python
-// wrapper checks). Launches on `stream`, does not synchronise, returns the
-// CUDA error code (0 on success).
+// {128, 256, 512, 768, 1024}, N % Nt == 0 (Nt = 32768 / D, or 32 at D 768),
+// B % 32 == 0 (the Python wrapper checks). Launches on `stream`, does not
+// synchronise, returns the CUDA error code (0 on success).
 int sc_tied_sae_bwd_adam(const void* x, const void* dxh, const void* c, const void* nrm,
                          void* d_raw, void* mu, int mu_bf16, void* nu, void* g_bias,
                          const void* l1_over_b, const void* bc, float lr, float b1, float b2,

@@ -13,6 +13,8 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
       same gradient written out in f32, for masked ensembles and optimizers
       the kernel cannot fuse.
 
+K2 and K3 at ``l1 = 0`` are also the TopK step's backward (`topk_kernel`).
+
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it (same rounding points — how the CPU tests
 reach this path); CUDA tensors launch the kernel, or raise. Each launch adds
@@ -33,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 
 from sparse_coding__tpu_torch.ops import _build
+from sparse_coding__tpu_torch.ops._wrap import FWD_COLS, FWD_ROWS, check_cuda, check_dtype, require, stream
 from sparse_coding__tpu_torch.utils.optim import decayed_moment, f32
 
 bf16 = torch.bfloat16
@@ -42,9 +45,11 @@ fp32 = torch.float32
 # calls on CPU tensors do not count)
 LAUNCHES: Dict[str, int] = {"tied_sae_fwd": 0, "tied_sae_bwd_adam": 0, "tied_sae_bwd_grads": 0}
 
-# the shapes the kernels are written for
-WIDTHS = (128, 256, 512, 1024)  # D: the bwd tile holds Nt·D = 32768 elements
-FWD_ROWS, FWD_COLS = 64, 128  # K1's output tiles (batch rows, dict/width cols)
+# the shapes the kernels are written for: D, and the elements Nt·D of K2/K3's
+# [Nt, D] gradient tile (16 warps × 2 row bands × 4 column blocks of 16×16
+# fragments; 3 column blocks at D 768, where 32768 / D is no multiple of 32)
+BWD_TILE_ELEMS = {128: 32768, 256: 32768, 512: 32768, 768: 24576, 1024: 32768}
+WIDTHS = tuple(BWD_TILE_ELEMS)
 
 
 def reset_launches() -> None:
@@ -53,8 +58,8 @@ def reset_launches() -> None:
 
 
 def bwd_dict_tile(d_act: int) -> int:
-    """Dictionary rows per block of K2/K3 at width ``d_act``."""
-    return 32768 // d_act
+    """Dictionary rows per block of K2/K3 at width ``d_act`` (32 at D 768)."""
+    return BWD_TILE_ELEMS[d_act] // d_act
 
 
 def shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
@@ -66,30 +71,6 @@ def shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
     if n_dict % FWD_COLS or n_dict % bwd_dict_tile(d_act):
         return False
     return batch is None or batch % FWD_ROWS == 0
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_cuda(name: str, **tensors) -> torch.device:
-    dev = None
-    for key, t in tensors.items():
-        _require(t.is_cuda, f"{name}: {key} is on {t.device}, the others on CUDA")
-        _require(t.is_contiguous(), f"{name}: {key} must be contiguous")
-        _require(t.data_ptr() % 16 == 0, f"{name}: {key} must be 16-byte aligned")
-        dev = dev or t.device
-        _require(t.device == dev, f"{name}: {key} is on {t.device}, expected {dev}")
-    return dev
-
-
-def _dtype(name: str, t: torch.Tensor, key: str, dtype) -> None:
-    _require(t.dtype == dtype, f"{name}: {key} must be {dtype}, got {t.dtype}")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # -- K1 -----------------------------------------------------------------------
@@ -119,14 +100,14 @@ def tied_sae_fwd(xb, db, bias, scale: float):
     if not xb.is_cuda:
         return _fwd_plain(xb, db, bias, scale)
     name = "tied_sae_fwd"
-    dev = _check_cuda(name, xb=xb, db=db, bias=bias)
+    dev = check_cuda(name, xb=xb, db=db, bias=bias)
     M, N, D = db.shape
     B = xb.shape[0]
-    _dtype(name, xb, "xb", bf16)
-    _dtype(name, db, "db", bf16)
-    _dtype(name, bias, "bias", fp32)
-    _require(xb.shape == (B, D) and bias.shape == (M, N), f"{name}: shape mismatch")
-    _require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    check_dtype(name, xb, "xb", bf16)
+    check_dtype(name, db, "db", bf16)
+    check_dtype(name, bias, "bias", fp32)
+    require(xb.shape == (B, D) and bias.shape == (M, N), f"{name}: shape mismatch")
+    require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     c = torch.empty((M, B, N), dtype=bf16, device=dev)
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
     l1_part = torch.empty((M, B // FWD_ROWS, N // FWD_COLS), dtype=fp32, device=dev)
@@ -134,7 +115,7 @@ def tied_sae_fwd(xb, db, bias, scale: float):
     lib = _build.load()["tied_sae_fwd"]
     rc = lib.sc_tied_sae_fwd(
         xb.data_ptr(), db.data_ptr(), bias.data_ptr(), c.data_ptr(), dxh.data_ptr(),
-        l1_part.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), _stream(dev),
+        l1_part.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -180,29 +161,29 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
         g, g_bias = _grads_plain(xb, dxh, c, nrm, dj, l1_over_b)
         return (*_adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps), g_bias)
     name = "tied_sae_bwd_adam"
-    dev = _check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, d_raw=d_raw, mu=mu, nu=nu,
+    dev = check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, d_raw=d_raw, mu=mu, nu=nu,
                       l1_over_b=l1_over_b, bc=bc)
     M, N, D = d_raw.shape
     B = xb.shape[0]
     for key, t, dt in (("xb", xb, bf16), ("dxh", dxh, bf16), ("c", c, bf16), ("nrm", nrm, fp32),
                        ("d_raw", d_raw, fp32), ("nu", nu, fp32), ("l1_over_b", l1_over_b, fp32),
                        ("bc", bc, fp32)):
-        _dtype(name, t, key, dt)
-    _require(mu.dtype in (fp32, bf16), f"{name}: mu must be float32 or bfloat16, got {mu.dtype}")
-    _require(
+        check_dtype(name, t, key, dt)
+    require(mu.dtype in (fp32, bf16), f"{name}: mu must be float32 or bfloat16, got {mu.dtype}")
+    require(
         xb.shape == (B, D) and dxh.shape == (M, B, D) and c.shape == (M, B, N)
         and nrm.shape == (M, N) and mu.shape == nu.shape == (M, N, D)
         and l1_over_b.shape == (M,) and bc.shape == (M, 2),
         f"{name}: shape mismatch",
     )
-    _require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     g_bias = torch.empty((M, N), dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_bwd"]
     rc = lib.sc_tied_sae_bwd_adam(
         xb.data_ptr(), dxh.data_ptr(), c.data_ptr(), nrm.data_ptr(), d_raw.data_ptr(),
         mu.data_ptr(), int(mu.dtype == bf16), nu.data_ptr(), g_bias.data_ptr(),
         l1_over_b.data_ptr(), bc.data_ptr(), float(lr), float(b1), float(b2), float(eps),
-        float(1 - b1), float(1 - b2), M, B, N, D, _stream(dev),
+        float(1 - b1), float(1 - b2), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -215,24 +196,24 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b):
     if not xb.is_cuda:
         return _grads_plain(xb, dxh, c, nrm, db, l1_over_b)
     name = "tied_sae_bwd_grads"
-    dev = _check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, db=db, l1_over_b=l1_over_b)
+    dev = check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, db=db, l1_over_b=l1_over_b)
     M, N, D = db.shape
     B = xb.shape[0]
     for key, t, dt in (("xb", xb, bf16), ("dxh", dxh, bf16), ("c", c, bf16), ("nrm", nrm, fp32),
                        ("db", db, bf16), ("l1_over_b", l1_over_b, fp32)):
-        _dtype(name, t, key, dt)
-    _require(
+        check_dtype(name, t, key, dt)
+    require(
         xb.shape == (B, D) and dxh.shape == (M, B, D) and c.shape == (M, B, N)
         and nrm.shape == (M, N) and l1_over_b.shape == (M,),
         f"{name}: shape mismatch",
     )
-    _require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     g_enc = torch.empty((M, N, D), dtype=fp32, device=dev)
     g_bias = torch.empty((M, N), dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_bwd"]
     rc = lib.sc_tied_sae_bwd_grads(
         xb.data_ptr(), dxh.data_ptr(), c.data_ptr(), nrm.data_ptr(), db.data_ptr(),
-        g_enc.data_ptr(), g_bias.data_ptr(), l1_over_b.data_ptr(), M, B, N, D, _stream(dev),
+        g_enc.data_ptr(), g_bias.data_ptr(), l1_over_b.data_ptr(), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -244,7 +225,7 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b):
 def _prepare(d_raw, bias, batch):
     M, N, D = d_raw.shape
     B = batch.shape[0]
-    _require(
+    require(
         shapes_supported(N, D, B),
         f"shape (B={B}, N={N}, D={D}) not covered by the tied-SAE kernels "
         "(gate callers with shapes_supported)",

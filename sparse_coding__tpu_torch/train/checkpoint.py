@@ -20,6 +20,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+# models.topk registers TopKLearnedDict: imported so that a process that
+# imports only this module loads TopK exports too
+from sparse_coding__tpu_torch.models import topk as _topk  # noqa: F401
 from sparse_coding__tpu_torch.models.learned_dict import (
     LEARNED_DICT_CLASSES,
     LEARNED_DICT_REGISTRY,

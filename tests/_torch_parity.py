@@ -33,9 +33,13 @@ def bf16_close(a, b):
 
 
 def assert_grads_close(a, b, what: str, min_cos: float = 0.9999, max_rel: float = 1e-2):
-    """Gradient-style agreement: cosine and max error relative to the max."""
+    """Gradient-style agreement: cosine and max error relative to the max.
+    Both are scaled to b's largest magnitude first, so the guards against a
+    zero norm stay negligible at any scale (Adam's nu is ~1e-16 an element)."""
     a = to_np(a).astype(np.float64).ravel()
     b = to_np(b).astype(np.float64).ravel()
+    s = np.abs(b).max() or 1.0
+    a, b = a / s, b / s
     cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30)
     rel = np.abs(a - b).max() / (np.abs(a).max() + 1e-30)
     assert cos > min_cos and rel < max_rel, f"{what}: cos {cos}, max rel {rel}"

@@ -120,7 +120,8 @@ def test_fwd_code_and_cotangent_follow_the_rounding_points():
 def test_shape_predicate_and_refusals():
     assert tk.shapes_supported(4096, 512, 2048)
     assert tk.shapes_supported(512, 128, 256)
-    assert not tk.shapes_supported(4096, 768)  # width outside the bwd tiling
+    assert tk.shapes_supported(12288, 768, 2048)  # D 768: the bwd tile is 32 x 768
+    assert not tk.shapes_supported(4096, 640)  # width outside the bwd tiling
     assert not tk.shapes_supported(4096 + 64, 512)  # N not a multiple of 128
     assert not tk.shapes_supported(4096, 512, 100)  # B not a multiple of 64
     d_raw, bias, x, l1 = _inputs(4, 96)

@@ -6,8 +6,15 @@ GPU with nvcc; skips (inside each test) without one. On the card:
 
 Tolerances as in chip_smoke.py: c within 1 bf16 ulp (or f32 noise across
 zero) with < 0.1% differing, dxh the same with < 1% (4096-term sums in
-another order), gradients cosine > 0.9999 and max error 1e-2 of the max,
-the Adam-updated encoder within 2 lr.
+another order), gradients cosine > 0.9999 and max error 1e-2 of the max.
+The Adam kernel is held at its first step from zero moments, where
+mu_new = (1 - b1)·g holds its gradient to that bound member by member, and
+at step 10 from moments at the gradient's scale; its updated encoder lies
+within 2 ulp of the update recomputed from its own new moments (plus 2^-8
+of the update with bf16 mu) and within 2 lr of the plain one. TopK: scores
+as c; the select's threshold and the decode's code bit-equal to the plain
+versions' on the kernel's own scores (the same bf16 bits in, an exact
+selection).
 """
 
 import pytest
@@ -15,13 +22,19 @@ import torch
 
 from _torch_parity import assert_grads_close, bf16_close
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
 pytestmark = pytest.mark.cuda
 
-# M, B, N, D: every width the kernels take (D 1024 runs 16-row batch stages),
-# then the main path's full shape
-SHAPES = [(2, 256, 512, 128), (2, 128, 256, 256), (2, 256, 256, 1024), (8, 2048, 4096, 512)]
+# M, B, N, D: every width the kernels take (D 768 single-buffers x, D 1024
+# runs 16-row batch stages), then the two main paths' full shapes (tied SAE,
+# TopK config 4)
+SHAPES = [(2, 256, 512, 128), (2, 128, 256, 256), (2, 256, 512, 768), (2, 256, 256, 1024),
+          (8, 2048, 4096, 512), (7, 2048, 12288, 768)]
+# M, B, N, D and k per member: the CPU tests' shape, then BASELINE config 4
+TOPK_SHAPES = [((2, 256, 512, 128), (7, 31)), ((7, 2048, 12288, 768), (1, 11, 31, 61, 91, 121, 151))]
 LR = 1e-3
+HP = (LR, 0.9, 0.999, 1e-8)  # Adam: lr, b1, b2, eps
 
 
 @pytest.fixture
@@ -62,27 +75,58 @@ def test_fwd_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(ll1, ll1_p, rtol=1e-3, atol=0)
 
 
+def _ulp(t):
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def _hold_adam_step(step, d_raw, g_p, mu_dtype, seed):
+    """K2, as ``step(d, mu, nu, bc)`` (which updates d, mu and nu in place),
+    against the plain Adam on the plain gradient ``g_p``, at two steps:
+    step 1 from zero moments, where mu_new = (1 - b1)·g exactly, so the
+    moments hold the kernel's gradient member by member; and step 10 from
+    moments drawn at each member's gradient scale. d_new is held within
+    2 ulp of the update recomputed from the kernel's own new moments (plus
+    2^-8 of it with bf16 mu, stored after the step) and within 2 lr of the
+    plain d_new. Returns the last step's outputs."""
+    M, dev = d_raw.shape[0], d_raw.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g_rms = g_p.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+    zeros = torch.zeros_like(d_raw)
+    mu10 = (torch.randn(d_raw.shape, generator=gen, device=dev) * g_rms).to(mu_dtype)
+    nu10 = torch.rand(d_raw.shape, generator=gen, device=dev) * g_rms * g_rms
+    for t, mu, nu in ((1, zeros.to(mu_dtype), zeros), (10, mu10, nu10)):
+        bc = torch.tensor([[1 - HP[1] ** t, 1 - HP[2] ** t]] * M, device=dev)
+        d_k, mu_k, nu_k = d_raw.clone(), mu.clone(), nu.clone()
+        out = step(d_k, mu_k, nu_k, bc)
+        torch.cuda.synchronize()
+        assert out[0] is d_k and out[1] is mu_k and out[2] is nu_k  # updated in place
+        d_p, mu_p, nu_p = tk._adam_plain(g_p, d_raw, mu, nu, bc, *HP)
+        for m in range(M):
+            assert_grads_close(mu_k[m].float(), mu_p[m].float(), f"step {t} mu[{m}]")
+            assert_grads_close(nu_k[m], nu_p[m], f"step {t} nu[{m}]")
+        upd = LR * (mu_k.float() / bc[:, 0, None, None]) / (torch.sqrt(nu_k / bc[:, 1, None, None]) + HP[3])
+        d_own = d_raw - upd
+        slack = 2 * _ulp(d_own) + 2 * _ulp(upd)
+        if mu_dtype == torch.bfloat16:
+            slack = slack + upd.abs() * 2.0 ** -8
+        assert bool(((d_k - d_own).abs() <= slack).all()), f"step {t}: d_new off its own moments' update"
+        assert (d_k - d_p).abs().max() <= 2 * LR
+    return out
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
 def test_bwd_adam_kernel_matches_plain(cuda, shape, mu_dtype):
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=1)
     c, dxh, _, _ = tk._fwd_plain(xb, db, bias, 2.0 / (B * D))
-    g = torch.Generator(device=cuda).manual_seed(2)
-    mu = (torch.randn((M, N, D), generator=g, device=cuda) * 1e-3).to(mu_dtype)
-    nu = torch.rand((M, N, D), generator=g, device=cuda) * 1e-6
-    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
-    hp = (LR, 0.9, 0.999, 1e-8)
-    d_k, mu_k, nu_k = d_raw.clone(), mu.clone(), nu.clone()
-    out = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_k, mu_k, nu_k, l1b, bc, *hp)
-    torch.cuda.synchronize()
-    assert out[0] is d_k and out[1] is mu_k and out[2] is nu_k  # updated in place
     dj = (d_raw / nrm[..., None]).to(torch.bfloat16)
     gr, gb_p = tk._grads_plain(xb, dxh, c, nrm, dj, l1b)
-    d_p, mu_p, nu_p = tk._adam_plain(gr, d_raw, mu, nu, bc, *hp)
-    assert (out[0] - d_p).abs().max() <= 2 * LR
-    assert_grads_close(out[1].float(), mu_p.float(), "mu")
-    assert_grads_close(out[2], nu_p, "nu")
+    out = _hold_adam_step(
+        lambda d, mu, nu, bc: tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d, mu, nu, l1b, bc, *HP),
+        d_raw, gr, mu_dtype, seed=2,
+    )
     assert_grads_close(out[3], gb_p, "g_bias")
 
 
@@ -105,3 +149,64 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tk.tied_sae_fwd(xb, db.transpose(1, 2), bias, 1.0)
     with pytest.raises(ValueError, match="is on cpu"):
         tk.tied_sae_fwd(xb, db, bias.cpu(), 1.0)
+
+
+def _topk_inputs(shape, ks, dev, seed=0):
+    M, B, N, D = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_raw = torch.randn((M, N, D), generator=g, device=dev)
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    return d_raw, xb, nrm, db, torch.tensor(ks, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("shape,ks", TOPK_SHAPES)
+def test_topk_scores_and_decode_kernels_match_plain(cuda, shape, ks):
+    M, B, N, D = shape
+    d_raw, xb, nrm, db, k = _topk_inputs(shape, ks, cuda)
+    kk.reset_launches()
+    s, thresh = kk.topk_scores(xb, db, k)
+    c, dxh, lrec = kk.topk_decode(s, thresh, db, xb, 2.0 / (B * D))
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES == {"topk_scores": 1, "topk_decode": 1}
+    s_p, _ = kk._topk_scores_plain(xb, db, k)
+    frac, ok = bf16_close(s, s_p)
+    assert ok and frac < 1e-3, (frac, ok)
+    # on the kernel's own scores: the same threshold and code, bit for bit
+    assert torch.equal(thresh.view(torch.int32), kk._select_plain(s, k).view(torch.int32))
+    c_p, dxh_p, lrec_p = kk._topk_decode_plain(s, thresh, db, xb, 2.0 / (B * D))
+    assert torch.equal(c.view(torch.int16), c_p.view(torch.int16))
+    frac, ok = bf16_close(dxh, dxh_p)
+    assert ok and frac < 1e-2, (frac, ok)
+    torch.testing.assert_close(lrec, lrec_p, rtol=1e-3, atol=0)
+    kept = (c != 0).sum(-1)
+    assert bool((kept >= torch.minimum(k[:, None], (s.float() > 0).sum(-1))).all())
+
+
+@pytest.mark.parametrize("shape,ks", TOPK_SHAPES)
+def test_topk_entries_match_their_plain_composition(cuda, shape, ks):
+    """K_s + K_d + K3 (grads) and K_s + K_d + K2 (Adam) against the plain
+    versions chained on the kernels' own forward."""
+    M, B, N, D = shape
+    d_raw, xb, nrm, db, k = _topk_inputs(shape, ks, cuda, seed=1)
+    x = xb.float()
+    g, l_rec = kk.topk_grads_stacked(d_raw, k, x)
+    s, thresh = kk.topk_scores(xb, db, k)
+    c, dxh, lrec = kk.topk_decode(s, thresh, db, xb, 2.0 / (B * D))
+    zeros = torch.zeros(M, device=cuda)
+    g_p, _ = tk._grads_plain(xb, dxh, c, nrm, db, zeros)
+    assert_grads_close(g, g_p, "g_dict")
+    torch.testing.assert_close(l_rec, lrec / (B * D), rtol=1e-6, atol=0)
+    _hold_adam_step(lambda d, mu, nu, bc: kk.topk_adam_step_stacked(d, mu, nu, x, k, bc, 1, *HP),
+                    d_raw, g_p, torch.float32, seed=2)
+
+
+def test_topk_kernels_refuse_what_they_do_not_take(cuda):
+    d_raw, xb, nrm, db, k = _topk_inputs(TOPK_SHAPES[0][0], TOPK_SHAPES[0][1], cuda)
+    with pytest.raises(ValueError, match="not supported"):
+        kk.topk_scores(xb, db[:, :448].contiguous(), k)  # N not a multiple of 128
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        kk.topk_scores(xb, db, k.long())
+    with pytest.raises(ValueError, match="not covered"):
+        kk.topk_grads_stacked(d_raw, k, xb[:200].float())
