@@ -4,15 +4,20 @@
 
 Builds the hand-written kernels from `sparse_coding__tpu_torch/ops/csrc`
 (one nvcc per source, all at once), holds each against its plain PyTorch
-version at its path's shapes and times it, then drives two paths through
+version at its path's shapes and times it, then drives four paths through
 `ensemble_train_loop` over a synthetic chunk store, each with the launch
 counts set to 0 just before it and read just after:
   - the tied-SAE L1-sweep (8 members, 512 -> 4096, batch 2048, Adam lr 1e-3
     with bf16 mu, bf16 compute): K1 + K2 every step, K1 + K3 on a masked step;
+  - the same at the capacity setting (int8 mu, bf16 nu, SC_RECOMPUTE_CODE=1,
+    an int8-tier chunk store): K1n + K2 (rebuilding the code) every step,
+    K1 + K3 on a masked step;
   - the TopK k-sweep of BASELINE config 4 (7 members k 1..151, 768 -> 12288,
     batch 2048, Adam lr 1e-3 with f32 moments, bf16 compute): K_s + K_d + K2
     every step, K_s + K_d + K3 on a masked step;
-and evaluates and exports each path's dictionaries. Prints one JSON line per
+  - the same at the capacity setting (16 steps): K2 with int8 mu, bf16 nu;
+and evaluates and exports each path's dictionaries, and times one resident
+step of each with its peak device memory. Prints one JSON line per
 phase, then the `kernels` line, the `nvidia-smi` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. Needs a CUDA device; never
@@ -21,8 +26,10 @@ falls back to the CPU. Imports nothing of JAX or of `sparse_coding__tpu`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -45,7 +52,8 @@ TIED = dict(
     build=dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16",
                activation_size=D, n_dict_components=N),
     data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=0),
-    fwd_kernels=("tied_sae_fwd",), l0_max=None,
+    fwd_kernels=("tied_sae_fwd",), masked_fwd=("tied_sae_fwd",), l0_max=None,
+    store_dtype="float16", rows_per_chunk=65536, env={},
 )
 TOPK = dict(
     path="topk_k_sweep", prefix="topk_", sig="TopKEncoderApprox", members=TM, width=TD, batch=TB,
@@ -53,7 +61,20 @@ TOPK = dict(
     build=dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16",
                d_activation=TD, n_features=TN, sparsity_cap=max(TOPK_KS)),
     data=dict(n_ground_truth_components=4096, feature_num_nonzero=32, feature_prob_decay=0.999, key=1),
-    fwd_kernels=("topk_scores", "topk_decode"), l0_max=TOPK_KS,
+    fwd_kernels=("topk_scores", "topk_decode"), masked_fwd=("topk_scores", "topk_decode"), l0_max=TOPK_KS,
+    store_dtype="float16", rows_per_chunk=65536, env={},
+)
+# the capacity setting (README): int8 mu, bf16 nu, the code rebuilt in the
+# backward (the TopK step accepts the flag and ignores it), data from an
+# int8-tier chunk store; the masked step's fused grads store the code (K1)
+CAPACITY_ADAM = {"learning_rate": LR, "mu_dtype": "int8", "nu_dtype": "bfloat16"}
+TIED_CAPACITY = dict(
+    TIED, path="tied_capacity", prefix="capacity_", build=dict(TIED["build"], optimizer_kwargs=CAPACITY_ADAM),
+    fwd_kernels=("tied_sae_fwd_nocode",), store_dtype="int8", env={"SC_RECOMPUTE_CODE": "1"},
+)
+TOPK_CAPACITY = dict(
+    TOPK, path="topk_capacity", prefix="topk_capacity_", build=dict(TOPK["build"], optimizer_kwargs=CAPACITY_ADAM),
+    store_dtype="int8", rows_per_chunk=16384, env={"SC_RECOMPUTE_CODE": "1"},
 )
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -179,7 +200,7 @@ def phase_kernels(torch, tk):
     dbt = db.transpose(1, 2)
     k1 = dict(
         name="tied_sae_fwd", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu",
-        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", max_abs_err=k1_err,
+        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", max_abs_err=k1_err, variant="code stored",
         ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
         plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
@@ -210,6 +231,7 @@ def phase_kernels(torch, tk):
     k2 = dict(
         name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
         replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", max_abs_err=k2_err,
+        variant="stored code, mu bf16, nu f32",
         ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 10),
         plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
         library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k),
@@ -239,7 +261,7 @@ def phase_kernels(torch, tk):
     emit("kernel", name="tied_sae_bwd_grads", cos=cos, max_rel=rel, max_abs_err=k3_err)
     k3 = dict(
         name="tied_sae_bwd_grads", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
-        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201", max_abs_err=k3_err,
+        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201", max_abs_err=k3_err, variant="gradient out",
         ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 10),
         plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b), 3),
         library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k),
@@ -251,6 +273,212 @@ def phase_kernels(torch, tk):
         + M * N * D * 4 + M * N * 4 + M * 4,
     )
     rows.append(k3)
+    return rows
+
+
+def moment_bytes(m) -> int:
+    from _torch_moments import moment_parts
+
+    return sum(t.numel() * t.element_size() for t in moment_parts(m))
+
+
+def check_epilogue(torch, tk, fwd, d_raw, l1b, mu_tier, nu_tier, seed_tile, gen, what):
+    """K2's compressed epilogue against `_adam_plain` on K3's gradient (K3
+    runs K2's gradient code on the same bf16 rows, so both epilogues see the
+    same g): the stochastic stores draw the same counter-hash bits, so int8
+    codes and bf16 nu agree in >= 99.9% of elements, never more than one
+    code or one ulp apart, scales within 1e-6 relative. Returns the measured
+    agreement and a maker of fresh K2 arguments at these tiers."""
+    from _torch_moments import adam_moments, clone_moment, stored_agreement
+
+    xb, dxh, c, nrm = fwd
+    M = d_raw.shape[0]
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    mu, nu = adam_moments(d_raw, mu_tier, nu_tier, gen)
+    bc = adam_bc(torch, M, 10, d_raw.device)
+    d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu),
+                                                 clone_moment(nu), l1b, bc, LR, B1, B2, EPS, seed=11,
+                                                 seed_tile=seed_tile)
+    d_p, mu_p, nu_p = tk._adam_plain(g, d_raw, mu, nu, bc, LR, B1, B2, EPS, seed=11, seed_tile=seed_tile)
+    torch.cuda.synchronize()
+    check(torch.equal(gb_k, gb), f"{what}: K2's g_bias differs from K3's")
+    d_err = float((d_k - d_p).abs().max())
+    check(d_err <= 1e-6, f"{what}: |d_new - plain| {d_err}")
+    out = {"max_abs_err_d_new": d_err}
+    for name, got, want, stochastic in (("mu", mu_k, mu_p, mu_tier == "int8"),
+                                        ("nu", nu_k, nu_p, nu_tier in ("int8", "bfloat16"))):
+        eq, worst, rel = stored_agreement(got, want)
+        out[f"{name}_equal_share"], out[f"{name}_max_step_diff"], out[f"{name}_scale_rel"] = eq, worst, rel
+        if stochastic:
+            check(eq >= 0.999 and worst <= 1 and rel <= 1e-6, f"{what} {name}: equal {eq}, worst {worst}, scale {rel}")
+
+    def args():
+        return (xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc,
+                LR, B1, B2, EPS)
+    return out, args, (g, mu, nu, bc)
+
+
+def check_unbiased(torch, tk, fwd, d_raw, l1b, plain, seeds: int = 64):
+    """Over ``seeds`` step seeds, the mean error of K2's stored moments
+    against the f32 moment (in units of each element's storage step: the
+    row's scale for int8, the bf16 spacing for bf16) within 4 sigma of 0."""
+    from _torch_moments import clone_moment, store_error_steps
+    from sparse_coding__tpu_torch.utils.optim import dequant, f32
+
+    xb, dxh, c, nrm = fwd
+    g, mu, nu, bc = plain
+
+    f = {"mu": f32(B1, g) * dequant(mu) + f32(1 - B1, g) * g,
+         "nu": f32(B2, g) * dequant(nu) + f32(1 - B2, g) * g * g}
+    sums = {k: [0.0, 0.0, 0] for k in f}
+    for seed in range(1, seeds + 1):
+        _, mu_k, nu_k, _ = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu),
+                                                clone_moment(nu), l1b, bc, LR, B1, B2, EPS, seed=seed)
+        for name, got in (("mu", mu_k), ("nu", nu_k)):
+            e = store_error_steps(got, f[name])
+            sums[name][0] += float(e.sum())
+            sums[name][1] += float((e * e).sum())
+            sums[name][2] += e.numel()
+    out = {}
+    for name, (s1, s2, n) in sums.items():
+        mean = s1 / n
+        sd = math.sqrt(max(s2 / n - mean * mean, 0.0))
+        sigmas = abs(mean) / (sd / math.sqrt(n)) if sd > 0 else 0.0
+        check(sigmas <= 4, f"stochastic store {name}: mean error {mean} steps, {sigmas} sigma from 0")
+        out[f"{name}_mean_err_steps"], out[f"{name}_sigmas"] = mean, sigmas
+    return out
+
+
+def rebuild_gemms(torch, xbm, dbt, dxh):
+    """K2's four GEMMs with the code rebuilt, as bf16 `bmm` calls: c = x·D̂ᵀ,
+    dc = dxh·D̂ᵀ, cᵀ·dxh, dcᵀ·x (no epilogues)."""
+    c = torch.bmm(xbm, dbt)
+    dc = torch.bmm(dxh, dbt)
+    return torch.bmm(c.transpose(1, 2), dxh), torch.bmm(dc.transpose(1, 2), xbm)
+
+
+def phase_capacity_kernels(torch, tk):
+    """The tied-capacity path's kernels at its shapes (config 2), timed:
+    K1n against K1 (dxh bit-equal, the loss sums' difference stated) and its
+    plain version; K2 rebuilding the code against K2 on K1's stored code
+    (d_new, moments and g_bias bit-equal); K2's compressed epilogues against
+    the plain version; the stores' unbiasedness over 64 seeds."""
+    from _torch_moments import adam_moments, clone_moment, same_bits
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+    bias = torch.randn((M, N), generator=g, device=dev) * 0.01
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    scale = 2.0 / (B * D)
+    src_fwd = "sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu"
+    rows = []
+
+    # K1n against K1 and against its plain version on K1's code (K1n's own)
+    c_k, dxh_k, lrec_k, ll1_k = tk.tied_sae_fwd(xb, db, bias, scale)
+    dxh_n, lrec_n, ll1_n = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
+    dxh_p, lrec_p = tk._decode_plain(xb, db, c_k, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(dxh_n.view(torch.int16), dxh_k.view(torch.int16)), "K1n dxh differs from K1's")
+    lrec_rel = float(((lrec_n - lrec_k).abs() / lrec_k.abs()).max())
+    ll1_rel = float(((ll1_n - ll1_k).abs() / ll1_k.abs()).max())
+    check(lrec_rel < 1e-5 and ll1_rel < 1e-5, f"K1n loss sums vs K1: {lrec_rel}, {ll1_rel}")
+    frac_d, ulp_d = bf16_close(torch, dxh_n, dxh_p)
+    check(ulp_d and frac_d < 1e-2, f"K1n dxh: {frac_d} differ from plain, within 1 ulp: {ulp_d}")
+    for name, a, b in (("l_rec", lrec_n, lrec_p), ("l_l1", ll1_n, ll1_k)):
+        rel = float(((a - b).abs() / b.abs()).max())
+        check(rel < 1e-3, f"K1n {name}: max rel {rel}")
+    nnz = int((c_k != 0).sum())
+    xbm, dbt = xb.expand(M, B, D), db.transpose(1, 2)
+    k1n = dict(
+        name="tied_sae_fwd_nocode", source=src_fwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:195",
+        max_abs_err=float((dxh_n.float() - dxh_p.float()).abs().max()), variant="no code stored",
+        ms=time_ms(torch, lambda: tk.tied_sae_fwd_nocode(xb, db, bias, scale), 20),
+        plain_ms=time_ms(torch, lambda: tk._fwd_nocode_plain(xb, db, bias, scale), 5),
+        library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
+    )
+    k1n["bound_ms"], k1n["bound_by"] = bound(
+        2 * M * B * N * D + 2 * nnz * D,
+        B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * D * 2 + 2 * M * (B // 64) * 4,
+    )
+    summary = dict(k1n_dxh_bit_equal_k1=True, k1n_lrec_rel_vs_k1=lrec_rel, k1n_ll1_rel_vs_k1=ll1_rel,
+                   k1n_dxh_frac_differ_plain=frac_d)
+    rows.append(k1n)
+    del c_k  # from here on the code exists only inside the kernels that need it
+
+    l1b = torch.tensor(L1_GRID, device=dev) / B
+    c_k, _, _, _ = tk.tied_sae_fwd(xb, db, bias, scale)
+    fwd = (xb, dxh_k, c_k, nrm)
+    # K2 rebuilding the code == K2 on K1's stored code, bit for bit
+    bc = adam_bc(torch, M, 10, dev)
+    for mu_t, nu_t in (("bfloat16", "float32"), ("int8", "bfloat16")):
+        mu, nu = adam_moments(d_raw, mu_t, nu_t, g)
+        outs = [tk.tied_sae_bwd_adam(xb, dxh_k, code, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu),
+                                     l1b, bc, LR, B1, B2, EPS, seed=7, bias=b)
+                for code, b in ((c_k, None), (None, bias))]
+        torch.cuda.synchronize()
+        equal = all(same_bits(a, b) for a, b in zip(*outs))
+        check(equal, f"K2 rebuild (mu {mu_t}, nu {nu_t}) differs from K2 on the stored code")
+        summary[f"k2_rebuild_bit_equal_mu_{mu_t}_nu_{nu_t}"] = equal
+    # the compressed epilogues against the plain version on the same g
+    for mu_t, nu_t in (("int8", "bfloat16"), ("int8", "int8"), ("float32", "bfloat16")):
+        agree, args, plain = check_epilogue(torch, tk, fwd, d_raw, l1b, mu_t, nu_t, tk.TIED_SEED_TILE, g,
+                                            f"K2 epilogue mu {mu_t}, nu {nu_t}")
+        summary[f"k2_epilogue_mu_{mu_t}_nu_{nu_t}"] = agree
+        if (mu_t, nu_t) == ("int8", "bfloat16"):
+            cap_agree, cap_args, cap_plain = agree, args, plain
+    summary["k2_stores_unbiased_64_seeds"] = check_unbiased(torch, tk, fwd, d_raw, l1b, cap_plain)
+    emit("capacity_kernels", shape=f"M={M},B={B},N={N},D={D}", **summary)
+    del c_k
+    # the tied-capacity path's K2: the code rebuilt, int8 mu, bf16 nu
+    held = list(cap_args())
+    held[2] = None
+
+    def k2_cap(a):
+        return tk.tied_sae_bwd_adam(*a, seed=3, bias=bias)
+
+    def k2_cap_plain(a):
+        xb_, dxh_, _, nrm_, d_, mu_, nu_, l1b_, bc_ = a[:9]
+        dj = (d_ / nrm_[..., None]).to(torch.bfloat16)
+        gr, gbias = tk._grads_plain(xb_, dxh_, None, nrm_, dj, l1b_, bias)
+        return (*tk._adam_plain(gr, d_, mu_, nu_, bc_, LR, B1, B2, EPS, seed=3), gbias)
+
+    def fresh():
+        a = list(cap_args())
+        a[2] = None
+        return a
+
+    k2 = dict(
+        name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd_rc.cu",
+        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", variant="code rebuilt, mu int8, nu bf16",
+        max_abs_err=cap_agree["max_abs_err_d_new"],
+        ms=time_ms(torch, lambda: k2_cap(held), 10),
+        plain_ms=time_ms(torch, lambda: k2_cap_plain(fresh()), 3),
+        library_ms=time_ms(torch, lambda: rebuild_gemms(torch, xbm, dbt, dxh_k), 10),
+    )
+    # the rebuild's dense encode GEMM + the three on the code's non-zeros;
+    # moments: int8 codes and scales, bf16 nu, each read and written once
+    k2["bound_ms"], k2["bound_by"] = bound(
+        2 * M * B * N * D + 6 * nnz * D,
+        B * D * 2 + M * B * D * 2 + M * N * 4 + M * N * 4 + M * N * 4
+        + 2 * (M * N * D * (4 + 1 + 2) + M * N * 4) + M * 4 + 2 * M * 4 + 4,
+    )
+    rows.append(k2)
+    # where K2's extra time goes: each change alone, timed in this phase
+    c_k, _, _, _ = tk.tied_sae_fwd(xb, db, bias, scale)
+    parts = {}
+    for label, code, b, tiers in (("stored_code_mu_bf16_nu_f32", c_k, None, ("bfloat16", "float32")),
+                                  ("rebuild_mu_bf16_nu_f32", None, bias, ("bfloat16", "float32")),
+                                  ("stored_code_mu_int8_nu_bf16", c_k, None, ("int8", "bfloat16"))):
+        mu, nu = adam_moments(d_raw, *tiers, g)
+        a = (xb, dxh_k, code, nrm, d_raw.clone(), mu, nu, l1b, bc, LR, B1, B2, EPS)
+        parts[f"{label}_ms"] = time_ms(torch, lambda: tk.tied_sae_bwd_adam(*a, seed=3, bias=b), 10)
+    emit("kernel", name="tied_sae_bwd_adam", variant="time by change, config 2",
+         rebuild_mu_int8_nu_bf16_ms=k2["ms"], **parts)
+    del held, c_k
     return rows
 
 
@@ -329,14 +557,37 @@ def _k2_plain(tk, xb, dxh, c, nrm, d_raw, mu, nu, l1b, bc, lr, b1, b2, eps):
     return (*tk._adam_plain(gr, d_raw, mu, nu, bc, lr, b1, b2, eps), g_bias)
 
 
+@contextlib.contextmanager
+def environ(env):
+    """The process environment with ``env`` set, restored afterwards (the
+    fused step reads SC_RECOMPUTE_CODE when an ensemble is built)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def build_path(pkg, cfg, key: int):
-    return pkg.build_ensemble(getattr(pkg, cfg["sig"]), key, cfg["hparams"], **cfg["build"])
+    with environ(cfg["env"]):
+        ens = pkg.build_ensemble(getattr(pkg, cfg["sig"]), key, cfg["hparams"], **cfg["build"])
+    check(ens.fused and ens.fused_adam is not None, f"{cfg['path']}: fused {ens.fused}, fused_adam {ens.fused_adam}")
+    check(ens.fused_adam.get("recompute_code", False) == bool(cfg["env"]), f"{cfg['path']}: {ens.fused_adam}")
+    return ens
 
 
 def phase_train(torch, pkg, cfg):
     """A path's main run: chunk store → ensemble_train_loop → one masked
     step. Every step of the loop launches the path's forward kernels and K2;
-    the masked step launches the forward kernels and K3; nothing else runs."""
+    the masked step launches the masked forward kernels and K3; nothing else
+    runs."""
+    import numpy as np
+
     from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
@@ -347,14 +598,14 @@ def phase_train(torch, pkg, cfg):
     sig, members, width, batch = getattr(pkg, cfg["sig"]), cfg["members"], cfg["width"], cfg["batch"]
     tmp = tempfile.TemporaryDirectory(prefix=f"sc_chip_smoke_{cfg['prefix']}")
     gen = RandomDatasetGenerator(activation_dim=width, batch_size=4096, correlated=False, **cfg["data"])
-    rows_per_chunk = 65536
+    rows, dtype = cfg["rows_per_chunk"], np.dtype(cfg["store_dtype"])
     store = generate_synthetic_chunks(gen, Path(tmp.name) / "store", 2,
-                                      chunk_size_gb=rows_per_chunk * width * 2 / 1024**3)
+                                      chunk_size_gb=rows * width * dtype.itemsize / 1024**3, dtype=dtype)
     check(store.indices() == [0, 1], f"store indices {store.indices()}")
+    check(np.load(Path(tmp.name) / "store" / "0.npy", mmap_mode="r").dtype == dtype, "chunk tier")
     eval_batch = torch.cat([next(gen) for _ in range(2)])
 
     ens = build_path(pkg, cfg, 0)
-    check(ens.fused and ens.fused_adam is not None, f"fused {ens.fused}, fused_adam {ens.fused_adam}")
     leaf = next(iter(ens.state.params))  # the dictionary: "encoder" or "dict"
 
     def eval_loss():
@@ -384,15 +635,21 @@ def phase_train(torch, pkg, cfg):
     masked_loss, _ = ens.step_batch(eval_batch[batch:2 * batch])
     torch.cuda.synchronize()
     launches = {**tk.LAUNCHES, **kk.LAUNCHES}
-    want.update({name: steps + 1 for name in cfg["fwd_kernels"]}, tied_sae_bwd_grads=1)
+    for name in cfg["masked_fwd"]:
+        want[name] += 1
+    want["tied_sae_bwd_grads"] = 1
     check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
     check(torch.equal(frozen, ens.state.params[leaf][members - 1]), "masked member moved")
+    moments = ens.state.opt_state
+    tiers = {k: [type(m[leaf]).__name__ if hasattr(m[leaf], "q") else str(m[leaf].dtype)]
+             for k, m in (("mu", moments.mu), ("nu", moments.nu))}
     loss1 = eval_loss()
     finite = all(bool(torch.isfinite(v).all()) for v in (*last.values(), *masked_loss.values(), loss1))
     check(finite, "non-finite loss")
     check(float(loss1.mean()) < float(loss0.mean()), f"mean loss did not fall: {loss0} -> {loss1}")
     emit(
         f"{cfg['prefix']}train", path=cfg["path"], steps=steps, batch=batch, members=members,
+        store_dtype=cfg["store_dtype"], moments=tiers, recompute_code=bool(cfg["env"]),
         wall_s=wall, activations_per_s=steps * batch * members / wall, loss_before=loss0.tolist(),
         loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(),
         launches_after_loop=loop_launches, launches=launches,
@@ -400,16 +657,23 @@ def phase_train(torch, pkg, cfg):
     return ens, gen, eval_batch, tmp, launches
 
 
-def phase_step_time(torch, ens, batch: int, width: int, phase: str = "step", reps: int = 20):
+def phase_step_time(torch, pkg, cfg, reps: int = 20):
     """The fused-Adam step on a batch already on the card: CUDA-event time
     per step beside the host's time to enqueue it (enqueue << step means the
-    card, not the host, sets the pace)."""
-    check(ens.fused_adam is not None, f"{phase}: the fused-Adam path is off")
+    card, not the host, sets the pace), and the peak device memory of a step
+    with the ensemble's state resident (`max_memory_allocated` over the
+    steps, less what was allocated before the ensemble was built). Returns
+    that peak in bytes."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ens = build_path(pkg, cfg, 1)
+    batch, width = cfg["batch"], cfg["width"]
     x = torch.randn((batch, width), device="cuda")
     for _ in range(3):
         ens.step_batch(x)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
@@ -418,32 +682,58 @@ def phase_step_time(torch, ens, batch: int, width: int, phase: str = "step", rep
     enqueue = time.perf_counter() - t0
     end.synchronize()
     wall = time.perf_counter() - t0
-    emit(phase, steps=reps, ms_per_step=start.elapsed_time(end) / reps,
+    peak = torch.cuda.max_memory_allocated() - before
+    emit(f"{cfg['prefix']}step", path=cfg["path"], steps=reps, ms_per_step=start.elapsed_time(end) / reps,
          host_enqueue_ms_per_step=enqueue * 1e3 / reps, wall_ms_per_step=wall * 1e3 / reps,
-         activations_per_s=reps * batch * ens.n_models / wall)
+         activations_per_s=reps * batch * ens.n_models / wall, step_peak_bytes=peak)
+    return peak
 
 
-def phase_small_parity(torch, pkg, sig, hparams, **kw):
+def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, **kw):
     """A few fused steps at a small shape (D 128, N 512, batch 256) on the
     card and on the CPU (the plain versions) from the same state must agree:
-    losses within 1e-3, the dictionary within 2 lr per step."""
-    kw = dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16", **kw)
-    ens_c = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
-    ens_g = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
-    ens_g = pkg.Ensemble.from_state(ens_g.state_dict(), device="cuda")
-    check(ens_g.fused_adam is not None, f"small parity {sig.__name__}: the fused-Adam path is off")
+    losses within 1e-3, the dictionary within 2 lr per step, and its median
+    difference under 1/20 of the median distance the steps moved it (so a
+    step that left the dictionary alone fails). With int8 mu (whose
+    stochastic store draws the same counter-hash bits on both) a code that
+    one side's f32 sums put across a rounding boundary moves a
+    small-gradient element's next update by up to ~lr·step/|g|: there the
+    bulk (median) within lr per step and every element within 50 lr, the
+    envelope of the JAX package's int8 two-step test; and after the first
+    step, from the same state, >= 99% of mu's int8 codes equal (streams of
+    other seeds agree on about half)."""
+    kw = dict(optimizer_kwargs=optimizer_kwargs, compute_dtype="bfloat16", **kw)
+    int8 = optimizer_kwargs.get("mu_dtype") == "int8"
+    with environ(env or {}):
+        ens_c = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
+        ens_g = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
+        ens_g = pkg.Ensemble.from_state(ens_g.state_dict(), device="cuda")
+    name = sig.__name__
+    check(ens_g.fused_adam is not None, f"small parity {name}: the fused-Adam path is off")
     leaf = next(iter(ens_c.state.params))  # the dictionary: "encoder" or "dict"
+    start = ens_c.state.params[leaf].clone()
     x = torch.randn((3, 256, 128), generator=torch.Generator().manual_seed(5))
-    worst_loss, worst_param = 0.0, 0.0
+    worst_loss, worst_param, ratio, codes_equal = 0.0, 0.0, 0.0, []
     for k in range(3):
         lc, _ = ens_c.step_batch(x[k])
         lg, _ = ens_g.step_batch(x[k].cuda())
         worst_loss = max(worst_loss, float(((lg["loss"].cpu() - lc["loss"]) / lc["loss"]).abs().max()))
-        dp = float((ens_g.state.params[leaf].cpu() - ens_c.state.params[leaf]).abs().max())
-        worst_param = max(worst_param, dp)
-        check(worst_loss < 1e-3, f"small parity {sig.__name__}: loss rel {worst_loss}")
-        check(dp <= 2 * LR * (k + 1), f"small parity {sig.__name__}: {leaf} diff {dp} after {k + 1} steps")
-    emit("small_parity", sig=sig.__name__, steps=3, max_loss_rel=worst_loss, max_dict_diff=worst_param)
+        diff = (ens_g.state.params[leaf].cpu() - ens_c.state.params[leaf]).abs()
+        dp, med = float(diff.max()), float(diff.median())
+        moved = float((ens_c.state.params[leaf] - start).abs().median())
+        worst_param, ratio = max(worst_param, dp), max(ratio, med / max(moved, 1e-30))
+        check(worst_loss < 1e-3, f"small parity {name}: loss rel {worst_loss}")
+        ok = (med <= LR * (k + 1) and dp <= 50 * LR) if int8 else dp <= 2 * LR * (k + 1)
+        check(ok, f"small parity {name}: {leaf} diff max {dp}, median {med} after {k + 1} steps")
+        check(moved > 0.5 * LR and med < 0.05 * moved,
+              f"small parity {name}: {leaf} moved {moved} (median), card vs CPU median {med} after {k + 1} steps")
+        if int8:
+            qg, qc = ens_g.state.opt_state.mu[leaf].q.cpu(), ens_c.state.opt_state.mu[leaf].q
+            codes_equal.append(float((qg == qc).float().mean()))
+            check(k > 0 or codes_equal[0] >= 0.99, f"small parity {name}: {codes_equal[0]} of mu's int8 codes equal")
+    emit("small_parity", sig=name, moments={k: str(v) for k, v in optimizer_kwargs.items()},
+         recompute_code=bool(env), steps=3, max_loss_rel=worst_loss, max_dict_diff=worst_param,
+         max_median_diff_over_moved=ratio, mu_int8_codes_equal=codes_equal or None)
 
 
 def phase_eval_export(torch, cfg, ens, gen, eval_batch, tmp):
@@ -502,7 +792,7 @@ def phase_topk_kernels(torch, tk, kk):
     dbt = db.transpose(1, 2)
     row = dict(
         name="topk_scores", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:98",
-        max_abs_err=ks_err, shape=shape,
+        max_abs_err=ks_err, shape=shape, variant="scores + exact select",
         ms=time_ms(torch, lambda: kk.topk_scores(xb, db, k), 10),
         plain_ms=time_ms(torch, lambda: kk._topk_scores_plain(xb, db, k), 3),
         library_ms=time_ms(torch, lambda: torch.topk(torch.bmm(xbm, dbt), max(TOPK_KS), dim=-1), 10),
@@ -531,7 +821,7 @@ def phase_topk_kernels(torch, tk, kk):
     l0 = (c_k != 0).sum(-1).float().mean(-1)
     row = dict(
         name="topk_decode", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:144",
-        max_abs_err=kd_err, shape=shape,
+        max_abs_err=kd_err, shape=shape, variant="masked decode",
         ms=time_ms(torch, lambda: kk.topk_decode(s_k, th_k, db, xb, scale), 10),
         plain_ms=time_ms(torch, lambda: kk._topk_decode_plain(s_k, th_k, db, xb, scale), 3),
         library_ms=time_ms(torch, lambda: torch.bmm(c_k, db), 10),
@@ -557,7 +847,7 @@ def phase_topk_kernels(torch, tk, kk):
     src_bwd = "sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu"
     row = dict(
         name="tied_sae_bwd_adam", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255",
-        max_abs_err=k2_err, shape=shape,
+        max_abs_err=k2_err, shape=shape, variant="stored code, mu f32, nu f32",
         ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 5),
         plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
         library_ms=time_ms(torch, gemms, 5),
@@ -571,6 +861,28 @@ def phase_topk_kernels(torch, tk, kk):
     del held
     check_k2(torch, tk, g, torch.bfloat16, fwd, d_raw, l1b, "D=768 mu=bf16")
 
+    # the topk-capacity path's K2: int8 mu, bf16 nu, the stores seeded over
+    # the JAX TopK step's 128-row dictionary tiles
+    agree, cap_args, _ = check_epilogue(torch, tk, fwd, d_raw, l1b, "int8", "bfloat16", kk.SEED_TILE, g,
+                                        "K2 D=768 epilogue mu int8, nu bf16")
+    emit("kernel", name="tied_sae_bwd_adam", shape=shape, variant="epilogue vs plain, mu int8, nu bf16", **agree)
+    held = cap_args()
+    row = dict(
+        name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
+        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", variant="stored code, mu int8, nu bf16",
+        max_abs_err=agree["max_abs_err_d_new"], shape=shape,
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, seed_tile=kk.SEED_TILE), 5),
+        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *cap_args()), 3),
+        library_ms=time_ms(torch, gemms, 5),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        6 * nnz * TD,
+        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
+        + 2 * (TM * TN * TD * (4 + 1 + 2) + TM * TN * 4) + TM * TN * 4 + 3 * TM * 4 + 4,
+    )
+    capacity_rows = [row]
+    del held
+
     gk, gbk = tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b)
     gp, gbp = tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b)
     torch.cuda.synchronize()
@@ -581,7 +893,7 @@ def phase_topk_kernels(torch, tk, kk):
     emit("kernel", name="tied_sae_bwd_grads", shape=shape, cos=cos, max_rel=rel, max_abs_err=k3_err)
     row = dict(
         name="tied_sae_bwd_grads", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201",
-        max_abs_err=k3_err, shape=shape,
+        max_abs_err=k3_err, shape=shape, variant="gradient out",
         ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 5),
         plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b), 3),
         library_ms=time_ms(torch, gemms, 5),
@@ -592,7 +904,7 @@ def phase_topk_kernels(torch, tk, kk):
         + TM * TN * TD * 4 + TM * TN * 4 + TM * 4,
     )
     rows.append(row)
-    return rows
+    return rows, capacity_rows
 
 
 def main() -> int:
@@ -602,6 +914,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))  # _torch_moments: the moment helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.ops import _build
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
@@ -623,40 +936,71 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: parse_ptxas(v) for k, v in _build.ptxas_log().items()})
 
+    def drive(cfg):
+        """A path's main run and its export; the launch counts of the run."""
+        torch.cuda.empty_cache()
+        ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, cfg)
+        phase_eval_export(torch, cfg, ens, gen, eval_batch, tmp)
+        tmp.cleanup()
+        del ens, gen, eval_batch
+        torch.cuda.empty_cache()
+        return launches
+
+    def label(rows_, cfg, launches, shape=None):
+        for row in rows_:
+            row.update(path=cfg["path"], launches=launches[row["name"]])
+            if shape:
+                row["shape"] = shape
+        return rows_
+
+    tied_shape = f"M={M},B={B},N={N},D={D}"
+    small_tied = dict(hparams=[{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], activation_size=128,
+                      n_dict_components=512)
+    small_topk = dict(hparams=[{"sparsity": 7}, {"sparsity": 31}], d_activation=128, n_features=512,
+                      sparsity_cap=31)
+
     # tied-SAE L1-sweep path
     rows = phase_kernels(torch, tk)
     torch.cuda.empty_cache()
-    phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}],
-                       activation_size=128, n_dict_components=512)
-    phase_step_time(torch, build_path(pkg, TIED, 1), B, D)
-    torch.cuda.empty_cache()
-    ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, TIED)
-    phase_eval_export(torch, TIED, ens, gen, eval_batch, tmp)
-    tmp.cleanup()
-    del ens, gen, eval_batch
-    for row in rows:
-        row.update(path=TIED["path"], shape=f"M={M},B={B},N={N},D={D}", launches=launches[row["name"]])
+    phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, optimizer_kwargs=TIED["build"]["optimizer_kwargs"],
+                       **small_tied)
+    peak = {"tied": phase_step_time(torch, pkg, TIED)}
+    rows = label(rows, TIED, drive(TIED), tied_shape)
 
-    # TopK k-sweep path (BASELINE config 4)
+    # the same at the capacity setting: K1n + K2 rebuilding the code
+    capacity_rows = phase_capacity_kernels(torch, tk)
     torch.cuda.empty_cache()
-    topk_rows = phase_topk_kernels(torch, tk, kk)
+    phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, optimizer_kwargs=CAPACITY_ADAM,
+                       env=TIED_CAPACITY["env"], **small_tied)
+    peak["tied_capacity"] = phase_step_time(torch, pkg, TIED_CAPACITY)
+    rows += label(capacity_rows, TIED_CAPACITY, drive(TIED_CAPACITY), tied_shape)
+
+    # TopK k-sweep path (BASELINE config 4), then at the capacity setting
     torch.cuda.empty_cache()
-    phase_small_parity(torch, pkg, pkg.TopKEncoderApprox, [{"sparsity": 7}, {"sparsity": 31}],
-                       d_activation=128, n_features=512, sparsity_cap=31)
-    ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, TOPK)
-    phase_eval_export(torch, TOPK, ens, gen, eval_batch, tmp)
-    tmp.cleanup()
-    del ens, gen, eval_batch
+    topk_rows, topk_capacity_rows = phase_topk_kernels(torch, tk, kk)
     torch.cuda.empty_cache()
-    phase_step_time(torch, build_path(pkg, TOPK, 1), TB, TD, phase="topk_step", reps=10)
-    for row in topk_rows:
-        row.update(path=TOPK["path"], launches=launches[row["name"]])
-    rows += topk_rows
+    phase_small_parity(torch, pkg, pkg.TopKEncoderApprox, optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
+                       **small_topk)
+    phase_small_parity(torch, pkg, pkg.TopKEncoderApprox, optimizer_kwargs=CAPACITY_ADAM,
+                       env=TOPK_CAPACITY["env"], **small_topk)
+    rows += label(topk_rows, TOPK, drive(TOPK))
+    peak["topk"] = phase_step_time(torch, pkg, TOPK, reps=10)
+    rows += label(topk_capacity_rows, TOPK_CAPACITY, drive(TOPK_CAPACITY))
+    peak["topk_capacity"] = phase_step_time(torch, pkg, TOPK_CAPACITY, reps=10)
+
+    # the capacity setting's memory: no [M, B, N] code tensor on the tied
+    # path, compressed moments on both
+    code_bytes = M * B * N * 2
+    check(peak["tied_capacity"] <= peak["tied"] - code_bytes,
+          f"tied-capacity step peak {peak['tied_capacity']} not {code_bytes} below tied {peak['tied']}")
+    check(peak["topk_capacity"] < peak["topk"], f"topk-capacity step peak {peak} not below topk")
+    emit("memory", step_peak_bytes=peak, tied_saving=peak["tied"] - peak["tied_capacity"],
+         topk_saving=peak["topk"] - peak["topk_capacity"], code_tensor_bytes=code_bytes)
 
     for row in rows:
         row["route"] = "cuda"
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "path", "shape"]
+            "bound_ms", "bound_by", "library_ms", "path", "shape", "variant"]
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -5,10 +5,11 @@ of tensors stacked on a leading member axis; the batch is shared by all
 members. A step picks one of three paths, by the JAX package's rules and
 independent of the device:
 
-  - fused Adam (tied SAE: K1 + K2 of `ops.tied_sae_kernel`; TopK: K_s + K_d
-    of `ops.topk_kernel` + K2): bf16 compute, a fused signature, a supported
-    shape, no centering, an Adam whose kwargs the kernel implements, and no
-    update mask;
+  - fused Adam (tied SAE: K1 + K2 of `ops.tied_sae_kernel`, or K1n + K2
+    with ``SC_RECOMPUTE_CODE=1``; TopK: K_s + K_d of `ops.topk_kernel` +
+    K2): bf16 compute, a fused signature, a supported shape, no centering,
+    an Adam whose kwargs and moment storage (f32, bf16, int8) the kernel
+    implements, and no update mask;
   - fused grads (K1 or K_s + K_d, then K3) + the port's Adam (+ the
     NaN-safe update mask): the same, with a masked ensemble or an optimizer
     the kernel cannot fuse;
@@ -28,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparse_coding__tpu_torch.utils import flags
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.optim import apply_updates
@@ -65,7 +67,8 @@ def l1_warmup_buffers(buffers: Params, step: int, warmup_steps: int, sig=None) -
     return {**buffers, "l1_alpha": buffers["l1_alpha"] * float(ramp)}
 
 
-# the Adam kwargs the fused kernel implements (mu storage f32/bf16)
+# the Adam kwargs the fused kernel implements (every moment storage the
+# port's Adam takes — f32, bf16, int8 — is one the kernel implements)
 _FUSED_ADAM_KWARGS = {"learning_rate", "b1", "b2", "eps", "mu_dtype", "nu_dtype", "seed"}
 _FUSED_ADAM_WARNED: set = set()
 
@@ -176,9 +179,12 @@ class Ensemble:
     def device(self) -> torch.device:
         return next(iter(self.state.params.values())).device
 
-    def _fused_adam_config(self) -> Optional[Dict[str, float]]:
+    def _fused_adam_config(self) -> Optional[Dict[str, Any]]:
         """The kernel's Adam constants, or None when the fused-Adam kernel
-        will not run (refusals warn once, as in the JAX package)."""
+        will not run (refusals warn once, as in the JAX package). With
+        ``SC_RECOMPUTE_CODE=1`` at build time the step rebuilds the code in
+        the backward (``recompute_code``; signatures without a stored code
+        accept and ignore it)."""
         if not (self.fused and self.optimizer_name == "adam" and hasattr(self.sig, "fused_adam_step")):
             return None
         extra = set(self.optimizer_kwargs) - _FUSED_ADAM_KWARGS
@@ -186,12 +192,15 @@ class Ensemble:
             _refuse_fused_adam(self.sig, f"unknown optimizer kwargs {sorted(extra)}")
             return None
         kw = self.optimizer_kwargs
-        return dict(
+        cfg = dict(
             lr=float(kw.get("learning_rate", 1e-3)),
             b1=float(kw.get("b1", 0.9)),
             b2=float(kw.get("b2", 0.999)),
             eps=float(kw.get("eps", 1e-8)),
         )
+        if flags.recompute_code():
+            cfg["recompute_code"] = True
+        return cfg
 
     # -- training ------------------------------------------------------------
 

@@ -14,7 +14,7 @@ import torch
 
 from sparse_coding__tpu_torch.ensemble import EnsembleState
 from sparse_coding__tpu_torch.utils.device import resolve_device
-from sparse_coding__tpu_torch.utils.optim import AdamState
+from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment
 
 
 def _tensor(a, device) -> Optional[torch.Tensor]:
@@ -24,6 +24,14 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16 has no torch counterpart in numpy
         return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _moment(v, device):
+    """A moment leaf: an array, or the JAX package's `QuantMoment` node (its
+    ``q`` and ``scale``) as the port's, codes and scales carried exactly."""
+    if hasattr(v, "q") and hasattr(v, "scale"):
+        return QuantMoment(q=_tensor(v.q, device), scale=_tensor(v.scale, device))
+    return _tensor(v, device)
 
 
 def state_from_jax_numpy(
@@ -36,7 +44,8 @@ def state_from_jax_numpy(
     """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
     a TopK signature), buffers (None for absent centering), and optax's
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
-    ``{"count", "mu", "nu"}`` — mu may be bf16 and stays so. With
+    ``{"count", "mu", "nu"}`` — each moment keeps its storage: f32, bf16, or
+    an int8 ``QuantMoment`` node (q and scale). With
     ``opt_state=None`` the moments start at zero. Every array carries the
     leading member axis."""
     device = resolve_device(device)
@@ -52,7 +61,7 @@ def state_from_jax_numpy(
     else:
         adam = AdamState(
             count=_tensor(opt_state["count"], device).to(torch.int32),
-            mu={k: _tensor(v, device) for k, v in opt_state["mu"].items()},
-            nu={k: _tensor(v, device) for k, v in opt_state["nu"].items()},
+            mu={k: _moment(v, device) for k, v in opt_state["mu"].items()},
+            nu={k: _moment(v, device) for k, v in opt_state["nu"].items()},
         )
     return EnsembleState(params=p, buffers=b, opt_state=adam, step=int(step))

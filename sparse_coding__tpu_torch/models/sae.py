@@ -24,9 +24,18 @@ import torch
 from sparse_coding__tpu_torch.models.learned_dict import TiedSAE, _norm_rows
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.utils import precision as px
-from sparse_coding__tpu_torch.utils.optim import bias_corrections, decayed_moment, f32
+from sparse_coding__tpu_torch.utils.optim import (
+    as_u32,
+    bias_corrections,
+    decayed_moment,
+    f32,
+    mix32,
+    stochastic_round,
+    uniform_bits,
+)
 
 _CENTERING = ("center_rot", "center_trans", "center_scale")
+_BIAS_SALT = 0x5AE  # the bias leaf's bf16-nu store stream (the JAX package's key)
 
 
 def glorot_uniform(shape, generator: torch.Generator, dtype=torch.float32, device=None):
@@ -162,19 +171,24 @@ class FunctionalTiedSAE:
         return grads, loss_data
 
     @staticmethod
-    def fused_adam_step(params, buffers, batch, opt_state, lr, b1, b2, eps):
-        """Whole training step (grads + Adam) through K1 + K2: the encoder's
+    def fused_adam_step(params, buffers, batch, opt_state, lr, b1, b2, eps, recompute_code=False):
+        """Whole training step (grads + Adam) through K1 + K2 (K1n + K2 with
+        ``recompute_code``, the ``SC_RECOMPUTE_CODE=1`` step): the encoder's
         gradient, moments and update stay inside K2 (on CUDA the encoder and
-        its moments are updated in place); the small bias-leaf Adam runs here
-        in the optax expressions. ``opt_state`` is a `utils.optim.AdamState`.
-        Returns ``(new_params, new_opt_state, loss_dict)``."""
+        its moments are updated in place; the moments may be f32, bf16 or
+        int8 `QuantMoment`s); the small bias-leaf Adam runs here in the optax
+        expressions, its nu EMA in f32 and, for bf16 nu, stored by the
+        stochastic rounding. ``opt_state`` is a `utils.optim.AdamState`; the
+        step count seeds every stochastic store. Returns ``(new_params,
+        new_opt_state, loss_dict)``."""
         t = opt_state.count + 1
         bc1, bc2 = bias_corrections(t, b1, b2)
         bc = torch.stack([bc1, bc2], dim=-1)
+        seed = t[0]
         d_new, mu_d, nu_d, g_bias, l_rec, l_l1_raw = tk.tied_sae_adam_step_stacked(
             params["encoder"], params["encoder_bias"], opt_state.mu["encoder"],
-            opt_state.nu["encoder"], batch, buffers["l1_alpha"], bc, t[0],
-            float(lr), float(b1), float(b2), float(eps),
+            opt_state.nu["encoder"], batch, buffers["l1_alpha"], bc, seed,
+            float(lr), float(b1), float(b2), float(eps), recompute_code=recompute_code,
         )
         b = params["encoder_bias"]
         l_bias_decay, g_decay = _bias_decay(params, buffers)
@@ -182,8 +196,13 @@ class FunctionalTiedSAE:
         mu_b_prev = opt_state.mu["encoder_bias"]
         nu_b_prev = opt_state.nu["encoder_bias"]
         mu_b = f32(1 - b1, g_bias) * g_bias + decayed_moment(b1, mu_b_prev)
-        nu_b = f32(b2, g_bias) * nu_b_prev + f32(1 - b2, g_bias) * g_bias * g_bias
+        nu_b = f32(b2, g_bias) * nu_b_prev.float() + f32(1 - b2, g_bias) * g_bias * g_bias
         bias_new = b - f32(lr, b) * (mu_b / bc1[:, None]) / (torch.sqrt(nu_b / bc2[:, None]) + f32(eps, b))
+        if nu_b_prev.dtype == torch.bfloat16:
+            # the bias leaf's f32 EMA with an unbiased bf16 store, as the
+            # kernel stores the encoder's (its own counter-hash stream)
+            M, N = nu_b.shape
+            nu_b = stochastic_round(nu_b, uniform_bits(M, N, mix32(as_u32(seed, b.device) ^ _BIAS_SALT)))
         new_params = {"encoder": d_new, "encoder_bias": bias_new}
         new_state = type(opt_state)(
             count=t,

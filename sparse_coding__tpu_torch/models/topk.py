@@ -202,11 +202,15 @@ class TopKEncoderApprox(TopKEncoder):
         return {"dict": g}, {"loss": l_rec}
 
     @staticmethod
-    def fused_adam_step(params, buffers, batch, opt_state, lr, b1, b2, eps):
+    def fused_adam_step(params, buffers, batch, opt_state, lr, b1, b2, eps, recompute_code=False):
         """Whole training step (grads + Adam) through K_s + K_d + K2; on CUDA
-        the dictionary and its moments are updated in place. ``opt_state`` is
-        a `utils.optim.AdamState`. Returns ``(new_params, new_opt_state,
-        loss_dict)``."""
+        the dictionary and its moments (f32, bf16 or int8 `QuantMoment`s) are
+        updated in place, the step count seeding the stochastic stores.
+        ``recompute_code`` is accepted and ignored, as in the JAX package: the
+        scores round-trip device memory for the threshold anyway.
+        ``opt_state`` is a `utils.optim.AdamState`. Returns ``(new_params,
+        new_opt_state, loss_dict)``."""
+        del recompute_code
         t = opt_state.count + 1
         bc1, bc2 = bias_corrections(t, b1, b2)
         d_new, mu_new, nu_new, l_rec = kk.topk_adam_step_stacked(

@@ -38,8 +38,10 @@ _F = ctypes.c_float
 # (ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 SIGNATURES = {
     "sc_tied_sae_fwd": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "sc_tied_sae_bwd_adam": [_P] * 6 + [_I, _P, _P, _P, _P] + [_F] * 6 + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_grads": [_P] * 8 + [_I] * 4 + [_P],
+    "sc_tied_sae_fwd_nocode": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "sc_tied_sae_bwd_adam_tiers": [_P] * 7 + [_I] + [_P] * 2 + [_I] + [_P] * 4 + [_I] + [_F] * 6
+    + [_I] * 4 + [_P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
 }

@@ -6,9 +6,15 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
 
   K1 `tied_sae_fwd`       (csrc/tied_sae_fwd.cu) replaces `_fwd_kernel`:
       c = relu(x·D̂ᵀ + b) (bf16), dxh = bf16(2/(B·D)·(x̂ − x)), Σerr², Σc.
-  K2 `tied_sae_bwd_adam`  (csrc/tied_sae_bwd.cu) replaces `_bwd_adam_kernel`
+  K1n `tied_sae_fwd_nocode` (csrc/tied_sae_fwd.cu) replaces
+      `_fwd_kernel_nocode`: K1 with each code tile kept on chip (never
+      stored), for the code-recompute step (``SC_RECOMPUTE_CODE=1``).
+  K2 `tied_sae_bwd_adam`  (csrc/tied_sae_bwd.cu, _rc.cu) replaces `_bwd_adam_kernel`
       + `_adam_epilogue` and covers `_bwd_adam_accum_kernel`: code cotangent
       → encoder gradient → normalisation VJP → Adam, the gradient kept on chip.
+      Its moments may be f32, bf16 (nu by a stochastic store) or int8
+      `QuantMoment`s, and with ``c=None`` it rebuilds each code tile from x
+      and D̂ⱼ (`_code_tile(recompute=True)`), bit-identical to K1's stored c.
   K3 `tied_sae_bwd_grads` (csrc/tied_sae_bwd.cu) replaces `_bwd_kernel`: the
       same gradient written out in f32, for masked ensembles and optimizers
       the kernel cannot fuse.
@@ -26,6 +32,14 @@ with no eps; D̂_b = bf16(d / nrm). c = relu(x_b·D̂_bᵀ + b) in f32, Σc from
 f32 c, stored bf16. x̂ = Σ c_b·D̂_b in f32; dxh = bf16(scale·(x̂ − f32(x_b))).
 dc = dxh_b·D̂_bᵀ in f32, masked on the stored c_b > 0, plus l1/B; g_bias = Σ_b dc
 before rounding; g_dhat = c_bᵀ·dxh_b + bf16(dc)ᵀ·x_b; g = (g_dhat − D̂ ⟨g_dhat, D̂⟩)/nrm.
+
+Stochastic moment stores (`tile_bits`): the JAX package's interpret-mode
+counter hash, so the plain versions match its Pallas entries bit for bit on
+the CPU and the kernel matches the plain version on the card. The bits of
+element (m, n, col) are ``mix32((r·D + col) ^ tile_seed)``, r = n mod Ns,
+with ``tile_seed = mix32(seed ^ m·0x9E3779B9 ^ (n div Ns)·0x7FEB352D ^
+salt)``; Ns is the JAX call's dictionary tile (`TIED_SEED_TILE`, or the
+TopK step's 128), not the CUDA kernel's own.
 """
 
 from __future__ import annotations
@@ -36,14 +50,32 @@ import torch
 
 from sparse_coding__tpu_torch.ops import _build
 from sparse_coding__tpu_torch.ops._wrap import FWD_COLS, FWD_ROWS, check_cuda, check_dtype, require, stream
-from sparse_coding__tpu_torch.utils.optim import decayed_moment, f32
+from sparse_coding__tpu_torch.utils.optim import (
+    QuantMoment,
+    as_u32,
+    decayed_moment,
+    dequant,
+    f32,
+    mix32,
+    mul32,
+    quantize_rows_stochastic,
+    stochastic_round,
+)
 
 bf16 = torch.bfloat16
 fp32 = torch.float32
 
 # launches of each kernel since the counts were last reset (plain-version
 # calls on CPU tensors do not count)
-LAUNCHES: Dict[str, int] = {"tied_sae_fwd": 0, "tied_sae_bwd_adam": 0, "tied_sae_bwd_grads": 0}
+LAUNCHES: Dict[str, int] = {
+    "tied_sae_fwd": 0, "tied_sae_fwd_nocode": 0, "tied_sae_bwd_adam": 0, "tied_sae_bwd_grads": 0,
+}
+
+# the stochastic stores' salts (`_adam_epilogue`: XORed into the tile's base
+# seed before its mix) and the JAX tied step's dictionary tile, whose
+# (member, tile, row) indices seed them
+SALT_MU_INT8, SALT_NU_INT8, SALT_NU_BF16 = 0x5117A55A, 0x00A11CE5, 0
+TIED_SEED_TILE = 256
 
 # the shapes the kernels are written for: D, and the elements Nt·D of K2/K3's
 # [Nt, D] gradient tile (16 warps × 2 row bands × 4 column blocks of 16×16
@@ -123,10 +155,56 @@ def tied_sae_fwd(xb, db, bias, scale: float):
     return c, dxh, lrec_part.sum(dim=(1, 2)), l1_part.sum(dim=(1, 2))
 
 
+def nocode_tile(d_act: int) -> Tuple[int, int]:
+    """K1n's (batch rows, dictionary rows) per block: a block keeps its rows'
+    whole x̂ [rows, D] in f32 registers while it walks the dictionary."""
+    return (64, 64) if d_act <= 512 else (32, 32)
+
+
+def _fwd_nocode_plain(xb, db, bias, scale):
+    cb, ll1 = _encode_plain(xb, db, bias)
+    dxh, lrec = _decode_plain(xb, db, cb, scale)
+    return dxh, lrec, ll1
+
+
+def tied_sae_fwd_nocode(xb, db, bias, scale: float):
+    """K1n: K1 without the code store. xb [B, D] bf16, db [M, N, D] bf16,
+    bias [M, N] f32 → (dxh [M, B, D] bf16, Σerr² [M] f32, Σc [M] f32). dxh is
+    bit-equal to K1's; the loss sums group their partials per block and may
+    differ from K1's in the last bits."""
+    if not xb.is_cuda:
+        return _fwd_nocode_plain(xb, db, bias, scale)
+    name = "tied_sae_fwd_nocode"
+    dev = check_cuda(name, xb=xb, db=db, bias=bias)
+    M, N, D = db.shape
+    B = xb.shape[0]
+    check_dtype(name, xb, "xb", bf16)
+    check_dtype(name, db, "db", bf16)
+    check_dtype(name, bias, "bias", fp32)
+    require(xb.shape == (B, D) and bias.shape == (M, N), f"{name}: shape mismatch")
+    rows, nt = nocode_tile(D)
+    require(shapes_supported(N, D, B) and B % rows == 0 and N % nt == 0,
+            f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
+    parts = torch.empty((2, M, B // rows), dtype=fp32, device=dev)
+    lib = _build.load()["tied_sae_fwd"]
+    rc = lib.sc_tied_sae_fwd_nocode(
+        xb.data_ptr(), db.data_ptr(), bias.data_ptr(), dxh.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), M, B, N, D, float(scale), stream(dev),
+    )
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    # per-block partials summed here: no float atomics, same bits every run
+    return dxh, parts[0].sum(dim=1), parts[1].sum(dim=1)
+
+
 # -- K2 / K3 --------------------------------------------------------------------
 
-def _grads_plain(xb, dxh, c, nrm, db, l1_over_b):
-    """Shared body of the bwd plain versions: (g [M, N, D], g_bias [M, N])."""
+def _grads_plain(xb, dxh, c, nrm, db, l1_over_b, bias=None):
+    """Shared body of the bwd plain versions: (g [M, N, D], g_bias [M, N]).
+    ``c=None`` rebuilds the code from x, db and ``bias`` (`_code_tile`)."""
+    if c is None:
+        c = _encode_plain(xb, db, bias)[0]
     xf, dxf, cf, djf = xb.float(), dxh.float(), c.float(), db.float()
     dc = torch.matmul(dxf, djf.transpose(1, 2))
     dc = torch.where(cf > 0, dc + l1_over_b[:, None, None], torch.zeros_like(dc))
@@ -137,53 +215,123 @@ def _grads_plain(xb, dxh, c, nrm, db, l1_over_b):
     return (g_dhat - djf * radial) / nrm[..., None], g_bias
 
 
-def _adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps):
-    """The `_adam_epilogue` expressions, term for term."""
+def tile_bits(shape, seed, salt: int, seed_tile: int, device=None) -> torch.Tensor:
+    """The stochastic stores' bits for an [M, N, D] moment (int64 u32 values):
+    per (member m, JAX dictionary tile j = n div ``seed_tile``) the tile seed
+    ``mix32(seed ^ m·0x9E3779B9 ^ j·0x7FEB352D ^ salt)``, then
+    ``mix32((r·D + col) ^ tile_seed)`` at row r = n mod ``seed_tile`` — the
+    JAX package's `_uniform_bits(..., hw_prng=False)` over each of its
+    kernel's tiles. ``seed`` is the step count (int or integer tensor)."""
+    M, N, D = shape
+    seed = as_u32(seed, device).reshape(())
+    dev = seed.device
+    m = torch.arange(M, dtype=torch.int64, device=dev)[:, None]
+    n = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    base = seed ^ mul32(m, 0x9E3779B9) ^ mul32(n // seed_tile, 0x7FEB352D)
+    local = (n % seed_tile)[..., None] * D + torch.arange(D, dtype=torch.int64, device=dev)
+    return mix32(local ^ mix32(base ^ salt)[..., None])
+
+
+def _adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps, seed=0, seed_tile=TIED_SEED_TILE):
+    """The `_adam_epilogue` expressions, term for term, in every moment tier:
+    int8 moments dequantized, the EMA in f32 (a bf16 mu's decay product in
+    bf16), the update from the unrounded moments, then the stores (int8 and
+    bf16-nu stochastic, on `tile_bits`; bf16 mu round to nearest)."""
     omb1, omb2 = f32(1 - b1, g), f32(1 - b2, g)
-    mu_new = decayed_moment(b1, mu).float() + omb1 * g
-    nu_new = f32(b2, g) * nu + omb2 * g * g
+    if isinstance(mu, QuantMoment):
+        mu_new = f32(b1, g) * mu.dequant() + omb1 * g
+    else:
+        mu_new = decayed_moment(b1, mu).float() + omb1 * g
+    nu_new = f32(b2, g) * dequant(nu) + omb2 * g * g
     mhat = mu_new / bc[:, 0, None, None]
     vhat = nu_new / bc[:, 1, None, None]
     d_new = d_raw - f32(lr, g) * mhat / (torch.sqrt(vhat) + f32(eps, g))
-    return d_new, mu_new.to(mu.dtype), nu_new
+
+    def bits(salt):
+        return tile_bits(g.shape, seed, salt, seed_tile, g.device)
+
+    if isinstance(mu, QuantMoment):
+        mu_out = quantize_rows_stochastic(mu_new, bits(SALT_MU_INT8))
+    else:
+        mu_out = mu_new.to(mu.dtype)
+    if isinstance(nu, QuantMoment):
+        nu_out = quantize_rows_stochastic(nu_new, bits(SALT_NU_INT8))
+    elif nu.dtype == bf16:
+        nu_out = stochastic_round(nu_new, bits(SALT_NU_BF16))
+    else:
+        nu_out = nu_new
+    return d_new, mu_out, nu_out
 
 
-def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2, eps):
-    """K2. xb [B, D] bf16, dxh [M, B, D] bf16, c [M, B, N] bf16, nrm [M, N]
-    f32, d_raw [M, N, D] f32 raw encoder with its Adam moments mu (f32 or
-    bf16) and nu (f32), l1_over_b [M] f32, bc [M, 2] f32 bias corrections of
-    this step → (d_new, mu_new, nu_new, g_bias [M, N]).
+def _tier(mom) -> int:
+    """The C interface's moment tier: 0 f32, 1 bf16, 2 int8."""
+    if isinstance(mom, QuantMoment):
+        return 2
+    return 1 if mom.dtype == bf16 else 0
 
-    On CUDA the kernel writes d_new, mu_new and nu_new INTO d_raw, mu and nu
-    (the TPU kernel aliases them the same way) and returns those tensors."""
+
+def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2, eps,
+                      seed=0, seed_tile: int = TIED_SEED_TILE, bias=None):
+    """K2. xb [B, D] bf16, dxh [M, B, D] bf16, c [M, B, N] bf16 (or None: the
+    code is rebuilt from x, D̂ and ``bias`` [M, N] f32), nrm [M, N] f32, d_raw
+    [M, N, D] f32 raw encoder with its Adam moments mu and nu (each f32,
+    bf16, or an int8 `QuantMoment` with q [M, N, D] and scale [M, N]),
+    l1_over_b [M] f32, bc [M, 2] f32 bias corrections of this step, ``seed``
+    the step count (int or int32 tensor) seeding the stochastic stores over
+    JAX dictionary tiles of ``seed_tile`` rows → (d_new, mu_new, nu_new,
+    g_bias [M, N]).
+
+    On CUDA the kernel writes d_new and the moments INTO d_raw, mu and nu
+    (q and scale of a `QuantMoment` included; the TPU kernel aliases them the
+    same way) and returns those objects."""
     if not xb.is_cuda:
         dj = (d_raw / nrm[..., None]).to(bf16)
-        g, g_bias = _grads_plain(xb, dxh, c, nrm, dj, l1_over_b)
-        return (*_adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps), g_bias)
+        g, g_bias = _grads_plain(xb, dxh, c, nrm, dj, l1_over_b, bias)
+        return (*_adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps, seed, seed_tile), g_bias)
     name = "tied_sae_bwd_adam"
-    dev = check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, d_raw=d_raw, mu=mu, nu=nu,
-                      l1_over_b=l1_over_b, bc=bc)
+    recompute = c is None
+    require(not recompute or bias is not None, f"{name}: c=None needs the bias to rebuild the code")
+    code = bias if recompute else c
+    moments = {}
+    for key, mom in (("mu", mu), ("nu", nu)):
+        if isinstance(mom, QuantMoment):
+            moments[f"{key}_q"], moments[f"{key}_scale"] = mom.q, mom.scale
+        else:
+            moments[key] = mom
+    dev = check_cuda(name, xb=xb, dxh=dxh, code=code, nrm=nrm, d_raw=d_raw, l1_over_b=l1_over_b,
+                      bc=bc, **moments)
     M, N, D = d_raw.shape
     B = xb.shape[0]
-    for key, t, dt in (("xb", xb, bf16), ("dxh", dxh, bf16), ("c", c, bf16), ("nrm", nrm, fp32),
-                       ("d_raw", d_raw, fp32), ("nu", nu, fp32), ("l1_over_b", l1_over_b, fp32),
+    for key, t, dt in (("xb", xb, bf16), ("dxh", dxh, bf16), ("code", code, bf16 if c is not None else fp32),
+                       ("nrm", nrm, fp32), ("d_raw", d_raw, fp32), ("l1_over_b", l1_over_b, fp32),
                        ("bc", bc, fp32)):
         check_dtype(name, t, key, dt)
-    require(mu.dtype in (fp32, bf16), f"{name}: mu must be float32 or bfloat16, got {mu.dtype}")
+    for key, t in moments.items():
+        want = torch.int8 if key.endswith("_q") else fp32 if key.endswith("_scale") else t.dtype
+        require(t.dtype == want and t.dtype in (fp32, bf16, torch.int8), f"{name}: {key} has dtype {t.dtype}")
+        require(t.shape == ((M, N) if key.endswith("_scale") else (M, N, D)), f"{name}: {key} shape mismatch")
     require(
-        xb.shape == (B, D) and dxh.shape == (M, B, D) and c.shape == (M, B, N)
-        and nrm.shape == (M, N) and mu.shape == nu.shape == (M, N, D)
-        and l1_over_b.shape == (M,) and bc.shape == (M, 2),
+        xb.shape == (B, D) and dxh.shape == (M, B, D)
+        and code.shape == ((M, N) if recompute else (M, B, N))
+        and nrm.shape == (M, N) and l1_over_b.shape == (M,) and bc.shape == (M, 2),
         f"{name}: shape mismatch",
     )
     require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     g_bias = torch.empty((M, N), dtype=fp32, device=dev)
-    lib = _build.load()["tied_sae_bwd"]
-    rc = lib.sc_tied_sae_bwd_adam(
-        xb.data_ptr(), dxh.data_ptr(), c.data_ptr(), nrm.data_ptr(), d_raw.data_ptr(),
-        mu.data_ptr(), int(mu.dtype == bf16), nu.data_ptr(), g_bias.data_ptr(),
-        l1_over_b.data_ptr(), bc.data_ptr(), float(lr), float(b1), float(b2), float(eps),
-        float(1 - b1), float(1 - b2), M, B, N, D, stream(dev),
+    seed_t = torch.as_tensor(seed, dtype=torch.int32, device=dev).reshape(1)
+
+    def ptrs(mom):
+        if isinstance(mom, QuantMoment):
+            return mom.q.data_ptr(), mom.scale.data_ptr()
+        return mom.data_ptr(), None
+
+    (mu_p, mus_p), (nu_p, nus_p) = ptrs(mu), ptrs(nu)
+    lib = _build.load()["tied_sae_bwd_rc" if recompute else "tied_sae_bwd"]
+    rc = lib.sc_tied_sae_bwd_adam_tiers(
+        xb.data_ptr(), dxh.data_ptr(), code.data_ptr(), nrm.data_ptr(), d_raw.data_ptr(),
+        mu_p, mus_p, _tier(mu), nu_p, nus_p, _tier(nu), g_bias.data_ptr(), l1_over_b.data_ptr(),
+        bc.data_ptr(), seed_t.data_ptr(), int(seed_tile), float(lr), float(b1), float(b2),
+        float(eps), float(1 - b1), float(1 - b2), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -222,6 +370,14 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b):
 
 # -- the JAX package's entry points -----------------------------------------------
 
+def normalized_rows_bf16(d_raw, nrm):
+    """bf16(d_raw / nrm) in one division that stores straight into the bf16
+    result: on the card no f32 quotient [M, N, D] exists (the bits are those
+    of the f32 quotient rounded to nearest)."""
+    db = torch.empty(d_raw.shape, dtype=bf16, device=d_raw.device)
+    return torch.div(d_raw, nrm[..., None], out=db)
+
+
 def _prepare(d_raw, bias, batch):
     M, N, D = d_raw.shape
     B = batch.shape[0]
@@ -234,23 +390,30 @@ def _prepare(d_raw, bias, batch):
     return nrm, batch.to(bf16), bias.to(fp32).contiguous(), 2.0 / (B * D)
 
 
-def tied_sae_adam_step_stacked(d_raw, bias, mu_d, nu_d, batch, l1_alpha, bc, seed, lr, b1, b2, eps):
+def tied_sae_adam_step_stacked(d_raw, bias, mu_d, nu_d, batch, l1_alpha, bc, seed, lr, b1, b2, eps,
+                               recompute_code: bool = False):
     """Fused fwd + bwd + encoder-Adam for the stacked tied-SAE ensemble (K1 +
-    K2). d_raw [M, N, D] f32 raw encoder, bias [M, N], mu_d (f32 or bf16) and
-    nu_d (f32) its Adam moments, batch [B, D] shared by the members, l1_alpha
-    [M], bc [M, 2] the bias corrections (1-b1^t, 1-b2^t) of this step. ``seed``
-    feeds only the stochastic moment stores, which are not ported (ROADMAP
-    B2); it is accepted for the JAX signature's sake. Returns (d_new, mu_new,
+    K2, or K1n + K2 rebuilding the code with ``recompute_code``). d_raw
+    [M, N, D] f32 raw encoder, bias [M, N], mu_d and nu_d its Adam moments
+    (f32, bf16 or int8 `QuantMoment`), batch [B, D] shared by the members,
+    l1_alpha [M], bc [M, 2] the bias corrections (1-b1^t, 1-b2^t) of this
+    step, ``seed`` the step count t seeding the stochastic stores. With
+    ``recompute_code`` the [M, B, N] code tensor never exists; the result is
+    bit-identical (up to the loss sums' last bits). Returns (d_new, mu_new,
     nu_new, g_bias, l_rec, l_l1_raw); on CUDA d_raw/mu_d/nu_d are updated in
     place. The bias' own Adam update is the caller's."""
-    del seed
     B = batch.shape[0]
     nrm, xb, b, scale = _prepare(d_raw, bias, batch)
-    db = (d_raw / nrm[..., None]).to(bf16)
-    c, dxh, lrec, ll1 = tied_sae_fwd(xb, db, b, scale)
+    db = normalized_rows_bf16(d_raw, nrm)
+    if recompute_code:
+        c = None
+        dxh, lrec, ll1 = tied_sae_fwd_nocode(xb, db, b, scale)
+    else:
+        c, dxh, lrec, ll1 = tied_sae_fwd(xb, db, b, scale)
     l1_over_b = l1_alpha.to(fp32).reshape(-1) / B
     d_new, mu_new, nu_new, g_bias = tied_sae_bwd_adam(
-        xb, dxh, c, nrm, d_raw, mu_d, nu_d, l1_over_b, bc.to(fp32).contiguous(), lr, b1, b2, eps
+        xb, dxh, c, nrm, d_raw, mu_d, nu_d, l1_over_b, bc.to(fp32).contiguous(), lr, b1, b2, eps,
+        seed=seed, seed_tile=TIED_SEED_TILE, bias=b,
     )
     D = d_raw.shape[2]
     return d_new, mu_new, nu_new, g_bias, lrec / (B * D), ll1 / B

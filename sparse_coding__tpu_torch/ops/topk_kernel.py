@@ -55,6 +55,9 @@ fp32 = torch.float32
 LAUNCHES: Dict[str, int] = {"topk_scores": 0, "topk_decode": 0}
 
 SELECT_STATIC_SMEM = 2048  # room for the select kernel's own histogram (1 KB used)
+# the JAX TopK step's backward dictionary tile (`TOPK_BWD_DICT_TILE`), whose
+# (member, tile, row) indices seed the stochastic moment stores
+SEED_TILE = 128
 
 
 def reset_launches() -> None:
@@ -187,7 +190,7 @@ def _topk_fwd(d_raw, k, batch):
         "(gate callers with shapes_supported)",
     )
     nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
-    db = (d_raw / nrm[..., None]).to(bf16)
+    db = tk.normalized_rows_bf16(d_raw, nrm)
     xb = batch.to(bf16)
     s, thresh = topk_scores(xb, db, k.to(torch.int32).reshape(M).contiguous())
     c, dxh, lrec = topk_decode(s, thresh, db, xb, 2.0 / (B * D))
@@ -207,14 +210,15 @@ def topk_grads_stacked(d_raw, k, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 def topk_adam_step_stacked(d_raw, mu_d, nu_d, batch, k, bc, seed, lr, b1, b2, eps):
     """Fused fwd + bwd + Adam for the stacked TopK ensemble (K_s + K_d + K2).
     The contract of `tied_sae_kernel.tied_sae_adam_step_stacked` without the
-    bias and l1 terms: mu_d (f32 or bf16) and nu_d (f32), bc [M, 2] the bias
-    corrections of this step; ``seed`` feeds only the stochastic moment
-    stores, which are not ported (ROADMAP B2). Returns (d_new, mu_new, nu_new,
-    l_rec); on CUDA d_raw/mu_d/nu_d are updated in place."""
-    del seed
+    bias and l1 terms: mu_d and nu_d f32, bf16 or int8 `QuantMoment`, bc
+    [M, 2] the bias corrections of this step, ``seed`` the step count seeding
+    the stochastic stores over `SEED_TILE`-row dictionary tiles. Returns
+    (d_new, mu_new, nu_new, l_rec); on CUDA d_raw/mu_d/nu_d are updated in
+    place."""
     xb, nrm, _, c, dxh, l_rec = _topk_fwd(d_raw, k, batch)
     zeros = torch.zeros(d_raw.shape[0], dtype=fp32, device=d_raw.device)
     d_new, mu_new, nu_new, _ = tk.tied_sae_bwd_adam(
-        xb, dxh, c, nrm, d_raw, mu_d, nu_d, zeros, bc.to(fp32).contiguous(), lr, b1, b2, eps
+        xb, dxh, c, nrm, d_raw, mu_d, nu_d, zeros, bc.to(fp32).contiguous(), lr, b1, b2, eps,
+        seed=seed, seed_tile=SEED_TILE,
     )
     return d_new, mu_new, nu_new, l_rec

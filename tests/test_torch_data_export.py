@@ -42,11 +42,14 @@ def test_chunk_store_refuses_torn_and_quantized_chunks(tmp_path):
         f.write(b"\0")
     with pytest.raises(CorruptChunk, match="size mismatch"):
         ChunkStore(tmp_path).load(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        save_chunk(tmp_path, 1, a, dtype=np.int8)
+    with pytest.raises(ValueError, match="tiers"):
+        save_chunk(tmp_path, 1, a, dtype=np.float32)
+    # quantized bytes whose scale file is gone never load as raw codes
     jax_save_chunk(tmp_path / "q", 0, a, dtype=np.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        ChunkStore(tmp_path / "q").load(0, device="cpu")
+    (tmp_path / "q" / "0.scale.npy").unlink()
+    for verify in ("size", "off"):
+        with pytest.raises(CorruptChunk, match="scale"):
+            ChunkStore(tmp_path / "q").load(0, device="cpu", verify=verify)
 
 
 def test_jax_export_loads_and_encodes_alike(tmp_path):

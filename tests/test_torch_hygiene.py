@@ -51,7 +51,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
 def test_sources_never_name_jax_or_the_jax_package():
     """Catches lazy imports the subprocess check cannot see."""
     pattern = re.compile(r"^\s*(import jax|from jax)|sparse_coding__tpu\.", re.M)
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_moments.py"]
     assert len(files) > 10
     offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []

@@ -20,6 +20,7 @@ selection).
 import pytest
 import torch
 
+from _torch_moments import adam_moments, clone_moment, same_bits, store_error_steps, stored_agreement
 from _torch_parity import assert_grads_close, bf16_close
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.ops import topk_kernel as kk
@@ -210,3 +211,105 @@ def test_topk_kernels_refuse_what_they_do_not_take(cuda):
         kk.topk_scores(xb, db, k.long())
     with pytest.raises(ValueError, match="not covered"):
         kk.topk_grads_stacked(d_raw, k, xb[:200].float())
+
+
+# -- the capacity setting: K1n, K2's code rebuild and compressed moments ------
+
+# (mu, nu) storage tiers K2 takes beyond the first slices' (mu f32/bf16, nu f32)
+TIERS = [("float32", "bfloat16"), ("bfloat16", "bfloat16"), ("int8", "bfloat16"), ("int8", "int8"),
+         ("float32", "int8"), ("int8", "float32")]
+
+
+def _moments(d_raw, mu_t, nu_t, seed):
+    return adam_moments(d_raw, mu_t, nu_t, torch.Generator(device=d_raw.device).manual_seed(seed))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fwd_nocode_kernel_is_k1_bit_for_bit(cuda, shape):
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, _ = _inputs(shape, cuda, seed=4)
+    tk.reset_launches()
+    c, dxh, lrec, ll1 = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    dxh_n, lrec_n, ll1_n = tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_fwd_nocode"] == 1
+    assert torch.equal(dxh_n.view(torch.int16), dxh.view(torch.int16))
+    # the loss partials group per block differently: last bits only
+    torch.testing.assert_close(lrec_n, lrec, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ll1_n, ll1, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:4] + SHAPES[4:5])
+@pytest.mark.parametrize("tiers", [("bfloat16", "float32")] + TIERS)
+def test_bwd_adam_rebuild_is_bit_identical_to_the_stored_code(cuda, shape, tiers):
+    """K2 rebuilding the code from x, D̂ and the bias == K2 on K1's stored
+    code: d_new, the moments (codes and scales) and g_bias, bit for bit."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=5)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    mu, nu = _moments(d_raw, *tiers, seed=6)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    outs = []
+    for code, b in ((c, None), (None, bias)):
+        outs.append(tk.tied_sae_bwd_adam(xb, dxh, code, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu),
+                                         l1b, bc, *HP, seed=7, bias=b))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert same_bits(a, b)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("tiers", TIERS)
+def test_bwd_adam_compressed_epilogue_matches_plain(cuda, shape, tiers):
+    """K2's epilogue against `_adam_plain` on the same gradient (K3's, which
+    runs K2's gradient code on the same bf16 rows): the stochastic stores
+    draw the same counter-hash bits, so int8 codes and bf16 nu agree in
+    >= 99.9% of elements, never more than one code or ulp apart, scales
+    within 1e-6."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=8)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    mu, nu = _moments(d_raw, *tiers, seed=9)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    seed_tile = 128 if D == 768 else tk.TIED_SEED_TILE
+    d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu),
+                                                 l1b, bc, *HP, seed=11, seed_tile=seed_tile)
+    d_p, mu_p, nu_p = tk._adam_plain(g, d_raw, mu, nu, bc, *HP, seed=11, seed_tile=seed_tile)
+    torch.cuda.synchronize()
+    assert torch.equal(gb_k, gb)
+    assert (d_k - d_p).abs().max() <= 1e-6
+    for name, got, want in (("mu", mu_k, mu_p), ("nu", nu_k, nu_p)):
+        eq, worst, rel = stored_agreement(got, want)
+        stochastic = hasattr(want, "q") or (name == "nu" and want.dtype == torch.bfloat16)
+        if stochastic:
+            assert eq >= 0.999 and worst <= 1 and rel <= 1e-6, (name, eq, worst, rel)
+
+
+@pytest.mark.parametrize("tiers", [("int8", "bfloat16"), ("int8", "int8")])
+def test_bwd_adam_stochastic_stores_are_unbiased(cuda, tiers):
+    """Over 64 step seeds, the stored moments' mean error against the f32
+    moment (in units of each element's storage step) stays within 4 sigma
+    of 0."""
+    shape = SHAPES[0]
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=12)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    g, _ = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    mu, nu = _moments(d_raw, *tiers, seed=13)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    from sparse_coding__tpu_torch.utils.optim import dequant
+
+    omb1, omb2 = torch.tensor(1 - HP[1]), torch.tensor(1 - HP[2])
+    mu_f = torch.tensor(HP[1]) * dequant(mu) + omb1.cuda() * g
+    nu_f = torch.tensor(HP[2]) * dequant(nu) + omb2.cuda() * g * g
+    errs = {"mu": [], "nu": []}
+    for seed in range(1, 65):
+        _, mu_k, nu_k, _ = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu),
+                                                l1b, bc, *HP, seed=seed)
+        for name, got, f in (("mu", mu_k, mu_f), ("nu", nu_k, nu_f)):
+            errs[name].append(store_error_steps(got, f))
+    for name, e in errs.items():
+        e = torch.stack(e)
+        mean, sd = float(e.mean()), float(e.std())
+        assert abs(mean) <= 4 * sd / e.numel() ** 0.5, (name, mean, sd)
