@@ -16,6 +16,10 @@ counts set to 0 just before it and read just after:
     batch 2048, Adam lr 1e-3 with f32 moments, bf16 compute): K_s + K_d + K2
     every step, K_s + K_d + K3 on a masked step;
   - the same at the capacity setting (16 steps): K2 with int8 mu, bf16 nu;
+  - the FISTA dictionary path of BASELINE config 3 (4 members l1 1e-4..3e-3,
+    512 -> 2048, batch 2048, Adam lr 1e-3, 500 FISTA iterations, 8 steps):
+    the autograd gradient step, then the decoder update's solve on K_f every
+    step, K_f on a masked step;
 and evaluates and exports each path's dictionaries, and times one resident
 step of each with its peak device memory. Prints one JSON line per
 phase, then the `kernels` line, the `nvidia-smi` line, and last
@@ -76,7 +80,24 @@ TOPK_CAPACITY = dict(
     TOPK, path="topk_capacity", prefix="topk_capacity_", build=dict(TOPK["build"], optimizer_kwargs=CAPACITY_ADAM),
     store_dtype="int8", rows_per_chunk=16384, env={"SC_RECOMPUTE_CODE": "1"},
 )
+# the FISTA dictionary path, BASELINE config 3 (PARITY_r05_fista.json's config:
+# FunctionalFista, Pythia-70M width 512, ratio 4, 4-way l1 sweep, batch 2048,
+# Adam lr 1e-3, bf16 compute, 500 FISTA iterations, tol 0)
+FISTA_L1 = [1e-4, 3e-4, 1e-3, 3e-3]
+FM, FD, FN, FB, FISTA_ITERS = len(FISTA_L1), 512, 2048, 2048, 500
+FISTA = dict(
+    path="fista_l1_sweep", prefix="fista_", sig="FunctionalFista", members=FM, width=FD, batch=FB,
+    hparams=[{"l1_alpha": a} for a in FISTA_L1],
+    build=dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16", activation_size=FD,
+               n_dict_components=FN),
+    data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=2),
+    l0_max=None, store_dtype="float16", rows_per_chunk=8192, env={},
+)
+# the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
+# at config 3 it picks `_fista_kernel_hbm_dict`
+FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPO = Path(__file__).resolve().parent
 
@@ -104,11 +125,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of operations over the bf16 peak and
-    bytes over the memory rate. Products with the code c count only its
-    non-zero entries: the work this run's data needs."""
-    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(bound_ms, bound_by): the larger of operations over the peak of their
+    type (bf16 unless given) and bytes over the memory rate. Products with
+    the code c count only its non-zero entries: the work this run's data
+    needs."""
+    t_ops, t_mem = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -142,7 +164,8 @@ def parse_ptxas(log: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(encode_kernel|decode_kernel|bwd_kernel|scores_kernel|select_kernel)", name)
+            short = re.search(r"(encode_kernel|decode_kernel|bwd_kernel|scores_kernel|select_kernel|"
+                              r"residual_kernel|update_kernel)", name)
             tmpl = re.search(r"ILb(\d)ELb(\d)ELi(\d)E", name)
             label = short.group(1) if short else name
             if tmpl:
@@ -581,21 +604,16 @@ def build_path(pkg, cfg, key: int):
     return ens
 
 
-def phase_train(torch, pkg, cfg):
-    """A path's main run: chunk store → ensemble_train_loop → one masked
-    step. Every step of the loop launches the path's forward kernels and K2;
-    the masked step launches the masked forward kernels and K3; nothing else
-    runs."""
+def synthetic_store(torch, cfg):
+    """A path's data: a two-chunk store of its synthetic activations in its
+    tier, in a temporary directory. Returns (the directory, the generator,
+    the store, an evaluation batch of two generator batches)."""
     import numpy as np
 
     from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
-    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
-    from sparse_coding__tpu_torch.ops import topk_kernel as kk
-    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
-    from sparse_coding__tpu_torch.utils import precision as px
 
-    sig, members, width, batch = getattr(pkg, cfg["sig"]), cfg["members"], cfg["width"], cfg["batch"]
+    width = cfg["width"]
     tmp = tempfile.TemporaryDirectory(prefix=f"sc_chip_smoke_{cfg['prefix']}")
     gen = RandomDatasetGenerator(activation_dim=width, batch_size=4096, correlated=False, **cfg["data"])
     rows, dtype = cfg["rows_per_chunk"], np.dtype(cfg["store_dtype"])
@@ -603,8 +621,21 @@ def phase_train(torch, pkg, cfg):
                                       chunk_size_gb=rows * width * dtype.itemsize / 1024**3, dtype=dtype)
     check(store.indices() == [0, 1], f"store indices {store.indices()}")
     check(np.load(Path(tmp.name) / "store" / "0.npy", mmap_mode="r").dtype == dtype, "chunk tier")
-    eval_batch = torch.cat([next(gen) for _ in range(2)])
+    return tmp, gen, store, torch.cat([next(gen) for _ in range(2)])
 
+
+def phase_train(torch, pkg, cfg):
+    """A path's main run: chunk store → ensemble_train_loop → one masked
+    step. Every step of the loop launches the path's forward kernels and K2;
+    the masked step launches the masked forward kernels and K3; nothing else
+    runs."""
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
+    from sparse_coding__tpu_torch.utils import precision as px
+
+    sig, members, batch = getattr(pkg, cfg["sig"]), cfg["members"], cfg["batch"]
+    tmp, gen, store, eval_batch = synthetic_store(torch, cfg)
     ens = build_path(pkg, cfg, 0)
     leaf = next(iter(ens.state.params))  # the dictionary: "encoder" or "dict"
 
@@ -907,6 +938,315 @@ def phase_topk_kernels(torch, tk, kk):
     return rows, capacity_rows
 
 
+def fista_problem(torch, M: int, B: int, N: int, D: int, seed: int, l1_grid=FISTA_L1, shared_dict: bool = False):
+    """A FISTA solve's inputs, drawn on the host from a seed and moved to the
+    card: unit-norm dictionaries [M, N, D] (one for all members with
+    ``shared_dict``), a batch [B, D] of sparse non-negative mixtures of
+    member 0's rows plus noise, a non-negative warm start [M, B, N], and
+    each member's l1 from ``l1_grid``."""
+    g = torch.Generator().manual_seed(seed)
+    d = torch.randn((1 if shared_dict else M, N, D), generator=g)
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).expand(M, N, D).contiguous()
+    mask = torch.rand((B, N), generator=g) < 0.01
+    codes = (0.5 + torch.rand((B, N), generator=g)) * mask
+    x = codes @ d[0] + 0.01 * torch.randn((B, D), generator=g)
+    c0 = torch.relu(torch.randn((M, B, N), generator=g)) * 0.05
+    l1 = torch.tensor([l1_grid[m % len(l1_grid)] for m in range(M)])
+    return x.cuda(), d.cuda(), c0.cuda(), l1.cuda()
+
+
+def fista_agreement(torch, a_k, a_p, x, d):
+    """K_f's codes against the plain loop's: (max |difference|, the share of
+    entries whose support (> 0) differs, the relative difference of the
+    residuals' squared norms ‖x − â·D‖²)."""
+    diff = float((a_k - a_p).abs().max())
+    flips = float(((a_k > 0) != (a_p > 0)).float().mean())
+    rk, rp = [float(((x - torch.matmul(a, d)) ** 2).sum()) for a in (a_k, a_p)]
+    return diff, flips, abs(rk - rp) / rp
+
+
+def phase_fista_kernels(torch, fk, tf):
+    """K_f against its plain loop on the same η, at the shape where the JAX
+    package picks `_fista_kernel` (M 2, B 256, N 512, D 128, 100 iterations)
+    and at BASELINE config 3, where it picks `_fista_kernel_hbm_dict` (M 4,
+    B 2048, N 2048, D 512, 500 iterations); each timed beside the plain loop
+    and the library yardstick (the same 2·iterations f32 `bmm` calls without
+    the epilogues, which the port never calls), and bounded by the work the
+    data needs: x − ŷ·D over the non-zeros of ŷ that the plain loop met in
+    its iterations (`watching_plain_solves`), res·Dᵀ dense. Tolerances: codes within
+    1e-4 at 100 iterations (the JAX suite's pin for `_fista_kernel`) and 1e-3
+    at config 3's 500 (should the two sum their 2048 and 512 products in
+    another order, the iterations carry it; on an H100 with PyTorch 2.11's
+    cuBLAS both sides came out bit-equal), support flips under 1e-3, ‖res‖²
+    within 1e-4.
+    Then one tol = 1e-3 solve at config 3's shape on a shared dictionary,
+    with l1 30x config 3's grid so that every member can reach the
+    tolerance within 500 iterations: each member stops early, at its own
+    iteration, the same on both sides."""
+    src = "sparse_coding__tpu_torch/ops/csrc/fista.cu"
+    rows = []
+    for shape, line, seed, atol, reps in (
+        (FISTA_ROW8, 54, 11, 1e-4, 10),
+        (dict(M=FM, B=FB, N=FN, D=FD, iters=FISTA_ITERS), 133, 12, 1e-3, 2),
+    ):
+        M, B, N, D, iters = shape["M"], shape["B"], shape["N"], shape["D"], shape["iters"]
+        check(fk.shapes_supported(B, N, D), f"K_f does not take {shape}")
+        x, d, c0, l1 = fista_problem(torch, M, B, N, D, seed)
+        eta = tf.default_eta(d)
+        fk.reset_launches()
+        a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters)
+        with watching_plain_solves(torch, tf) as seen:
+            a_p, _ = tf.fista_codes(x, d, eta, l1, c0, iters)
+        torch.cuda.synchronize()
+        yhat_nnz = int(seen["yhat_nonzeros"])
+        check(fk.LAUNCHES["fista_solve"] == 1, f"K_f launches {fk.LAUNCHES}")
+        check(it_k.tolist() == [iters] * M, f"K_f iterations {it_k.tolist()}")
+        diff, flips, res_rel = fista_agreement(torch, a_k, a_p, x, d)
+        check(diff <= atol and flips < 1e-3 and res_rel <= 1e-4,
+              f"K_f at {shape}: max |diff| {diff}, support flips {flips}, ‖res‖² rel {res_rel}")
+        label = f"M={M},B={B},N={N},D={D},iters={iters}"
+        emit("fista_kernels", shape=label, max_abs_err=diff, bit_equal=bool(torch.equal(a_k, a_p)),
+             support_flip_share=flips, res_sq_rel_diff=res_rel, code_nonzero_share=float((a_k > 0).float().mean()),
+             yhat_nonzero_share=yhat_nnz / (M * B * N * iters), eta=eta.tolist())
+        del a_p
+        dt = d.transpose(1, 2)
+
+        def library():
+            for _ in range(iters):
+                torch.bmm(torch.bmm(c0, d), dt)
+
+        row = dict(
+            name="fista_solve", source=src, replaces=f"sparse_coding__tpu/ops/fista_pallas.py:{line}",
+            max_abs_err=diff, shape=label, variant="f32 FMA GEMM tiles, 2 launches an iteration",
+            ms=time_ms(torch, lambda: fk.fista_cuda(x, d, eta, l1, c0, iters), reps, warmup=1),
+            plain_ms=time_ms(torch, lambda: tf.fista_codes(x, d, eta, l1, c0, iters), reps, warmup=1),
+            library_ms=time_ms(torch, library, reps, warmup=1),
+        )
+        # every iteration ran for every member (tol = 0): x − ŷ·D needs 2·D
+        # operations per non-zero of ŷ (counted over this run's iterations),
+        # res·Dᵀ 2·B·N·D; x, D and c0 read once, the codes written once
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * D * yhat_nnz + 2 * B * N * D * iters * M, 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M),
+            PEAK_F32_FLOPS,
+        )
+        rows.append(row)
+        del x, d, c0, a_k
+        torch.cuda.empty_cache()
+
+    # the early exit: one largest code change per member over its whole batch
+    x, d, _, l1 = fista_problem(torch, FM, FB, FN, FD, 13, l1_grid=[30 * a for a in FISTA_L1], shared_dict=True)
+    eta = tf.default_eta(d)
+    start = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start[0].record()
+    a_k, it_k = fk.fista_cuda(x, d, eta, l1, None, FISTA_ITERS, tol=1e-3)
+    start[1].record()
+    a_p, it_p = tf.fista_codes(x, d, eta, l1, torch.zeros_like(a_k), FISTA_ITERS, tol=1e-3)
+    torch.cuda.synchronize()
+    diff, flips, res_rel = fista_agreement(torch, a_k, a_p, x, d)
+    check(it_k.tolist() == it_p.tolist() and max(it_k.tolist()) < FISTA_ITERS,
+          f"tol 1e-3: K_f stopped after {it_k.tolist()}, the plain loop after {it_p.tolist()}")
+    check(diff <= 1e-3 and flips < 1e-3 and res_rel <= 1e-4, f"tol 1e-3: {diff}, {flips}, {res_rel}")
+    emit("fista_kernels", shape=f"M={FM},B={FB},N={FN},D={FD},tol=1e-3", iterations=it_k.tolist(),
+         plain_iterations=it_p.tolist(), max_abs_err=diff, support_flip_share=flips, res_sq_rel_diff=res_rel,
+         ms=start[0].elapsed_time(start[1]))
+    return rows
+
+
+def phase_fista_small_parity(torch, pkg, fk):
+    """Three gradient steps, each followed by the FISTA decoder update (100
+    iterations), at a small shape (D 128, N 512, batch 256, three members,
+    the last masked) on the card (K_f) and on the CPU (its plain loop) from
+    the same state: losses within 1e-5 relative; decoders within 2 lr per
+    step (Adam's step may turn a near-zero gradient element either way)
+    with a median difference under 1e-5; Hessian diagonals within 1e-4 of
+    their largest entry; the masked member's decoder and Hessian diagonal
+    unchanged on both sides; K_f launched once a step."""
+    from sparse_coding__tpu_torch.train.loop import make_fista_decoder_update
+
+    hp = [{"l1_alpha": a} for a in (1e-3, 3e-3, 1e-2)]
+    kw = dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16", activation_size=128,
+              n_dict_components=512)
+    ens_c = pkg.build_ensemble(pkg.FunctionalFista, 3, hp, device="cpu", **kw)
+    ens_g = pkg.Ensemble.from_state(ens_c.state_dict(), device="cuda")
+    for ens in (ens_c, ens_g):
+        ens.set_update_mask([1.0, 1.0, 0.0])
+    frozen = [ens_c.state.params["decoder"][2].clone(), ens_c.state.buffers["hessian_diag"][2].clone()]
+    update = make_fista_decoder_update(num_iter=100)
+    x = torch.randn((3, 256, 128), generator=torch.Generator().manual_seed(6))
+    fk.reset_launches()
+    worst = {"loss_rel": 0.0, "decoder": 0.0, "decoder_median": 0.0, "hessian_rel": 0.0}
+    for k in range(3):
+        lc, ac = ens_c.step_batch(x[k])
+        ens_c.state = update(ens_c.state, x[k], ac["c"])
+        lg, ag = ens_g.step_batch(x[k].cuda())
+        ens_g.state = update(ens_g.state, x[k].cuda(), ag["c"])
+        dc, dg = ens_c.state.params["decoder"], ens_g.state.params["decoder"].cpu()
+        hc, hg = ens_c.state.buffers["hessian_diag"], ens_g.state.buffers["hessian_diag"].cpu()
+        diff = (dg - dc).abs()
+        worst["loss_rel"] = max(worst["loss_rel"], float(((lg["loss"].cpu() - lc["loss"]) / lc["loss"]).abs().max()))
+        worst["decoder"] = max(worst["decoder"], float(diff.max()))
+        worst["decoder_median"] = max(worst["decoder_median"], float(diff.median()))
+        worst["hessian_rel"] = max(worst["hessian_rel"], float((hg - hc).abs().max() / hc.abs().max()))
+        check(worst["loss_rel"] <= 1e-5 and worst["decoder"] <= 2 * LR * (k + 1) and worst["decoder_median"] <= 1e-5
+              and worst["hessian_rel"] <= 1e-4, f"fista small parity after {k + 1} steps: {worst}")
+        for side, st in (("cpu", ens_c.state), ("cuda", ens_g.state)):
+            check(torch.equal(st.params["decoder"][2].cpu(), frozen[0])
+                  and torch.equal(st.buffers["hessian_diag"][2].cpu(), frozen[1]), f"{side}: masked member moved")
+    check(fk.LAUNCHES["fista_solve"] == 3, f"K_f launches {fk.LAUNCHES}")
+    emit("fista_small_parity", steps=3, fista_iters=100, masked_member=2, **{f"max_{k}": v for k, v in worst.items()})
+
+
+@contextlib.contextmanager
+def watching_plain_solves(torch, tf):
+    """Watches every run of the plain FISTA loop (`run_fista_iterations`,
+    the scaffold of both `fista` and K_f's plain version) inside the block:
+    ``calls`` counts them; ``yhat_nonzeros``, a device counter read after
+    the block, sums over their iterations the non-zero entries of ŷ that
+    each iteration's first product x − ŷ·D multiplies."""
+    seen = {"calls": 0, "yhat_nonzeros": torch.zeros((), dtype=torch.int64, device="cuda")}
+    real = tf.run_fista_iterations
+
+    def watched(update, c0, *a, **kw):
+        seen["calls"] += 1
+
+        def counting(ahat, ahat_y, i):
+            seen["yhat_nonzeros"].add_(torch.count_nonzero(ahat_y))
+            return update(ahat, ahat_y, i)
+
+        return real(counting, c0, *a, **kw)
+
+    tf.run_fista_iterations = watched
+    try:
+        yield seen
+    finally:
+        tf.run_fista_iterations = real
+
+
+def phase_fista_train(torch, pkg, cfg):
+    """The FISTA path's main run: chunk store → ensemble_train_loop (the
+    autograd gradient step, then the decoder update through K_f, every
+    batch) → one masked step. K_f solves once a step; no other kernel and no
+    plain solve runs."""
+    from sparse_coding__tpu_torch.models import fista as tf
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
+
+    sig, members, batch = pkg.FunctionalFista, cfg["members"], cfg["batch"]
+    tmp, gen, store, eval_batch = synthetic_store(torch, cfg)
+    ens = pkg.build_ensemble(sig, 0, cfg["hparams"], **cfg["build"])
+    check(not ens.fused and ens.fused_adam is None, "FunctionalFista took a fused path")
+    check(fk.shapes_supported(batch, cfg["build"]["n_dict_components"], cfg["width"]), "K_f refuses config 3")
+
+    def eval_loss():
+        with torch.no_grad():
+            return sig.loss(ens.state.params, ens.state.buffers, eval_batch[:batch])[0]
+
+    def counts():
+        return {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+
+    loss0 = eval_loss()
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, last = 0, None
+    with watching_plain_solves(torch, tf) as plain:
+        for i, chunk in enumerate(store.iter_chunks([0, 1])):
+            last = ensemble_train_loop(ens, chunk, batch, key=i, fista_iters=FISTA_ITERS)
+            steps += chunk.shape[0] // batch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop_launches = counts()
+        want = {name: 0 for name in loop_launches}
+        want["fista_solve"] = steps
+        check(loop_launches == want, f"launches {loop_launches} after {steps} steps, want {want}")
+        # one masked step through the loop: the last member's gradient step
+        # and decoder update both leave it as it was
+        frozen = [ens.state.params["decoder"][-1].clone(), ens.state.buffers["hessian_diag"][-1].clone()]
+        ens.set_update_mask([1.0] * (members - 1) + [0.0])
+        masked = ensemble_train_loop(ens, eval_batch[batch:2 * batch], batch, key=9, fista_iters=FISTA_ITERS,
+                                     dead_check=False)
+        torch.cuda.synchronize()
+    launches = counts()
+    want["fista_solve"] += 1
+    check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
+    check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran on the card")
+    check(torch.equal(frozen[0], ens.state.params["decoder"][-1])
+          and torch.equal(frozen[1], ens.state.buffers["hessian_diag"][-1]), "masked member moved")
+    loss1 = eval_loss()
+    finite = all(bool(torch.isfinite(v).all()) for v in (*last.values(), *masked.values(), loss1))
+    check(finite, "non-finite loss")
+    check(bool((ens.state.buffers["hessian_diag"][:-1] > 0).any()), "the Hessian EMA never moved")
+    emit(
+        "fista_train", path=cfg["path"], steps=steps, batch=batch, members=members, fista_iters=FISTA_ITERS,
+        store_dtype=cfg["store_dtype"], wall_s=wall, activations_per_s=steps * batch * members / wall,
+        loss_before=loss0.tolist(), loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(),
+        launches_after_loop=loop_launches, launches=launches, plain_solves=plain["calls"],
+    )
+    return ens, gen, eval_batch, tmp, launches
+
+
+def phase_fista_step(torch, pkg, cfg, reps: int = 3):
+    """One resident FISTA step split into its gradient step and its decoder
+    update, each by CUDA events, beside the host's time to enqueue each; K_f
+    timed by events around its call inside the same decoder updates; the
+    peak device memory of a step with the state resident (less what was
+    allocated before the ensemble was built)."""
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.train.loop import make_fista_decoder_update
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ens = pkg.build_ensemble(pkg.FunctionalFista, 1, cfg["hparams"], **cfg["build"])
+    update = make_fista_decoder_update(FISTA_ITERS)
+    x = torch.randn((cfg["batch"], cfg["width"]), device="cuda")
+    _, aux = ens.step_batch(x)
+    ens.state = update(ens.state, x, aux["c"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    solves = []  # (start, end) events around each K_f call of the timed steps
+    real = fk.fista_cuda
+
+    def timed_fista_cuda(*a, **kw):
+        pair = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        pair[0].record()
+        out = real(*a, **kw)
+        pair[1].record()
+        solves.append(pair)
+        return out
+
+    grad_ms = upd_ms = enq_grad = enq_upd = 0.0
+    fk.fista_cuda = timed_fista_cuda  # `fista_solve` looks it up at each call
+    try:
+        for _ in range(reps):
+            ev[0].record()
+            t0 = time.perf_counter()
+            _, aux = ens.step_batch(x)
+            t1 = time.perf_counter()
+            ev[1].record()
+            ens.state = update(ens.state, x, aux["c"])
+            t2 = time.perf_counter()
+            ev[2].record()
+            ev[2].synchronize()
+            grad_ms += ev[0].elapsed_time(ev[1])
+            upd_ms += ev[1].elapsed_time(ev[2])
+            enq_grad += (t1 - t0) * 1e3
+            enq_upd += (t2 - t1) * 1e3
+    finally:
+        fk.fista_cuda = real
+    check(len(solves) == reps, f"{len(solves)} K_f calls in {reps} steps")
+    solve_ms = sum(a.elapsed_time(b) for a, b in solves) / reps
+    peak = torch.cuda.max_memory_allocated() - before
+    step_ms = (grad_ms + upd_ms) / reps
+    emit("fista_step", path=cfg["path"], steps=reps, ms_per_step=step_ms, gradient_step_ms=grad_ms / reps,
+         decoder_update_ms=upd_ms / reps, fista_solve_ms=solve_ms, fista_solve_share=solve_ms / step_ms,
+         host_enqueue_gradient_step_ms=enq_grad / reps, host_enqueue_decoder_update_ms=enq_upd / reps,
+         activations_per_s=cfg["batch"] * ens.n_models / step_ms * 1e3, step_peak_bytes=peak)
+
+
 def main() -> int:
     import torch
 
@@ -916,7 +1256,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments: the moment helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
+    from sparse_coding__tpu_torch.models import fista as tf
     from sparse_coding__tpu_torch.ops import _build
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
@@ -987,6 +1329,19 @@ def main() -> int:
     peak["topk"] = phase_step_time(torch, pkg, TOPK, reps=10)
     rows += label(topk_capacity_rows, TOPK_CAPACITY, drive(TOPK_CAPACITY))
     peak["topk_capacity"] = phase_step_time(torch, pkg, TOPK_CAPACITY, reps=10)
+
+    # FISTA dictionary path (BASELINE config 3): the gradient step, then K_f
+    torch.cuda.empty_cache()
+    fista_rows = phase_fista_kernels(torch, fk, tf)
+    torch.cuda.empty_cache()
+    phase_fista_small_parity(torch, pkg, fk)
+    ens, gen, eval_batch, tmp, launches = phase_fista_train(torch, pkg, FISTA)
+    phase_eval_export(torch, FISTA, ens, gen, eval_batch, tmp)
+    tmp.cleanup()
+    del ens, gen, eval_batch
+    torch.cuda.empty_cache()
+    phase_fista_step(torch, pkg, FISTA)
+    rows += label(fista_rows, FISTA, launches)
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

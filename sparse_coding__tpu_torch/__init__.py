@@ -12,10 +12,11 @@ from sparse_coding__tpu_torch.ensemble import (
     EnsembleState,
     build_ensemble,
 )
+from sparse_coding__tpu_torch.models.fista import Fista, FunctionalFista
 from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
 from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox, TopKLearnedDict
 
 __all__ = [
     "Ensemble", "EnsembleState", "build_ensemble", "FunctionalTiedSAE",
-    "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict",
+    "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict", "Fista", "FunctionalFista",
 ]

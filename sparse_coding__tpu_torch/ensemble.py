@@ -14,7 +14,8 @@ independent of the device:
     NaN-safe update mask): the same, with a masked ensemble or an optimizer
     the kernel cannot fuse;
   - autograd of the signature's loss under the precision policy otherwise
-    (exact f32 with ``compute_dtype=None``).
+    (exact f32 with ``compute_dtype=None``); its ``aux`` carries the code,
+    which the FISTA decoder update takes as its warm start.
 
 On CUDA tensors the fused paths launch the hand-written kernels; on CPU
 tensors they run the kernels' plain versions.
@@ -297,13 +298,14 @@ class Ensemble:
         """Rebuild from `state_dict` on ``device`` (None = cuda). The
         signature is found by its class name among the port's own (a record
         of either package names them alike), unless ``sig`` is given."""
+        from sparse_coding__tpu_torch.models.fista import FunctionalFista
         from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
         from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
 
         device = resolve_device(device)
         if sig is None:
             name = state_dict["sig"].rpartition(".")[2]
-            sigs = {s.__name__: s for s in (FunctionalTiedSAE, TopKEncoder, TopKEncoderApprox)}
+            sigs = {s.__name__: s for s in (FunctionalTiedSAE, TopKEncoder, TopKEncoderApprox, FunctionalFista)}
             if name not in sigs:
                 raise ValueError(f"unknown signature {state_dict['sig']!r}")
             sig = sigs[name]

@@ -42,7 +42,9 @@ def state_from_jax_numpy(
     device=None,
 ) -> EnsembleState:
     """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
-    a TopK signature), buffers (None for absent centering), and optax's
+    a TopK signature, ``{"encoder", "encoder_bias", "decoder"}`` of
+    `FunctionalFista`), buffers (None for absent centering; FISTA's
+    ``hessian_diag`` like any other), and optax's
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
     ``{"count", "mu", "nu"}`` — each moment keeps its storage: f32, bf16, or
     an int8 ``QuantMoment`` node (q and scale). With

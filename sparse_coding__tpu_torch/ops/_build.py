@@ -44,6 +44,7 @@ SIGNATURES = {
     + [_I] * 4 + [_P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "sc_fista_solve": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -1,4 +1,4 @@
-"""What the kernel wrappers (`tied_sae_kernel`, `topk_kernel`) share: the
+"""What the kernel wrappers (`tied_sae_kernel`, `topk_kernel`, `fista_kernel`) share: the
 argument checks made before a launch, and the shapes the CUDA sources are
 written for.
 

@@ -20,8 +20,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-# models.topk registers TopKLearnedDict: imported so that a process that
-# imports only this module loads TopK exports too
+# models.topk and models.fista register TopKLearnedDict and Fista: imported
+# so that a process that imports only this module loads their exports too
+from sparse_coding__tpu_torch.models import fista as _fista  # noqa: F401
 from sparse_coding__tpu_torch.models import topk as _topk  # noqa: F401
 from sparse_coding__tpu_torch.models.learned_dict import (
     LEARNED_DICT_CLASSES,

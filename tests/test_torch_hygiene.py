@@ -18,11 +18,13 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.data.chunks",
     "sparse_coding__tpu_torch.data.synthetic",
     "sparse_coding__tpu_torch.metrics.standard",
+    "sparse_coding__tpu_torch.models.fista",
     "sparse_coding__tpu_torch.models.learned_dict",
     "sparse_coding__tpu_torch.models.sae",
     "sparse_coding__tpu_torch.models.topk",
     "sparse_coding__tpu_torch.ops._build",
     "sparse_coding__tpu_torch.ops._wrap",
+    "sparse_coding__tpu_torch.ops.fista_kernel",
     "sparse_coding__tpu_torch.ops.tied_sae_kernel",
     "sparse_coding__tpu_torch.ops.topk_kernel",
     "sparse_coding__tpu_torch.train.checkpoint",

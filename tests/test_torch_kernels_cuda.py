@@ -15,6 +15,11 @@ of the update with bf16 mu) and within 2 lr of the plain one. TopK: scores
 as c; the select's threshold and the decode's code bit-equal to the plain
 versions' on the kernel's own scores (the same bf16 bits in, an exact
 selection).
+K_f (the FISTA solve) against its plain loop on the same η: codes within
+atol 1e-4 (the JAX suite's pin for `_fista_kernel` in interpret mode; each
+product sums in another order, which the iterations carry), support flips
+under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
+iteration count for each member.
 """
 
 import pytest
@@ -22,6 +27,8 @@ import torch
 
 from _torch_moments import adam_moments, clone_moment, same_bits, store_error_steps, stored_agreement
 from _torch_parity import assert_grads_close, bf16_close
+from sparse_coding__tpu_torch.models import fista as tf
+from sparse_coding__tpu_torch.ops import fista_kernel as fk
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
@@ -313,3 +320,81 @@ def test_bwd_adam_stochastic_stores_are_unbiased(cuda, tiers):
         e = torch.stack(e)
         mean, sd = float(e.mean()), float(e.std())
         assert abs(mean) <= 4 * sd / e.numel() ** 0.5, (name, mean, sd)
+
+
+# K_f: M, B, N, D, iterations — the shape where JAX picks `_fista_kernel`,
+# then a ragged batch with edge tiles in N and D and depths not a multiple
+# of the kernel's 8-deep stages
+FISTA_SHAPES = [(2, 256, 512, 128, 100), (3, 200, 196, 36, 40)]
+
+
+def _fista_problem(shape, dev, seed=0):
+    """Unit-norm dictionaries, a batch of sparse non-negative mixtures of
+    member 0's rows plus noise, a non-negative warm start, l1 per member."""
+    M, B, N, D = shape
+    g = torch.Generator().manual_seed(seed)  # drawn on the host: the same problem on every device
+    d = torch.randn((M, N, D), generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    mask = torch.rand((B, N), generator=g) < 0.02
+    codes = (0.5 + torch.rand((B, N), generator=g)) * mask
+    x = codes @ d[0] + 0.01 * torch.randn((B, D), generator=g)
+    c0 = torch.relu(torch.randn((M, B, N), generator=g)) * 0.05
+    l1 = torch.logspace(-2.7, -2, M)
+    return x.to(dev), d.to(dev), c0.to(dev), l1.to(dev)
+
+
+def _hold_fista(a_k, a_p, x, d):
+    diff = float((a_k - a_p).abs().max())
+    flips = float(((a_k > 0) != (a_p > 0)).float().mean())
+    rk, rp = [float(((x - torch.matmul(a, d)) ** 2).sum()) for a in (a_k, a_p)]
+    assert diff <= 1e-4 and flips < 1e-3 and abs(rk - rp) <= 1e-5 * rp, (diff, flips, rk, rp)
+
+
+@pytest.mark.parametrize("shape", FISTA_SHAPES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_fista_kernel_matches_plain(cuda, shape, warm):
+    M, B, N, D, iters = shape
+    x, d, c0, l1 = _fista_problem(shape[:4], cuda)
+    eta = tf.default_eta(d)
+    fk.reset_launches()
+    a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0 if warm else None, iters)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fista_solve"] == 1 and it_k.tolist() == [iters] * M
+    a_p, _ = tf.fista_codes(x, d, eta, l1, c0 if warm else torch.zeros_like(c0), iters)
+    assert a_k.dtype == torch.float32 and a_k.shape == (M, B, N)
+    _hold_fista(a_k, a_p, x, d)
+
+
+def test_fista_kernel_exits_early_member_by_member(cuda):
+    """One dictionary for every member, l1 apart: each stops at its own
+    count, the kernel's and the plain loop's counts agree, and a stopped
+    member's codes are those of a fixed-count solve of that length."""
+    M, B, N, D = 3, 256, 512, 128
+    x, d, _, l1 = _fista_problem((M, B, N, D), cuda, seed=1)
+    d = d[:1].expand(M, N, D).contiguous()  # the batch is planted in member 0's rows
+    eta = tf.default_eta(d)
+    a_k, it_k = fk.fista_cuda(x, d, eta, l1, None, 500, tol=1e-3)
+    a_p, it_p = tf.fista_codes(x, d, eta, l1, torch.zeros((M, B, N), device=cuda), 500, tol=1e-3)
+    torch.cuda.synchronize()
+    assert it_k.tolist() == it_p.tolist() and max(it_k.tolist()) < 500, (it_k, it_p)
+    _hold_fista(a_k, a_p, x, d)
+    for m, k in enumerate(it_k.tolist()):
+        one = [t[m : m + 1].clone() for t in (d, eta, l1)]  # each 16-byte aligned, as the wrapper requires
+        fixed, _ = fk.fista_cuda(x, *one, None, k)
+        assert torch.equal(fixed[0], a_k[m]), m
+
+
+def test_fista_selector_takes_the_kernel_and_refuses_what_it_cannot(cuda):
+    x, d, c0, l1 = _fista_problem((2, 256, 512, 128), cuda)
+    fk.reset_launches()
+    a, res = fk.fista_solve(x, d, l1, c0, num_iter=20)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fista_solve"] == 1 and a.is_cuda and res.shape == (2, 256, 128)
+    odd_x, odd_d = x[:, :126].contiguous(), d[:, :, :126].contiguous()
+    with pytest.raises(ValueError, match="not supported"):  # no plain solve on the card
+        fk.fista_solve(odd_x, odd_d, l1, None, num_iter=5)
+    with pytest.raises(ValueError, match="not supported"):
+        fk.fista_cuda(odd_x, odd_d, tf.default_eta(odd_d), l1, None, 5)
+    with pytest.raises(ValueError, match="float32"):
+        fk.fista_cuda(x.double(), d, tf.default_eta(d), l1, None, 5)
+    assert fk.LAUNCHES["fista_solve"] == 1
