@@ -14,8 +14,11 @@ counts set to 0 just before it and read just after:
     K1 + K3 on a masked step;
   - the TopK k-sweep of BASELINE config 4 (7 members k 1..151, 768 -> 12288,
     batch 2048, Adam lr 1e-3 with f32 moments, bf16 compute): K_s + K_d + K2
-    every step, K_s + K_d + K3 on a masked step;
-  - the same at the capacity setting (16 steps): K2 with int8 mu, bf16 nu;
+    every step, K_s + K_d + K3 on a masked step, K2 and K3 on their sparse
+    route (only the code's non-zeros touched; the tied paths keep the dense
+    route);
+  - the same at the capacity setting (16 steps): the sparse K2 with int8 mu,
+    bf16 nu;
   - the FISTA dictionary path of BASELINE config 3 (4 members l1 1e-4..3e-3,
     512 -> 2048, batch 2048, Adam lr 1e-3, 500 FISTA iterations, 8 steps):
     the autograd gradient step, then the decoder update's solve on K_f every
@@ -57,6 +60,7 @@ TIED = dict(
                activation_size=D, n_dict_components=N),
     data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=0),
     fwd_kernels=("tied_sae_fwd",), masked_fwd=("tied_sae_fwd",), l0_max=None,
+    bwd_adam="tied_sae_bwd_adam", bwd_grads="tied_sae_bwd_grads",
     store_dtype="float16", rows_per_chunk=65536, env={},
 )
 TOPK = dict(
@@ -66,6 +70,7 @@ TOPK = dict(
                d_activation=TD, n_features=TN, sparsity_cap=max(TOPK_KS)),
     data=dict(n_ground_truth_components=4096, feature_num_nonzero=32, feature_prob_decay=0.999, key=1),
     fwd_kernels=("topk_scores", "topk_decode"), masked_fwd=("topk_scores", "topk_decode"), l0_max=TOPK_KS,
+    bwd_adam="tied_sae_bwd_adam_sparse", bwd_grads="tied_sae_bwd_grads_sparse",
     store_dtype="float16", rows_per_chunk=65536, env={},
 )
 # the capacity setting (README): int8 mu, bf16 nu, the code rebuilt in the
@@ -96,6 +101,8 @@ FISTA = dict(
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
+# widths that are no multiples of 4 (K_f's float4 edge masked) and a ragged batch
+FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -164,11 +171,14 @@ def parse_ptxas(log: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(encode_kernel|decode_kernel|bwd_kernel|scores_kernel|select_kernel|"
-                              r"residual_kernel|update_kernel)", name)
+            short = re.search(r"(sparse_bwd_kernel|encode_kernel|decode_kernel|bwd_kernel|scores_kernel|"
+                              r"select_kernel|residual_kernel|update_kernel)", name)
             tmpl = re.search(r"ILb(\d)ELb(\d)ELi(\d)E", name)
+            sparse = re.search(r"sparse_bwd_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E", name)
             label = short.group(1) if short else name
-            if tmpl:
+            if sparse:
+                label += "<adam={},mu_tier={},nu_tier={},d={}>".format(*sparse.groups()[:3], 128 * int(sparse.group(4)))
+            elif tmpl:
                 label += f"<adam={tmpl.group(1)},mu_bf16={tmpl.group(2)},cols={tmpl.group(3)}>"
             cur = {"function": label}
             out.append(cur)
@@ -305,24 +315,25 @@ def moment_bytes(m) -> int:
     return sum(t.numel() * t.element_size() for t in moment_parts(m))
 
 
-def check_epilogue(torch, tk, fwd, d_raw, l1b, mu_tier, nu_tier, seed_tile, gen, what):
+def check_epilogue(torch, tk, fwd, d_raw, l1b, mu_tier, nu_tier, seed_tile, gen, what, sparse=False):
     """K2's compressed epilogue against `_adam_plain` on K3's gradient (K3
     runs K2's gradient code on the same bf16 rows, so both epilogues see the
-    same g): the stochastic stores draw the same counter-hash bits, so int8
-    codes and bf16 nu agree in >= 99.9% of elements, never more than one
-    code or one ulp apart, scales within 1e-6 relative. Returns the measured
-    agreement and a maker of fresh K2 arguments at these tiers."""
+    same g; both on the route ``sparse`` names): the stochastic stores draw
+    the same counter-hash bits, so int8 codes and bf16 nu agree in >= 99.9%
+    of elements, never more than one code or one ulp apart, scales within
+    1e-6 relative. Returns the measured agreement and a maker of fresh K2
+    arguments at these tiers."""
     from _torch_moments import adam_moments, clone_moment, stored_agreement
 
     xb, dxh, c, nrm = fwd
     M = d_raw.shape[0]
     db = (d_raw / nrm[..., None]).to(torch.bfloat16)
-    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b, sparse=sparse)
     mu, nu = adam_moments(d_raw, mu_tier, nu_tier, gen)
     bc = adam_bc(torch, M, 10, d_raw.device)
     d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu),
                                                  clone_moment(nu), l1b, bc, LR, B1, B2, EPS, seed=11,
-                                                 seed_tile=seed_tile)
+                                                 seed_tile=seed_tile, sparse=sparse)
     d_p, mu_p, nu_p = tk._adam_plain(g, d_raw, mu, nu, bc, LR, B1, B2, EPS, seed=11, seed_tile=seed_tile)
     torch.cuda.synchronize()
     check(torch.equal(gb_k, gb), f"{what}: K2's g_bias differs from K3's")
@@ -521,7 +532,7 @@ def ulp(torch, t):
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
 
 
-def check_k2(torch, tk, gen, mu_dtype, fwd, d_raw, l1b, what: str):
+def check_k2(torch, tk, gen, mu_dtype, fwd, d_raw, l1b, what: str, sparse: bool = False):
     """K2 against its plain version on the same inputs, at two Adam steps:
       - step 1, from zero moments: mu_new = (1 - b1)·g exactly, so the moments
         hold the kernel's gradient against the plain one, member by member
@@ -530,28 +541,28 @@ def check_k2(torch, tk, gen, mu_dtype, fwd, d_raw, l1b, what: str):
         decayed moments and g weigh alike in the update.
     At both, d_new is held elementwise against the Adam update recomputed
     from the kernel's own new moments (`hold_k2`), and within 2 lr of the
-    plain d_new. Returns (a maker of step 10's arguments, the largest |d_new|
-    difference from the plain version)."""
+    plain d_new. ``sparse`` picks K2's route. Returns (a maker of step 10's
+    arguments, the largest |d_new| difference from the plain version)."""
     M, dev = d_raw.shape[0], d_raw.device
     zeros = torch.zeros_like(d_raw)
     first = k2_args(fwd, d_raw, zeros.to(mu_dtype), zeros, l1b, adam_bc(torch, M, 1, dev))
-    err1, mu1 = hold_k2(torch, tk, first, f"{what} step 1")
+    err1, mu1 = hold_k2(torch, tk, first, f"{what} step 1", sparse)
     g_rms = mu1.float().pow(2).mean(dim=(1, 2), keepdim=True).sqrt() / (1 - B1)
     mu = (torch.randn(d_raw.shape, generator=gen, device=dev) * g_rms).to(mu_dtype)
     nu = torch.rand(d_raw.shape, generator=gen, device=dev) * g_rms * g_rms
     later = k2_args(fwd, d_raw, mu, nu, l1b, adam_bc(torch, M, 10, dev))
-    err10, _ = hold_k2(torch, tk, later, f"{what} step 10")
+    err10, _ = hold_k2(torch, tk, later, f"{what} step 10", sparse)
     return later, max(err1, err10)
 
 
-def hold_k2(torch, tk, args, what: str):
+def hold_k2(torch, tk, args, what: str, sparse: bool = False):
     """One K2 launch against `_k2_plain`: g_bias and, per member, the new
     moments as gradients; d_new within 2 ulp of d_raw - lr·m̂/(√v̂ + eps) on
     the kernel's own new moments (plus 2^-8 of the update with bf16 mu: the
     kernel steps from the f32 mu before its bf16 store). Returns (the largest
     |d_new| difference from plain, the plain mu_new)."""
     p = args()
-    dk, mk, nk, gbk = tk.tied_sae_bwd_adam(*args())
+    dk, mk, nk, gbk = tk.tied_sae_bwd_adam(*args(), sparse=sparse)
     dp, mp, np_, gbp = _k2_plain(tk, *p)
     torch.cuda.synchronize()
     grads_close(torch, gbk, gbp, f"K2 {what} g_bias")
@@ -626,8 +637,9 @@ def synthetic_store(torch, cfg):
 
 def phase_train(torch, pkg, cfg):
     """A path's main run: chunk store → ensemble_train_loop → one masked
-    step. Every step of the loop launches the path's forward kernels and K2;
-    the masked step launches the masked forward kernels and K3; nothing else
+    step. Every step of the loop launches the path's forward kernels and K2
+    on the path's route (dense for tied, sparse for TopK); the masked step
+    launches the masked forward kernels and K3 on that route; nothing else
     runs."""
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
@@ -658,7 +670,7 @@ def phase_train(torch, pkg, cfg):
     wall = time.perf_counter() - t0
     loop_launches = {**tk.LAUNCHES, **kk.LAUNCHES}
     want = {name: 0 for name in loop_launches}
-    want.update({name: steps for name in (*cfg["fwd_kernels"], "tied_sae_bwd_adam")})
+    want.update({name: steps for name in (*cfg["fwd_kernels"], cfg["bwd_adam"])})
     check(loop_launches == want, f"launches {loop_launches} after {steps} steps, want {want}")
     # one masked step: the fused-Adam kernel gives way to fused grads (K3)
     frozen = ens.state.params[leaf][members - 1].clone()
@@ -668,7 +680,7 @@ def phase_train(torch, pkg, cfg):
     launches = {**tk.LAUNCHES, **kk.LAUNCHES}
     for name in cfg["masked_fwd"]:
         want[name] += 1
-    want["tied_sae_bwd_grads"] = 1
+    want[cfg["bwd_grads"]] = 1
     check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
     check(torch.equal(frozen, ens.state.params[leaf][members - 1]), "masked member moved")
     moments = ens.state.opt_state
@@ -866,23 +878,28 @@ def phase_topk_kernels(torch, tk, kk):
     rows.append(row)
     del s_k, th_k
 
-    # K2 and K3 at D 768, l1 = 0: the TopK path's backward
+    # K2 and K3 at D 768, l1 = 0: the TopK path's backward, on the sparse
+    # route it takes (the rows) and, timed beside it on the same inputs, the
+    # dense route the tied paths take; both held against the plain versions
     l1b = torch.zeros(TM, device=dev)
     fwd = (xb, dxh_k, c_k, nrm)
-    args, k2_err = check_k2(torch, tk, g, torch.float32, fwd, d_raw, l1b, "D=768 mu=f32")
-    emit("kernel", name="tied_sae_bwd_adam", shape=shape, mu_dtype="torch.float32", max_abs_err_d_new=k2_err)
-    held = args()
     xbt = xb.expand(TM, TB, TD)
     ct = c_k.transpose(1, 2)
-    gemms = lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt))
-    src_bwd = "sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu"
+    library_ms = time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 5)
+    src_sparse = "sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd_sparse.cu"
+    dense_ms = {}
+    args, k2_err = check_k2(torch, tk, g, torch.float32, fwd, d_raw, l1b, "D=768 mu=f32 sparse", sparse=True)
+    check_k2(torch, tk, g, torch.float32, fwd, d_raw, l1b, "D=768 mu=f32 dense")
+    emit("kernel", name="tied_sae_bwd_adam_sparse", shape=shape, mu_dtype="torch.float32", max_abs_err_d_new=k2_err)
+    held = args()
     row = dict(
-        name="tied_sae_bwd_adam", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255",
-        max_abs_err=k2_err, shape=shape, variant="stored code, mu f32, nu f32",
-        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 5),
-        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
-        library_ms=time_ms(torch, gemms, 5),
+        name="tied_sae_bwd_adam_sparse", source=src_sparse, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255",
+        max_abs_err=k2_err, shape=shape, variant="sparse route, stored code, mu f32, nu f32",
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, sparse=True), 10),
+        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3), library_ms=library_ms,
     )
+    dense_ms["k2_mu_f32_nu_f32"] = time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 5)
+    sparse_ms = {"k2_mu_f32_nu_f32": row["ms"]}
     row["bound_ms"], row["bound_by"] = bound(
         6 * nnz * TD,
         TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
@@ -890,22 +907,25 @@ def phase_topk_kernels(torch, tk, kk):
     )
     rows.append(row)
     del held
-    check_k2(torch, tk, g, torch.bfloat16, fwd, d_raw, l1b, "D=768 mu=bf16")
+    for sparse in (True, False):
+        check_k2(torch, tk, g, torch.bfloat16, fwd, d_raw, l1b, f"D=768 mu=bf16 sparse={sparse}", sparse=sparse)
 
     # the topk-capacity path's K2: int8 mu, bf16 nu, the stores seeded over
     # the JAX TopK step's 128-row dictionary tiles
-    agree, cap_args, _ = check_epilogue(torch, tk, fwd, d_raw, l1b, "int8", "bfloat16", kk.SEED_TILE, g,
-                                        "K2 D=768 epilogue mu int8, nu bf16")
-    emit("kernel", name="tied_sae_bwd_adam", shape=shape, variant="epilogue vs plain, mu int8, nu bf16", **agree)
+    for sparse in (False, True):
+        agree, cap_args, _ = check_epilogue(torch, tk, fwd, d_raw, l1b, "int8", "bfloat16", kk.SEED_TILE, g,
+                                            f"K2 D=768 epilogue mu int8, nu bf16, sparse={sparse}", sparse=sparse)
+        emit("kernel", name="tied_sae_bwd_adam_sparse" if sparse else "tied_sae_bwd_adam", shape=shape,
+             variant="epilogue vs plain, mu int8, nu bf16", **agree)
     held = cap_args()
     row = dict(
-        name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
-        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", variant="stored code, mu int8, nu bf16",
-        max_abs_err=agree["max_abs_err_d_new"], shape=shape,
-        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, seed_tile=kk.SEED_TILE), 5),
-        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *cap_args()), 3),
-        library_ms=time_ms(torch, gemms, 5),
+        name="tied_sae_bwd_adam_sparse", source=src_sparse, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255",
+        variant="sparse route, stored code, mu int8, nu bf16", max_abs_err=agree["max_abs_err_d_new"], shape=shape,
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, seed_tile=kk.SEED_TILE, sparse=True), 10),
+        plain_ms=time_ms(torch, lambda: _k2_plain(tk, *cap_args()), 3), library_ms=library_ms,
     )
+    dense_ms["k2_mu_int8_nu_bf16"] = time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, seed_tile=kk.SEED_TILE), 5)
+    sparse_ms["k2_mu_int8_nu_bf16"] = row["ms"]
     row["bound_ms"], row["bound_by"] = bound(
         6 * nnz * TD,
         TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
@@ -914,27 +934,36 @@ def phase_topk_kernels(torch, tk, kk):
     capacity_rows = [row]
     del held
 
-    gk, gbk = tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b)
     gp, gbp = tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b)
-    torch.cuda.synchronize()
-    cos, rel = grads_close(torch, gk, gp, "K3 D=768 g_enc")
-    grads_close(torch, gbk, gbp, "K3 D=768 g_bias")
-    k3_err = float((gk - gp).abs().max())
-    del gk, gbk, gp, gbp
-    emit("kernel", name="tied_sae_bwd_grads", shape=shape, cos=cos, max_rel=rel, max_abs_err=k3_err)
+    k3 = {}
+    for sparse in (True, False):
+        gk, gbk = tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b, sparse=sparse)
+        torch.cuda.synchronize()
+        cos, rel = grads_close(torch, gk, gp, f"K3 D=768 g_enc sparse={sparse}")
+        grads_close(torch, gbk, gbp, f"K3 D=768 g_bias sparse={sparse}")
+        k3[sparse] = (cos, rel, float((gk - gp).abs().max()))
+        del gk, gbk
+        emit("kernel", name="tied_sae_bwd_grads_sparse" if sparse else "tied_sae_bwd_grads", shape=shape,
+             cos=k3[sparse][0], max_rel=k3[sparse][1], max_abs_err=k3[sparse][2])
+    del gp, gbp
     row = dict(
-        name="tied_sae_bwd_grads", source=src_bwd, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201",
-        max_abs_err=k3_err, shape=shape, variant="gradient out",
-        ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 5),
-        plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b), 3),
-        library_ms=time_ms(torch, gemms, 5),
+        name="tied_sae_bwd_grads_sparse", source=src_sparse, replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201",
+        max_abs_err=k3[True][2], shape=shape, variant="sparse route, gradient out",
+        ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b, sparse=True), 10),
+        plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh_k, c_k, nrm, db, l1b), 3), library_ms=library_ms,
     )
+    dense_ms["k3"] = time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 5)
+    sparse_ms["k3"] = row["ms"]
     row["bound_ms"], row["bound_by"] = bound(
         6 * nnz * TD,
         TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4 + TM * TN * TD * 2
         + TM * TN * TD * 4 + TM * TN * 4 + TM * 4,
     )
     rows.append(row)
+    # the two routes side by side at this shape (the dense route's own rows
+    # are the tied paths', where it runs)
+    emit("kernel", name="tied_sae_bwd routes", shape=shape, code_nonzero_frac=nnz / c_k.numel(),
+         sparse_ms=sparse_ms, dense_ms=dense_ms, library_ms=library_ms)
     return rows, capacity_rows
 
 
@@ -982,7 +1011,9 @@ def phase_fista_kernels(torch, fk, tf):
     Then one tol = 1e-3 solve at config 3's shape on a shared dictionary,
     with l1 30x config 3's grid so that every member can reach the
     tolerance within 500 iterations: each member stops early, at its own
-    iteration, the same on both sides."""
+    iteration, the same on both sides. Last, one short solve at N 2050,
+    D 130 (rows of no whole float4s) and a ragged batch of 200, at tol 0
+    and 1e-3: codes within 1e-4, the same iteration counts."""
     src = "sparse_coding__tpu_torch/ops/csrc/fista.cu"
     rows = []
     for shape, line, seed, atol, reps in (
@@ -1049,6 +1080,28 @@ def phase_fista_kernels(torch, fk, tf):
     emit("fista_kernels", shape=f"M={FM},B={FB},N={FN},D={FD},tol=1e-3", iterations=it_k.tolist(),
          plain_iterations=it_p.tolist(), max_abs_err=diff, support_flip_share=flips, res_sq_rel_diff=res_rel,
          ms=start[0].elapsed_time(start[1]))
+    del x, d, a_k, a_p
+
+    # N and D that are no multiples of 4 (each row's last float4 masked) and
+    # a ragged batch: K_f against its plain loop at tol 0 and 1e-3
+    M, B, N, D, iters = (FISTA_RAGGED[k] for k in ("M", "B", "N", "D", "iters"))
+    check(fk.shapes_supported(B, N, D), f"K_f does not take {FISTA_RAGGED}")
+    x, d, c0, l1 = fista_problem(torch, M, B, N, D, 14)
+    eta = tf.default_eta(d)
+    out = {}
+    for tol in (0.0, 1e-3):
+        fk.reset_launches()
+        a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters, tol=tol)
+        a_p, it_p = tf.fista_codes(x, d, eta, l1, c0, iters, tol=tol)
+        torch.cuda.synchronize()
+        diff, flips, res_rel = fista_agreement(torch, a_k, a_p, x, d)
+        check(fk.LAUNCHES["fista_solve"] == 1 and it_k.tolist() == it_p.tolist()
+              and diff <= 1e-4 and flips < 1e-3 and res_rel <= 1e-4,
+              f"K_f at {FISTA_RAGGED}, tol {tol}: launches {fk.LAUNCHES}, iterations {it_k.tolist()} vs "
+              f"{it_p.tolist()}, max |diff| {diff}, support flips {flips}, ‖res‖² rel {res_rel}")
+        out[f"tol_{tol:g}"] = dict(iterations=it_k.tolist(), max_abs_err=diff, bit_equal=bool(torch.equal(a_k, a_p)),
+                                   support_flip_share=flips, res_sq_rel_diff=res_rel)
+    emit("fista_kernels", shape=f"M={M},B={B},N={N},D={D},iters={iters}", **out)
     return rows
 
 

@@ -29,7 +29,11 @@
 // Each launch is a register-tiled f32 GEMM: 128 x 128 output tiles, 256
 // threads with 8 x 8 outputs each, depth-8 stages double-buffered in shared
 // memory with the next stage prefetched into registers; ragged batch rows
-// and dictionary/width edges are masked, not padded.
+// and dictionary/width edges are masked, not padded. Rows of N and D floats
+// that are whole float4s (N % 4 == 0 and D % 4 == 0, as at every BASELINE
+// config) move as 16-byte loads and stores (kVec); any other N or D takes
+// the same kernels with each float of a 4-wide piece loaded, stored and
+// masked on its own, so the products sum in the same order either way.
 //
 // Early exit (tol > 0), as `models.fista.fista`: one largest |a' - a| per
 // member over its whole batch, kept on the device. Each update launch raises
@@ -57,13 +61,23 @@ struct Stage {
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
+// Four consecutive floats p[0..3] of which the first `valid` exist (zeros
+// past them): one 16-byte load with kVec (valid is then 0 or 4), else four.
+template <bool kVec>
+__device__ __forceinline__ float4 load4_masked(const float* __restrict__ p, int valid) {
+  if (kVec) return valid > 0 ? *reinterpret_cast<const float4*>(p) : zero4();
+  return make_float4(valid > 0 ? p[0] : 0.f, valid > 1 ? p[1] : 0.f, valid > 2 ? p[2] : 0.f,
+                     valid > 3 ? p[3] : 0.f);
+}
+
 // A matrix [rows, K] with K contiguous: thread t fetches row t/2, depths
-// (t%2)*4 .. +3. K % 4 == 0, so a float4 is wholly inside or outside.
+// (t%2)*4 .. +3. With kVec (K % 4 == 0) a float4 is wholly inside or outside.
+template <bool kVec>
 __device__ __forceinline__ float4 fetch_kmajor(const float* __restrict__ p, int rows, int K, int row0,
                                                int k0, int tid) {
   const int r = row0 + (tid >> 1), k = k0 + (tid & 1) * 4;
-  if (r < rows && k < K) return *reinterpret_cast<const float4*>(p + (size_t)r * K + k);
-  return zero4();
+  if (r >= rows) return zero4();
+  return load4_masked<kVec>(p + (size_t)r * K + k, K - k);
 }
 __device__ __forceinline__ void store_kmajor(float (*s)[kLd], float4 v, int tid) {
   const int r = tid >> 1, k = (tid & 1) * 4;
@@ -73,12 +87,13 @@ __device__ __forceinline__ void store_kmajor(float (*s)[kLd], float4 v, int tid)
   s[k + 3][r] = v.w;
 }
 // A matrix [K, cols] with cols contiguous: thread t fetches depth t/32,
-// columns (t%32)*4 .. +3 (cols % 4 == 0).
+// columns (t%32)*4 .. +3 (whole float4s with kVec: cols % 4 == 0).
+template <bool kVec>
 __device__ __forceinline__ float4 fetch_nmajor(const float* __restrict__ p, int cols, int K, int col0,
                                                int k0, int tid) {
   const int k = k0 + (tid >> 5), c = col0 + (tid & 31) * 4;
-  if (k < K && c < cols) return *reinterpret_cast<const float4*>(p + (size_t)k * cols + c);
-  return zero4();
+  if (k >= K) return zero4();
+  return load4_masked<kVec>(p + (size_t)k * cols + c, cols - c);
 }
 __device__ __forceinline__ void store_nmajor(float (*s)[kLd], float4 v, int tid) {
   *reinterpret_cast<float4*>(&s[tid >> 5][(tid & 31) * 4]) = v;
@@ -88,7 +103,7 @@ __device__ __forceinline__ void store_nmajor(float (*s)[kLd], float4 v, int tid)
 // rows r = ty*4 + {0..3}, 64 + ty*4 + {0..3} and columns likewise with tx.
 // A is [rows, K] (K contiguous). Bop is [K, cols] stored with cols contiguous
 // (kBT false) or stored as its transpose [cols, K] with K contiguous (kBT).
-template <bool kBT>
+template <bool kBT, bool kVec>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, const float* __restrict__ Bm, int rows,
                                           int cols, int K, int row0, int col0, Stage* st,
                                           float (&acc)[8][8]) {
@@ -98,8 +113,8 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, const flo
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   const int stages = (K + kDepth - 1) / kDepth;
-  float4 ra = fetch_kmajor(A, rows, K, row0, 0, tid);
-  float4 rb = kBT ? fetch_kmajor(Bm, cols, K, col0, 0, tid) : fetch_nmajor(Bm, cols, K, col0, 0, tid);
+  float4 ra = fetch_kmajor<kVec>(A, rows, K, row0, 0, tid);
+  float4 rb = kBT ? fetch_kmajor<kVec>(Bm, cols, K, col0, 0, tid) : fetch_nmajor<kVec>(Bm, cols, K, col0, 0, tid);
   store_kmajor(st[0].a, ra, tid);
   if (kBT) store_kmajor(st[0].b, rb, tid); else store_nmajor(st[0].b, rb, tid);
   __syncthreads();
@@ -108,8 +123,8 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, const flo
     const bool more = s + 1 < stages;
     if (more) {
       const int k0 = (s + 1) * kDepth;
-      ra = fetch_kmajor(A, rows, K, row0, k0, tid);
-      rb = kBT ? fetch_kmajor(Bm, cols, K, col0, k0, tid) : fetch_nmajor(Bm, cols, K, col0, k0, tid);
+      ra = fetch_kmajor<kVec>(A, rows, K, row0, k0, tid);
+      rb = kBT ? fetch_kmajor<kVec>(Bm, cols, K, col0, k0, tid) : fetch_nmajor<kVec>(Bm, cols, K, col0, k0, tid);
     }
 #pragma unroll
     for (int k = 0; k < kDepth; ++k) {
@@ -146,6 +161,7 @@ __device__ __forceinline__ bool member_done(const uint32_t* __restrict__ delta,
 }
 
 // grid (ceil(D/128), ceil(B/128), M): res[m] = x - y[m] . D[m].
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2) residual_kernel(
     const float* __restrict__ x, const float* __restrict__ dict, const float* __restrict__ y,
     float* __restrict__ res, const uint32_t* __restrict__ delta, const float* __restrict__ exit_thresh,
@@ -155,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, 2) residual_kernel(
   __shared__ __align__(16) Stage st[2];
   float acc[8][8];
   const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  gemm_tile<false>(y + (size_t)m * B * N, dict + (size_t)m * N * D, B, D, N, row0, col0, st, acc);
+  gemm_tile<false, kVec>(y + (size_t)m * B * N, dict + (size_t)m * N * D, B, D, N, row0, col0, st, acc);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float* r = res + (size_t)m * B * D;
 #pragma unroll
@@ -166,13 +182,20 @@ __global__ void __launch_bounds__(kThreads, 2) residual_kernel(
     for (int h = 0; h < 2; ++h) {
       const int col = col0 + h * kHalf + tx * 4;
       if (col >= D) continue;
-      const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)row * D + col);
-      float4 o;
-      o.x = __fsub_rn(xv.x, acc[i][h * 4 + 0]);
-      o.y = __fsub_rn(xv.y, acc[i][h * 4 + 1]);
-      o.z = __fsub_rn(xv.z, acc[i][h * 4 + 2]);
-      o.w = __fsub_rn(xv.w, acc[i][h * 4 + 3]);
-      *reinterpret_cast<float4*>(r + (size_t)row * D + col) = o;
+      const size_t off = (size_t)row * D + col;
+      if (kVec) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + off);
+        float4 o;
+        o.x = __fsub_rn(xv.x, acc[i][h * 4 + 0]);
+        o.y = __fsub_rn(xv.y, acc[i][h * 4 + 1]);
+        o.z = __fsub_rn(xv.z, acc[i][h * 4 + 2]);
+        o.w = __fsub_rn(xv.w, acc[i][h * 4 + 3]);
+        *reinterpret_cast<float4*>(r + off) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < D) r[off + e] = __fsub_rn(x[off + e], acc[i][h * 4 + e]);
+      }
     }
   }
 }
@@ -191,6 +214,7 @@ __device__ __forceinline__ void fista_step(float& yv, float& av, float g, float 
 
 // grid (ceil(N/128), ceil(B/128), M): G = res[m] . D[m]^T, then the FISTA
 // step on a[m] and y[m] in place; with `delta`, the member's largest |a' - a|.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2) update_kernel(
     const float* __restrict__ dict, const float* __restrict__ res, float* __restrict__ a,
     float* __restrict__ y, const float* __restrict__ eta, const float* __restrict__ l1,
@@ -201,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 2) update_kernel(
   __shared__ __align__(16) Stage st[2];
   float acc[8][8];
   const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  gemm_tile<true>(res + (size_t)m * B * D, dict + (size_t)m * N * D, B, N, D, row0, col0, st, acc);
+  gemm_tile<true, kVec>(res + (size_t)m * B * D, dict + (size_t)m * N * D, B, N, D, row0, col0, st, acc);
   const float e = eta[m];
   const float thr = __fmul_rn(e, l1[m]);
   const float mo = mom[it];
@@ -218,14 +242,25 @@ __global__ void __launch_bounds__(kThreads, 2) update_kernel(
       const int col = col0 + h * kHalf + tx * 4;
       if (col >= N) continue;
       const size_t off = (size_t)row * N + col;
-      float4 av = *reinterpret_cast<const float4*>(am + off);
-      float4 yv = *reinterpret_cast<const float4*>(ym + off);
-      fista_step(yv.x, av.x, acc[i][h * 4 + 0], e, thr, mo, dmax);
-      fista_step(yv.y, av.y, acc[i][h * 4 + 1], e, thr, mo, dmax);
-      fista_step(yv.z, av.z, acc[i][h * 4 + 2], e, thr, mo, dmax);
-      fista_step(yv.w, av.w, acc[i][h * 4 + 3], e, thr, mo, dmax);
-      *reinterpret_cast<float4*>(am + off) = av;
-      *reinterpret_cast<float4*>(ym + off) = yv;
+      if (kVec) {
+        float4 av = *reinterpret_cast<const float4*>(am + off);
+        float4 yv = *reinterpret_cast<const float4*>(ym + off);
+        fista_step(yv.x, av.x, acc[i][h * 4 + 0], e, thr, mo, dmax);
+        fista_step(yv.y, av.y, acc[i][h * 4 + 1], e, thr, mo, dmax);
+        fista_step(yv.z, av.z, acc[i][h * 4 + 2], e, thr, mo, dmax);
+        fista_step(yv.w, av.w, acc[i][h * 4 + 3], e, thr, mo, dmax);
+        *reinterpret_cast<float4*>(am + off) = av;
+        *reinterpret_cast<float4*>(ym + off) = yv;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (col + q >= N) break;
+          float av = am[off + q], yv = ym[off + q];
+          fista_step(yv, av, acc[i][h * 4 + q], e, thr, mo, dmax);
+          am[off + q] = av;
+          ym[off + q] = yv;
+        }
+      }
     }
   }
   if (delta != nullptr) {
@@ -243,14 +278,15 @@ extern "C" {
 // ends as the codes); res [M, B, D] is scratch. With tol > 0 the caller
 // passes exit_thresh [M] = tol * eta and delta [M, num_iter] zeroed; with
 // tol = 0 both are null and no reduction runs. All f32 except delta (u32),
-// contiguous, 16-byte aligned. Needs N % 4 == 0, D % 4 == 0 and
-// ceil(B / 128) <= 65535 (the Python wrapper checks). Enqueues 2 * num_iter
+// contiguous, 16-byte aligned. Takes any N, D >= 1 (16-byte loads where N
+// and D are multiples of 4) and ceil(B / 128) <= 65535 (the Python wrapper
+// checks). Enqueues 2 * num_iter
 // launches on `stream`, does not synchronise, and returns the first CUDA
 // error code (0 on success).
 int sc_fista_solve(const void* x, const void* dict, const void* eta, const void* l1, const void* mom,
                    const void* exit_thresh, void* delta, void* a, void* y, void* res, int M, int B, int N,
                    int D, int num_iter, void* stream) {
-  if (M < 1 || B < 1 || N < 4 || D < 4 || N % 4 || D % 4 || num_iter < 0 ||
+  if (M < 1 || B < 1 || N < 1 || D < 1 || num_iter < 0 ||
       (B + kTile - 1) / kTile > 65535 || M > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -267,11 +303,14 @@ int sc_fista_solve(const void* x, const void* dict, const void* eta, const void*
   float* af = static_cast<float*>(a);
   float* yf = static_cast<float*>(y);
   float* rf = static_cast<float*>(res);
+  const bool vec = N % 4 == 0 && D % 4 == 0;
   for (int it = 0; it < num_iter; ++it) {
-    residual_kernel<<<grid_res, block, 0, st>>>(xf, df, yf, rf, dl, tf, it, num_iter, B, N, D);
+    if (vec) residual_kernel<true><<<grid_res, block, 0, st>>>(xf, df, yf, rf, dl, tf, it, num_iter, B, N, D);
+    else residual_kernel<false><<<grid_res, block, 0, st>>>(xf, df, yf, rf, dl, tf, it, num_iter, B, N, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    update_kernel<<<grid_upd, block, 0, st>>>(df, rf, af, yf, ef, lf, mf, dl, tf, it, num_iter, B, N, D);
+    if (vec) update_kernel<true><<<grid_upd, block, 0, st>>>(df, rf, af, yf, ef, lf, mf, dl, tf, it, num_iter, B, N, D);
+    else update_kernel<false><<<grid_upd, block, 0, st>>>(df, rf, af, yf, ef, lf, mf, dl, tf, it, num_iter, B, N, D);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -13,7 +13,7 @@ int sc_tied_sae_bwd_adam_tiers(const void* x, const void* dxh, const void* code,
                                const void* bc, const void* seed, int seed_tile, float lr, float b1,
                                float b2, float eps, float omb1, float omb2, int M, int B, int N,
                                int D, void* stream) {
-  return adam_entry<false>(x, dxh, code, nrm, d_raw, mu, mu_scale, mu_tier, nu, nu_scale, nu_tier,
+  return adam_entry<kStoredRoute>(x, dxh, code, nrm, d_raw, mu, mu_scale, mu_tier, nu, nu_scale, nu_tier,
                            g_bias, l1_over_b, bc, seed, seed_tile, lr, b1, b2, eps, omb1, omb2, M,
                            B, N, D, stream);
 }

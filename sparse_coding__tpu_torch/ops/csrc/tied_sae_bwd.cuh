@@ -1,8 +1,11 @@
 // K2 `tied_sae_bwd_adam` and K3 `tied_sae_bwd_grads`: the stacked tied-SAE
 // backward pass for Hopper (sm_90a), with or without the encoder's Adam update.
-// The kernel template, its launcher and K2's C entry; tied_sae_bwd.cu (K3,
-// and K2 on the stored code) and tied_sae_bwd_rc.cu (K2 rebuilding the code)
-// instantiate it, one library each, so their builds run in parallel.
+// The dense kernel template, its launcher, the epilogue it shares with the
+// sparse route, and K2's C entry; tied_sae_bwd.cu (K3, and K2 on the stored
+// code), tied_sae_bwd_rc.cu (K2 rebuilding the code) and
+// tied_sae_bwd_sparse.cu (K2 and K3 touching only the code's non-zeros, the
+// TopK path's route) instantiate it, one library each, so their builds run
+// in parallel.
 //
 // Replaces the Pallas TPU kernels in sparse_coding__tpu/ops/tied_sae_kernel.py:
 //   K2 <- `_bwd_adam_kernel` + `_adam_epilogue` (and its batch-tiled variant
@@ -27,7 +30,8 @@
 // M=8, B=2048, N=4096, D=512 against ~490 MB of traffic, so it is
 // compute-bound; on the TopK path (M=7, N=12288, D=768) the code holds ~k of N
 // entries per row, so the work its data needs is small and the ~2 GB of
-// dictionary, moments and code it must move bound it. The TPU kernel
+// dictionary, moments and code it must move bound it: that path takes the
+// sparse mainloop (tied_sae_bwd_sparse.cu), this one multiplies densely. The TPU kernel
 // holds the whole batch in VMEM; here x, dxh and c stream through two
 // shared-memory stages by cp.async, the next tile loading while the current
 // one computes (re-read from L2 by every dictionary tile of a member), while
@@ -65,7 +69,8 @@
 // rows, so the first pass of the epilogue stores everything else and takes
 // each row's absmax (warp max, then a shared-memory atomicMax on the bits of
 // |v|, which orders NaN above inf as jnp.max propagates it), and a second
-// pass recomputes the same f32 moments and writes the codes; the new scales
+// pass recomputes the same f32 moments (from the VJP's g, kept in the
+// gradient tile by the first) and writes the codes; the new scales
 // land after a barrier, once every read of the old ones is done.
 //
 // Rounding points follow the Pallas code: Dj = bf16(d_raw / |d|) (K2) or the
@@ -238,13 +243,228 @@ __device__ __forceinline__ void warp_amax(const float v[4], int* word, int lane)
   if (lane == 0) atomicMax(word, a);
 }
 
+// The normalised dictionary tile of rows row0 .. (member-flat) into dj_s
+// [rows][ld_bf16(D)]: bf16(d_raw / nrm) for K2, the caller's bf16 rows for K3
+// (tile_elems = rows * D; a block of kThr threads).
+template <bool kAdam, int kThr = kThreads>
+__device__ __forceinline__ void load_dj_tile(const BwdArgs& a, bf16* dj_s, const size_t row0,
+                                             const int tile_elems) {
+  const int D = a.D, ldD = ld_bf16(D), tid = threadIdx.x;
+  if constexpr (kAdam) {
+    // four elements per step: one 16-byte load, two bf16 pairs stored
+#pragma unroll 4
+    for (int idx = tid * 4; idx < tile_elems; idx += kThr * 4) {
+      const int r = idx / D, d = idx % D;
+      const float4 v = *reinterpret_cast<const float4*>(a.d_raw + row0 * D + idx);
+      const float nr = a.nrm[row0 + r];
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dj_s + r * ldD + d);
+      dst[0] = __floats2bfloat162_rn(__fdiv_rn(v.x, nr), __fdiv_rn(v.y, nr));
+      dst[1] = __floats2bfloat162_rn(__fdiv_rn(v.z, nr), __fdiv_rn(v.w, nr));
+    }
+  } else {
+    for (int idx = tid * 8; idx < tile_elems; idx += kThr * 8)
+      *reinterpret_cast<uint4*>(dj_s + (idx / D) * ldD + idx % D) =
+          *reinterpret_cast<const uint4*>(a.dhat_b + row0 * D + idx);
+  }
+}
+
+// The part of K2/K3 after the gradient tile is complete, shared by the dense
+// (bwd_kernel) and sparse (tied_sae_bwd_sparse.cu) mainloops: the radial sum
+// <g_dhat, Dj> per row, the row-normalisation VJP, and either the f32
+// gradient's store (K3) or the Adam epilogue in place in every moment tier
+// (K2), in one pass over the tile (two with int8 moments: absmax, then the
+// codes). The block (kThr threads) owns dictionary rows n0 .. n0 + Nt - 1
+// of member m: tile_elems = Nt * D elements, g_s [Nt][ld_f32(D)] f32 and
+// dj_s [Nt][ld_bf16(D)] bf16 in shared memory, radial_s [Nt] and (int8
+// moments) amax_s [2 * Nt] shared scratch. The caller has synchronised after
+// writing g_s; with int8 moments pass 1 overwrites it with the VJP's g.
+template <bool kAdam, int kMu, int kNu, int kThr = kThreads>
+__device__ __forceinline__ void epilogue(const BwdArgs& a, const int m, const int n0, const int Nt,
+                                         const int tile_elems, const bf16* dj_s, float* g_s,
+                                         float* radial_s, int* amax_s) {
+  constexpr bool kAnyInt8 = kAdam && (kMu == kInt8 || kNu == kInt8);
+  const int D = a.D;
+  const int ldD = ld_bf16(D), ldDf = ld_f32(D);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t row0 = (size_t)m * a.N + n0;
+  if constexpr (kAnyInt8) {
+    if (tid < 2 * Nt) amax_s[tid] = 0;  // ordered before pass 1 by the barrier below
+  }
+
+  // radial component <g_dhat, Dj> per row: one warp per row, fixed shuffle tree
+  for (int r = warp; r < Nt; r += kThr / 32) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32)
+      s = __fadd_rn(s, __fmul_rn(g_s[r * ldDf + d], __bfloat162float(dj_s[r * ldD + d])));
+    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) radial_s[r] = s;
+  }
+  __syncthreads();
+
+  float bc1 = 1.f, bc2 = 1.f, b1_bf = 0.f;
+  uint32_t seed = 0;
+  if constexpr (kAdam) {
+    bc1 = a.bc[2 * m];
+    bc2 = a.bc[2 * m + 1];
+    b1_bf = __bfloat162float(__float2bfloat16_rn(a.b1));
+    if constexpr (kMu == kInt8 || kNu != kF32) seed = (uint32_t)a.seed[0];
+  }
+  // the VJP of four consecutive elements of row r
+  auto vjp4 = [&](int r, int d, float g[4]) {
+    const float rad = radial_s[r], nr = a.nrm[row0 + r];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float djf = __bfloat162float(dj_s[r * ldD + d + e]);
+      g[e] = __fdiv_rn(__fsub_rn(g_s[r * ldDf + d + e], __fmul_rn(djf, rad)), nr);
+    }
+  };
+  // the moments' EMA (`_adam_epilogue`) from their stored values
+  auto mu_ema = [&](const float prev[4], const float g[4], float out[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kMu == kBf16) {
+        const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(b1_bf, prev[e])));
+        out[e] = __fadd_rn(p, __fmul_rn(a.omb1, g[e]));
+      } else {
+        out[e] = __fadd_rn(__fmul_rn(a.b1, prev[e]), __fmul_rn(a.omb1, g[e]));
+      }
+    }
+  };
+  auto nu_ema = [&](const float prev[4], const float g[4], float out[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[e] = __fadd_rn(__fmul_rn(a.b2, prev[e]), __fmul_rn(__fmul_rn(a.omb2, g[e]), g[e]));
+  };
+  // int8 codes of four elements (row n of the member, columns d..d+3)
+  auto quant4 = [&](const float v[4], float scale, uint32_t salt, int n, int d) {
+    const uint32_t ts = tile_seed(seed, m, n, a.seed_tile, salt);
+    const uint32_t off = (uint32_t)((n % a.seed_tile) * D + d);
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w |= quant_sr(v[e], scale, mix32((off + e) ^ ts)) << (8 * e);
+    return w;
+  };
+
+  // pass 1: the VJP and the Adam epilogue, four consecutive elements of one
+  // row per step (16-byte loads and stores); per element the arithmetic
+  // follows `_adam_epilogue` term for term. Everything but the int8 codes
+  // is stored here. The loads of kU steps are issued before any of their
+  // stores: d_raw, mu and nu may alias as far as the compiler can tell, so it
+  // would not move a later step's loads above an earlier step's stores, and
+  // one step's loads a thread are too few bytes in flight for the stream.
+  if constexpr (!kAdam) {
+#pragma unroll 2
+    for (int idx = tid * 4; idx < tile_elems; idx += kThr * 4) {
+      float g[4];
+      vjp4(idx / D, idx % D, g);
+      *reinterpret_cast<float4*>(a.g_enc + row0 * D + idx) = make_float4(g[0], g[1], g[2], g[3]);
+    }
+  } else {
+    constexpr int kU = 3;
+    for (int base = tid * 4; base < tile_elems; base += kU * kThr * 4) {
+      float4 dr4[kU];
+      float mu_prev[kU][4], nu_prev[kU][4];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int idx = base + u * kThr * 4;
+        if (idx < tile_elems) {
+          const size_t o = row0 * D + idx;
+          dr4[u] = *reinterpret_cast<const float4*>(a.d_raw + o);
+          load4<kMu>(a.mu, a.mu_scale, o, row0 + idx / D, mu_prev[u]);
+          load4<kNu>(a.nu, a.nu_scale, o, row0 + idx / D, nu_prev[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int idx = base + u * kThr * 4;
+        if (idx >= tile_elems) break;
+        const int r = idx / D, d = idx % D;
+        const size_t o = row0 * D + idx;
+        float g[4];
+        vjp4(r, d, g);
+        if constexpr (kAnyInt8) {  // pass 2 reads g back instead of dividing again
+          *reinterpret_cast<float4*>(g_s + r * ldDf + d) = make_float4(g[0], g[1], g[2], g[3]);
+        }
+        float dr[4] = {dr4[u].x, dr4[u].y, dr4[u].z, dr4[u].w};
+        float mu_new[4], nu_new[4];
+        mu_ema(mu_prev[u], g, mu_new);
+        nu_ema(nu_prev[u], g, nu_new);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mhat = __fdiv_rn(mu_new[e], bc1);
+          const float vhat = __fdiv_rn(nu_new[e], bc2);
+          const float upd = __fdiv_rn(__fmul_rn(a.lr, mhat), __fadd_rn(__fsqrt_rn(vhat), a.eps));
+          dr[e] = __fsub_rn(dr[e], upd);
+        }
+        *reinterpret_cast<float4*>(a.d_raw + o) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+        if constexpr (kNu == kF32) {
+          *reinterpret_cast<float4*>(static_cast<float*>(a.nu) + o) =
+              make_float4(nu_new[0], nu_new[1], nu_new[2], nu_new[3]);
+        } else if constexpr (kNu == kBf16) {
+          const int n = n0 + r;
+          const uint32_t ts = tile_seed(seed, m, n, a.seed_tile, 0u);
+          const uint32_t off = (uint32_t)((n % a.seed_tile) * D + d);
+          uint2 raw;
+          raw.x = bf16_sr(nu_new[0], mix32(off ^ ts)) | (bf16_sr(nu_new[1], mix32((off + 1) ^ ts)) << 16);
+          raw.y = bf16_sr(nu_new[2], mix32((off + 2) ^ ts)) | (bf16_sr(nu_new[3], mix32((off + 3) ^ ts)) << 16);
+          *reinterpret_cast<uint2*>(static_cast<bf16*>(a.nu) + o) = raw;
+        } else {
+          warp_amax(nu_new, amax_s + Nt + r, lane);
+        }
+        if constexpr (kMu == kBf16) {
+          uint2 raw;
+          *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(mu_new[0], mu_new[1]);
+          *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(mu_new[2], mu_new[3]);
+          *reinterpret_cast<uint2*>(static_cast<bf16*>(a.mu) + o) = raw;
+        } else if constexpr (kMu == kF32) {
+          *reinterpret_cast<float4*>(static_cast<float*>(a.mu) + o) =
+              make_float4(mu_new[0], mu_new[1], mu_new[2], mu_new[3]);
+        } else {
+          warp_amax(mu_new, amax_s + r, lane);
+        }
+      }
+    }
+  }
+
+  if constexpr (kAnyInt8) {
+    __syncthreads();  // every row's absmax is in
+    // pass 2: the same f32 moments again (the same g, read back from g_s, and
+    // the same stored moments: an int8 moment's codes are not overwritten
+    // until here, so the same bits), stored as codes
+#pragma unroll 2
+    for (int idx = tid * 4; idx < tile_elems; idx += kThr * 4) {
+      const int r = idx / D, d = idx % D;
+      const size_t o = row0 * D + idx;
+      float prev[4], v[4];
+      const float4 g4 = *reinterpret_cast<const float4*>(g_s + r * ldDf + d);
+      const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+      if constexpr (kMu == kInt8) {
+        load4<kInt8>(a.mu, a.mu_scale, o, row0 + r, prev);
+        mu_ema(prev, g, v);
+        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.mu) + o) =
+            quant4(v, int8_scale(amax_s[r]), kSaltMuInt8, n0 + r, d);
+      }
+      if constexpr (kNu == kInt8) {
+        load4<kInt8>(a.nu, a.nu_scale, o, row0 + r, prev);
+        nu_ema(prev, g, v);
+        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.nu) + o) =
+            quant4(v, int8_scale(amax_s[Nt + r]), kSaltNuInt8, n0 + r, d);
+      }
+    }
+    __syncthreads();  // every read of the old scales is done
+    if (tid < Nt) {
+      if constexpr (kMu == kInt8) a.mu_scale[row0 + tid] = int8_scale(amax_s[tid]);
+      if constexpr (kNu == kInt8) a.nu_scale[row0 + tid] = int8_scale(amax_s[Nt + tid]);
+    }
+  }
+}
+
 template <bool kAdam, int kMu, int kNu, bool kRecompute, int kCols>
 __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdArgs a, const int Nt,
                                                           const Plan pl) {
   constexpr int kTileElems = kElemsPerCol * kCols;  // Nt * D
   constexpr int kParts = kCols == 3 ? 4 : 2;          // depth slices of dc
   constexpr bool kSplitX = kCols == 3;                // x single-buffered (D = 768)
-  constexpr bool kAnyInt8 = kAdam && (kMu == kInt8 || kNu == kInt8);
   extern __shared__ __align__(128) unsigned char smem[];
   const int B = a.B, N = a.N, D = a.D;
   const int tb = pl.tb;
@@ -266,7 +486,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdArgs a, const
   };
 
   const int m = blockIdx.y, n0 = blockIdx.x * Nt;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const size_t row0 = (size_t)m * N + n0;  // first (member, dict row) of the tile
   const float l1b = a.l1_over_b[m];
   const bf16* dxh_m = a.dxh + (size_t)m * B * D;
@@ -299,22 +519,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdArgs a, const
   __pipeline_commit();
 
   // the normalised dictionary tile, resident for the whole block
-  if constexpr (kAdam) {
-    // four elements per step: one 16-byte load, two bf16 pairs stored
-#pragma unroll 4
-    for (int idx = tid * 4; idx < kTileElems; idx += kThreads * 4) {
-      const int r = idx / D, d = idx % D;
-      const float4 v = *reinterpret_cast<const float4*>(a.d_raw + row0 * D + idx);
-      const float nr = a.nrm[row0 + r];
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dj_s + r * ldD + d);
-      dst[0] = __floats2bfloat162_rn(__fdiv_rn(v.x, nr), __fdiv_rn(v.y, nr));
-      dst[1] = __floats2bfloat162_rn(__fdiv_rn(v.z, nr), __fdiv_rn(v.w, nr));
-    }
-  } else {
-    for (int idx = tid * 8; idx < kTileElems; idx += kThreads * 8)
-      *reinterpret_cast<uint4*>(dj_s + (idx / D) * ldD + idx % D) =
-          *reinterpret_cast<const uint4*>(a.dhat_b + row0 * D + idx);
-  }
+  load_dj_tile<kAdam>(a, dj_s, row0, kTileElems);
 
   // this warp's 2 x kCols gradient fragments: 2 row bands x kCols column
   // blocks of the [Nt, D] tile (each A fragment then feeds kCols MMAs, each
@@ -437,150 +642,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdArgs a, const
       wmma::store_matrix_sync(g_s + (fr0 + i) * 16 * ldDf + (fc0 + j) * 16, acc[i][j], ldDf,
                               wmma::mem_row_major);
   if (tid < Nt) a.g_bias[row0 + tid] = __fadd_rn(__fadd_rn(gb[0], gb[1]), __fadd_rn(gb[2], gb[3]));
-  if constexpr (kAnyInt8) {
-    if (tid < 2 * Nt) amax_s[tid] = 0;
-  }
   __syncthreads();
-
-  // radial component <g_dhat, Dj> per row: one warp per row, fixed shuffle tree
-  for (int r = warp; r < Nt; r += kWarps) {
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32)
-      s = __fadd_rn(s, __fmul_rn(g_s[r * ldDf + d], __bfloat162float(dj_s[r * ldD + d])));
-    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
-    if (lane == 0) radial_s[r] = s;
-  }
-  __syncthreads();
-
-  float bc1 = 1.f, bc2 = 1.f, b1_bf = 0.f;
-  uint32_t seed = 0;
-  if constexpr (kAdam) {
-    bc1 = a.bc[2 * m];
-    bc2 = a.bc[2 * m + 1];
-    b1_bf = __bfloat162float(__float2bfloat16_rn(a.b1));
-    if constexpr (kMu == kInt8 || kNu != kF32) seed = (uint32_t)a.seed[0];
-  }
-  // the VJP of four consecutive elements of row r
-  auto vjp4 = [&](int r, int d, float g[4]) {
-    const float rad = radial_s[r], nr = a.nrm[row0 + r];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float djf = __bfloat162float(dj_s[r * ldD + d + e]);
-      g[e] = __fdiv_rn(__fsub_rn(g_s[r * ldDf + d + e], __fmul_rn(djf, rad)), nr);
-    }
-  };
-  // the moments' EMA (`_adam_epilogue`) from their stored values
-  auto mu_ema = [&](const float prev[4], const float g[4], float out[4]) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kMu == kBf16) {
-        const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(b1_bf, prev[e])));
-        out[e] = __fadd_rn(p, __fmul_rn(a.omb1, g[e]));
-      } else {
-        out[e] = __fadd_rn(__fmul_rn(a.b1, prev[e]), __fmul_rn(a.omb1, g[e]));
-      }
-    }
-  };
-  auto nu_ema = [&](const float prev[4], const float g[4], float out[4]) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[e] = __fadd_rn(__fmul_rn(a.b2, prev[e]), __fmul_rn(__fmul_rn(a.omb2, g[e]), g[e]));
-  };
-  // int8 codes of four elements (row n of the member, columns d..d+3)
-  auto quant4 = [&](const float v[4], float scale, uint32_t salt, int n, int d) {
-    const uint32_t ts = tile_seed(seed, m, n, a.seed_tile, salt);
-    const uint32_t off = (uint32_t)((n % a.seed_tile) * D + d);
-    uint32_t w = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w |= quant_sr(v[e], scale, mix32((off + e) ^ ts)) << (8 * e);
-    return w;
-  };
-
-  // pass 1: the VJP and the Adam epilogue, four consecutive elements of one
-  // row per step (16-byte loads and stores); per element the arithmetic
-  // follows `_adam_epilogue` term for term. Everything but the int8 codes
-  // is stored here.
-#pragma unroll 2
-  for (int idx = tid * 4; idx < kTileElems; idx += kThreads * 4) {
-    const int r = idx / D, d = idx % D;
-    const size_t o = row0 * D + idx;
-    float g[4];
-    vjp4(r, d, g);
-    if constexpr (!kAdam) {
-      *reinterpret_cast<float4*>(a.g_enc + o) = make_float4(g[0], g[1], g[2], g[3]);
-      continue;
-    }
-    const float4 dr4 = *reinterpret_cast<const float4*>(a.d_raw + o);
-    float dr[4] = {dr4.x, dr4.y, dr4.z, dr4.w};
-    float mu_prev[4], nu_prev[4], mu_new[4], nu_new[4];
-    load4<kMu>(a.mu, a.mu_scale, o, row0 + r, mu_prev);
-    load4<kNu>(a.nu, a.nu_scale, o, row0 + r, nu_prev);
-    mu_ema(mu_prev, g, mu_new);
-    nu_ema(nu_prev, g, nu_new);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float mhat = __fdiv_rn(mu_new[e], bc1);
-      const float vhat = __fdiv_rn(nu_new[e], bc2);
-      const float upd = __fdiv_rn(__fmul_rn(a.lr, mhat), __fadd_rn(__fsqrt_rn(vhat), a.eps));
-      dr[e] = __fsub_rn(dr[e], upd);
-    }
-    *reinterpret_cast<float4*>(a.d_raw + o) = make_float4(dr[0], dr[1], dr[2], dr[3]);
-    if constexpr (kNu == kF32) {
-      *reinterpret_cast<float4*>(static_cast<float*>(a.nu) + o) =
-          make_float4(nu_new[0], nu_new[1], nu_new[2], nu_new[3]);
-    } else if constexpr (kNu == kBf16) {
-      const int n = n0 + r;
-      const uint32_t ts = tile_seed(seed, m, n, a.seed_tile, 0u);
-      const uint32_t off = (uint32_t)((n % a.seed_tile) * D + d);
-      uint2 raw;
-      raw.x = bf16_sr(nu_new[0], mix32(off ^ ts)) | (bf16_sr(nu_new[1], mix32((off + 1) ^ ts)) << 16);
-      raw.y = bf16_sr(nu_new[2], mix32((off + 2) ^ ts)) | (bf16_sr(nu_new[3], mix32((off + 3) ^ ts)) << 16);
-      *reinterpret_cast<uint2*>(static_cast<bf16*>(a.nu) + o) = raw;
-    } else {
-      warp_amax(nu_new, amax_s + Nt + r, lane);
-    }
-    if constexpr (kMu == kBf16) {
-      uint2 raw;
-      *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(mu_new[0], mu_new[1]);
-      *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(mu_new[2], mu_new[3]);
-      *reinterpret_cast<uint2*>(static_cast<bf16*>(a.mu) + o) = raw;
-    } else if constexpr (kMu == kF32) {
-      *reinterpret_cast<float4*>(static_cast<float*>(a.mu) + o) =
-          make_float4(mu_new[0], mu_new[1], mu_new[2], mu_new[3]);
-    } else {
-      warp_amax(mu_new, amax_s + r, lane);
-    }
-  }
-
-  if constexpr (kAnyInt8) {
-    __syncthreads();  // every row's absmax is in
-    // pass 2: the same f32 moments again (same inputs, same bits: an int8
-    // moment's stored value is not overwritten until here), stored as codes
-#pragma unroll 2
-    for (int idx = tid * 4; idx < kTileElems; idx += kThreads * 4) {
-      const int r = idx / D, d = idx % D;
-      const size_t o = row0 * D + idx;
-      float g[4], prev[4], v[4];
-      vjp4(r, d, g);
-      if constexpr (kMu == kInt8) {
-        load4<kInt8>(a.mu, a.mu_scale, o, row0 + r, prev);
-        mu_ema(prev, g, v);
-        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.mu) + o) =
-            quant4(v, int8_scale(amax_s[r]), kSaltMuInt8, n0 + r, d);
-      }
-      if constexpr (kNu == kInt8) {
-        load4<kInt8>(a.nu, a.nu_scale, o, row0 + r, prev);
-        nu_ema(prev, g, v);
-        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.nu) + o) =
-            quant4(v, int8_scale(amax_s[Nt + r]), kSaltNuInt8, n0 + r, d);
-      }
-    }
-    __syncthreads();  // every read of the old scales is done
-    if (tid < Nt) {
-      if constexpr (kMu == kInt8) a.mu_scale[row0 + tid] = int8_scale(amax_s[tid]);
-      if constexpr (kNu == kInt8) a.nu_scale[row0 + tid] = int8_scale(amax_s[Nt + tid]);
-    }
-  }
+  epilogue<kAdam, kMu, kNu>(a, m, n0, Nt, kTileElems, dj_s, g_s, radial_s, amax_s);
 }
 
 template <bool kAdam, int kMu, int kNu, bool kRecompute, int kCols>
@@ -610,20 +673,28 @@ int launch(const BwdArgs& a, int M, cudaStream_t st) {
   return launch_cols<kAdam, kMu, kNu, kRecompute, 4>(a, M, st);
 }
 
+// K2's routes: the dense mainloop on the stored code (tied_sae_bwd.cu) or
+// rebuilding it (tied_sae_bwd_rc.cu), and the sparse mainloop on the stored
+// code's non-zeros (tied_sae_bwd_sparse.cu, which defines `launch_sparse`).
+constexpr int kStoredRoute = 0, kRebuildRoute = 1, kSparseRoute = 2;
+template <bool kAdam, int kMu, int kNu>
+int launch_sparse(const BwdArgs& a, int M, cudaStream_t st);
+
 // K2's C entry at moment tiers mu_tier, nu_tier (0 f32, 1 bf16, 2 int8 codes
 // with a [M, N] f32 scale in mu_scale / nu_scale; null otherwise), exported
-// by tied_sae_bwd.cu (code = c [M, B, N] bf16) and tied_sae_bwd_rc.cu
-// (kRecompute: code = the bias [M, N] f32 the code is rebuilt with).
+// by tied_sae_bwd.cu and tied_sae_bwd_sparse.cu (code = c [M, B, N] bf16) and
+// tied_sae_bwd_rc.cu (kRebuildRoute: code = the bias [M, N] f32 the code is
+// rebuilt with).
 // Shapes: x [B, D] bf16, dxh [M, B, D] bf16, nrm [M, N] f32, d_raw, mu, nu
 // [M, N, D] (updated in place, with the scales), g_bias [M, N] f32 out,
 // l1_over_b [M] f32, bc [M, 2] f32, seed [1] int32 the step count and
 // seed_tile the rows of the JAX dictionary tile that seed the stochastic
 // stores (read only by a stochastic tier). Needs D in {128, 256, 512, 768,
 // 1024}, N % Nt == 0 (Nt = 32768 / D, or 32 at D 768), B % 32 == 0 (the
-// Python wrapper checks). Launches on `stream`, does not synchronise,
-// returns the CUDA error code (0 on success; cudaErrorInvalidValue for a
-// shape or tier it does not take).
-template <bool kRecompute>
+// sparse route: N % 16 == 0, any B; the Python wrapper checks). Launches on
+// `stream`, does not synchronise, returns the CUDA error code (0 on success;
+// cudaErrorInvalidValue for a shape or tier it does not take).
+template <int kRoute>
 int adam_entry(const void* x, const void* dxh, const void* code, const void* nrm, void* d_raw,
                void* mu, void* mu_scale, int mu_tier, void* nu, void* nu_scale, int nu_tier,
                void* g_bias, const void* l1_over_b, const void* bc, const void* seed,
@@ -651,8 +722,11 @@ int adam_entry(const void* x, const void* dxh, const void* code, const void* nrm
       (stochastic && (!seed || seed_tile <= 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define SC_TIER(MU, NU) \
-  if (mu_tier == MU && nu_tier == NU) return launch<true, MU, NU, kRecompute>(a, M, st);
+#define SC_TIER(MU, NU)                                                          \
+  if (mu_tier == MU && nu_tier == NU) {                                          \
+    if constexpr (kRoute == kSparseRoute) return launch_sparse<true, MU, NU>(a, M, st); \
+    else return launch<true, MU, NU, kRoute == kRebuildRoute>(a, M, st);         \
+  }
   SC_TIER(kF32, kF32) SC_TIER(kF32, kBf16) SC_TIER(kF32, kInt8)
   SC_TIER(kBf16, kF32) SC_TIER(kBf16, kBf16) SC_TIER(kBf16, kInt8)
   SC_TIER(kInt8, kF32) SC_TIER(kInt8, kBf16) SC_TIER(kInt8, kInt8)

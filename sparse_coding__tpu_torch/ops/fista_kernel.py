@@ -54,10 +54,11 @@ def reset_launches() -> None:
 
 def shapes_supported(B: int, N: int, D: int) -> bool:
     """THE shape predicate of K_f on Hopper (its own tiling, not the TPU's
-    VMEM budgets `pallas_fits` / `pallas_hbm_dict_fits`): rows of N and D
-    floats in whole float4s, and the batch tiles within one grid axis. Any
-    batch size (ragged tiles are masked)."""
-    return B >= 1 and N >= 4 and D >= 4 and N % 4 == 0 and D % 4 == 0 and -(-B // TILE) <= MAX_GRID_Y
+    VMEM budgets `pallas_fits` / `pallas_hbm_dict_fits`): the batch tiles
+    within one grid axis. Any N, D and batch size: ragged tiles are masked,
+    and rows of N or D floats that are not whole float4s are loaded a float
+    at a time (the same sums, in the same order)."""
+    return B >= 1 and N >= 1 and D >= 1 and -(-B // TILE) <= MAX_GRID_Y
 
 
 def _momentum(num_iter: int, dev: torch.device) -> torch.Tensor:

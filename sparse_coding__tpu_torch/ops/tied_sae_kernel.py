@@ -19,7 +19,13 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
       same gradient written out in f32, for masked ensembles and optimizers
       the kernel cannot fuse.
 
-K2 and K3 at ``l1 = 0`` are also the TopK step's backward (`topk_kernel`).
+K2 and K3 at ``l1 = 0`` are also the TopK step's backward (`topk_kernel`),
+which asks for their sparse route with ``sparse=True``
+(csrc/tied_sae_bwd_sparse.cu, `LAUNCHES` names ``*_sparse``): the same
+function, computed over the stored code's non-zeros only (gathered dxh and x
+rows on the CUDA cores) before the same epilogue. The caller picks the route
+statically; nothing inspects the code to decide. CPU tensors run the same
+plain versions on either route.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it (same rounding points — how the CPU tests
@@ -69,6 +75,7 @@ fp32 = torch.float32
 # calls on CPU tensors do not count)
 LAUNCHES: Dict[str, int] = {
     "tied_sae_fwd": 0, "tied_sae_fwd_nocode": 0, "tied_sae_bwd_adam": 0, "tied_sae_bwd_grads": 0,
+    "tied_sae_bwd_adam_sparse": 0, "tied_sae_bwd_grads_sparse": 0,
 }
 
 # the stochastic stores' salts (`_adam_epilogue`: XORed into the tile's base
@@ -271,7 +278,7 @@ def _tier(mom) -> int:
 
 
 def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2, eps,
-                      seed=0, seed_tile: int = TIED_SEED_TILE, bias=None):
+                      seed=0, seed_tile: int = TIED_SEED_TILE, bias=None, sparse: bool = False):
     """K2. xb [B, D] bf16, dxh [M, B, D] bf16, c [M, B, N] bf16 (or None: the
     code is rebuilt from x, D̂ and ``bias`` [M, N] f32), nrm [M, N] f32, d_raw
     [M, N, D] f32 raw encoder with its Adam moments mu and nu (each f32,
@@ -279,16 +286,18 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
     l1_over_b [M] f32, bc [M, 2] f32 bias corrections of this step, ``seed``
     the step count (int or int32 tensor) seeding the stochastic stores over
     JAX dictionary tiles of ``seed_tile`` rows → (d_new, mu_new, nu_new,
-    g_bias [M, N]).
+    g_bias [M, N]). ``sparse=True`` takes the sparse route (a stored code
+    only), which touches just the code's non-zeros: the TopK path's.
 
     On CUDA the kernel writes d_new and the moments INTO d_raw, mu and nu
     (q and scale of a `QuantMoment` included; the TPU kernel aliases them the
     same way) and returns those objects."""
+    require(not (sparse and c is None), "tied_sae_bwd_adam: the sparse route needs the stored code c")
     if not xb.is_cuda:
         dj = (d_raw / nrm[..., None]).to(bf16)
         g, g_bias = _grads_plain(xb, dxh, c, nrm, dj, l1_over_b, bias)
         return (*_adam_plain(g, d_raw, mu, nu, bc, lr, b1, b2, eps, seed, seed_tile), g_bias)
-    name = "tied_sae_bwd_adam"
+    name = "tied_sae_bwd_adam_sparse" if sparse else "tied_sae_bwd_adam"
     recompute = c is None
     require(not recompute or bias is not None, f"{name}: c=None needs the bias to rebuild the code")
     code = bias if recompute else c
@@ -326,8 +335,11 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
         return mom.data_ptr(), None
 
     (mu_p, mus_p), (nu_p, nus_p) = ptrs(mu), ptrs(nu)
-    lib = _build.load()["tied_sae_bwd_rc" if recompute else "tied_sae_bwd"]
-    rc = lib.sc_tied_sae_bwd_adam_tiers(
+    if sparse:
+        entry = _build.load()["tied_sae_bwd_sparse"].sc_tied_sae_bwd_adam_sparse
+    else:
+        entry = _build.load()["tied_sae_bwd_rc" if recompute else "tied_sae_bwd"].sc_tied_sae_bwd_adam_tiers
+    rc = entry(
         xb.data_ptr(), dxh.data_ptr(), code.data_ptr(), nrm.data_ptr(), d_raw.data_ptr(),
         mu_p, mus_p, _tier(mu), nu_p, nus_p, _tier(nu), g_bias.data_ptr(), l1_over_b.data_ptr(),
         bc.data_ptr(), seed_t.data_ptr(), int(seed_tile), float(lr), float(b1), float(b2),
@@ -338,12 +350,14 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
     return d_raw, mu, nu, g_bias
 
 
-def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b):
+def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b, sparse: bool = False):
     """K3. As K2 with the normalized rows db [M, N, D] bf16 given and no
-    Adam → (g_enc [M, N, D] f32 w.r.t. the RAW encoder, g_bias [M, N] f32)."""
+    Adam → (g_enc [M, N, D] f32 w.r.t. the RAW encoder, g_bias [M, N] f32).
+    ``sparse=True``: the sparse route, as K2's."""
+    require(c is not None, "tied_sae_bwd_grads: needs the stored code c")
     if not xb.is_cuda:
         return _grads_plain(xb, dxh, c, nrm, db, l1_over_b)
-    name = "tied_sae_bwd_grads"
+    name = "tied_sae_bwd_grads_sparse" if sparse else "tied_sae_bwd_grads"
     dev = check_cuda(name, xb=xb, dxh=dxh, c=c, nrm=nrm, db=db, l1_over_b=l1_over_b)
     M, N, D = db.shape
     B = xb.shape[0]
@@ -358,8 +372,11 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b):
     require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     g_enc = torch.empty((M, N, D), dtype=fp32, device=dev)
     g_bias = torch.empty((M, N), dtype=fp32, device=dev)
-    lib = _build.load()["tied_sae_bwd"]
-    rc = lib.sc_tied_sae_bwd_grads(
+    if sparse:
+        entry = _build.load()["tied_sae_bwd_sparse"].sc_tied_sae_bwd_grads_sparse
+    else:
+        entry = _build.load()["tied_sae_bwd"].sc_tied_sae_bwd_grads
+    rc = entry(
         xb.data_ptr(), dxh.data_ptr(), c.data_ptr(), nrm.data_ptr(), db.data_ptr(),
         g_enc.data_ptr(), g_bias.data_ptr(), l1_over_b.data_ptr(), M, B, N, D, stream(dev),
     )

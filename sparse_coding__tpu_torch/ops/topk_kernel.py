@@ -11,9 +11,11 @@ axis a grid dimension and each member's ``k`` read on the device:
       c = s where (s ≥ t ∧ s > 0), x̂ = c·D̂ in f32, dxh = bf16(2/(B·D)·(x̂ − x)),
       Σerr².
   backward: K3 (`topk_grads_stacked`) or K2 (`topk_adam_step_stacked`) of
-      `tied_sae_kernel` at ``l1 = 0``, their bias gradient dropped — a top-k
-      mask and a relu both reach the backward as ``c > 0``, as the JAX
-      package reuses its tied bwd kernels.
+      `tied_sae_kernel` at ``l1 = 0``, on their sparse route
+      (csrc/tied_sae_bwd_sparse.cu: only the code's ~k of N non-zeros a row
+      are touched), their bias gradient dropped — a top-k mask and a relu
+      both reach the backward as ``c > 0``, as the JAX package reuses its
+      tied bwd kernels.
 
 Selection semantics, as the Pallas kernels': the threshold is the EXACT k-th
 largest bf16 score (ties with it are all kept) and non-positive survivors
@@ -203,7 +205,7 @@ def topk_grads_stacked(d_raw, k, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     Returns (g_dict [M, N, D] f32, l_rec [M] f32 = the MSE loss)."""
     xb, nrm, db, c, dxh, l_rec = _topk_fwd(d_raw, k, batch)
     zeros = torch.zeros(d_raw.shape[0], dtype=fp32, device=d_raw.device)
-    g, _ = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, zeros)
+    g, _ = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, zeros, sparse=True)
     return g, l_rec
 
 
@@ -219,6 +221,6 @@ def topk_adam_step_stacked(d_raw, mu_d, nu_d, batch, k, bc, seed, lr, b1, b2, ep
     zeros = torch.zeros(d_raw.shape[0], dtype=fp32, device=d_raw.device)
     d_new, mu_new, nu_new, _ = tk.tied_sae_bwd_adam(
         xb, dxh, c, nrm, d_raw, mu_d, nu_d, zeros, bc.to(fp32).contiguous(), lr, b1, b2, eps,
-        seed=seed, seed_tile=SEED_TILE,
+        seed=seed, seed_tile=SEED_TILE, sparse=True,
     )
     return d_new, mu_new, nu_new, l_rec

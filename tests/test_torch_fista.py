@@ -160,8 +160,17 @@ def test_shapes_supported_covers_the_fista_path():
     assert fk.shapes_supported(256, 512, 128)  # where JAX picks `_fista_kernel`
     assert fk.shapes_supported(96, 32, 16) and fk.shapes_supported(1, 4, 4)  # these tests' shapes
     assert fk.shapes_supported(100_000, 4096, 768)  # any batch: ragged tiles are masked
-    assert not fk.shapes_supported(96, 30, 16) and not fk.shapes_supported(96, 32, 18)
+    assert fk.shapes_supported(96, 30, 16) and fk.shapes_supported(96, 32, 18)  # rows not whole float4s
     assert not fk.shapes_supported(0, 32, 16) and not fk.shapes_supported(128 * 65535 + 1, 32, 16)
+    assert not fk.shapes_supported(96, 0, 16) and not fk.shapes_supported(96, 32, 0)
+
+
+@pytest.mark.parametrize("B,N,D", [(200, 2050, 130), (7, 1, 1), (96, 2048, 511)])
+def test_shapes_supported_takes_widths_that_are_not_multiples_of_4(B, N, D):
+    """K_f masks the ragged float4 at the row's edge, so the JAX package's
+    widths that its Pallas predicates refuse (and its XLA loop trains) reach
+    the kernel on the card rather than a refusal."""
+    assert fk.shapes_supported(B, N, D)
 
 
 def test_selector_matches_jax_fista_solve():
@@ -176,7 +185,7 @@ def test_selector_matches_jax_fista_solve():
         np.testing.assert_allclose(to_np(a[m]), np.asarray(ra), rtol=0, atol=1e-5)
         np.testing.assert_allclose(to_np(r[m]), np.asarray(rr), rtol=0, atol=1e-5)
     odd_x, odd = _t(x[:, :15].copy()), _t(dicts[:, :, :15].copy())
-    assert not fk.shapes_supported(B, N, 15)
+    assert fk.shapes_supported(B, N, 15)  # on the card K_f would take it; here the plain loop
     a4, r4 = fk.fista_solve(odd_x, odd, _t(L1), None, num_iter=5)
     ref, ref_r = tf.fista(odd_x, odd, _t(L1), torch.zeros(M, B, N), 5)
     assert torch.equal(a4, ref) and torch.equal(r4, ref_r)

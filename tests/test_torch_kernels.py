@@ -143,7 +143,8 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     nrm = _t(np.sqrt(np.sum(d_raw * d_raw, axis=-1)))
     tk.tied_sae_grads_stacked(_t(d_raw) / nrm[..., None], nrm, _t(bias), _t(x), _t(l1))
     assert tk.LAUNCHES == {"tied_sae_fwd": 0, "tied_sae_fwd_nocode": 0, "tied_sae_bwd_adam": 0,
-                           "tied_sae_bwd_grads": 0}
+                           "tied_sae_bwd_grads": 0, "tied_sae_bwd_adam_sparse": 0,
+                           "tied_sae_bwd_grads_sparse": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

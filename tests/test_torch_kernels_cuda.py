@@ -15,11 +15,16 @@ of the update with bf16 mu) and within 2 lr of the plain one. TopK: scores
 as c; the select's threshold and the decode's code bit-equal to the plain
 versions' on the kernel's own scores (the same bf16 bits in, an exact
 selection).
+K2/K3's sparse route (the TopK path's: only the code's non-zeros touched)
+is held to the dense route's tolerances against the same plain versions,
+on TopK codes, a k = 1 member, an all-zero code, a hot feature (non-zero
+on every batch row) and a fully dense code, and gives the same bits on two
+launches of the same inputs.
 K_f (the FISTA solve) against its plain loop on the same η: codes within
 atol 1e-4 (the JAX suite's pin for `_fista_kernel` in interpret mode; each
 product sums in another order, which the iterations carry), support flips
 under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
-iteration count for each member.
+iteration count for each member; at widths that are not multiples of 4 too.
 """
 
 import pytest
@@ -220,6 +225,135 @@ def test_topk_kernels_refuse_what_they_do_not_take(cuda):
         kk.topk_grads_stacked(d_raw, k, xb[:200].float())
 
 
+# -- K2/K3's sparse route (the TopK path's backward) ---------------------------
+
+# M, B, N, D, code: TopK codes (k per member, k = 1 among them; the second at
+# BASELINE config 4), an all-zero code, a hot feature (non-zero on every row,
+# lists split over warps), a fully dense code (every entry non-zero: correct,
+# only slow), then every width at 5% density; B 320 and 576 end in a ragged
+# chunk of the kernel's 1024-row batch walk, B 2048 takes two chunks
+SPARSE_CASES = [
+    ((2, 256, 512, 128), (1, 31)),
+    ((7, 2048, 12288, 768), (1, 11, 31, 61, 91, 121, 151)),
+    ((2, 256, 512, 768), "zero"),
+    ((2, 2048, 256, 768), "hot"),
+    ((2, 576, 256, 128), "dense"),
+] + [((2, 320, 256, D), "5%") for D in (128, 256, 512, 768, 1024)]
+SPARSE_TIERS = [("float32", "float32"), ("bfloat16", "float32"), ("int8", "bfloat16")]
+
+
+def _sparse_inputs(shape, code, dev, seed=20):
+    """(xb, dxh, c, nrm, d_raw, db): a TopK code from K_s + K_d when ``code``
+    holds each member's k, else a bf16 code of the named pattern, beside a
+    random dxh at the scale of K_d's."""
+    M, B, N, D = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_raw = torch.randn((M, N, D), generator=g, device=dev)
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    if isinstance(code, tuple):
+        s, th = kk.topk_scores(xb, db, torch.tensor(code, dtype=torch.int32, device=dev))
+        c, dxh, _ = kk.topk_decode(s, th, db, xb, 2.0 / (B * D))
+        return xb, dxh, c, nrm, d_raw, db
+    vals = torch.rand((M, B, N), generator=g, device=dev) + 0.05
+    if code == "zero":
+        keep = torch.zeros((M, B, N), dtype=torch.bool, device=dev)
+    elif code == "dense":
+        keep = torch.ones((M, B, N), dtype=torch.bool, device=dev)
+    else:
+        keep = torch.rand((M, B, N), generator=g, device=dev) < (0.05 if code == "5%" else 0.01)
+        if code == "hot":
+            keep[:, :, 37] = True  # one feature on every row of every member
+    c = torch.where(keep, vals, torch.zeros_like(vals)).to(torch.bfloat16)
+    dxh = (torch.randn((M, B, D), generator=g, device=dev) * 2.0 / (B * D)).to(torch.bfloat16)
+    return xb, dxh, c, nrm, d_raw, db
+
+
+@pytest.mark.parametrize("shape,code", SPARSE_CASES)
+def test_sparse_bwd_grads_matches_plain(cuda, shape, code):
+    xb, dxh, c, nrm, d_raw, db = _sparse_inputs(shape, code, cuda)
+    l1b = torch.zeros(shape[0], device=cuda)
+    tk.reset_launches()
+    g_k, gb_k = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b, sparse=True)
+    g_p, gb_p = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_bwd_grads_sparse"] == 1 and tk.LAUNCHES["tied_sae_bwd_grads"] == 0
+    if code == "zero":
+        assert not g_k.any() and not gb_k.any()
+        return
+    assert_grads_close(g_k, g_p, "g_enc")
+    assert_grads_close(gb_k, gb_p, "g_bias")
+
+
+@pytest.mark.parametrize("shape,code", SPARSE_CASES)
+@pytest.mark.parametrize("tiers", SPARSE_TIERS)
+def test_sparse_bwd_adam_matches_plain(cuda, shape, code, tiers):
+    """K2's sparse route: for f32 and bf16 mu, `_hold_adam_step` against the
+    plain gradient (the dense route's tolerances); in every tier, its
+    epilogue against `_adam_plain` on the sparse K3's gradient (the same
+    mainloop, so the same g), as the dense route's compressed epilogue."""
+    M, B, N, D = shape
+    xb, dxh, c, nrm, d_raw, db = _sparse_inputs(shape, code, cuda, seed=21)
+    l1b = torch.zeros(M, device=cuda)
+    seed_tile = kk.SEED_TILE
+    if code != "zero" and tiers[0] != "int8":
+        g_p, _ = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+        _hold_adam_step(
+            lambda d, mu, nu, bc: tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d, mu, nu, l1b, bc, *HP, sparse=True),
+            d_raw, g_p, getattr(torch, tiers[0]), seed=22,
+        )
+    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b, sparse=True)
+    mu, nu = _moments(d_raw, *tiers, seed=23)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    tk.reset_launches()
+    d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu),
+                                                 clone_moment(nu), l1b, bc, *HP, seed=5, seed_tile=seed_tile,
+                                                 sparse=True)
+    d_p, mu_p, nu_p = tk._adam_plain(g, d_raw, mu, nu, bc, *HP, seed=5, seed_tile=seed_tile)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_bwd_adam_sparse"] == 1 and tk.LAUNCHES["tied_sae_bwd_adam"] == 0
+    assert torch.equal(gb_k, gb)
+    assert (d_k - d_p).abs().max() <= 1e-6
+    for name, got, want in (("mu", mu_k, mu_p), ("nu", nu_k, nu_p)):
+        eq, worst, rel = stored_agreement(got, want)
+        stochastic = hasattr(want, "q") or (name == "nu" and want.dtype == torch.bfloat16)
+        if stochastic:
+            assert eq >= 0.999 and worst <= 1 and rel <= 1e-6, (name, eq, worst, rel)
+
+
+@pytest.mark.parametrize("shape,code", [SPARSE_CASES[1], SPARSE_CASES[3]])
+def test_sparse_route_gives_the_same_bits_twice(cuda, shape, code):
+    """No float atomics: two launches on the same inputs, bit for bit (K3's
+    gradient, and K2's d_new, int8 mu and bf16 nu)."""
+    M = shape[0]
+    xb, dxh, c, nrm, d_raw, db = _sparse_inputs(shape, code, cuda, seed=24)
+    l1b = torch.full((M,), 1e-4, device=cuda)
+    g1 = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b, sparse=True)
+    g2 = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b, sparse=True)
+    mu, nu = _moments(d_raw, "int8", "bfloat16", seed=25)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    outs = [tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc,
+                                 *HP, seed=3, sparse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+
+
+def test_sparse_route_refuses_what_it_cannot_take(cuda):
+    xb, dxh, c, nrm, d_raw, db = _sparse_inputs((2, 256, 512, 128), (1, 31), cuda)
+    l1b = torch.zeros(2, device=cuda)
+    mu, nu = torch.zeros_like(d_raw), torch.zeros_like(d_raw)
+    bc = torch.tensor([[0.1, 0.001]] * 2, device=cuda)
+    with pytest.raises(ValueError, match="sparse route needs the stored code"):
+        tk.tied_sae_bwd_adam(xb, dxh, None, nrm, d_raw, mu, nu, l1b, bc, *HP, bias=torch.zeros_like(nrm), sparse=True)
+    with pytest.raises(ValueError, match="not supported"):  # a width outside the kernels' tiling
+        tk.tied_sae_bwd_grads(xb[:, :64].contiguous(), dxh[..., :64].contiguous(), c, nrm,
+                              db[..., :64].contiguous(), l1b, sparse=True)
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        tk.tied_sae_bwd_grads(xb, dxh, c.float(), nrm, db, l1b, sparse=True)
+
+
 # -- the capacity setting: K1n, K2's code rebuild and compressed moments ------
 
 # (mu, nu) storage tiers K2 takes beyond the first slices' (mu f32/bf16, nu f32)
@@ -324,8 +458,8 @@ def test_bwd_adam_stochastic_stores_are_unbiased(cuda, tiers):
 
 # K_f: M, B, N, D, iterations — the shape where JAX picks `_fista_kernel`,
 # then a ragged batch with edge tiles in N and D and depths not a multiple
-# of the kernel's 8-deep stages
-FISTA_SHAPES = [(2, 256, 512, 128, 100), (3, 200, 196, 36, 40)]
+# of the kernel's 8-deep stages, then rows that are not whole float4s
+FISTA_SHAPES = [(2, 256, 512, 128, 100), (3, 200, 196, 36, 40), (2, 200, 2050, 130, 50)]
 
 
 def _fista_problem(shape, dev, seed=0):
@@ -390,11 +524,32 @@ def test_fista_selector_takes_the_kernel_and_refuses_what_it_cannot(cuda):
     a, res = fk.fista_solve(x, d, l1, c0, num_iter=20)
     torch.cuda.synchronize()
     assert fk.LAUNCHES["fista_solve"] == 1 and a.is_cuda and res.shape == (2, 256, 128)
+    # a width that is no multiple of 4 goes to K_f too (its float4 edge masked)
     odd_x, odd_d = x[:, :126].contiguous(), d[:, :, :126].contiguous()
+    a, res = fk.fista_solve(odd_x, odd_d, l1, None, num_iter=5)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fista_solve"] == 2 and res.shape == (2, 256, 126)
+    empty_x, empty_d = x[:, :0].contiguous(), d[:, :, :0].contiguous()
     with pytest.raises(ValueError, match="not supported"):  # no plain solve on the card
-        fk.fista_solve(odd_x, odd_d, l1, None, num_iter=5)
+        fk.fista_solve(empty_x, empty_d, l1, None, num_iter=5)
     with pytest.raises(ValueError, match="not supported"):
-        fk.fista_cuda(odd_x, odd_d, tf.default_eta(odd_d), l1, None, 5)
+        fk.fista_cuda(empty_x, empty_d, torch.ones(2, device=cuda), l1, None, 5)
     with pytest.raises(ValueError, match="float32"):
         fk.fista_cuda(x.double(), d, tf.default_eta(d), l1, None, 5)
+    assert fk.LAUNCHES["fista_solve"] == 2
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_fista_kernel_takes_widths_that_are_not_multiples_of_4(cuda, tol):
+    """N 2050, D 130 (rows of no whole float4s), a ragged batch of 200: K_f
+    against its plain loop, the same iteration count for each member."""
+    M, B, N, D, iters = 2, 200, 2050, 130, 50
+    x, d, c0, l1 = _fista_problem((M, B, N, D), cuda, seed=2)
+    eta = tf.default_eta(d)
+    fk.reset_launches()
+    a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters, tol=tol)
+    a_p, it_p = tf.fista_codes(x, d, eta, l1, c0, iters, tol=tol)
+    torch.cuda.synchronize()
     assert fk.LAUNCHES["fista_solve"] == 1
+    assert it_k.tolist() == it_p.tolist(), (it_k, it_p)
+    _hold_fista(a_k, a_p, x, d)
