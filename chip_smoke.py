@@ -34,6 +34,7 @@ falls back to the CPU. Imports nothing of JAX or of `sparse_coding__tpu`.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -103,6 +104,11 @@ FISTA = dict(
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
 # widths that are no multiples of 4 (K_f's float4 edge masked) and a ragged batch
 FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
+# the dense K2/K3's times on the WMMA mainloop that the wgmma mainloop
+# replaced (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W), by row
+# variant; printed beside this run's times as "was_ms"
+WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int8, nu bf16": 2.961,
+                    "gradient out": 1.940}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -164,6 +170,21 @@ def grads_close(torch, a, b, what: str, max_rel: float = 1e-2, min_cos: float = 
     return cos, rel
 
 
+def wgmma_plans(libs):
+    """The dense K2/K3's wgmma plans as the built libraries compute them
+    (`sc_tied_sae_bwd_plan`): stages and dynamic shared memory bytes by
+    width, code (stored or rebuilt) and int8 moment tiers."""
+    out = {}
+    for lib, code in (("tied_sae_bwd", "stored"), ("tied_sae_bwd_rc", "rebuilt")):
+        for d in (128, 256, 512):
+            for i8 in (0, 1, 2):
+                got = (ctypes.c_int * 2)()
+                if libs[lib].sc_tied_sae_bwd_plan(d, i8, ctypes.addressof(got)) != 0:
+                    raise RuntimeError(f"sc_tied_sae_bwd_plan refused D {d}")
+                out[f"d{d}_{code}_int8x{i8}"] = {"stages": got[0], "smem_bytes": got[1]}
+    return out
+
+
 def parse_ptxas(log: str):
     """Registers, spills and static shared memory per compiled function."""
     out, cur = [], None
@@ -171,13 +192,18 @@ def parse_ptxas(log: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(sparse_bwd_kernel|encode_kernel|decode_kernel|bwd_kernel|scores_kernel|"
-                              r"select_kernel|residual_kernel|update_kernel)", name)
+            short = re.search(r"(sparse_bwd_kernel|wg_bwd_kernel|encode_kernel|decode_kernel|bwd_kernel|"
+                              r"scores_kernel|select_kernel|residual_kernel|update_kernel)", name)
             tmpl = re.search(r"ILb(\d)ELb(\d)ELi(\d)E", name)
             sparse = re.search(r"sparse_bwd_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E", name)
+            dense = re.search(r"(wg_bwd_kernel|bwd_kernel)ILb(\d)ELi(\d)ELi(\d)ELb(\d)ELi(\d+)E", name)
             label = short.group(1) if short else name
             if sparse:
                 label += "<adam={},mu_tier={},nu_tier={},d={}>".format(*sparse.groups()[:3], 128 * int(sparse.group(4)))
+            elif dense:
+                last = "d" if dense.group(1) == "wg_bwd_kernel" else "cols"
+                label += "<adam={},mu_tier={},nu_tier={},rebuild={},{}={}>".format(*dense.groups()[1:5], last,
+                                                                                  dense.group(6))
             elif tmpl:
                 label += f"<adam={tmpl.group(1)},mu_bf16={tmpl.group(2)},cols={tmpl.group(3)}>"
             cur = {"function": label}
@@ -306,6 +332,9 @@ def phase_kernels(torch, tk):
         + M * N * D * 4 + M * N * 4 + M * 4,
     )
     rows.append(k3)
+    for row in (k2, k3):
+        emit("kernel", name=row["name"], variant=row["variant"], ms=row["ms"], was_ms=WMMA_MAINLOOP_MS[row["variant"]],
+             bound_ms=row["bound_ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"])
     return rows
 
 
@@ -501,6 +530,8 @@ def phase_capacity_kernels(torch, tk):
         + 2 * (M * N * D * (4 + 1 + 2) + M * N * 4) + M * 4 + 2 * M * 4 + 4,
     )
     rows.append(k2)
+    emit("kernel", name=k2["name"], variant=k2["variant"], ms=k2["ms"], was_ms=WMMA_MAINLOOP_MS[k2["variant"]],
+         bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"])
     # where K2's extra time goes: each change alone, timed in this phase
     c_k, _, _, _ = tk.tied_sae_fwd(xb, db, bias, scale)
     parts = {}
@@ -1328,8 +1359,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: parse_ptxas(v) for k, v in _build.ptxas_log().items()})
+    ptxas = {k: parse_ptxas(v) for k, v in _build.ptxas_log().items()}
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    # the wgmma mainloop's kernels: registers, spills (ptxas) and, from the
+    # built libraries' own plan, the stages and dynamic shared memory of
+    # each width and number of int8 moment tiers
+    emit("wgmma_kernels", plans=wgmma_plans(_build.load()),
+         ptxas=[dict(f, library=lib) for lib in ("tied_sae_bwd", "tied_sae_bwd_rc")
+                for f in ptxas[lib] if f["function"].startswith("wg_bwd_kernel")])
 
     def drive(cfg):
         """A path's main run and its export; the launch counts of the run."""

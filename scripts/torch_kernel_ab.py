@@ -2,25 +2,30 @@
 turns (A, B, B, A): their CUDA kernels in one process, then their whole
 resident training steps.
 
-    python scripts/torch_kernel_ab.py --a PARENT_DIR [--b .] [--reps 20] [--step-reps 30]
+    python scripts/torch_kernel_ab.py --a PARENT_DIR [--b .] [--reps 20] [--step-reps 30] [--kernels-only]
 
 Kernels: each checkout's `sparse_coding__tpu_torch/ops/csrc/{tied_sae_fwd,
-tied_sae_bwd,topk_fwd}.cu` is compiled with this checkout's nvcc flags (one
-nvcc per source, all at once) into `build/kernel_ab/<a|b>/`, loaded with
-ctypes and called through its C entries (`sc_tied_sae_fwd`,
+tied_sae_bwd,tied_sae_bwd_rc,tied_sae_bwd_sparse,topk_fwd}.cu` is compiled with this checkout's
+nvcc flags (one nvcc per source, all at once) into `build/kernel_ab/<a|b>/`,
+loaded with ctypes and called through its C entries (`sc_tied_sae_fwd`,
 `sc_tied_sae_bwd_grads`, `sc_topk_scores`, `sc_topk_decode`, and K2 through
 `sc_tied_sae_bwd_adam_tiers`, or `sc_tied_sae_bwd_adam` in a checkout from
 before the moment tiers) on the same inputs at the main paths' shapes: the
-tied SAE of BASELINE config 2 (M 8, B 2048, N 4096, D 512; K2 with bf16 mu)
-and the TopK sweep of config 4 (M 7, B 2048, N 12288, D 768, k 1..151; K2
-with f32 mu).
+tied SAE of BASELINE config 2 (M 8, B 2048, N 4096, D 512; K2 with bf16 mu
+on the stored code, and with int8 mu and bf16 nu rebuilding the code, the
+tied-capacity path's) and the TopK sweep of config 4 (M 7, B 2048, N 12288,
+D 768, k 1..151; K2 with f32 mu on the dense route, and on the sparse route
+that the TopK paths take: K2 with f32 moments, K2 with int8 mu and bf16 nu,
+K3, through `sc_tied_sae_bwd_adam_sparse` and `sc_tied_sae_bwd_grads_sparse`
+where the checkout has them).
 
 Steps: one child process per turn imports a checkout's package, builds the
-chip_smoke.py ensemble of a path (`TIED`, `TOPK`: the default moment tiers,
-the stored code), takes 3 steps on one batch resident on the card, then
+chip_smoke.py ensemble of a path (`TIED`, `TIED_CAPACITY`, `TOPK`), takes 3
+steps on one batch resident on the card, then
 times ``--step-reps`` more: CUDA-event ms per step, the host's time to
 enqueue one, the peak device memory over the timed steps above what was
-allocated before the ensemble, and a digest of the params after them.
+allocated before the ensemble, and a digest of the params after them
+(skipped with ``--kernels-only``).
 
 Prints one JSON object: per kernel and per path the numbers of each turn and
 whether the two checkouts' outputs are bit-equal, with the card's name and
@@ -39,7 +44,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("tied_sae_fwd", "tied_sae_bwd", "topk_fwd")
+SOURCES = ("tied_sae_fwd", "tied_sae_bwd", "tied_sae_bwd_rc", "tied_sae_bwd_sparse", "topk_fwd")
 # K2's C entry before the moment tiers: (x, dxh, c, nrm, d_raw, mu, mu_bf16,
 # nu, g_bias, l1_over_b, bc, lr, b1, b2, eps, omb1, omb2, M, B, N, D, stream)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -52,13 +57,15 @@ def build(tree: Path, out: Path, flags, nvcc: str):
     procs = {}
     for stem in SOURCES:
         src = tree / "sparse_coding__tpu_torch" / "ops" / "csrc" / f"{stem}.cu"
+        if not src.is_file():  # a checkout from before the source
+            continue
         procs[stem] = subprocess.Popen([nvcc, *flags, "-o", str(out / f"lib{stem}.so"), str(src)],
                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for stem, p in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {tree}/{stem}.cu:\n{log}")
-    return {stem: ctypes.CDLL(str(out / f"lib{stem}.so")) for stem in SOURCES}
+    return {stem: ctypes.CDLL(str(out / f"lib{stem}.so")) for stem in procs}
 
 
 def bind(libs, signatures):
@@ -75,6 +82,7 @@ def main(argv=None) -> int:
     ap.add_argument("--b", default=str(REPO), help="checkout B (default: this one)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--step-reps", type=int, default=30)
+    ap.add_argument("--kernels-only", action="store_true", help="time the kernels, not the steps")
     ap.add_argument("--child-tree", help=argparse.SUPPRESS)
     ap.add_argument("--child-path", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -160,8 +168,28 @@ def main(argv=None) -> int:
             xb.data_ptr(), dxh.data_ptr(), c.data_ptr(), nrm.data_ptr(), db.data_ptr(), *(o.data_ptr() for o in outs),
             l1b.data_ptr(), M, B, N, D, st), outs)[1]
 
+    # the tied-capacity path's K2: the code rebuilt from the bias, int8 mu
+    # (codes and per-row scales), bf16 nu
+    mu8 = torch.randint(-127, 128, (M, N, D), generator=g, device=dev).to(torch.int8)
+    mu8_scale = torch.rand((M, N), generator=g, device=dev) * 1e-5 + 1e-6
+    nu16 = (torch.rand((M, N, D), generator=g, device=dev) * 1e-6).to(bf16)
+
+    def k2_rebuild(lib):
+        held = (d_raw.clone(), mu8.clone(), mu8_scale.clone(), nu16.clone(), torch.empty(M, N, device=dev))
+        hp = (1e-3, 0.9, 0.999, 1e-8, 1 - 0.9, 1 - 0.999)
+
+        def run():
+            d, q, qs, n_, gb = held
+            lib["tied_sae_bwd_rc"].sc_tied_sae_bwd_adam_tiers(
+                xb.data_ptr(), dxh.data_ptr(), bias.data_ptr(), nrm.data_ptr(), d.data_ptr(), q.data_ptr(),
+                qs.data_ptr(), 2, n_.data_ptr(), None, 1, gb.data_ptr(), l1b.data_ptr(), bc.data_ptr(),
+                seed.data_ptr(), 256, *hp, M, B, N, D, st)
+            return held
+        return run
+
     cases["tied_sae_fwd (config 2)"] = k1
     cases["tied_sae_bwd_adam (config 2, mu bf16, nu f32)"] = k2
+    cases["tied_sae_bwd_adam (config 2, code rebuilt, mu int8, nu bf16)"] = k2_rebuild
     cases["tied_sae_bwd_grads (config 2)"] = k3
 
     # TopK, config 4
@@ -203,6 +231,38 @@ def main(argv=None) -> int:
     cases["tied_sae_bwd_adam (config 4, mu f32, nu f32)"] = lambda lib: k2(
         lib, t_raw, t_mu, t_nu, t_xb, t_dxh, t_c, t_nrm, t_l1b, t_bc, (TM, TB, TN, TD))
 
+    # the sparse route of the TopK paths: K2 with f32 moments, K2 at the
+    # capacity tiers (int8 mu, bf16 nu, stores seeded over 128-row tiles),
+    # K3
+    t_mu8 = torch.randint(-127, 128, (TM, TN, TD), generator=g, device=dev).to(torch.int8)
+    t_mu8_scale = torch.rand((TM, TN), generator=g, device=dev) * 1e-5 + 1e-6
+    t_nu16 = t_nu.to(bf16)
+
+    def k2_sparse(lib, int8):
+        held = ((t_raw.clone(), t_mu8.clone(), t_mu8_scale.clone(), t_nu16.clone()) if int8
+                else (t_raw.clone(), t_mu.clone(), None, t_nu.clone())) + (torch.empty(TM, TN, device=dev),)
+        hp = (1e-3, 0.9, 0.999, 1e-8, 1 - 0.9, 1 - 0.999)
+
+        def run():
+            d, m_, ms, n_, gb = held
+            lib["tied_sae_bwd_sparse"].sc_tied_sae_bwd_adam_sparse(
+                t_xb.data_ptr(), t_dxh.data_ptr(), t_c.data_ptr(), t_nrm.data_ptr(), d.data_ptr(), m_.data_ptr(),
+                ms.data_ptr() if int8 else None, 2 if int8 else 0, n_.data_ptr(), None, 1 if int8 else 0,
+                gb.data_ptr(), t_l1b.data_ptr(), t_bc.data_ptr(), seed.data_ptr(), 128, *hp, TM, TB, TN, TD, st)
+            return tuple(t for t in held if t is not None)
+        return run
+
+    def k3_sparse(lib):
+        outs = (torch.empty_like(t_raw), torch.empty_like(t_nrm))
+        return lambda: (lib["tied_sae_bwd_sparse"].sc_tied_sae_bwd_grads_sparse(
+            t_xb.data_ptr(), t_dxh.data_ptr(), t_c.data_ptr(), t_nrm.data_ptr(), t_db.data_ptr(),
+            *(o.data_ptr() for o in outs), t_l1b.data_ptr(), TM, TB, TN, TD, st), outs)[1]
+
+    if all("tied_sae_bwd_sparse" in v for v in libs.values()):
+        cases["tied_sae_bwd_adam_sparse (config 4, mu f32, nu f32)"] = lambda lib: k2_sparse(lib, False)
+        cases["tied_sae_bwd_adam_sparse (config 4, mu int8, nu bf16)"] = lambda lib: k2_sparse(lib, True)
+        cases["tied_sae_bwd_grads_sparse (config 4)"] = k3_sparse
+
     def timed(fn, reps):
         for _ in range(2):
             fn()
@@ -228,7 +288,7 @@ def main(argv=None) -> int:
     del libs, cases
     torch.cuda.empty_cache()
     steps = {}
-    for path in ("tied", "topk"):
+    for path in () if args.kernels_only else ("tied", "tied_capacity", "topk"):
         turns = []
         for k in ("a", "b", "b", "a"):
             out = subprocess.run([sys.executable, __file__, "--child-tree", str(trees[k]), "--child-path", path,
@@ -259,7 +319,7 @@ def child(tree: Path, path: str, reps: int) -> int:
     if not Path(pkg.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {pkg.__file__}, not the package of {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = {"tied": cs.TIED, "topk": cs.TOPK}[path]
+    cfg = {"tied": cs.TIED, "tied_capacity": cs.TIED_CAPACITY, "topk": cs.TOPK}[path]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     ens = cs.build_path(pkg, cfg, 1)

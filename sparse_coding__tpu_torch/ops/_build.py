@@ -45,6 +45,7 @@ SIGNATURES = {
     "sc_tied_sae_bwd_adam_sparse": [_P] * 7 + [_I] + [_P] * 2 + [_I] + [_P] * 4 + [_I] + [_F] * 6
     + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_grads_sparse": [_P] * 8 + [_I] * 4 + [_P],
+    "sc_tied_sae_bwd_plan": [_I, _I, _P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
     "sc_fista_solve": [_P] * 10 + [_I] * 5 + [_P],

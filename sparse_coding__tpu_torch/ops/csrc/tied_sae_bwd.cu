@@ -38,4 +38,7 @@ int sc_tied_sae_bwd_grads(const void* x, const void* dxh, const void* c, const v
   return launch<false, kF32, kF32, false>(a, M, reinterpret_cast<cudaStream_t>(stream));
 }
 
+// The wgmma mainloop's plan on the stored code (and K3's): `plan_entry`.
+int sc_tied_sae_bwd_plan(int D, int int8_moments, int* out) { return plan_entry<false>(D, int8_moments, out); }
+
 }  // extern "C"

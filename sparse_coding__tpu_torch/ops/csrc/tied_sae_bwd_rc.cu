@@ -19,4 +19,7 @@ int sc_tied_sae_bwd_adam_tiers(const void* x, const void* dxh, const void* code,
                           B, N, D, stream);
 }
 
+// The wgmma mainloop's plan rebuilding the code: `plan_entry`.
+int sc_tied_sae_bwd_plan(int D, int int8_moments, int* out) { return plan_entry<true>(D, int8_moments, out); }
+
 }  // extern "C"

@@ -84,11 +84,12 @@ LAUNCHES: Dict[str, int] = {
 SALT_MU_INT8, SALT_NU_INT8, SALT_NU_BF16 = 0x5117A55A, 0x00A11CE5, 0
 TIED_SEED_TILE = 256
 
-# the shapes the kernels are written for: D, and the elements Nt·D of K2/K3's
-# [Nt, D] gradient tile (16 warps × 2 row bands × 4 column blocks of 16×16
-# fragments; 3 column blocks at D 768, where 32768 / D is no multiple of 32)
-BWD_TILE_ELEMS = {128: 32768, 256: 32768, 512: 32768, 768: 24576, 1024: 32768}
-WIDTHS = tuple(BWD_TILE_ELEMS)
+# the widths the kernels are written for. The dense K2/K3 blocks take 128
+# dictionary rows at D 128 and 256 and at D 512 on the stored code (a cluster
+# of two blocks), 64 rows at D 512 rebuilding the code and 32 at D 768 and
+# 1024 (csrc/tied_sae_bwd.cuh, which holds its tiles and shared-memory plans
+# and asserts that each divides K1's 128-column tile)
+WIDTHS = (128, 256, 512, 768, 1024)
 
 
 def reset_launches() -> None:
@@ -96,18 +97,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def bwd_dict_tile(d_act: int) -> int:
-    """Dictionary rows per block of K2/K3 at width ``d_act`` (32 at D 768)."""
-    return BWD_TILE_ELEMS[d_act] // d_act
-
-
 def shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
     """THE shape predicate of the Hopper kernels (their own tiling, not the
     TPU's VMEM budgets): D one of `WIDTHS`, N divisible by K1's 128-column
-    tile and the bwd dictionary tile, and (when given) B by K1's 64-row tile."""
-    if d_act not in WIDTHS:
-        return False
-    if n_dict % FWD_COLS or n_dict % bwd_dict_tile(d_act):
+    tile (so by every bwd block's rows), and (when given) B by K1's 64-row
+    tile (so by the bwd batch stages too)."""
+    if d_act not in WIDTHS or n_dict % FWD_COLS:
         return False
     return batch is None or batch % FWD_ROWS == 0
 

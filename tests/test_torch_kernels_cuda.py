@@ -456,6 +456,67 @@ def test_bwd_adam_stochastic_stores_are_unbiased(cuda, tiers):
         assert abs(mean) <= 4 * sd / e.numel() ** 0.5, (name, mean, sd)
 
 
+# -- the dense route's wgmma mainloop (D 128, 256, 512) --------------------------
+
+# M, B, N, D: each width the wgmma mainloop takes at its smallest dictionary
+# (one block, or one cluster of two at D 512) and a batch that wraps its
+# ring of stages unevenly, then B = 4096 at config 2's widths (the regime
+# of the TPU's batch-tiled `_bwd_adam_accum_kernel`)
+WG_CASES = [(2, 64, 128, 128), (3, 192, 256, 256), (2, 320, 128, 512), (8, 4096, 4096, 512)]
+# K2 variants held to the same bits on two launches: (code rebuilt, mu, nu)
+K2_VARIANTS = [(False, "float32", "float32"), (False, "bfloat16", "float32"), (False, "int8", "bfloat16"),
+               (True, "bfloat16", "float32"), (True, "int8", "bfloat16"), (True, "float32", "int8")]
+
+
+@pytest.mark.parametrize("shape", WG_CASES)
+def test_dense_wgmma_route_matches_plain(cuda, shape):
+    """K3 and K2 (bf16 mu) against the plain versions with the dense route's
+    tolerances, and K2 rebuilding the code bit-identical to K2 on K1's."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=30)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    tk.reset_launches()
+    g_k, gb_k = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    g_p, gb_p = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_bwd_grads"] == 1 and tk.LAUNCHES["tied_sae_bwd_grads_sparse"] == 0
+    assert_grads_close(g_k, g_p, "g_enc")
+    assert_grads_close(gb_k, gb_p, "g_bias")
+    dj = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    gr, _ = tk._grads_plain(xb, dxh, c, nrm, dj, l1b)
+    _hold_adam_step(lambda d, mu, nu, bc: tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d, mu, nu, l1b, bc, *HP),
+                    d_raw, gr, torch.bfloat16, seed=31)
+    mu, nu = _moments(d_raw, "int8", "bfloat16", seed=32)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    outs = [tk.tied_sae_bwd_adam(xb, dxh, code, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc,
+                                 *HP, seed=33, bias=b) for code, b in ((c, None), (None, bias))]
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("shape", [WG_CASES[2], SHAPES[4]])
+@pytest.mark.parametrize("variant", ["grads"] + K2_VARIANTS)
+def test_dense_route_gives_the_same_bits_twice(cuda, shape, variant):
+    """No float atomics, a fixed order for every sum (the dc depth halves
+    included): two launches on the same inputs give the same bits, for K3's
+    gradient and for K2's d_new, moments and g_bias, on the stored and the
+    rebuilt code."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=34)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    if variant == "grads":
+        outs = [tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b) for _ in range(2)]
+    else:
+        rebuild, mu_t, nu_t = variant
+        mu, nu = _moments(d_raw, mu_t, nu_t, seed=35)
+        bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+        outs = [tk.tied_sae_bwd_adam(xb, dxh, None if rebuild else c, nrm, d_raw.clone(), clone_moment(mu),
+                                     clone_moment(nu), l1b, bc, *HP, seed=36, bias=bias if rebuild else None)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+
+
 # K_f: M, B, N, D, iterations — the shape where JAX picks `_fista_kernel`,
 # then a ragged batch with edge tiles in N and D and depths not a multiple
 # of the kernel's 8-deep stages, then rows that are not whole float4s
