@@ -109,6 +109,10 @@ FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
 # variant; printed beside this run's times as "was_ms"
 WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int8, nu bf16": 2.961,
                     "gradient out": 1.940}
+# K1n's and K_d's times in their first designs (WMMA tiles: K_d a dense
+# masked product, K1n three phases between block barriers; chip_smoke.py on
+# an NVIDIA H100 80GB HBM3, 700 W); printed beside this run's as "was_ms"
+FIRST_DESIGN_MS = {"tied_sae_fwd_nocode": 1.118, "topk_decode": 2.322}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -444,8 +448,11 @@ def phase_capacity_kernels(torch, tk):
     c_k, dxh_k, lrec_k, ll1_k = tk.tied_sae_fwd(xb, db, bias, scale)
     dxh_n, lrec_n, ll1_n = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
     dxh_p, lrec_p = tk._decode_plain(xb, db, c_k, scale)
+    again = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
     torch.cuda.synchronize()
     check(torch.equal(dxh_n.view(torch.int16), dxh_k.view(torch.int16)), "K1n dxh differs from K1's")
+    check(all(same_bits(a, b) for a, b in zip((dxh_n, lrec_n, ll1_n), again)), "K1n: two launches differ")
+    del again
     lrec_rel = float(((lrec_n - lrec_k).abs() / lrec_k.abs()).max())
     ll1_rel = float(((ll1_n - ll1_k).abs() / ll1_k.abs()).max())
     check(lrec_rel < 1e-5 and ll1_rel < 1e-5, f"K1n loss sums vs K1: {lrec_rel}, {ll1_rel}")
@@ -467,8 +474,9 @@ def phase_capacity_kernels(torch, tk):
         2 * M * B * N * D + 2 * nnz * D,
         B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * D * 2 + 2 * M * (B // 64) * 4,
     )
-    summary = dict(k1n_dxh_bit_equal_k1=True, k1n_lrec_rel_vs_k1=lrec_rel, k1n_ll1_rel_vs_k1=ll1_rel,
-                   k1n_dxh_frac_differ_plain=frac_d)
+    summary = dict(k1n_dxh_bit_equal_k1=True, k1n_same_bits_twice=True, k1n_lrec_rel_vs_k1=lrec_rel,
+                   k1n_ll1_rel_vs_k1=ll1_rel, k1n_dxh_frac_differ_plain=frac_d, k1n_ms=k1n["ms"],
+                   k1n_was_ms=FIRST_DESIGN_MS["tied_sae_fwd_nocode"])
     rows.append(k1n)
     del c_k  # from here on the code exists only inside the kernels that need it
 
@@ -883,8 +891,12 @@ def phase_topk_kernels(torch, tk, kk):
     # 1 ulp, the loss sum within 1e-3
     c_k, dxh_k, lrec_k = kk.topk_decode(s_k, th_k, db, xb, scale)
     c_p, dxh_p, lrec_p = kk._topk_decode_plain(s_k, th_k, db, xb, scale)
+    again = kk.topk_decode(s_k, th_k, db, xb, scale)
     torch.cuda.synchronize()
     check(torch.equal(c_k.view(torch.int16), c_p.view(torch.int16)), "K_d c differs from the plain version")
+    check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip((c_k, dxh_k, lrec_k), again)),
+          "K_d: two launches differ")
+    del again
     frac_d, ulp_d = bf16_close(torch, dxh_k, dxh_p)
     check(ulp_d and frac_d < 1e-2, f"K_d dxh: {frac_d} differ, within 1 ulp: {ulp_d}")
     rel = float(((lrec_k - lrec_p).abs() / lrec_p.abs()).max())
@@ -895,7 +907,7 @@ def phase_topk_kernels(torch, tk, kk):
     l0 = (c_k != 0).sum(-1).float().mean(-1)
     row = dict(
         name="topk_decode", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:144",
-        max_abs_err=kd_err, shape=shape, variant="masked decode",
+        max_abs_err=kd_err, shape=shape, variant="sparse decode (kept rows gathered)",
         ms=time_ms(torch, lambda: kk.topk_decode(s_k, th_k, db, xb, scale), 10),
         plain_ms=time_ms(torch, lambda: kk._topk_decode_plain(s_k, th_k, db, xb, scale), 3),
         library_ms=time_ms(torch, lambda: torch.bmm(c_k, db), 10),
@@ -904,8 +916,9 @@ def phase_topk_kernels(torch, tk, kk):
         2 * nnz * TD,
         2 * TM * TB * TN * 2 + TM * TB * 4 + TM * TN * TD * 2 + TB * TD * 2 + TM * TB * TD * 2 + TM * 4,
     )
-    emit("kernel", name="topk_decode", c_bit_equal=True, dxh_frac_differ=frac_d, max_abs_err_dxh=kd_err,
-         lrec_max_rel=rel, c_nonzero_frac=nnz / c_k.numel(), mean_l0=l0.tolist(), k=TOPK_KS)
+    emit("kernel", name="topk_decode", c_bit_equal=True, same_bits_twice=True, dxh_frac_differ=frac_d,
+         max_abs_err_dxh=kd_err, lrec_max_rel=rel, c_nonzero_frac=nnz / c_k.numel(), mean_l0=l0.tolist(), k=TOPK_KS,
+         ms=row["ms"], was_ms=FIRST_DESIGN_MS["topk_decode"])
     rows.append(row)
     del s_k, th_k
 

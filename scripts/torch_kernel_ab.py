@@ -8,10 +8,11 @@ Kernels: each checkout's `sparse_coding__tpu_torch/ops/csrc/{tied_sae_fwd,
 tied_sae_bwd,tied_sae_bwd_rc,tied_sae_bwd_sparse,topk_fwd}.cu` is compiled with this checkout's
 nvcc flags (one nvcc per source, all at once) into `build/kernel_ab/<a|b>/`,
 loaded with ctypes and called through its C entries (`sc_tied_sae_fwd`,
-`sc_tied_sae_bwd_grads`, `sc_topk_scores`, `sc_topk_decode`, and K2 through
+`sc_tied_sae_fwd_nocode`, `sc_tied_sae_bwd_grads`, `sc_topk_scores`,
+`sc_topk_decode`, and K2 through
 `sc_tied_sae_bwd_adam_tiers`, or `sc_tied_sae_bwd_adam` in a checkout from
 before the moment tiers) on the same inputs at the main paths' shapes: the
-tied SAE of BASELINE config 2 (M 8, B 2048, N 4096, D 512; K2 with bf16 mu
+tied SAE of BASELINE config 2 (M 8, B 2048, N 4096, D 512; K1 and K1n; K2 with bf16 mu
 on the stored code, and with int8 mu and bf16 nu rebuilding the code, the
 tied-capacity path's) and the TopK sweep of config 4 (M 7, B 2048, N 12288,
 D 768, k 1..151; K2 with f32 mu on the dense route, and on the sparse route
@@ -20,8 +21,8 @@ K3, through `sc_tied_sae_bwd_adam_sparse` and `sc_tied_sae_bwd_grads_sparse`
 where the checkout has them).
 
 Steps: one child process per turn imports a checkout's package, builds the
-chip_smoke.py ensemble of a path (`TIED`, `TIED_CAPACITY`, `TOPK`), takes 3
-steps on one batch resident on the card, then
+chip_smoke.py ensemble of a path (`TIED`, `TIED_CAPACITY`, `TOPK`,
+`TOPK_CAPACITY`), takes 3 steps on one batch resident on the card, then
 times ``--step-reps`` more: CUDA-event ms per step, the host's time to
 enqueue one, the peak device memory over the timed steps above what was
 allocated before the ensemble, and a digest of the params after them
@@ -141,6 +142,12 @@ def main(argv=None) -> int:
             xb.data_ptr(), db.data_ptr(), bias.data_ptr(), *(o.data_ptr() for o in outs), M, B, N, D, scale, st),
             outs)[1]
 
+    def k1n(lib):
+        outs = (torch.empty_like(dxh), torch.empty((2, M, B // 64), device=dev))
+        return lambda: (lib["tied_sae_fwd"].sc_tied_sae_fwd_nocode(
+            xb.data_ptr(), db.data_ptr(), bias.data_ptr(), outs[0].data_ptr(), outs[1][0].data_ptr(),
+            outs[1][1].data_ptr(), M, B, N, D, scale, st), outs)[1]
+
     seed = torch.ones(1, dtype=torch.int32, device=dev)
 
     def k2(lib, d_raw=d_raw, mu=mu, nu=nu, xb=xb, dxh=dxh, c=c, nrm=nrm, l1b=l1b, bc=bc, shape=(M, B, N, D)):
@@ -188,6 +195,7 @@ def main(argv=None) -> int:
         return run
 
     cases["tied_sae_fwd (config 2)"] = k1
+    cases["tied_sae_fwd_nocode (config 2)"] = k1n
     cases["tied_sae_bwd_adam (config 2, mu bf16, nu f32)"] = k2
     cases["tied_sae_bwd_adam (config 2, code rebuilt, mu int8, nu bf16)"] = k2_rebuild
     cases["tied_sae_bwd_grads (config 2)"] = k3
@@ -203,7 +211,7 @@ def main(argv=None) -> int:
     t_th = torch.empty((TM, TB), device=dev)
     t_c = torch.empty((TM, TB, TN), dtype=bf16, device=dev)
     t_dxh = torch.empty((TM, TB, TD), dtype=bf16, device=dev)
-    t_lr = torch.empty((TM, TB // 64, TD // 128), device=dev)
+    t_lr = torch.empty((TM, TB), device=dev)  # K_d's loss partials: per row, or per 64 x 128 tile before
     t_scale = 2.0 / (TB * TD)
     fwd = libs["b"]["topk_fwd"]
     fwd.sc_topk_scores(t_xb.data_ptr(), t_db.data_ptr(), ks.data_ptr(), t_s.data_ptr(), t_th.data_ptr(),
@@ -288,7 +296,7 @@ def main(argv=None) -> int:
     del libs, cases
     torch.cuda.empty_cache()
     steps = {}
-    for path in () if args.kernels_only else ("tied", "tied_capacity", "topk"):
+    for path in () if args.kernels_only else ("tied", "tied_capacity", "topk", "topk_capacity"):
         turns = []
         for k in ("a", "b", "b", "a"):
             out = subprocess.run([sys.executable, __file__, "--child-tree", str(trees[k]), "--child-path", path,
@@ -319,7 +327,7 @@ def child(tree: Path, path: str, reps: int) -> int:
     if not Path(pkg.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {pkg.__file__}, not the package of {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = {"tied": cs.TIED, "tied_capacity": cs.TIED_CAPACITY, "topk": cs.TOPK}[path]
+    cfg = {"tied": cs.TIED, "tied_capacity": cs.TIED_CAPACITY, "topk": cs.TOPK, "topk_capacity": cs.TOPK_CAPACITY}[path]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     ens = cs.build_path(pkg, cfg, 1)

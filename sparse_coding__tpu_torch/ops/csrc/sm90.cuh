@@ -3,8 +3,9 @@
 // memory (stores and st.async into another block of the cluster),
 // thread-block-cluster barriers, named barriers, warpgroup register
 // reallocation, `wgmma` shared-memory descriptors and the few
-// `wgmma.mma_async` shapes the kernels use, plus the warp-level `ldmatrix` /
-// `mma.sync` pair. Everything here has internal linkage.
+// `wgmma.mma_async` shapes the kernels use, the warp-level `ldmatrix` /
+// `mma.sync` pair, and the host's tensor-map encoding. Everything here has
+// internal linkage.
 //
 // Shared-memory tiles read by `wgmma` are in the 128-byte swizzle that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B: a tile is cut into panels of 64
@@ -236,6 +237,22 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
 }
 
 template <int kTB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&af)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "l"(db), "r"(1), "n"(kTB));
+}
+
+template <int kTB>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&af)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -299,7 +316,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da, uint64
 }
 template <int kN, int kTB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&af)[4], uint64_t db) {
-  if constexpr (kN == 128) wgmma_rs_n128<kTB>(d, af, db);
+  if constexpr (kN == 64) wgmma_rs_n64<kTB>(d, af, db);
+  else if constexpr (kN == 128) wgmma_rs_n128<kTB>(d, af, db);
   else wgmma_rs_n256<kTB>(d, af, db);
 }
 
@@ -320,6 +338,41 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// -- tensor maps (host) --------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major [rows, cols] bf16 tensor read in 128-byte-swizzled boxes of
+// [box_rows, 64]
+inline bool encode_bf16_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -1167,39 +1167,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major [rows, cols] bf16 tensor read in 128-byte-swizzled boxes of
-// [box_rows, 64]
-bool encode_bf16_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool kAdam, int kMu, int kNu, bool kRecompute, int kD>
 int launch_wg(const BwdArgs& a, int M, cudaStream_t st) {
   using S = WgShape<kD, kRecompute>;
@@ -1211,8 +1178,9 @@ int launch_wg(const BwdArgs& a, int M, cudaStream_t st) {
   const int B = a.B, N = a.N;
   if (B % kWgTb || N % S::kNt) return (int)cudaErrorInvalidValue;
   WgMaps maps{};
-  if (!encode_bf16_2d(&maps.x, a.x, B, kD, kWgTb) || !encode_bf16_2d(&maps.dxh, a.dxh, (uint64_t)M * B, kD, kWgTb) ||
-      (!kRecompute && !encode_bf16_2d(&maps.c, a.code, (uint64_t)M * B, N, kWgTb)))
+  if (!sm90::encode_bf16_2d(&maps.x, a.x, B, kD, kWgTb) ||
+      !sm90::encode_bf16_2d(&maps.dxh, a.dxh, (uint64_t)M * B, kD, kWgTb) ||
+      (!kRecompute && !sm90::encode_bf16_2d(&maps.c, a.code, (uint64_t)M * B, N, kWgTb)))
     return (int)cudaErrorInvalidValue;
   auto kern = wg_bwd_kernel<kAdam, kMu, kNu, kRecompute, kD>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);

@@ -21,24 +21,31 @@
 //
 // K1n `tied_sae_fwd_nocode` replaces `_fwd_kernel_nocode` (the forward of the
 // code-recompute step, SC_RECOMPUTE_CODE=1): the same outputs but c, which
-// never leaves the chip. One block of 16 warps owns kRows batch rows (64 at
-// D <= 512, else 32) and keeps their whole x^ [kRows, D] in f32 WMMA
-// accumulators (2 row bands x kCols column blocks a warp), with its x tile
-// resident in shared memory; it walks the member's dictionary in tiles of
-// kRows rows (double-buffered by cp.async): encode the [kRows, kRows] code
-// tile into shared memory (bias, relu, sum(c), bf16), then x^ += c . Dj.
-// The whole dictionary streams through every block (from L2: a member's
-// 4 MB at config 2), and the encode of a tile runs on (kRows/16)^2 warps (all
-// 16 at D <= 512, 4 above) while the rest wait — one encode, no
-// recomputation, and c's 2 x 134 MB round trip of K1 saved.
-// Bit-equal to K1: the encode uses encode_kernel's fragments and k order from
-// k = 0 with the bias added after the product, and each x^ fragment is one
-// accumulator carried across the dictionary tiles in N order, as
-// decode_kernel's; so c, x^ and dxh are K1's bits. The loss sums group their
-// per-block partials differently (a block per kRows rows instead of per
+// never leaves the chip — c's 2 x 134 MB round trip of K1 saved. Its bound
+// is K1's: 137 GFLOP at config 2, compute-bound. At D 128, 256 and 512
+// (`nocode_pp_kernel`, below) a block of 64 batch rows keeps its x tile in
+// shared memory and its x^ [64, D] in the f32 `wgmma` accumulators of two
+// warpgroups, while TMA streams the member's dictionary (from L2: a
+// member's 4 MB at config 2) through a ring of 64-row stages against
+// mbarriers; each warpgroup's half of the code tile leaves the encode's
+// accumulators as the decode's register A operand (bf16 packing only),
+// trading halves warp by warp with the other warpgroup, so no barrier of
+// the whole block runs in the loop. D 768 and 1024 keep the first design
+// (`nocode_kernel`): one block of 16 warps owns kRows = 32 rows and keeps
+// x^ in WMMA accumulators, walking the dictionary in kRows-row tiles
+// double-buffered by cp.async: encode the code tile into shared memory,
+// then x^ += c . Dj, with block barriers between the phases.
+// Bit-equal to K1: the encode runs, per output element, one f32 chain of
+// k16 steps over the depth from k = 0 with the bias added after the product
+// (K1's `wmma` 16 x 16 x 16 is two m16n8k16 products; a `wgmma` k16 step
+// gives the same bits), and each x^ element is one accumulator carried
+// across the dictionary in k16 steps in N order, as decode_kernel's; so c,
+// x^ and dxh are K1's bits. The loss sums group their
+// per-block partials differently (a block per 64 or 32 rows instead of per
 // 64 x 128 tile), so l_rec and l_l1 may differ from K1's in the last bits.
 
 #include "wmma_tile.cuh"
+#include "sm90.cuh"
 
 using namespace nvcuda;
 
@@ -186,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     lrec_part[((size_t)m * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = tot;
 }
 
-// -- K1n ----------------------------------------------------------------------
+// -- K1n at D 768 and 1024 --------------------------------------------------------
 
 constexpr int kNcThreads = 512;  // 16 warps
 constexpr int kNcWarps = kNcThreads / 32;
@@ -324,6 +331,226 @@ __global__ void __launch_bounds__(kNcThreads, 1) nocode_kernel(
   }
 }
 
+// -- K1n at D 128, 256, 512: a pipelined encode -> decode ----------------------
+
+// A block owns kPpRows = 64 batch rows and keeps their x tile resident in
+// shared memory; the member's dictionary streams through a ring of 64-row
+// stages by TMA (128-byte-swizzled, each landing on a `full` mbarrier; the
+// last warp done with a stage refills it, counted in shared memory). Two
+// warpgroups each hold x^ for all 64 rows and half the columns in f32
+// `wgmma` accumulators (128 registers a thread at D 512; a ninth, producer
+// warp would cap every warp at 168 registers, since a quarter of the SM's
+// register file serves three warps). Per stage a warpgroup encodes its
+// [64 x 32] half of the code tile (m64n32k16, x and Dj from shared memory,
+// one f32 chain over the depth from k = 0), adds the bias, applies relu and
+// packs bf16: in registers, the A operand of the decode for its 32 code
+// columns. Each warp trades its two k16 fragments with the warp of the same
+// rows in the other warpgroup (a 64-thread named barrier, double-buffered
+// slot), then the warpgroup adds c . Dj into its x^ in the tile's four k16
+// steps, in N order (m64nNk16, A from registers, Dj N-major from shared
+// memory). A chain of `wgmma` k16 steps gives the bits of a chain of
+// `mma.sync` m16n8k16 steps on the same operands (scripts/fwd_probe.py, and
+// the cuda tests hold K1n's dxh to K1's bit for bit at every width), so c,
+// x^ and dxh are K1's. No barrier of the whole block runs inside the loop.
+constexpr int kPpRows = 64;
+constexpr int kPpNt = 64;
+constexpr int kPpWarps = 8;
+constexpr int kPpThreads = kPpWarps * 32;
+
+template <int kD>
+struct PpShape {
+  static constexpr int kStages = kD == 512 ? 2 : 4;
+  static constexpr uint32_t kPanel = kPpRows * 128;  // bytes of a 64-column panel
+  static constexpr uint32_t kX = kPpRows * kD * 2;
+  static constexpr uint32_t kStage = kPpNt * kD * 2;
+  static constexpr uint32_t kXchg = 2 * 2 * 2 * 128 * 16;  // [slot][warpgroup][k16 step][thread] uint4
+  static constexpr int kCols = kD / 2;  // x^ columns of a warpgroup
+  static constexpr size_t kSmem = 1024 + kX + kStages * kStage + kXchg + (kStages + 1) * 8 + kStages * 4 + 2 * kPpWarps * 4;
+  static_assert(kPpRows == kPpNt, "x and the dictionary stages share one swizzled tile height");
+  static_assert(kSmem <= (size_t)SC_MAX_SMEM, "K1n's x tile and stages fit a block");
+};
+
+struct PpMaps {
+  CUtensorMap x, dhat;
+};
+
+// grid (B/kPpRows, M): dxh and the loss partials of kPpRows batch rows.
+template <int kD>
+__global__ void __launch_bounds__(kPpThreads, 1) nocode_pp_kernel(
+    const __grid_constant__ PpMaps maps, const float* __restrict__ bias, bf16* __restrict__ dxh,
+    float* __restrict__ lrec_part, float* __restrict__ l1_part, float scale, int B, int N) {
+  using S = PpShape<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* x_s = smem;                                     // [kD/64][kPpRows][128 B]
+  unsigned char* stage0 = x_s + S::kX;                           // stage s: [kD/64][kPpNt][128 B]
+  uint4* xchg = reinterpret_cast<uint4*>(stage0 + S::kStages * S::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + S::kXchg / 16);  // [stages] the stage has landed
+  uint64_t* xbar = full + S::kStages;                                 // the x tile has landed
+  int* done = reinterpret_cast<int*>(xbar + 1);                       // [stages] warps done with the stage, ever
+  float* sums = reinterpret_cast<float*>(done + S::kStages);          // [2][kPpWarps]
+  const int m = blockIdx.y, b0 = blockIdx.x * kPpRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = N / kPpNt;
+
+  // dictionary tile t into stage t % kStages
+  auto load_tile = [&](int t) {
+    const int s = t % S::kStages;
+    sm90::mbar_expect_tx(&full[s], S::kStage);
+    for (int p = 0; p < kD / 64; ++p)
+      sm90::tma_load(stage0 + s * S::kStage + p * S::kPanel, &maps.dhat, &full[s], p * 64, m * N + t * kPpNt);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    sm90::mbar_init(xbar, 1);
+    sm90::fence_mbar_init();
+    sm90::mbar_expect_tx(xbar, S::kX);
+    for (int p = 0; p < kD / 64; ++p) sm90::tma_load(x_s + p * S::kPanel, &maps.x, xbar, p * 64, b0);
+    for (int t = 0; t < S::kStages && t < n_tiles; ++t) load_tile(t);
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7, wt = tid & 127;             // warpgroup, its thread
+  const int g = 16 * (wt >> 5) + (lane >> 2), t4 = lane & 3;  // accumulator row, column pair
+  const uint32_t xs = sm90::smem_u32(x_s);
+  const float* bm = bias + (size_t)m * N + 32 * wg + 2 * t4;
+
+  float acc[S::kCols / 2];  // x^ rows g, g + 8; columns wg*kCols + 8 j + 2 t4 (+1)
+#pragma unroll
+  for (int i = 0; i < S::kCols / 2; ++i) acc[i] = 0.f;
+  float l1 = 0.f;
+
+  sm90::mbar_wait(xbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S::kStages, slot = t & 1;
+    const uint32_t ds = sm90::smem_u32(stage0 + s * S::kStage);
+    float bv[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bm + t * kPpNt + 8 * j);
+      bv[2 * j] = b2.x, bv[2 * j + 1] = b2.y;
+    }
+    sm90::mbar_wait(&full[s], (t / S::kStages) & 1);
+
+    // encode: code columns 32 wg .. + 31 of the tile, one chain from k = 0
+    float e[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) e[i] = 0.f;
+    sm90::fence_regs(e);
+    __syncwarp();
+    sm90::wg_fence();
+#pragma unroll
+    for (int k = 0; k < kD; k += 16)
+      sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
+                               sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(e);
+
+    // bias, relu (NaN kept), sum(c) from the f32 code, bf16: this
+    // warpgroup's two k16 A fragments (rows g, g + 8)
+    uint32_t af[4][4];  // the tile's four k16 steps; 2 wg, 2 wg + 1 are this warpgroup's
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float v[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          v[4 * h + e4] = relu_keep_nan(__fadd_rn(e[4 * (2 * q + h) + e4], bv[2 * (2 * q + h) + (e4 & 1)]));
+          l1 = __fadd_rn(l1, v[4 * h + e4]);
+        }
+      uint32_t* a = af[2 * wg + q];
+      a[0] = sm90::pack_bf16(v[0], v[1]);
+      a[1] = sm90::pack_bf16(v[2], v[3]);
+      a[2] = sm90::pack_bf16(v[4], v[5]);
+      a[3] = sm90::pack_bf16(v[6], v[7]);
+      xchg[((slot * 2 + wg) * 2 + q) * 128 + wt] = make_uint4(a[0], a[1], a[2], a[3]);
+    }
+    sm90::bar_sync(1 + (wt >> 5), 64);  // this warp and the warp of the same rows in the other warpgroup
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 o = xchg[((slot * 2 + (wg ^ 1)) * 2 + q) * 128 + wt];
+      uint32_t* a = af[2 * (wg ^ 1) + q];
+      a[0] = o.x, a[1] = o.y, a[2] = o.z, a[3] = o.w;
+    }
+
+    // decode: x^ += c . Dj, the tile's k16 steps in N order
+    sm90::fence_regs(acc);
+    sm90::wg_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      sm90::wgmma_rs<S::kCols, 1>(acc, af[q], sm90::desc(ds + (wg * S::kCols / 64) * S::kPanel + q * 2048, S::kPanel, 1024));
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(acc);
+
+    // the last warp done with stage s refills it with tile t + kStages (every
+    // warp's products that read it have completed)
+    __syncwarp();
+    if (lane == 0 && atomicAdd(&done[s], 1) % kPpWarps == kPpWarps - 1 && t + S::kStages < n_tiles) {
+      __threadfence_block();
+      load_tile(t + S::kStages);
+    }
+  }
+
+  // dxh and sum(err^2) as decode_kernel's epilogue, x from the resident tile
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < S::kCols / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h, col = wg * S::kCols + 8 * j + 2 * t4;
+      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x_s + sm90::swz(r, col, kPpRows));
+      const float e0 = __fsub_rn(acc[4 * j + 2 * h], __low2float(xv));
+      const float e1 = __fsub_rn(acc[4 * j + 2 * h + 1], __high2float(xv));
+      sq = __fadd_rn(sq, __fmul_rn(e0, e0));
+      sq = __fadd_rn(sq, __fmul_rn(e1, e1));
+      *reinterpret_cast<__nv_bfloat162*>(dxh + ((size_t)m * B + b0 + r) * kD + col) =
+          __floats2bfloat162_rn(__fmul_rn(scale, e0), __fmul_rn(scale, e1));
+    }
+  // deterministic sums: a fixed shuffle tree a warp, then the warps in order
+  for (int o = 16; o > 0; o >>= 1) {
+    sq += __shfl_down_sync(0xffffffffu, sq, o);
+    l1 += __shfl_down_sync(0xffffffffu, l1, o);
+  }
+  if (lane == 0) {
+    sums[warp] = sq;
+    sums[kPpWarps + warp] = l1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kPpWarps; ++w) {
+      a += sums[w];
+      b += sums[kPpWarps + w];
+    }
+    lrec_part[(size_t)m * gridDim.x + blockIdx.x] = a;
+    l1_part[(size_t)m * gridDim.x + blockIdx.x] = b;
+  }
+}
+
+template <int kD>
+int launch_nocode_pp(const void* x, const void* dhat, const void* bias, void* dxh, void* lrec_part,
+                     void* l1_part, int M, int B, int N, float scale, cudaStream_t st) {
+  using S = PpShape<kD>;
+  if (B % kPpRows || N % kPpNt) return (int)cudaErrorInvalidValue;
+  PpMaps maps{};
+  if (!sm90::encode_bf16_2d(&maps.x, x, B, kD, kPpRows) ||
+      !sm90::encode_bf16_2d(&maps.dhat, dhat, (uint64_t)M * N, kD, kPpNt))
+    return (int)cudaErrorInvalidValue;
+  auto kern = nocode_pp_kernel<kD>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(B / kPpRows, M), kPpThreads, S::kSmem, st>>>(
+      maps, static_cast<const float*>(bias), static_cast<bf16*>(dxh), static_cast<float*>(lrec_part),
+      static_cast<float*>(l1_part), scale, B, N);
+  return (int)cudaGetLastError();
+}
+
 template <int kRows, int kCols>
 int launch_nocode(const void* x, const void* dhat, const void* bias, void* dxh, void* lrec_part,
                   void* l1_part, int M, int B, int N, int D, float scale, cudaStream_t st) {
@@ -382,9 +609,9 @@ int sc_tied_sae_fwd_nocode(const void* x, const void* dhat, const void* bias, vo
                            void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
-    case 128: return launch_nocode<64, 1>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
-    case 256: return launch_nocode<64, 2>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
-    case 512: return launch_nocode<64, 4>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
+    case 128: return launch_nocode_pp<128>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 256: return launch_nocode_pp<256>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 512: return launch_nocode_pp<512>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 768: return launch_nocode<32, 3>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
     case 1024: return launch_nocode<32, 4>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
     default: return (int)cudaErrorInvalidValue;

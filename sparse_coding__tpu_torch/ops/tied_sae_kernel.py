@@ -8,7 +8,9 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
       c = relu(x·D̂ᵀ + b) (bf16), dxh = bf16(2/(B·D)·(x̂ − x)), Σerr², Σc.
   K1n `tied_sae_fwd_nocode` (csrc/tied_sae_fwd.cu) replaces
       `_fwd_kernel_nocode`: K1 with each code tile kept on chip (never
-      stored), for the code-recompute step (``SC_RECOMPUTE_CODE=1``).
+      stored), for the code-recompute step (``SC_RECOMPUTE_CODE=1``); at
+      D ≤ 512 a pipelined encode → decode whose code passes from the
+      encode's accumulators to the decode's operand in registers.
   K2 `tied_sae_bwd_adam`  (csrc/tied_sae_bwd.cu, _rc.cu) replaces `_bwd_adam_kernel`
       + `_adam_epilogue` and covers `_bwd_adam_accum_kernel`: code cotangent
       → encoder gradient → normalisation VJP → Adam, the gradient kept on chip.
@@ -159,8 +161,16 @@ def tied_sae_fwd(xb, db, bias, scale: float):
 
 def nocode_tile(d_act: int) -> Tuple[int, int]:
     """K1n's (batch rows, dictionary rows) per block: a block keeps its rows'
-    whole x̂ [rows, D] in f32 registers while it walks the dictionary."""
+    whole x̂ [rows, D] in f32 registers while it walks the dictionary (at
+    D ≤ 512 in 64-row TMA stages, csrc/tied_sae_fwd.cu `nocode_pp_kernel`)."""
     return (64, 64) if d_act <= 512 else (32, 32)
+
+
+def nocode_shapes_supported(n_dict: int, d_act: int, batch: int) -> bool:
+    """K1n's shape predicate: the tied kernels' (`shapes_supported`) and its
+    own block tiles (`nocode_tile`)."""
+    rows, nt = nocode_tile(d_act)
+    return shapes_supported(n_dict, d_act, batch) and batch % rows == 0 and n_dict % nt == 0
 
 
 def _fwd_nocode_plain(xb, db, bias, scale):
@@ -184,11 +194,9 @@ def tied_sae_fwd_nocode(xb, db, bias, scale: float):
     check_dtype(name, db, "db", bf16)
     check_dtype(name, bias, "bias", fp32)
     require(xb.shape == (B, D) and bias.shape == (M, N), f"{name}: shape mismatch")
-    rows, nt = nocode_tile(D)
-    require(shapes_supported(N, D, B) and B % rows == 0 and N % nt == 0,
-            f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    require(nocode_shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
-    parts = torch.empty((2, M, B // rows), dtype=fp32, device=dev)
+    parts = torch.empty((2, M, B // nocode_tile(D)[0]), dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_fwd"]
     rc = lib.sc_tied_sae_fwd_nocode(
         xb.data_ptr(), db.data_ptr(), bias.data_ptr(), dxh.data_ptr(), parts[0].data_ptr(),

@@ -9,7 +9,8 @@ axis a grid dimension and each member's ``k`` read on the device:
       score (a radix select on the ordered 16-bit keys; two launches).
   K_d `topk_decode` (csrc/topk_fwd.cu) replaces `_topk_decode_kernel`:
       c = s where (s ≥ t ∧ s > 0), x̂ = c·D̂ in f32, dxh = bf16(2/(B·D)·(x̂ − x)),
-      Σerr².
+      Σerr² — a sparse decode: a warp a row lists the row's kept columns and
+      gathers only those rows of D̂, adding them in ascending column order.
   backward: K3 (`topk_grads_stacked`) or K2 (`topk_adam_step_stacked`) of
       `tied_sae_kernel` at ``l1 = 0``, on their sparse route
       (csrc/tied_sae_bwd_sparse.cu: only the code's ~k of N non-zeros a row
@@ -68,10 +69,11 @@ def reset_launches() -> None:
 
 
 def fwd_shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
-    """K_s and K_d's own tiling — the forward output tiles (csrc/wmma_tile.cuh):
-    B % 64, N % 128, D % 128 — and one row of N 16-bit keys beside the select
-    kernel's histogram in a block's shared memory (the limit the CUDA runtime
-    enforces at launch; only this predicate checks it beforehand)."""
+    """K_s's own tiling — the forward output tiles (csrc/wmma_tile.cuh): B % 64,
+    N % 128, D % 128 — and one row of N 16-bit keys beside the select kernel's
+    histogram in a block's shared memory (the limit the CUDA runtime enforces
+    at launch; only this predicate checks it beforehand). K_d takes every
+    shape K_s takes: a warp a row, x̂ in register passes of 1024 columns."""
     if n_dict % FWD_COLS or d_act % FWD_COLS or 2 * n_dict + SELECT_STATIC_SMEM > MAX_SMEM:
         return False
     return batch is None or batch % FWD_ROWS == 0
@@ -169,15 +171,15 @@ def topk_decode(s, thresh, db, xb, scale: float):
     require(fwd_shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     c = torch.empty((M, B, N), dtype=bf16, device=dev)
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
-    lrec_part = torch.empty((M, B // FWD_ROWS, D // FWD_COLS), dtype=fp32, device=dev)
+    lrec_part = torch.empty((M, B), dtype=fp32, device=dev)
     rc = _build.load()["topk_fwd"].sc_topk_decode(
         xb.data_ptr(), db.data_ptr(), s.data_ptr(), thresh.data_ptr(), c.data_ptr(),
         dxh.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
-    # per-block partials summed here: no float atomics, same bits every run
-    return c, dxh, lrec_part.sum(dim=(1, 2))
+    # per-row partials summed here: no float atomics, same bits every run
+    return c, dxh, lrec_part.sum(dim=1)
 
 
 # -- the JAX package's entry points -----------------------------------------------

@@ -1,0 +1,91 @@
+"""The shapes the forward kernels K_d (sparse decode) and K1n (pipelined
+encode → decode) take, as the Python side states them, on the CPU.
+
+Each must take every (N, D, B) it took in its first design: K_d the
+forward output tiles of `csrc/wmma_tile.cuh` (B % 64, N % 128, D % 128)
+with one row of N 16-bit keys for K_s's select in a block's shared memory;
+K1n the tied kernels' widths with 64-row blocks and dictionary tiles at
+D ≤ 512 and 32-row ones at 768 and 1024. CPU tensors run the plain versions
+and never reach the kernel build.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+from sparse_coding__tpu_torch.ops import topk_kernel as kk
+from sparse_coding__tpu_torch.ops._wrap import MAX_SMEM
+
+BATCHES = (64, 128, 320, 2048, 4096)
+
+
+def _old_kd_supported(n: int, d: int, b: int) -> bool:
+    return n % 128 == 0 and d % 128 == 0 and 2 * n + 2048 <= MAX_SMEM and b % 64 == 0
+
+
+def _old_k1n_supported(n: int, d: int, b: int) -> bool:
+    rows = 64 if d <= 512 else 32
+    return d in (128, 256, 512, 768, 1024) and n % 128 == 0 and n % rows == 0 and b % 64 == 0 and b % rows == 0
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 768, 1024, 1152, 1280, 2048])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96, 448])
+def test_topk_decode_takes_every_shape_it_took_before(d, k):
+    """N at k multiples of 128 up to the select's shared-memory row, every
+    multiple-of-128 width (past one 1024-column register pass too), B at
+    several multiples of 64: all still taken."""
+    n = 128 * k
+    for b in BATCHES:
+        assert _old_kd_supported(n, d, b)
+        assert kk.fwd_shapes_supported(n, d, b), (n, d, b)
+
+
+@pytest.mark.parametrize("d", sorted(tk.WIDTHS))
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96])
+def test_fwd_nocode_takes_every_shape_it_took_before(d, k):
+    n = 128 * k
+    for b in BATCHES:
+        assert _old_k1n_supported(n, d, b)
+        assert tk.nocode_shapes_supported(n, d, b), (n, d, b)
+
+
+@pytest.mark.parametrize("d", sorted(tk.WIDTHS))
+def test_fwd_nocode_refuses_ragged_shapes(d):
+    assert tk.nocode_shapes_supported(4096, d, 2048)
+    assert not tk.nocode_shapes_supported(4096 + 64, d, 2048)
+    assert not tk.nocode_shapes_supported(4096, d, 2048 + 32)
+    assert not tk.nocode_shapes_supported(4096, d + 64, 2048)
+
+
+def test_topk_decode_refuses_ragged_shapes():
+    assert not kk.fwd_shapes_supported(12288 + 64, 768, 2048)
+    assert not kk.fwd_shapes_supported(12288, 768 + 64, 2048)
+    assert not kk.fwd_shapes_supported(12288, 768, 2048 + 32)
+    assert not kk.fwd_shapes_supported(128 * 1024, 768, 2048)  # the select's row no longer fits
+
+
+def test_cpu_tensors_of_k_d_and_k1n_never_reach_the_kernel_build(monkeypatch):
+    """K_d's and K1n's wrappers given CPU tensors run their plain versions
+    and count no launch."""
+    from sparse_coding__tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("kernel build reached with CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    tk.reset_launches()
+    kk.reset_launches()
+    rng = np.random.default_rng(0)
+    M, B, N, D = 2, 64, 256, 128
+    d = torch.tensor(rng.standard_normal((M, N, D)), dtype=torch.float32)
+    db = (d / d.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    xb = torch.tensor(rng.standard_normal((B, D)), dtype=torch.float32).to(torch.bfloat16)
+    bias = torch.tensor(rng.standard_normal((M, N)) * 0.01, dtype=torch.float32)
+    dxh, lrec, ll1 = tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D))
+    assert dxh.shape == (M, B, D) and lrec.shape == (M,) and ll1.shape == (M,)
+    s, thresh = kk.topk_scores(xb, db, torch.tensor([3, 17], dtype=torch.int32))
+    c, dxh, lrec = kk.topk_decode(s, thresh, db, xb, 2.0 / (B * D))
+    assert c.shape == (M, B, N) and int((c != 0).sum(-1).min()) >= 3
+    assert tk.LAUNCHES["tied_sae_fwd_nocode"] == 0
+    assert kk.LAUNCHES == {"topk_scores": 0, "topk_decode": 0}

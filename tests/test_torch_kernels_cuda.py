@@ -14,7 +14,11 @@ within 2 ulp of the update recomputed from its own new moments (plus 2^-8
 of the update with bf16 mu) and within 2 lr of the plain one. TopK: scores
 as c; the select's threshold and the decode's code bit-equal to the plain
 versions' on the kernel's own scores (the same bf16 bits in, an exact
-selection).
+selection); the sparse decode on rows of every kind (k = N, all ties, no
+positive score, one kept entry) and at widths past one register pass, and
+the same bits on two launches. K1n: dxh bit-equal to K1's at every width
+and batch it takes, the same bits on two launches, and its `wgmma` chains'
+bits equal to `mma.sync` chains' on the same operands.
 K2/K3's sparse route (the TopK path's: only the code's non-zeros touched)
 is held to the dense route's tolerances against the same plain versions,
 on TopK codes, a k = 1 member, an all-zero code, a hot feature (non-zero
@@ -215,6 +219,65 @@ def test_topk_entries_match_their_plain_composition(cuda, shape, ks):
                     d_raw, g_p, torch.float32, seed=2)
 
 
+# K_d's rows of every kind: D, then k per member (k = N among them, a k = 1
+# member); on top of K_s's thresholds, row 0 of member 0 is all ties at its
+# threshold, row 1 has no positive score, row 2 keeps one entry. D 128 holds
+# half a 256-column unit a lane; 1152 and 1280 take two register passes
+# (the second ragged at 1152)
+DECODE_EDGE_WIDTHS = [128, 768, 1152, 1280]
+
+
+def _edge_scores(D, dev):
+    M, B, N = 3, 64, 2048
+    d_raw, xb, nrm, db, k = _topk_inputs((M, B, N, D), (1, N, 31), dev, seed=40)
+    s, thresh = kk.topk_scores(xb, db, k)
+    s, thresh = s.clone(), thresh.clone()
+    s[0, 0] = 0.25
+    thresh[0, 0] = 0.25
+    s[0, 1] = -s[0, 1].abs()
+    s[2, 2] = -s[2, 2].abs()
+    s[2, 2, 700] = 0.5
+    thresh[2, 2] = 0.5
+    return s, thresh, db, xb
+
+
+@pytest.mark.parametrize("D", DECODE_EDGE_WIDTHS)
+def test_topk_decode_takes_rows_of_every_kind(cuda, D):
+    """K_d against the plain decode on the same scores and thresholds: c bit
+    for bit, dxh within 1 ulp on < 1% of elements, l_rec within 1e-3; k = N
+    walks a list far longer than the kernel's list buffer in pieces."""
+    s, thresh, db, xb = _edge_scores(D, cuda)
+    M, B, N = s.shape
+    c, dxh, lrec = kk.topk_decode(s, thresh, db, xb, 2.0 / (B * D))
+    c_p, dxh_p, lrec_p = kk._topk_decode_plain(s, thresh, db, xb, 2.0 / (B * D))
+    torch.cuda.synchronize()
+    assert torch.equal(c.view(torch.int16), c_p.view(torch.int16))
+    kept = (c != 0).sum(-1)
+    assert int(kept[0, 0]) == N and int(kept[0, 1]) == 0 and int(kept[2, 2]) == 1
+    # k = N: every positive score kept, ~1024 a row (two pieces of the list)
+    assert torch.equal(kept[1], (s[1].float() > 0).sum(-1))
+    frac, ok = bf16_close(dxh, dxh_p)
+    assert ok and frac < 1e-2, (frac, ok)
+    torch.testing.assert_close(lrec, lrec_p, rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("case", TOPK_SHAPES + ["edge"])
+def test_topk_decode_gives_the_same_bits_twice(cuda, case):
+    """K_d's sums run in a fixed order (ascending kept column, then a fixed
+    shuffle tree a row): two launches on the same inputs give the same c,
+    dxh and l_rec bits."""
+    if case == "edge":
+        s, thresh, db, xb = _edge_scores(1280, cuda)
+    else:
+        shape, ks = case
+        d_raw, xb, nrm, db, k = _topk_inputs(shape, ks, cuda, seed=41)
+        s, thresh = kk.topk_scores(xb, db, k)
+    scale = 2.0 / (xb.shape[0] * xb.shape[1])
+    outs = [kk.topk_decode(s, thresh, db, xb, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+
+
 def test_topk_kernels_refuse_what_they_do_not_take(cuda):
     d_raw, xb, nrm, db, k = _topk_inputs(TOPK_SHAPES[0][0], TOPK_SHAPES[0][1], cuda)
     with pytest.raises(ValueError, match="not supported"):
@@ -365,7 +428,12 @@ def _moments(d_raw, mu_t, nu_t, seed):
     return adam_moments(d_raw, mu_t, nu_t, torch.Generator(device=d_raw.device).manual_seed(seed))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# K1n's shapes: every width, the smallest batch and dictionary it takes,
+# then B = 4096 at config 2's widths
+NOCODE_SHAPES = SHAPES + [(2, 64, 128, 256), (3, 64, 128, 512), (8, 4096, 4096, 512)]
+
+
+@pytest.mark.parametrize("shape", NOCODE_SHAPES)
 def test_fwd_nocode_kernel_is_k1_bit_for_bit(cuda, shape):
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, _ = _inputs(shape, cuda, seed=4)
@@ -378,6 +446,39 @@ def test_fwd_nocode_kernel_is_k1_bit_for_bit(cuda, shape):
     # the loss partials group per block differently: last bits only
     torch.testing.assert_close(lrec_n, lrec, rtol=1e-5, atol=0)
     torch.testing.assert_close(ll1_n, ll1, rtol=1e-5, atol=0)
+
+
+def test_wgmma_chain_gives_the_mma_sync_chain_bits(cuda):
+    """K1n multiplies by `wgmma`, K1 (through `wmma`) and K2's rebuild by
+    `mma.sync` m16n8k16 chains. On the same bf16 operands a chain of `wgmma`
+    k16 steps from k = 0 gives the same f32 bits as the `mma.sync` chain, at
+    every depth K1n's encode takes (its widths) and in both forms K1n uses: A
+    and B from shared memory, K-major (the encode), and A from registers, B
+    N-major (the decode). The kernels are `scripts/fwd_probe.py`'s."""
+    import importlib.util
+    from pathlib import Path
+
+    from sparse_coding__tpu_torch.ops import _build
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "fwd_probe.py"
+    spec = importlib.util.spec_from_file_location("fwd_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    lib = probe.build(_build.NVCC_FLAGS, _build._nvcc(), variants=False)["wg_bits"]
+    rows = probe.wgmma_bits(torch, lib, depths=(128, 256, 512))
+    assert len(rows) == 6 and all(r["rc"] == 0 for r in rows)
+    assert all(r["share_of_bits_differing"] == 0.0 for r in rows), rows
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2], SHAPES[4]])
+def test_fwd_nocode_gives_the_same_bits_twice(cuda, shape):
+    """K1n's per-block loss sums add their warps in a fixed order: two
+    launches on the same inputs give the same dxh, l_rec and l_l1 bits."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, _ = _inputs(shape, cuda, seed=8)
+    outs = [tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("shape", SHAPES[:4] + SHAPES[4:5])
