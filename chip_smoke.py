@@ -109,12 +109,18 @@ FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
 # variant; printed beside this run's times as "was_ms"
 WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int8, nu bf16": 2.961,
                     "gradient out": 1.940}
-# K1n's and K_d's times in their first designs (WMMA tiles: K_d a dense
-# masked product, K1n three phases between block barriers; chip_smoke.py on
-# an NVIDIA H100 80GB HBM3, 700 W); printed beside this run's as "was_ms"
-FIRST_DESIGN_MS = {"tied_sae_fwd_nocode": 1.118, "topk_decode": 2.322}
+# K1's, K1n's and K_d's times in their first designs (WMMA tiles: K1 an
+# encode and a decode launch with the code between them in device memory,
+# K_d a dense masked product, K1n three phases between block barriers;
+# chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W); printed beside this
+# run's as "was_ms"
+FIRST_DESIGN_MS = {"tied_sae_fwd": 0.967, "tied_sae_fwd_nocode": 1.118, "topk_decode": 2.322}
+# K_f's times when the host enqueued two launches an iteration (chip_smoke.py
+# on an NVIDIA H100 80GB HBM3, 700 W), by its two FISTA rows' shapes
+HOST_PACED_K_F_MS = {"M=2,B=256,N=512,D=128,iters=100": 7.973, "M=4,B=2048,N=2048,D=512,iters=500": 471.393}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPO = Path(__file__).resolve().parent
 
@@ -263,7 +269,8 @@ def phase_kernels(torch, tk):
     dbt = db.transpose(1, 2)
     k1 = dict(
         name="tied_sae_fwd", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu",
-        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", max_abs_err=k1_err, variant="code stored",
+        replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", max_abs_err=k1_err,
+        variant="pipelined encode -> decode (TMA, wgmma), code stored",
         ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
         plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
@@ -275,7 +282,8 @@ def phase_kernels(torch, tk):
     )
     emit("kernel", name="tied_sae_fwd", c_frac_differ=frac_c, dxh_frac_differ=frac_d,
          max_abs_err_dxh=k1_err, c_nonzero_frac=nnz / c_k.numel(), lrec=lrec_k.tolist(),
-         ll1=ll1_k.tolist())
+         ll1=ll1_k.tolist(), variant=k1["variant"], ms=k1["ms"], was_ms=FIRST_DESIGN_MS["tied_sae_fwd"],
+         bound_ms=k1["bound_ms"], plain_ms=k1["plain_ms"], library_ms=k1["library_ms"])
     rows.append(k1)
 
     l1b = torch.tensor(L1_GRID, device=dev) / B
@@ -1092,18 +1100,25 @@ def phase_fista_kernels(torch, fk, tf):
 
         row = dict(
             name="fista_solve", source=src, replaces=f"sparse_coding__tpu/ops/fista_pallas.py:{line}",
-            max_abs_err=diff, shape=label, variant="f32 FMA GEMM tiles, 2 launches an iteration",
+            max_abs_err=diff, shape=label,
+            variant="one cooperative launch, f32 FMA tiles, operands by cp.async into two stages",
             ms=time_ms(torch, lambda: fk.fista_cuda(x, d, eta, l1, c0, iters), reps, warmup=1),
             plain_ms=time_ms(torch, lambda: tf.fista_codes(x, d, eta, l1, c0, iters), reps, warmup=1),
             library_ms=time_ms(torch, library, reps, warmup=1),
         )
         # every iteration ran for every member (tol = 0): x − ŷ·D needs 2·D
         # operations per non-zero of ŷ (counted over this run's iterations),
-        # res·Dᵀ 2·B·N·D; x, D and c0 read once, the codes written once
-        row["bound_ms"], row["bound_by"] = bound(
-            2 * D * yhat_nnz + 2 * B * N * D * iters * M, 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M),
-            PEAK_F32_FLOPS,
-        )
+        # res·Dᵀ 2·B·N·D; x, D and c0 read once, the codes written once. K_f's
+        # route is float32 FMAs (its codes must stay the plain loop's), so
+        # its bound is at the CUDA cores' rate; the same operations as three
+        # TF32 tensor-core products each are printed beside it
+        flops = 2 * D * yhat_nnz + 2 * B * N * D * iters * M
+        nbytes = 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+        emit("fista_kernels", shape=label, variant=row["variant"], ms=row["ms"], was_ms=HOST_PACED_K_F_MS[label],
+             bound_ms=row["bound_ms"], bound_route="float32 FMA, CUDA cores (67 TFLOP/s)",
+             tensor_core_3xtf32_bound_ms=bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0], plain_ms=row["plain_ms"],
+             library_ms=row["library_ms"])
         rows.append(row)
         del x, d, c0, a_k
         torch.cuda.empty_cache()

@@ -18,7 +18,10 @@ A, B, ..., B, A turns:
   - K1n at BASELINE config 2 (8 members, B 2048, N 4096, D 512): shipped;
     no_decode_mma / no_encode_mma / no_mma (the `wgmma` products dropped,
     the TMA ring, the code's packing and exchange kept); no_exchange (the
-    warp pairs' barrier dropped: wrong results, timing only).
+    warp pairs' barrier dropped: wrong results, timing only);
+  - K1 on the same pipeline (its template with the code store), at the same
+    shape: the same variants, and no_code_store (K1's kernel with its
+    store dropped).
 Only the shipped sources' outputs are right; the variants are for timing.
 Then a one-block kernel multiplies the same bf16 operands by a chain of
 `wgmma` k16 steps and by a chain of `mma.sync` m16n8k16 steps, both from
@@ -51,6 +54,7 @@ ENCODE_MMA = ("""      sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, 
                                sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
 """, "      ;\n")
 NO_EXCHANGE = ("    sm90::bar_sync(1 + (wt >> 5), 64);", "    ;")
+NO_CODE_STORE = ("    if constexpr (kStoreCode) {\n      // K1:", "    if constexpr (false) {\n      // K1:")
 GATHER4_TWO_BLOCKS = [("constexpr int kGather = 2;", "constexpr int kGather = 4;"),
                       ("__launch_bounds__(kDecThreads, 3) decode_kernel", "__launch_bounds__(kDecThreads, 2) decode_kernel")]
 VARIANTS = {
@@ -58,7 +62,7 @@ VARIANTS = {
                  "no_gather_no_store": NO_GATHER + NO_C_STORE, "gather4_two_blocks": GATHER4_TWO_BLOCKS},
     "tied_sae_fwd": {"shipped": [], "no_decode_mma": [DECODE_MMA], "no_encode_mma": [ENCODE_MMA],
                      "no_mma": [DECODE_MMA, ENCODE_MMA],
-                     "no_exchange": [NO_EXCHANGE]},
+                     "no_exchange": [NO_EXCHANGE], "no_code_store": [NO_CODE_STORE]},
 }
 
 WG_BITS_CU = r"""// Does a chain of wgmma k16 steps give the same f32 bits as a chain of
@@ -300,6 +304,13 @@ def main(argv=None) -> int:
                                                   2.0 / (B * D), st)
 
     out["tied_sae_fwd_nocode"] = turns({n: k1n(libs[f"tied_sae_fwd.{n}"]) for n in VARIANTS["tied_sae_fwd"]})
+    c = torch.empty((M, B, N), dtype=bf16, device=dev)
+
+    def k1(lib):
+        return lambda: lib.sc_tied_sae_fwd(xb.data_ptr(), db.data_ptr(), bias.data_ptr(), c.data_ptr(), dxh.data_ptr(),
+                                           parts[0].data_ptr(), parts[1].data_ptr(), M, B, N, D, 2.0 / (B * D), st)
+
+    out["tied_sae_fwd"] = turns({n: k1(libs[f"tied_sae_fwd.{n}"]) for n in VARIANTS["tied_sae_fwd"]})
 
     # wgmma against mma.sync, bit for bit
     out["wgmma_vs_mma_sync_bits"] = wgmma_bits(torch, libs["wg_bits"])

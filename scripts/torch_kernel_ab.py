@@ -5,7 +5,7 @@ resident training steps.
     python scripts/torch_kernel_ab.py --a PARENT_DIR [--b .] [--reps 20] [--step-reps 30] [--kernels-only]
 
 Kernels: each checkout's `sparse_coding__tpu_torch/ops/csrc/{tied_sae_fwd,
-tied_sae_bwd,tied_sae_bwd_rc,tied_sae_bwd_sparse,topk_fwd}.cu` is compiled with this checkout's
+tied_sae_bwd,tied_sae_bwd_rc,tied_sae_bwd_sparse,topk_fwd,fista}.cu` is compiled with this checkout's
 nvcc flags (one nvcc per source, all at once) into `build/kernel_ab/<a|b>/`,
 loaded with ctypes and called through its C entries (`sc_tied_sae_fwd`,
 `sc_tied_sae_fwd_nocode`, `sc_tied_sae_bwd_grads`, `sc_topk_scores`,
@@ -18,12 +18,18 @@ tied-capacity path's) and the TopK sweep of config 4 (M 7, B 2048, N 12288,
 D 768, k 1..151; K2 with f32 mu on the dense route, and on the sparse route
 that the TopK paths take: K2 with f32 moments, K2 with int8 mu and bf16 nu,
 K3, through `sc_tied_sae_bwd_adam_sparse` and `sc_tied_sae_bwd_grads_sparse`
-where the checkout has them).
+where the checkout has them); and K_f (`sc_fista_solve`, with the grid
+barrier's count where the checkout's entry takes one) at BASELINE config 3
+cut to ``--fista-iters`` iterations and at row 8's shape (the dictionary's
+transpose passed too where the entry takes it). K1's outputs are
+compared on c and dxh: its loss partials changed layout in the checkout that
+moved K1 onto K1n's pipeline.
 
 Steps: one child process per turn imports a checkout's package, builds the
 chip_smoke.py ensemble of a path (`TIED`, `TIED_CAPACITY`, `TOPK`,
-`TOPK_CAPACITY`), takes 3 steps on one batch resident on the card, then
-times ``--step-reps`` more: CUDA-event ms per step, the host's time to
+`TOPK_CAPACITY`, `FISTA`), takes 3 steps on one batch resident on the card
+(the FISTA step: the gradient step, then the 500-iteration decoder update),
+then times ``--step-reps`` more (3 for FISTA): CUDA-event ms per step, the host's time to
 enqueue one, the peak device memory over the timed steps above what was
 allocated before the ensemble, and a digest of the params after them
 (skipped with ``--kernels-only``).
@@ -45,11 +51,13 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("tied_sae_fwd", "tied_sae_bwd", "tied_sae_bwd_rc", "tied_sae_bwd_sparse", "topk_fwd")
+SOURCES = ("tied_sae_fwd", "tied_sae_bwd", "tied_sae_bwd_rc", "tied_sae_bwd_sparse", "topk_fwd", "fista")
 # K2's C entry before the moment tiers: (x, dxh, c, nrm, d_raw, mu, mu_bf16,
 # nu, g_bias, l1_over_b, bc, lr, b1, b2, eps, omb1, omb2, M, B, N, D, stream)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FIRST_K2 = {"sc_tied_sae_bwd_adam": [_P] * 6 + [_I, _P, _P, _P, _P] + [_F] * 6 + [_I] * 4 + [_P]}
+# K_f's C entry before its one-launch design (no grid barrier count)
+HOST_PACED_K_F = {"sc_fista_solve": [_P] * 10 + [_I] * 5 + [_P]}
 
 
 def build(tree: Path, out: Path, flags, nvcc: str):
@@ -84,6 +92,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--step-reps", type=int, default=30)
     ap.add_argument("--kernels-only", action="store_true", help="time the kernels, not the steps")
+    ap.add_argument("--fista-iters", type=int, default=50, help="K_f's iterations at config 3")
     ap.add_argument("--child-tree", help=argparse.SUPPRESS)
     ap.add_argument("--child-path", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -104,8 +113,10 @@ def main(argv=None) -> int:
     nvcc = _build._nvcc()
     trees = {"a": Path(args.a).resolve(), "b": Path(args.b).resolve()}
     libs = {k: build(t, REPO / "build" / "kernel_ab" / k, _build.NVCC_FLAGS, nvcc) for k, t in trees.items()}
-    for v in libs.values():
-        bind(v, {**_build.SIGNATURES, **FIRST_K2})
+    one_launch_k_f = {}
+    for k, v in libs.items():
+        one_launch_k_f[k] = "dict_t" in (trees[k] / "sparse_coding__tpu_torch/ops/csrc/fista.cu").read_text()
+        bind(v, {**_build.SIGNATURES, **FIRST_K2, **({} if one_launch_k_f[k] else HOST_PACED_K_F)})
 
     dev = torch.device("cuda")
     st = torch.cuda.current_stream(dev).cuda_stream
@@ -140,7 +151,7 @@ def main(argv=None) -> int:
         outs = (torch.empty_like(c), torch.empty_like(dxh), torch.empty_like(l1p), torch.empty_like(lrp))
         return lambda: (lib["tied_sae_fwd"].sc_tied_sae_fwd(
             xb.data_ptr(), db.data_ptr(), bias.data_ptr(), *(o.data_ptr() for o in outs), M, B, N, D, scale, st),
-            outs)[1]
+            outs)[1][:2]
 
     def k1n(lib):
         outs = (torch.empty_like(dxh), torch.empty((2, M, B // 64), device=dev))
@@ -271,6 +282,46 @@ def main(argv=None) -> int:
         cases["tied_sae_bwd_adam_sparse (config 4, mu int8, nu bf16)"] = lambda lib: k2_sparse(lib, True)
         cases["tied_sae_bwd_grads_sparse (config 4)"] = k3_sparse
 
+    # K_f: config 3 at a cut iteration count, and row 8's shape
+    sys.path.insert(0, str(REPO / "tests"))
+    import chip_smoke as cs
+    from sparse_coding__tpu_torch.models import fista as tf
+
+    def k_f(shape, seed):
+        FM, FB, FN, FD, iters = shape
+        x, d, c0, l1 = cs.fista_problem(torch, FM, FB, FN, FD, seed)
+        eta = tf.default_eta(d)
+        mom = torch.from_numpy(tf.momentum_table(iters).copy()).to(dev)
+        # the one-launch kernel's layouts: the batch fastest, the dictionary's transpose
+        x_t, d_t, c0_t = x.t().contiguous(), d.transpose(1, 2).contiguous(), c0.transpose(1, 2).contiguous()
+
+        def make(lib):
+            k = next(t for t, v in libs.items() if v is lib)
+            start = c0_t if one_launch_k_f[k] else c0
+            a, y = start.clone(), start.clone()
+            res = torch.empty((FM, FD, FB) if one_launch_k_f[k] else (FM, FB, FD), device=dev)
+            sync = torch.zeros(1, dtype=torch.int32, device=dev)
+
+            def run():
+                a.copy_(start)
+                y.copy_(start)
+                sync.zero_()
+                tail = (eta.data_ptr(), l1.data_ptr(), mom.data_ptr(), None, None, a.data_ptr(), y.data_ptr(),
+                        res.data_ptr())
+                if one_launch_k_f[k]:
+                    lib["fista"].sc_fista_solve(x_t.data_ptr(), d.data_ptr(), d_t.data_ptr(), *tail, sync.data_ptr(),
+                                                FM, FB, FN, FD, iters, st)
+                    return (a.transpose(1, 2).contiguous(),)
+                lib["fista"].sc_fista_solve(x.data_ptr(), d.data_ptr(), *tail, FM, FB, FN, FD, iters, st)
+                return (a,)
+            return run
+        return make
+
+    if all("fista" in v for v in libs.values()):
+        cases[f"fista_solve (config 3, {args.fista_iters} iterations)"] = k_f(
+            (4, 2048, 2048, 512, args.fista_iters), 12)
+        cases["fista_solve (row 8: M 2, B 256, N 512, D 128, 100 iterations)"] = k_f((2, 256, 512, 128, 100), 11)
+
     def timed(fn, reps):
         for _ in range(2):
             fn()
@@ -296,7 +347,7 @@ def main(argv=None) -> int:
     del libs, cases
     torch.cuda.empty_cache()
     steps = {}
-    for path in () if args.kernels_only else ("tied", "tied_capacity", "topk", "topk_capacity"):
+    for path in () if args.kernels_only else ("tied", "tied_capacity", "topk", "topk_capacity", "fista"):
         turns = []
         for k in ("a", "b", "b", "a"):
             out = subprocess.run([sys.executable, __file__, "--child-tree", str(trees[k]), "--child-path", path,
@@ -327,21 +378,37 @@ def child(tree: Path, path: str, reps: int) -> int:
     if not Path(pkg.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {pkg.__file__}, not the package of {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = {"tied": cs.TIED, "tied_capacity": cs.TIED_CAPACITY, "topk": cs.TOPK, "topk_capacity": cs.TOPK_CAPACITY}[path]
+    cfg = {"tied": cs.TIED, "tied_capacity": cs.TIED_CAPACITY, "topk": cs.TOPK, "topk_capacity": cs.TOPK_CAPACITY,
+           "fista": cs.FISTA}[path]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    ens = cs.build_path(pkg, cfg, 1)
+    if path == "fista":  # no fused step: the signature steps by autograd
+        ens = pkg.build_ensemble(getattr(pkg, cfg["sig"]), 1, cfg["hparams"], **cfg["build"])
+    else:
+        ens = cs.build_path(pkg, cfg, 1)
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((cfg["batch"], cfg["width"]), generator=gen, device="cuda")
+    if path == "fista":  # the gradient step, then the decoder update's solve
+        from sparse_coding__tpu_torch.train.loop import make_fista_decoder_update
+
+        update = make_fista_decoder_update(cs.FISTA_ITERS)
+        reps = min(reps, 3)
+
+        def step():
+            _, aux = ens.step_batch(x)
+            ens.state = update(ens.state, x, aux["c"])
+    else:
+        def step():
+            ens.step_batch(x)
     for _ in range(3):
-        ens.step_batch(x)
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
-        ens.step_batch(x)
+        step()
     end.record()
     enqueue = time.perf_counter() - t0
     end.synchronize()

@@ -48,7 +48,7 @@ SIGNATURES = {
     "sc_tied_sae_bwd_plan": [_I, _I, _P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "sc_fista_solve": [_P] * 10 + [_I] * 5 + [_P],
+    "sc_fista_solve": [_P] * 12 + [_I] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()

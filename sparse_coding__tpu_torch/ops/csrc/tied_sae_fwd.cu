@@ -1,48 +1,48 @@
-// K1 `tied_sae_fwd`: the stacked tied-SAE forward pass, for Hopper (sm_90a).
+// K1 `tied_sae_fwd` and K1n `tied_sae_fwd_nocode`: the stacked tied-SAE
+// forward pass, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `sparse_coding__tpu/ops/tied_sae_kernel.py::
+// K1 replaces the Pallas TPU kernel `sparse_coding__tpu/ops/tied_sae_kernel.py::
 // _fwd_kernel` (body `_fwd_body`). Per member m:
 //   c   = relu(x_b . D_b[m]^T + b[m])        stored bf16, sum(c) from the f32 c
 //   x^  = c_b . D_b[m]                       accumulated in f32
 //   dxh = bf16(scale * (x^ - f32(x_b)))      scale = 2 / (B * D)
 //   sum((x^ - x)^2)
+// K1n replaces `_fwd_kernel_nocode` (the forward of the code-recompute step,
+// SC_RECOMPUTE_CODE=1): the same outputs but c, which never leaves the chip.
 //
-// What bounds it on the card: at M=8, B=2048, N=4096, D=512 the two GEMMs are
-// 137 GFLOP against ~187 MB of traffic, so it is compute-bound (bf16 tensor
-// cores). The TPU kernel keeps a whole 4 MB member dictionary resident in VMEM;
-// an SM has 227 KB, so here the forward is two plain tiled GEMMs with their
-// epilogues fused in: `encode_kernel` (bias + relu + sum(c), writes c) and
-// `decode_kernel` (reads c back, writes dxh and sum(err^2)). Both consume the
-// same bf16 c, so the outputs equal a single fused kernel's. Operands go
-// through two shared-memory stages (cp.async: the next depth slice loads
-// while this one computes) into WMMA bf16 fragments with f32 accumulation.
-// Loss partials are written per block and summed afterwards: no float
-// atomics, so every run gives the same bits. wgmma/TMA tiling is later work.
+// What bounds them on the card: operations. At BASELINE config 2 (M 8,
+// B 2048, N 4096, D 512) the encode is 69 GFLOP and the decode 34 GFLOP over
+// the code's non-zeros (half of them), against ~190 MB of inputs and outputs
+// (K1: 134 MB of them the code): ~0.10 ms at the bf16 tensor-core rate. The
+// TPU kernel keeps a whole 4 MB member dictionary in VMEM; an SM has 227 KB.
 //
-// K1n `tied_sae_fwd_nocode` replaces `_fwd_kernel_nocode` (the forward of the
-// code-recompute step, SC_RECOMPUTE_CODE=1): the same outputs but c, which
-// never leaves the chip — c's 2 x 134 MB round trip of K1 saved. Its bound
-// is K1's: 137 GFLOP at config 2, compute-bound. At D 128, 256 and 512
-// (`nocode_pp_kernel`, below) a block of 64 batch rows keeps its x tile in
-// shared memory and its x^ [64, D] in the f32 `wgmma` accumulators of two
-// warpgroups, while TMA streams the member's dictionary (from L2: a
-// member's 4 MB at config 2) through a ring of 64-row stages against
-// mbarriers; each warpgroup's half of the code tile leaves the encode's
-// accumulators as the decode's register A operand (bf16 packing only),
-// trading halves warp by warp with the other warpgroup, so no barrier of
-// the whole block runs in the loop. D 768 and 1024 keep the first design
-// (`nocode_kernel`): one block of 16 warps owns kRows = 32 rows and keeps
-// x^ in WMMA accumulators, walking the dictionary in kRows-row tiles
-// double-buffered by cp.async: encode the code tile into shared memory,
-// then x^ += c . Dj, with block barriers between the phases.
-// Bit-equal to K1: the encode runs, per output element, one f32 chain of
-// k16 steps over the depth from k = 0 with the bias added after the product
-// (K1's `wmma` 16 x 16 x 16 is two m16n8k16 products; a `wgmma` k16 step
-// gives the same bits), and each x^ element is one accumulator carried
-// across the dictionary in k16 steps in N order, as decode_kernel's; so c,
-// x^ and dxh are K1's bits. The loss sums group their
-// per-block partials differently (a block per 64 or 32 rows instead of per
-// 64 x 128 tile), so l_rec and l_l1 may differ from K1's in the last bits.
+// Design at D 128, 256 and 512 (`pp_fwd_kernel<kD, kStoreCode>`, below, K1
+// with kStoreCode): a block of 64 batch rows keeps its x tile in shared
+// memory and its x^ [64, D] in the f32 `wgmma` accumulators of two
+// warpgroups, while TMA streams the member's dictionary (from L2) through a
+// ring of 64-row stages against mbarriers; each warpgroup's half of a code
+// tile leaves the encode's accumulators as the decode's register A operand
+// (bf16 packing only), trading halves warp by warp with the other
+// warpgroup, so no barrier of the whole block runs in the loop and the code
+// never makes a round trip through device memory. K1 stores each
+// warpgroup's half of the code tile while the decode's products run: a
+// rotation in each quad of threads turns the fragments' 4-byte pieces into
+// one 16-byte store a row. At D 768 and 1024, which no tied path runs, K1
+// keeps its first design, two WMMA launches (`encode_kernel`: bias + relu +
+// sum(c), writes c; `decode_kernel`: reads c back, writes dxh and
+// sum(err^2)) over two cp.async stages, and K1n one block of 16 warps a 32
+// rows (`nocode_kernel`) walking the dictionary in 32-row tiles.
+// Bits: the encode runs, per output element, one f32 chain of k16 steps over
+// the depth from k = 0 with the bias added after the product, and each x^
+// element is one accumulator carried across the dictionary in k16 steps in
+// N order. A `wgmma` k16 chain gives the bits of an `mma.sync` m16n8k16
+// chain on the same operands (WMMA 16 x 16 x 16 is two of those), so c, x^
+// and dxh are the same bits on every route, and K2's rebuild of the code
+// (`tied_sae_bwd.cuh`, `mma.sync`) reproduces K1's c. Loss sums are per-block
+// partials summed by the wrapper (no float atomics: the same bits every
+// run); they group per 64-row block on the pipelined kernel and per output
+// tile on the WMMA ones, so l_rec and l_l1 may differ between the two in
+// the last bits.
 
 #include "wmma_tile.cuh"
 #include "sm90.cuh"
@@ -331,7 +331,7 @@ __global__ void __launch_bounds__(kNcThreads, 1) nocode_kernel(
   }
 }
 
-// -- K1n at D 128, 256, 512: a pipelined encode -> decode ----------------------
+// -- K1 and K1n at D 128, 256, 512: a pipelined encode -> decode ---------------
 
 // A block owns kPpRows = 64 batch rows and keeps their x tile resident in
 // shared memory; the member's dictionary streams through a ring of 64-row
@@ -350,8 +350,9 @@ __global__ void __launch_bounds__(kNcThreads, 1) nocode_kernel(
 // steps, in N order (m64nNk16, A from registers, Dj N-major from shared
 // memory). A chain of `wgmma` k16 steps gives the bits of a chain of
 // `mma.sync` m16n8k16 steps on the same operands (scripts/fwd_probe.py, and
-// the cuda tests hold K1n's dxh to K1's bit for bit at every width), so c,
-// x^ and dxh are K1's. No barrier of the whole block runs inside the loop.
+// the cuda tests hold K1n's dxh to the WMMA route's bit for bit at every
+// width), so c, x^ and dxh are the first design's. No barrier of the whole
+// block runs inside the loop. K1 (kStoreCode) adds the code's store.
 constexpr int kPpRows = 64;
 constexpr int kPpNt = 64;
 constexpr int kPpWarps = 8;
@@ -374,11 +375,13 @@ struct PpMaps {
   CUtensorMap x, dhat;
 };
 
-// grid (B/kPpRows, M): dxh and the loss partials of kPpRows batch rows.
-template <int kD>
-__global__ void __launch_bounds__(kPpThreads, 1) nocode_pp_kernel(
-    const __grid_constant__ PpMaps maps, const float* __restrict__ bias, bf16* __restrict__ dxh,
-    float* __restrict__ lrec_part, float* __restrict__ l1_part, float scale, int B, int N) {
+// grid (B/kPpRows, M): dxh and the loss partials of kPpRows batch rows;
+// with kStoreCode (K1) also their code c [M, B, N] bf16.
+template <int kD, bool kStoreCode>
+__global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
+    const __grid_constant__ PpMaps maps, const float* __restrict__ bias, bf16* __restrict__ c,
+    bf16* __restrict__ dxh, float* __restrict__ lrec_part, float* __restrict__ l1_part, float scale, int B,
+    int N) {
   using S = PpShape<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -485,6 +488,30 @@ __global__ void __launch_bounds__(kPpThreads, 1) nocode_pp_kernel(
     for (int q = 0; q < 4; ++q)
       sm90::wgmma_rs<S::kCols, 1>(acc, af[q], sm90::desc(ds + (wg * S::kCols / 64) * S::kPanel + q * 2048, S::kPanel, 1024));
     sm90::wg_commit();
+    if constexpr (kStoreCode) {
+      // K1: this warpgroup's half of the code tile, stored while the decode's
+      // products run (they only read the fragments). Of rows g and g + 8,
+      // thread t4 of a quad holds two columns (2 t4, 2 t4 + 1) of each of
+      // the half's four 8-column groups j = 2 q + e (fragment q, registers
+      // 2 e + h); a 4 x 4 rotation in the quad (three shuffles) gives it
+      // group t4 whole: one 16-byte store a row.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t v[4] = {af[2 * wg][h], af[2 * wg][2 + h], af[2 * wg + 1][h], af[2 * wg + 1][2 + h]};
+        uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // round r: give lane t4 - r its group, take group t4 from lane t4 + r
+          const int give = (t4 - r) & 3, from = (t4 + r) & 3;
+          const uint32_t mine = give == 0 ? v[0] : give == 1 ? v[1] : give == 2 ? v[2] : v[3];
+          const uint32_t got = r == 0 ? mine : __shfl_sync(0xffffffffu, mine, (lane & ~3) | from);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) o[k] = from == k ? got : o[k];
+        }
+        *reinterpret_cast<uint4*>(c + ((size_t)m * B + b0 + g + 8 * h) * N + t * kPpNt + 32 * wg + 8 * t4) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
     sm90::wg_wait<0>();
     sm90::fence_regs(acc);
 
@@ -533,21 +560,22 @@ __global__ void __launch_bounds__(kPpThreads, 1) nocode_pp_kernel(
   }
 }
 
+// c: the code's output (K1), or null (K1n)
 template <int kD>
-int launch_nocode_pp(const void* x, const void* dhat, const void* bias, void* dxh, void* lrec_part,
-                     void* l1_part, int M, int B, int N, float scale, cudaStream_t st) {
+int launch_pp(const void* x, const void* dhat, const void* bias, void* c, void* dxh, void* lrec_part,
+              void* l1_part, int M, int B, int N, float scale, cudaStream_t st) {
   using S = PpShape<kD>;
   if (B % kPpRows || N % kPpNt) return (int)cudaErrorInvalidValue;
   PpMaps maps{};
   if (!sm90::encode_bf16_2d(&maps.x, x, B, kD, kPpRows) ||
       !sm90::encode_bf16_2d(&maps.dhat, dhat, (uint64_t)M * N, kD, kPpNt))
     return (int)cudaErrorInvalidValue;
-  auto kern = nocode_pp_kernel<kD>;
+  auto kern = c != nullptr ? pp_fwd_kernel<kD, true> : pp_fwd_kernel<kD, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(B / kPpRows, M), kPpThreads, S::kSmem, st>>>(
-      maps, static_cast<const float*>(bias), static_cast<bf16*>(dxh), static_cast<float*>(lrec_part),
-      static_cast<float*>(l1_part), scale, B, N);
+      maps, static_cast<const float*>(bias), static_cast<bf16*>(c), static_cast<bf16*>(dxh),
+      static_cast<float*>(lrec_part), static_cast<float*>(l1_part), scale, B, N);
   return (int)cudaGetLastError();
 }
 
@@ -573,14 +601,22 @@ extern "C" {
 const char* sc_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // Shapes: x [B, D] bf16, dhat [M, N, D] bf16, bias [M, N] f32; outputs c [M, B, N]
-// bf16, dxh [M, B, D] bf16, l1_part [M, B/64, N/128] f32, lrec_part
-// [M, B/64, D/128] f32. Needs B % 64 == 0, N % 128 == 0, D % 128 == 0 (the
-// Python wrapper checks). Launches on `stream`, does not synchronise, and
-// returns the CUDA error code of the launches (0 on success).
+// bf16, dxh [M, B, D] bf16 and the loss partials: at D 128, 256 and 512
+// (the pipelined kernel) l1_part and lrec_part [M, B/64] f32, at 768 and
+// 1024 l1_part [M, B/64, N/128] and lrec_part [M, B/64, D/128]. Needs
+// B % 64 == 0, N % 128 == 0, D % 128 == 0 (the Python wrapper checks).
+// Launches on `stream`, does not synchronise, and returns the CUDA error
+// code of the launches (0 on success).
 int sc_tied_sae_fwd(const void* x, const void* dhat, const void* bias, void* c, void* dxh,
                     void* l1_part, void* lrec_part, int M, int B, int N, int D, float scale,
                     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return launch_pp<128>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 256: return launch_pp<256>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 512: return launch_pp<512>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    default: break;
+  }
   cudaError_t e = cudaFuncSetAttribute(encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kSmemBytes);
   if (e != cudaSuccess) return (int)e;
@@ -609,9 +645,9 @@ int sc_tied_sae_fwd_nocode(const void* x, const void* dhat, const void* bias, vo
                            void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
-    case 128: return launch_nocode_pp<128>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
-    case 256: return launch_nocode_pp<256>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
-    case 512: return launch_nocode_pp<512>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 128: return launch_pp<128>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 256: return launch_pp<256>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 512: return launch_pp<512>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 768: return launch_nocode<32, 3>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
     case 1024: return launch_nocode<32, 4>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
     default: return (int)cudaErrorInvalidValue;

@@ -6,9 +6,17 @@ kernels, `_fista_kernel` (everything in VMEM) and `_fista_kernel_hbm_dict`
 function; both are ported by one CUDA kernel:
 
   K_f `fista_cuda` (csrc/fista.cu): the whole ``num_iter``-iteration loop
-      for every member of the stack, both products of each iteration in the
-      kernel's own float32 GEMM tiles and the shrink/momentum step in the
-      second one's epilogue; 2·num_iter launches behind one C call.
+      for every member of the stack in one cooperative launch: a persistent
+      grid walks each iteration's two products in float32 FMA tiles fed by
+      cp.async through shared memory (each output one chain from depth 0,
+      so the codes are the plain loop's bit for bit), the shrink/momentum
+      step in the second one's epilogue, a grid barrier after each; with
+      ``tol > 0`` the device stops each member, and the whole solve. The kernel
+      keeps the batch fastest, so every operand tile is a plain copy: the
+      wrapper transposes x and the warm start in and the codes out, gives
+      it the dictionary's transpose too, and pads the batch and widths to
+      multiples of 4 with zeros (zero terms at the end of an FMA chain
+      change no bit: the kernel's sums never hold -0).
 
 `fista_cuda` dispatches on the device of its tensors: CPU tensors run the
 plain version (`models.fista.fista_codes`, the torch loop K_f is held to);
@@ -41,8 +49,9 @@ fp32 = torch.float32
 # calls on CPU tensors do not count); one launch = one whole solve
 LAUNCHES: Dict[str, int] = {"fista_solve": 0}
 
-TILE = 128  # K_f's output tile (batch rows x columns), csrc/fista.cu
-MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which walks the batch tiles
+# the batch rows K_f takes: its first design's limit (128-row tiles on one
+# grid axis), kept; the C entry refuses shapes whose tile count leaves int32
+MAX_BATCH = 128 * 65535
 
 _TABLES: Dict[Tuple[int, str], torch.Tensor] = {}
 
@@ -54,11 +63,11 @@ def reset_launches() -> None:
 
 def shapes_supported(B: int, N: int, D: int) -> bool:
     """THE shape predicate of K_f on Hopper (its own tiling, not the TPU's
-    VMEM budgets `pallas_fits` / `pallas_hbm_dict_fits`): the batch tiles
-    within one grid axis. Any N, D and batch size: ragged tiles are masked,
-    and rows of N or D floats that are not whole float4s are loaded a float
-    at a time (the same sums, in the same order)."""
-    return B >= 1 and N >= 1 and D >= 1 and -(-B // TILE) <= MAX_GRID_Y
+    VMEM budgets `pallas_fits` / `pallas_hbm_dict_fits`): any N and D, and
+    batches up to `MAX_BATCH` rows. Ragged tiles are masked, and sizes that
+    are not multiples of 4 are padded with zeros (the same sums, in the same
+    order)."""
+    return 1 <= B <= MAX_BATCH and N >= 1 and D >= 1
 
 
 def _momentum(num_iter: int, dev: torch.device) -> torch.Tensor:
@@ -103,20 +112,35 @@ def fista_cuda(x, dicts, eta, l1, c0, num_iter: int, tol: float = 0.0):
     require(c0 is None or c0.shape == (M, B, N), f"{name}: c0 must be [M, B, N]")
     require(shapes_supported(B, N, D), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     require(num_iter >= 0, f"{name}: num_iter {num_iter} < 0")
-    a = torch.zeros((M, B, N), dtype=fp32, device=dev) if c0 is None else c0.clone()
-    y = a.clone()
-    res = torch.empty((M, B, D), dtype=fp32, device=dev)
+    # the kernel keeps the batch fastest (xᵀ, aᵀ, yᵀ) and takes the
+    # dictionary's transpose too; batch and widths padded to whole float4s
+    # with zeros (zero rows stay zero codes and zero residuals; zero terms at
+    # the end of an FMA chain change no bit: its sums never hold -0)
+    Bp, Np, Dp = (-(-n // 4) * 4 for n in (B, N, D))
+    x_t = torch.zeros((Dp, Bp), dtype=fp32, device=dev)
+    x_t[:D, :B] = x.t()
+    if (Np, Dp) != (N, D):
+        dicts = torch.nn.functional.pad(dicts, (0, Dp - D, 0, Np - N))
+    dicts_t = dicts.transpose(1, 2).contiguous()
+    a_t = torch.zeros((M, Np, Bp), dtype=fp32, device=dev)
+    if c0 is not None:
+        a_t[:, :N, :B] = c0.transpose(1, 2)
+    y_t = a_t.clone()
+    res_t = torch.empty((M, Dp, Bp), dtype=fp32, device=dev)
+    sync = torch.zeros((1,), dtype=torch.int32, device=dev)  # the grid barrier's count
     exit_thresh = delta = None
     if tol > 0.0:
         exit_thresh = (tol * eta).contiguous()
         delta = torch.zeros((M, max(num_iter, 1)), dtype=torch.int32, device=dev)
     rc = _build.load()["fista"].sc_fista_solve(
-        x.data_ptr(), dicts.data_ptr(), eta.data_ptr(), l1.data_ptr(), _momentum(num_iter, dev).data_ptr(),
-        None if exit_thresh is None else exit_thresh.data_ptr(), None if delta is None else delta.data_ptr(),
-        a.data_ptr(), y.data_ptr(), res.data_ptr(), M, B, N, D, num_iter, stream(dev),
+        x_t.data_ptr(), dicts.data_ptr(), dicts_t.data_ptr(), eta.data_ptr(), l1.data_ptr(),
+        _momentum(num_iter, dev).data_ptr(), None if exit_thresh is None else exit_thresh.data_ptr(),
+        None if delta is None else delta.data_ptr(), a_t.data_ptr(), y_t.data_ptr(), res_t.data_ptr(),
+        sync.data_ptr(), M, Bp, Np, Dp, num_iter, stream(dev),
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    a = a_t[:, :N, :B].transpose(1, 2).contiguous()
     if delta is None:
         return a, torch.full((M,), num_iter, dtype=torch.int32, device=dev)
     return a, _iterations_from_delta(delta[:, :num_iter], exit_thresh, num_iter)

@@ -5,7 +5,9 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
 (`csrc/*.cu`, built by `_build`), the member axis a grid dimension:
 
   K1 `tied_sae_fwd`       (csrc/tied_sae_fwd.cu) replaces `_fwd_kernel`:
-      c = relu(x·D̂ᵀ + b) (bf16), dxh = bf16(2/(B·D)·(x̂ − x)), Σerr², Σc.
+      c = relu(x·D̂ᵀ + b) (bf16), dxh = bf16(2/(B·D)·(x̂ − x)), Σerr², Σc;
+      at D ≤ 512 the pipelined encode → decode below, storing each code
+      tile as it leaves the encode.
   K1n `tied_sae_fwd_nocode` (csrc/tied_sae_fwd.cu) replaces
       `_fwd_kernel_nocode`: K1 with each code tile kept on chip (never
       stored), for the code-recompute step (``SC_RECOMPUTE_CODE=1``); at
@@ -92,6 +94,9 @@ TIED_SEED_TILE = 256
 # 1024 (csrc/tied_sae_bwd.cuh, which holds its tiles and shared-memory plans
 # and asserts that each divides K1's 128-column tile)
 WIDTHS = (128, 256, 512, 768, 1024)
+# the widths at which K1 and K1n run the pipelined encode → decode (64-row
+# blocks, TMA stages, `wgmma`); 768 and 1024 keep the WMMA kernels
+PIPELINED_MAX_D = 512
 
 
 def reset_launches() -> None:
@@ -132,7 +137,10 @@ def _fwd_plain(xb, db, bias, scale):
 
 def tied_sae_fwd(xb, db, bias, scale: float):
     """K1. xb [B, D] bf16, db [M, N, D] bf16 (normalized rows), bias [M, N]
-    f32 → (c [M, B, N] bf16, dxh [M, B, D] bf16, Σerr² [M] f32, Σc [M] f32)."""
+    f32 → (c [M, B, N] bf16, dxh [M, B, D] bf16, Σerr² [M] f32, Σc [M] f32).
+    c and dxh carry the same bits at every width; the loss sums group their
+    partials per 64-row block at D ≤ 512 (as K1n's) and per output tile
+    above, so they may differ between the two in the last bits."""
     if not xb.is_cuda:
         return _fwd_plain(xb, db, bias, scale)
     name = "tied_sae_fwd"
@@ -146,8 +154,11 @@ def tied_sae_fwd(xb, db, bias, scale: float):
     require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     c = torch.empty((M, B, N), dtype=bf16, device=dev)
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
-    l1_part = torch.empty((M, B // FWD_ROWS, N // FWD_COLS), dtype=fp32, device=dev)
-    lrec_part = torch.empty((M, B // FWD_ROWS, D // FWD_COLS), dtype=fp32, device=dev)
+    # the loss partials: per 64-row block on the pipelined kernel (D ≤ 512),
+    # else per 64 x 128 output tile of the WMMA encode and decode
+    l1_cols, lrec_cols = (1, 1) if D <= PIPELINED_MAX_D else (N // FWD_COLS, D // FWD_COLS)
+    l1_part = torch.empty((M, B // FWD_ROWS, l1_cols), dtype=fp32, device=dev)
+    lrec_part = torch.empty((M, B // FWD_ROWS, lrec_cols), dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_fwd"]
     rc = lib.sc_tied_sae_fwd(
         xb.data_ptr(), db.data_ptr(), bias.data_ptr(), c.data_ptr(), dxh.data_ptr(),
@@ -162,8 +173,8 @@ def tied_sae_fwd(xb, db, bias, scale: float):
 def nocode_tile(d_act: int) -> Tuple[int, int]:
     """K1n's (batch rows, dictionary rows) per block: a block keeps its rows'
     whole x̂ [rows, D] in f32 registers while it walks the dictionary (at
-    D ≤ 512 in 64-row TMA stages, csrc/tied_sae_fwd.cu `nocode_pp_kernel`)."""
-    return (64, 64) if d_act <= 512 else (32, 32)
+    D ≤ 512 in 64-row TMA stages, csrc/tied_sae_fwd.cu `pp_fwd_kernel`)."""
+    return (64, 64) if d_act <= PIPELINED_MAX_D else (32, 32)
 
 
 def nocode_shapes_supported(n_dict: int, d_act: int, batch: int) -> bool:

@@ -1,12 +1,15 @@
-"""The shapes the forward kernels K_d (sparse decode) and K1n (pipelined
-encode → decode) take, as the Python side states them, on the CPU.
+"""The shapes the forward kernels K_d (sparse decode), K1n and K1 (the
+pipelined encode → decode, K1 with its code stored) take, as the Python
+side states them, on the CPU.
 
 Each must take every (N, D, B) it took in its first design: K_d the
 forward output tiles of `csrc/wmma_tile.cuh` (B % 64, N % 128, D % 128)
 with one row of N 16-bit keys for K_s's select in a block's shared memory;
 K1n the tied kernels' widths with 64-row blocks and dictionary tiles at
-D ≤ 512 and 32-row ones at 768 and 1024. CPU tensors run the plain versions
-and never reach the kernel build.
+D ≤ 512 and 32-row ones at 768 and 1024; K1 the tied kernels' widths with
+the WMMA tiles (64 x 128), 768 and 1024 included, whichever kernel runs
+them now. CPU tensors run the plain versions and never reach the kernel
+build.
 """
 
 import numpy as np
@@ -22,6 +25,10 @@ BATCHES = (64, 128, 320, 2048, 4096)
 
 def _old_kd_supported(n: int, d: int, b: int) -> bool:
     return n % 128 == 0 and d % 128 == 0 and 2 * n + 2048 <= MAX_SMEM and b % 64 == 0
+
+
+def _old_k1_supported(n: int, d: int, b: int) -> bool:
+    return d in (128, 256, 512, 768, 1024) and n % 128 == 0 and b % 64 == 0
 
 
 def _old_k1n_supported(n: int, d: int, b: int) -> bool:
@@ -48,6 +55,52 @@ def test_fwd_nocode_takes_every_shape_it_took_before(d, k):
     for b in BATCHES:
         assert _old_k1n_supported(n, d, b)
         assert tk.nocode_shapes_supported(n, d, b), (n, d, b)
+
+
+@pytest.mark.parametrize("d", sorted(tk.WIDTHS))
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96])
+def test_fwd_takes_every_shape_it_took_before(d, k):
+    """K1 at D ≤ 512 runs on the pipelined kernel (64-row blocks, 64-row
+    dictionary stages), at 768 and 1024 on its WMMA kernels: every shape
+    its first design took is still taken, and its route follows D alone."""
+    n = 128 * k
+    for b in BATCHES:
+        assert _old_k1_supported(n, d, b)
+        assert tk.shapes_supported(n, d, b), (n, d, b)
+        assert b % tk.nocode_tile(d)[0] == 0 and n % tk.nocode_tile(d)[1] == 0
+    assert (d <= tk.PIPELINED_MAX_D) == (d in (128, 256, 512))
+
+
+@pytest.mark.parametrize("d", sorted(tk.WIDTHS))
+def test_fwd_refuses_what_its_first_design_refused(d):
+    assert tk.shapes_supported(4096, d, 2048)
+    assert not tk.shapes_supported(4096 + 64, d, 2048)
+    assert not tk.shapes_supported(4096, d, 2048 + 32)
+    assert not tk.shapes_supported(4096, d + 64, 2048)
+
+
+def test_cpu_tensors_of_k1_never_reach_the_kernel_build(monkeypatch):
+    """K1's wrapper given CPU tensors runs its plain version (both halves:
+    the code, then the decode on it) and counts no launch."""
+    from sparse_coding__tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("kernel build reached with CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    tk.reset_launches()
+    rng = np.random.default_rng(1)
+    M, B, N, D = 2, 64, 256, 128
+    d = torch.tensor(rng.standard_normal((M, N, D)), dtype=torch.float32)
+    db = (d / d.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    xb = torch.tensor(rng.standard_normal((B, D)), dtype=torch.float32).to(torch.bfloat16)
+    bias = torch.tensor(rng.standard_normal((M, N)) * 0.01, dtype=torch.float32)
+    c, dxh, lrec, ll1 = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    c_p, ll1_p = tk._encode_plain(xb, db, bias)
+    dxh_p, lrec_p = tk._decode_plain(xb, db, c_p, 2.0 / (B * D))
+    assert torch.equal(c, c_p) and torch.equal(dxh, dxh_p)
+    assert torch.equal(lrec, lrec_p) and torch.equal(ll1, ll1_p)
+    assert tk.LAUNCHES["tied_sae_fwd"] == 0
 
 
 @pytest.mark.parametrize("d", sorted(tk.WIDTHS))

@@ -18,7 +18,9 @@ selection); the sparse decode on rows of every kind (k = N, all ties, no
 positive score, one kept entry) and at widths past one register pass, and
 the same bits on two launches. K1n: dxh bit-equal to K1's at every width
 and batch it takes, the same bits on two launches, and its `wgmma` chains'
-bits equal to `mma.sync` chains' on the same operands.
+bits equal to `mma.sync` chains' on the same operands. K1 on the same
+pipeline (D <= 512): dxh bit-equal to K1n's, its stored code the one K2's
+rebuild produces, the same bits on two launches, B 64 to 4096.
 K2/K3's sparse route (the TopK path's: only the code's non-zeros touched)
 is held to the dense route's tolerances against the same plain versions,
 on TopK codes, a k = 1 member, an all-zero code, a hot feature (non-zero
@@ -28,7 +30,8 @@ K_f (the FISTA solve) against its plain loop on the same η: codes within
 atol 1e-4 (the JAX suite's pin for `_fista_kernel` in interpret mode; each
 product sums in another order, which the iterations carry), support flips
 under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
-iteration count for each member; at widths that are not multiples of 4 too.
+iteration count for each member; at widths that are not multiples of 4 too;
+at the FISTA path's shapes, one launch a solve, the same bits twice.
 """
 
 import pytest
@@ -714,4 +717,69 @@ def test_fista_kernel_takes_widths_that_are_not_multiples_of_4(cuda, tol):
     torch.cuda.synchronize()
     assert fk.LAUNCHES["fista_solve"] == 1
     assert it_k.tolist() == it_p.tolist(), (it_k, it_p)
+    _hold_fista(a_k, a_p, x, d)
+
+
+# K1 on the pipelined encode -> decode (D <= 512): every pipelined width at
+# the smallest batch and dictionary, then config 2 at B 64, 2048 and 4096
+K1_PP_SHAPES = [(2, 64, 128, 128), (2, 64, 128, 256), (2, 64, 128, 512), (2, 2048, 512, 256),
+                (8, 64, 4096, 512), (8, 2048, 4096, 512), (8, 4096, 4096, 512)]
+
+
+@pytest.mark.parametrize("shape", K1_PP_SHAPES)
+def test_fwd_pipelined_k1_keeps_the_code_and_dxh_bits(cuda, shape):
+    """K1 on K1n's pipeline with its code stored: dxh bit-equal to K1n's, c
+    the code K2's rebuild produces (K2 on the stored c and K2 rebuilding it
+    give the same bits), both within the plain versions' tolerances, and
+    the same c, dxh and loss bits on two launches."""
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=21)
+    scale = 2.0 / (B * D)
+    tk.reset_launches()
+    outs = [tk.tied_sae_fwd(xb, db, bias, scale) for _ in range(2)]
+    dxh_n, _, _ = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_fwd"] == 2
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+    c, dxh, lrec, ll1 = outs[0]
+    assert torch.equal(dxh.view(torch.int16), dxh_n.view(torch.int16))
+    c_p, ll1_p = tk._encode_plain(xb, db, bias)
+    dxh_p, lrec_p = tk._decode_plain(xb, db, c, scale)
+    frac, ok = bf16_close(c, c_p)
+    assert ok and frac < 1e-3, (frac, ok)
+    frac, ok = bf16_close(dxh, dxh_p)
+    assert ok and frac < 1e-2, (frac, ok)
+    torch.testing.assert_close(lrec, lrec_p, rtol=1e-3, atol=0)
+    torch.testing.assert_close(ll1, ll1_p, rtol=1e-3, atol=0)
+    mu, nu = _moments(d_raw, "bfloat16", "float32", seed=22)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    steps = [tk.tied_sae_bwd_adam(xb, dxh, code, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc,
+                                  *HP, seed=23, bias=b) for code, b in ((c, None), (None, bias))]
+    torch.cuda.synchronize()
+    for a, b in zip(*steps):
+        assert same_bits(a, b)
+
+
+# K_f at the FISTA path's shapes: where JAX picks `_fista_kernel`, BASELINE
+# config 3 (where it picks `_fista_kernel_hbm_dict`), and rows that are not
+# whole float4s with a ragged batch
+FISTA_PATH_SHAPES = [(2, 256, 512, 128, 100), (4, 2048, 2048, 512, 500), (2, 200, 2050, 130, 50)]
+
+
+@pytest.mark.parametrize("shape", FISTA_PATH_SHAPES)
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_fista_one_launch_solve_matches_plain_at_the_path_shapes(cuda, shape, tol):
+    """K_f's one cooperative launch against its plain loop at each shape, at
+    tol 0 and 1e-3: the same iteration count for each member, codes within
+    `_hold_fista`'s tolerances, and the same bits on two launches."""
+    M, B, N, D, iters = shape
+    x, d, c0, l1 = _fista_problem((M, B, N, D), cuda, seed=24)
+    eta = tf.default_eta(d)
+    fk.reset_launches()
+    (a_k, it_k), (a_2, it_2) = [fk.fista_cuda(x, d, eta, l1, c0, iters, tol=tol) for _ in range(2)]
+    a_p, it_p = tf.fista_codes(x, d, eta, l1, c0, iters, tol=tol)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fista_solve"] == 2
+    assert it_k.tolist() == it_p.tolist() == it_2.tolist(), (it_k, it_p, it_2)
+    assert torch.equal(a_k, a_2)
     _hold_fista(a_k, a_p, x, d)
