@@ -109,12 +109,12 @@ FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
 # variant; printed beside this run's times as "was_ms"
 WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int8, nu bf16": 2.961,
                     "gradient out": 1.940}
-# K1's, K1n's and K_d's times in their first designs (WMMA tiles: K1 an
-# encode and a decode launch with the code between them in device memory,
-# K_d a dense masked product, K1n three phases between block barriers;
-# chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W); printed beside this
-# run's as "was_ms"
-FIRST_DESIGN_MS = {"tied_sae_fwd": 0.967, "tied_sae_fwd_nocode": 1.118, "topk_decode": 2.322}
+# K1's, K1n's, K_d's and K_s's times in their first designs (WMMA tiles: K1
+# an encode and a decode launch with the code between them in device memory,
+# K_d a dense masked product, K1n three phases between block barriers, K_s
+# a WMMA GEMM and a select counting with shared atomics; chip_smoke.py on an
+# NVIDIA H100 80GB HBM3, 700 W); printed beside this run's as "was_ms"
+FIRST_DESIGN_MS = {"tied_sae_fwd": 0.967, "tied_sae_fwd_nocode": 1.118, "topk_decode": 2.322, "topk_scores": 1.813}
 # K_f's times when the host enqueued two launches an iteration (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W), by its two FISTA rows' shapes
 HOST_PACED_K_F_MS = {"M=2,B=256,N=512,D=128,iters=100": 7.973, "M=4,B=2048,N=2048,D=512,iters=500": 471.393}
@@ -854,6 +854,8 @@ def phase_eval_export(torch, cfg, ens, gen, eval_batch, tmp):
 def phase_topk_kernels(torch, tk, kk):
     """K_s and K_d, and K2/K3 at D 768, against their plain versions at the
     TopK path's shapes (BASELINE config 4), timed."""
+    from sparse_coding__tpu_torch.ops import _build
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     d_raw = torch.randn((TM, TN, TD), generator=g, device=dev)
@@ -867,22 +869,33 @@ def phase_topk_kernels(torch, tk, kk):
     rows = []
 
     # K_s: the scores within 1 ulp of the plain GEMM's; the plain select on
-    # the kernel's own scores gives the same threshold bits
+    # the kernel's own scores gives the same threshold bits, and so does the
+    # select alone (its C entry, off the path) on them
     s_k, th_k = kk.topk_scores(xb, db, k)
     s_p, _ = kk._topk_scores_plain(xb, db, k)
     th_p = kk._select_plain(s_k, k)
+    th_alone = torch.empty_like(th_k)
+    fwd_lib = _build.load()["topk_fwd"]
+    st = torch.cuda.current_stream(dev).cuda_stream
+
+    def select_alone():
+        return fwd_lib.sc_topk_select(s_k.data_ptr(), k.data_ptr(), th_alone.data_ptr(), TM, TB, TN, st)
+
+    _build.check(select_alone(), "topk_select")
     torch.cuda.synchronize()
     frac_s, ulp_s = bf16_close(torch, s_k, s_p)
     check(ulp_s and frac_s < 1e-3, f"K_s s: {frac_s} differ, within 1 ulp: {ulp_s}")
     check(torch.equal(th_k.view(torch.int32), th_p.view(torch.int32)),
           "K_s thresholds differ from the plain select on the kernel's scores")
+    check(torch.equal(th_alone.view(torch.int32), th_p.view(torch.int32)),
+          "K_s's select alone differs from the plain select")
     ks_err = float((s_k.float() - s_p.float()).abs().max())
     del s_p, th_p
     xbm = xb.expand(TM, TB, TD)
     dbt = db.transpose(1, 2)
     row = dict(
         name="topk_scores", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:98",
-        max_abs_err=ks_err, shape=shape, variant="scores + exact select",
+        max_abs_err=ks_err, shape=shape, variant="TMA + wgmma scores, select on fp16 counts",
         ms=time_ms(torch, lambda: kk.topk_scores(xb, db, k), 10),
         plain_ms=time_ms(torch, lambda: kk._topk_scores_plain(xb, db, k), 3),
         library_ms=time_ms(torch, lambda: torch.topk(torch.bmm(xbm, dbt), max(TOPK_KS), dim=-1), 10),
@@ -891,8 +904,13 @@ def phase_topk_kernels(torch, tk, kk):
         2 * TM * TB * TN * TD,
         TB * TD * 2 + TM * TN * TD * 2 + TM * 4 + TM * TB * TN * 2 + TM * TB * 4,
     )
+    # the split: the select alone on the kernel's scores, the GEMM as the rest;
+    # `torch.bmm` alone is the GEMM's own library yardstick
+    select_ms = time_ms(torch, select_alone, 10)
     emit("kernel", name="topk_scores", s_frac_differ=frac_s, max_abs_err_s=ks_err,
-         thresholds_bit_equal=True)
+         thresholds_bit_equal=True, select_alone_bit_equal=True, ms=row["ms"],
+         was_ms=FIRST_DESIGN_MS["topk_scores"], scores_ms=row["ms"] - select_ms, select_ms=select_ms,
+         bmm_ms=time_ms(torch, lambda: torch.bmm(xbm, dbt), 10), library_ms=row["library_ms"])
     rows.append(row)
 
     # K_d on the kernel's own scores and thresholds: c bit-equal, dxh within

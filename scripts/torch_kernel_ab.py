@@ -34,9 +34,11 @@ enqueue one, the peak device memory over the timed steps above what was
 allocated before the ensemble, and a digest of the params after them
 (skipped with ``--kernels-only``).
 
-Prints one JSON object: per kernel and per path the numbers of each turn and
-whether the two checkouts' outputs are bit-equal, with the card's name and
-power limit. Needs a CUDA device and nvcc.
+Prints one JSON object: per kernel and per path the numbers of each turn,
+whether the two checkouts' outputs (K_s: s and the thresholds; a path: its
+params after the timed steps of each checkout's first turn) are bit-equal
+and the fraction of each output's elements that differ, with the card's
+name and power limit. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -95,9 +97,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fista-iters", type=int, default=50, help="K_f's iterations at config 3")
     ap.add_argument("--child-tree", help=argparse.SUPPRESS)
     ap.add_argument("--child-path", help=argparse.SUPPRESS)
+    ap.add_argument("--child-save", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child_tree:
-        return child(Path(args.child_tree).resolve(), args.child_path, args.step_reps)
+        return child(Path(args.child_tree).resolve(), args.child_path, args.step_reps, args.child_save)
     if not args.a:
         ap.error("--a is required")
 
@@ -341,23 +344,29 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         equal = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(first["a"], first["b"]))
         turns = [(k, timed(fns[k], args.reps)) for k in ("a", "b", "b", "a")]
-        result[name] = {"ms": turns, "outputs_bit_equal": equal}
+        result[name] = {"ms": turns, "outputs_bit_equal": equal, "frac_differing": differing(torch, first)}
         del fns, first
         torch.cuda.empty_cache()
     del libs, cases
     torch.cuda.empty_cache()
     steps = {}
+    saved = REPO / "build" / "kernel_ab" / "params"
+    saved.mkdir(parents=True, exist_ok=True)
     for path in () if args.kernels_only else ("tied", "tied_capacity", "topk", "topk_capacity", "fista"):
         turns = []
-        for k in ("a", "b", "b", "a"):
+        for i, k in enumerate(("a", "b", "b", "a")):
+            save = ["--child-save", str(saved / f"{k}.pt")] if i < 2 else []  # the first turn of each checkout
             out = subprocess.run([sys.executable, __file__, "--child-tree", str(trees[k]), "--child-path", path,
-                                  "--step-reps", str(args.step_reps)],
+                                  "--step-reps", str(args.step_reps), *save],
                                  capture_output=True, text=True, timeout=600)
             if out.returncode:
                 raise RuntimeError(f"step turn {k} {path} failed:\n{out.stdout}\n{out.stderr}")
             turns.append((k, json.loads(out.stdout.strip().splitlines()[-1])))
         digests = {k: r.pop("params_digest") for k, r in turns}
-        steps[path] = {"turns": turns, "params_bit_equal": len(set(digests.values())) == 1}
+        params = {k: torch.load(saved / f"{k}.pt") for k in ("a", "b")}
+        steps[path] = {"turns": turns, "params_bit_equal": len(set(digests.values())) == 1,
+                       "params_frac_differing": differing(torch, {k: list(v.values()) for k, v in params.items()})}
+        del params
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"a": str(trees["a"]), "b": str(trees["b"]), "card": smi, "reps": args.reps,
@@ -365,9 +374,18 @@ def main(argv=None) -> int:
     return 0
 
 
-def child(tree: Path, path: str, reps: int) -> int:
+def differing(torch, outs):
+    """Per output, the fraction of its elements whose bits differ between
+    the two checkouts' (``outs`` {"a": [tensors], "b": [tensors]})."""
+    return [float((a.view(torch.uint8).reshape(a.numel(), -1) != b.view(torch.uint8).reshape(b.numel(), -1))
+                  .any(-1).float().mean()) if a.numel() else 0.0
+            for a, b in zip(outs["a"], outs["b"])]
+
+
+def child(tree: Path, path: str, reps: int, save: str = None) -> int:
     """One turn of the step timing: ``tree``'s package, chip_smoke.py's
-    ensemble of ``path``; prints one JSON object."""
+    ensemble of ``path``; prints one JSON object, and saves the params
+    after the timed steps to ``save`` when given."""
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(tree))
     import torch
@@ -417,6 +435,8 @@ def child(tree: Path, path: str, reps: int) -> int:
         t = ens.state.params[key]
         if t is not None:
             digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    if save:
+        torch.save({key: t.detach().cpu() for key, t in sorted(ens.state.params.items()) if t is not None}, save)
     print(json.dumps({"ms_per_step": start.elapsed_time(end) / reps, "host_enqueue_ms_per_step": enqueue * 1e3 / reps,
                       "step_peak_bytes": torch.cuda.max_memory_allocated() - before,
                       "params_digest": digest.hexdigest()}), flush=True)

@@ -47,6 +47,7 @@ SIGNATURES = {
     "sc_tied_sae_bwd_grads_sparse": [_P] * 8 + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_plan": [_I, _I, _P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
+    "sc_topk_select": [_P] * 3 + [_I] * 3 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],
     "sc_fista_solve": [_P] * 12 + [_I] * 5 + [_P],
 }

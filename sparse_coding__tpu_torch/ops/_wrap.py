@@ -2,8 +2,9 @@
 argument checks made before a launch, and the shapes the CUDA sources are
 written for.
 
-`FWD_ROWS` x `FWD_COLS` is the output tile of the forward kernels
-(``kBM`` x ``kBN`` in `csrc/wmma_tile.cuh`). `MAX_SMEM` is the shared memory
+`FWD_ROWS` x `FWD_COLS` is the output tile of the WMMA forward kernels
+(``kBM`` x ``kBN`` in `csrc/wmma_tile.cuh`), whose multiples every forward
+still takes (``kFwdRows`` x ``kFwdCols`` in `csrc/topk_fwd.cu`). `MAX_SMEM` is the shared memory
 one block may take on sm_90; `_build` passes it to nvcc as ``SC_MAX_SMEM``,
 so the CUDA sources read it from here.
 """

@@ -10,25 +10,62 @@
 // The backward is K2 / K3 of tied_sae_bwd.cu at l1 = 0, as on the TPU.
 //
 // What bounds it on the card, at M=7, B=2048, N=12288, D=768: K_s's GEMM is
-// 271 GFLOP against ~490 MB of traffic (the 352 MB score tensor written once
-// and read back by the select), so it is compute-bound. K_d's code holds ~k
-// of N entries a row (0.55% at config 4), so the work its data needs is
-// small: its bound is the 704 MB of s in and c out, and the kept rows of D^
-// it gathers (~1.5 GB from L2 at config 4) come next. The TPU kernel keeps a
-// batch tile's whole score row in VMEM for the select; an SM has 227 KB, so
-// K_s is two launches behind one wrapper:
-//   `scores_kernel`  a tiled GEMM (K1's encode tiling, wmma_tile.cuh: 64 x
-//                    128 tiles, depth 64 in two cp.async stages, WMMA bf16
-//                    with f32 sums) that writes s once;
-//   `select_kernel`  one block per (member, row): the row's 16-bit ordered
-//                    keys (N * 2 bytes) staged in shared memory, then a
-//                    two-pass radix select on 8-bit digits — a histogram of
-//                    the high byte, the digit where the count from the top
-//                    reaches k, then a histogram of the low byte among the
-//                    keys with that high byte. The result is the largest key
-//                    t with count(key >= t) >= k: the same key as the Pallas
-//                    kernel's 16-pass bisection. Shared-memory integer
-//                    atomics count exactly, so their order does not matter.
+// 271 GFLOP (0.274 ms at the bf16 tensor-core rate) against ~490 MB of
+// traffic (the 352 MB score tensor written once and read back by the
+// select), so it is compute-bound. K_d's code holds ~k of N entries a row
+// (0.55% at config 4), so the work its data needs is small: its bound is the
+// 704 MB of s in and c out, and the kept rows of D^ it gathers (~1.5 GB from
+// L2 at config 4) come next. The TPU kernel keeps a batch tile's whole score
+// row in VMEM for the select; an SM has 227 KB, so K_s is two launches
+// behind one C entry:
+//   `scores_kernel`  the GEMM on Hopper's own path: a persistent block an SM
+//                    walks the [128 x 256] output tiles, the member slowest
+//                    (its D^, 18.9 MB at config 4, stays in the 50 MB L2);
+//                    a producer warpgroup's one thread keeps a ring of four
+//                    48 KB stages (x [128 x 64] and D^ [256 x 64], TMA in the
+//                    128-byte swizzle) filled against mbarriers, running
+//                    ahead into the next tile while the consumers store this
+//                    one; two consumer warpgroups each multiply a 64-row half
+//                    by `wgmma` m64n256k16 (both operands K-major from shared
+//                    memory, 128 f32 accumulators a thread, setmaxnreg
+//                    40 / 232), then round to bf16 in registers and store
+//                    16 bytes a row piece (a rotation in each quad of
+//                    threads), with no staging through shared memory. Tiles
+//                    past B or N (B % 128 == 64, N % 256 == 128) are loaded
+//                    whole (TMA fills rows past the tensor with zeros) and
+//                    stored masked. What holds it is the operand stream from
+//                    L2 into the SMs (3.2 GB a launch at config 4: the ring
+//                    with no products takes most of the GEMM's time,
+//                    scripts/fwd_probe.py). Clusters of two blocks sharing
+//                    each D^ tile by TMA multicast read half the D^ bytes
+//                    from L2 but ran slower on the H100, as K2's multicast
+//                    did, so each block loads its own;
+//   `select_kernel`  a block of 128 threads a (member, row) reads the row
+//                    once in 16-byte loads and keeps its keys in registers as
+//                    fp16 integers 1024 + byte (one byte_perm per two keys):
+//                    the high and the low byte of the 16-bit ordered key.
+//                    Each byte is found by bisection, high byte first (one
+//                    pass finds the row's largest high byte; candidates
+//                    above it count 0 without a pass, so where the k-th key
+//                    shares the largest one's high byte, as at small k, the
+//                    high byte takes two passes, not eight): per
+//                    candidate c a pass counts the keys >= c by a saturated
+//                    fp16 subtraction (1 if >= c, else 0) and an fp16 add
+//                    into one of four accumulators, two keys an instruction
+//                    on the FMA pipe (every sum is an integer < 2048, so
+//                    exact), then one integer reduction a warp and the
+//                    block's warps in order. The low byte is bisected
+//                    among the keys whose high byte is the one found, against
+//                    k less the count above that byte. No atomics. The result
+//                    is the largest key t with count(key >= t) >= k: the same
+//                    key as the Pallas kernel's 16-pass bisection. A row
+//                    longer than the registers hold is counted in pieces,
+//                    reloaded each pass.
+// Bits: each output of the GEMM is one f32 chain of k16 steps over the depth
+// from k = 0, in ascending depth; a `wgmma` k16 chain gives the bits of an
+// `mma.sync` m16n8k16 chain on the same operands (scripts/fwd_probe.py), so s
+// is the WMMA tiling's (the first design's) bit for bit, and with it the
+// thresholds and K_d's code.
 // K_d (`decode_kernel`) is a sparse decode: no dense product. A warp owns a
 // (member, row): it streams the score row once in 16-byte loads, masks it
 // against the row's threshold (the f32 value of the stored bf16 score, so c
@@ -40,151 +77,339 @@
 // so its D^ (18.9 MB at config 4) stays in the 50 MB L2. Loss partials go
 // to per-row buffers summed afterwards: no float atomics.
 
-#include "wmma_tile.cuh"
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kSelThreads = 256;
+typedef __nv_bfloat16 bf16;
 
-// bf16 bits -> a key whose unsigned order is the float order (the Pallas
-// `_ordered_i32`): negatives flipped, non-negatives above them; and back.
-__device__ __forceinline__ uint32_t ordered_key(uint32_t b) {
-  return b >= 0x8000u ? 0xFFFFu - b : b + 0x8000u;
+// the forward output tiles' multiples the wrapper checks (ops/_wrap.py
+// FWD_ROWS x FWD_COLS): B % 64, N % 128, D % 128
+constexpr int kFwdRows = 64;
+constexpr int kFwdCols = 128;
+
+// -- K_s: the scores GEMM ------------------------------------------------------------
+
+constexpr int kSRows = 128;                   // batch rows of an output tile: a 64-row half a consumer warpgroup
+constexpr int kSCols = 256;                   // dictionary columns of an output tile (m64n256k16)
+constexpr int kSDepth = 64;                   // depth of a stage: one 128-byte-swizzled panel
+constexpr int kSStages = 4;
+constexpr int kSConsumers = 256;              // two consumer warpgroups
+constexpr int kSThreads = kSConsumers + 128;  // and a producer warpgroup (one thread starts the copies)
+constexpr uint32_t kSX = kSRows * kSDepth * 2;
+constexpr uint32_t kSStage = kSX + kSCols * kSDepth * 2;  // 48 KB: x [128][128 B], then D^ [256][128 B]
+constexpr size_t kSSmem = 1024 + kSStages * kSStage + 2 * kSStages * 8;
+static_assert(kSSmem <= (size_t)SC_MAX_SMEM, "K_s's stages fit a block");
+
+struct ScoresMaps {
+  CUtensorMap x, dhat;
+};
+
+// tile -> (member, first dictionary column, first batch row): the batch
+// tile fastest, the member slowest
+struct ScoresTile {
+  int m, n0, b0;
+};
+__device__ __forceinline__ ScoresTile scores_tile(int tile, int n_bt, int n_nt) {
+  const int rest = tile / n_bt;
+  return {rest / n_nt, (rest % n_nt) * kSCols, (tile % n_bt) * kSRows};
 }
+
+// grid: at most one block an SM, each walking tiles blockIdx.x, + gridDim.x,
+// ...: s[m, b0 .., n0 ..] = bf16(x_b . D_b[m]^T), f32 sums.
+__global__ void __launch_bounds__(kSThreads, 1) scores_kernel(
+    const __grid_constant__ ScoresMaps maps, bf16* __restrict__ s, int M, int B, int N, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSStages * kSStage);  // [stages] the stage has landed
+  uint64_t* empty = full + kSStages;                                         // [stages] the stage may be refilled
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_bt = (B + kSRows - 1) / kSRows, n_nt = (N + kSCols - 1) / kSCols;
+  const int n_tiles = M * n_nt * n_bt, nk = D / kSDepth;
+
+  if (tid == 0) {
+    for (int i = 0; i < kSStages; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], 2);  // each consumer warpgroup
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= kSConsumers / 32) {
+    // producer: the warpgroup gives its registers to the consumers
+    // (128 x (168 - 40) = 2 x 128 x (232 - 168)); one thread walks the same
+    // tiles as the consumers, every stage of each, through the ring
+    sm90::reg_dealloc<40>();
+    if (warp == kSConsumers / 32 && lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const ScoresTile tl = scores_tile(tile, n_bt, n_nt);
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int st = it % kSStages;
+          sm90::mbar_wait(&empty[st], ((it / kSStages) & 1) ^ 1);
+          unsigned char* stage = smem + st * kSStage;
+          sm90::mbar_expect_tx(&full[st], kSStage);
+          sm90::tma_load(stage, &maps.x, &full[st], ks * kSDepth, tl.b0);
+          sm90::tma_load(stage + kSX, &maps.dhat, &full[st], ks * kSDepth, tl.m * N + tl.n0);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<232>();
+  const int wg = tid >> 7, wt = tid & 127;
+  const int g = 16 * (wt >> 5) + (lane >> 2), t4 = lane & 3;  // accumulator row, column pair
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const ScoresTile tl = scores_tile(tile, n_bt, n_nt);
+    float acc[kSCols / 2];  // rows g, g + 8 of this warpgroup's half; columns 8 j + 2 t4 (+1)
+#pragma unroll
+    for (int i = 0; i < kSCols / 2; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % kSStages;
+      sm90::mbar_wait(&full[st], (it / kSStages) & 1);
+      const uint32_t xs = sm90::smem_u32(smem + st * kSStage), ds = xs + kSX;
+      sm90::fence_regs(acc);
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kSDepth; k += 16)
+        sm90::wgmma_ss<kSCols, 0, 0>(acc, sm90::desc(xs + sm90::swz(64 * wg, k, kSRows), 16, 1024),
+                                     sm90::desc(ds + sm90::swz(0, k, kSCols), 16, 1024));
+      sm90::wg_commit();
+      // the previous stage's products have completed: it may be refilled
+      sm90::wg_wait<1>();
+      if (ks > 0 && wt == 0) sm90::mbar_arrive(&empty[(it - 1) % kSStages]);
+    }
+    sm90::wg_wait<0>();
+    sm90::fence_regs(acc);
+    if (wt == 0) sm90::mbar_arrive(&empty[(it - 1) % kSStages]);
+
+    // bf16 in registers, then 16-byte stores: of rows g and g + 8, thread t4
+    // of a quad holds columns 2 t4, 2 t4 + 1 of each 8-column group; a 4 x 4
+    // rotation in the quad (three shuffles) gives it group 4 q + t4 of each
+    // 32-column piece q whole
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tl.b0 + 64 * wg + g + 8 * h;
+      bf16* dst = s + ((size_t)tl.m * B + r) * N + tl.n0 + 8 * t4;
+#pragma unroll
+      for (int q = 0; q < kSCols / 32; ++q) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = sm90::pack_bf16(acc[4 * (4 * q + i) + 2 * h], acc[4 * (4 * q + i) + 2 * h + 1]);
+        uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          // round rr: give lane t4 - rr its group, take group t4 from lane t4 + rr
+          const int give = (t4 - rr) & 3, from = (t4 + rr) & 3;
+          const uint32_t mine = give == 0 ? v[0] : give == 1 ? v[1] : give == 2 ? v[2] : v[3];
+          const uint32_t got = rr == 0 ? mine : __shfl_sync(0xffffffffu, mine, (lane & ~3) | from);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) o[k] = from == k ? got : o[k];
+        }
+        if (r < B && tl.n0 + 32 * q < N)
+          *reinterpret_cast<uint4*>(dst + 32 * q) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
+}
+
+// -- K_s: the exact select ------------------------------------------------------------
+
+constexpr int kSelThreads = 128;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelMaxChunks = 16;  // 16-byte chunks of the row a thread holds in registers, at most
+
+// a 16-bit ordered key (the Pallas `_ordered_i32`: negatives flipped,
+// non-negatives above them, so that unsigned order is float order) -> the
+// bf16 bits it orders
 __device__ __forceinline__ uint32_t unordered_key(uint32_t k) {
   return k >= 0x8000u ? k - 0x8000u : 0xFFFFu - k;
 }
 
-// grid (N/kBN, B/kBM, M): s[m, b-tile, n-tile] = bf16(x_b . D_b[m]^T).
-__global__ void __launch_bounds__(kThreads) scores_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ dhat, bf16* __restrict__ s,
-    int B, int N, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Cs = reinterpret_cast<float*>(smem);  // [kBM][kLdC], after the loop
-  const int m = blockIdx.z, b0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5, wm = warp / 4, wn = warp % 4;
-  const bf16* dm = dhat + (size_t)m * N * D;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // stage st: x tile [kBM][kLdK], then the dict tile [kBN][kLdK]
-  auto load = [&](int st, int k0) {
-    load_tile_k64(stage_a(smem, st), x + (size_t)b0 * D + k0, kBM, D);
-    load_tile_k64(stage_a(smem, st) + kBM * kLdK, dm + (size_t)n0 * D + k0, kBN, D);
-  };
-  load(0, 0);
-  __pipeline_commit();
-  const int nk = D / kBK;
-  for (int ks = 0; ks < nk; ++ks) {
-    if (ks + 1 < nk) load((ks + 1) & 1, (ks + 1) * kBK);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);
-    __syncthreads();
-    const bf16* As = stage_a(smem, ks & 1);
-    const bf16* Bs = As + kBM * kLdK;
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * kLdK + kk, kLdK);
-      // D^T as a col-major [k, n] operand: element (k, n) is Bs[n * kLdK + k]
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * kLdK + kk, kLdK);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  __pipeline_wait_prior(0);
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kLdC + wn * 32 + j * 16, acc[i][j],
-                              kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBM * kBN / 2; idx += kThreads) {
-    const int r = idx / (kBN / 2), cc = (idx % (kBN / 2)) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(s + ((size_t)m * B + b0 + r) * N + n0 + cc) =
-        __floats2bfloat162_rn(Cs[r * kLdC + cc], Cs[r * kLdC + cc + 1]);
-  }
-}
-
-// Warp 0 of a select block: the digit (0..255) where the count of keys in
-// the digits from 255 down first reaches `need`, and how many keys of that
-// digit are still needed. Lane l sums digits 255 - 8l down to 248 - 8l; an
-// inclusive scan over lanes and a ballot find the lane, which walks its 8.
-__device__ void find_digit(const int* hist, int need, int* pick) {
-  const int lane = threadIdx.x & 31;
-  const int top = 255 - 8 * lane;
-  int sum = 0;
-  for (int j = 0; j < 8; ++j) sum += hist[top - j];
-  int incl = sum;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  const unsigned hit = __ballot_sync(0xffffffffu, incl >= need);
-  if (lane == __ffs(hit) - 1) {
-    int above = incl - sum;  // keys in the digits above this lane's
-    for (int j = 0; j < 8; ++j) {
-      const int h = hist[top - j];
-      if (above + h >= need) {
-        pick[0] = top - j;
-        pick[1] = need - above;
-        break;
-      }
-      above += h;
-    }
-  }
-}
+__device__ __forceinline__ __half2 as_h2(uint32_t v) { return *reinterpret_cast<const __half2*>(&v); }
+__device__ __forceinline__ uint32_t as_u32(__half2 v) { return *reinterpret_cast<const uint32_t*>(&v); }
 
 // grid (B, M): thresh[m, b] = f32 of the k[m]-th largest bf16 score of row
-// (m, b) of s (k clamped to [1, N]).
+// (m, b) of s (k clamped to [1, N]). A thread holds chunks tid, tid + 128,
+// ... (8 keys each) of a piece of kChunks * 128 chunks; hv / lv hold each
+// key's high / low ordered byte as the fp16 integer 1024 + byte, two keys a
+// word (zeros past the row: they never count).
+template <int kChunks>
 __global__ void __launch_bounds__(kSelThreads) select_kernel(
-    const bf16* __restrict__ s, const int* __restrict__ k, float* __restrict__ thresh,
-    int B, int N) {
-  extern __shared__ __align__(16) uint16_t keys[];  // [N]
-  __shared__ int hist[256];
-  __shared__ int pick[2];
-  const int m = blockIdx.y;
+    const bf16* __restrict__ s, const int* __restrict__ k, float* __restrict__ thresh, int B, int N) {
+  __shared__ uint32_t red[2][kSelWarps];
+  const int m = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t row = (size_t)m * B + blockIdx.x;
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(s) + row * N;
-  const int tid = threadIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(s + row * N);
+  const int n_chunks = N / 8, pieces = (n_chunks + kChunks * kSelThreads - 1) / (kChunks * kSelThreads);
   int need = k[m];
   need = need < 1 ? 1 : (need > N ? N : need);
 
-  for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
-  for (int i = tid * 8; i < N; i += kSelThreads * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[4];
-    for (int e = 0; e < 4; ++e)
-      o[e] = ordered_key(w[e] & 0xFFFFu) | (ordered_key(w[e] >> 16) << 16);
-    *reinterpret_cast<uint4*>(keys + i) = make_uint4(o[0], o[1], o[2], o[3]);
+  uint32_t hv[kChunks][4], lv[kChunks][4];
+  auto load = [&](int piece) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int idx = (piece * kChunks + c) * kSelThreads + tid;
+      const uint4 v = idx < n_chunks ? src[idx] : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // the ordered keys of the two scores: b ^ 0xFFFF if negative, else b ^ 0x8000
+        const uint32_t key = w[e] ^ (((w[e] >> 15) & 0x00010001u) * 0x7FFFu) ^ 0x80008000u;
+        hv[c][e] = idx < n_chunks ? __byte_perm(key, 0x64646464u, 0x4341) : 0u;
+        lv[c][e] = idx < n_chunks ? __byte_perm(key, 0x64646464u, 0x4240) : 0u;
+      }
+    }
+  };
+  // keep only the keys whose high byte is hi (the others' low bytes become 0)
+  auto in_bin = [&](int hi) {
+    const __half2 h2 = __float2half2_rn(1024.f + (float)hi);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) lv[c][e] = as_u32(__hmul2(__heq2(as_h2(hv[c][e]), h2), as_h2(lv[c][e])));
+  };
+  // this thread's count of bytes >= cand in v: sat(1024 + byte - (1023 + cand))
+  // summed in four fp16 accumulators (word e of each chunk into a[e]), the
+  // first from 1024, so that their sum 1024 + n (n < 1024) has the bits
+  // 0x6400 + n in each half
+  auto count = [&](const uint32_t (&v)[kChunks][4], int cand) {
+    const __half2 c2 = __float2half2_rn(1023.f + (float)cand), zero = __float2half2_rn(0.f);
+    __half2 a[4] = {__float2half2_rn(1024.f), zero, zero, zero};
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = __hadd2(a[e], __hsub2_sat(as_h2(v[c][e]), c2));
+    const uint32_t u = as_u32(__hadd2(__hadd2(a[0], a[1]), __hadd2(a[2], a[3])));
+    return (u & 0xFFFFu) + (u >> 16) - 2u * 0x6400u;
+  };
+  int pass = 0;
+  // the block's count of bytes >= cand (high bytes, or low bytes of the keys
+  // whose high byte is hi), the same in every thread
+  auto block_count = [&](bool low, int cand, int hi) {
+    uint32_t n = 0;
+    if (pieces == 1) {
+      n = low ? count(lv, cand) : count(hv, cand);
+    } else {
+      for (int p = 0; p < pieces; ++p) {
+        load(p);
+        if (low) in_bin(hi);
+        n += low ? count(lv, cand) : count(hv, cand);
+      }
+    }
+    n = __reduce_add_sync(0xffffffffu, n);
+    uint32_t* slot = red[pass++ & 1];
+    if (lane == 0) slot[warp] = n;
+    __syncthreads();
+    uint32_t total = 0;
+#pragma unroll
+    for (int w = 0; w < kSelWarps; ++w) total += slot[w];
+    return (int)total;
+  };
+
+  // the row's largest high byte, the same in every thread
+  auto block_top = [&]() {
+    uint32_t top = 0;
+    for (int p = 0; p < pieces; ++p) {
+      if (pieces > 1) load(p);
+      __half2 m2 = as_h2(hv[0][0]);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m2 = __hmax2(m2, as_h2(hv[c][e]));
+      const uint32_t u = as_u32(m2);
+      top = max(top, max(u & 0xFFFFu, u >> 16));
+    }
+    top = __reduce_max_sync(0xffffffffu, top);
+    uint32_t* slot = red[pass++ & 1];
+    if (lane == 0) slot[warp] = top;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kSelWarps; ++w) top = max(top, slot[w]);
+    return (int)top - 0x6400;  // the bits of 1024 + byte
+  };
+
+  if (pieces == 1) load(0);
+  // the high byte: the largest hi with count(high byte >= hi) >= need; and
+  // count(high byte > hi), the count of the last candidate refused (the
+  // candidate hi + 1), or 0 when none was. A candidate above the row's
+  // largest high byte counts 0 without a pass: where the k-th key shares the
+  // largest key's high byte (small k), two passes find it instead of eight
+  const int top = block_top();
+  int hi = 0, above = 0;
+  for (int bit = 7; bit >= 0; --bit) {
+    const int cand = hi | (1 << bit);
+    const int n = cand > top ? 0 : block_count(false, cand, 0);
+    if (n >= need) hi = cand;
+    else above = n;
   }
-  __syncthreads();
-  for (int i = tid; i < N; i += kSelThreads) atomicAdd(&hist[keys[i] >> 8], 1);
-  __syncthreads();
-  if (tid < 32) find_digit(hist, need, pick);
-  __syncthreads();
-  const uint32_t hi = pick[0];
-  need = pick[1];
-  for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
-  __syncthreads();
-  for (int i = tid; i < N; i += kSelThreads) {
-    const uint32_t key = keys[i];
-    if ((key >> 8) == hi) atomicAdd(&hist[key & 0xFFu], 1);
+  // the low byte among the keys of high byte hi, against need - above
+  if (pieces == 1) in_bin(hi);
+  const int need_lo = need - above;
+  int lo = 0;
+  for (int bit = 7; bit >= 0; --bit) {
+    const int cand = lo | (1 << bit);
+    if (block_count(true, cand, hi) >= need_lo) lo = cand;
   }
-  __syncthreads();
-  if (tid < 32) find_digit(hist, need, pick);
-  __syncthreads();
-  if (tid == 0) {
-    const uint32_t bits = unordered_key((hi << 8) | (uint32_t)pick[0]);
-    thresh[row] = __uint_as_float(bits << 16);
+  if (tid == 0) thresh[row] = __uint_as_float(unordered_key((uint32_t)(hi << 8 | lo)) << 16);
+}
+
+// the chunks of 8 keys a select thread holds in registers for a row of N
+// keys: the fewest instantiation that holds the row, else the most (the row
+// is then counted in pieces)
+int select_chunks(int N) {
+  const int per_thread = (N / 8 + kSelThreads - 1) / kSelThreads;
+  constexpr int kFits[] = {1, 2, 3, 4, 6, 8, 12};
+  for (const int c : kFits)
+    if (per_thread <= c) return c;
+  return kSelMaxChunks;
+}
+
+template <int kChunks>
+int launch_select_t(const void* s, const void* k, void* thresh, int M, int B, int N, cudaStream_t st) {
+  select_kernel<kChunks><<<dim3(B, M), kSelThreads, 0, st>>>(static_cast<const bf16*>(s), static_cast<const int*>(k),
+                                                           static_cast<float*>(thresh), B, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_select(const void* s, const void* k, void* thresh, int M, int B, int N, cudaStream_t st) {
+  switch (select_chunks(N)) {
+    case 1: return launch_select_t<1>(s, k, thresh, M, B, N, st);
+    case 2: return launch_select_t<2>(s, k, thresh, M, B, N, st);
+    case 3: return launch_select_t<3>(s, k, thresh, M, B, N, st);
+    case 4: return launch_select_t<4>(s, k, thresh, M, B, N, st);
+    case 6: return launch_select_t<6>(s, k, thresh, M, B, N, st);
+    case 8: return launch_select_t<8>(s, k, thresh, M, B, N, st);
+    case 12: return launch_select_t<12>(s, k, thresh, M, B, N, st);
+    default: return launch_select_t<kSelMaxChunks>(s, k, thresh, M, B, N, st);
   }
+}
+
+int launch_scores(const void* x, const void* dhat, void* s, int M, int B, int N, int D, cudaStream_t st) {
+  ScoresMaps maps{};
+  if (!sm90::encode_bf16_2d(&maps.x, x, B, D, kSRows) ||
+      !sm90::encode_bf16_2d(&maps.dhat, dhat, (uint64_t)M * N, D, kSCols))
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;  // a persistent grid: one block an SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = M * ((N + kSCols - 1) / kSCols) * ((B + kSRows - 1) / kSRows);
+  scores_kernel<<<tiles < sms ? tiles : sms, kSThreads, kSSmem, st>>>(maps, static_cast<bf16*>(s), M, B, N, D);
+  return (int)cudaGetLastError();
 }
 
 // the TopK mask on one stored bf16 score (bits in the low 16): kept when
@@ -360,9 +585,8 @@ int launch_decode(const void* x, const void* dhat, const void* s, const void* th
   return (int)cudaGetLastError();
 }
 
-// the tiling; a row of keys too large for shared memory is refused by
-// cudaFuncSetAttribute at launch
-bool shapes_ok(int B, int N, int D) { return B % kBM == 0 && N % kBN == 0 && D % kBN == 0; }
+// the forward tiling's multiples (K_s takes ragged 128 x 256 tiles)
+bool shapes_ok(int B, int N, int D) { return B % kFwdRows == 0 && N % kFwdCols == 0 && D % kFwdCols == 0; }
 
 }  // namespace
 
@@ -370,28 +594,25 @@ extern "C" {
 
 // K_s. Shapes: x [B, D] bf16, dhat [M, N, D] bf16, k [M] int32; outputs
 // s [M, B, N] bf16, thresh [M, B] f32. Needs B % 64 == 0, N % 128 == 0,
-// D % 128 == 0 and N * 2 bytes of shared memory for one row (the Python
-// wrapper checks). Launches on `stream`, does not synchronise, and returns
-// the CUDA error code of the launches (0 on success).
+// D % 128 == 0 (the Python wrapper checks). Launches the scores GEMM, then
+// the select, on `stream`; does not synchronise, and returns the CUDA error
+// code of the launches (0 on success).
 int sc_topk_scores(const void* x, const void* dhat, const void* k, void* s, void* thresh, int M,
                    int B, int N, int D, void* stream) {
   if (!shapes_ok(B, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  const size_t sel_smem = (size_t)N * sizeof(uint16_t);
-  e = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sel_smem);
-  if (e != cudaSuccess) return (int)e;
-  scores_kernel<<<dim3(N / kBN, B / kBM, M), kThreads, kSmemBytes, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dhat), static_cast<bf16*>(s), B, N,
-      D);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  select_kernel<<<dim3(B, M), kSelThreads, sel_smem, st>>>(
-      static_cast<const bf16*>(s), static_cast<const int*>(k), static_cast<float*>(thresh), B, N);
-  return (int)cudaGetLastError();
+  const int e = launch_scores(x, dhat, s, M, B, N, D, st);
+  if (e != 0) return e;
+  return launch_select(s, k, thresh, M, B, N, st);
+}
+
+// K_s's select alone, on given scores: s [M, B, N] bf16, k [M] int32 ->
+// thresh [M, B] f32, the k[m]-th largest score of each row (ties kept, k
+// clamped to [1, N]). Needs N % 8 == 0. For tests and probes: the TopK path
+// calls sc_topk_scores.
+int sc_topk_select(const void* s, const void* k, void* thresh, int M, int B, int N, void* stream) {
+  if (N % 8 || N <= 0 || B <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
+  return launch_select(s, k, thresh, M, B, N, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K_d. Shapes: x [B, D] bf16, dhat [M, N, D] bf16, s [M, B, N] bf16, thresh

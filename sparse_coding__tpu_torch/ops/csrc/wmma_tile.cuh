@@ -1,5 +1,5 @@
-// Tile geometry and helpers shared by the WMMA GEMMs of tied_sae_fwd.cu (K1)
-// and topk_fwd.cu (K_s, K_d): 64 x 128 output tiles of 8 warps (2 rows x 4
+// Tile geometry and helpers of the WMMA GEMMs of tied_sae_fwd.cu (K1 and K1n
+// at D 768 and 1024): 64 x 128 output tiles of 8 warps (2 rows x 4
 // columns of 32 x 32), fed depth-64 slices through two shared-memory stages
 // by cp.async (the next slice loads while this one computes), with a
 // deterministic block sum for the per-block loss partials. Included by one

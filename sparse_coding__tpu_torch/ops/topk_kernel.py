@@ -5,8 +5,11 @@ stacked step of a TopK k-sweep runs as hand-written CUDA kernels, the member
 axis a grid dimension and each member's ``k`` read on the device:
 
   K_s `topk_scores` (csrc/topk_fwd.cu) replaces `_topk_scores_kernel`:
-      s = bf16(x·D̂ᵀ), written once, then each row's exact k-th largest bf16
-      score (a radix select on the ordered 16-bit keys; two launches).
+      s = bf16(x·D̂ᵀ), written once by a TMA + `wgmma` GEMM (a persistent
+      block an SM, 128 × 256 output tiles), then each row's exact k-th
+      largest bf16 score (the two bytes of the ordered 16-bit key found by
+      bisection on fp16 counts held in registers; no atomics). Two launches
+      behind one C entry; `sc_topk_select` runs the select alone.
   K_d `topk_decode` (csrc/topk_fwd.cu) replaces `_topk_decode_kernel`:
       c = s where (s ≥ t ∧ s > 0), x̂ = c·D̂ in f32, dxh = bf16(2/(B·D)·(x̂ − x)),
       Σerr² — a sparse decode: a warp a row lists the row's kept columns and
@@ -57,7 +60,11 @@ fp32 = torch.float32
 # calls on CPU tensors do not count)
 LAUNCHES: Dict[str, int] = {"topk_scores": 0, "topk_decode": 0}
 
-SELECT_STATIC_SMEM = 2048  # room for the select kernel's own histogram (1 KB used)
+# the first design's bound on N (one row of N 16-bit keys beside a 2 KB
+# histogram in a block's shared memory), kept so that the TopK path takes
+# exactly the shapes it took: the select now holds its keys in registers and
+# counts a longer row in pieces
+SELECT_STATIC_SMEM = 2048
 # the JAX TopK step's backward dictionary tile (`TOPK_BWD_DICT_TILE`), whose
 # (member, tile, row) indices seed the stochastic moment stores
 SEED_TILE = 128
@@ -69,11 +76,11 @@ def reset_launches() -> None:
 
 
 def fwd_shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
-    """K_s's own tiling — the forward output tiles (csrc/wmma_tile.cuh): B % 64,
-    N % 128, D % 128 — and one row of N 16-bit keys beside the select kernel's
-    histogram in a block's shared memory (the limit the CUDA runtime enforces
-    at launch; only this predicate checks it beforehand). K_d takes every
-    shape K_s takes: a warp a row, x̂ in register passes of 1024 columns."""
+    """The forward's multiples (`FWD_ROWS`, `FWD_COLS`): B % 64, N % 128,
+    D % 128 (K_s's GEMM loads and stores its 128 × 256 tiles masked at the
+    edges), and N within the first design's shared-memory row
+    (`SELECT_STATIC_SMEM`). K_d takes every shape K_s takes: a warp a row,
+    x̂ in register passes of 1024 columns."""
     if n_dict % FWD_COLS or d_act % FWD_COLS or 2 * n_dict + SELECT_STATIC_SMEM > MAX_SMEM:
         return False
     return batch is None or batch % FWD_ROWS == 0

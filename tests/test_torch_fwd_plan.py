@@ -1,8 +1,8 @@
-"""The shapes the forward kernels K_d (sparse decode), K1n and K1 (the
-pipelined encode → decode, K1 with its code stored) take, as the Python
-side states them, on the CPU.
+"""The shapes the forward kernels K_s (TMA + `wgmma` scores, register
+select), K_d (sparse decode), K1n and K1 (the pipelined encode → decode, K1
+with its code stored) take, as the Python side states them, on the CPU.
 
-Each must take every (N, D, B) it took in its first design: K_d the
+Each must take every (N, D, B) it took in its first design: K_s and K_d the
 forward output tiles of `csrc/wmma_tile.cuh` (B % 64, N % 128, D % 128)
 with one row of N 16-bit keys for K_s's select in a block's shared memory;
 K1n the tied kernels' widths with 64-row blocks and dictionary tiles at
@@ -46,6 +46,38 @@ def test_topk_decode_takes_every_shape_it_took_before(d, k):
     for b in BATCHES:
         assert _old_kd_supported(n, d, b)
         assert kk.fwd_shapes_supported(n, d, b), (n, d, b)
+
+
+def _covered_once(extent: int, tile: int, piece: int) -> bool:
+    """Along one axis of s, K_s's GEMM stores tiles of ``tile`` starting at
+    every multiple of it below ``extent``, each in pieces of ``piece`` kept
+    only where the piece starts inside the extent (scores_kernel's masks):
+    every index is stored exactly once."""
+    hits = np.zeros(extent + tile, np.int64)
+    for t0 in range(0, extent, tile):
+        for p0 in range(t0, t0 + tile, piece):
+            if p0 < extent:
+                hits[p0:p0 + piece] += 1
+    return bool((hits[:extent] == 1).all() and not hits[extent:].any())
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 768, 1024, 1152, 1280, 2048])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96, 448])
+def test_topk_scores_take_every_shape_they_took_before(d, k):
+    """K_s's first design took the WMMA tiles' multiples (B % 64, N % 128,
+    D % 128) with one row of N 16-bit keys in a block's shared memory. Its
+    TMA + `wgmma` GEMM (128 × 256 tiles, 64-deep stages, the edges masked)
+    and its select (keys in registers, a longer row in pieces) take every
+    one of them, and the GEMM's masked tiles store each score once: rows in
+    tiles of 128 (one row a thread), columns in tiles of 256 stored 32 at a
+    time."""
+    n = 128 * k
+    assert d % 64 == 0  # whole 64-deep stages
+    assert _covered_once(n, 256, 32)
+    for b in BATCHES:
+        assert _old_kd_supported(n, d, b)  # K_s's first design's predicate (K_d shared it)
+        assert kk.fwd_shapes_supported(n, d, b), (n, d, b)
+        assert _covered_once(b, 128, 1)
 
 
 @pytest.mark.parametrize("d", sorted(tk.WIDTHS))

@@ -14,7 +14,8 @@ within 2 ulp of the update recomputed from its own new moments (plus 2^-8
 of the update with bf16 mu) and within 2 lr of the plain one. TopK: scores
 as c; the select's threshold and the decode's code bit-equal to the plain
 versions' on the kernel's own scores (the same bf16 bits in, an exact
-selection); the sparse decode on rows of every kind (k = N, all ties, no
+selection), the select alone on crafted rows too, K_s at tiles past B and N
+and the same bits on two launches; the sparse decode on rows of every kind (k = N, all ties, no
 positive score, one kept entry) and at widths past one register pass, and
 the same bits on two launches. K1n: dxh bit-equal to K1's at every width
 and batch it takes, the same bits on two launches, and its `wgmma` chains'
@@ -39,6 +40,8 @@ import torch
 
 from _torch_moments import adam_moments, clone_moment, same_bits, store_error_steps, stored_agreement
 from _torch_parity import assert_grads_close, bf16_close
+from _torch_select_rows import CASES as SELECT_CASES
+from _torch_select_rows import case as select_case
 from sparse_coding__tpu_torch.models import fista as tf
 from sparse_coding__tpu_torch.ops import fista_kernel as fk
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
@@ -220,6 +223,57 @@ def test_topk_entries_match_their_plain_composition(cuda, shape, ks):
     torch.testing.assert_close(l_rec, lrec / (B * D), rtol=1e-6, atol=0)
     _hold_adam_step(lambda d, mu, nu, bc: kk.topk_adam_step_stacked(d, mu, nu, x, k, bc, 1, *HP),
                     d_raw, g_p, torch.float32, seed=2)
+
+
+def _select_alone(s, k):
+    """K_s's select on given scores, through its C entry `sc_topk_select`
+    (not on the TopK path: the path's select runs inside `sc_topk_scores`)."""
+    from sparse_coding__tpu_torch.ops import _build
+    from sparse_coding__tpu_torch.ops._wrap import stream
+
+    M, B, N = s.shape
+    thresh = torch.empty((M, B), dtype=torch.float32, device=s.device)
+    rc = _build.load()["topk_fwd"].sc_topk_select(s.data_ptr(), k.data_ptr(), thresh.data_ptr(), M, B, N,
+                                                  stream(s.device))
+    _build.check(rc, "topk_select")
+    return thresh
+
+
+@pytest.mark.parametrize("name", SELECT_CASES)
+def test_topk_select_is_bit_equal_to_the_plain_select_on_crafted_rows(cuda, name):
+    """The select alone on the crafted rows of tests/_torch_select_rows.py
+    (ties across a high-byte boundary, the k clamps, all negative, zeros of
+    both signs, one repeated value, the most crowded high byte, NaN, config
+    4's N, a row counted in two pieces): the plain select's threshold bits."""
+    s, k = select_case(name)
+    s, k = s.to(cuda), k.to(cuda)
+    got = _select_alone(s, k)
+    want = kk._select_plain(s, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+# K_s's tiles past the edges: B % 128 == 64 and N % 256 == 128 (a half tile
+# each way, stored masked), and the smallest shape taken
+TOPK_RAGGED = [((3, 192, 640, 256), (1, 17, 640)), ((2, 64, 128, 128), (1, 128))]
+
+
+@pytest.mark.parametrize("shape,ks", TOPK_SHAPES + TOPK_RAGGED)
+def test_topk_scores_hold_at_every_shape_and_give_the_same_bits_twice(cuda, shape, ks):
+    """K_s's scores within 1 bf16 ulp of the plain GEMM's on < 0.1% of
+    elements, its thresholds bit-equal to the plain select on its own
+    scores, and two launches the same bits, at the TopK shapes and at tiles
+    past B and N."""
+    M, B, N, D = shape
+    d_raw, xb, nrm, db, k = _topk_inputs(shape, ks, cuda, seed=42)
+    s, thresh = kk.topk_scores(xb, db, k)
+    s2, thresh2 = kk.topk_scores(xb, db, k)
+    s_p, _ = kk._topk_scores_plain(xb, db, k)
+    torch.cuda.synchronize()
+    frac, ok = bf16_close(s, s_p)
+    assert ok and frac < 1e-3, (frac, ok)
+    assert torch.equal(thresh.view(torch.int32), kk._select_plain(s, k).view(torch.int32))
+    assert same_bits(s, s2) and same_bits(thresh, thresh2)
 
 
 # K_d's rows of every kind: D, then k per member (k = N among them, a k = 1
