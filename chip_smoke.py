@@ -24,7 +24,14 @@ counts set to 0 just before it and read just after:
     the autograd gradient step, then the decoder update's solve on K_f every
     step, K_f on a masked step;
 and evaluates and exports each path's dictionaries, and times one resident
-step of each with its peak device memory. Prints one JSON line per
+step of each with its peak device memory. Then the sweep driver
+(`train/sweep.py::sweep`) at BASELINE config 2's widths over a
+`SparseMixDataset` store of 3 chunks of 65,536 rows: ensemble A (the tied
+path's 8 members, Adam) launches K1 + K2 every step, ensemble B (4 members,
+a warmup learning-rate schedule) K1 + K3; then the same sweep preempted by
+SIGTERM at position 1 in a process of its own (exit 75) and resumed in
+another, whose final export must equal the uninterrupted run's bit for bit
+(``chip_smoke.py --sweep-worker`` is that process's entry). Prints one JSON line per
 phase, then the `kernels` line, the `nvidia-smi` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. Needs a CUDA device; never
@@ -99,6 +106,11 @@ FISTA = dict(
     data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=2),
     l0_max=None, store_dtype="float16", rows_per_chunk=8192, env={},
 )
+# the sweep driver at BASELINE config 2's widths: a SparseMixDataset store of
+# 3 fp16 chunks of 65,536 rows (1024 components, 8 active, decay 0.996), one
+# epoch; ensemble A is the tied path's (K1 + K2), ensemble B the same widths
+# with 4 members and a warmup schedule, which cannot be fused into K2 (K1 + K3)
+SWEEP = dict(chunks=3, chunk_size_gb=0.0625, members_b=4, warmup_steps=16)
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -1377,6 +1389,157 @@ def phase_fista_step(torch, pkg, cfg, reps: int = 3):
          activations_per_s=cfg["batch"] * ens.n_models / step_ms * 1e3, step_peak_bytes=peak)
 
 
+def sweep_cfg(root: Path, out: str):
+    from sparse_coding__tpu_torch.utils.config import SyntheticEnsembleArgs
+
+    return SyntheticEnsembleArgs(
+        use_synthetic_dataset=True, activation_width=D, n_ground_truth_components=1024, feature_num_nonzero=8,
+        feature_prob_decay=0.996, n_chunks=SWEEP["chunks"], chunk_size_gb=SWEEP["chunk_size_gb"], n_epochs=1,
+        batch_size=B, dataset_folder=str(root / "act"), output_folder=str(root / out), seed=0,
+    )
+
+
+def sweep_init(cfg):
+    """The sweep's two ensembles (module level: the resume subprocesses
+    build the same ones)."""
+    import sparse_coding__tpu_torch as pkg
+    from sparse_coding__tpu_torch.utils.optim import linear_schedule
+
+    kw = dict(compute_dtype="bfloat16", activation_size=D, n_dict_components=N)
+    a = pkg.build_ensemble(pkg.FunctionalTiedSAE, 0, [{"l1_alpha": x} for x in L1_GRID],
+                           optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, **kw)
+    schedule = linear_schedule(0.0, LR, SWEEP["warmup_steps"])
+    b = pkg.build_ensemble(pkg.FunctionalTiedSAE, 1, [{"l1_alpha": x} for x in L1_GRID[:SWEEP["members_b"]]],
+                           optimizer_kwargs={"learning_rate": schedule, "mu_dtype": "bfloat16"}, **kw)
+    args = {"batch_size": cfg.batch_size, "dict_size": N}
+    return ([(a, args, "adam"), (b, args, "warmup")], ["dict_size"], ["l1_alpha"],
+            {"l1_alpha": L1_GRID, "dict_size": [N]})
+
+
+def sweep_worker(argv) -> int:
+    """``chip_smoke.py --sweep-worker <root> <out> [--resume]``: the sweep as
+    a process of its own (``SC_FAULT`` from the environment)."""
+    import warnings
+
+    from sparse_coding__tpu_torch.train.sweep import sweep
+
+    warnings.simplefilter("ignore", UserWarning)  # the schedule's fused-Adam refusal, shown in-process
+    sweep(sweep_init, sweep_cfg(Path(argv[0]), argv[1]), resume="--resume" in argv[2:])
+    return 0
+
+
+def span_seconds(events, category: str) -> float:
+    return sum(e["seconds"] for e in events if e["event"] == "span" and e["category"] == category)
+
+
+def phase_sweep_train(torch, tk, root: Path):
+    """The sweep driver end to end at config 2's widths: the store built on
+    the card, both ensembles trained over it, the export and checkpoint
+    committed. A launches K1 + K2 on every step, B K1 + K3, nothing else
+    launches. Returns the export's path."""
+    import warnings
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.train.sweep import sweep
+
+    cfg = sweep_cfg(root, "out_a")
+    routes = {}
+
+    def init(c):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = sweep_init(c)
+        for ens, _args, name in out[0]:
+            routes[name] = {"members": ens.n_models, "fused": ens.fused, "fused_adam": ens.fused_adam is not None}
+        routes["refusals"] = [str(w.message) for w in caught]
+        return out
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    lds = sweep(init, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = dict(tk.LAUNCHES)
+    rows = SWEEP["chunks"] * int(SWEEP["chunk_size_gb"] * 1024**3 // (D * 2))
+    steps = rows // B  # per ensemble
+    want = {k: 0 for k in launches}
+    want.update(tied_sae_fwd=2 * steps, tied_sae_bwd_adam=steps, tied_sae_bwd_grads=steps)
+    check(routes["adam"] == {"members": M, "fused": True, "fused_adam": True}, f"ensemble A's route {routes}")
+    check(routes["warmup"] == {"members": SWEEP["members_b"], "fused": True, "fused_adam": False},
+          f"ensemble B's route {routes}")
+    check(launches == want, f"sweep launches {launches} after {steps} steps an ensemble, want {want}")
+    events = read_events(Path(cfg.output_folder) / "events.jsonl")
+    check([e["status"] for e in events if e["event"] == "run_end"] == ["ok"], "sweep run_end")
+    export = Path(cfg.output_folder) / f"_{SWEEP['chunks'] - 1}" / "learned_dicts.pkl"
+    check(ckpt_lib.verify_checkpoint(Path(cfg.output_folder) / f"ckpt_{SWEEP['chunks'] - 1}") == (True, "ok"),
+          "the final checkpoint does not verify")
+    loaded = ckpt_lib.load_learned_dicts(export, verify=True)
+    check(len(loaded) == len(lds) == M + SWEEP["members_b"], f"{len(loaded)} exported dicts")
+    sample = torch.from_numpy(np.load(Path(cfg.dataset_folder) / "0.npy")[:4096]).cuda().float()
+    metrics = evaluate_dicts([ld for ld, _ in loaded], sample)
+    fvu = [m["fvu"] for m in metrics]
+    # finite everywhere; each ensemble's lowest-l1 member has learned (the
+    # high-l1 members of so short a run may still sit near FVU 1)
+    check(all(math.isfinite(v) for v in fvu) and max(fvu[0], fvu[M]) < 0.75, f"sweep FVU {fvu}")
+    emit("sweep_train", config="BASELINE config 2 widths", members={"A": M, "B": SWEEP["members_b"]}, routes=routes,
+         chunks=SWEEP["chunks"], rows=rows, batch=B, steps_per_ensemble=steps, launches=launches, wall_s=wall,
+         activations_per_s=steps * B * (M + SWEEP["members_b"]) / wall,
+         span_seconds={c: span_seconds(events, c) for c in ("step", "checkpoint", "data_wait")},
+         sweep_peak_bytes=peak, fvu=fvu, l0=[m["l0"] for m in metrics])
+    return export
+
+
+def phase_sweep_resume(torch, root: Path, control_export: Path):
+    """The same sweep preempted by a real SIGTERM at position 1 in a process
+    of its own (exit 75, a committed ``ckpt_1``), then resumed in another:
+    its final export must equal the uninterrupted run's bit for bit."""
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+
+    def worker(*extra, fault=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+        if fault:
+            env["SC_FAULT"] = fault
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--sweep-worker", str(root), "out_b",
+                               *extra], env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t
+
+    out = root / "out_b"
+    killed, killed_s = worker(fault="sigterm:chunk=1")
+    check(killed.returncode == 75, f"preempted sweep exited {killed.returncode}: {killed.stderr[-3000:]}")
+    ok = ckpt_lib.verify_checkpoint(out / "ckpt_1")
+    check(ok == (True, "ok") and ckpt_lib.latest_checkpoint(out).name == "ckpt_1", f"ckpt_1: {ok}")
+    resumed, resumed_s = worker("--resume")
+    check(resumed.returncode == 0, f"resumed sweep exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    got = ckpt_lib.load_learned_dicts(out / control_export.parent.name / "learned_dicts.pkl", verify=True,
+                                      device="cpu")
+    ref = ckpt_lib.load_learned_dicts(control_export, verify=True, device="cpu")
+    check(len(got) == len(ref), "resumed export length")
+    for (g, hg), (r, hr) in zip(got, ref):
+        check(hg == hr, f"hyperparams {hg} != {hr}")
+        for f in ("encoder", "encoder_bias"):
+            check(torch.equal(getattr(g, f), getattr(r, f)), f"resumed {f} differs from the uninterrupted run's")
+    events = read_events(out / "events.jsonl")
+    kinds = {e["event"] for e in events}
+    preempt = [e for e in events if e["event"] == "preempt"]
+    statuses = [e["status"] for e in events if e["event"] == "run_end"]
+    check({"preempt", "resume", "checkpoint"} <= kinds, f"events {sorted(kinds)}")
+    check(len(preempt) == 1 and preempt[0]["signum"] == 15, f"preempt events {preempt}")
+    check(statuses == ["preempted", "ok"], f"run_end statuses {statuses}")
+    emit("sweep_resume", fault="sigterm:chunk=1", preempted_exit=killed.returncode, preempted_s=killed_s,
+         resumed_s=resumed_s, checkpoint="ckpt_1", run_end=statuses, bit_equal_arrays=2 * len(got),
+         resume_cursor=next(e for e in events if e["event"] == "resume")["cursor"])
+
+
 def main() -> int:
     import torch
 
@@ -1384,6 +1547,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # plain versions and references in exact f32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--sweep-worker"]:
+        return sweep_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments: the moment helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -1392,9 +1560,6 @@ def main() -> int:
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
-    # plain versions and references in exact f32 (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1478,6 +1643,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fista_step(torch, pkg, FISTA)
     rows += label(fista_rows, FISTA, launches)
+
+    # the sweep driver (BASELINE config 2's widths): K1 + K2 and K1 + K3,
+    # then a preempted and resumed run held to the uninterrupted one
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_sweep_") as sweep_root:
+        export = phase_sweep_train(torch, tk, Path(sweep_root))
+        torch.cuda.empty_cache()
+        phase_sweep_resume(torch, Path(sweep_root), export)
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

@@ -11,12 +11,12 @@ last with an atomic ``os.replace``. Tiers, as in the JAX package:
 Quantized chunks move to the device as they are stored and are dequantized
 there to float16 by plain torch ops (``q · scale`` in float16, as the JAX
 package's XLA dequant). The layout is the JAX package's, so a store written
-by either package reads in the other.
+by either package reads in the other. A load verifies the chunk first
+(`data.integrity`): one that fails is quarantined and raises `CorruptChunk`.
 """
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import queue
@@ -28,24 +28,15 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from sparse_coding__tpu_torch.data import integrity
+from sparse_coding__tpu_torch.data.integrity import (  # noqa: F401  (the store's names, as in the JAX package)
+    CorruptChunk,
+    chunk_manifest_path,
+    chunk_path,
+    scale_path,
+)
 from sparse_coding__tpu_torch.utils.device import resolve_device
-
-
-class CorruptChunk(RuntimeError):
-    """A chunk whose bytes do not match its commit manifest."""
-
-
-def chunk_path(folder, i: int) -> Path:
-    return Path(folder) / f"{i}.npy"
-
-
-def chunk_manifest_path(folder, i: int) -> Path:
-    return Path(folder) / f"sc_chunk.{int(i)}.json"
-
-
-def scale_path(folder, i: int) -> Path:
-    """Per-row dequantization scales of a quantized chunk (absent for fp16)."""
-    return Path(folder) / f"{i}.scale.npy"
+from sparse_coding__tpu_torch.utils.manifest import sha256_file
 
 
 def quantize_rows_int8(array: np.ndarray):
@@ -85,14 +76,6 @@ def dequant_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     n, half = packed.shape
     q = torch.stack([hi, lo], dim=-1).reshape(n, half * 2)
     return q.to(torch.float16) * scales[:, None].to(torch.float16)
-
-
-def _sha256(path: Path) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 20), b""):
-            h.update(block)
-    return h.hexdigest()
 
 
 def _save_npy_staged(final: Path, array: np.ndarray) -> Path:
@@ -143,7 +126,7 @@ def save_chunk(folder, i: int, array, dtype=np.float16) -> Path:
         "rows": int(host.shape[0]),
         "shape": [int(s) for s in stored.shape],
         "store_dtype": tier,
-        "files": {name: {"bytes": p.stat().st_size, "sha256": _sha256(p)} for name, p in files.items()},
+        "files": {name: {"bytes": p.stat().st_size, "sha256": sha256_file(p)} for name, p in files.items()},
     }
     mpath = chunk_manifest_path(folder, i)
     mtmp = mpath.with_name(f".{mpath.name}.tmp{os.getpid()}")
@@ -168,52 +151,64 @@ class ChunkStore:
             int(p.stem) for p in self.folder.iterdir() if p.suffix == ".npy" and p.stem.isdigit()
         )
 
-    def verify(self, i: int, depth: str = "size") -> None:
-        """Check chunk `i` against its manifest (``size`` / ``digest`` /
-        ``off``); raises `CorruptChunk`. Chunks without a manifest (legacy)
-        pass."""
-        if depth == "off":
-            return
-        try:
-            with open(chunk_manifest_path(self.folder, i)) as f:
-                manifest = json.load(f)
-        except FileNotFoundError:
-            return
-        for rel, meta in manifest.get("files", {}).items():
-            p = self.folder / rel
-            if not p.is_file():
-                raise CorruptChunk(f"chunk {i} of {self.folder}: missing file {rel}")
-            if p.stat().st_size != meta.get("bytes"):
-                raise CorruptChunk(f"chunk {i} of {self.folder}: size mismatch on {rel}")
-            if depth == "digest" and "sha256" in meta and _sha256(p) != meta["sha256"]:
-                raise CorruptChunk(f"chunk {i} of {self.folder}: digest mismatch on {rel}")
+    def __len__(self) -> int:
+        return len(self.indices())
 
-    def load(self, i: int, dtype=torch.float32, device=None, verify: str = "size") -> torch.Tensor:
-        """Chunk `i` on ``device`` (None = cuda), verified against its manifest.
-        The stored bytes (fp16, int8 or packed int4) cross to the device as
-        they are; quantized chunks are dequantized there to float16, then
-        every tier is upcast there. ``dtype=None`` keeps float16. Quantized
-        bytes without their scale file raise `CorruptChunk` at every verify
-        depth."""
+    def slot_count(self) -> int:
+        """The chunk-index domain: the highest index present or quarantined,
+        plus one. Drivers iterate slots, so a quarantined chunk keeps its
+        place in the epoch order and surfaces as a budgeted skip."""
+        idx = self.indices() + integrity.quarantined_indices(self.folder)
+        return max(idx) + 1 if idx else 0
+
+    def _corrupt(self, i: int, reason: str):
+        integrity.quarantine_chunk(self.folder, i, reason)
+        raise CorruptChunk(self.folder, i, reason)
+
+    def load(self, i: int, dtype=torch.float32, device=None, verify: Optional[str] = None) -> torch.Tensor:
+        """Chunk `i` on ``device`` (None = cuda), verified against its manifest
+        at ``verify`` (None = ``SC_CHUNK_VERIFY``, default ``size``). A chunk
+        that fails is quarantined and raises `CorruptChunk`, as does one
+        quarantined earlier; quantized bytes without their scale file fail at
+        every depth. The stored bytes (fp16, int8 or packed int4) cross to
+        the device as they are; quantized chunks are dequantized there to
+        float16, then every tier is upcast there. ``dtype=None`` keeps
+        float16."""
         device = resolve_device(device)
         if not chunk_path(self.folder, i).exists():
-            raise FileNotFoundError(chunk_path(self.folder, i))
-        self.verify(i, verify)
-        arr = np.load(chunk_path(self.folder, i))
+            if integrity.is_quarantined(self.folder, i):
+                raise CorruptChunk(self.folder, i, f"quarantined: {self._quarantine_reason(i)}")
+            if integrity.read_chunk_manifest(self.folder, i) is None:
+                raise FileNotFoundError(chunk_path(self.folder, i))
+        depth = integrity.verify_depth(verify)
+        if depth != "off":
+            ok, reason = integrity.verify_chunk(self.folder, i, depth=depth)
+            if not ok:
+                self._corrupt(i, reason)
+        try:
+            arr = np.load(chunk_path(self.folder, i))
+        except ValueError as e:  # truncated or garbled bytes: corruption
+            self._corrupt(i, f"unreadable npy: {e}")
+        sp = scale_path(self.folder, i)
         if arr.dtype in (np.int8, np.uint8):
-            sp = scale_path(self.folder, i)
             if not sp.exists():
-                raise CorruptChunk(
-                    f"chunk {i} of {self.folder}: quantized ({arr.dtype.name}) bytes with no scale file"
-                )
+                self._corrupt(i, f"quantized ({arr.dtype.name}) chunk bytes with no scale file — torn pair")
             q = torch.from_numpy(arr).to(device)
             scales = torch.from_numpy(np.load(sp)).to(device)
             x = dequant_int4(q, scales) if arr.dtype == np.uint8 else dequant_int8(q, scales)
         elif arr.dtype == np.float16:
             x = torch.from_numpy(arr).to(device)
         else:
-            raise CorruptChunk(f"chunk {i} of {self.folder}: unknown stored dtype {arr.dtype}")
+            self._corrupt(i, f"unknown stored dtype {arr.dtype}")
         return x if dtype is None else x.to(dtype)
+
+    def _quarantine_reason(self, i: int) -> str:
+        """Why chunk `i` was quarantined, from its quarantine record."""
+        try:
+            with open(self.folder / integrity.QUARANTINE_DIR / f"sc_quarantine.{int(i)}.json") as f:
+                return str(json.load(f).get("reason", "unknown"))
+        except (OSError, ValueError):
+            return "unknown"
 
     def iter_chunks(self, order: Sequence[int], dtype=torch.float32, device=None) -> Iterator[torch.Tensor]:
         """Yield chunks in `order`, reading the next one on a background

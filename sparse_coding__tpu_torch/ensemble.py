@@ -10,9 +10,10 @@ independent of the device:
     K2): bf16 compute, a fused signature, a supported shape, no centering,
     an Adam whose kwargs and moment storage (f32, bf16, int8) the kernel
     implements, and no update mask;
-  - fused grads (K1 or K_s + K_d, then K3) + the port's Adam (+ the
+  - fused grads (K1 or K_s + K_d, then K3) + the port's optimizer (+ the
     NaN-safe update mask): the same, with a masked ensemble or an optimizer
-    the kernel cannot fuse;
+    the kernel cannot fuse (SGD, a learning-rate schedule, an unknown Adam
+    kwarg);
   - autograd of the signature's loss under the precision policy otherwise
     (exact f32 with ``compute_dtype=None``); its ``aux`` carries the code,
     which the FISTA decoder update takes as its warm start.
@@ -39,14 +40,14 @@ Params = Dict[str, Optional[torch.Tensor]]
 
 
 def optim_str_to_func(optim_str: str):
-    """Name → optimizer factory. Only ``"adam"`` is ported; the JAX
-    package's ``"sgd"`` raises (ROADMAP A1)."""
+    """Name → optimizer factory: ``"adam"`` (`utils.optim.adam`) or
+    ``"sgd"`` (`utils.optim.sgd`), as in the JAX package."""
     from sparse_coding__tpu_torch.utils import optim
 
     if optim_str == "adam":
         return optim.adam
     if optim_str == "sgd":
-        raise NotImplementedError("optimizer 'sgd' is not ported yet — ROADMAP A1")
+        return optim.sgd
     raise ValueError(f"Unknown optimizer string: {optim_str}")
 
 
@@ -193,6 +194,9 @@ class Ensemble:
             _refuse_fused_adam(self.sig, f"unknown optimizer kwargs {sorted(extra)}")
             return None
         kw = self.optimizer_kwargs
+        if callable(kw.get("learning_rate")):
+            _refuse_fused_adam(self.sig, "non-scalar learning_rate (schedule)")
+            return None
         cfg = dict(
             lr=float(kw.get("learning_rate", 1e-3)),
             b1=float(kw.get("b1", 0.9)),

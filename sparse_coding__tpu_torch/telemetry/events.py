@@ -1,0 +1,201 @@
+"""Structured run-event log: ``events.jsonl`` beside the metrics JSONL.
+
+Counterpart of `sparse_coding__tpu/telemetry/events.py`, in the same on-disk
+format (a shared one: the JAX package's `read_events`, report and goodput
+tools read the port's logs). One record per line::
+
+    {"seq": <monotonic int>, "ts": <unix float>, "mono": <float>, "event": <kind>, ...fields}
+
+Kinds the port writes: ``run_start`` (config + environment fingerprint),
+``chunk_start`` / ``chunk_end``, ``span`` (`telemetry.spans`), ``resume``,
+``checkpoint``, ``preempt``, ``anomaly``, ``chunk_skipped``,
+``provenance``, ``snapshot`` (counters + gauges) and ``run_end``.
+
+Counters and gauges are host-side Python numbers: bumping them never touches
+the card. The JAX package's compile bridge (``jax.monitoring``,
+``tracked_jit``) has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+__all__ = ["RunTelemetry", "counter_inc_active", "event_active", "read_events", "run_fingerprint"]
+
+# live instances receiving handle-less signals (removed on close)
+_ACTIVE: List["RunTelemetry"] = []
+
+
+def counter_inc_active(name: str, n: int = 1) -> None:
+    """Bump a counter on every live RunTelemetry (no live one: a no-op)."""
+    for t in list(_ACTIVE):
+        t.counter_inc(name, n)
+
+
+def event_active(etype: str, **fields) -> None:
+    """Emit an event on every live RunTelemetry (layers without a handle)."""
+    for t in list(_ACTIVE):
+        t.event(etype, **fields)
+
+
+def run_fingerprint() -> Dict[str, Any]:
+    """Environment fingerprint for ``run_start``: python, torch, CUDA and the
+    device, where the JAX package reports jax and its devices. Best-effort: a
+    group that fails lands in ``fingerprint_error``, never fails the run."""
+    fp: Dict[str, Any] = {"python": sys.version.split()[0]}
+    errors: List[str] = []
+    try:
+        import torch
+
+        fp["torch"] = torch.__version__
+        fp["cuda"] = torch.version.cuda
+        if torch.cuda.is_available():
+            fp["backend"] = "gpu"
+            fp["device_kind"] = torch.cuda.get_device_name(0)
+            fp["device_count"] = torch.cuda.device_count()
+        else:
+            fp["backend"] = "cpu"
+            fp["device_kind"] = "cpu"
+            fp["device_count"] = 1
+    except (ImportError, RuntimeError, AssertionError) as e:
+        errors.append(f"torch: {e!r}")
+    if errors:
+        fp["fingerprint_error"] = "; ".join(errors)
+    try:
+        sha = subprocess.run(["git", "rev-parse", "HEAD"], cwd=Path(__file__).resolve().parents[2],
+                             capture_output=True, text=True, timeout=5)
+        if sha.returncode == 0:
+            fp["git_sha"] = sha.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return fp
+
+
+class RunTelemetry:
+    """Append-only structured event log + host-side counters and gauges.
+
+    ``out_dir=None`` keeps everything in memory. A resumed process appends to
+    the same log; ``generation`` counts the ``run_start`` records already
+    there. `close` writes ``run_end`` unless one was written."""
+
+    def __init__(self, out_dir: Optional[str] = None, run_name: str = "run",
+                 config: Optional[Dict[str, Any]] = None, file_name: str = "events.jsonl"):
+        self.run_name = run_name
+        self._config = config
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._t0_mono = time.monotonic()
+        self._chunk_t0_mono: Optional[float] = None
+        self._counters: Dict[str, float] = {}
+        self._gauges: Dict[str, float] = {}
+        self._run_end_written = False
+        self._fh = None
+        self.path: Optional[Path] = None
+        self.generation = 0
+        if out_dir is not None:
+            d = Path(out_dir)
+            d.mkdir(parents=True, exist_ok=True)
+            self.path = d / file_name
+            self.generation = self._count_prior_generations()
+            self._fh = open(self.path, "a")
+        _ACTIVE.append(self)
+
+    def _count_prior_generations(self) -> int:
+        if self.path is None or not self.path.exists():
+            return 0
+        try:
+            with open(self.path, "r", errors="replace") as f:
+                return sum('"event": "run_start"' in line for line in f)
+        except OSError:
+            return 0
+
+    def event(self, etype: str, **fields) -> Dict[str, Any]:
+        """Write one record of kind ``etype`` and return it."""
+        with self._lock:
+            self._seq += 1
+            rec = {"seq": self._seq, "ts": time.time(), "mono": round(time.monotonic(), 6), "event": etype, **fields}
+            if self._fh is not None:
+                self._fh.write(json.dumps(rec, default=str) + "\n")
+                self._fh.flush()
+        return rec
+
+    def run_start(self, config: Optional[Dict[str, Any]] = None):
+        return self.event("run_start", run_name=self.run_name, generation=self.generation,
+                          config=config if config is not None else self._config, fingerprint=run_fingerprint())
+
+    def chunk_start(self, chunk: int, **fields):
+        self._chunk_t0_mono = time.monotonic()
+        return self.event("chunk_start", chunk=int(chunk), **fields)
+
+    def chunk_end(self, chunk: int, **fields):
+        """Wall seconds since `chunk_start` (monotonic; None without one).
+        Reads no device state, so it adds no sync."""
+        t0, self._chunk_t0_mono = self._chunk_t0_mono, None
+        self.counter_inc("chunks")
+        if t0 is None:
+            return self.event("chunk_end", chunk=int(chunk), seconds=None, **fields)
+        dt = time.monotonic() - t0
+        self.counter_add_float("chunk.seconds", dt)
+        return self.event("chunk_end", chunk=int(chunk), seconds=round(dt, 3), **fields)
+
+    def run_end(self, status: str = "ok", **fields):
+        """The final record (after a closing `snapshot`): status, this
+        generation's wall seconds, and the step totals from the counters."""
+        self.snapshot()
+        self._run_end_written = True
+        wall = time.monotonic() - self._t0_mono
+        rec: Dict[str, Any] = {"status": status, "run_name": self.run_name, "generation": self.generation,
+                               "wall_seconds": round(wall, 3), **fields}
+        steps = self._counters.get("train.steps")
+        if steps is not None:
+            rec["steps"] = int(steps)
+            rec.setdefault("steps_per_sec", round(steps / wall, 3) if wall > 0 else None)
+        return self.event("run_end", **rec)
+
+    def counter_inc(self, name: str, n: int = 1):
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def counter_add_float(self, name: str, v: float):
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + float(v)
+
+    def gauge_set(self, name: str, value: float):
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    @property
+    def counters(self) -> Dict[str, float]:
+        return dict(self._counters)
+
+    @property
+    def gauges(self) -> Dict[str, float]:
+        return dict(self._gauges)
+
+    def snapshot(self):
+        """One record of every counter and gauge."""
+        with self._lock:
+            counters = {k: round(v, 4) if isinstance(v, float) else v for k, v in sorted(self._counters.items())}
+            gauges = dict(sorted(self._gauges.items()))
+        return self.event("snapshot", counters=counters, gauges=gauges)
+
+    def close(self, status: str = "ok"):
+        if self in _ACTIVE:
+            _ACTIVE.remove(self)
+        if not self._run_end_written:
+            self.run_end(status=status)
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+def read_events(path) -> List[Dict[str, Any]]:
+    """Parse an events.jsonl back into records."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]

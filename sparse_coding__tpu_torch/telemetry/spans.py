@@ -1,0 +1,73 @@
+"""Span records: categorized wall-time intervals for goodput accounting.
+
+Counterpart of `sparse_coding__tpu/telemetry/spans.py`, in the same record
+format. One ``span`` event is written when a span closes::
+
+    {"event": "span", "category": "data_wait", "name": "chunk_next",
+     "ts_start": <wall clock at begin>, "seconds": <monotonic duration>, ...}
+
+``telemetry=None`` makes a span a no-op. The sweep opens ``data_wait`` (dataset init, each
+chunk's wait), ``step`` (each chunk's training), ``checkpoint`` (exports,
+saves, restores), ``preempt_drain`` and ``degraded_skip`` spans. A ``step``
+span closes on the host clock, after the chunk's work is enqueued, not when
+the card finishes it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+__all__ = ["BADPUT_CATEGORIES", "GOODPUT_CATEGORIES", "Span", "span"]
+
+GOODPUT_CATEGORIES = ("step", "encode")
+BADPUT_CATEGORIES = (
+    "compile", "data_wait", "checkpoint", "preempt_drain", "degraded_skip", "export_verify",
+    "restart_backoff", "request_wait", "dequant", "forward", "feature_flush", "tower_poll", "lineage_verify",
+)
+
+
+class Span:
+    """One categorized wall-time interval; emits a ``span`` event on close,
+    also when the block raised."""
+
+    __slots__ = ("telemetry", "category", "name", "fields", "_t0_mono", "_t0_wall", "_done")
+
+    def __init__(self, telemetry, category: str, name: Optional[str] = None, **fields):
+        if category not in GOODPUT_CATEGORIES + BADPUT_CATEGORIES:
+            raise ValueError(f"unknown span category {category!r}")
+        self.telemetry, self.category, self.name, self.fields = telemetry, category, name, fields
+        self._t0_mono: Optional[float] = None
+        self._t0_wall: Optional[float] = None
+        self._done = False
+
+    def begin(self) -> "Span":
+        self._t0_mono, self._t0_wall, self._done = time.monotonic(), time.time(), False
+        return self
+
+    def end(self, **extra) -> Optional[Dict[str, Any]]:
+        if self._done or self._t0_mono is None:
+            return None
+        self._done = True
+        if self.telemetry is None:
+            return None
+        seconds = time.monotonic() - self._t0_mono
+        fields = {**self.fields, **extra}
+        if self.name is not None:
+            fields.setdefault("name", self.name)
+        self.telemetry.counter_inc(f"span.{self.category}.count")
+        self.telemetry.counter_add_float(f"span.{self.category}.seconds", seconds)
+        return self.telemetry.event("span", category=self.category, ts_start=round(self._t0_wall, 6),
+                                    seconds=round(seconds, 6), **fields)
+
+    def __enter__(self) -> "Span":
+        return self.begin()
+
+    def __exit__(self, exc_type, exc, tb):
+        self.end()
+        return False
+
+
+def span(telemetry, category: str, name: Optional[str] = None, **fields) -> Span:
+    """A `Span`, not yet begun (``with`` or ``.begin()`` starts it)."""
+    return Span(telemetry, category, name=name, **fields)

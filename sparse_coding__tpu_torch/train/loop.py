@@ -1,18 +1,23 @@
-"""Per-chunk ensemble training loop and the FISTA decoder update.
+"""Per-chunk ensemble training loop, the FISTA decoder update, and the
+drivers' checkpoint/preemption glue.
 
-Counterpart of `sparse_coding__tpu/train/loop.py::ensemble_train_loop` and
-`make_fista_decoder_update`: a permutation drawn from a `torch.Generator` on
+Counterpart of `sparse_coding__tpu/train/loop.py::ensemble_train_loop`,
+`make_fista_decoder_update` and `DriverCheckpointer`. The loop draws a
+permutation drawn from a `torch.Generator` on
 the dataset's device, then either the whole-chunk path (ONE bulk gather of
 the permuted rows, then every step) or groups of ``scan_steps`` batches
 gathered as they go. A signature with ``has_fista_decoder_update`` takes
 one batch at a time instead: the gradient step, then the FISTA decoder
-update warm-started from that step's code (K_f on the card).
+update warm-started from that step's code (K_f on the card). Losses go to
+a `utils.logging.MetricLogger` without a sync per step, and step counts to a
+`telemetry.events.RunTelemetry` as host-side counters.
 """
 
 from __future__ import annotations
 
 import warnings
 from functools import lru_cache
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
@@ -21,6 +26,76 @@ from sparse_coding__tpu_torch.ensemble import Ensemble, EnsembleState
 from sparse_coding__tpu_torch.models.fista import dictionary_update
 from sparse_coding__tpu_torch.models.learned_dict import _norm_rows
 from sparse_coding__tpu_torch.ops.fista_kernel import fista_solve
+from sparse_coding__tpu_torch.telemetry.spans import span
+from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+from sparse_coding__tpu_torch.train import preemption
+from sparse_coding__tpu_torch.utils.logging import MetricLogger
+
+
+class DriverCheckpointer:
+    """The drivers' checkpoint, resume and preemption glue (the JAX
+    package's, single-host).
+
+    Installing the signal handlers on construction, it turns SIGTERM/SIGINT
+    into a flag; `boundary(cursor, save_fn)` at each chunk boundary then
+    commits a checkpoint through ``save_fn(path)`` (the atomic protocol of
+    `train.checkpoint`), writes a ``preempt`` event and raises
+    `preemption.Preempted` (exit 75). Every save is followed by retention
+    GC (newest ``keep``). The JAX package's ``every``-boundary cadence waits
+    for the drivers that set it (ROADMAP A3, A6).
+    `close()` stops polling and, once no checkpointer polls, puts back the
+    signal handlers that were replaced."""
+
+    def __init__(self, output_folder, telemetry=None, keep: int = 3):
+        self.out = Path(output_folder)
+        self.telemetry = telemetry
+        self.keep = keep
+        self._closed = False
+        self.handlers_active = preemption.install_signal_handlers()
+        preemption.poller_started()
+
+    def close(self) -> None:
+        """Idempotent; drivers call it in their ``finally``."""
+        if not self._closed:
+            self._closed = True
+            preemption.poller_stopped()
+
+    def restore(self, template=None) -> Optional[Dict]:
+        """The newest committed, intact checkpoint tree (torn or corrupt
+        dirs skipped), or None. Writes a ``resume`` event."""
+        latest = ckpt_lib.latest_checkpoint(self.out)
+        if latest is None:
+            return None
+        with span(self.telemetry, "checkpoint", name="restore"):
+            tree = ckpt_lib.restore_ensemble_checkpoint(latest, template=template)
+        if self.telemetry is not None:
+            cursor = {k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in (tree.get("cursor") or {}).items()}
+            self.telemetry.event("resume", checkpoint=str(latest), cursor=cursor)
+            self.telemetry.counter_inc("resumes")
+        return tree
+
+    def save(self, cursor_id: int, save_fn: Callable[[Path], None], reason: str = "periodic") -> Path:
+        path = self.out / f"ckpt_{int(cursor_id)}"
+        category = "preempt_drain" if reason == "preempt" else "checkpoint"
+        with span(self.telemetry, category, name=f"save:{reason}", cursor=int(cursor_id)):
+            save_fn(path)
+            ckpt_lib.gc_checkpoints(self.out, keep=self.keep)
+        if self.telemetry is not None:
+            self.telemetry.event("checkpoint", path=str(path), cursor=int(cursor_id), reason=reason)
+            self.telemetry.counter_inc("checkpoints")
+        return path
+
+    def boundary(self, cursor_id: int, save_fn: Callable[[Path], None], already_saved: bool = False) -> None:
+        """Raises `Preempted` after the preemption checkpoint commits.
+        ``already_saved``: the driver just checkpointed this cursor on its
+        own schedule, and the preemption path reuses it."""
+        if preemption.pod_agree_preempt(self.telemetry):
+            path = (self.out / f"ckpt_{int(cursor_id)}" if already_saved
+                    else self.save(cursor_id, save_fn, reason="preempt"))
+            if self.telemetry is not None:
+                self.telemetry.event("preempt", signum=preemption.preemption_signal(), checkpoint=str(path),
+                                     cursor=int(cursor_id))
+            raise preemption.Preempted(f"preempted: checkpoint committed at {path}; exiting resumable")
 
 
 def warn_if_ensemble_dead(ensemble: Ensemble, batch: torch.Tensor, context: str = "") -> bool:
@@ -87,6 +162,9 @@ def ensemble_train_loop(
     bulk_shuffle_max_bytes: int = 2 << 30,
     fista_iters: int = 500,
     fista_tol: float = 0.0,
+    logger: Optional[MetricLogger] = None,
+    log_every: int = 16,
+    telemetry=None,
 ) -> Dict[str, torch.Tensor]:
     """Train the ensemble for one pass over ``dataset`` [N, d] (on the
     ensemble's device). ``key`` seeds the permutation's `torch.Generator` on
@@ -99,7 +177,16 @@ def ensemble_train_loop(
 
     A signature with ``has_fista_decoder_update`` takes ``scan_steps`` 1,
     and each `step_batch` is followed by `make_fista_decoder_update`
-    (``fista_iters``, ``fista_tol``) on the same batch and the step's code."""
+    (``fista_iters``, ``fista_tol``) on the same batch and the step's code.
+
+    ``logger`` gets each step's losses (left on the device) and is flushed,
+    one host copy, every ``log_every`` steps and at the end (the whole-chunk
+    path: once, at the end). ``telemetry`` gets the route as gauges
+    (``train.fused``, ``train.fused_adam``) and the ``train.steps`` and
+    ``train.dispatches`` counters, host-side."""
+    if telemetry is not None:
+        telemetry.gauge_set("train.fused", float(bool(ensemble.fused)))
+        telemetry.gauge_set("train.fused_adam", float(ensemble.fused_adam is not None))
     fista_fn = None
     if getattr(ensemble.sig, "has_fista_decoder_update", False):
         fista_fn = make_fista_decoder_update(fista_iters, tol=fista_tol)
@@ -121,6 +208,13 @@ def ensemble_train_loop(
         losses = ensemble.step_scan(shuffled)
         del shuffled
         loss_dict = {k: v[-1] for k, v in losses.items()}
+        if telemetry is not None:
+            telemetry.counter_inc("train.steps", n_batches)
+            telemetry.counter_inc("train.dispatches")
+        if logger is not None:
+            for j in range(n_batches):
+                logger.log(j, {name: v[j] for name, v in losses.items()})
+            logger.flush()
     else:
         i = 0
         while i < n_batches:
@@ -130,12 +224,23 @@ def ensemble_train_loop(
                 batch = dataset[idxs[0]]
                 loss_dict, aux = ensemble.step_batch(batch)
                 ensemble.state = fista_fn(ensemble.state, batch, aux["c"])
+                losses = {name: v[None] for name, v in loss_dict.items()}
             else:
                 losses = ensemble.step_scan(dataset[idxs])
                 loss_dict = {name: v[-1] for name, v in losses.items()}
+            if logger is not None:
+                for j in range(k):
+                    logger.log(i + j, {name: v[j] for name, v in losses.items()})
             i += k
+            if telemetry is not None:
+                telemetry.counter_inc("train.steps", k)
+                telemetry.counter_inc("train.dispatches")
+            if logger is not None and (i // log_every) != ((i - k) // log_every):
+                logger.flush()
             if progress_callback is not None:
                 progress_callback(i - 1, n_batches)
+        if logger is not None:
+            logger.flush()
     if dead_check:
         warn_if_ensemble_dead(ensemble, dataset[perm[:64]], context="after chunk pass")
     return loss_dict

@@ -1,16 +1,89 @@
 """The ``SC_*`` environment flags the port reads.
 
 Counterpart of `sparse_coding__tpu/utils/flags.py`, cut to the flags the port
-uses; each keeps the JAX package's name, default and parse.
+uses; each keeps the JAX package's name, default, kind and parse, because the
+same environment drives runs of either package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Dict, Mapping, Optional, Tuple
+
+# spellings that turn a default-on / truthy flag off
+_FALSY = ("", "0", "false", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class Flag:
+    """One declared ``SC_*`` env flag. ``kind`` picks the parse ``get()``
+    applies: ``str`` (raw string, default applied, never None), ``opt_str``
+    (raw string or None), ``float``, ``bool01`` (True iff exactly ``"1"``),
+    ``truthy`` (True iff set outside ``("", "0", "false", "off")``) or
+    ``onoff`` (default on: False iff one of ``("0", "false", "off")``)."""
+
+    name: str
+    kind: str
+    default: Optional[str]
+    owner: str
+    help: str
+    choices: Tuple[str, ...] = ()
+
+    def raw(self, env: Optional[Mapping[str, str]] = None) -> Optional[str]:
+        """The unparsed env value, or None when unset (no default applied)."""
+        return (os.environ if env is None else env).get(self.name)
+
+    def get(self, env: Optional[Mapping[str, str]] = None):
+        raw = self.raw(env)
+        if raw is None:
+            raw = self.default
+        if self.kind == "opt_str":
+            return raw
+        if self.kind == "str":
+            return raw if raw is not None else ""
+        if self.kind == "float":
+            return None if raw is None else float(raw)
+        if self.kind == "bool01":
+            return raw == "1"
+        if self.kind == "truthy":
+            return (raw or "").lower() not in _FALSY
+        if self.kind == "onoff":
+            return (raw or "").lower() not in ("0", "false", "off")
+        raise ValueError(f"unknown flag kind {self.kind!r} for {self.name}")
+
+
+FLAGS: Dict[str, Flag] = {
+    f.name: f
+    for f in (
+        Flag("SC_RECOMPUTE_CODE", "bool01", "0", "ops.tied_sae_kernel",
+             "Fused tied-SAE bwd rebuilds the code tile instead of storing it."),
+        Flag("SC_PREEMPT", "onoff", "1", "train.preemption",
+             "Default-on switch for SIGTERM/SIGINT preemption handling."),
+        Flag("SC_RESUME", "truthy", "", "train.preemption",
+             "Drivers resume from the latest checkpoint instead of starting fresh."),
+        Flag("SC_CKPT_VERIFY", "str", "digest", "train.checkpoint",
+             "Checkpoint verification depth.", ("digest", "size", "off")),
+        Flag("SC_CHUNK_VERIFY", "str", "size", "data.integrity",
+             "Read-side chunk verification depth.", ("digest", "size", "off")),
+        Flag("SC_CHUNK_LOSS_BUDGET", "float", None, "data.integrity",
+             "Max fraction of a store's chunks that may be quarantined (unset = 0.05)."),
+        Flag("SC_FAULT", "opt_str", None, "utils.faults",
+             "Fault-injection spec 'action[:site][:key=val...]' (utils.faults)."),
+    )
+}
+
+SC_RECOMPUTE_CODE = FLAGS["SC_RECOMPUTE_CODE"]
+SC_PREEMPT = FLAGS["SC_PREEMPT"]
+SC_RESUME = FLAGS["SC_RESUME"]
+SC_CKPT_VERIFY = FLAGS["SC_CKPT_VERIFY"]
+SC_CHUNK_VERIFY = FLAGS["SC_CHUNK_VERIFY"]
+SC_CHUNK_LOSS_BUDGET = FLAGS["SC_CHUNK_LOSS_BUDGET"]
+SC_FAULT = FLAGS["SC_FAULT"]
 
 
 def recompute_code() -> bool:
     """``SC_RECOMPUTE_CODE``: the fused tied-SAE step rebuilds each code tile
     in the backward instead of storing the [M, B, N] code tensor. On only for
     the literal ``"1"`` (default ``"0"``). Read when an ensemble is built."""
-    return os.environ.get("SC_RECOMPUTE_CODE", "0") == "1"
+    return SC_RECOMPUTE_CODE.get()

@@ -1,5 +1,5 @@
-"""Adam over dicts of stacked tensors, in optax's update order, with the JAX
-package's compressed moment storage.
+"""Adam and SGD over dicts of stacked tensors, in optax's update order, with
+the JAX package's compressed moment storage and learning-rate schedules.
 
 Counterpart of `sparse_coding__tpu/utils/optim.py::adam`. For float moment
 storage that IS `optax.adam`; the expressions and their rounding follow optax
@@ -33,12 +33,19 @@ bits from the JAX package's counter hash (`mix32`, the interpret-mode
 deterministic, on the device, and unbiased, which is the contract
 (`tests/test_torch_capacity_optim.py`). The fused kernels' stores use the
 same hash with the kernel's own tile seeds (`ops.tied_sae_kernel.tile_bits`).
+
+Schedules: ``learning_rate`` may be a callable ``count → lr`` over the
+``[n_models]`` int32 step count (the count before this update, as optax's
+``scale_by_schedule`` sees it), written in torch ops so it runs on the
+device (`linear_schedule` is optax's). An optimizer with a schedule cannot
+be fused into K2 (`ensemble.Ensemble` routes it to fused grads + this
+module, as the JAX package does).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -197,11 +204,7 @@ class Adam:
                 f"adam(mu_dtype={mu_dtype}, nu_dtype={nu_dtype}): moment storage "
                 "other than float32, bfloat16 or int8 is not ported"
             )
-        if callable(learning_rate):
-            raise NotImplementedError(
-                "learning-rate schedules are not ported yet — ROADMAP A1"
-            )
-        self.learning_rate = float(learning_rate)
+        self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
         self.b1, self.b2, self.eps, self.eps_root = float(b1), float(b2), float(eps), float(eps_root)
         self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
         self.seed = int(seed)
@@ -249,7 +252,7 @@ class Adam:
             mu_hat = mu / _per_member(bc1, mu)
             nu_hat = nu / _per_member(bc2, nu)
             u = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
-            updates[k] = f32(-self.learning_rate, u) * u
+            updates[k] = scale_by_learning_rate(self.learning_rate, state.count, u)
             t = count_inc[0]
             mu_out[k] = self._store(mu, mu_prev, self.mu_dtype,
                                     lambda: _leaf_bits(mu, self.seed, t, i, _SALT_MU))
@@ -267,6 +270,67 @@ def adam(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
     ``nu_dtype`` in {None, float32, bfloat16, int8}; ``seed`` seeds the
     stochastic stores)."""
     return Adam(learning_rate, b1, b2, eps, eps_root, mu_dtype, nu_dtype, seed)
+
+
+def scale_by_learning_rate(learning_rate, count: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``-lr · u`` (optax's ``scale_by_learning_rate``): a float rounded once
+    to f32, or a schedule evaluated at ``count`` [n_models] in f32 per
+    member."""
+    if not callable(learning_rate):
+        return f32(-learning_rate, u) * u
+    lr = torch.as_tensor(learning_rate(count), dtype=torch.float32, device=u.device)
+    return _per_member(-lr, u) * u if lr.ndim else -lr * u
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int,
+                    transition_begin: int = 0) -> Callable[[torch.Tensor], torch.Tensor]:
+    """optax's ``linear_schedule``: ``init_value`` until ``transition_begin``,
+    then linearly to ``end_value`` over ``transition_steps`` steps, then
+    constant. In f32, on the count's device."""
+    if transition_steps <= 0:
+        return lambda count: torch.full_like(torch.as_tensor(count), init_value, dtype=torch.float32)
+
+    def schedule(count):
+        c = torch.clamp(torch.as_tensor(count) - transition_begin, 0, transition_steps)
+        frac = 1 - c / transition_steps
+        return (init_value - end_value) * frac.to(torch.float32) + end_value
+
+    return schedule
+
+
+@dataclasses.dataclass
+class SgdState:
+    """``count`` [n_models] int32: the schedules' step."""
+
+    count: torch.Tensor
+
+
+class Sgd:
+    """``optax.sgd`` without momentum: ``-lr · g``, the rate a float or a
+    schedule. Momentum and Nesterov are not ported yet (ROADMAP A2's
+    leftovers): no driver of either package passes them."""
+
+    def __init__(self, learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False):
+        if momentum is not None or nesterov:
+            raise NotImplementedError(
+                f"sgd(momentum={momentum}, nesterov={nesterov}): the momentum trace is not ported yet "
+                "— ROADMAP A2 (leftovers)"
+            )
+        self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
+
+    def init(self, params: Dict[str, torch.Tensor]) -> SgdState:
+        p0 = next(iter(params.values()))
+        return SgdState(count=torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device))
+
+    def update(self, grads, state: SgdState, params=None):
+        del params
+        updates = {k: scale_by_learning_rate(self.learning_rate, state.count, g) for k, g in grads.items()}
+        return updates, SgdState(count=state.count + 1)
+
+
+def sgd(learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False) -> Sgd:
+    """``optax.sgd`` over stacked tensors."""
+    return Sgd(learning_rate, momentum, nesterov)
 
 
 def apply_updates(params: Dict[str, torch.Tensor], updates: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -14,6 +14,7 @@ from sparse_coding__tpu.data.chunks import save_chunk as jax_save_chunk
 from sparse_coding__tpu.train.checkpoint import save_learned_dicts as jax_save_learned_dicts
 from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
 from sparse_coding__tpu_torch.data.chunks import ChunkStore, CorruptChunk, generate_synthetic_chunks, save_chunk
+from sparse_coding__tpu_torch.data.integrity import is_quarantined
 from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
 from sparse_coding__tpu_torch.models.learned_dict import LEARNED_DICT_REGISTRY, UntiedSAE
 from sparse_coding__tpu_torch.train.checkpoint import load_learned_dicts, save_learned_dicts
@@ -44,12 +45,17 @@ def test_chunk_store_refuses_torn_and_quantized_chunks(tmp_path):
         ChunkStore(tmp_path).load(0, device="cpu")
     with pytest.raises(ValueError, match="tiers"):
         save_chunk(tmp_path, 1, a, dtype=np.float32)
-    # quantized bytes whose scale file is gone never load as raw codes
-    jax_save_chunk(tmp_path / "q", 0, a, dtype=np.int8)
-    (tmp_path / "q" / "0.scale.npy").unlink()
-    for verify in ("size", "off"):
-        with pytest.raises(CorruptChunk, match="scale"):
-            ChunkStore(tmp_path / "q").load(0, device="cpu", verify=verify)
+    assert is_quarantined(tmp_path, 0)
+    # quantized bytes whose scale file is gone never load as raw codes, at
+    # any depth: each depth gets its own store, since a failed load
+    # quarantines the chunk
+    for verify, reason in (("size", "missing file 0.scale.npy"), ("off", "no scale file — torn pair")):
+        q = tmp_path / f"q_{verify}"
+        jax_save_chunk(q, 0, a, dtype=np.int8)
+        (q / "0.scale.npy").unlink()
+        with pytest.raises(CorruptChunk, match=reason):
+            ChunkStore(q).load(0, device="cpu", verify=verify)
+        assert is_quarantined(q, 0) and not (q / "0.npy").exists()
 
 
 def test_jax_export_loads_and_encodes_alike(tmp_path):
@@ -128,3 +134,48 @@ def test_train_loop_over_a_two_chunk_store(tmp_path):
     assert ens.state.step == 16
     np.testing.assert_array_equal(to_np(ens.state.opt_state.count), [16, 16])
     assert float(loss().mean()) < float(before.mean())
+
+
+def _one_of_each(name):
+    """A small instance of each learned-dict class registered in both
+    packages."""
+    from sparse_coding__tpu_torch.models.fista import Fista
+    from sparse_coding__tpu_torch.models.learned_dict import TiedSAE
+    from sparse_coding__tpu_torch.models.topk import TopKLearnedDict
+
+    g = torch.Generator().manual_seed(0)
+    enc, bias = torch.randn(16, 8, generator=g), torch.randn(16, generator=g) - 0.5
+    return {
+        "UntiedSAE": lambda: UntiedSAE(enc, torch.randn(16, 8, generator=g), bias),
+        "TiedSAE": lambda: TiedSAE(enc, bias),
+        "TopKLearnedDict": lambda: TopKLearnedDict(enc, 3),
+        "Fista": lambda: Fista(enc, bias),
+    }[name]()
+
+
+@pytest.mark.parametrize("name, jax_class", [
+    ("UntiedSAE", "sparse_coding__tpu.models.learned_dict.UntiedSAE"),
+    ("TiedSAE", "sparse_coding__tpu.models.learned_dict.TiedSAE"),
+    ("TopKLearnedDict", "sparse_coding__tpu.models.topk.TopKLearnedDict"),
+    ("Fista", "sparse_coding__tpu.models.fista.Fista"),
+])
+def test_port_exports_name_the_jax_class_and_load_there_verified(tmp_path, name, jax_class):
+    """Each record names the JAX package's class, which the JAX loader
+    imports (sidecar verified) and encodes with as the port does; the port's
+    loader still reads the record by class name."""
+    import pickle
+
+    from sparse_coding__tpu.train.checkpoint import load_learned_dicts as jax_load
+
+    ld = _one_of_each(name)
+    assert type(ld) in LEARNED_DICT_REGISTRY
+    save_learned_dicts(tmp_path / "e.pkl", [(ld, {"k": 1})])
+    (record,) = pickle.loads((tmp_path / "e.pkl").read_bytes())
+    assert record["class"] == jax_class
+    ((jld, hp),) = jax_load(tmp_path / "e.pkl", verify=True)
+    assert f"{type(jld).__module__}.{type(jld).__qualname__}" == jax_class and hp == {"k": 1}
+    x = np.random.default_rng(1).standard_normal((20, 8)).astype(np.float32)
+    np.testing.assert_allclose(to_np(ld.encode(torch.from_numpy(x))), np.asarray(jld.encode(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)
+    ((back, _),) = load_learned_dicts(tmp_path / "e.pkl", verify=True, device="cpu")
+    assert type(back) is type(ld)

@@ -250,11 +250,11 @@ def test_exports_load_both_ways(tmp_path):
     assert [type(ld) for ld in lds] == [UntiedSAE, UntiedSAE, Fista]
     save_learned_dicts(tmp_path / "port.pkl", [(ld, {"i": i}) for i, ld in enumerate(lds)])
     records = pickle.loads((tmp_path / "port.pkl").read_bytes())
-    for r in records:
-        r["class"] = r["class"].replace("sparse_coding__tpu_torch.", "sparse_coding__tpu.")
-    (tmp_path / "as_jax.pkl").write_bytes(pickle.dumps(records))
-    jlds = [ld for ld, _ in jax_load(tmp_path / "as_jax.pkl", verify=False)]
-    assert [type(ld).__name__ for ld in jlds] == ["UntiedSAE", "UntiedSAE", "Fista"]
+    assert [r["class"] for r in records] == ["sparse_coding__tpu.models.learned_dict.UntiedSAE"] * 2 + [
+        "sparse_coding__tpu.models.fista.Fista"]
+    jlds = [ld for ld, _ in jax_load(tmp_path / "port.pkl", verify=True)]
+    assert [type(ld) for ld in jlds][2] is JaxFistaDict
+    assert [type(ld).__module__ + "." + type(ld).__name__ for ld in jlds] == [r["class"] for r in records]
     got = tm.evaluate_dicts(lds, torch.from_numpy(x))
     ref = jm.evaluate_dicts(jlds, jnp.asarray(x))
     for g, r in zip(got, ref):

@@ -16,6 +16,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ensemble",
     "sparse_coding__tpu_torch.interop",
     "sparse_coding__tpu_torch.data.chunks",
+    "sparse_coding__tpu_torch.data.integrity",
     "sparse_coding__tpu_torch.data.synthetic",
     "sparse_coding__tpu_torch.metrics.standard",
     "sparse_coding__tpu_torch.models.fista",
@@ -27,9 +28,19 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.fista_kernel",
     "sparse_coding__tpu_torch.ops.tied_sae_kernel",
     "sparse_coding__tpu_torch.ops.topk_kernel",
+    "sparse_coding__tpu_torch.telemetry",
+    "sparse_coding__tpu_torch.telemetry.events",
+    "sparse_coding__tpu_torch.telemetry.provenance",
+    "sparse_coding__tpu_torch.telemetry.spans",
     "sparse_coding__tpu_torch.train.checkpoint",
     "sparse_coding__tpu_torch.train.loop",
+    "sparse_coding__tpu_torch.train.preemption",
+    "sparse_coding__tpu_torch.train.sweep",
+    "sparse_coding__tpu_torch.utils.config",
     "sparse_coding__tpu_torch.utils.device",
+    "sparse_coding__tpu_torch.utils.faults",
+    "sparse_coding__tpu_torch.utils.flags",
+    "sparse_coding__tpu_torch.utils.logging",
     "sparse_coding__tpu_torch.utils.manifest",
     "sparse_coding__tpu_torch.utils.optim",
     "sparse_coding__tpu_torch.utils.precision",

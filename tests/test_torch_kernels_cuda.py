@@ -33,6 +33,8 @@ product sums in another order, which the iterations carry), support flips
 under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
 iteration count for each member; at widths that are not multiples of 4 too;
 at the FISTA path's shapes, one launch a solve, the same bits twice.
+The sweep driver on the card: an Adam ensemble's steps launch K1 + K2, an
+ensemble with a learning-rate schedule K1 + K3, and nothing else launches.
 """
 
 import pytest
@@ -837,3 +839,43 @@ def test_fista_one_launch_solve_matches_plain_at_the_path_shapes(cuda, shape, to
     assert it_k.tolist() == it_p.tolist() == it_2.tolist(), (it_k, it_p, it_2)
     assert torch.equal(a_k, a_2)
     _hold_fista(a_k, a_p, x, d)
+
+
+def test_sweep_on_the_card_routes_fused_adam_to_k2_and_a_schedule_to_k3(cuda, tmp_path, monkeypatch):
+    """The sweep driver on the card (D 128, N 512, batch 256, 2 chunks of
+    512 rows): an Adam ensemble launches K1 + K2 on every step, an ensemble
+    with a learning-rate schedule K1 + K3, and nothing else launches."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
+    from sparse_coding__tpu_torch.data.chunks import save_chunk
+    from sparse_coding__tpu_torch.train.sweep import sweep
+    from sparse_coding__tpu_torch.utils.config import EnsembleArgs
+    from sparse_coding__tpu_torch.utils.optim import linear_schedule
+
+    monkeypatch.delenv("SC_RECOMPUTE_CODE", raising=False)
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        save_chunk(tmp_path / "store", i, rng.standard_normal((512, 128)).astype(np.float32))
+    kw = dict(compute_dtype="bfloat16", activation_size=128, n_dict_components=512, device=cuda)
+
+    def init(cfg):
+        a = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}],
+                           optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, **kw)
+        with pytest.warns(UserWarning, match="schedule"):
+            b = build_ensemble(FunctionalTiedSAE, 1, [{"l1_alpha": 1e-3}],
+                               optimizer_kwargs={"learning_rate": linear_schedule(0.0, LR, 2)}, **kw)
+        assert a.fused_adam is not None and b.fused and b.fused_adam is None
+        args = {"batch_size": cfg.batch_size}
+        return [(a, args, "adam"), (b, args, "schedule")], [], ["l1_alpha"], {}
+
+    cfg = EnsembleArgs(dataset_folder=str(tmp_path / "store"), output_folder=str(tmp_path / "out"), batch_size=256,
+                       activation_width=128)
+    tk.reset_launches()
+    lds = sweep(init, cfg, device=cuda)
+    torch.cuda.synchronize()
+    steps = 2 * 512 // 256  # per ensemble
+    want = {k: 0 for k in tk.LAUNCHES}
+    want.update(tied_sae_fwd=2 * steps, tied_sae_bwd_adam=steps, tied_sae_bwd_grads=steps)
+    assert tk.LAUNCHES == want
+    assert len(lds) == 3 and all(torch.isfinite(ld.encoder).all() for ld, _ in lds)

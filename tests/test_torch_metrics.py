@@ -48,14 +48,23 @@ def test_metrics_match_jax():
 
 
 def test_unported_options_raise():
+    """What the port still lacks raises; ``correlated=True`` and ``"sgd"``,
+    which raised here until the sweep slice ported them, now build."""
     from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        RandomDatasetGenerator(32, 64, 16, 4, 0.99, True, key=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    kw = dict(activation_size=32, n_dict_components=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer_kwargs={"mu_dtype": "float16"}, **kw)
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="lion", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="sgd",
-                       activation_size=32, n_dict_components=64, device="cpu")
+                       optimizer_kwargs={"learning_rate": 0.05, "momentum": 0.9}, **kw)
+    assert torch.isfinite(next(RandomDatasetGenerator(32, 64, 16, 4, 0.99, True, key=0, device="cpu"))).all()
+    ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="sgd", **kw)
+    loss, _ = ens.step_batch(torch.randn(16, 32, generator=torch.Generator().manual_seed(0)))
+    assert torch.isfinite(loss["loss"]).all()
 
 
 def test_random_generator_is_seeded_and_planted():

@@ -29,6 +29,7 @@ from sparse_coding__tpu.ensemble import _mask_updates, stack_pytrees
 from sparse_coding__tpu.models import topk as jtopk
 from sparse_coding__tpu.models.topk import TopKEncoder as JaxTopK
 from sparse_coding__tpu.models.topk import TopKEncoderApprox as JaxTopKApprox
+from sparse_coding__tpu.models.topk import TopKLearnedDict as JaxTopKLearnedDict
 from sparse_coding__tpu_torch import Ensemble, TopKEncoder, TopKEncoderApprox, build_ensemble
 from sparse_coding__tpu_torch.interop import state_from_jax_numpy
 from sparse_coding__tpu_torch.models import topk as ttopk
@@ -239,11 +240,9 @@ def test_export_interop_both_ways(tmp_path):
     path = tmp_path / "port.pkl"
     save_learned_dicts(path, [(ld, {"sparsity": k}) for ld, k in zip(lds, ks)])
     records = pickle.loads(path.read_bytes())
-    assert [r["class"] for r in records] == ["sparse_coding__tpu_torch.models.topk.TopKLearnedDict"] * 2
-    for r in records:
-        r["class"] = "sparse_coding__tpu.models.topk.TopKLearnedDict"
-    (tmp_path / "as_jax.pkl").write_bytes(pickle.dumps(records))
-    jlds = [ld for ld, _ in jax_load(tmp_path / "as_jax.pkl", verify=False)]
+    assert [r["class"] for r in records] == ["sparse_coding__tpu.models.topk.TopKLearnedDict"] * 2
+    jlds = [ld for ld, _ in jax_load(path, verify=True)]
+    assert all(type(ld) is JaxTopKLearnedDict for ld in jlds)
     got = tm.evaluate_dicts(lds, torch.from_numpy(x))
     ref = jm.evaluate_dicts(jlds, jnp.asarray(x))
     for g, r, k in zip(got, ref, ks):
