@@ -24,7 +24,12 @@ counts set to 0 just before it and read just after:
     the autograd gradient step, then the decoder update's solve on K_f every
     step, K_f on a masked step;
 and evaluates and exports each path's dictionaries, and times one resident
-step of each with its peak device memory. Then the sweep driver
+step of each with its peak device memory, eager (`Ensemble.step_batch`) and
+as replays of its captured CUDA graph (`Ensemble.step_scan`, the route
+`ensemble_train_loop` takes). On the four fused paths at full width, 8 graph
+steps are held bit for bit to 8 eager steps from a cloned state (losses,
+params, moments, count, step) and must launch the same kernels as often.
+Then the sweep driver
 (`train/sweep.py::sweep`) at BASELINE config 2's widths over a
 `SparseMixDataset` store of 3 chunks of 65,536 rows: ensemble A (the tied
 path's 8 members, Adam) launches K1 + K2 every step, ensemble B (4 members,
@@ -696,10 +701,15 @@ def synthetic_store(torch, cfg):
 
 def phase_train(torch, pkg, cfg):
     """A path's main run: chunk store → ensemble_train_loop → one masked
-    step. Every step of the loop launches the path's forward kernels and K2
-    on the path's route (dense for tied, sparse for TopK); the masked step
-    launches the masked forward kernels and K3 on that route; nothing else
-    runs."""
+    step, under a profiler trace. Every step of the loop runs the path's
+    forward kernels and K2 on the path's route (dense for tied, sparse for
+    TopK); the masked step runs the masked forward kernels and K3 on that
+    route; nothing else runs. The loop's steps are graph replays, which no
+    wrapper counts, so the run's launches are the trace's (`_torch_trace`);
+    the wrappers' own counts must be the eager steps': the first step of
+    the loop's one capture and the masked step. ``wall_s`` is traced (see
+    `phase_loop_wall` for the untraced loop)."""
+    from _torch_trace import traced
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
     from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
@@ -716,31 +726,41 @@ def phase_train(torch, pkg, cfg):
             total, _ = sig.loss(st.params, st.buffers, eval_batch[:batch])
         return total
 
+    def loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps, last = 0, None
+        for i, chunk in enumerate(store.iter_chunks([0, 1])):
+            last = ensemble_train_loop(ens, chunk, batch, key=i)
+            steps += chunk.shape[0] // batch
+        torch.cuda.synchronize()
+        return steps, last, time.perf_counter() - t0
+
     loss0 = eval_loss()
     tk.reset_launches()
     kk.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps, last = 0, None
-    for i, chunk in enumerate(store.iter_chunks([0, 1])):
-        last = ensemble_train_loop(ens, chunk, batch, key=i)
-        steps += chunk.shape[0] // batch
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    loop_launches = {**tk.LAUNCHES, **kk.LAUNCHES}
+    (steps, last, wall), loop_launches = traced(torch, loop)
+    counted = {**tk.LAUNCHES, **kk.LAUNCHES}
     want = {name: 0 for name in loop_launches}
     want.update({name: steps for name in (*cfg["fwd_kernels"], cfg["bwd_adam"])})
     check(loop_launches == want, f"launches {loop_launches} after {steps} steps, want {want}")
+    want_counted = {name: 0 for name in counted}
+    want_counted.update({name: 1 for name in (*cfg["fwd_kernels"], cfg["bwd_adam"])})
+    check(counted == want_counted, f"wrapper launches {counted} after the loop, want {want_counted}")
+    captures = ens.captures
+    check(captures == 1, f"{captures} graph captures over the loop's chunks, want 1")
     # one masked step: the fused-Adam kernel gives way to fused grads (K3)
     frozen = ens.state.params[leaf][members - 1].clone()
     ens.set_update_mask([1.0] * (members - 1) + [0.0])
-    masked_loss, _ = ens.step_batch(eval_batch[batch:2 * batch])
-    torch.cuda.synchronize()
-    launches = {**tk.LAUNCHES, **kk.LAUNCHES}
+    (masked_loss, _), masked_launches = traced(torch, lambda: ens.step_batch(eval_batch[batch:2 * batch]))
+    launches = {name: n + masked_launches[name] for name, n in loop_launches.items()}
+    counted = {**tk.LAUNCHES, **kk.LAUNCHES}
     for name in cfg["masked_fwd"]:
         want[name] += 1
-    want[cfg["bwd_grads"]] = 1
+        want_counted[name] += 1
+    want[cfg["bwd_grads"]] = want_counted[cfg["bwd_grads"]] = 1
     check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
+    check(counted == want_counted, f"wrapper launches {counted} after the masked step, want {want_counted}")
     check(torch.equal(frozen, ens.state.params[leaf][members - 1]), "masked member moved")
     moments = ens.state.opt_state
     tiers = {k: [type(m[leaf]).__name__ if hasattr(m[leaf], "q") else str(m[leaf].dtype)]
@@ -754,18 +774,74 @@ def phase_train(torch, pkg, cfg):
         store_dtype=cfg["store_dtype"], moments=tiers, recompute_code=bool(cfg["env"]),
         wall_s=wall, activations_per_s=steps * batch * members / wall, loss_before=loss0.tolist(),
         loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(),
-        launches_after_loop=loop_launches, launches=launches,
+        launches_after_loop=loop_launches, launches=launches, wrapper_launches=counted, graph_captures=captures,
+        capture_s=ens.capture_seconds,
     )
-    return ens, gen, eval_batch, tmp, launches
+    return ens, gen, eval_batch, tmp, store, launches
+
+
+def phase_loop_wall(torch, pkg, cfg, store, runs: int = 2):
+    """The train loop's wall over the path's two chunks, untraced, on the
+    graph (`ensemble_train_loop`) and eager (the loop's whole-chunk route
+    with one `step_batch` a batch: the same shuffle and dead-ensemble probe),
+    ``runs`` times each in turns from fresh ensembles: the seconds spent
+    waiting for a chunk, in the one capture, and in all. The graph's final
+    state must be the eager one's bits."""
+    from _torch_moments import state_differences
+    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop, warn_if_ensemble_dead
+
+    batch = cfg["batch"]
+
+    def eager_loop(ens, chunk, key):
+        n = chunk.shape[0]
+        nb = n // batch
+        gen = torch.Generator(device=chunk.device).manual_seed(int(key))
+        perm = torch.randperm(n, generator=gen, device=chunk.device)
+        for b in chunk[perm[: nb * batch]].reshape(nb, batch, -1):
+            ens.step_batch(b)
+        warn_if_ensemble_dead(ens, chunk[perm[:64]], context="after chunk pass")
+
+    out = {"graph": [], "eager": []}
+    final = {}
+    for run in range(2 * runs):
+        route = ("graph", "eager")[run % 2]
+        ens = build_path(pkg, cfg, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load, steps = 0.0, 0
+        chunks = store.iter_chunks([0, 1])
+        for i in range(2):
+            t1 = time.perf_counter()
+            chunk = next(chunks)
+            load += time.perf_counter() - t1
+            steps += chunk.shape[0] // batch
+            if route == "graph":
+                ensemble_train_loop(ens, chunk, batch, key=i)
+            else:
+                eager_loop(ens, chunk, i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks.close()
+        out[route].append({"wall_s": wall, "chunk_wait_s": load, "capture_s": ens.capture_seconds,
+                           "captures": ens.captures})
+        final[route] = ens.state
+        del ens
+    diff = state_differences(final["graph"], final["eager"])
+    check(diff == [], f"{cfg['path']}: the graph loop's state differs from the eager loop's at {diff}")
+    emit(f"{cfg['prefix']}loop_wall", path=cfg["path"], chunks=2, batch=batch,
+         steps=steps, graph=out["graph"], eager=out["eager"], bit_equal=True)
 
 
 def phase_step_time(torch, pkg, cfg, reps: int = 20):
-    """The fused-Adam step on a batch already on the card: CUDA-event time
-    per step beside the host's time to enqueue it (enqueue << step means the
-    card, not the host, sets the pace), and the peak device memory of a step
-    with the ensemble's state resident (`max_memory_allocated` over the
-    steps, less what was allocated before the ensemble was built). Returns
-    that peak in bytes."""
+    """The fused-Adam step on a batch already on the card, eager
+    (`step_batch`) and as graph replays (`step_scan` over ``reps`` batches,
+    after a call that captured the step): CUDA-event time per step beside
+    the host's time to enqueue it (enqueue << step means the card, not the
+    host, sets the pace), and the peak device memory of a step with the
+    ensemble's state resident (`max_memory_allocated` over the steps, the
+    graph's capture included, less what was allocated before the ensemble
+    was built). On the tied paths the graph's enqueue must be at most a
+    quarter of its step. Returns the two peaks in bytes, eager and graph."""
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     ens = build_path(pkg, cfg, 1)
@@ -788,7 +864,72 @@ def phase_step_time(torch, pkg, cfg, reps: int = 20):
     emit(f"{cfg['prefix']}step", path=cfg["path"], steps=reps, ms_per_step=start.elapsed_time(end) / reps,
          host_enqueue_ms_per_step=enqueue * 1e3 / reps, wall_ms_per_step=wall * 1e3 / reps,
          activations_per_s=reps * batch * ens.n_models / wall, step_peak_bytes=peak)
-    return peak
+    # the same step as replays of its captured graph: the batch copied into
+    # the graph's input before each replay, the losses copied out after it
+    xs = x.unsqueeze(0).expand(reps, batch, width)
+    torch.cuda.reset_peak_memory_stats()
+    ens.step_scan(xs[:3])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    losses = ens.step_scan(xs)
+    end.record()
+    enqueue_g = time.perf_counter() - t0
+    end.synchronize()
+    wall_g = time.perf_counter() - t0
+    peak_g = torch.cuda.max_memory_allocated() - before
+    torch.cuda.empty_cache()
+    pinned = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    ms_g = start.elapsed_time(end) / reps
+    check(ens.captures == 1 and bool(torch.isfinite(losses["loss"]).all()),
+          f"{cfg['path']}: {ens.captures} captures, losses {losses['loss'][-1]}")
+    if cfg["prefix"] in ("", "capacity_"):
+        check(enqueue_g * 1e3 / reps <= ms_g / 4,
+              f"{cfg['path']}: graph enqueue {enqueue_g * 1e3 / reps} ms of a {ms_g} ms step")
+    emit(f"{cfg['prefix']}step_scan", path=cfg["path"], steps=reps, ms_per_step=ms_g,
+         host_enqueue_ms_per_step=enqueue_g * 1e3 / reps, wall_ms_per_step=wall_g * 1e3 / reps,
+         activations_per_s=reps * batch * ens.n_models / wall_g, step_peak_bytes=peak_g,
+         reserved_unallocated_bytes=pinned)
+    return peak, peak_g
+
+
+def phase_graph_parity(torch, pkg, cfg, steps: int = 8):
+    """The captured step against the eager one at the path's full width:
+    from cloned states, ``steps`` graph replays (`step_scan`, after a call
+    that captured the step) and ``steps`` eager `step_batch` calls give the
+    same losses and the same state bit for bit (params, moments with int8
+    codes and scales, count, step), and run the same kernels as often (a
+    profiler trace; the eager steps' trace must be their wrappers' counts)."""
+    from _torch_moments import state_differences
+    from _torch_trace import traced
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+
+    a = build_path(pkg, cfg, 2)
+    with environ(cfg["env"]):
+        b = pkg.Ensemble.from_state(a.state_dict(), sig=a.sig, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xs = torch.randn((steps + 1, cfg["batch"], cfg["width"]), generator=g, device="cuda")
+    a.step_scan(xs[:1])
+    b.step_batch(xs[0])
+    counts = []
+    for run in (lambda: a.step_scan(xs[1:]), lambda: [b.step_batch(x)[0] for x in xs[1:]]):
+        tk.reset_launches()
+        kk.reset_launches()
+        out, ran = traced(torch, run)
+        counts.append((ran, {**tk.LAUNCHES, **kk.LAUNCHES}, out))
+    (ga, ca, la), (gb, cb, lb) = counts
+    check(a.captures == 1, f"{cfg['path']}: {a.captures} captures")
+    # the trace of the eager steps is their wrappers' count; the replays call no wrapper
+    check(ga == gb == {k: cb.get(k, 0) for k in ga} and all(ga[k] == steps for k in (*cfg["fwd_kernels"], cfg["bwd_adam"]))
+          and sum(ca.values()) == 0, f"{cfg['path']}: graph ran {ga} (wrappers {ca}), eager {gb} (wrappers {cb})")
+    for k in lb[0]:
+        check(torch.equal(la[k], torch.stack([l[k] for l in lb])), f"{cfg['path']}: graph {k} differs from eager")
+    diff = state_differences(a.state, b.state)
+    check(diff == [], f"{cfg['path']}: graph state differs from eager at {diff}")
+    emit(f"{cfg['prefix']}graph_parity", path=cfg["path"], steps=steps, members=a.n_models, batch=cfg["batch"],
+         captures=a.captures, launches=ga, bit_equal=True, step=a.state.step)
+    del a, b
 
 
 def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, **kw):
@@ -1432,14 +1573,16 @@ def span_seconds(events, category: str) -> float:
     return sum(e["seconds"] for e in events if e["event"] == "span" and e["category"] == category)
 
 
-def phase_sweep_train(torch, tk, root: Path):
+def phase_sweep_train(torch, root: Path):
     """The sweep driver end to end at config 2's widths: the store built on
     the card, both ensembles trained over it, the export and checkpoint
-    committed. A launches K1 + K2 on every step, B K1 + K3, nothing else
-    launches. Returns the export's path."""
+    committed. A runs K1 + K2 on every step, B K1 + K3, nothing else runs
+    (a profiler trace: the steps are graph replays; ``wall_s`` is traced).
+    Returns the export's path."""
     import warnings
 
     import numpy as np
+    from _torch_trace import traced
 
     from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
     from sparse_coding__tpu_torch.telemetry import read_events
@@ -1459,15 +1602,21 @@ def phase_sweep_train(torch, tk, root: Path):
         return out
 
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    before, reserved_before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    tk.reset_launches()
-    t0 = time.perf_counter()
-    lds = sweep(init, cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    def run():
+        t0 = time.perf_counter()
+        lds = sweep(init, cfg)
+        torch.cuda.synchronize()
+        return lds, time.perf_counter() - t0
+
+    (lds, wall), launches = traced(torch, run)
+    # allocated: what the steps and the sweep driver hold at once; reserved adds
+    # what the allocator keeps, the two step graphs' private pools among it
     peak = torch.cuda.max_memory_allocated() - before
-    launches = dict(tk.LAUNCHES)
+    peak_reserved = torch.cuda.max_memory_reserved() - reserved_before
     rows = SWEEP["chunks"] * int(SWEEP["chunk_size_gb"] * 1024**3 // (D * 2))
     steps = rows // B  # per ensemble
     want = {k: 0 for k in launches}
@@ -1493,7 +1642,7 @@ def phase_sweep_train(torch, tk, root: Path):
          chunks=SWEEP["chunks"], rows=rows, batch=B, steps_per_ensemble=steps, launches=launches, wall_s=wall,
          activations_per_s=steps * B * (M + SWEEP["members_b"]) / wall,
          span_seconds={c: span_seconds(events, c) for c in ("step", "checkpoint", "data_wait")},
-         sweep_peak_bytes=peak, fvu=fvu, l0=[m["l0"] for m in metrics])
+         sweep_peak_bytes=peak, sweep_peak_reserved_bytes=peak_reserved, fvu=fvu, l0=[m["l0"] for m in metrics])
     return export
 
 
@@ -1552,7 +1701,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--sweep-worker"]:
         return sweep_worker(sys.argv[2:])
-    sys.path.insert(0, str(REPO / "tests"))  # _torch_moments: the moment helpers the CUDA tests share
+    sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
     from sparse_coding__tpu_torch.ops import _build
@@ -1582,10 +1731,12 @@ def main() -> int:
     def drive(cfg):
         """A path's main run and its export; the launch counts of the run."""
         torch.cuda.empty_cache()
-        ens, gen, eval_batch, tmp, launches = phase_train(torch, pkg, cfg)
+        ens, gen, eval_batch, tmp, store, launches = phase_train(torch, pkg, cfg)
         phase_eval_export(torch, cfg, ens, gen, eval_batch, tmp)
-        tmp.cleanup()
         del ens, gen, eval_batch
+        torch.cuda.empty_cache()
+        phase_loop_wall(torch, pkg, cfg, store)
+        tmp.cleanup()
         torch.cuda.empty_cache()
         return launches
 
@@ -1607,7 +1758,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, optimizer_kwargs=TIED["build"]["optimizer_kwargs"],
                        **small_tied)
-    peak = {"tied": phase_step_time(torch, pkg, TIED)}
+    peak, graph_peak = {}, {}
+    peak["tied"], graph_peak["tied"] = phase_step_time(torch, pkg, TIED)
+    phase_graph_parity(torch, pkg, TIED)
     rows = label(rows, TIED, drive(TIED), tied_shape)
 
     # the same at the capacity setting: K1n + K2 rebuilding the code
@@ -1615,7 +1768,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, optimizer_kwargs=CAPACITY_ADAM,
                        env=TIED_CAPACITY["env"], **small_tied)
-    peak["tied_capacity"] = phase_step_time(torch, pkg, TIED_CAPACITY)
+    peak["tied_capacity"], graph_peak["tied_capacity"] = phase_step_time(torch, pkg, TIED_CAPACITY)
+    phase_graph_parity(torch, pkg, TIED_CAPACITY)
     rows += label(capacity_rows, TIED_CAPACITY, drive(TIED_CAPACITY), tied_shape)
 
     # TopK k-sweep path (BASELINE config 4), then at the capacity setting
@@ -1627,9 +1781,11 @@ def main() -> int:
     phase_small_parity(torch, pkg, pkg.TopKEncoderApprox, optimizer_kwargs=CAPACITY_ADAM,
                        env=TOPK_CAPACITY["env"], **small_topk)
     rows += label(topk_rows, TOPK, drive(TOPK))
-    peak["topk"] = phase_step_time(torch, pkg, TOPK, reps=10)
+    peak["topk"], graph_peak["topk"] = phase_step_time(torch, pkg, TOPK, reps=10)
+    phase_graph_parity(torch, pkg, TOPK)
     rows += label(topk_capacity_rows, TOPK_CAPACITY, drive(TOPK_CAPACITY))
-    peak["topk_capacity"] = phase_step_time(torch, pkg, TOPK_CAPACITY, reps=10)
+    peak["topk_capacity"], graph_peak["topk_capacity"] = phase_step_time(torch, pkg, TOPK_CAPACITY, reps=10)
+    phase_graph_parity(torch, pkg, TOPK_CAPACITY)
 
     # FISTA dictionary path (BASELINE config 3): the gradient step, then K_f
     torch.cuda.empty_cache()
@@ -1648,7 +1804,7 @@ def main() -> int:
     # then a preempted and resumed run held to the uninterrupted one
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_sweep_") as sweep_root:
-        export = phase_sweep_train(torch, tk, Path(sweep_root))
+        export = phase_sweep_train(torch, Path(sweep_root))
         torch.cuda.empty_cache()
         phase_sweep_resume(torch, Path(sweep_root), export)
 
@@ -1658,7 +1814,7 @@ def main() -> int:
     check(peak["tied_capacity"] <= peak["tied"] - code_bytes,
           f"tied-capacity step peak {peak['tied_capacity']} not {code_bytes} below tied {peak['tied']}")
     check(peak["topk_capacity"] < peak["topk"], f"topk-capacity step peak {peak} not below topk")
-    emit("memory", step_peak_bytes=peak, tied_saving=peak["tied"] - peak["tied_capacity"],
+    emit("memory", step_peak_bytes=peak, graph_step_peak_bytes=graph_peak, tied_saving=peak["tied"] - peak["tied_capacity"],
          topk_saving=peak["topk"] - peak["topk_capacity"], code_tensor_bytes=code_bytes)
 
     for row in rows:

@@ -11,6 +11,8 @@ so the CUDA sources read it from here.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 FWD_ROWS, FWD_COLS = 64, 128  # the forward kernels' output tiles (batch rows, dict/width cols)
@@ -41,3 +43,12 @@ def check_dtype(name: str, t: torch.Tensor, key: str, dtype) -> None:
 def stream(dev: torch.device) -> int:
     """The handle of the current CUDA stream on ``dev``, for a launch."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """``counts[name] += 1`` for a launch of kernel ``name`` that runs now.
+    A launch recorded into a CUDA graph under capture runs only at the
+    graph's replays, which the host does not see, so it is not counted: a
+    profiler trace of the replays counts those."""
+    if not torch.cuda.is_current_stream_capturing():
+        counts[name] += 1

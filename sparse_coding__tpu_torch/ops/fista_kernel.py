@@ -21,7 +21,7 @@ function; both are ported by one CUDA kernel:
 `fista_cuda` dispatches on the device of its tensors: CPU tensors run the
 plain version (`models.fista.fista_codes`, the torch loop K_f is held to);
 CUDA tensors launch the kernel, or raise. Each launch of a whole solve adds
-one to ``LAUNCHES["fista_solve"]``.
+one to ``LAUNCHES["fista_solve"]`` (`_wrap.count_launch`).
 
 `fista_solve` is the solve of the decoder update: η from the power
 iteration, then `fista_cuda` (K_f on the card; outside `shapes_supported` it
@@ -41,7 +41,7 @@ import torch
 
 from sparse_coding__tpu_torch.models.fista import default_eta, fista_codes, momentum_table
 from sparse_coding__tpu_torch.ops import _build
-from sparse_coding__tpu_torch.ops._wrap import check_cuda, check_dtype, require, stream
+from sparse_coding__tpu_torch.ops._wrap import check_cuda, check_dtype, count_launch, require, stream
 
 fp32 = torch.float32
 
@@ -139,7 +139,7 @@ def fista_cuda(x, dicts, eta, l1, c0, num_iter: int, tol: float = 0.0):
         sync.data_ptr(), M, Bp, Np, Dp, num_iter, stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     a = a_t[:, :N, :B].transpose(1, 2).contiguous()
     if delta is None:
         return a, torch.full((M,), num_iter, dtype=torch.int32, device=dev)

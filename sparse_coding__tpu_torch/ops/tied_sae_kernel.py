@@ -34,7 +34,8 @@ plain versions on either route.
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it (same rounding points — how the CPU tests
 reach this path); CUDA tensors launch the kernel, or raise. Each launch adds
-one to its entry in `LAUNCHES`. The plain versions are also what
+one to its entry in `LAUNCHES` (not one recorded into a CUDA graph under
+capture: `_wrap.count_launch`). The plain versions are also what
 `chip_smoke.py` holds each kernel against on the card.
 
 Rounding points (from the Pallas code): x_b = bf16(x); nrm = sqrt(Σ d²) in f32
@@ -59,7 +60,15 @@ from typing import Dict, Tuple
 import torch
 
 from sparse_coding__tpu_torch.ops import _build
-from sparse_coding__tpu_torch.ops._wrap import FWD_COLS, FWD_ROWS, check_cuda, check_dtype, require, stream
+from sparse_coding__tpu_torch.ops._wrap import (
+    FWD_COLS,
+    FWD_ROWS,
+    check_cuda,
+    check_dtype,
+    count_launch,
+    require,
+    stream,
+)
 from sparse_coding__tpu_torch.utils.optim import (
     QuantMoment,
     as_u32,
@@ -165,7 +174,7 @@ def tied_sae_fwd(xb, db, bias, scale: float):
         l1_part.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     # per-block partials summed here: no float atomics, same bits every run
     return c, dxh, lrec_part.sum(dim=(1, 2)), l1_part.sum(dim=(1, 2))
 
@@ -214,7 +223,7 @@ def tied_sae_fwd_nocode(xb, db, bias, scale: float):
         parts[1].data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     # per-block partials summed here: no float atomics, same bits every run
     return dxh, parts[0].sum(dim=1), parts[1].sum(dim=1)
 
@@ -340,6 +349,9 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
         f"{name}: shape mismatch",
     )
     require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
+    # a host int would be copied once and frozen into a captured graph
+    require(isinstance(seed, torch.Tensor) or not torch.cuda.is_current_stream_capturing(),
+            f"{name}: under CUDA graph capture the seed must be a tensor on the device")
     g_bias = torch.empty((M, N), dtype=fp32, device=dev)
     seed_t = torch.as_tensor(seed, dtype=torch.int32, device=dev).reshape(1)
 
@@ -360,7 +372,7 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
         float(eps), float(1 - b1), float(1 - b2), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return d_raw, mu, nu, g_bias
 
 
@@ -395,7 +407,7 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b, sparse: bool = False):
         g_enc.data_ptr(), g_bias.data_ptr(), l1_over_b.data_ptr(), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return g_enc, g_bias
 
 

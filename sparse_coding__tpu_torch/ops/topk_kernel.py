@@ -27,7 +27,8 @@ are dropped — `models.topk.topk_mask_code_approx` with recall 1.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it; CUDA tensors launch the kernel, or raise.
-Each launch adds one to its entry in `LAUNCHES`.
+Each launch adds one to its entry in `LAUNCHES` (not one recorded into a CUDA
+graph under capture: `_wrap.count_launch`).
 
 Rounding points (from the Pallas code): x_b = bf16(x); nrm = sqrt(Σ d²) in f32
 with no eps; D̂_b = bf16(d / nrm); s = bf16(f32-accumulated x_b·D̂_bᵀ); the
@@ -48,6 +49,7 @@ from sparse_coding__tpu_torch.ops._wrap import (
     MAX_SMEM,
     check_cuda,
     check_dtype,
+    count_launch,
     require,
     stream,
 )
@@ -148,7 +150,7 @@ def topk_scores(xb, db, k):
         M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return s, thresh
 
 
@@ -184,7 +186,7 @@ def topk_decode(s, thresh, db, xb, scale: float):
         dxh.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     # per-row partials summed here: no float atomics, same bits every run
     return c, dxh, lrec_part.sum(dim=1)
 

@@ -3,13 +3,16 @@ drivers' checkpoint/preemption glue.
 
 Counterpart of `sparse_coding__tpu/train/loop.py::ensemble_train_loop`,
 `make_fista_decoder_update` and `DriverCheckpointer`. The loop draws a
-permutation drawn from a `torch.Generator` on
-the dataset's device, then either the whole-chunk path (ONE bulk gather of
-the permuted rows, then every step) or groups of ``scan_steps`` batches
-gathered as they go. A signature with ``has_fista_decoder_update`` takes
-one batch at a time instead: the gradient step, then the FISTA decoder
-update warm-started from that step's code (K_f on the card). Losses go to
-a `utils.logging.MetricLogger` without a sync per step, and step counts to a
+permutation from a `torch.Generator` on the dataset's device, then takes the
+JAX loop's routes: the whole-chunk path (ONE bulk gather of the permuted
+rows, then `Ensemble.step_scan` over every batch), or groups of
+``scan_steps`` batches through `Ensemble.step_scan_idx`, each batch gathered
+from the dataset into the step's input (no staged copy). On the card both
+replay the step's CUDA graph. A signature with ``has_fista_decoder_update``
+takes one batch at a time instead: the eager gradient step
+(`Ensemble.step_batch`), then the FISTA decoder update warm-started from
+that step's code (K_f on the card). Losses go to a
+`utils.logging.MetricLogger` without a sync per step, and step counts to a
 `telemetry.events.RunTelemetry` as host-side counters.
 """
 
@@ -171,13 +174,15 @@ def ensemble_train_loop(
     that device. Returns the last step's loss dict (on the device).
 
     Datasets whose shuffled copy fits ``bulk_shuffle_max_bytes`` take the
-    whole-chunk path unless a ``progress_callback`` is given or
-    ``scan_steps <= 1``; otherwise batches are gathered ``scan_steps`` at a
-    time. Either way every batch is one `Ensemble.step_batch`.
+    whole-chunk path (`Ensemble.step_scan` over every batch) unless a
+    ``progress_callback`` is given or ``scan_steps <= 1``; otherwise
+    `Ensemble.step_scan_idx` takes ``scan_steps`` batches at a time (the
+    remainder one at a time), gathering each from ``dataset``.
 
     A signature with ``has_fista_decoder_update`` takes ``scan_steps`` 1,
-    and each `step_batch` is followed by `make_fista_decoder_update`
-    (``fista_iters``, ``fista_tol``) on the same batch and the step's code.
+    and each `Ensemble.step_batch` is followed by
+    `make_fista_decoder_update` (``fista_iters``, ``fista_tol``) on the same
+    batch and the step's code.
 
     ``logger`` gets each step's losses (left on the device) and is flushed,
     one host copy, every ``log_every`` steps and at the end (the whole-chunk
@@ -226,7 +231,7 @@ def ensemble_train_loop(
                 ensemble.state = fista_fn(ensemble.state, batch, aux["c"])
                 losses = {name: v[None] for name, v in loss_dict.items()}
             else:
-                losses = ensemble.step_scan(dataset[idxs])
+                losses = ensemble.step_scan_idx(dataset, idxs)
                 loss_dict = {name: v[-1] for name, v in losses.items()}
             if logger is not None:
                 for j in range(k):

@@ -2,6 +2,8 @@
 tests/test_torch_kernels_cuda.py, tests/_torch_parity.py and chip_smoke.py.
 Torch only: nothing here imports the JAX package (chip_smoke.py must not)."""
 
+import dataclasses
+
 import torch
 
 
@@ -73,3 +75,29 @@ def store_error_steps(got, v: torch.Tensor) -> torch.Tensor:
         lo = v.view(torch.int32) & -65536
         step = (lo + 65536).view(torch.float32) - lo.view(torch.float32)
     return ((dequant(got) - v) / step).double()
+
+
+def state_tensors(v):
+    """Every tensor of an ensemble state (dicts by key, dataclasses by field:
+    a `QuantMoment`'s q and scale, the optimizer's count)."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, dict):
+        return [t for k in sorted(v) for t in state_tensors(v[k])]
+    if dataclasses.is_dataclass(v):
+        return [t for f in dataclasses.fields(v) for t in state_tensors(getattr(v, f.name))]
+    return []
+
+
+def state_differences(a, b):
+    """The places where two `EnsembleState`s differ: the step, and each
+    tensor (params, buffers, optimizer state) not bit-equal. Empty when
+    they are the same bits."""
+    out = [] if a.step == b.step else [f"step {a.step} != {b.step}"]
+    for part in ("params", "buffers", "opt_state"):
+        ta, tb = state_tensors(getattr(a, part)), state_tensors(getattr(b, part))
+        if len(ta) != len(tb):
+            out.append(f"{part}: {len(ta)} tensors vs {len(tb)}")
+        out += [f"{part}[{i}]" for i, (x, y) in enumerate(zip(ta, tb))
+                if x.dtype != y.dtype or x.shape != y.shape or not same_bits(x, y)]
+    return out

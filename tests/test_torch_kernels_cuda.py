@@ -33,8 +33,18 @@ product sums in another order, which the iterations carry), support flips
 under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
 iteration count for each member; at widths that are not multiples of 4 too;
 at the FISTA path's shapes, one launch a solve, the same bits twice.
-The sweep driver on the card: an Adam ensemble's steps launch K1 + K2, an
-ensemble with a learning-rate schedule K1 + K3, and nothing else launches.
+The sweep driver on the card: an Adam ensemble's steps run K1 + K2, an
+ensemble with a learning-rate schedule K1 + K3, and nothing else runs
+(counted in a profiler trace, `_torch_trace`: the loop's steps are graph
+replays, which no wrapper counts).
+The step as a replayed CUDA graph (`Ensemble.step_scan`, `step_scan_idx`):
+K replays give the bits of K eager `step_batch` calls (losses, params,
+moments with int8 codes and scales, count, step) on every route and moment
+tier, and run each kernel as often (traced; the eager steps' trace is
+their wrappers' counts); a batch of another shape, `set_update_mask`, a
+new warm-up length and a state assigned from outside each lead to a new
+capture, never to a stale replay, and an eager step to none; two calls'
+losses do not alias.
 """
 
 import pytest
@@ -44,6 +54,7 @@ from _torch_moments import adam_moments, clone_moment, same_bits, store_error_st
 from _torch_parity import assert_grads_close, bf16_close
 from _torch_select_rows import CASES as SELECT_CASES
 from _torch_select_rows import case as select_case
+from _torch_trace import SYMBOLS, traced
 from sparse_coding__tpu_torch.models import fista as tf
 from sparse_coding__tpu_torch.ops import fista_kernel as fk
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
@@ -871,11 +882,171 @@ def test_sweep_on_the_card_routes_fused_adam_to_k2_and_a_schedule_to_k3(cuda, tm
 
     cfg = EnsembleArgs(dataset_folder=str(tmp_path / "store"), output_folder=str(tmp_path / "out"), batch_size=256,
                        activation_width=128)
-    tk.reset_launches()
-    lds = sweep(init, cfg, device=cuda)
-    torch.cuda.synchronize()
+    lds, launches = traced(torch, lambda: sweep(init, cfg, device=cuda))
     steps = 2 * 512 // 256  # per ensemble
-    want = {k: 0 for k in tk.LAUNCHES}
+    want = {k: 0 for k in launches}
     want.update(tied_sae_fwd=2 * steps, tied_sae_bwd_adam=steps, tied_sae_bwd_grads=steps)
-    assert tk.LAUNCHES == want
+    assert launches == want
     assert len(lds) == 3 and all(torch.isfinite(ld.encoder).all() for ld, _ in lds)
+
+
+# -- the step as a replayed CUDA graph (Ensemble.step_scan / step_scan_idx) ------
+# Each case builds an ensemble at D 128, N 512, batch 256 on one route of the
+# step: (build kwargs, environment, per-member batches, update mask)
+_GRAPH_KW = dict(activation_size=128, n_dict_components=512)
+_TOPK_KW = dict(d_activation=128, n_features=512, sparsity_cap=31)
+GRAPH_CASES = {
+    "tied_f32_moments": (dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16"), {}, False, False),
+    "tied_bf16_mu": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
+                          compute_dtype="bfloat16"), {}, False, False),
+    "tied_int8_mu_bf16_nu": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "int8", "nu_dtype": "bfloat16"},
+                                  compute_dtype="bfloat16"), {}, False, False),
+    "tied_recompute_code": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "int8", "nu_dtype": "bfloat16"},
+                                 compute_dtype="bfloat16"), {"SC_RECOMPUTE_CODE": "1"}, False, False),
+    "tied_l1_warmup": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16",
+                            l1_warmup_steps=3), {}, False, False),
+    "topk": (dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16"), {}, False, False),
+    "topk_capacity": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "int8", "nu_dtype": "bfloat16"},
+                           compute_dtype="bfloat16"), {"SC_RECOMPUTE_CODE": "1"}, False, False),
+    "fused_grads_schedule": (dict(optimizer_kwargs={"learning_rate": "schedule", "mu_dtype": "bfloat16"},
+                                  compute_dtype="bfloat16"), {}, False, False),
+    "masked": (dict(optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"}, compute_dtype="bfloat16"), {},
+               False, True),
+    "autograd_f32": (dict(optimizer_kwargs={"learning_rate": LR}), {}, False, False),
+    "autograd_per_model": (dict(optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16"), {}, True, False),
+}
+
+
+def _graph_ensemble(case, dev, monkeypatch):
+    """(ensemble, its clone from `state_dict`, per_model) for a `GRAPH_CASES`
+    entry, with the route checked."""
+    import warnings
+
+    from sparse_coding__tpu_torch import Ensemble, FunctionalTiedSAE, TopKEncoderApprox, build_ensemble
+    from sparse_coding__tpu_torch.utils.optim import linear_schedule
+
+    build, env, per_model, masked = GRAPH_CASES[case]
+    monkeypatch.delenv("SC_RECOMPUTE_CODE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    build = dict(build, optimizer_kwargs=dict(build["optimizer_kwargs"]))
+    if build["optimizer_kwargs"]["learning_rate"] == "schedule":
+        build["optimizer_kwargs"]["learning_rate"] = linear_schedule(0.0, LR, 3)
+    if case.startswith("topk"):
+        sig, hp, kw = TopKEncoderApprox, [{"sparsity": 7}, {"sparsity": 31}], _TOPK_KW
+    else:
+        sig, hp, kw = FunctionalTiedSAE, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], _GRAPH_KW
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the schedule's fused-Adam refusal
+        a = build_ensemble(sig, 0, hp, device=dev, **build, **kw)
+    if masked:
+        a.set_update_mask([1.0, 0.0])
+    b = Ensemble.from_state(a.state_dict(), sig=sig, device=dev)
+    route = a._route(256, masked, per_model)
+    want = ("autograd" if case.startswith("autograd") else "fused_grads" if case in ("fused_grads_schedule", "masked")
+            else "fused_adam")
+    assert route == want, (case, route)
+    assert (a.fused_adam or {}).get("recompute_code", False) == bool(env) or case.startswith("topk")
+    return a, b, per_model
+
+
+def _launches():
+    return {**tk.LAUNCHES, **kk.LAUNCHES}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replays_are_bit_equal_to_eager_steps(cuda, monkeypatch, case):
+    """K replays of the captured step give the losses, params, moments (q and
+    scale of int8 ones), count and step of K eager `step_batch` calls from
+    the same state, bit for bit, and the card runs each hand-written kernel
+    as often in them (a profiler trace) as in the eager steps, whose
+    wrappers count the same launches; the replays call no wrapper."""
+    from _torch_moments import state_differences
+
+    a, b, per_model = _graph_ensemble(case, cuda, monkeypatch)
+    K = 4
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (K + 1, a.n_models, 256, 128) if per_model else (K + 1, 256, 128)
+    xs = torch.randn(shape, generator=g, device=cuda)
+    first = a.step_scan(xs[:1], per_model=per_model)  # eager first step, then the capture
+    lb0, _ = b.step_batch(xs[0], per_model=per_model)
+    assert a.captures == 1 and all(torch.equal(first[k][0], lb0[k]) for k in lb0)
+    tk.reset_launches()
+    kk.reset_launches()
+    la, graph_ran = traced(torch, lambda: a.step_scan(xs[1:], per_model=per_model))
+    assert sum(_launches().values()) == 0
+    lb, eager_ran = traced(torch, lambda: [b.step_batch(x, per_model=per_model)[0] for x in xs[1:]])
+    counted = _launches()
+    assert a.captures == 1  # every step of the second call a replay
+    assert graph_ran == eager_ran == {k: counted.get(k, 0) for k in SYMBOLS}
+    if not case.startswith("autograd"):
+        assert sum(graph_ran.values()) >= 2 * K
+    for k in lb[0]:
+        assert torch.equal(la[k], torch.stack([l[k] for l in lb])), k
+    assert state_differences(a.state, b.state) == []
+
+
+def test_graph_is_recaptured_when_what_it_froze_changes(cuda, monkeypatch):
+    """A batch of another shape, `set_update_mask`, a host setting the step
+    read (the warm-up length) and a state assigned from outside (as resume
+    does) each lead to a new capture, an eager step does not, and the steps
+    stay the eager steps' bits: a stale graph, which would step the old
+    tensors or the old setting, is never replayed."""
+    from _torch_moments import state_differences
+    from sparse_coding__tpu_torch import Ensemble
+
+    a, b, _ = _graph_ensemble("tied_bf16_mu", cuda, monkeypatch)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xs = torch.randn((15, 256, 128), generator=g, device=cuda)
+
+    def both(batches, captures):
+        la = a.step_scan(batches)
+        lb = [b.step_batch(x)[0] for x in batches]
+        assert a.captures == captures
+        assert torch.equal(la["loss"], torch.stack([l["loss"] for l in lb]))
+        assert state_differences(a.state, b.state) == []
+
+    both(xs[0:3], 1)
+    both(xs[3:5], 1)
+    both(xs[5:7, :128], 2)  # another batch shape: a graph of its own
+    both(xs[7:8], 2)  # the first graph's state is still the ensemble's
+    # an eager step writes into the state's tensors: the graph stays valid
+    assert torch.equal(a.step_batch(xs[8])[0]["loss"], b.step_batch(xs[8])[0]["loss"])
+    both(xs[9:10], 2)
+    a.set_update_mask([1.0, 0.0])
+    b.set_update_mask([1.0, 0.0])
+    both(xs[10:12], 3)
+    a.l1_warmup_steps = b.l1_warmup_steps = 20
+    both(xs[12:13], 4)
+    # a state from outside: another ensemble's, stepped elsewhere
+    c = Ensemble.from_state(b.state_dict(), sig=b.sig, device=cuda)
+    c.step_batch(xs[13])
+    a.state = Ensemble.from_state(c.state_dict(), sig=c.sig, device=cuda).state
+    b.state = Ensemble.from_state(c.state_dict(), sig=c.sig, device=cuda).state
+    both(xs[13:15], 5)
+
+
+def test_graph_losses_do_not_alias_and_step_scan_idx_gathers_into_the_graph(cuda, monkeypatch):
+    """Each call's [K, M] losses are its own (a later call leaves them as
+    they were), and `step_scan_idx` gathers each batch into the graph's
+    input with the eager gather's bits, K graph replays serving the whole
+    groups and the remainder alike."""
+    from _torch_moments import state_differences
+
+    a, b, _ = _graph_ensemble("tied_bf16_mu", cuda, monkeypatch)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dataset = torch.randn((2048, 128), generator=g, device=cuda)
+    idxs = torch.randperm(2048, generator=g, device=cuda)[: 7 * 256].reshape(7, 256)
+    l1 = a.step_scan_idx(dataset, idxs[:4])
+    kept = {k: v.clone() for k, v in l1.items()}
+    l2 = a.step_scan_idx(dataset, idxs[4:6])
+    l3 = a.step_scan_idx(dataset, idxs[6:7])
+    assert a.captures == 1
+    for k in kept:
+        assert torch.equal(l1[k], kept[k]) and l1[k].data_ptr() != l2[k].data_ptr() != l3[k].data_ptr()
+    lb = [b.step_batch(dataset[i])[0] for i in idxs]
+    for k in kept:
+        assert torch.equal(torch.cat([l1[k], l2[k], l3[k]]), torch.stack([l[k] for l in lb])), k
+    assert state_differences(a.state, b.state) == []
+    with pytest.raises(ValueError, match="shared-batch only"):
+        a.step_scan_idx(dataset, idxs[:1], per_model=True)
