@@ -29,7 +29,17 @@ as replays of its captured CUDA graph (`Ensemble.step_scan`, the route
 `ensemble_train_loop` takes). On the four fused paths at full width, 8 graph
 steps are held bit for bit to 8 eager steps from a cloned state (losses,
 params, moments, count, step) and must launch the same kernels as often.
-Then the sweep driver
+Then the health pack and the feature sketch on the tied path at full width
+(they turn the fused kernels off, as in JAX): 8 replays of the captured
+autograd step with the packs against 8 eager steps, bit for bit, and a twin
+without the packs whose losses and codes they leave unchanged; then the
+FISTA driver (`train/basic_l1_sweep.py`) at BASELINE config 1 (8 members,
+512 -> 2048, batch 1024, 500 iterations, health and feature stats on) over a
+store of 2 chunks of 4,096 rows, 2 epochs: K_f every step, no plain solve,
+exports, feature snapshots and health metrics checked; then the same run
+SIGTERMed after epoch 1's first chunk in a process of its own and resumed
+in another (``chip_smoke.py --bls-worker``), its exports, firing EMA and
+snapshots the uninterrupted run's bits. Then the sweep driver
 (`train/sweep.py::sweep`) at BASELINE config 2's widths over a
 `SparseMixDataset` store of 3 chunks of 65,536 rows: ensemble A (the tied
 path's 8 members, Adam) launches K1 + K2 every step, ensemble B (4 members,
@@ -116,6 +126,13 @@ FISTA = dict(
 # epoch; ensemble A is the tied path's (K1 + K2), ensemble B the same widths
 # with 4 members and a warmup schedule, which cannot be fused into K2 (K1 + K3)
 SWEEP = dict(chunks=3, chunk_size_gb=0.0625, members_b=4, warmup_steps=16)
+# the FISTA driver basic_l1_sweep at BASELINE config 1's width (the JAX
+# driver's defaults: FunctionalFista, width 512, ratio 4, l1 logspace(-4, -2,
+# 8), batch 1024, Adam lr 1e-3, 500 iterations, tol 0, the health pack and the
+# feature sketch on), over a store of 2 chunks of 4,096 rows built on the card
+# (tied's data), 2 epochs: 16 steps, a checkpoint at every chunk
+BLS_L1 = [10 ** (-4 + 2 * i / 7) for i in range(8)]
+BLS = dict(members=len(BLS_L1), width=512, n_dict=2048, batch=1024, chunks=2, rows_per_chunk=4096, epochs=2)
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -1220,14 +1237,16 @@ def fista_agreement(torch, a_k, a_p, x, d):
 def phase_fista_kernels(torch, fk, tf):
     """K_f against its plain loop on the same η, at the shape where the JAX
     package picks `_fista_kernel` (M 2, B 256, N 512, D 128, 100 iterations)
-    and at BASELINE config 3, where it picks `_fista_kernel_hbm_dict` (M 4,
-    B 2048, N 2048, D 512, 500 iterations); each timed beside the plain loop
+    at BASELINE config 3, where it picks `_fista_kernel_hbm_dict` (M 4,
+    B 2048, N 2048, D 512, 500 iterations), and at the FISTA driver's
+    BASELINE config 1 (M 8, B 1024, N 2048, D 512, 500 iterations, l1
+    logspace(-4, -2, 8)), where it picks the same; each timed beside the plain loop
     and the library yardstick (the same 2·iterations f32 `bmm` calls without
     the epilogues, which the port never calls), and bounded by the work the
     data needs: x − ŷ·D over the non-zeros of ŷ that the plain loop met in
     its iterations (`watching_plain_solves`), res·Dᵀ dense. Tolerances: codes within
     1e-4 at 100 iterations (the JAX suite's pin for `_fista_kernel`) and 1e-3
-    at config 3's 500 (should the two sum their 2048 and 512 products in
+    at 500 (should the two sum their 2048 and 512 products in
     another order, the iterations carry it; on an H100 with PyTorch 2.11's
     cuBLAS both sides came out bit-equal), support flips under 1e-3, ‖res‖²
     within 1e-4.
@@ -1239,13 +1258,15 @@ def phase_fista_kernels(torch, fk, tf):
     and 1e-3: codes within 1e-4, the same iteration counts."""
     src = "sparse_coding__tpu_torch/ops/csrc/fista.cu"
     rows = []
-    for shape, line, seed, atol, reps in (
-        (FISTA_ROW8, 54, 11, 1e-4, 10),
-        (dict(M=FM, B=FB, N=FN, D=FD, iters=FISTA_ITERS), 133, 12, 1e-3, 2),
+    for shape, line, seed, atol, reps, l1_grid in (
+        (FISTA_ROW8, 54, 11, 1e-4, 10, FISTA_L1),
+        (dict(M=FM, B=FB, N=FN, D=FD, iters=FISTA_ITERS), 133, 12, 1e-3, 2, FISTA_L1),
+        (dict(M=BLS["members"], B=BLS["batch"], N=BLS["n_dict"], D=BLS["width"], iters=FISTA_ITERS), 133, 15, 1e-3,
+         2, BLS_L1),
     ):
         M, B, N, D, iters = shape["M"], shape["B"], shape["N"], shape["D"], shape["iters"]
         check(fk.shapes_supported(B, N, D), f"K_f does not take {shape}")
-        x, d, c0, l1 = fista_problem(torch, M, B, N, D, seed)
+        x, d, c0, l1 = fista_problem(torch, M, B, N, D, seed, l1_grid=l1_grid)
         eta = tf.default_eta(d)
         fk.reset_launches()
         a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters)
@@ -1286,7 +1307,7 @@ def phase_fista_kernels(torch, fk, tf):
         flops = 2 * D * yhat_nnz + 2 * B * N * D * iters * M
         nbytes = 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
-        emit("fista_kernels", shape=label, variant=row["variant"], ms=row["ms"], was_ms=HOST_PACED_K_F_MS[label],
+        emit("fista_kernels", shape=label, variant=row["variant"], ms=row["ms"], was_ms=HOST_PACED_K_F_MS.get(label),
              bound_ms=row["bound_ms"], bound_route="float32 FMA, CUDA cores (67 TFLOP/s)",
              tensor_core_3xtf32_bound_ms=bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0], plain_ms=row["plain_ms"],
              library_ms=row["library_ms"])
@@ -1530,6 +1551,273 @@ def phase_fista_step(torch, pkg, cfg, reps: int = 3):
          activations_per_s=cfg["batch"] * ens.n_models / step_ms * 1e3, step_peak_bytes=peak)
 
 
+def phase_health_graph(torch, pkg, tf, steps: int = 8):
+    """The health pack and the feature sketch on the tied path's full width
+    (M 8, B 2048, N 4096, D 512, bf16): the packs turn the fused kernels off
+    (JAX's rule), so the step is the autograd one, captured with the packs
+    into its CUDA graph. ``steps`` graph replays (`step_scan`, after a call
+    that captured the step) and ``steps`` eager steps on a twin from the
+    same state give the same bits: losses, every ``health_*`` metric,
+    params, moments, the firing EMA and the sketch; a twin without the
+    packs (unfused too) gives the packs' twin's losses and codes bit for bit
+    (observation only); the sketch counts ``steps`` × 2048 rows a member;
+    a profiler trace of the replays shows no K1, K2 or K3 launch. Then the
+    graph step timed (CUDA events) with the packs and, in the same run,
+    without them on the same unfused route: what the packs cost there; and
+    the same for the FISTA driver's eager gradient step at BASELINE config
+    1 (f32 autograd, M 8, B 1024, N 2048, D 512)."""
+    from _torch_moments import state_differences
+    from _torch_trace import traced
+    from sparse_coding__tpu_torch.telemetry.feature_stats import FEATURE_STATS_KEYS
+    from sparse_coding__tpu_torch.telemetry.health import FIRE_EMA_KEY
+
+    build = dict(TIED["build"], health=True, feature_stats=True)
+    with watching_plain_solves(torch, tf) as plain:
+        a = pkg.build_ensemble(pkg.FunctionalTiedSAE, 7, TIED["hparams"], fused=True, **build)
+        check(a.fused is False and a.fused_adam is None, f"packs on, fused {a.fused}")
+        b = pkg.Ensemble.from_state(a.state_dict(), sig=a.sig, device="cuda")
+        bare = pkg.build_ensemble(pkg.FunctionalTiedSAE, 7, TIED["hparams"], fused=False, **TIED["build"])
+        g = torch.Generator(device="cuda").manual_seed(8)
+        xs = torch.randn((steps + 1, B, D), generator=g, device="cuda")
+        a.step_scan(xs[:1])
+        lb0, ab0 = b.step_batch(xs[0])
+        ln0, an0 = bare.step_batch(xs[0])
+        check(torch.equal(ab0["c"], an0["c"]) and all(torch.equal(lb0[k], ln0[k]) for k in ln0),
+              "the packs changed the step's losses or codes")
+        la, ran = traced(torch, lambda: a.step_scan(xs[1:]))
+        lb = []
+        for x in xs[1:]:
+            lbk, abk = b.step_batch(x)
+            lnk, ank = bare.step_batch(x)
+            check(torch.equal(abk["c"], ank["c"]) and all(torch.equal(lbk[k], lnk[k]) for k in lnk),
+                  "the packs changed the step's losses or codes")
+            lb.append(lbk)
+        torch.cuda.synchronize()
+    check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran")
+    check(sum(ran.values()) == 0, f"fused kernels ran under the packs: {ran}")
+    check(a.captures == 1, f"{a.captures} captures")
+    health = sorted(k for k in lb[0] if k.startswith("health_"))
+    check(health == ["health_dead_frac", "health_dict_norm", "health_grad_norm", "health_nonfinite"], f"{health}")
+    for k in lb[0]:
+        check(torch.equal(la[k], torch.stack([l[k] for l in lb])), f"health graph: {k} differs from eager")
+    diff = state_differences(a.state, b.state)
+    check(diff == [], f"health graph: state differs from eager at {diff}")
+    rows = a.state.buffers["featstat_rows"].tolist()
+    check(rows == [float((steps + 1) * B)] * M, f"featstat_rows {rows}")
+    check(all(bool(torch.isfinite(la[k]).all()) for k in health), "non-finite health metric")
+    # the graph step with and without the packs (both unfused), in turns
+    reps = 10
+    xr = xs[1:].repeat(2, 1, 1)[:reps]
+    bare.step_scan(xr[:1])
+    ms = {}
+    for name, ens in (("packs", a), ("no_packs", bare), ("packs", a), ("no_packs", bare)):
+        ms.setdefault(name, []).append(time_ms(torch, lambda: ens.step_scan(xr), 1, warmup=1) / reps)
+    fire_ema_mean, fused, captures = float(a.state.buffers[FIRE_EMA_KEY].mean()), a.fused, a.captures
+    del a, b, bare
+    torch.cuda.empty_cache()
+    # the FISTA driver's gradient step (BASELINE config 1, f32 autograd,
+    # eager as the driver runs it) with and without the packs, in turns
+    kw = dict(optimizer_kwargs={"learning_rate": LR}, activation_size=BLS["width"], n_dict_components=BLS["n_dict"])
+    hp = [{"l1_alpha": a} for a in BLS_L1]
+    twins = {"packs": pkg.build_ensemble(pkg.FunctionalFista, 0, hp, health=True, feature_stats=True, **kw),
+             "no_packs": pkg.build_ensemble(pkg.FunctionalFista, 0, hp, **kw)}
+    xf = torch.randn((BLS["batch"], BLS["width"]), generator=g, device="cuda")
+    fista_ms = {}
+    for name in ("packs", "no_packs", "packs", "no_packs"):
+        fista_ms.setdefault(name, []).append(time_ms(torch, lambda: twins[name].step_batch(xf), 10, warmup=2))
+    emit("health_graph", path="tied_l1_sweep health + feature stats", members=M, batch=B, steps=steps,
+         fused=fused, captures=captures, launches_in_replays=ran, bit_equal=True,
+         health_metrics=health, sketch_keys=list(FEATURE_STATS_KEYS), featstat_rows=rows,
+         fire_ema_mean=fire_ema_mean, dead_frac=la["health_dead_frac"][-1].tolist(), graph_step_ms=ms,
+         fista_config1_gradient_step_ms=fista_ms, plain_solves=plain["calls"])
+    del twins
+    torch.cuda.empty_cache()
+
+
+def bls_store(torch, root: Path) -> Path:
+    """The driver's store: 2 fp16 chunks of 4,096 rows of width 512 from the
+    tied path's synthetic generator, built on the card."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    gen = RandomDatasetGenerator(activation_dim=BLS["width"], batch_size=BLS["rows_per_chunk"], correlated=False,
+                                 **dict(TIED["data"], key=4))
+    store = generate_synthetic_chunks(gen, root / "bls_store", BLS["chunks"],
+                                      chunk_size_gb=BLS["rows_per_chunk"] * BLS["width"] * 2 / 1024**3,
+                                      dtype=np.float16)
+    check(store.indices() == list(range(BLS["chunks"])), f"store {store.indices()}")
+    return root / "bls_store"
+
+
+def bls_run(store: Path, out: Path, resume: bool = False):
+    """The FISTA driver at BASELINE config 1 (its own defaults at width 512),
+    2 epochs, a checkpoint at every chunk."""
+    from sparse_coding__tpu_torch.train.basic_l1_sweep import basic_l1_sweep
+
+    return basic_l1_sweep(str(store), str(out), activation_width=BLS["width"], batch_size=BLS["batch"],
+                          n_epochs=BLS["epochs"], checkpoint_every=1, resume=resume)
+
+
+def bls_worker(argv) -> int:
+    """``chip_smoke.py --bls-worker <store> <out> [--resume]``: the driver as a
+    process of its own (``SC_FAULT`` from the environment), under the watch
+    for plain FISTA solves: any one fails the process."""
+    import torch
+
+    from sparse_coding__tpu_torch.models import fista as tf
+
+    with watching_plain_solves(torch, tf) as plain:
+        try:
+            bls_run(Path(argv[0]), Path(argv[1]), resume="--resume" in argv[2:])
+        finally:
+            check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran in the driver")
+    return 0
+
+
+def phase_basic_l1_sweep_train(torch, tf, root: Path):
+    """The FISTA driver end to end (BASELINE config 1: 8 members, width 512,
+    dictionary 2048, batch 1024, 500 iterations, health + feature stats on)
+    over a store built on the card, 2 epochs = 16 steps, a checkpoint at
+    every chunk, under a profiler trace: K_f solves once a step, no other
+    hand-written kernel runs and no plain solve. Checks the exports of both
+    epochs; one feature snapshot per chunk boundary (4: the tail flush finds
+    an empty window); finite ``health_*`` metrics in the metrics JSONL;
+    every member's loss falling from its first step to its last; the
+    exports' FVU (finite); no member flagged non-finite by the anomaly guard
+    (its other detections are printed); the device-memory gauges
+    (``hbm.d0.*``) in the last ``snapshot`` record. Returns (the run's K_f
+    launches, its output dir)."""
+    import numpy as np
+    from _torch_trace import traced
+
+    from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+
+    store = bls_store(torch, root)
+    out = root / "bls_a"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        lds = bls_run(store, out)
+        torch.cuda.synchronize()
+        return lds, time.perf_counter() - t0
+
+    fk.reset_launches()
+    with watching_plain_solves(torch, tf) as plain:
+        (lds, wall), launches = traced(torch, run)
+    peak = torch.cuda.max_memory_allocated() - before
+    steps = BLS["epochs"] * BLS["chunks"] * BLS["rows_per_chunk"] // BLS["batch"]
+    want = {k: 0 for k in launches}
+    want["fista_solve"] = steps
+    # the steps are eager, so the wrapper's count must be the trace's (which
+    # checks the trace's name table)
+    check(launches == want and fk.LAUNCHES["fista_solve"] == steps,
+          f"driver launches {launches} (wrapper {fk.LAUNCHES}) after {steps} steps, want {want}")
+    check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran in the driver")
+    for e in range(BLS["epochs"]):
+        check((out / f"epoch_{e}" / "learned_dicts.pkl").exists(), f"epoch_{e} export missing")
+    snaps = sorted(p.name for p in out.glob("feature_stats.train*.npz"))
+    check(len(snaps) == BLS["epochs"] * BLS["chunks"], f"feature snapshots {snaps}")
+    recs = [json.loads(line) for line in open(out / "basic_l1_sweep_metrics.jsonl")]
+    health, losses = {}, {}
+    for r in recs:
+        if r["metric"].startswith("health_"):
+            health.setdefault(r["metric"], []).append(r["value"])
+        if r["metric"] == "loss":
+            losses.setdefault(r["series"], []).append(r["value"])
+    check(len(losses) == BLS["members"] and all(v[-1] < v[0] for v in losses.values()),
+          f"a member's loss did not fall: {[(v[0], v[-1]) for v in losses.values()]}")
+    check(sorted(health) == ["health_dead_frac", "health_dict_norm", "health_grad_norm", "health_nonfinite"]
+          and all(math.isfinite(v) for vals in health.values() for v in vals)
+          and all(len(v) == steps * BLS["members"] for v in health.values()), "health metrics in the JSONL")
+    events = read_events(out / "events.jsonl")
+    check([e["status"] for e in events if e["event"] == "run_end"] == ["ok"], "run_end")
+    anomalies = [(e["kind"], e["step"], e["models"]) for e in events if e["event"] == "anomaly"]
+    gauges = [e for e in events if e["event"] == "snapshot"][-1]["gauges"]
+    hbm = {k: v for k, v in gauges.items() if k.startswith("hbm.")}
+    check(hbm.get("hbm.d0.peak_bytes_in_use", 0) > 0 and hbm.get("hbm.d0.bytes_limit", 0) > 0, f"hbm gauges {hbm}")
+    check(not [a for a in anomalies if a[0] == "nonfinite"], f"non-finite members: {anomalies}")
+    loaded = ckpt_lib.load_learned_dicts(out / "epoch_1" / "learned_dicts.pkl", verify=True)
+    sample = torch.from_numpy(np.load(store / "0.npy")[:4096]).cuda().float()
+    fvu = [m["fvu"] for m in evaluate_dicts([ld for ld, _ in loaded], sample)]
+    check(len(loaded) == len(lds) == BLS["members"] and all(math.isfinite(v) for v in fvu), f"driver FVU {fvu}")
+    end = events[-1]
+    emit("basic_l1_sweep_train", config="BASELINE config 1", members=BLS["members"], width=BLS["width"],
+         n_dict=BLS["n_dict"], batch=BLS["batch"], fista_iters=FISTA_ITERS, chunks=BLS["chunks"],
+         rows_per_chunk=BLS["rows_per_chunk"], epochs=BLS["epochs"], steps=steps, launches=launches, wall_s=wall,
+         activations_per_s=steps * BLS["batch"] * BLS["members"] / wall,
+         span_seconds={c: span_seconds(events, c) for c in ("step", "data_wait", "checkpoint", "feature_flush")},
+         step_span_activations_per_s=steps * BLS["batch"] * BLS["members"] / span_seconds(events, "step"),
+         driver_peak_bytes=peak, hbm_gauges=hbm, timer=end.get("timer"), snapshots=snaps, fvu=fvu,
+         loss_first_last=[(v[0], v[-1]) for v in losses.values()],
+         dead_frac_last=health["health_dead_frac"][-BLS["members"]:], anomalies=anomalies,
+         plain_solves=plain["calls"])
+    return launches["fista_solve"], out
+
+
+def phase_basic_l1_sweep_resume(torch, root: Path, control: Path):
+    """The same driver run SIGTERMed after epoch 1's first chunk in a process
+    of its own (exit 75, ``ckpt_2`` committed), then resumed in another
+    (exit 0): both epochs' exports are the uninterrupted run's bits, and so
+    are the resumed run's firing EMA (the last checkpoint's) and every
+    feature snapshot (the sketch continues from the checkpoint's)."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.telemetry.feature_stats import load_run_snapshots
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+
+    store, out = root / "bls_store", root / "bls_b"
+
+    def worker(*extra, fault=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+        if fault:
+            env["SC_FAULT"] = fault
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--bls-worker", str(store), str(out),
+                               *extra], env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t
+
+    killed, killed_s = worker(fault="sigterm:chunk=0:epoch=1")
+    check(killed.returncode == 75, f"preempted driver exited {killed.returncode}: {killed.stderr[-3000:]}")
+    check(ckpt_lib.latest_checkpoint(out).name == "ckpt_2", "ckpt_2 is not the newest checkpoint")
+    resumed, resumed_s = worker("--resume")
+    check(resumed.returncode == 0, f"resumed driver exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    n = 0
+    for e in range(BLS["epochs"]):
+        got = ckpt_lib.load_learned_dicts(out / f"epoch_{e}" / "learned_dicts.pkl", verify=True, device="cpu")
+        ref = ckpt_lib.load_learned_dicts(control / f"epoch_{e}" / "learned_dicts.pkl", verify=True, device="cpu")
+        check(len(got) == len(ref) == BLS["members"], "resumed export length")
+        for (g, hg), (r, hr) in zip(got, ref):
+            check(hg == hr, f"hyperparams {hg} != {hr}")
+            for f in ("encoder", "encoder_bias", "decoder"):
+                check(torch.equal(getattr(g, f), getattr(r, f)), f"epoch {e}: resumed {f} differs")
+                n += 1
+    ema = [ckpt_lib.restore_ensemble_checkpoint(d / "ckpt_3")["ensembles"]["ensemble"]["state"]
+           .buffers["health_fire_ema"] for d in (out, control)]
+    check(torch.equal(ema[0], ema[1]), "the resumed firing EMA differs from the uninterrupted run's")
+    snaps = [load_run_snapshots(d) for d in (out, control)]
+    check([s.gen for s in snaps[0]] == [s.gen for s in snaps[1]] and len(snaps[0]) == 4, "snapshot generations")
+    for sa, sb in zip(*snaps):
+        for f in ("rows", "fire", "sum", "sumsq", "max", "hist"):
+            check(np.array_equal(getattr(sa, f), getattr(sb, f)), f"snapshot {sa.gen}: {f} differs")
+    events = read_events(out / "events.jsonl")
+    statuses = [e["status"] for e in events if e["event"] == "run_end"]
+    check(statuses == ["preempted", "ok"], f"run_end statuses {statuses}")
+    emit("basic_l1_sweep_resume", fault="sigterm:chunk=0:epoch=1", preempted_exit=killed.returncode,
+         preempted_s=killed_s, resumed_exit=resumed.returncode, resumed_s=resumed_s, checkpoint="ckpt_2",
+         run_end=statuses, bit_equal_arrays=n, fire_ema_bit_equal=True, snapshots_bit_equal=len(snaps[0]),
+         resume_cursor=next(e for e in events if e["event"] == "resume")["cursor"])
+
+
 def sweep_cfg(root: Path, out: str):
     from sparse_coding__tpu_torch.utils.config import SyntheticEnsembleArgs
 
@@ -1701,6 +1989,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--sweep-worker"]:
         return sweep_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--bls-worker"]:
+        return bls_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -1798,7 +2088,19 @@ def main() -> int:
     del ens, gen, eval_batch
     torch.cuda.empty_cache()
     phase_fista_step(torch, pkg, FISTA)
-    rows += label(fista_rows, FISTA, launches)
+    rows += label(fista_rows[:2], FISTA, launches)
+
+    # the packs on the tied path's graph, then the FISTA driver basic_l1_sweep
+    # (BASELINE config 1): K_f at its shape, killed and resumed bit for bit
+    torch.cuda.empty_cache()
+    phase_health_graph(torch, pkg, tf)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_bls_") as bls_root:
+        bls_launches, control = phase_basic_l1_sweep_train(torch, tf, Path(bls_root))
+        torch.cuda.empty_cache()
+        phase_basic_l1_sweep_resume(torch, Path(bls_root), control)
+    bls_row = dict(fista_rows[2], path="basic_l1_sweep", launches=bls_launches)
+    rows.append(bls_row)
 
     # the sweep driver (BASELINE config 2's widths): K1 + K2 and K1 + K3,
     # then a preempted and resumed run held to the uninterrupted one

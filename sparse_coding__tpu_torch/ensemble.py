@@ -20,7 +20,12 @@ paths, by the JAX package's rules and independent of the device:
     code, which the FISTA decoder update takes as its warm start.
 
 On CUDA tensors the fused paths launch the hand-written kernels; on CPU
-tensors they run the kernels' plain versions. The l1-warmup ramp is computed
+tensors they run the kernels' plain versions. The health pack
+(`telemetry.health`) and the feature sketch (`telemetry.feature_stats`) read
+each step's gradients and code, so either one turns the fused paths off, as
+in the JAX package; they run inside the step (and its graph), write the
+firing EMA and the sketch back into the buffers, and add the ``health_*``
+metrics to the losses. The l1-warmup ramp is computed
 on the device from a device step counter, so no value that changes from step
 to step crosses from the host.
 
@@ -42,6 +47,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from sparse_coding__tpu_torch.telemetry.feature_stats import (
+    FEATURE_STATS_KEYS,
+    FeatureStatsConfig,
+    feature_stats_pack,
+    init_feature_stats,
+)
+from sparse_coding__tpu_torch.telemetry.health import FIRE_EMA_KEY, HealthConfig, health_pack, init_fire_ema, n_feats_of
 from sparse_coding__tpu_torch.utils import flags
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
@@ -205,7 +217,11 @@ class Ensemble:
 
     ``unstacked`` differentiates the members one at a time (the JAX
     package's ``lax.map`` escape hatch: the code of one member at a time)
-    and steps the stacked optimizer; it takes the autograd path. The step
+    and steps the stacked optimizer; it takes the autograd path.
+    ``health`` (True or a `HealthConfig`) and ``feature_stats`` (True or a
+    `FeatureStatsConfig`) fuse the health pack and the feature sketch into
+    the step; either forces ``fused=False``, also over an explicit
+    ``fused=True`` (the JAX package's rule). The step
     count lives twice: ``state.step`` on the host and a counter on the
     device that the l1-warmup ramp reads, refilled from ``state.step``
     whenever a state is assigned (which also drops the captured graphs)."""
@@ -220,6 +236,8 @@ class Ensemble:
         fused: Optional[bool] = None,
         l1_warmup_steps: int = 0,
         unstacked: bool = False,
+        health=False,
+        feature_stats=False,
     ):
         if not models:
             raise ValueError("Ensemble requires at least one (params, buffers) model")
@@ -234,6 +252,13 @@ class Ensemble:
         self.l1_warmup_steps = int(l1_warmup_steps)
         self.unstacked = bool(unstacked)
         self.compute_dtype = px.as_dtype(compute_dtype)
+        self.health: Optional[HealthConfig] = (
+            health if isinstance(health, HealthConfig) else (HealthConfig() if health else None))
+        self.feature_stats: Optional[FeatureStatsConfig] = (
+            feature_stats if isinstance(feature_stats, FeatureStatsConfig)
+            else (FeatureStatsConfig() if feature_stats else None))
+        if self.health is not None or self.feature_stats is not None:
+            fused = False  # the packs read the gradients and the code
         if fused is None:
             fused = (
                 self.compute_dtype == torch.bfloat16
@@ -249,6 +274,11 @@ class Ensemble:
         self.tx = optim_str_to_func(optimizer)(**self.optimizer_kwargs)
         params = stack_pytrees([p for p, _ in models])
         buffers = stack_pytrees([b for _, b in models])
+        dev = next(iter(params.values())).device
+        if self.health is not None:
+            buffers[FIRE_EMA_KEY] = init_fire_ema(self.n_models, n_feats_of(models[0][0]), device=dev)
+        if self.feature_stats is not None:
+            buffers.update(init_feature_stats(self.n_models, n_feats_of(models[0][0]), self.feature_stats, device=dev))
         self.state = EnsembleState(params, buffers, self.tx.init(params), 0)
         self.fused_adam = self._fused_adam_config()
         self._init_runtime()
@@ -335,10 +365,12 @@ class Ensemble:
 
     def _settings(self) -> tuple:
         """The host settings a step reads (signature, precision, route,
-        fused-Adam constants, warm-up length, ``unstacked``, optimizer): part
-        of a graph's key, so a change to any of them is a new capture."""
+        fused-Adam constants, warm-up length, ``unstacked``, optimizer, the
+        health and feature-sketch configs): part of a graph's key, so a
+        change to any of them is a new capture."""
         adam = None if self.fused_adam is None else tuple(sorted(self.fused_adam.items()))
-        return (self.sig, self.compute_dtype, self.fused, adam, self.l1_warmup_steps, self.unstacked, self.tx)
+        return (self.sig, self.compute_dtype, self.fused, adam, self.l1_warmup_steps, self.unstacked, self.tx,
+                self.health, self.feature_stats)
 
     def _route(self, batch_size: int, masked: bool, per_model: bool) -> str:
         """``"fused_adam"``, ``"fused_grads"`` or ``"autograd"``: the JAX
@@ -362,18 +394,21 @@ class Ensemble:
 
     def _advance(self, st: EnsembleState, batch: torch.Tensor, step_t: torch.Tensor, per_model: bool):
         """One step's math from ``st`` (nothing assigned): ``(params,
-        opt_state, loss_dict, aux)``. Every value that changes from step to
-        step is read on the device (the ramp from ``step_t``, the bias
-        corrections and stochastic-store seeds from the optimizer's count), so
-        a graph captured from this function is right at every replay."""
+        opt_state, loss_dict, aux, buffers)``, ``buffers`` the new values of
+        the buffers the packs write (empty without them). Every value that
+        changes from step to step is read on the device (the ramp and the
+        health EMA's bias correction from ``step_t``, the bias corrections
+        and stochastic-store seeds from the optimizer's count), so a graph
+        captured from this function is right at every replay."""
         exec_buffers = l1_warmup_buffers(st.buffers, step_t, self.l1_warmup_steps, self.sig)
         route = self._route(batch.shape[1 if per_model else 0], "update_mask" in exec_buffers, per_model)
         aux: Dict[str, torch.Tensor] = {}
         if route == "autograd":
             grads, loss_dict, aux = self._autograd(st.params, exec_buffers, batch, per_model)
+            loss_dict, extra = self._packs(st, grads, loss_dict, aux, step_t)
             with torch.no_grad():
                 params, opt_state = self._optimizer_step(st, grads, exec_buffers)
-            return params, opt_state, loss_dict, aux
+            return params, opt_state, loss_dict, aux, extra
         with torch.no_grad():
             if route == "fused_adam":
                 params, opt_state, loss_dict = self.sig.fused_adam_step(
@@ -382,7 +417,21 @@ class Ensemble:
             else:
                 grads, loss_dict = self.sig.fused_grads_stacked(st.params, exec_buffers, batch)
                 params, opt_state = self._optimizer_step(st, grads, exec_buffers)
-        return params, opt_state, loss_dict, aux
+        return params, opt_state, loss_dict, aux, {}
+
+    def _packs(self, st: EnsembleState, grads, loss_dict, aux, step_t):
+        """The health pack and the feature sketch on this step's gradients
+        and code (observation only: nothing the step computes changes) →
+        ``(loss_dict with the health metrics, new buffer values)``. They
+        write into the stored buffers, never the warm-up's ramped view."""
+        extra: Dict[str, torch.Tensor] = {}
+        if self.health is not None:
+            h, extra[FIRE_EMA_KEY] = health_pack(st.params, grads, loss_dict["loss"], aux,
+                                                 st.buffers[FIRE_EMA_KEY], step_t, self.health)
+            loss_dict = {**loss_dict, **h}
+        if self.feature_stats is not None:
+            extra.update(feature_stats_pack(aux, {k: st.buffers[k] for k in FEATURE_STATS_KEYS}, self.feature_stats))
+        return loss_dict, extra
 
     def step_batch(self, batch: torch.Tensor, per_model: bool = False):
         """One eager update on a batch [B, D] shared by the members (or
@@ -484,10 +533,12 @@ class Ensemble:
         caller's): every step, eager or captured, so each graph's tensors
         stay the state's. Returns ``(loss_dict, aux)``."""
         st = self.state
-        params, opt_state, loss_dict, aux = self._advance(st, x, self._step_t, per_model)
+        params, opt_state, loss_dict, aux, buffers = self._advance(st, x, self._step_t, per_model)
         with torch.no_grad():
             _copy_into(st.params, params)
             _copy_into(st.opt_state, opt_state)
+            for k, v in buffers.items():
+                _copy_into(st.buffers[k], v)
             self._step_t.add_(1)
         return loss_dict, aux
 
@@ -548,6 +599,8 @@ class Ensemble:
             "fused": self.fused,
             "l1_warmup_steps": self.l1_warmup_steps,
             "unstacked": self.unstacked,
+            "health": None if self.health is None else dataclasses.asdict(self.health),
+            "feature_stats": None if self.feature_stats is None else dataclasses.asdict(self.feature_stats),
             "state": _map_tensors(self.state, lambda t: t.detach().cpu().clone()),
         }
 
@@ -577,6 +630,11 @@ class Ensemble:
         self.fused = bool(state_dict.get("fused", False))
         self.l1_warmup_steps = int(state_dict.get("l1_warmup_steps", 0))
         self.unstacked = bool(state_dict.get("unstacked", False))
+        h, fs = state_dict.get("health"), state_dict.get("feature_stats")
+        self.health = HealthConfig(**{k: float(v) for k, v in h.items()}) if h else None
+        self.feature_stats = (
+            FeatureStatsConfig(n_buckets=int(fs["n_buckets"]), hist_lo=float(fs["hist_lo"]),
+                               hist_ratio=float(fs["hist_ratio"])) if fs else None)
         self.tx = optim_str_to_func(self.optimizer_name)(**self.optimizer_kwargs)
         # copies: the steps write into the state's tensors, never into the record's
         self.state = _map_tensors(state_dict["state"], lambda t: t.to(device, copy=True))
@@ -594,18 +652,21 @@ def build_ensemble(
     compute_dtype=None,
     fused: Optional[bool] = None,
     l1_warmup_steps: int = 0,
+    health=False,
+    feature_stats=False,
     device=None,
     **common_hparams,
 ) -> Ensemble:
     """Init N models of `sig` (one per hparams dict) and stack them.
 
     ``key`` seeds one `torch.Generator` on ``device`` that draws the members
-    in order. ``device=None`` means ``cuda`` and raises where there is no
-    CUDA device (pass ``device="cpu"`` for the CPU)."""
+    in order. ``health`` / ``feature_stats`` as in `Ensemble` (either one
+    gives ``fused=False``). ``device=None`` means ``cuda`` and raises where
+    there is no CUDA device (pass ``device="cpu"`` for the CPU)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(key))
     models = [sig.init(gen, **common_hparams, **hp, device=device) for hp in hparams_list]
     return Ensemble(
         models, sig, optimizer, optimizer_kwargs, compute_dtype=compute_dtype,
-        fused=fused, l1_warmup_steps=l1_warmup_steps,
+        fused=fused, l1_warmup_steps=l1_warmup_steps, health=health, feature_stats=feature_stats,
     )

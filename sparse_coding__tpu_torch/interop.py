@@ -44,7 +44,8 @@ def state_from_jax_numpy(
     """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
     a TopK signature, ``{"encoder", "encoder_bias", "decoder"}`` of
     `FunctionalFista`), buffers (None for absent centering; FISTA's
-    ``hessian_diag`` like any other), and optax's
+    ``hessian_diag``, the health pack's ``health_fire_ema`` and the feature
+    sketch's ``featstat_*`` like any other), and optax's
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
     ``{"count", "mu", "nu"}`` — each moment keeps its storage: f32, bf16, or
     an int8 ``QuantMoment`` node (q and scale). With

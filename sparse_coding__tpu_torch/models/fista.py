@@ -264,15 +264,39 @@ class FunctionalFista:
 
     @staticmethod
     def loss2(params, buffers, batch, fista_iters: int = 50):
-        raise NotImplementedError(
-            "FunctionalFista.loss2 (gradients through the unrolled FISTA solve) is not ported yet — ROADMAP A3"
-        )
+        """The tied-encoder hybrid: SAE reconstruction + the residual of a
+        ``fista_iters``-iteration FISTA solve from the encoder's code, with
+        the encoder's normalised rows as the dictionary. Gradients flow
+        through the unrolled solve: the plain loop (`fista`) under autograd
+        on any device, as the JAX package differentiates its plain loop.
+        No driver calls it. ``(overall [M], (loss_data, {"c": c}))``."""
+        learned_dict = _norm_rows(params["encoder"])
+        c = torch.relu(torch.matmul(batch, learned_dict.transpose(1, 2)) + params["encoder_bias"][:, None, :])
+        diff = torch.matmul(c, learned_dict) - batch
+        l_reconstruction = torch.mean(diff * diff, dim=(-2, -1))
+        l_l1 = buffers["l1_alpha"] * torch.abs(c).sum(dim=-1).mean(dim=-1)
+        l_bias_decay = buffers["bias_decay"] * _safe_l2(params["encoder_bias"])
+        _, res = fista(batch, learned_dict, buffers["l1_alpha"], c, fista_iters)
+        fista_l_reconstruction = torch.mean(res * res, dim=(-2, -1))
+        overall = l_reconstruction + fista_l_reconstruction + l_l1 + l_bias_decay
+        loss_data = {
+            "loss": overall,
+            "l_reconstruction": l_reconstruction,
+            "l_fista_reconstruction": fista_l_reconstruction,
+            "l_l1": l_l1,
+        }
+        return overall, (loss_data, {"c": c})
 
     @staticmethod
     def fista_loss(params, buffers, batch, c, fista_iters: int = 50):
-        raise NotImplementedError(
-            "FunctionalFista.fista_loss (gradients through the unrolled FISTA solve) is not ported yet — ROADMAP A3"
-        )
+        """The pure FISTA-residual loss of a solve warm-started from ``c``
+        [M, B, N] on the encoder's normalised rows, differentiable through
+        the unrolled plain loop as `loss2`. ``(loss [M], ({"loss"},
+        {"c_fista"}))``."""
+        learned_dict = _norm_rows(params["encoder"])
+        c_fista, res = fista(batch, learned_dict, buffers["l1_alpha"], c, fista_iters)
+        l_reconstruction = torch.mean(res * res, dim=(-2, -1))
+        return l_reconstruction, ({"loss": l_reconstruction}, {"c_fista": c_fista})
 
     @staticmethod
     def to_learned_dict(params, buffers):

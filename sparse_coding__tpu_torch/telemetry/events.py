@@ -9,7 +9,8 @@ tools read the port's logs). One record per line::
 Kinds the port writes: ``run_start`` (config + environment fingerprint),
 ``chunk_start`` / ``chunk_end``, ``span`` (`telemetry.spans`), ``resume``,
 ``checkpoint``, ``preempt``, ``anomaly``, ``chunk_skipped``,
-``provenance``, ``snapshot`` (counters + gauges) and ``run_end``.
+``provenance``, ``feature_stats``, ``snapshot`` (counters + gauges) and
+``run_end``.
 
 Counters and gauges are host-side Python numbers: bumping them never touches
 the card. The JAX package's compile bridge (``jax.monitoring``,
@@ -144,9 +145,15 @@ class RunTelemetry:
         self.counter_add_float("chunk.seconds", dt)
         return self.event("chunk_end", chunk=int(chunk), seconds=round(dt, 3), **fields)
 
-    def run_end(self, status: str = "ok", **fields):
+    def anomaly(self, kind: str, **fields):
+        """An ``anomaly`` record (the guard's detections), counted."""
+        self.counter_inc("anomalies")
+        return self.event("anomaly", kind=kind, **fields)
+
+    def run_end(self, status: str = "ok", timer_stats: Optional[Dict[str, Any]] = None, **fields):
         """The final record (after a closing `snapshot`): status, this
-        generation's wall seconds, and the step totals from the counters."""
+        generation's wall seconds, the step totals from the counters and,
+        given, a `utils.trace.StepTimer` report under ``timer``."""
         self.snapshot()
         self._run_end_written = True
         wall = time.monotonic() - self._t0_mono
@@ -156,6 +163,8 @@ class RunTelemetry:
         if steps is not None:
             rec["steps"] = int(steps)
             rec.setdefault("steps_per_sec", round(steps / wall, 3) if wall > 0 else None)
+        if timer_stats:
+            rec["timer"] = {k: round(v, 4) if isinstance(v, float) else v for k, v in timer_stats.items()}
         return self.event("run_end", **rec)
 
     def counter_inc(self, name: str, n: int = 1):

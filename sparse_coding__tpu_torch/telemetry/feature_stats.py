@@ -1,0 +1,476 @@
+"""Per-feature statistics: the in-step firing sketch, its snapshots and the
+drift math.
+
+Counterpart of the training half of `sparse_coding__tpu/telemetry/
+feature_stats.py`. A device-resident ``[M, F]`` sketch accumulates inside the
+ensemble step (`ensemble.Ensemble` with ``feature_stats``; captured into the
+step's CUDA graph with the rest of it), is read to the host at a flush
+boundary in one batched copy, written as a ``feature_stats.<gen>.npz``
+snapshot with a ``feature_stats`` pointer event, and reset in place.
+
+Sketch layout (stacked, leading member axis M):
+
+  - ``featstat_rows``   rows accumulated this window                  — ``[M]``
+  - ``featstat_fire``   rows on which each feature fired (``c != 0``) — ``[M, F]``
+  - ``featstat_sum``    sum of each feature's activation              — ``[M, F]``
+  - ``featstat_sumsq``  sum of squared activation                     — ``[M, F]``
+  - ``featstat_max``    max |activation| seen this window             — ``[M, F]``
+  - ``featstat_hist``   fired-magnitude log-bucket counts             — ``[M, F, B]``
+
+Bucket ``b`` holds fired magnitudes in ``[lo·ratio^b, lo·ratio^(b+1))``, the
+first and last buckets absorbing under- and overflow. Snapshots use the JAX
+package's npz layout, so each package reads the other's. Drift is the
+per-feature population-stability index (or Jensen–Shannon divergence)
+between two snapshots' firing distributions.
+
+The flush resets the sketch with ``zero_()`` on the buffers' own tensors:
+a captured step graph froze their addresses and stays valid across it. The
+serving half (`ServeFeatureStats`) waits for ROADMAP A7, the run summary and
+the ``features`` CLI for A9; each raises if it is reached.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sparse_coding__tpu_torch.telemetry.spans import Span
+from sparse_coding__tpu_torch.utils.logging import _to_host
+
+__all__ = [
+    "FEATURE_STATS_KEYS",
+    "FeatureStatsConfig",
+    "FeatureSnapshot",
+    "ServeFeatureStats",
+    "init_feature_stats",
+    "feature_stats_pack",
+    "update_feature_stats",
+    "snapshot_aggregates",
+    "lane_distribution",
+    "psi",
+    "js_divergence",
+    "drift_report",
+    "write_snapshot",
+    "flush_ensemble_feature_stats",
+    "next_snapshot_path",
+    "load_run_snapshots",
+    "summarize_run",
+    "render_features",
+    "main",
+]
+
+FEATURE_STATS_KEYS = (
+    "featstat_rows",
+    "featstat_fire",
+    "featstat_sum",
+    "featstat_sumsq",
+    "featstat_max",
+    "featstat_hist",
+)
+
+SNAPSHOT_PREFIX = "feature_stats."
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureStatsConfig:
+    """``n_buckets`` log-magnitude buckets from ``hist_lo``, ``hist_ratio``
+    between edges: by default |c| from ~1e-3 to ~64 in 8 buckets. Hashable:
+    part of a step graph's key."""
+
+    n_buckets: int = 8
+    hist_lo: float = 2.0 ** -10
+    hist_ratio: float = 4.0
+
+    def edges(self) -> np.ndarray:
+        """Bucket edges, ``[n_buckets + 1]`` (the last bucket absorbs overflow)."""
+        return self.hist_lo * self.hist_ratio ** np.arange(self.n_buckets + 1, dtype=np.float64)
+
+
+def init_feature_stats(n_models: int, n_feats: int, cfg: FeatureStatsConfig, device=None) -> Dict[str, torch.Tensor]:
+    """A zeroed stacked sketch: every leaf leads with ``n_models``."""
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {
+        "featstat_rows": z(n_models),
+        "featstat_fire": z(n_models, n_feats),
+        "featstat_sum": z(n_models, n_feats),
+        "featstat_sumsq": z(n_models, n_feats),
+        "featstat_max": z(n_models, n_feats),
+        "featstat_hist": z(n_models, n_feats, cfg.n_buckets),
+    }
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as an f32 tensor on ``like``'s device: dividing by a device
+    tensor is a true division on every device (PyTorch's CUDA division by a
+    host scalar multiplies by its reciprocal)."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
+def _bucket_index(a: torch.Tensor, cfg: FeatureStatsConfig) -> torch.Tensor:
+    """Fixed-log-bucket index of magnitudes ``a`` (clipped to [0, B-1]),
+    int32, by the JAX package's f32 expression."""
+    safe = torch.clamp_min(a, cfg.hist_lo)
+    idx = torch.floor(torch.log(safe / _const(cfg.hist_lo, a)) / _const(float(np.log(cfg.hist_ratio)), a))
+    return torch.clamp(idx, 0, cfg.n_buckets - 1).to(torch.int32)
+
+
+def _hist_counts(a: torch.Tensor, fired: torch.Tensor, cfg: FeatureStatsConfig) -> torch.Tensor:
+    """Fired-magnitude bucket counts ``[M, F, B]`` from ``a``/``fired``
+    [M, rows, F]: a loop over the buckets, so the largest temporary is one
+    [M, rows, F] int8 index (never a [M, rows, F, B] one-hot)."""
+    idx = torch.where(fired, _bucket_index(a, cfg), -1).to(torch.int8)
+    return torch.stack([(idx == b).sum(dim=1, dtype=torch.float32) for b in range(cfg.n_buckets)], dim=-1)
+
+
+def update_feature_stats(stats: Dict[str, torch.Tensor], c: torch.Tensor, cfg: FeatureStatsConfig,
+                         mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One window update for every member: ``stats`` the stacked sketch,
+    ``c`` the code [M, rows, F], ``mask`` an optional [M, rows] validity
+    mask (rows with ``mask <= 0`` do not count). Returns the new sketch;
+    device work only, no host sync."""
+    with torch.no_grad():
+        c32 = c.to(torch.float32)
+        a = torch.abs(c32)
+        fired = a > 0
+        if mask is not None:
+            valid = mask > 0
+            fired = fired & valid[:, :, None]
+            rows_add = valid.to(torch.float32).sum(dim=1)
+        else:
+            rows_add = float(c.shape[1])
+        c_live = torch.where(fired, c32, 0.0)
+        a_live = torch.where(fired, a, 0.0)
+        return {
+            "featstat_rows": stats["featstat_rows"] + rows_add,
+            "featstat_fire": stats["featstat_fire"] + fired.sum(dim=1, dtype=torch.float32),
+            "featstat_sum": stats["featstat_sum"] + c_live.sum(dim=1),
+            "featstat_sumsq": stats["featstat_sumsq"] + (c_live * c_live).sum(dim=1),
+            "featstat_max": torch.maximum(stats["featstat_max"], a_live.amax(dim=1)),
+            "featstat_hist": stats["featstat_hist"] + _hist_counts(a, fired, cfg),
+        }
+
+
+def feature_stats_pack(aux, stats: Dict[str, torch.Tensor], cfg: FeatureStatsConfig) -> Dict[str, torch.Tensor]:
+    """The step's hook: the updated sketch, or ``stats`` untouched when the
+    signature's aux carries no code ``"c"``."""
+    c = aux.get("c") if isinstance(aux, dict) else None
+    if c is None:
+        return stats
+    return update_feature_stats(stats, c, cfg)
+
+
+def _serving_not_ported(*_a, **_k):
+    raise NotImplementedError("the serving half of the feature sketch is not ported yet — ROADMAP A7")
+
+
+_update_topk = _accumulate_dense = _accumulate_topk = _serving_not_ported
+
+
+class ServeFeatureStats:
+    """The serve tier's accumulator: not ported yet (ROADMAP A7)."""
+
+    def __init__(self, *a, **k):
+        _serving_not_ported()
+
+
+# ---------------------------------------------------------------------------
+# Snapshots (host side, numpy only past this point)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FeatureSnapshot:
+    """One flushed window of the sketch, on the host. ``names`` labels the
+    leading axis; ``gen`` is the snapshot token (``train0003``)."""
+
+    scope: str
+    gen: str
+    names: List[str]
+    rows: np.ndarray  # [M]
+    fire: np.ndarray  # [M, F]
+    sum: np.ndarray  # [M, F]
+    sumsq: np.ndarray  # [M, F]
+    max: np.ndarray  # [M, F]
+    hist: np.ndarray  # [M, F, B]
+    edges: np.ndarray  # [B + 1]
+    meta: Dict
+
+    @property
+    def n_feats(self) -> int:
+        return int(self.fire.shape[1])
+
+    def save(self, path) -> None:
+        meta = dict(self.meta)
+        meta.update(scope=self.scope, gen=self.gen, names=list(self.names))
+        np.savez_compressed(
+            path,
+            rows=self.rows.astype(np.float64),
+            fire=self.fire.astype(np.float64),
+            sum=self.sum.astype(np.float64),
+            sumsq=self.sumsq.astype(np.float64),
+            max=self.max.astype(np.float64),
+            hist=self.hist.astype(np.float64),
+            edges=self.edges.astype(np.float64),
+            meta_json=np.asarray(json.dumps(meta, sort_keys=True)),
+        )
+
+    @classmethod
+    def load(cls, path) -> "FeatureSnapshot":
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta_json"]))
+            return cls(
+                scope=meta.get("scope", "?"),
+                gen=meta.get("gen", "?"),
+                names=[str(n) for n in meta.get("names", [])],
+                rows=np.asarray(z["rows"], np.float64),
+                fire=np.asarray(z["fire"], np.float64),
+                sum=np.asarray(z["sum"], np.float64),
+                sumsq=np.asarray(z["sumsq"], np.float64),
+                max=np.asarray(z["max"], np.float64),
+                hist=np.asarray(z["hist"], np.float64),
+                edges=np.asarray(z["edges"], np.float64),
+                meta=meta,
+            )
+
+
+def next_snapshot_path(out_dir, scope: str) -> Tuple[Path, str]:
+    """The next ``feature_stats.<scope>NNNN.npz`` path in ``out_dir``,
+    counting the files there, so a resumed run appends."""
+    out_dir = Path(out_dir)
+    n = len(list(out_dir.glob(f"{SNAPSHOT_PREFIX}{scope}[0-9][0-9][0-9][0-9].npz")))
+    gen = f"{scope}{n:04d}"
+    return out_dir / f"{SNAPSHOT_PREFIX}{gen}.npz", gen
+
+
+def write_snapshot(out_dir, scope: str, host: Dict[str, np.ndarray], names: Sequence[str], cfg: FeatureStatsConfig,
+                   meta: Optional[Dict] = None) -> FeatureSnapshot:
+    """Build and save one snapshot from the sketch's host arrays."""
+    path, gen = next_snapshot_path(out_dir, scope)
+    snap = FeatureSnapshot(
+        scope=scope,
+        gen=gen,
+        names=[str(n) for n in names],
+        rows=np.atleast_1d(np.asarray(host["featstat_rows"], np.float64)),
+        fire=np.asarray(host["featstat_fire"], np.float64),
+        sum=np.asarray(host["featstat_sum"], np.float64),
+        sumsq=np.asarray(host["featstat_sumsq"], np.float64),
+        max=np.asarray(host["featstat_max"], np.float64),
+        hist=np.asarray(host["featstat_hist"], np.float64),
+        edges=cfg.edges(),
+        meta=dict(meta or {}),
+    )
+    snap.meta["path"] = path.name
+    snap.save(path)
+    return snap
+
+
+def load_run_snapshots(run_dir) -> List[FeatureSnapshot]:
+    """Every ``feature_stats.*.npz`` in ``run_dir``, in name order."""
+    return [FeatureSnapshot.load(p) for p in sorted(Path(run_dir).glob(f"{SNAPSHOT_PREFIX}*.npz"))]
+
+
+# ---------------------------------------------------------------------------
+# Aggregates + drift math
+# ---------------------------------------------------------------------------
+
+
+def _gini(x: np.ndarray) -> float:
+    """Gini coefficient of a non-negative firing-count vector (0: uniform,
+    toward 1: all firings on one feature)."""
+    x = np.sort(np.asarray(x, np.float64))
+    n = x.size
+    tot = x.sum()
+    if n == 0 or tot <= 0:
+        return 0.0
+    cum = np.arange(1, n + 1) @ x
+    return float(2.0 * cum / (n * tot) - (n + 1.0) / n)
+
+
+def _hot_frac(fire: np.ndarray) -> float:
+    """Share of all firings carried by the hottest 1% of features."""
+    fire = np.asarray(fire, np.float64)
+    tot = fire.sum()
+    if tot <= 0:
+        return 0.0
+    k = max(1, fire.size // 100)
+    return float(np.sort(fire)[-k:].sum() / tot)
+
+
+def snapshot_aggregates(snap: FeatureSnapshot) -> Dict[str, float]:
+    """Window aggregates, averaged over the lanes that saw rows:
+    ``dead_frac`` (features that never fired), ``gini``, ``hot_frac``."""
+    dead, gini, hot = [], [], []
+    for m in range(snap.fire.shape[0]):
+        if snap.rows[m] <= 0:
+            continue
+        dead.append(float((snap.fire[m] == 0).mean()))
+        gini.append(_gini(snap.fire[m]))
+        hot.append(_hot_frac(snap.fire[m]))
+    if not dead:
+        return {"rows": float(snap.rows.sum()), "dead_frac": float("nan"), "gini": float("nan"),
+                "hot_frac": float("nan")}
+    return {
+        "rows": float(snap.rows.sum()),
+        "dead_frac": float(np.mean(dead)),
+        "gini": float(np.mean(gini)),
+        "hot_frac": float(np.mean(hot)),
+    }
+
+
+def lane_distribution(rows: float, fire: np.ndarray, hist: np.ndarray) -> np.ndarray:
+    """Each feature's firing distribution over ``B+1`` cells for one lane:
+    cell 0 "did not fire on this row", cells 1..B the fired-magnitude
+    buckets; rows sum to 1 (a lane without rows is uniform)."""
+    fire = np.asarray(fire, np.float64)
+    hist = np.asarray(hist, np.float64)
+    nofire = np.maximum(float(rows) - fire, 0.0)[:, None]
+    cells = np.concatenate([nofire, hist], axis=1)
+    tot = cells.sum(axis=1, keepdims=True)
+    uniform = np.full_like(cells, 1.0 / cells.shape[1])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(tot > 0, cells / np.maximum(tot, 1e-300), uniform)
+
+
+def psi(p: np.ndarray, q: np.ndarray, eps: float = 1e-4) -> np.ndarray:
+    """Population stability index per feature over the smoothed cells."""
+    p = np.asarray(p, np.float64) + eps
+    q = np.asarray(q, np.float64) + eps
+    p = p / p.sum(axis=-1, keepdims=True)
+    q = q / q.sum(axis=-1, keepdims=True)
+    return ((p - q) * np.log(p / q)).sum(axis=-1)
+
+
+def js_divergence(p: np.ndarray, q: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    """Jensen–Shannon divergence per feature (base 2, in [0, 1])."""
+    p = np.asarray(p, np.float64) + eps
+    q = np.asarray(q, np.float64) + eps
+    p = p / p.sum(axis=-1, keepdims=True)
+    q = q / q.sum(axis=-1, keepdims=True)
+    m = 0.5 * (p + q)
+
+    def kl(a, b):
+        return (a * np.log2(a / b)).sum(axis=-1)
+
+    return 0.5 * kl(p, m) + 0.5 * kl(q, m)
+
+
+def _paired_lanes(base: FeatureSnapshot, cur: FeatureSnapshot) -> List[Tuple[int, int]]:
+    """Lanes paired by name when the snapshots share names, else by position."""
+    by_name = {n: i for i, n in enumerate(base.names)}
+    pairs = [(by_name[n], j) for j, n in enumerate(cur.names) if n in by_name]
+    if pairs:
+        return pairs
+    return [(i, i) for i in range(min(base.fire.shape[0], cur.fire.shape[0]))]
+
+
+def drift_report(base: FeatureSnapshot, cur: FeatureSnapshot, top_n: int = 10, method: str = "psi",
+                 min_rows: float = 1.0) -> Optional[Dict]:
+    """Per-feature drift of ``cur`` against the baseline ``base``:
+    ``{"score", "per_feature" [F], "top" [(feat, drift)...], "method",
+    "lanes"}``, or None when the snapshots are not comparable or no paired
+    lane has ``min_rows`` on both sides."""
+    if base.n_feats != cur.n_feats or base.hist.shape[-1] != cur.hist.shape[-1]:
+        return None
+    div = js_divergence if method == "js" else psi
+    per_lane, lanes = [], []
+    for bi, ci in _paired_lanes(base, cur):
+        if base.rows[bi] < min_rows or cur.rows[ci] < min_rows:
+            continue
+        p = lane_distribution(base.rows[bi], base.fire[bi], base.hist[bi])
+        q = lane_distribution(cur.rows[ci], cur.fire[ci], cur.hist[ci])
+        per_lane.append(div(p, q))
+        lanes.append((base.names[bi] if bi < len(base.names) else str(bi),
+                      cur.names[ci] if ci < len(cur.names) else str(ci)))
+    if not per_lane:
+        return None
+    per_feature = np.mean(np.stack(per_lane, axis=0), axis=0)
+    order = np.argsort(per_feature)[::-1][: max(0, int(top_n))]
+    return {
+        "method": method,
+        "score": float(per_feature.mean()),
+        "per_feature": per_feature,
+        "top": [(int(i), float(per_feature[i])) for i in order],
+        "lanes": lanes,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Flush
+# ---------------------------------------------------------------------------
+
+
+def _emit_flush(telemetry, snap: FeatureSnapshot, agg: Dict[str, float], drift: Optional[Dict],
+                extra: Optional[Dict] = None) -> Dict:
+    """The gauges and the ``feature_stats`` pointer event of one snapshot
+    (the JAX package's names and fields)."""
+    summary = {
+        "scope": snap.scope,
+        "gen": snap.gen,
+        "path": snap.meta.get("path", ""),
+        "names": list(snap.names),
+        "n_feats": snap.n_feats,
+        **{k: round(v, 6) if v == v else v for k, v in agg.items()},
+    }
+    if drift is not None:
+        summary["drift_score"] = round(drift["score"], 6)
+        summary["drift_method"] = drift["method"]
+        summary["drift_top"] = [[f, round(d, 6)] for f, d in drift["top"]]
+    if extra:
+        summary.update(extra)
+    if telemetry is None:
+        return summary
+    scope = "train" if snap.scope == "train" else "serve"
+    telemetry.counter_inc(f"{scope}.feature.flushes")
+    if agg["dead_frac"] == agg["dead_frac"]:
+        for k in ("dead_frac", "gini", "hot_frac"):
+            telemetry.gauge_set(f"{scope}.feature.{k}", round(agg[k], 6))
+    if scope == "serve" and drift is not None:
+        telemetry.gauge_set("serve.feature.drift_score", round(drift["score"], 6))
+    telemetry.event("feature_stats", **summary)
+    return summary
+
+
+def flush_ensemble_feature_stats(ens, telemetry, out_dir, model_names: Optional[Sequence[str]] = None,
+                                 baseline: Optional[FeatureSnapshot] = None,
+                                 extra: Optional[Dict] = None) -> Optional[Dict]:
+    """Snapshot the ensemble's sketch and reset it (a rolling window): one
+    batched copy to the host inside a ``feature_flush`` span, the npz and
+    its event, then ``zero_()`` on the sketch's own tensors (the step graphs
+    stay valid). None when the ensemble has no sketch or the window saw no
+    rows."""
+    cfg = getattr(ens, "feature_stats", None)
+    buffers = ens.state.buffers
+    if cfg is None or FEATURE_STATS_KEYS[0] not in buffers:
+        return None
+    fspan = Span(telemetry, "feature_flush", name="train").begin()
+    try:
+        host = _to_host([{k: buffers[k] for k in FEATURE_STATS_KEYS}])[0]
+        if float(np.sum(host["featstat_rows"])) <= 0:
+            return None
+        names = list(model_names or [f"m{i}" for i in range(ens.n_models)])
+        snap = write_snapshot(out_dir, "train", host, names, cfg, meta=extra)
+        agg = snapshot_aggregates(snap)
+        drift = drift_report(baseline, snap) if baseline is not None else None
+        summary = _emit_flush(telemetry, snap, agg, drift, extra=extra)
+        summary["snapshot"] = snap
+        with torch.no_grad():
+            for k in FEATURE_STATS_KEYS:
+                buffers[k].zero_()
+        return summary
+    finally:
+        fspan.end()
+
+
+def _cli_not_ported(*_a, **_k):
+    raise NotImplementedError("the feature-stats run summary and the `features` CLI are not ported yet — ROADMAP A9")
+
+
+summarize_run = render_features = main = _cli_not_ported

@@ -49,6 +49,7 @@ from sparse_coding__tpu_torch.models.learned_dict import (
     LEARNED_DICT_REGISTRY,
 )
 from sparse_coding__tpu_torch.telemetry.events import counter_inc_active, event_active
+from sparse_coding__tpu_torch.telemetry.provenance import manifest_files_digest
 from sparse_coding__tpu_torch.utils import flags
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.faults import fault_point
@@ -227,6 +228,14 @@ def checkpoint_manifest(ckpt_dir) -> Optional[Dict[str, Any]]:
             return json.load(f)
     except (OSError, json.JSONDecodeError):
         return None
+
+
+def checkpoint_digest(ckpt_dir) -> Optional[str]:
+    """The checkpoint's content digest from its commit manifest (the JAX
+    package's `telemetry.provenance.checkpoint_digest`), or None when it is
+    uncommitted."""
+    manifest = checkpoint_manifest(ckpt_dir)
+    return None if manifest is None else manifest_files_digest(manifest.get("files") or {})
 
 
 def verify_checkpoint(ckpt_dir, depth: Optional[str] = None) -> Tuple[bool, str]:

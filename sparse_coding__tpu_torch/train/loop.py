@@ -43,16 +43,19 @@ class DriverCheckpointer:
     into a flag; `boundary(cursor, save_fn)` at each chunk boundary then
     commits a checkpoint through ``save_fn(path)`` (the atomic protocol of
     `train.checkpoint`), writes a ``preempt`` event and raises
-    `preemption.Preempted` (exit 75). Every save is followed by retention
-    GC (newest ``keep``). The JAX package's ``every``-boundary cadence waits
-    for the drivers that set it (ROADMAP A3, A6).
-    `close()` stops polling and, once no checkpointer polls, puts back the
-    signal handlers that were replaced."""
+    `preemption.Preempted` (exit 75); otherwise, with ``every=N``, it
+    checkpoints every N-th boundary (a ``periodic`` save). Every save is
+    followed by retention GC (newest ``keep``). The pod cadence
+    (``sync_every``) waits for ROADMAP A6. `close()` stops polling and, once
+    no checkpointer polls, puts back the signal handlers that were
+    replaced."""
 
-    def __init__(self, output_folder, telemetry=None, keep: int = 3):
+    def __init__(self, output_folder, telemetry=None, keep: int = 3, every: Optional[int] = None):
         self.out = Path(output_folder)
         self.telemetry = telemetry
         self.keep = keep
+        self.every = every
+        self._n_boundaries = 0
         self._closed = False
         self.handlers_active = preemption.install_signal_handlers()
         preemption.poller_started()
@@ -89,9 +92,11 @@ class DriverCheckpointer:
         return path
 
     def boundary(self, cursor_id: int, save_fn: Callable[[Path], None], already_saved: bool = False) -> None:
-        """Raises `Preempted` after the preemption checkpoint commits.
-        ``already_saved``: the driver just checkpointed this cursor on its
-        own schedule, and the preemption path reuses it."""
+        """Raises `Preempted` after the preemption checkpoint commits;
+        otherwise saves on the ``every`` cadence. ``already_saved``: the
+        driver just checkpointed this cursor on its own schedule, and the
+        preemption path reuses it (and the cadence skips it)."""
+        self._n_boundaries += 1
         if preemption.pod_agree_preempt(self.telemetry):
             path = (self.out / f"ckpt_{int(cursor_id)}" if already_saved
                     else self.save(cursor_id, save_fn, reason="preempt"))
@@ -99,6 +104,8 @@ class DriverCheckpointer:
                 self.telemetry.event("preempt", signum=preemption.preemption_signal(), checkpoint=str(path),
                                      cursor=int(cursor_id))
             raise preemption.Preempted(f"preempted: checkpoint committed at {path}; exiting resumable")
+        if self.every and not already_saved and self._n_boundaries % self.every == 0:
+            self.save(cursor_id, save_fn, reason="periodic")
 
 
 def warn_if_ensemble_dead(ensemble: Ensemble, batch: torch.Tensor, context: str = "") -> bool:

@@ -22,7 +22,10 @@ Recovery, as in the JAX package:
     with an `OSError` exits 75 too (`ResumableAbort`).
 
 The run explains itself from ``events.jsonl`` (`telemetry.events`) and the
-metrics JSONL (`utils.logging`). Everything runs on ``device`` (None = cuda).
+metrics JSONL (`utils.logging`), whose every flush the anomaly guard reads
+(`telemetry.anomaly`; ``cfg.anomaly_policy``, default: NaN/Inf and
+dead-fraction jumps, no loss spikes, since one logger carries every
+ensemble). Everything runs on ``device`` (None = cuda).
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ from sparse_coding__tpu_torch.data.chunks import ChunkStore, generate_synthetic_
 from sparse_coding__tpu_torch.data.synthetic import SparseMixDataset
 from sparse_coding__tpu_torch.ensemble import Ensemble
 from sparse_coding__tpu_torch.metrics import standard as sm
+from sparse_coding__tpu_torch.telemetry.anomaly import AnomalyGuard, AnomalyPolicy
 from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
+from sparse_coding__tpu_torch.telemetry.profiling import refuse_trace_window
 from sparse_coding__tpu_torch.telemetry.provenance import export_digest, producer_identity
 from sparse_coding__tpu_torch.telemetry.spans import span
 from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
@@ -206,6 +211,7 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     JSONL. The in-training image dashboards (``cfg.wandb_images``) wait for
     ROADMAP A8 and raise."""
     device = resolve_device(device)
+    refuse_trace_window()
     if getattr(cfg, "wandb_images", False):
         raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8")
     os.makedirs(cfg.dataset_folder, exist_ok=True)
@@ -216,6 +222,10 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     telemetry = RunTelemetry(out_dir=cfg.output_folder, run_name=run_name, config=run_config)
     logger: Optional[MetricLogger] = None
     ckpt: Optional[DriverCheckpointer] = None
+    # one logger carries every ensemble, so the loss-spike windows would mix
+    # members of different ensembles: spikes off unless the config says
+    guard = AnomalyGuard(telemetry=telemetry, out_dir=cfg.output_folder,
+                         policy=getattr(cfg, "anomaly_policy", None) or AnomalyPolicy(spikes=False))
     status = "ok"
     try:
         run_ident = producer_identity(config=run_config, fingerprint=telemetry.run_start()["fingerprint"],
@@ -226,7 +236,8 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
         print("Initialising ensembles...", end=" ")
         ensembles, ensemble_hyperparams, buffer_hyperparams, _ranges = ensemble_init_func(cfg)
         print("Ensembles initialised.")
-        logger = MetricLogger(out_dir=cfg.output_folder, run_name=run_name, use_wandb=getattr(cfg, "use_wandb", False))
+        logger = MetricLogger(out_dir=cfg.output_folder, run_name=run_name, use_wandb=getattr(cfg, "use_wandb", False),
+                              on_flush=guard.observe)
 
         # slots, not len: a quarantined chunk keeps its place in the order and
         # surfaces as a budgeted skip; the permutation is seeded on its own so
@@ -350,7 +361,7 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
                 status = f"error: {type(e).__name__}: {e}"
         if ckpt is not None:
             ckpt.close()
-        telemetry.run_end(status=status)
+        telemetry.run_end(status=status, masked_models=sorted(guard.masked))
         telemetry.close()
         if close_exc is not None and sys.exc_info()[0] is None:
             raise close_exc

@@ -70,6 +70,8 @@ FLAGS: Dict[str, Flag] = {
              "Max fraction of a store's chunks that may be quarantined (unset = 0.05)."),
         Flag("SC_FAULT", "opt_str", None, "utils.faults",
              "Fault-injection spec 'action[:site][:key=val...]' (utils.faults)."),
+        Flag("SC_TRACE_WINDOW", "opt_str", None, "telemetry.profiling",
+             "A profiler window 'N:M' (steps); not ported yet, so a driver refuses it."),
     )
 }
 
@@ -80,6 +82,7 @@ SC_CKPT_VERIFY = FLAGS["SC_CKPT_VERIFY"]
 SC_CHUNK_VERIFY = FLAGS["SC_CHUNK_VERIFY"]
 SC_CHUNK_LOSS_BUDGET = FLAGS["SC_CHUNK_LOSS_BUDGET"]
 SC_FAULT = FLAGS["SC_FAULT"]
+SC_TRACE_WINDOW = FLAGS["SC_TRACE_WINDOW"]
 
 
 def recompute_code() -> bool:

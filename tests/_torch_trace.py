@@ -25,7 +25,7 @@ SYMBOLS = {
     "tied_sae_bwd_grads_sparse": r"::sparse_bwd_kernel<false\b",
     "topk_scores": r"::scores_kernel\(",
     "topk_decode": r"::decode_kernel<",
-    "fista_solve": r"::solve_kernel\(",
+    "fista_solve": r"::solve_kernel<\d+>\(",
 }
 
 

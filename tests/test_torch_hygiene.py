@@ -29,9 +29,14 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.tied_sae_kernel",
     "sparse_coding__tpu_torch.ops.topk_kernel",
     "sparse_coding__tpu_torch.telemetry",
+    "sparse_coding__tpu_torch.telemetry.anomaly",
     "sparse_coding__tpu_torch.telemetry.events",
+    "sparse_coding__tpu_torch.telemetry.feature_stats",
+    "sparse_coding__tpu_torch.telemetry.health",
+    "sparse_coding__tpu_torch.telemetry.profiling",
     "sparse_coding__tpu_torch.telemetry.provenance",
     "sparse_coding__tpu_torch.telemetry.spans",
+    "sparse_coding__tpu_torch.train.basic_l1_sweep",
     "sparse_coding__tpu_torch.train.checkpoint",
     "sparse_coding__tpu_torch.train.loop",
     "sparse_coding__tpu_torch.train.preemption",
@@ -44,6 +49,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.utils.manifest",
     "sparse_coding__tpu_torch.utils.optim",
     "sparse_coding__tpu_torch.utils.precision",
+    "sparse_coding__tpu_torch.utils.trace",
 ]
 
 
@@ -74,6 +80,7 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
     from sparse_coding__tpu_torch.data.chunks import ChunkStore
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+    from sparse_coding__tpu_torch.train.basic_l1_sweep import basic_l1_sweep
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,6 +89,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         RandomDatasetGenerator(32, 64, 16, 4, 0.99, False, key=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ChunkStore(tmp_path).load(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        basic_l1_sweep(str(tmp_path), str(tmp_path / "out"), activation_width=32)
     ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], activation_size=32,
                          n_dict_components=64, device="cpu")
     assert ens.device.type == "cpu"

@@ -1050,3 +1050,43 @@ def test_graph_losses_do_not_alias_and_step_scan_idx_gathers_into_the_graph(cuda
     assert state_differences(a.state, b.state) == []
     with pytest.raises(ValueError, match="shared-batch only"):
         a.step_scan_idx(dataset, idxs[:1], per_model=True)
+
+
+def test_graph_replays_with_the_packs_are_eager_steps_across_a_flush(cuda, tmp_path):
+    """With the health pack and the feature sketch on (bf16, so the tied
+    signature would fuse but the packs keep it on autograd), K replays give
+    K eager steps' bits: losses and every ``health_*`` metric, params, the
+    firing EMA and the sketch. A flush reads the sketch and zeroes it in
+    place: the graph stays valid (no recapture) and the next replays still
+    match the eager steps. No fused kernel runs in them."""
+    from _torch_moments import state_differences
+    from sparse_coding__tpu_torch import Ensemble, FunctionalTiedSAE, build_ensemble
+    from sparse_coding__tpu_torch.telemetry.feature_stats import FEATURE_STATS_KEYS, flush_ensemble_feature_stats
+
+    a = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], compute_dtype="bfloat16",
+                       optimizer_kwargs={"learning_rate": LR}, health=True, feature_stats=True, device=cuda,
+                       **_GRAPH_KW)
+    b = Ensemble.from_state(a.state_dict(), sig=FunctionalTiedSAE, device=cuda)
+    assert a.fused is False and b.fused is False and b.health == a.health
+    xs = torch.randn((9, 256, 128), generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    tk.reset_launches()
+    la, ran = traced(torch, lambda: a.step_scan(xs[:4]))
+    lb = [b.step_batch(x)[0] for x in xs[:4]]
+    assert sum(ran.values()) == 0 and sum(_launches().values()) == 0
+    assert {k for k in lb[0] if k.startswith("health_")} == {
+        "health_grad_norm", "health_dict_norm", "health_nonfinite", "health_dead_frac"}
+    for k in lb[0]:
+        assert torch.equal(la[k], torch.stack([l[k] for l in lb])), k
+    assert state_differences(a.state, b.state) == []
+    ptrs = [a.state.buffers[k].data_ptr() for k in FEATURE_STATS_KEYS]
+    sa = flush_ensemble_feature_stats(a, None, tmp_path)
+    sb = flush_ensemble_feature_stats(b, None, tmp_path)
+    assert sa["rows"] == sb["rows"] == 2 * 4 * 256
+    assert [a.state.buffers[k].data_ptr() for k in FEATURE_STATS_KEYS] == ptrs
+    la = a.step_scan(xs[4:])
+    lb = [b.step_batch(x)[0] for x in xs[4:]]
+    assert a.captures == 1
+    for k in lb[0]:
+        assert torch.equal(la[k], torch.stack([l[k] for l in lb])), k
+    assert state_differences(a.state, b.state) == []
+    assert a.state.buffers["featstat_rows"].tolist() == [5 * 256.0] * 2

@@ -118,6 +118,9 @@ def test_sweep_matches_the_jax_sweep_on_a_jax_written_store(tmp_path, center):
         for f in ("encoder", "encoder_bias"):
             diff = np.abs(to_np(getattr(tld, f)) - np.asarray(getattr(jld, f))).max()
             assert diff <= 1e-2 * LR * 6, (f, diff)
+    # both guards read every flush and, on this healthy run, flag nothing
+    assert _anomalies(read_events(tmp_path / "torch" / "events.jsonl")) == _anomalies(
+        jax_read_events(tmp_path / "jax" / "events.jsonl")) == []
 
     # (b) the export as written, in the JAX package, verified
     loaded = jax_load(tmp_path / "torch" / "_5" / "learned_dicts.pkl", verify=True)
@@ -130,6 +133,60 @@ def test_sweep_matches_the_jax_sweep_on_a_jax_written_store(tmp_path, center):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g["fvu"], r["fvu"], rtol=1e-5)
         assert abs(g["l0"] - r["l0"]) <= 1.0 / len(x)
+
+
+def _anomalies(events):
+    """The guard's anomaly events: kind, step, members, action and each
+    detection's (kind, step, metric, member), sorted (JAX's loss dicts come
+    back in key order, the port's in the signature's)."""
+    return [(e["kind"], e["step"], e["models"], e["action"],
+             sorted((d["kind"], d["step"], d["metric"], d["model"]) for d in e["detections"]))
+            for e in events if e["event"] == "anomaly"]
+
+
+def test_sweeps_flag_the_same_anomalies_on_a_nan_member(tmp_path):
+    """Member 1's l1 coefficient is NaN from the start on both sides: both
+    sweeps' guards (no loss spikes: one logger carries every ensemble) flag
+    it as non-finite at the same steps of every flush window, write a
+    bundle each time, and report no member as masked (the default warns)."""
+    import dataclasses as dc
+
+    from sparse_coding__tpu.data.chunks import save_chunk as jax_save_chunk
+    from sparse_coding__tpu.telemetry import read_events as jax_read_events
+    from sparse_coding__tpu.train.sweep import sweep as jax_sweep
+    from sparse_coding__tpu.utils.config import EnsembleArgs as JaxEnsembleArgs
+
+    rng = np.random.default_rng(2)
+    store = tmp_path / "store"
+    for i in range(2):
+        jax_save_chunk(store, i, rng.standard_normal((2 * B, D)).astype(np.float32))
+    common = dict(dataset_folder=str(store), batch_size=B, n_epochs=1, activation_width=D)
+    jens = _jax_init(JaxEnsembleArgs(**common))
+    jens.state = dc.replace(jens.state, buffers={**jens.state.buffers,
+                                                 "l1_alpha": jnp.asarray([L1[0], np.nan], jnp.float32)})
+    st = jax.device_get(jens.state)
+    opt = {"count": np.asarray(st.opt_state[0].count), "mu": dict(st.opt_state[0].mu), "nu": dict(st.opt_state[0].nu)}
+
+    def jax_init(cfg):
+        return ([(jens, {"batch_size": cfg.batch_size, "dict_size": N}, "l1")], *_ranges())
+
+    def port_init(cfg):
+        ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": a} for a in L1], optimizer_kwargs={"learning_rate": LR},
+                             activation_size=D, n_dict_components=N, device="cpu")
+        ens.state = state_from_jax_numpy(st.params, st.buffers, opt, device="cpu")
+        return ([(ens, {"batch_size": cfg.batch_size, "dict_size": N}, "l1")], *_ranges())
+
+    with pytest.warns(RuntimeWarning, match="nonfinite"):
+        jax_sweep(jax_init, JaxEnsembleArgs(output_folder=str(tmp_path / "jax"), **common))
+    with pytest.warns(RuntimeWarning, match="nonfinite"):
+        tsweep.sweep(port_init, tconfig.EnsembleArgs(output_folder=str(tmp_path / "torch"), **common), device="cpu")
+    tev, jev = read_events(tmp_path / "torch" / "events.jsonl"), jax_read_events(tmp_path / "jax" / "events.jsonl")
+    got = _anomalies(tev)
+    assert got == _anomalies(jev) and got
+    assert {m for e in got for m in e[2]} == {1} and {e[3] for e in got} == {"warn"}
+    assert sorted(p.name for p in (tmp_path / "torch" / "diagnostics").iterdir()) == sorted(
+        p.name for p in (tmp_path / "jax" / "diagnostics").iterdir())
+    assert tev[-1]["masked_models"] == jev[-1]["masked_models"] == []
 
 
 def test_synthetic_sweep_streams_and_caches_alike_and_keeps_its_config(tmp_path):
