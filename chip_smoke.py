@@ -46,7 +46,18 @@ path's 8 members, Adam) launches K1 + K2 every step, ensemble B (4 members,
 a warmup learning-rate schedule) K1 + K3; then the same sweep preempted by
 SIGTERM at position 1 in a process of its own (exit 75) and resumed in
 another, whose final export must equal the uninterrupted run's bit for bit
-(``chip_smoke.py --sweep-worker`` is that process's entry). Prints one JSON line per
+(``chip_smoke.py --sweep-worker`` is that process's entry). Then the
+experiment catalog (`train/experiments.py`): its kernels at the shapes it
+gives them (K1/K2 at M 32, N 256; K_s/K_d/the sparse K2 at M 16, N 256,
+k 1..151), then `run_sweep_synthetic` at width 512 with three builders in
+bf16 over one store (`synthetic_linear_range`, `tied_vs_not_experiment`,
+`topk_experiment`) and the default builder in exact f32, each ensemble's
+launches counted and none outside the train loops, the export, the
+evaluation, the matched MCS and the streaming moments checked.
+Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
+card, so graph replays count), each set to 0 just before a run and read
+just after; a profiler trace of the run may not count more, and a trace
+that counts fewer is printed as ``trace_short``. Prints one JSON line per
 phase, then the `kernels` line, the `nvidia-smi` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. Needs a CUDA device; never
@@ -61,6 +72,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -133,6 +145,24 @@ SWEEP = dict(chunks=3, chunk_size_gb=0.0625, members_b=4, warmup_steps=16)
 # (tied's data), 2 epochs: 16 steps, a checkpoint at every chunk
 BLS_L1 = [10 ** (-4 + 2 * i / 7) for i in range(8)]
 BLS = dict(members=len(BLS_L1), width=512, n_dict=2048, batch=1024, chunks=2, rows_per_chunk=4096, epochs=2)
+# the experiment catalog through `run_sweep_synthetic` at its own widths
+# (Pythia-70M's 512, 2048 ground-truth components, 100 active, decay 0.996,
+# batch 1024), builders in turn over one store cut in depth to 2 chunks of
+# 65,536 rows and one epoch (the driver's default: 10 chunks of 2 GB): three
+# in bf16 compute (the config's ``dtype``; the route to the kernels), then
+# the driver's default builder at its default precision (exact f32,
+# autograd: no hand-written kernel); the TopK builder at recall 0.95
+# (`TopKEncoderApprox`)
+EXPERIMENTS = dict(builders=(("synthetic_linear_range", "bfloat16"), ("tied_vs_not_experiment", "bfloat16"),
+                             ("topk_experiment", "bfloat16"), ("synthetic_linear_range", "float32")),
+                   width=512, batch=1024, chunks=2, rows_per_chunk=65536, epochs=1, topk_recall=0.95,
+                   eval_rows=4096)
+# the new shapes the catalog gives the kernels (M, B, N, D): a tied
+# `synthetic_linear_range` stack at ratio 0.5, a TopK stack at ratio 0.5 with
+# k 1..151 (cap 151 of N 256: the code ~59% dense)
+EXP_TIED = (32, 1024, 256, 512)
+EXP_TOPK = (16, 1024, 256, 512)
+EXP_KS = list(range(1, 161, 10))
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -189,6 +219,25 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     needs."""
     t_ops, t_mem = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def run_counted(torch, fn):
+    """``(fn(), launches, trace_short)``: every wrapper's launch count set to
+    0 just before ``fn`` and read just after (`ops/_wrap.py::LaunchCounts`:
+    each launch enqueues +1 on the card beside its kernel, so a CUDA graph's
+    replays count too), beside a profiler trace of the same run, which must
+    never count more. Where the trace counts fewer it has dropped records
+    (ROADMAP C3): ``trace_short`` names them, the wrappers' counts stand."""
+    from _torch_trace import trace_shortfall, traced
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    out, trace = traced(torch, fn)
+    launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+    return out, launches, trace_shortfall(trace, launches)
 
 
 def bf16_close(torch, a, b):
@@ -718,17 +767,13 @@ def synthetic_store(torch, cfg):
 
 def phase_train(torch, pkg, cfg):
     """A path's main run: chunk store → ensemble_train_loop → one masked
-    step, under a profiler trace. Every step of the loop runs the path's
-    forward kernels and K2 on the path's route (dense for tied, sparse for
-    TopK); the masked step runs the masked forward kernels and K3 on that
-    route; nothing else runs. The loop's steps are graph replays, which no
-    wrapper counts, so the run's launches are the trace's (`_torch_trace`);
-    the wrappers' own counts must be the eager steps': the first step of
-    the loop's one capture and the masked step. ``wall_s`` is traced (see
-    `phase_loop_wall` for the untraced loop)."""
-    from _torch_trace import traced
-    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
-    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    step, its launches counted (`run_counted`: the wrappers' counts, a
+    graph replay's included, beside a profiler trace). Every step of the
+    loop (graph replays but the capture's first) runs the path's forward
+    kernels and K2 on the path's route (dense for tied, sparse for TopK);
+    the masked step runs the masked forward kernels and K3 on that route;
+    nothing else runs. ``wall_s`` is traced (see `phase_loop_wall` for the
+    untraced loop)."""
     from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
     from sparse_coding__tpu_torch.utils import precision as px
 
@@ -754,30 +799,22 @@ def phase_train(torch, pkg, cfg):
         return steps, last, time.perf_counter() - t0
 
     loss0 = eval_loss()
-    tk.reset_launches()
-    kk.reset_launches()
-    (steps, last, wall), loop_launches = traced(torch, loop)
-    counted = {**tk.LAUNCHES, **kk.LAUNCHES}
+    (steps, last, wall), loop_launches, loop_short = run_counted(torch, loop)
     want = {name: 0 for name in loop_launches}
     want.update({name: steps for name in (*cfg["fwd_kernels"], cfg["bwd_adam"])})
     check(loop_launches == want, f"launches {loop_launches} after {steps} steps, want {want}")
-    want_counted = {name: 0 for name in counted}
-    want_counted.update({name: 1 for name in (*cfg["fwd_kernels"], cfg["bwd_adam"])})
-    check(counted == want_counted, f"wrapper launches {counted} after the loop, want {want_counted}")
     captures = ens.captures
     check(captures == 1, f"{captures} graph captures over the loop's chunks, want 1")
     # one masked step: the fused-Adam kernel gives way to fused grads (K3)
     frozen = ens.state.params[leaf][members - 1].clone()
     ens.set_update_mask([1.0] * (members - 1) + [0.0])
-    (masked_loss, _), masked_launches = traced(torch, lambda: ens.step_batch(eval_batch[batch:2 * batch]))
+    (masked_loss, _), masked_launches, masked_short = run_counted(
+        torch, lambda: ens.step_batch(eval_batch[batch:2 * batch]))
     launches = {name: n + masked_launches[name] for name, n in loop_launches.items()}
-    counted = {**tk.LAUNCHES, **kk.LAUNCHES}
     for name in cfg["masked_fwd"]:
         want[name] += 1
-        want_counted[name] += 1
-    want[cfg["bwd_grads"]] = want_counted[cfg["bwd_grads"]] = 1
+    want[cfg["bwd_grads"]] = 1
     check(launches == want, f"launches {launches} after {steps} + 1 masked steps, want {want}")
-    check(counted == want_counted, f"wrapper launches {counted} after the masked step, want {want_counted}")
     check(torch.equal(frozen, ens.state.params[leaf][members - 1]), "masked member moved")
     moments = ens.state.opt_state
     tiers = {k: [type(m[leaf]).__name__ if hasattr(m[leaf], "q") else str(m[leaf].dtype)]
@@ -791,8 +828,8 @@ def phase_train(torch, pkg, cfg):
         store_dtype=cfg["store_dtype"], moments=tiers, recompute_code=bool(cfg["env"]),
         wall_s=wall, activations_per_s=steps * batch * members / wall, loss_before=loss0.tolist(),
         loss_after=loss1.tolist(), last_step_loss=last["loss"].tolist(),
-        launches_after_loop=loop_launches, launches=launches, wrapper_launches=counted, graph_captures=captures,
-        capture_s=ens.capture_seconds,
+        launches_after_loop=loop_launches, launches=launches, graph_captures=captures,
+        capture_s=ens.capture_seconds, trace_short={"loop": loop_short, "masked": masked_short},
     )
     return ens, gen, eval_batch, tmp, store, launches
 
@@ -915,12 +952,9 @@ def phase_graph_parity(torch, pkg, cfg, steps: int = 8):
     from cloned states, ``steps`` graph replays (`step_scan`, after a call
     that captured the step) and ``steps`` eager `step_batch` calls give the
     same losses and the same state bit for bit (params, moments with int8
-    codes and scales, count, step), and run the same kernels as often (a
-    profiler trace; the eager steps' trace must be their wrappers' counts)."""
+    codes and scales, count, step), and launch the same kernels as often
+    (`run_counted`)."""
     from _torch_moments import state_differences
-    from _torch_trace import traced
-    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
-    from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
     a = build_path(pkg, cfg, 2)
     with environ(cfg["env"]):
@@ -929,23 +963,20 @@ def phase_graph_parity(torch, pkg, cfg, steps: int = 8):
     xs = torch.randn((steps + 1, cfg["batch"], cfg["width"]), generator=g, device="cuda")
     a.step_scan(xs[:1])
     b.step_batch(xs[0])
-    counts = []
-    for run in (lambda: a.step_scan(xs[1:]), lambda: [b.step_batch(x)[0] for x in xs[1:]]):
-        tk.reset_launches()
-        kk.reset_launches()
-        out, ran = traced(torch, run)
-        counts.append((ran, {**tk.LAUNCHES, **kk.LAUNCHES}, out))
-    (ga, ca, la), (gb, cb, lb) = counts
+    counts = [run_counted(torch, run) for run in (lambda: a.step_scan(xs[1:]),
+                                                  lambda: [b.step_batch(x)[0] for x in xs[1:]])]
+    (la, ga, sa), (lb, gb, sb) = counts
     check(a.captures == 1, f"{cfg['path']}: {a.captures} captures")
-    # the trace of the eager steps is their wrappers' count; the replays call no wrapper
-    check(ga == gb == {k: cb.get(k, 0) for k in ga} and all(ga[k] == steps for k in (*cfg["fwd_kernels"], cfg["bwd_adam"]))
-          and sum(ca.values()) == 0, f"{cfg['path']}: graph ran {ga} (wrappers {ca}), eager {gb} (wrappers {cb})")
+    check(ga == gb and all(ga[k] == steps for k in (*cfg["fwd_kernels"], cfg["bwd_adam"]))
+          and sum(ga.values()) == steps * (len(cfg["fwd_kernels"]) + 1),
+          f"{cfg['path']}: graph launched {ga}, eager {gb}")
     for k in lb[0]:
         check(torch.equal(la[k], torch.stack([l[k] for l in lb])), f"{cfg['path']}: graph {k} differs from eager")
     diff = state_differences(a.state, b.state)
     check(diff == [], f"{cfg['path']}: graph state differs from eager at {diff}")
     emit(f"{cfg['prefix']}graph_parity", path=cfg["path"], steps=steps, members=a.n_models, batch=cfg["batch"],
-         captures=a.captures, launches=ga, bit_equal=True, step=a.state.step)
+         captures=a.captures, launches=ga, bit_equal=True, step=a.state.step,
+         trace_short={"graph": sa, "eager": sb})
     del a, b
 
 
@@ -1205,6 +1236,141 @@ def phase_topk_kernels(torch, tk, kk):
     emit("kernel", name="tied_sae_bwd routes", shape=shape, code_nonzero_frac=nnz / c_k.numel(),
          sparse_ms=sparse_ms, dense_ms=dense_ms, library_ms=library_ms)
     return rows, capacity_rows
+
+
+def phase_experiment_kernels(torch, tk, kk):
+    """K1/K2 and K_s/K_d/the sparse K2 at the shapes the experiment catalog
+    gives them (`EXP_TIED`, `EXP_TOPK`), against their plain versions with
+    the tolerances of the main paths' checks, timed. Adam's moments are f32
+    here (the builders' plain ``"adam"``). Returns the kernels-line rows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    rows = []
+
+    def inputs(M, B, N, D):
+        d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+        nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+        db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+        xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+        return d_raw, nrm, db, xb
+
+    # tied: K1, then K2 on its code
+    M, B, N, D = EXP_TIED
+    shape = f"M={M},B={B},N={N},D={D}"
+    d_raw, nrm, db, xb = inputs(M, B, N, D)
+    bias = torch.randn((M, N), generator=g, device=dev) * 0.01
+    scale = 2.0 / (B * D)
+    c_k, dxh_k, lrec_k, ll1_k = tk.tied_sae_fwd(xb, db, bias, scale)
+    c_p, ll1_p = tk._encode_plain(xb, db, bias)
+    dxh_p, lrec_p = tk._decode_plain(xb, db, c_k, scale)
+    torch.cuda.synchronize()
+    frac_c, ulp_c = bf16_close(torch, c_k, c_p)
+    frac_d, ulp_d = bf16_close(torch, dxh_k, dxh_p)
+    check(ulp_c and frac_c < 1e-3, f"K1 at {shape} c: {frac_c} differ, within 1 ulp: {ulp_c}")
+    check(ulp_d and frac_d < 1e-2, f"K1 at {shape} dxh: {frac_d} differ, within 1 ulp: {ulp_d}")
+    for what, a, b in (("l_rec", lrec_k, lrec_p), ("l_l1", ll1_k, ll1_p)):
+        rel = float(((a - b).abs() / b.abs()).max())
+        check(rel < 1e-3, f"K1 at {shape} {what}: max rel {rel}")
+    nnz = int((c_k != 0).sum())
+    xbm, dbt = xb.expand(M, B, D), db.transpose(1, 2)
+    k1 = dict(name="tied_sae_fwd", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu",
+              replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", shape=shape,
+              max_abs_err=float((dxh_k.float() - dxh_p.float()).abs().max()),
+              variant="pipelined encode -> decode (TMA, wgmma), code stored",
+              ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
+              plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
+              library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20))
+    k1["bound_ms"], k1["bound_by"] = bound(
+        2 * M * B * N * D + 2 * nnz * D,
+        B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4)
+    emit("kernel", name="tied_sae_fwd", shape=shape, c_frac_differ=frac_c, dxh_frac_differ=frac_d,
+         c_nonzero_frac=nnz / c_k.numel(), ms=k1["ms"], bound_ms=k1["bound_ms"], plain_ms=k1["plain_ms"])
+    rows.append(k1)
+    del c_p, dxh_p
+    l1b = torch.logspace(-4, -2, M, device=dev) / B
+    args, k2_err = check_k2(torch, tk, g, torch.float32, (xb, dxh_k, c_k, nrm), d_raw, l1b, f"{shape} mu=f32")
+    held = args()
+    ct, xbt = c_k.transpose(1, 2), xb.expand(M, B, D)
+    k2 = dict(name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
+              replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", shape=shape, max_abs_err=k2_err,
+              variant="stored code, mu f32, nu f32",
+              ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 10),
+              plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
+              library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
+    k2["bound_ms"], k2["bound_by"] = bound(
+        6 * nnz * D,
+        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + 2 * (M * N * D * (4 + 4 + 4)) + M * N * 4 + 3 * M * 4)
+    emit("kernel", name="tied_sae_bwd_adam", shape=shape, max_abs_err_d_new=k2_err, ms=k2["ms"],
+         bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"])
+    rows.append(k2)
+    del held, d_raw, nrm, db, xb, bias, c_k, dxh_k
+
+    # TopK: K_s, K_d on its scores, the sparse K2 on K_d's code
+    M, B, N, D = EXP_TOPK
+    shape = f"M={M},B={B},N={N},D={D},k=1..151"
+    d_raw, nrm, db, xb = inputs(M, B, N, D)
+    k = torch.tensor([min(x, N) for x in EXP_KS], dtype=torch.int32, device=dev)
+    scale = 2.0 / (B * D)
+    src = "sparse_coding__tpu_torch/ops/csrc/topk_fwd.cu"
+    s_k, th_k = kk.topk_scores(xb, db, k)
+    s_p, _ = kk._topk_scores_plain(xb, db, k)
+    th_p = kk._select_plain(s_k, k)
+    torch.cuda.synchronize()
+    frac_s, ulp_s = bf16_close(torch, s_k, s_p)
+    check(ulp_s and frac_s < 1e-3, f"K_s at {shape} s: {frac_s} differ, within 1 ulp: {ulp_s}")
+    check(torch.equal(th_k.view(torch.int32), th_p.view(torch.int32)),
+          f"K_s at {shape}: thresholds differ from the plain select on the kernel's scores")
+    xbm, dbt = xb.expand(M, B, D), db.transpose(1, 2)
+    ks = dict(name="topk_scores", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:98", shape=shape,
+              max_abs_err=float((s_k.float() - s_p.float()).abs().max()),
+              variant="TMA + wgmma scores, select on fp16 counts",
+              ms=time_ms(torch, lambda: kk.topk_scores(xb, db, k), 10),
+              plain_ms=time_ms(torch, lambda: kk._topk_scores_plain(xb, db, k), 3),
+              library_ms=time_ms(torch, lambda: torch.topk(torch.bmm(xbm, dbt), int(k.max()), dim=-1), 10))
+    ks["bound_ms"], ks["bound_by"] = bound(
+        2 * M * B * N * D, B * D * 2 + M * N * D * 2 + M * 4 + M * B * N * 2 + M * B * 4)
+    rows.append(ks)
+    del s_p, th_p
+    c_k, dxh_k, lrec_k = kk.topk_decode(s_k, th_k, db, xb, scale)
+    c_p, dxh_p, lrec_p = kk._topk_decode_plain(s_k, th_k, db, xb, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(c_k.view(torch.int16), c_p.view(torch.int16)), f"K_d at {shape}: c differs from the plain version")
+    frac_d, ulp_d = bf16_close(torch, dxh_k, dxh_p)
+    check(ulp_d and frac_d < 1e-2, f"K_d at {shape} dxh: {frac_d} differ, within 1 ulp: {ulp_d}")
+    rel = float(((lrec_k - lrec_p).abs() / lrec_p.abs()).max())
+    check(rel < 1e-3, f"K_d at {shape} l_rec: max rel {rel}")
+    nnz = int((c_k != 0).sum())
+    kd = dict(name="topk_decode", source=src, replaces="sparse_coding__tpu/ops/topk_kernel.py:144", shape=shape,
+              max_abs_err=float((dxh_k.float() - dxh_p.float()).abs().max()),
+              variant="sparse decode (kept rows gathered)",
+              ms=time_ms(torch, lambda: kk.topk_decode(s_k, th_k, db, xb, scale), 10),
+              plain_ms=time_ms(torch, lambda: kk._topk_decode_plain(s_k, th_k, db, xb, scale), 3),
+              library_ms=time_ms(torch, lambda: torch.bmm(c_k, db), 10))
+    kd["bound_ms"], kd["bound_by"] = bound(
+        2 * nnz * D, 2 * M * B * N * 2 + M * B * 4 + M * N * D * 2 + B * D * 2 + M * B * D * 2 + M * 4)
+    rows.append(kd)
+    del c_p, dxh_p, s_k, th_k
+    l1b = torch.zeros(M, device=dev)
+    args, k2_err = check_k2(torch, tk, g, torch.float32, (xb, dxh_k, c_k, nrm), d_raw, l1b,
+                            f"{shape} mu=f32 sparse", sparse=True)
+    held = args()
+    ct, xbt = c_k.transpose(1, 2), xb.expand(M, B, D)
+    k2s = dict(name="tied_sae_bwd_adam_sparse", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd_sparse.cu",
+               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", shape=shape, max_abs_err=k2_err,
+               variant="sparse route, stored code, mu f32, nu f32",
+               ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, sparse=True), 10),
+               plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
+               library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
+    k2s["bound_ms"], k2s["bound_by"] = bound(
+        6 * nnz * D,
+        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + 2 * (M * N * D * (4 + 4 + 4)) + M * N * 4 + 3 * M * 4)
+    rows.append(k2s)
+    emit("kernel", name="topk path", shape=shape, s_frac_differ=frac_s, thresholds_bit_equal=True, c_bit_equal=True,
+         dxh_frac_differ=frac_d, lrec_max_rel=rel, c_nonzero_frac=nnz / c_k.numel(),
+         mean_l0=(c_k != 0).sum(-1).float().mean(-1).tolist(), max_abs_err_d_new=k2_err,
+         ms={r["name"]: r["ms"] for r in (ks, kd, k2s)}, bound_ms={r["name"]: r["bound_ms"] for r in (ks, kd, k2s)})
+    del held
+    return rows
 
 
 def fista_problem(torch, M: int, B: int, N: int, D: int, seed: int, l1_grid=FISTA_L1, shared_dict: bool = False):
@@ -1561,13 +1727,12 @@ def phase_health_graph(torch, pkg, tf, steps: int = 8):
     params, moments, the firing EMA and the sketch; a twin without the
     packs (unfused too) gives the packs' twin's losses and codes bit for bit
     (observation only); the sketch counts ``steps`` × 2048 rows a member;
-    a profiler trace of the replays shows no K1, K2 or K3 launch. Then the
+    the replays launch no K1, K2 or K3 (`run_counted`). Then the
     graph step timed (CUDA events) with the packs and, in the same run,
     without them on the same unfused route: what the packs cost there; and
     the same for the FISTA driver's eager gradient step at BASELINE config
     1 (f32 autograd, M 8, B 1024, N 2048, D 512)."""
     from _torch_moments import state_differences
-    from _torch_trace import traced
     from sparse_coding__tpu_torch.telemetry.feature_stats import FEATURE_STATS_KEYS
     from sparse_coding__tpu_torch.telemetry.health import FIRE_EMA_KEY
 
@@ -1584,7 +1749,7 @@ def phase_health_graph(torch, pkg, tf, steps: int = 8):
         ln0, an0 = bare.step_batch(xs[0])
         check(torch.equal(ab0["c"], an0["c"]) and all(torch.equal(lb0[k], ln0[k]) for k in ln0),
               "the packs changed the step's losses or codes")
-        la, ran = traced(torch, lambda: a.step_scan(xs[1:]))
+        la, ran, short = run_counted(torch, lambda: a.step_scan(xs[1:]))
         lb = []
         for x in xs[1:]:
             lbk, abk = b.step_batch(x)
@@ -1626,7 +1791,7 @@ def phase_health_graph(torch, pkg, tf, steps: int = 8):
     for name in ("packs", "no_packs", "packs", "no_packs"):
         fista_ms.setdefault(name, []).append(time_ms(torch, lambda: twins[name].step_batch(xf), 10, warmup=2))
     emit("health_graph", path="tied_l1_sweep health + feature stats", members=M, batch=B, steps=steps,
-         fused=fused, captures=captures, launches_in_replays=ran, bit_equal=True,
+         fused=fused, captures=captures, launches_in_replays=ran, trace_short=short, bit_equal=True,
          health_metrics=health, sketch_keys=list(FEATURE_STATS_KEYS), featstat_rows=rows,
          fire_ema_mean=fire_ema_mean, dead_frac=la["health_dead_frac"][-1].tolist(), graph_step_ms=ms,
          fista_config1_gradient_step_ms=fista_ms, plain_solves=plain["calls"])
@@ -1680,7 +1845,7 @@ def phase_basic_l1_sweep_train(torch, tf, root: Path):
     """The FISTA driver end to end (BASELINE config 1: 8 members, width 512,
     dictionary 2048, batch 1024, 500 iterations, health + feature stats on)
     over a store built on the card, 2 epochs = 16 steps, a checkpoint at
-    every chunk, under a profiler trace: K_f solves once a step, no other
+    every chunk (`run_counted`): K_f solves once a step, no other
     hand-written kernel runs and no plain solve. Checks the exports of both
     epochs; one feature snapshot per chunk boundary (4: the tail flush finds
     an empty window); finite ``health_*`` metrics in the metrics JSONL;
@@ -1690,10 +1855,8 @@ def phase_basic_l1_sweep_train(torch, tf, root: Path):
     (``hbm.d0.*``) in the last ``snapshot`` record. Returns (the run's K_f
     launches, its output dir)."""
     import numpy as np
-    from _torch_trace import traced
 
     from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
-    from sparse_coding__tpu_torch.ops import fista_kernel as fk
     from sparse_coding__tpu_torch.telemetry import read_events
     from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
 
@@ -1710,17 +1873,13 @@ def phase_basic_l1_sweep_train(torch, tf, root: Path):
         torch.cuda.synchronize()
         return lds, time.perf_counter() - t0
 
-    fk.reset_launches()
     with watching_plain_solves(torch, tf) as plain:
-        (lds, wall), launches = traced(torch, run)
+        (lds, wall), launches, short = run_counted(torch, run)
     peak = torch.cuda.max_memory_allocated() - before
     steps = BLS["epochs"] * BLS["chunks"] * BLS["rows_per_chunk"] // BLS["batch"]
     want = {k: 0 for k in launches}
     want["fista_solve"] = steps
-    # the steps are eager, so the wrapper's count must be the trace's (which
-    # checks the trace's name table)
-    check(launches == want and fk.LAUNCHES["fista_solve"] == steps,
-          f"driver launches {launches} (wrapper {fk.LAUNCHES}) after {steps} steps, want {want}")
+    check(launches == want, f"driver launches {launches} after {steps} steps, want {want}")
     check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran in the driver")
     for e in range(BLS["epochs"]):
         check((out / f"epoch_{e}" / "learned_dicts.pkl").exists(), f"epoch_{e} export missing")
@@ -1752,7 +1911,8 @@ def phase_basic_l1_sweep_train(torch, tf, root: Path):
     end = events[-1]
     emit("basic_l1_sweep_train", config="BASELINE config 1", members=BLS["members"], width=BLS["width"],
          n_dict=BLS["n_dict"], batch=BLS["batch"], fista_iters=FISTA_ITERS, chunks=BLS["chunks"],
-         rows_per_chunk=BLS["rows_per_chunk"], epochs=BLS["epochs"], steps=steps, launches=launches, wall_s=wall,
+         rows_per_chunk=BLS["rows_per_chunk"], epochs=BLS["epochs"], steps=steps, launches=launches,
+         trace_short=short, wall_s=wall,
          activations_per_s=steps * BLS["batch"] * BLS["members"] / wall,
          span_seconds={c: span_seconds(events, c) for c in ("step", "data_wait", "checkpoint", "feature_flush")},
          step_span_activations_per_s=steps * BLS["batch"] * BLS["members"] / span_seconds(events, "step"),
@@ -1865,12 +2025,10 @@ def phase_sweep_train(torch, root: Path):
     """The sweep driver end to end at config 2's widths: the store built on
     the card, both ensembles trained over it, the export and checkpoint
     committed. A runs K1 + K2 on every step, B K1 + K3, nothing else runs
-    (a profiler trace: the steps are graph replays; ``wall_s`` is traced).
-    Returns the export's path."""
+    (`run_counted`; ``wall_s`` is traced). Returns the export's path."""
     import warnings
 
     import numpy as np
-    from _torch_trace import traced
 
     from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
     from sparse_coding__tpu_torch.telemetry import read_events
@@ -1900,7 +2058,7 @@ def phase_sweep_train(torch, root: Path):
         torch.cuda.synchronize()
         return lds, time.perf_counter() - t0
 
-    (lds, wall), launches = traced(torch, run)
+    (lds, wall), launches, short = run_counted(torch, run)
     # allocated: what the steps and the sweep driver hold at once; reserved adds
     # what the allocator keeps, the two step graphs' private pools among it
     peak = torch.cuda.max_memory_allocated() - before
@@ -1927,7 +2085,8 @@ def phase_sweep_train(torch, root: Path):
     # high-l1 members of so short a run may still sit near FVU 1)
     check(all(math.isfinite(v) for v in fvu) and max(fvu[0], fvu[M]) < 0.75, f"sweep FVU {fvu}")
     emit("sweep_train", config="BASELINE config 2 widths", members={"A": M, "B": SWEEP["members_b"]}, routes=routes,
-         chunks=SWEEP["chunks"], rows=rows, batch=B, steps_per_ensemble=steps, launches=launches, wall_s=wall,
+         chunks=SWEEP["chunks"], rows=rows, batch=B, steps_per_ensemble=steps, launches=launches,
+         trace_short=short, wall_s=wall,
          activations_per_s=steps * B * (M + SWEEP["members_b"]) / wall,
          span_seconds={c: span_seconds(events, c) for c in ("step", "checkpoint", "data_wait")},
          sweep_peak_bytes=peak, sweep_peak_reserved_bytes=peak_reserved, fvu=fvu, l0=[m["l0"] for m in metrics])
@@ -1975,6 +2134,201 @@ def phase_sweep_resume(torch, root: Path, control_export: Path):
     emit("sweep_resume", fault="sigterm:chunk=1", preempted_exit=killed.returncode, preempted_s=killed_s,
          resumed_s=resumed_s, checkpoint="ckpt_1", run_end=statuses, bit_equal_arrays=2 * len(got),
          resume_cursor=next(e for e in events if e["event"] == "resume")["cursor"])
+
+
+def graph_pool_bytes(torch):
+    """Bytes reserved in each private memory pool (a CUDA graph's), by pool,
+    from the allocator's segment snapshot; None where the snapshot does not
+    name its segments' pools."""
+    pools, named = {}, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        named = True
+        if tuple(pid) != (0, 0):
+            pools[str(tuple(pid))] = pools.get(str(tuple(pid)), 0) + int(seg["total_size"])
+    return pools if named else None
+
+
+def phase_experiments_synthetic(torch, root: Path, launches_at):
+    """The experiment catalog as a user runs it: `run_sweep_synthetic` with
+    builders in turn (`EXPERIMENTS`) over one synthetic store (the first run
+    builds it and saves its ground truth), three in bf16 compute and the
+    default builder in exact f32. Launches: every count set to 0 just before
+    a run and read just after, and around each of its train loop calls set
+    to 0 on entry and read on exit, so each ensemble's launches are its
+    loops' and no kernel may launch outside the loops. K1 = K2 = steps on
+    each bf16 tied ensemble, none of the hand-written kernels on the untied
+    and the f32 ones, K_s = K_d = the sparse K2 = steps on each TopK
+    ensemble. The export reloads in the port equal to what the sweep
+    returned; `evaluate_dicts` equals each dict evaluated alone (rtol 1e-6);
+    `hungarian_matched_mcs` of each ensemble's first member against the
+    saved ground truth; `calc_moments_streaming` of each run's first dict
+    against the exact moments of one batch (rtol 1e-5). Prints per builder:
+    activations/s end to end and in the ``step`` spans, the span seconds,
+    the peak allocated memory and the bytes the ensembles' graph pools keep
+    reserved (all ensembles of a run live at once). ``launches_at`` collects
+    the launches of the ensembles at the kernel checks' shapes."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.metrics import standard as sm
+    from sparse_coding__tpu_torch.models.learned_dict import LEARNED_DICT_REGISTRY
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.train import experiments as ex
+    from sparse_coding__tpu_torch.train import sweep as sweep_mod
+
+    E = EXPERIMENTS
+    width, batch = E["width"], E["batch"]
+    store = root / "act"
+    steps = E["chunks"] * E["rows_per_chunk"] // batch  # per ensemble
+    fused = {"FunctionalTiedSAE": ("tied_sae_fwd", "tied_sae_bwd_adam"), "FunctionalSAE": (),
+             "TopKEncoderApprox": ("topk_scores", "topk_decode", "tied_sae_bwd_adam_sparse")}
+    real_loop = sweep_mod.ensemble_train_loop
+
+    def counts():
+        return {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+
+    def reset():
+        for mod in (tk, kk, fk):
+            mod.reset_launches()
+
+    def add(into, got):
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
+
+    truth = None
+    for name, dtype in E["builders"]:
+        out = root / f"{name}_{dtype}"
+        held, per_ens, outside = [], {}, {}
+
+        def builder(cfg, _b=getattr(ex, name), **kw):
+            res = _b(cfg, **kw)
+            held.extend(res[0])
+            return res
+
+        def counted_loop(ens, *a, **kw):
+            add(outside, counts())  # what launched since the last read: outside the loops
+            reset()
+            r = real_loop(ens, *a, **kw)
+            add(per_ens.setdefault(id(ens), {}), counts())
+            reset()
+            return r
+
+        overrides = dict(n_chunks=E["chunks"], chunk_size_gb=E["rows_per_chunk"] * width * 2 / 1024**3,
+                         n_epochs=E["epochs"], dataset_folder=str(store), output_folder=str(out))
+        if name == "topk_experiment":
+            overrides["topk_recall"] = E["topk_recall"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sweep_mod.ensemble_train_loop = counted_loop
+        reset()
+        try:
+            t0 = time.perf_counter()
+            lds = ex.run_sweep_synthetic(builder, dtype=dtype, **overrides)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sweep_mod.ensemble_train_loop = real_loop
+        add(outside, counts())
+        check(not any(outside.values()), f"{name}: launches outside the train loops {outside}")
+        peak = torch.cuda.max_memory_allocated() - before
+        torch.cuda.empty_cache()
+        pools = graph_pool_bytes(torch)
+        reserved_unallocated = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        if truth is None:
+            truth = torch.from_numpy(np.load(out / "ground_truth_dict.npy")).cuda().float()
+            check(truth.shape == (2048, width), f"ground truth {tuple(truth.shape)}")
+
+        ensembles, total = [], 0
+        for ens, args, ens_name in held:
+            sig = ens.sig.__name__
+            kernels = fused[sig] if dtype == "bfloat16" else ()
+            want = dict.fromkeys(counts(), 0)
+            want.update(dict.fromkeys(kernels, steps))
+            got = per_ens.get(id(ens))
+            route = ens._route(batch, False, False)
+            check(route == ("fused_adam" if kernels else "autograd"), f"{ens_name}: route {route}")
+            check(got == want, f"{name}/{ens_name} ({sig}): launches {got}, want {want}")
+            total += steps * batch * ens.n_models
+            ensembles.append(dict(name=ens_name, sig=sig, members=ens.n_models, dict_size=args["dict_size"],
+                                  route=route, steps=steps, captures=ens.captures,
+                                  launches={k: v for k, v in got.items() if v}))
+            if kernels and args["dict_size"] == EXP_TIED[2]:
+                launches_at[sig] = got
+        events = read_events(out / "events.jsonl")
+        check([e["status"] for e in events if e["event"] == "run_end"] == ["ok"], f"{name}: run_end")
+        spans = {c: span_seconds(events, c) for c in ("step", "checkpoint", "data_wait")}
+
+        # the export as written, reloaded
+        loaded = ckpt_lib.load_learned_dicts(out / f"_{E['chunks'] - 1}" / "learned_dicts.pkl", verify=True)
+        check(len(loaded) == len(lds) == sum(e["members"] for e in ensembles), f"{name}: {len(loaded)} exported")
+        for (a, ha), (b, hb) in zip(lds, loaded):
+            check(type(a) is type(b) and ha == hb, f"{name}: export {type(b).__name__} {hb}, wrote {ha}")
+            for f in LEARNED_DICT_REGISTRY[type(a)][0]:
+                check(torch.equal(getattr(a, f), getattr(b, f)), f"{name}: exported {f} differs")
+        dicts = [ld for ld, _ in loaded]
+        sample = torch.from_numpy(np.load(store / "0.npy")[:E["eval_rows"]]).cuda().float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluated = sm.evaluate_dicts(dicts, sample)
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = [{"fvu": float(sm.fraction_variance_unexplained(ld, sample)), "l0": float(sm.sparsity_l0(ld, sample))}
+                 for ld in dicts]
+        alone_s = time.perf_counter() - t0
+        worst = 0.0
+        for ev, al in zip(evaluated, alone):
+            for k in ("fvu", "l0"):
+                worst = max(worst, abs(ev[k] - al[k]) / max(abs(al[k]), 1e-30))
+                check(math.isclose(ev[k], al[k], rel_tol=1e-6), f"{name}: evaluate_dicts {k} {ev[k]} vs {al[k]}")
+        fvu = [r["fvu"] for r in evaluated]
+        check(all(math.isfinite(v) for v in fvu), f"{name}: FVU {fvu}")
+        firsts, i = [], 0
+        for e in ensembles:
+            firsts.append(i)
+            i += e["members"]
+        hung = []
+        t0 = time.perf_counter()
+        for j in firsts:
+            vals, cols = sm.hungarian_matched_mcs(dicts[j], truth)
+            check(len(vals) == len(cols) == min(2048, dicts[j].n_feats) and bool(torch.isfinite(vals).all())
+                  and float(vals.abs().max()) <= 1 + 1e-5, f"{name}: matched MCS of dict {j}")
+            hung.append(float(vals.mean()))
+        hung_s = time.perf_counter() - t0
+        one = sample[:batch]
+        times_a, mean, var, _skew, _kurt, m4 = sm.calc_moments_streaming(dicts[0], one, batch_size=batch)
+        # the second moment as var + mean² (the f32 difference m2 - mean² keeps
+        # m2's rounding, which is relative to m2, not to var)
+        c = dicts[0].encode(one).double()
+        exact = {"mean": c.mean(0), "m2": (c ** 2).mean(0), "m4": (c ** 4).mean(0)}
+        for k, v in (("mean", mean.double()), ("m2", var.double() + mean.double() ** 2), ("m4", m4.double())):
+            ref = exact[k]
+            ok = torch.allclose(v, ref, rtol=1e-5, atol=1e-7 * float(ref.abs().max()))
+            check(ok, f"{name}: streaming {k} off the exact moment by {float((v - ref).abs().max())}")
+        check(torch.equal(times_a.double(), (exact["mean"] != 0).double()), f"{name}: streaming times_active")
+        emit("experiments_synthetic", builder=name, width=width, batch=batch, compute_dtype=dtype,
+             cut=f"depth: {E['chunks']} chunks of {E['rows_per_chunk']} rows, {E['epochs']} epoch "
+                 "(run_sweep_synthetic's default: 10 chunks of 2 GB); widths as published",
+             ground_truth_components=2048, active=100, decay=0.996, ensembles=ensembles, steps_per_ensemble=steps,
+             wall_s=wall, activations=total, activations_per_s=total / wall,
+             step_span_activations_per_s=total / spans["step"], span_seconds=spans, peak_allocated_bytes=peak,
+             graph_pool_bytes=None if pools is None else sum(pools.values()), graph_pools=pools,
+             reserved_unallocated_bytes=reserved_unallocated, capture_s=sum(e.capture_seconds for e, _, _ in held),
+             launches_outside_loops=outside, exported=len(loaded), export_reload_equal=True,
+             eval_dicts_s=eval_s, eval_one_read_a_dict_and_metric_s=alone_s, eval_max_rel_diff=worst,
+             fvu_min=min(fvu), fvu_max=max(fvu), hungarian_mean_mcs=hung, hungarian_s=hung_s, moments_checked=True)
+        # nothing may keep this run's ensembles (and their graph pools) alive
+        # into the next run's measurement
+        del held, lds, loaded, dicts, per_ens, ens, builder
+        shutil.rmtree(out)  # its checkpoint and export: ~1 GB a builder
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2109,6 +2463,20 @@ def main() -> int:
         export = phase_sweep_train(torch, Path(sweep_root))
         torch.cuda.empty_cache()
         phase_sweep_resume(torch, Path(sweep_root), export)
+
+    # the experiment catalog (`train/experiments.py`) through
+    # run_sweep_synthetic: its kernels at its new shapes first, then three
+    # builders over one store; the rows' launches are the N 256 ensembles'
+    torch.cuda.empty_cache()
+    exp_rows = phase_experiment_kernels(torch, tk, kk)
+    torch.cuda.empty_cache()
+    launches_at = {}
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_exp_") as exp_root:
+        phase_experiments_synthetic(torch, Path(exp_root), launches_at)
+    for row in exp_rows:
+        sig = "FunctionalTiedSAE" if row["name"] in ("tied_sae_fwd", "tied_sae_bwd_adam") else "TopKEncoderApprox"
+        row.update(path="experiments_synthetic", launches=launches_at[sig][row["name"]])
+    rows += exp_rows
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

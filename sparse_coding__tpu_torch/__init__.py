@@ -13,10 +13,10 @@ from sparse_coding__tpu_torch.ensemble import (
     build_ensemble,
 )
 from sparse_coding__tpu_torch.models.fista import Fista, FunctionalFista
-from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
+from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
 from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox, TopKLearnedDict
 
 __all__ = [
-    "Ensemble", "EnsembleState", "build_ensemble", "FunctionalTiedSAE",
+    "Ensemble", "EnsembleState", "build_ensemble", "FunctionalSAE", "FunctionalTiedSAE",
     "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict", "Fista", "FunctionalFista",
 ]

@@ -610,13 +610,14 @@ class Ensemble:
         signature is found by its class name among the port's own (a record
         of either package names them alike), unless ``sig`` is given."""
         from sparse_coding__tpu_torch.models.fista import FunctionalFista
-        from sparse_coding__tpu_torch.models.sae import FunctionalTiedSAE
+        from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
         from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
 
         device = resolve_device(device)
         if sig is None:
             name = state_dict["sig"].rpartition(".")[2]
-            sigs = {s.__name__: s for s in (FunctionalTiedSAE, TopKEncoder, TopKEncoderApprox, FunctionalFista)}
+            sigs = {s.__name__: s for s in (FunctionalTiedSAE, FunctionalSAE, TopKEncoder, TopKEncoderApprox,
+                                            FunctionalFista)}
             if name not in sigs:
                 raise ValueError(f"unknown signature {state_dict['sig']!r}")
             sig = sigs[name]

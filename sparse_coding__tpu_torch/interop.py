@@ -42,8 +42,9 @@ def state_from_jax_numpy(
     device=None,
 ) -> EnsembleState:
     """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
-    a TopK signature, ``{"encoder", "encoder_bias", "decoder"}`` of
-    `FunctionalFista`), buffers (None for absent centering; FISTA's
+    a TopK signature, ``{"encoder", "encoder_bias", "decoder"}`` of the
+    untied `FunctionalSAE` and of `FunctionalFista`: any dict of params
+    goes), buffers (None for absent centering; FISTA's
     ``hessian_diag``, the health pack's ``health_fire_ema`` and the feature
     sketch's ``featstat_*`` like any other), and optax's
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to

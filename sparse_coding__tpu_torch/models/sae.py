@@ -1,6 +1,7 @@
-"""The tied sparse autoencoder training signature.
+"""The sparse autoencoder training signatures: tied and untied.
 
-Counterpart of `sparse_coding__tpu/models/sae.py::FunctionalTiedSAE`. The
+Counterpart of `sparse_coding__tpu/models/sae.py::FunctionalTiedSAE` and
+`::FunctionalSAE`. The
 functions take the STACKED params/buffers of an ensemble: every tensor has a
 leading member axis ``M`` (the JAX package's vmap written out), and losses
 come back as ``[M]`` vectors. Loss conventions, as in the JAX package:
@@ -13,6 +14,9 @@ Under the bf16 policy (`utils.precision`) matmul operands and the code run in
 bf16 and reductions in f32; with the policy off the math is exact f32. The
 fused path (`fused_grads_stacked`, `fused_adam_step`) runs the hand-written
 kernels of `ops.tied_sae_kernel` (their plain versions for CPU tensors).
+The untied signature has no fused path (neither has the JAX package's): it
+always takes the autograd step, which `Ensemble.step_scan` captures into a
+CUDA graph like every other route.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from sparse_coding__tpu_torch.models.learned_dict import TiedSAE, _norm_rows
+from sparse_coding__tpu_torch.models.learned_dict import TiedSAE, UntiedSAE, _norm_rows
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.optim import (
@@ -55,6 +59,75 @@ def _bias_decay(params, buffers):
     b = params["encoder_bias"]
     bias_l2 = _safe_l2(b)
     return buffers["bias_decay"] * bias_l2, (buffers["bias_decay"] / bias_l2)[:, None] * b
+
+
+def _l1(c: torch.Tensor) -> torch.Tensor:
+    """Per-member batch mean of the code's L1 norms [M], summed in f32."""
+    return px.acc_f32(torch.abs(c)).sum(dim=-1).mean(dim=-1)
+
+
+def _mse_f32(x_hat: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-member mean squared error over all elements [M], in f32."""
+    diff = px.acc_f32(x_hat) - px.acc_f32(target)
+    return torch.mean(diff * diff, dim=(-2, -1))
+
+
+class FunctionalSAE:
+    """Untied SAE: ``c = relu(x·Eᵀ + b)``, reconstruction ``c·D̂`` from the
+    row-normalized decoder. Params ``encoder`` [N, D], ``encoder_bias`` [N],
+    ``decoder`` [N, D]; buffers ``l1_alpha``, ``bias_decay``."""
+
+    @staticmethod
+    def init(
+        generator: torch.Generator,
+        activation_size: int,
+        n_dict_components: int,
+        l1_alpha: float,
+        bias_decay: float = 0.0,
+        dtype=torch.float32,
+        device=None,
+    ):
+        """One member's (params, buffers), unstacked: glorot-uniform encoder
+        then decoder (drawn in that order from ``generator``), a zero bias."""
+        device = device if device is not None else generator.device
+        shape = (n_dict_components, activation_size)
+        params = {
+            "encoder": glorot_uniform(shape, generator, dtype, device),
+            "encoder_bias": torch.zeros(n_dict_components, dtype=dtype, device=device),
+            "decoder": glorot_uniform(shape, generator, dtype, device),
+        }
+        buffers = {
+            "l1_alpha": torch.tensor(l1_alpha, dtype=dtype, device=device),
+            "bias_decay": torch.tensor(bias_decay, dtype=dtype, device=device),
+        }
+        return params, buffers
+
+    @staticmethod
+    def encode(params, buffers, batch):
+        """Stacked codes [M, B, N] of a batch [B, D] (or [M, B, D]), in the
+        compute dtype."""
+        c = torch.matmul(px.cast_in(batch), px.cast_in(params["encoder"]).transpose(-2, -1))
+        return torch.relu(c + px.cast_in(params["encoder_bias"])[:, None, :])
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data {name: [M]}, {"c": c [M, B, N]}))."""
+        c = FunctionalSAE.encode(params, buffers, batch)
+        learned_dict = _norm_rows(params["decoder"])
+        # decode accumulated and kept in f32 (bf16-valued operands under the policy)
+        x_hat = torch.matmul(px.cast_in(c).float(), px.cast_in(learned_dict).float())
+        l_reconstruction = _mse_f32(x_hat, batch)
+        l_l1 = buffers["l1_alpha"] * _l1(c)
+        l_bias_decay = buffers["bias_decay"] * _safe_l2(params["encoder_bias"])
+        total = l_reconstruction + l_l1 + l_bias_decay
+        loss_data = {"loss": total, "l_reconstruction": l_reconstruction, "l_l1": l_l1,
+                     "l_bias_decay": l_bias_decay}
+        return total, (loss_data, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member (unstacked params) as an `UntiedSAE`."""
+        return UntiedSAE(params["encoder"], params["decoder"], params["encoder_bias"])
 
 
 class FunctionalTiedSAE:

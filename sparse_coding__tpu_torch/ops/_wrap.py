@@ -1,6 +1,6 @@
 """What the kernel wrappers (`tied_sae_kernel`, `topk_kernel`, `fista_kernel`) share: the
-argument checks made before a launch, and the shapes the CUDA sources are
-written for.
+argument checks made before a launch, their launch counts (`LaunchCounts`),
+and the shapes the CUDA sources are written for.
 
 `FWD_ROWS` x `FWD_COLS` is the output tile of the WMMA forward kernels
 (``kBM`` x ``kBN`` in `csrc/wmma_tile.cuh`), whose multiples every forward
@@ -11,7 +11,8 @@ so the CUDA sources read it from here.
 
 from __future__ import annotations
 
-from typing import Dict
+from collections.abc import Mapping
+from typing import Dict, Sequence
 
 import torch
 
@@ -45,10 +46,54 @@ def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def count_launch(counts: Dict[str, int], name: str) -> None:
-    """``counts[name] += 1`` for a launch of kernel ``name`` that runs now.
-    A launch recorded into a CUDA graph under capture runs only at the
-    graph's replays, which the host does not see, so it is not counted: a
-    profiler trace of the replays counts those."""
-    if not torch.cuda.is_current_stream_capturing():
-        counts[name] += 1
+class LaunchCounts(Mapping):
+    """Launches of each kernel of one ops module since the last `reset`:
+    a read-only mapping kernel name -> count (plain-version calls on CPU
+    tensors do not count).
+
+    The count lives on the card: where a wrapper launches its kernel it also
+    enqueues ``+1`` to the kernel's slot of an int64 tensor on the same
+    stream (`count`). So every execution of the launch counts, also where
+    the launch was recorded into a CUDA graph and runs at each of the
+    graph's replays, and nothing else counts: the replays call no wrapper.
+    Reading a count waits for the card."""
+
+    def __init__(self, names: Sequence[str]):
+        self.names = tuple(names)
+        self._slot = {n: i for i, n in enumerate(self.names)}
+        self._dev: Dict[torch.device, torch.Tensor] = {}
+
+    def count(self, name: str, dev: torch.device) -> None:
+        """``+1`` to ``name``'s count, enqueued on the current stream of
+        ``dev`` right after the kernel's launch (recorded with it under
+        capture). The counter is made at the first launch on ``dev``, which
+        is never under capture: a step is captured after an eager step."""
+        t = self._dev.get(dev)
+        if t is None:
+            require(dev.type != "cuda" or not torch.cuda.is_current_stream_capturing(),
+                    f"first launch of {name} on {dev} under CUDA graph capture: run it once eagerly first")
+            t = self._dev[dev] = torch.zeros(len(self.names), dtype=torch.int64, device=dev)
+        t[self._slot[name]].add_(1)
+
+    def reset(self) -> None:
+        """Every count to 0 (enqueued: launches already enqueued still count)."""
+        for t in self._dev.values():
+            t.zero_()
+
+    def _totals(self):
+        totals = [0] * len(self.names)
+        for t in self._dev.values():
+            totals = [a + b for a, b in zip(totals, t.tolist())]
+        return totals
+
+    def __getitem__(self, name: str) -> int:
+        return self._totals()[self._slot[name]]
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __repr__(self) -> str:
+        return repr(dict(zip(self.names, self._totals())))

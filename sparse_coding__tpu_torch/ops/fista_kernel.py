@@ -21,7 +21,7 @@ function; both are ported by one CUDA kernel:
 `fista_cuda` dispatches on the device of its tensors: CPU tensors run the
 plain version (`models.fista.fista_codes`, the torch loop K_f is held to);
 CUDA tensors launch the kernel, or raise. Each launch of a whole solve adds
-one to ``LAUNCHES["fista_solve"]`` (`_wrap.count_launch`).
+one to ``LAUNCHES["fista_solve"]`` (`_wrap.LaunchCounts`).
 
 `fista_solve` is the solve of the decoder update: η from the power
 iteration, then `fista_cuda` (K_f on the card; outside `shapes_supported` it
@@ -41,13 +41,14 @@ import torch
 
 from sparse_coding__tpu_torch.models.fista import default_eta, fista_codes, momentum_table
 from sparse_coding__tpu_torch.ops import _build
-from sparse_coding__tpu_torch.ops._wrap import check_cuda, check_dtype, count_launch, require, stream
+from sparse_coding__tpu_torch.ops._wrap import LaunchCounts, check_cuda, check_dtype, require, stream
 
 fp32 = torch.float32
 
-# launches of each kernel since the counts were last reset (plain-version
-# calls on CPU tensors do not count); one launch = one whole solve
-LAUNCHES: Dict[str, int] = {"fista_solve": 0}
+# launches of each kernel since the counts were last reset, counted on the
+# card (`_wrap.LaunchCounts`; plain-version calls on CPU tensors do not
+# count); one launch = one whole solve
+LAUNCHES = LaunchCounts(("fista_solve",))
 
 # the batch rows K_f takes: its first design's limit (128-row tiles on one
 # grid axis), kept; the C entry refuses shapes whose tile count leaves int32
@@ -57,8 +58,7 @@ _TABLES: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def shapes_supported(B: int, N: int, D: int) -> bool:
@@ -139,7 +139,7 @@ def fista_cuda(x, dicts, eta, l1, c0, num_iter: int, tol: float = 0.0):
         sync.data_ptr(), M, Bp, Np, Dp, num_iter, stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     a = a_t[:, :N, :B].transpose(1, 2).contiguous()
     if delta is None:
         return a, torch.full((M,), num_iter, dtype=torch.int32, device=dev)

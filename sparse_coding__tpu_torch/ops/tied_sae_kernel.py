@@ -34,9 +34,10 @@ plain versions on either route.
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it (same rounding points — how the CPU tests
 reach this path); CUDA tensors launch the kernel, or raise. Each launch adds
-one to its entry in `LAUNCHES` (not one recorded into a CUDA graph under
-capture: `_wrap.count_launch`). The plain versions are also what
-`chip_smoke.py` holds each kernel against on the card.
+one to its entry in `LAUNCHES`, counted on the card at every execution, a
+CUDA graph's replays of it included (`_wrap.LaunchCounts`). The plain
+versions are also what `chip_smoke.py` holds each kernel against on the
+card.
 
 Rounding points (from the Pallas code): x_b = bf16(x); nrm = sqrt(Σ d²) in f32
 with no eps; D̂_b = bf16(d / nrm). c = relu(x_b·D̂_bᵀ + b) in f32, Σc from the
@@ -55,7 +56,7 @@ TopK step's 128), not the CUDA kernel's own.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -63,9 +64,9 @@ from sparse_coding__tpu_torch.ops import _build
 from sparse_coding__tpu_torch.ops._wrap import (
     FWD_COLS,
     FWD_ROWS,
+    LaunchCounts,
     check_cuda,
     check_dtype,
-    count_launch,
     require,
     stream,
 )
@@ -84,12 +85,12 @@ from sparse_coding__tpu_torch.utils.optim import (
 bf16 = torch.bfloat16
 fp32 = torch.float32
 
-# launches of each kernel since the counts were last reset (plain-version
-# calls on CPU tensors do not count)
-LAUNCHES: Dict[str, int] = {
-    "tied_sae_fwd": 0, "tied_sae_fwd_nocode": 0, "tied_sae_bwd_adam": 0, "tied_sae_bwd_grads": 0,
-    "tied_sae_bwd_adam_sparse": 0, "tied_sae_bwd_grads_sparse": 0,
-}
+# launches of each kernel since the counts were last reset, counted on the
+# card (`_wrap.LaunchCounts`; plain-version calls on CPU tensors do not count)
+LAUNCHES = LaunchCounts((
+    "tied_sae_fwd", "tied_sae_fwd_nocode", "tied_sae_bwd_adam", "tied_sae_bwd_grads",
+    "tied_sae_bwd_adam_sparse", "tied_sae_bwd_grads_sparse",
+))
 
 # the stochastic stores' salts (`_adam_epilogue`: XORed into the tile's base
 # seed before its mix) and the JAX tied step's dictionary tile, whose
@@ -109,8 +110,7 @@ PIPELINED_MAX_D = 512
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
@@ -174,7 +174,7 @@ def tied_sae_fwd(xb, db, bias, scale: float):
         l1_part.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     # per-block partials summed here: no float atomics, same bits every run
     return c, dxh, lrec_part.sum(dim=(1, 2)), l1_part.sum(dim=(1, 2))
 
@@ -223,7 +223,7 @@ def tied_sae_fwd_nocode(xb, db, bias, scale: float):
         parts[1].data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     # per-block partials summed here: no float atomics, same bits every run
     return dxh, parts[0].sum(dim=1), parts[1].sum(dim=1)
 
@@ -372,7 +372,7 @@ def tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1_over_b, bc, lr, b1, b2,
         float(eps), float(1 - b1), float(1 - b2), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     return d_raw, mu, nu, g_bias
 
 
@@ -407,7 +407,7 @@ def tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1_over_b, sparse: bool = False):
         g_enc.data_ptr(), g_bias.data_ptr(), l1_over_b.data_ptr(), M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     return g_enc, g_bias
 
 

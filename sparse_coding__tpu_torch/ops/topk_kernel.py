@@ -27,8 +27,8 @@ are dropped — `models.topk.topk_mask_code_approx` with recall 1.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain PyTorch version beside it; CUDA tensors launch the kernel, or raise.
-Each launch adds one to its entry in `LAUNCHES` (not one recorded into a CUDA
-graph under capture: `_wrap.count_launch`).
+Each launch adds one to its entry in `LAUNCHES`, counted on the card at every
+execution, a CUDA graph's replays of it included (`_wrap.LaunchCounts`).
 
 Rounding points (from the Pallas code): x_b = bf16(x); nrm = sqrt(Σ d²) in f32
 with no eps; D̂_b = bf16(d / nrm); s = bf16(f32-accumulated x_b·D̂_bᵀ); the
@@ -37,7 +37,7 @@ select runs on s's bits; c keeps s's bf16 value; l_rec = Σerr² / (B·D).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -46,10 +46,10 @@ from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.ops._wrap import (
     FWD_COLS,
     FWD_ROWS,
+    LaunchCounts,
     MAX_SMEM,
     check_cuda,
     check_dtype,
-    count_launch,
     require,
     stream,
 )
@@ -58,9 +58,9 @@ from sparse_coding__tpu_torch.utils.optim import f32
 bf16 = torch.bfloat16
 fp32 = torch.float32
 
-# launches of each kernel since the counts were last reset (plain-version
-# calls on CPU tensors do not count)
-LAUNCHES: Dict[str, int] = {"topk_scores": 0, "topk_decode": 0}
+# launches of each kernel since the counts were last reset, counted on the
+# card (`_wrap.LaunchCounts`; plain-version calls on CPU tensors do not count)
+LAUNCHES = LaunchCounts(("topk_scores", "topk_decode"))
 
 # the first design's bound on N (one row of N 16-bit keys beside a 2 KB
 # histogram in a block's shared memory), kept so that the TopK path takes
@@ -73,8 +73,7 @@ SEED_TILE = 128
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def fwd_shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
@@ -150,7 +149,7 @@ def topk_scores(xb, db, k):
         M, B, N, D, stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     return s, thresh
 
 
@@ -186,7 +185,7 @@ def topk_decode(s, thresh, db, xb, scale: float):
         dxh.data_ptr(), lrec_part.data_ptr(), M, B, N, D, float(scale), stream(dev),
     )
     _build.check(rc, name)
-    count_launch(LAUNCHES, name)
+    LAUNCHES.count(name, dev)
     # per-row partials summed here: no float atomics, same bits every run
     return c, dxh, lrec_part.sum(dim=1)
 

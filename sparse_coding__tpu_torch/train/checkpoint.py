@@ -83,7 +83,17 @@ def export_class_path(cls) -> str:
 
 
 def _to_numpy(v):
+    """An array field as the record holds it: tensors as numpy arrays, a dict
+    of them (`ThresholdingSAE_export.params`) as a dict of arrays."""
+    if isinstance(v, dict):
+        return {k: _to_numpy(x) for k, x in v.items()}
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def _from_numpy(v, device):
+    if isinstance(v, dict):
+        return {k: _from_numpy(x, device) for k, x in v.items()}
+    return torch.from_numpy(np.array(v)).to(device)
 
 
 def save_learned_dicts(path, learned_dicts: List[Tuple[Any, Dict[str, Any]]], manifest: bool = True,
@@ -152,9 +162,11 @@ def load_learned_dicts(path, verify: Optional[bool] = None, device=None) -> List
         cls = LEARNED_DICT_CLASSES[name]
         ld = cls.__new__(cls)
         for f, v in rec["arrays"].items():
-            setattr(ld, f, torch.from_numpy(np.array(v)).to(device))
+            setattr(ld, f, _from_numpy(v, device))
         for f, v in rec["statics"].items():
             setattr(ld, f, v)
+        if not rec["arrays"]:
+            ld.device = device  # a dict without arrays (`Identity`) makes its own on the loading device
         out.append((ld, rec["hyperparams"]))
     return out
 

@@ -1,12 +1,18 @@
-"""Kernel executions counted from a `torch.profiler` trace of the card.
+"""Kernel executions counted from a `torch.profiler` trace of the card, held
+against the wrappers' own counts.
 
-A wrapper's `LAUNCHES` counts the launches it makes itself; the replays of a
-CUDA graph that recorded a launch call no wrapper. A trace sees every
-execution of a kernel on the card, inside graph replays too. `traced` counts
-those of each hand-written kernel by the demangled name of its device
-function (`SYMBOLS`); where a wrapper also launches a kernel of its own
-(K_s's select, K1's WMMA decode), only the first is counted, so a count is
-one per wrapper call. Needs a CUDA device.
+The launch counts the tests and `chip_smoke.py` hold are the wrappers'
+`LAUNCHES` (`ops/_wrap.py::LaunchCounts`): each launch enqueues ``+1`` on the
+card beside its kernel, so a CUDA graph's replays count too and no execution
+can be missed. A trace sees the kernels' executions by another route (CUPTI's
+activity records): `traced` counts those of each hand-written kernel by the
+demangled name of its device function (`SYMBOLS`); where a wrapper also
+launches a kernel of its own (K_s's select, K1's WMMA decode), only the first
+is counted, so a count is one per wrapper call. `trace_shortfall` compares
+the two: a trace that counts more than the wrappers is a fault of the
+counters; one that counts less has dropped records (ROADMAP C3: once 3 of 4
+replays' K1 and K3 were missing) and is reported, never taken as the truth.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,16 @@ def kernel_counts(names: Dict[str, int]) -> Dict[str, int]:
         if hits:
             counts[hits[0]] += n
     return counts
+
+
+def trace_shortfall(trace: Dict[str, int], counted: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
+    """``{wrapper: (trace count, wrapper count)}`` where the trace counted
+    fewer executions than the wrappers; raises where it counted more (the
+    counters then missed a launch, or `SYMBOLS` names a kernel wrongly)."""
+    over = {k: (v, counted.get(k, 0)) for k, v in trace.items() if v > counted.get(k, 0)}
+    if over:
+        raise AssertionError(f"the trace counted more launches than the wrappers: {over}")
+    return {k: (trace.get(k, 0), v) for k, v in counted.items() if k in SYMBOLS and trace.get(k, 0) < v}
 
 
 def traced(torch, fn: Callable) -> Tuple[object, Dict[str, int]]:
