@@ -53,7 +53,18 @@ k 1..151), then `run_sweep_synthetic` at width 512 with three builders in
 bf16 over one store (`synthetic_linear_range`, `tied_vs_not_experiment`,
 `topk_experiment`) and the default builder in exact f32, each ensemble's
 launches counted and none outside the train loops, the export, the
-evaluation, the matched MCS and the streaming moments checked.
+evaluation, the matched MCS and the streaming moments checked. Then the
+subject LM and the activation harvest (`lm/`, `data/activations.py`) at
+Pythia-70M's full width: a seeded random init pretrained on the trigram
+language for 300 steps (the loss must fall by a nat), layer 2's residual
+and MLP output harvested in one pass into 3 chunks of 65,536 rows,
+`harvest_to_device` held to the disk store bit for bit and a bf16-compute
+chunk to the f32 one; the same harvest SIGKILLed in chunk 1's pair gap in a
+process of its own (``chip_smoke.py --harvest-worker``) and resumed in
+another, bit for bit; then `run_single_layer` (16 tied members, ratio 8,
+bf16) on the harvested residual store: K1 and K2 96 times each, nothing
+else, every member's FVU on held-out rows below 1; K1/K2 at that shape are
+the kernels line's ``harvest_sweep`` rows.
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -68,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -163,6 +175,20 @@ EXPERIMENTS = dict(builders=(("synthetic_linear_range", "bfloat16"), ("tied_vs_n
 EXP_TIED = (32, 1024, 256, 512)
 EXP_TOPK = (16, 1024, 256, 512)
 EXP_KS = list(range(1, 161, 10))
+# the subject LM and its activation harvest (ROADMAP A5), at Pythia-70M's
+# full width (`lm.model.config_for`: NeoX, 6 layers, d 512, 8 heads, d_mlp
+# 2048, vocab 50304, rotary 0.25), cut in depth only: pretrained from a
+# seeded random init on the trigram language for 300 steps (bf16 compute,
+# JAX's lr 3e-4 and batch 32, a corpus of 4096 x 128 tokens), then layer 2's
+# residual and MLP output harvested from a held-out sample of 768 x 256
+# tokens in one pass (batch 64, chunks of 65,536 rows = 4 batches, 3
+# chunks), and `run_single_layer`'s `dense_l1_range_experiment` (16 tied
+# members, l1 logspace(-4, -2, 16), ratio 8: N 4096, batch 2048) trained on
+# the residual store for one epoch: 3 x 32 steps
+SUBJECT = dict(model="pythia-70m", lang_seed=7, corpus=(4096, 128), corpus_seed=11, steps=300, batch=32, lr=3e-4)
+HARVEST = dict(rows=768, seq=256, seed=13, layer=2, locs=("residual", "mlpout"), batch=64, chunk_size_gb=0.0625,
+               chunks=3, heldout_rows=64, heldout_seed=17, ratio=8, sweep_batch=2048)
+HARVEST_TIED = (16, 2048, 4096, 512)  # K1/K2 at the harvest sweep's shape (M, B, N, D)
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -1238,26 +1264,19 @@ def phase_topk_kernels(torch, tk, kk):
     return rows, capacity_rows
 
 
-def phase_experiment_kernels(torch, tk, kk):
-    """K1/K2 and K_s/K_d/the sparse K2 at the shapes the experiment catalog
-    gives them (`EXP_TIED`, `EXP_TOPK`), against their plain versions with
-    the tolerances of the main paths' checks, timed. Adam's moments are f32
-    here (the builders' plain ``"adam"``). Returns the kernels-line rows."""
+def tied_kernel_rows(torch, tk, g, shape):
+    """K1, then K2 on its code (Adam with f32 moments, l1 `logspace(-4, -2,
+    M)`), at ``shape`` = (M, B, N, D) on random inputs from ``g``, against
+    their plain versions with the main paths' tolerances, timed beside the
+    plain versions, the bound and the `bmm` library calls. Returns the two
+    kernels-line rows."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2468)
-    rows = []
-
-    def inputs(M, B, N, D):
-        d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
-        nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
-        db = (d_raw / nrm[..., None]).to(torch.bfloat16)
-        xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
-        return d_raw, nrm, db, xb
-
-    # tied: K1, then K2 on its code
-    M, B, N, D = EXP_TIED
+    M, B, N, D = shape
     shape = f"M={M},B={B},N={N},D={D}"
-    d_raw, nrm, db, xb = inputs(M, B, N, D)
+    d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
     bias = torch.randn((M, N), generator=g, device=dev) * 0.01
     scale = 2.0 / (B * D)
     c_k, dxh_k, lrec_k, ll1_k = tk.tied_sae_fwd(xb, db, bias, scale)
@@ -1285,7 +1304,6 @@ def phase_experiment_kernels(torch, tk, kk):
         B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4)
     emit("kernel", name="tied_sae_fwd", shape=shape, c_frac_differ=frac_c, dxh_frac_differ=frac_d,
          c_nonzero_frac=nnz / c_k.numel(), ms=k1["ms"], bound_ms=k1["bound_ms"], plain_ms=k1["plain_ms"])
-    rows.append(k1)
     del c_p, dxh_p
     l1b = torch.logspace(-4, -2, M, device=dev) / B
     args, k2_err = check_k2(torch, tk, g, torch.float32, (xb, dxh_k, c_k, nrm), d_raw, l1b, f"{shape} mu=f32")
@@ -1302,8 +1320,24 @@ def phase_experiment_kernels(torch, tk, kk):
         B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + 2 * (M * N * D * (4 + 4 + 4)) + M * N * 4 + 3 * M * 4)
     emit("kernel", name="tied_sae_bwd_adam", shape=shape, max_abs_err_d_new=k2_err, ms=k2["ms"],
          bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"])
-    rows.append(k2)
-    del held, d_raw, nrm, db, xb, bias, c_k, dxh_k
+    return [k1, k2]
+
+
+def phase_experiment_kernels(torch, tk, kk):
+    """K1/K2 and K_s/K_d/the sparse K2 at the shapes the experiment catalog
+    gives them (`EXP_TIED`, `EXP_TOPK`), against their plain versions with
+    the tolerances of the main paths' checks, timed. Adam's moments are f32
+    here (the builders' plain ``"adam"``). Returns the kernels-line rows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    rows = tied_kernel_rows(torch, tk, g, EXP_TIED)
+
+    def inputs(M, B, N, D):
+        d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+        nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+        db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+        xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+        return d_raw, nrm, db, xb
 
     # TopK: K_s, K_d on its scores, the sparse K2 on K_d's code
     M, B, N, D = EXP_TOPK
@@ -2331,6 +2365,278 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
         torch.cuda.empty_cache()
 
 
+def harvest_chunk_rows(cfg) -> int:
+    """Rows a harvested chunk holds (`data.activations._harvest_plan`'s
+    geometry: whole batches of ``batch x seq`` rows within the chunk size)."""
+    per_batch = HARVEST["batch"] * HARVEST["seq"]
+    return max(1, int(HARVEST["chunk_size_gb"] * 1024**3 // (cfg.d_model * 2)) // per_batch) * per_batch
+
+
+def harvest_kwargs():
+    return dict(layers=[HARVEST["layer"]], layer_locs=list(HARVEST["locs"]), batch_size=HARVEST["batch"],
+                chunk_size_gb=HARVEST["chunk_size_gb"], n_chunks=HARVEST["chunks"])
+
+
+def harvest_worker(argv) -> int:
+    """``chip_smoke.py --harvest-worker <root> <out> [--resume]``: the f32
+    harvest of the `harvest` phase as a process of its own, on the subject
+    and tokens the phase saved in ``root`` (``SC_FAULT`` from the
+    environment)."""
+    import numpy as np
+    import torch
+
+    from sparse_coding__tpu_torch.data.activations import make_activation_dataset
+    from sparse_coding__tpu_torch.lm import config_for
+
+    root = Path(argv[0])
+    params = torch.load(root / "subject.pt", map_location="cuda", weights_only=True)
+    make_activation_dataset(params, config_for(SUBJECT["model"]), np.load(root / "tokens.npy"), root / argv[1],
+                            resume="--resume" in argv[2:], device="cuda", **harvest_kwargs())
+    return 0
+
+
+def phase_subject_pretrain(torch, root: Path):
+    """`lm.pretrain.pretrain_lm` on a seeded random init of Pythia-70M's
+    widths over the trigram corpus, bf16 compute at JAX's defaults; the loss
+    must fall by at least a nat (as the JAX suite asks at its size). Saves
+    the params for the harvest workers; returns (cfg, params, language)."""
+    from sparse_coding__tpu_torch.data.synthetic_text import TrigramLanguage
+    from sparse_coding__tpu_torch.lm import config_for, init_params, model as lm_model
+    from sparse_coding__tpu_torch.lm.pretrain import pretrain_lm
+
+    cfg = config_for(SUBJECT["model"])
+    t0 = time.perf_counter()
+    lang = TrigramLanguage(cfg.vocab_size, seed=SUBJECT["lang_seed"])
+    corpus = lang.sample(*SUBJECT["corpus"], seed=SUBJECT["corpus_seed"])
+    corpus_s = time.perf_counter() - t0
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n_params = sum(t.numel() for t in lm_model.tree_leaves(params).values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, stats = pretrain_lm(params, cfg, corpus, n_steps=SUBJECT["steps"], batch_size=SUBJECT["batch"],
+                                learning_rate=SUBJECT["lr"], compute_dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    fall = stats["loss_first"] - stats["loss_last"]
+    check(math.isfinite(stats["loss_last"]) and fall >= 1.0, f"pretrain loss {stats}: fell {fall} nats, want >= 1")
+    torch.save(params, root / "subject.pt")
+    tokens = SUBJECT["steps"] * SUBJECT["batch"] * SUBJECT["corpus"][1]
+    emit("subject_pretrain", model=SUBJECT["model"], cfg=dataclasses.asdict(cfg), params=n_params,
+         cut=f"depth: {SUBJECT['steps']} steps from a seeded random init (no downloadable weights); widths as published",
+         corpus=list(SUBJECT["corpus"]), corpus_s=corpus_s, steps=SUBJECT["steps"], batch=SUBJECT["batch"],
+         compute_dtype="bfloat16", seconds=seconds, tokens_per_s=tokens / seconds, loss_first=stats["loss_first"],
+         loss_last=stats["loss_last"], loss_fall=fall, entropy_bound=lang.per_token_entropy_bound,
+         peak_allocated_bytes=peak)
+    return cfg, params, lang
+
+
+def phase_harvest(torch, root: Path, cfg, params, lang):
+    """`make_activation_dataset` on a held-out sample of the language, layer
+    2's residual and MLP output in one pass, f32 compute, with a live
+    `RunTelemetry` receiving the harvest's spans; then `harvest_to_device`
+    on the same params and tokens, every chunk of both locations the disk
+    store's bits; then one chunk in bf16 compute within JAX's bound (max
+    |Δ| / max |x| < 0.05) of the f32 one. Returns the store's folders."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.activations import harvest_to_device, make_activation_dataset
+    from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
+
+    tokens = lang.sample(HARVEST["rows"], HARVEST["seq"], seed=HARVEST["seed"])
+    np.save(root / "tokens.npy", tokens)
+    kw = harvest_kwargs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    tel = RunTelemetry()
+    try:
+        t0 = time.perf_counter()
+        folders = make_activation_dataset(params, cfg, tokens, root / "acts", device="cuda", **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        tel.close()
+    peak = torch.cuda.max_memory_allocated() - before
+    spans = {"harvest_forward": tel.counters.get("span.step.seconds", 0.0),
+             "chunk_commit": tel.counters.get("span.checkpoint.seconds", 0.0)}
+    chunk_rows = harvest_chunk_rows(cfg)
+    rows = HARVEST["chunks"] * chunk_rows
+    for key, folder in folders.items():
+        for i in range(HARVEST["chunks"]):
+            arr = np.load(folder / f"{i}.npy", mmap_mode="r")
+            check(arr.shape == (chunk_rows, cfg.d_model) and arr.dtype == np.float16, f"{key} chunk {i}: {arr.shape}")
+            check(bool(np.isfinite(arr).all()), f"{key} chunk {i} is not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = list(harvest_to_device(params, cfg, tokens, device="cuda", **kw))
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    equal = 0
+    for i, chunk in enumerate(chunks):
+        for key, folder in folders.items():
+            disk = torch.from_numpy(np.load(folder / f"{i}.npy"))
+            check(torch.equal(chunk[key].cpu().view(torch.int16), disk.view(torch.int16)),
+                  f"harvest_to_device chunk {i} of {key} differs from the disk store")
+            equal += 1
+    del chunks, chunk
+    (bf,) = harvest_to_device(params, cfg, tokens, device="cuda", compute_dtype="bfloat16",
+                              **{**kw, "n_chunks": 1})
+    bf16_rel = {}
+    for key, folder in folders.items():
+        a = torch.from_numpy(np.load(folder / "0.npy")).cuda().float()
+        bf16_rel[key[1]] = float((a - bf[key].float()).abs().max() / a.abs().max())
+        check(bf16_rel[key[1]] < 0.05, f"bf16 harvest of {key}: {bf16_rel[key[1]]} of the f32 one's max")
+    del bf
+    emit("harvest", layer=HARVEST["layer"], locs=list(HARVEST["locs"]), tokens=list(tokens.shape),
+         batch=HARVEST["batch"], chunk_rows=chunk_rows, chunks=HARVEST["chunks"], compute_dtype="float32",
+         wall_s=wall, tokens_per_s=rows / wall, span_seconds=spans,
+         host_share=spans["chunk_commit"] / wall, peak_allocated_bytes=peak,
+         to_device_s=device_s, to_device_tokens_per_s=rows / device_s, to_device_chunks_bit_equal=equal,
+         bf16_max_rel_diff=bf16_rel)
+    return folders
+
+
+def phase_harvest_resume(torch, root: Path, control: dict):
+    """The `harvest` phase's harvest in a process of its own, SIGKILLed in
+    chunk 1's pair gap (``SC_FAULT=kill:chunk_pair:chunk=1``), then resumed
+    with ``resume=True`` in another: every chunk's .npy bytes and every
+    manifest's file digests equal the uninterrupted harvest's."""
+    from sparse_coding__tpu_torch.data import integrity
+    from sparse_coding__tpu_torch.data.activations import harvest_folder_name, read_harvest_cursor
+
+    def worker(*extra, fault=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+        if fault:
+            env["SC_FAULT"] = fault
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--harvest-worker", str(root), "resumed",
+                               *extra], env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t
+
+    killed, killed_s = worker(fault="kill:chunk_pair:chunk=1")
+    check(killed.returncode == -9, f"killed harvest exited {killed.returncode}: {killed.stderr[-3000:]}")
+    folders = {key: harvest_folder_name(root / "resumed", *key) for key in control}
+    first = next(iter(folders.values()))
+    check(integrity.read_chunk_manifest(first, 1) is None and read_harvest_cursor(first)["chunk"] == 1,
+          "the killed harvest's chunk 1 is committed, or its cursor is not at 1")
+    resumed, resumed_s = worker("--resume")
+    check(resumed.returncode == 0, f"resumed harvest exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    compared = 0
+    for key, folder in folders.items():
+        for i in range(HARVEST["chunks"]):
+            check((folder / f"{i}.npy").read_bytes() == (control[key] / f"{i}.npy").read_bytes(),
+                  f"resumed chunk {i} of {key} differs from the uninterrupted harvest's")
+            got, want = integrity.read_chunk_manifest(folder, i), integrity.read_chunk_manifest(control[key], i)
+            check(got["files"] == want["files"], f"chunk {i} of {key}: manifest digests differ")
+            compared += 1
+    emit("harvest_resume", fault="kill:chunk_pair:chunk=1", killed_exit=killed.returncode, killed_s=killed_s,
+         resumed_s=resumed_s, chunks_bit_equal=compared, cursor=read_harvest_cursor(first)["chunk"])
+
+
+def phase_harvest_sweep(torch, root: Path, cfg, params, lang, store: Path):
+    """`run_single_layer` over the harvested residual store, with no
+    ``activation_width`` (`get_activation_size` gives 512): 16 tied members
+    at ratio 8 in bf16, 3 x 32 steps. Counts set to 0 just before and read
+    just after: K1 and K2 96 times each and nothing else. The export loads;
+    on held-out harvested rows every member coding at least one feature a
+    row (L0 >= 1) has FVU below 1, a member under one (the top of the l1
+    grid, so early in training) has the zero reconstruction's FVU within
+    1e-3, and the lowest-l1 member and at least half the grid are below 1.
+    Returns the launches."""
+    from sparse_coding__tpu_torch.data.activations import capture_fn
+    from sparse_coding__tpu_torch.lm import make_tensor_name
+    from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.train import experiments as ex
+
+    layer = HARVEST["layer"]
+    held = []
+
+    def builder(c, **kw):  # the default builder, its ensembles (and graph pools) kept for the read below
+        res = ex.dense_l1_range_experiment(c, **kw)
+        held.extend(res[0])
+        return res
+
+    name = make_tensor_name(layer, "residual")
+    heldout = lang.sample(HARVEST["heldout_rows"], HARVEST["seq"], seed=HARVEST["heldout_seed"])
+    sample = capture_fn(cfg, [name], layer + 1)(params, torch.from_numpy(heldout).cuda())[name]
+    sample = sample.reshape(-1, cfg.d_model).float()
+    out = root / "sweep_out"
+    steps = HARVEST["chunks"] * harvest_chunk_rows(cfg) // HARVEST["sweep_batch"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    lds = ex.run_single_layer(layer=layer, layer_loc="residual", ratio=HARVEST["ratio"], dtype="bfloat16",
+                              dataset_folder=str(store), n_chunks=HARVEST["chunks"], n_epochs=1,
+                              batch_size=HARVEST["sweep_batch"], output_folder=str(out), experiment=builder,
+                              device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() - before
+    torch.cuda.empty_cache()
+    pools = graph_pool_bytes(torch)
+    captures, capture_s = sum(e.captures for e, _, _ in held), sum(e.capture_seconds for e, _, _ in held)
+    del held[:]
+    want = dict.fromkeys(launches, 0)
+    want.update(tied_sae_fwd=steps, tied_sae_bwd_adam=steps)
+    check(launches == want, f"harvest sweep launches {launches}, want {want}")
+    members = len(lds)
+    check(members == 16 and {hp["dict_size"] for _, hp in lds} == {HARVEST["ratio"] * cfg.d_model},
+          f"harvest sweep exported {members} dicts {[hp for _, hp in lds][:2]}")
+    events = read_events(out / "events.jsonl")
+    check([e["status"] for e in events if e["event"] == "run_end"] == ["ok"], "harvest sweep run_end")
+    spans = {c: span_seconds(events, c) for c in ("step", "checkpoint", "data_wait")}
+    loaded = ckpt_lib.load_learned_dicts(out / f"_{HARVEST['chunks'] - 1}" / "learned_dicts.pkl", verify=True)
+    check(len(loaded) == members, f"{len(loaded)} dicts reloaded")
+    metrics = evaluate_dicts([ld for ld, _ in loaded], sample)
+    fvu, l0 = [m["fvu"] for m in metrics], [m["l0"] for m in metrics]
+    l1 = [hp["l1_alpha"] for _, hp in loaded]
+    # the top of the l1 grid nearly stops coding in so short a run (under one
+    # feature a row): it reconstructs ~0, and its FVU is then E[x²] / Var(x),
+    # which exceeds 1 by the activations' mean. Every member coding at least
+    # a feature a row is below 1, as are the lowest-l1 member and half the grid
+    zero_fvu = float(torch.mean(sample ** 2) / torch.mean((sample - sample.mean(dim=0)) ** 2))
+    quiet = [i for i, v in enumerate(l0) if v < 1.0]
+    check(all(math.isfinite(v) for v in fvu) and all(fvu[i] < 1.0 for i in range(members) if i not in quiet),
+          f"held-out FVU {fvu} (L0 {l0})")
+    check(all(abs(fvu[i] - zero_fvu) <= 1e-3 * zero_fvu for i in quiet),
+          f"held-out FVU {fvu} of members under one feature a row, the zero reconstruction's {zero_fvu}")
+    check(l1.index(min(l1)) not in quiet and len(quiet) <= members // 2, f"members under one feature a row {quiet}")
+    activations = steps * HARVEST["sweep_batch"] * members
+    emit("harvest_sweep", source="BASELINE configs 1/2: Pythia-70M layer-2 residual, 8x dictionary",
+         builder="dense_l1_range_experiment", members=members, n_dict=HARVEST["ratio"] * cfg.d_model,
+         width=cfg.d_model, batch=HARVEST["sweep_batch"], compute_dtype="bfloat16", steps=steps,
+         cut="depth: 3 chunks of 65,536 rows, 1 epoch (run_single_layer: 20 chunks, 8 epochs)",
+         launches={k: v for k, v in launches.items() if v}, wall_s=wall, activations_per_s=activations / wall,
+         step_span_activations_per_s=activations / spans["step"], span_seconds=spans,
+         peak_allocated_bytes=peak, graph_pool_bytes=None if pools is None else sum(pools.values()),
+         captures=captures, capture_s=capture_s, heldout_rows=int(sample.shape[0]), l1=l1, fvu=fvu, l0=l0,
+         members_fvu_below_1=sum(v < 1 for v in fvu), members_under_one_feature=quiet, zero_reconstruction_fvu=zero_fvu)
+    del lds, loaded
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_harvest_kernels(torch, tk):
+    """K1 and K2 at the harvest sweep's shape (`HARVEST_TIED`), against
+    their plain versions, timed: kernels-line rows ``1h`` / ``3h``."""
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    return tied_kernel_rows(torch, tk, g, HARVEST_TIED)
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2651,8 @@ def main() -> int:
         return sweep_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--bls-worker"]:
         return bls_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--harvest-worker"]:
+        return harvest_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -2477,6 +2785,25 @@ def main() -> int:
         sig = "FunctionalTiedSAE" if row["name"] in ("tied_sae_fwd", "tied_sae_bwd_adam") else "TopKEncoderApprox"
         row.update(path="experiments_synthetic", launches=launches_at[sig][row["name"]])
     rows += exp_rows
+
+    # the subject LM and the activation harvest (ROADMAP A5) at Pythia-70M's
+    # width: pretrain, harvest (disk and device, bf16), a killed and resumed
+    # harvest, then run_single_layer's sweep on the harvested store
+    torch.cuda.empty_cache()
+    harvest_rows = phase_harvest_kernels(torch, tk)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_harvest_") as harvest_root:
+        harvest_root = Path(harvest_root)
+        lm_cfg, lm_params, lang = phase_subject_pretrain(torch, harvest_root)
+        torch.cuda.empty_cache()
+        folders = phase_harvest(torch, harvest_root, lm_cfg, lm_params, lang)
+        phase_harvest_resume(torch, harvest_root, folders)
+        harvest_launches = phase_harvest_sweep(torch, harvest_root, lm_cfg, lm_params, lang,
+                                               folders[(HARVEST["layer"], "residual")])
+        del lm_params
+    for row in harvest_rows:
+        row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])
+    rows += harvest_rows
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

@@ -36,6 +36,7 @@ from sparse_coding__tpu_torch.data.integrity import (  # noqa: F401  (the store'
     scale_path,
 )
 from sparse_coding__tpu_torch.utils.device import resolve_device
+from sparse_coding__tpu_torch.utils.faults import fault_point
 from sparse_coding__tpu_torch.utils.manifest import sha256_file
 
 
@@ -89,12 +90,19 @@ def _save_npy_staged(final: Path, array: np.ndarray) -> Path:
     return tmp
 
 
-def save_chunk(folder, i: int, array, dtype=np.float16) -> Path:
+def save_chunk(folder, i: int, array, dtype=np.float16, provenance=None) -> Path:
     """Write chunk `i`, committed atomically: the data (and, for a quantized
-    tier, its scale file) land through dot-prefixed temps, then the manifest.
-    ``dtype``: ``np.float16`` (default), ``np.int8`` or ``"int4"``. Over a
-    quantized chunk, an fp16 chunk's bytes land before the stale scale file
-    is removed."""
+    tier, its scale file) land through dot-prefixed temps, then the manifest
+    ``sc_chunk.<i>.json``, the one commit point, which also carries
+    ``provenance`` (the harvest's config fingerprint, layer, location and
+    batch range) as the JAX package writes it. ``dtype``: ``np.float16``
+    (default), ``np.int8`` or ``"int4"``. Over a quantized chunk, an fp16
+    chunk's bytes land before the stale scale file is removed.
+
+    Fault sites (`utils.faults`, the JAX package's): ``chunk_write`` (data
+    staged, nothing landed), ``chunk_pair`` (the chunk's bytes landed, its
+    scale file and manifest not yet: a kill here leaves a torn pair that
+    verification catches) and ``chunk_committed`` (after the manifest)."""
     folder = Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
     path, sp = chunk_path(folder, i), scale_path(folder, i)
@@ -112,7 +120,9 @@ def save_chunk(folder, i: int, array, dtype=np.float16) -> Path:
         raise ValueError(f"save_chunk(dtype={dtype}): the tiers are float16, int8 and 'int4'")
     tmp = _save_npy_staged(path, stored)
     stmp = _save_npy_staged(sp, scales) if scales is not None else None
+    fault_point("chunk_write", chunk=int(i))
     os.replace(tmp, path)
+    fault_point("chunk_pair", chunk=int(i))
     files = {path.name: path}
     if stmp is not None:
         os.replace(stmp, sp)
@@ -128,13 +138,10 @@ def save_chunk(folder, i: int, array, dtype=np.float16) -> Path:
         "store_dtype": tier,
         "files": {name: {"bytes": p.stat().st_size, "sha256": sha256_file(p)} for name, p in files.items()},
     }
-    mpath = chunk_manifest_path(folder, i)
-    mtmp = mpath.with_name(f".{mpath.name}.tmp{os.getpid()}")
-    with open(mtmp, "w") as f:
-        json.dump(manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(mtmp, mpath)
+    if provenance:
+        manifest["provenance"] = provenance
+    integrity.write_json_atomic(chunk_manifest_path(folder, i), manifest)
+    fault_point("chunk_committed", chunk=int(i), path=str(path))
     return path
 
 
@@ -160,6 +167,18 @@ class ChunkStore:
         place in the epoch order and surfaces as a budgeted skip."""
         idx = self.indices() + integrity.quarantined_indices(self.folder)
         return max(idx) + 1 if idx else 0
+
+    def n_datapoints(self) -> int:
+        """Total rows across chunks: each committed chunk's manifest
+        ``rows``, a legacy chunk's .npy header; no chunk data is read."""
+        total = 0
+        for i in self.indices():
+            manifest = integrity.read_chunk_manifest(self.folder, i)
+            if manifest is not None and isinstance(manifest.get("rows"), int):
+                total += manifest["rows"]
+            else:
+                total += integrity.npy_header(chunk_path(self.folder, i))[0][0]
+        return total
 
     def _corrupt(self, i: int, reason: str):
         integrity.quarantine_chunk(self.folder, i, reason)

@@ -1,8 +1,9 @@
-"""Carry an ensemble's state across from the JAX package.
+"""Carry state across from the JAX package.
 
 `state_from_jax_numpy` takes the JAX `Ensemble`'s state as numpy arrays
 (``jax.device_get`` is the caller's: this module imports no JAX) and returns
-the port's `EnsembleState`, so both packages compute from the same point.
+the port's `EnsembleState`; `lm_params_from_jax` does the same for a subject
+LM's param tree. Both packages then compute from the same point.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from sparse_coding__tpu_torch.ensemble import EnsembleState
+from sparse_coding__tpu_torch.lm.model import tree_map
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment
 
@@ -69,3 +71,13 @@ def state_from_jax_numpy(
             nu={k: _moment(v, device) for k, v in opt_state["nu"].items()},
         )
     return EnsembleState(params=p, buffers=b, opt_state=adam, step=int(step))
+
+
+def lm_params_from_jax(params_np, device=None):
+    """The JAX subject LM's param tree (`lm.model.init_params` /
+    `lm.convert.params_from_hf` layout: dicts and a list of blocks), its
+    leaves as numpy arrays, as the port's tree of tensors on ``device``
+    (None = cuda). The layouts are the same, so this is a plain copy; bf16
+    leaves keep their bits."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, device), params_np)

@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-__all__ = ["RunTelemetry", "counter_inc_active", "event_active", "read_events", "run_fingerprint"]
+__all__ = ["RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "read_events",
+           "run_fingerprint"]
 
 # live instances receiving handle-less signals (removed on close)
 _ACTIVE: List["RunTelemetry"] = []
@@ -37,6 +38,13 @@ def counter_inc_active(name: str, n: int = 1) -> None:
     """Bump a counter on every live RunTelemetry (no live one: a no-op)."""
     for t in list(_ACTIVE):
         t.counter_inc(name, n)
+
+
+def counter_add_float_active(name: str, v: float) -> None:
+    """Float-add a counter on every live RunTelemetry (handle-less span
+    seconds); no live one: a no-op."""
+    for t in list(_ACTIVE):
+        t.counter_add_float(name, v)
 
 
 def event_active(etype: str, **fields) -> None:

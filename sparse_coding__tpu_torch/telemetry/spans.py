@@ -6,7 +6,12 @@ format. One ``span`` event is written when a span closes::
     {"event": "span", "category": "data_wait", "name": "chunk_next",
      "ts_start": <wall clock at begin>, "seconds": <monotonic duration>, ...}
 
-``telemetry=None`` makes a span a no-op. The sweep opens ``data_wait`` (dataset init, each
+``telemetry=None`` makes a span a no-op. ``telemetry=ACTIVE`` (the explicit
+sentinel) broadcasts the span to every live `RunTelemetry`: the hook for
+layers that hold no handle, such as the activation harvest (its
+``harvest_forward`` ``step`` spans and ``chunk_commit`` ``checkpoint``
+spans land in whatever run is live, e.g. the sweep's during
+`init_model_dataset`). The sweep opens ``data_wait`` (dataset init, each
 chunk's wait), ``step`` (each chunk's training), ``checkpoint`` (exports,
 saves, restores), ``preempt_drain`` and ``degraded_skip`` spans. A ``step``
 span closes on the host clock, after the chunk's work is enqueued, not when
@@ -18,7 +23,20 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional
 
-__all__ = ["BADPUT_CATEGORIES", "GOODPUT_CATEGORIES", "Span", "span"]
+from sparse_coding__tpu_torch.telemetry import events as _events
+
+__all__ = ["ACTIVE", "BADPUT_CATEGORIES", "GOODPUT_CATEGORIES", "Span", "span"]
+
+
+class _ActiveSentinel:
+    """Broadcast to every live RunTelemetry. Distinct from None (telemetry
+    off, the span is a no-op), so a handle-less layer opts in explicitly."""
+
+    def __repr__(self) -> str:
+        return "<spans.ACTIVE>"
+
+
+ACTIVE = _ActiveSentinel()
 
 GOODPUT_CATEGORIES = ("step", "encode")
 BADPUT_CATEGORIES = (
@@ -55,10 +73,15 @@ class Span:
         fields = {**self.fields, **extra}
         if self.name is not None:
             fields.setdefault("name", self.name)
+        payload = dict(category=self.category, ts_start=round(self._t0_wall, 6), seconds=round(seconds, 6), **fields)
+        if self.telemetry is ACTIVE:
+            _events.counter_inc_active(f"span.{self.category}.count")
+            _events.counter_add_float_active(f"span.{self.category}.seconds", seconds)
+            _events.event_active("span", **payload)
+            return None
         self.telemetry.counter_inc(f"span.{self.category}.count")
         self.telemetry.counter_add_float(f"span.{self.category}.seconds", seconds)
-        return self.telemetry.event("span", category=self.category, ts_start=round(self._t0_wall, 6),
-                                    seconds=round(seconds, 6), **fields)
+        return self.telemetry.event("span", **payload)
 
     def __enter__(self) -> "Span":
         return self.begin()

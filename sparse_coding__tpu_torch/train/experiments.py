@@ -19,9 +19,7 @@ The run drivers (`run_sweep_synthetic`, `run_single_layer`, ...) take
 ``device`` and hand it to the builder and to `train.sweep.sweep`; their
 ``overrides`` set any config field, ``dtype`` included. Not ported yet: the
 builders of signatures that wait for ROADMAP A8 (LISTA, thresholding,
-masked, positive: they raise), a mesh (ROADMAP A6: raises), and reading a
-subject model's activation width (ROADMAP A5: `run_single_layer` needs
-``activation_width``).
+masked, positive: they raise) and a mesh (ROADMAP A6: raises).
 """
 
 from __future__ import annotations
@@ -33,7 +31,9 @@ from itertools import product
 import numpy as np
 import torch
 
+from sparse_coding__tpu_torch.data.activations import MAX_SENTENCE_LEN
 from sparse_coding__tpu_torch.ensemble import Ensemble
+from sparse_coding__tpu_torch.lm.model import get_activation_size
 from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
 from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
 from sparse_coding__tpu_torch.train.sweep import sweep
@@ -237,17 +237,16 @@ def run_sweep_synthetic(experiment=synthetic_linear_range, device=None, **overri
 
 def run_single_layer(layer: int = 2, layer_loc: str = "residual", tied: bool = True, ratio: float = 4.0,
                      experiment=None, device=None, **overrides):
-    """A one-layer Pythia-70M sweep over the chunk store in the run's
-    ``dataset_folder`` (default builder `dense_l1_range_experiment`).
-    Reading the width from the subject model is not ported yet (ROADMAP
-    A5): pass ``activation_width``."""
+    """A one-layer Pythia-70M sweep (default builder
+    `dense_l1_range_experiment`) over the chunk store in the run's
+    ``dataset_folder``, harvested there first when it is empty
+    (`train.sweep.init_model_dataset`). The width is the subject model's at
+    ``layer_loc`` (`lm.model.get_activation_size`, ``"pattern"`` rows sized
+    at `MAX_SENTENCE_LEN` tokens); ``activation_width`` overrides it."""
     model_name = overrides.pop("model_name", "EleutherAI/pythia-70m-deduped")
     width = overrides.pop("activation_width", None)
     if width is None:
-        raise NotImplementedError(
-            f"the activation width of {model_name}'s {layer_loc} needs the subject LMs "
-            "(lm.model.get_activation_size), not ported yet — ROADMAP A5; pass activation_width="
-        )
+        width = get_activation_size(model_name, layer_loc, seq_len=MAX_SENTENCE_LEN)
     cfg = EnsembleArgs(
         model_name=model_name,
         activation_width=width,

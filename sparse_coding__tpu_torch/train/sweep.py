@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from sparse_coding__tpu_torch.data import integrity as data_integrity
+from sparse_coding__tpu_torch.data.activations import setup_data
 from sparse_coding__tpu_torch.data.chunks import ChunkStore, generate_synthetic_chunks
 from sparse_coding__tpu_torch.data.synthetic import SparseMixDataset
 from sparse_coding__tpu_torch.ensemble import Ensemble
@@ -178,18 +179,24 @@ def init_synthetic_dataset(cfg, device=None) -> ChunkStore:
     return store
 
 
-def init_model_dataset(cfg) -> ChunkStore:
-    """Load the LM-activation store in ``cfg.dataset_folder``. Harvesting one
-    from a subject model is not ported yet (ROADMAP A5): an empty folder
-    raises."""
+def init_model_dataset(cfg, device=None) -> ChunkStore:
+    """Load the LM-activation store in ``cfg.dataset_folder``, or harvest it
+    there first: `data.activations.setup_data` over ``cfg.model_name``'s
+    forward on ``cfg.dataset_name`` (the local HF cache or a checkpoint
+    folder, else the network), ``cfg.layer`` / ``cfg.layer_loc``,
+    ``cfg.n_chunks`` chunks of ``cfg.chunk_size_gb``, with the config's
+    ``center_dataset``, ``harvest_compute_dtype`` and
+    ``harvest_store_dtype``, on ``device`` (None = cuda)."""
     store = ChunkStore(cfg.dataset_folder)
     if len(store) > 0:
         print(f"Activations in {cfg.dataset_folder} already exist, loading them")
         return store
-    raise NotImplementedError(
-        f"no chunks in {cfg.dataset_folder}, and harvesting LM activations is not ported yet — ROADMAP A5; "
-        "point cfg.dataset_folder at a chunk store or set cfg.use_synthetic_dataset=True"
-    )
+    print(f"Activations in {cfg.dataset_folder} do not exist, creating them")
+    setup_data(model_name=cfg.model_name, dataset_name=cfg.dataset_name, dataset_folder=cfg.dataset_folder,
+               layer=cfg.layer, layer_loc=cfg.layer_loc, n_chunks=cfg.n_chunks, chunk_size_gb=cfg.chunk_size_gb,
+               center_dataset=cfg.center_dataset, compute_dtype=cfg.harvest_compute_dtype,
+               store_dtype=cfg.harvest_store_dtype, device=device)
+    return store
 
 
 def chunk_seed(seed: int, position: int, ensemble_index: int) -> int:
@@ -232,7 +239,7 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
                                       run_dir=cfg.output_folder)
         with span(telemetry, "data_wait", name="dataset_init"):
             store = (init_synthetic_dataset(cfg, device) if getattr(cfg, "use_synthetic_dataset", False)
-                     else init_model_dataset(cfg))
+                     else init_model_dataset(cfg, device))
         print("Initialising ensembles...", end=" ")
         ensembles, ensemble_hyperparams, buffer_hyperparams, _ranges = ensemble_init_func(cfg)
         print("Ensembles initialised.")

@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from sparse_coding__tpu_torch.lm.model import HOOK_TEMPLATES
+
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -27,20 +29,13 @@ DTYPES = {
     "float64": torch.float64,
 }
 
-# the JAX package's hook shorthands (`lm/model.py::HOOK_TEMPLATES`), which
-# `layer_loc` is checked against until the LM harvest is ported (ROADMAP A5)
-_HOOK_TEMPLATES = (
-    "residual", "mlp", "mlpout", "attn", "mlp_pre", "attn_out", "attn_q", "attn_k", "attn_v", "pattern",
-    "resid_mid",
-)
-
 
 def _layer_loc_ok(layer_loc) -> bool:
     """`make_tensor_name`'s surface: a shorthand, a ``{layer}`` template, or a
     fully-qualified hook name."""
     if not isinstance(layer_loc, str):
         return False
-    if layer_loc in _HOOK_TEMPLATES:
+    if layer_loc in HOOK_TEMPLATES:
         return True
     if "{layer}" in layer_loc:
         try:

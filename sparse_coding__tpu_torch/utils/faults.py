@@ -12,14 +12,18 @@ the signal: the preemption path, exit 75 at the next boundary),
 ``io_error`` (raise OSError; attempt 0 only unless ``persist=1``), ``exc``
 (raise `InjectedFault`), ``torn_checkpoint`` (InjectedFault between the
 checkpoint's data write and its commit rename), ``corrupt_checkpoint``
-(flip a byte of the just-committed checkpoint's largest file), and the
-chunk-write actions ``torn_chunk_pair`` and ``corrupt_chunk``, which parse
-but find no site in the port.
+(flip a byte of the just-committed checkpoint's largest file),
+``torn_chunk_pair`` (InjectedFault at ``chunk_pair``: the chunk write dies
+with its pair torn) and ``corrupt_chunk`` (at ``chunk_committed``: flip the
+last byte of the just-committed chunk file, bit rot a digest catches).
 
 Sites the port plants: ``chunk_loop`` (top of each sweep chunk: chunk),
 ``checkpoint_commit`` (data written, not committed: path),
 ``checkpoint_committed`` (after the commit: path), ``export`` (top of
-`save_learned_dicts`: path).
+`save_learned_dicts`: path), and in `data.chunks.save_chunk`
+``chunk_write`` (data staged, nothing landed: chunk), ``chunk_pair``
+(between the pair's file operations: chunk) and ``chunk_committed`` (after
+the chunk's manifest commit: chunk, path).
 
 Selectors: ``chunk=N`` / ``step=N`` / ``epoch=N`` / ``tick=N`` /
 ``replica=ID`` match the context; ``every=N`` fires on every Nth matching
@@ -138,7 +142,13 @@ def _fire(spec: _Spec, site: str, ctx: Dict[str, Any]) -> None:
                 data = bytearray(files[0].read_bytes())
                 data[0] ^= 0xFF
                 files[0].write_bytes(bytes(data))
-    else:  # exc / torn_checkpoint (the chunk-write actions' sites are not planted in the port)
+    elif spec.action == "corrupt_chunk":
+        if "path" in ctx:  # the last byte: array data, not the .npy header
+            data = bytearray(Path(ctx["path"]).read_bytes())
+            if data:
+                data[-1] ^= 0xFF
+                Path(ctx["path"]).write_bytes(bytes(data))
+    else:  # exc / torn_checkpoint / torn_chunk_pair
         raise InjectedFault(desc)
 
 

@@ -45,6 +45,7 @@ module, as the JAX package does).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
@@ -296,6 +297,85 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int,
         return (init_value - end_value) * frac.to(torch.float32) + end_value
 
     return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Callable[[torch.Tensor], torch.Tensor]:
+    """optax's ``cosine_decay_schedule``: ``init_value · ((1 − alpha) ·
+    (½ (1 + cos(π t / T)))^exponent + alpha)`` with ``t = min(count, T)``,
+    in f32 on the count's device."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got {decay_steps=}.")
+    decay = float(decay_steps)
+
+    def schedule(count):
+        c = torch.clamp(torch.as_tensor(count).to(torch.float32), max=decay)
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay))
+        return init_value * ((1 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0, exponent: float = 1.0):
+    """optax's ``warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` at ``decay_steps`` (the count includes the warm-up)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warm = linear_schedule(init_value, peak_value, warmup_steps)
+    cool = cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha, exponent)
+
+    def schedule(count):
+        count = torch.as_tensor(count)
+        return torch.where(count < warmup_steps, warm(count), cool(count - warmup_steps))
+
+    return schedule
+
+
+@dataclasses.dataclass
+class AdamWState:
+    """One model's AdamW state: ``count`` a 0-d int32, moments by leaf name."""
+
+    count: torch.Tensor
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+class AdamW:
+    """``optax.adamw`` over a dict of one model's leaves (no member axis):
+    ``scale_by_adam`` in f32, then ``add_decayed_weights`` (``u + wd · p``
+    on every leaf), then ``scale_by_learning_rate``; ``eps`` outside the
+    square root. A schedule is read at the count before the update, so
+    `warmup_cosine_decay_schedule` from 0 makes the first update zero."""
+
+    def __init__(self, learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
+        self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
+        self.b1, self.b2, self.eps, self.eps_root = float(b1), float(b2), float(eps), float(eps_root)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+        dev = next(iter(params.values())).device
+        return AdamWState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                          mu={k: torch.zeros_like(p) for k, p in params.items()},
+                          nu={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(self, grads, state: AdamWState, params):
+        count_inc = state.count + 1
+        bc1, bc2 = bias_corrections(count_inc, self.b1, self.b2)
+        updates, mu_out, nu_out = {}, {}, {}
+        for k, g in grads.items():
+            mu = f32(1 - self.b1, g) * g + decayed_moment(self.b1, state.mu[k])
+            nu = f32(1 - self.b2, g) * (g * g) + f32(self.b2, g) * state.nu[k]
+            u = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root) + self.eps)
+            u = u + f32(self.weight_decay, g) * params[k]
+            updates[k] = scale_by_learning_rate(self.learning_rate, state.count, u)
+            mu_out[k], nu_out[k] = mu, nu
+        return updates, AdamWState(count=count_inc, mu=mu_out, nu=nu_out)
+
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4) -> AdamW:
+    """``optax.adamw`` (f32 moments) over one model's leaves."""
+    return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay)
 
 
 @dataclasses.dataclass

@@ -102,19 +102,15 @@ def test_builders_compute_in_the_configs_dtype(dtype, want):
             2 if name == "tied_vs_not_experiment" else 4)
 
 
-@pytest.mark.parametrize("call", ["a8_" + n for n in A8] + ["mesh", "run_single_layer"])
+@pytest.mark.parametrize("call", ["a8_" + n for n in A8] + ["mesh"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, tmp_path):
     cfg = EnsembleArgs(activation_width=16, batch_size=32)
     if call.startswith("a8_"):
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             getattr(texp, call[3:])(cfg, device="cpu")
-    elif call == "mesh":
+    else:
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             texp.zero_l1_baseline(cfg, mesh=object(), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            texp.run_single_layer(device="cpu", output_folder=str(tmp_path / "o"),
-                                  dataset_folder=str(tmp_path / "d"))
 
 
 def test_run_single_layer_trains_an_existing_store_at_a_given_width(tmp_path):

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,9 +16,15 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch",
     "sparse_coding__tpu_torch.ensemble",
     "sparse_coding__tpu_torch.interop",
+    "sparse_coding__tpu_torch.data.activations",
     "sparse_coding__tpu_torch.data.chunks",
     "sparse_coding__tpu_torch.data.integrity",
     "sparse_coding__tpu_torch.data.synthetic",
+    "sparse_coding__tpu_torch.data.synthetic_text",
+    "sparse_coding__tpu_torch.lm",
+    "sparse_coding__tpu_torch.lm.convert",
+    "sparse_coding__tpu_torch.lm.model",
+    "sparse_coding__tpu_torch.lm.pretrain",
     "sparse_coding__tpu_torch.metrics.standard",
     "sparse_coding__tpu_torch.models.fista",
     "sparse_coding__tpu_torch.models.learned_dict",
@@ -38,6 +45,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.telemetry.spans",
     "sparse_coding__tpu_torch.train.basic_l1_sweep",
     "sparse_coding__tpu_torch.train.checkpoint",
+    "sparse_coding__tpu_torch.train.experiments",
     "sparse_coding__tpu_torch.train.loop",
     "sparse_coding__tpu_torch.train.preemption",
     "sparse_coding__tpu_torch.train.sweep",
@@ -70,7 +78,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
 def test_sources_never_name_jax_or_the_jax_package():
     """Catches lazy imports the subprocess check cannot see."""
     pattern = re.compile(r"^\s*(import jax|from jax)|sparse_coding__tpu\.", re.M)
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_moments.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_moments.py",
+                                          REPO / "tests" / "_torch_harvest_worker.py"]
     assert len(files) > 10
     offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []
@@ -80,9 +89,23 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
     from sparse_coding__tpu_torch.data.chunks import ChunkStore
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+    from sparse_coding__tpu_torch.data.activations import harvest_to_device, make_activation_dataset
+    from sparse_coding__tpu_torch.lm import LMConfig, init_params
+    from sparse_coding__tpu_torch.lm.pretrain import pretrain_lm
     from sparse_coding__tpu_torch.train.basic_l1_sweep import basic_l1_sweep
 
+    lm_cfg = LMConfig(arch="neox", n_layers=1, d_model=16, n_heads=2, d_mlp=32, vocab_size=64, n_ctx=32)
+    lm_params = init_params(0, lm_cfg, device="cpu")
+    tokens = np.zeros((8, 16), np.int32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(0, lm_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain_lm(lm_params, lm_cfg, tokens, n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_activation_dataset(lm_params, lm_cfg, tokens, tmp_path / "acts", [0], ["residual"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(harvest_to_device(lm_params, lm_cfg, tokens, [0], ["residual"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], activation_size=32, n_dict_components=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -33,6 +33,12 @@ product sums in another order, which the iterations carry), support flips
 under 1e-3, ‖res‖² within 1e-5 relative, and with tol > 0 the same
 iteration count for each member; at widths that are not multiples of 4 too;
 at the FISTA path's shapes, one launch a solve, the same bits twice.
+K1 and K2 at the harvest sweep's shape (`run_single_layer`'s
+`dense_l1_range_experiment` on Pythia-70M's residual, ratio 8: M 16, B 2048,
+N 4096, D 512, f32 moments) to the same tolerances. The activation harvest
+on the card at Pythia-70M's widths (3 of its 6 layers): `harvest_to_device`
+yields the bits `make_activation_dataset` writes, and both stay within
+1e-3 of the largest magnitude of the same harvest on the CPU.
 The sweep driver on the card: an Adam ensemble's steps run K1 + K2, an
 ensemble with a learning-rate schedule K1 + K3, and nothing else runs.
 Launches are the wrappers' `LAUNCHES`, counted on the card at every
@@ -854,6 +860,40 @@ def test_fista_one_launch_solve_matches_plain_at_the_path_shapes(cuda, shape, to
     assert it_k.tolist() == it_p.tolist() == it_2.tolist(), (it_k, it_p, it_2)
     assert torch.equal(a_k, a_2)
     _hold_fista(a_k, a_p, x, d)
+
+
+# run_single_layer's dense_l1_range_experiment over the harvested Pythia-70M
+# residual at ratio 8 (chip_smoke's harvest_sweep)
+HARVEST_SWEEP = (16, 2048, 4096, 512)
+
+
+def test_k1_and_k2_at_the_harvest_sweeps_shape_match_plain(cuda):
+    test_fwd_kernel_matches_plain(cuda, HARVEST_SWEEP)
+    test_bwd_adam_kernel_matches_plain(cuda, HARVEST_SWEEP, torch.float32)
+
+
+def test_harvest_to_device_is_the_disk_store_bit_for_bit_on_the_card(cuda, tmp_path):
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data import activations as tact
+    from sparse_coding__tpu_torch.lm import config_for, init_params, model as lm_model
+
+    cfg = config_for("pythia-70m")
+    params = init_params(0, cfg, device=cuda)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (256, 256)).astype(np.int32)
+    kw = dict(layers=[2], layer_locs=["residual", "mlpout"], batch_size=64, chunk_size_gb=2.0 ** -5, n_chunks=2)
+    folders = tact.make_activation_dataset(params, cfg, tokens, tmp_path / "disk", device=cuda, **kw)
+    chunks = list(tact.harvest_to_device(params, cfg, tokens, device=cuda, **kw))
+    assert len(chunks) == 2 and chunks[0][(2, "residual")].shape == (32768, 512)
+    for key, folder in folders.items():
+        for i, chunk in enumerate(chunks):
+            disk = torch.from_numpy(np.load(folder / f"{i}.npy"))
+            assert torch.equal(chunk[key].cpu().view(torch.int16), disk.view(torch.int16)), (key, i)
+    host = lm_model.tree_map(lambda t: t.cpu(), params)
+    (ref,) = tact.harvest_to_device(host, cfg, tokens[:128], device="cpu", **{**kw, "n_chunks": 1})
+    for key in ref:
+        a, b = ref[key].float(), chunks[0][key].cpu().float()
+        assert float((a - b).abs().max() / a.abs().max()) < 1e-3, key
 
 
 def test_sweep_on_the_card_routes_fused_adam_to_k2_and_a_schedule_to_k3(cuda, tmp_path, monkeypatch):
