@@ -64,7 +64,16 @@ process of its own (``chip_smoke.py --harvest-worker``) and resumed in
 another, bit for bit; then `run_single_layer` (16 tied members, ratio 8,
 bf16) on the harvested residual store: K1 and K2 96 times each, nothing
 else, every member's FVU on held-out rows below 1; K1/K2 at that shape are
-the kernels line's ``harvest_sweep`` rows.
+the kernels line's ``harvest_sweep`` rows. Then serving (`serve/`) of that
+sweep's export, 16 dicts of 4096 x 512: the encode engine native and
+int8-resident, its dispatch menu (buckets 8..1024, dense and top-k 32)
+captured as CUDA graphs, every lane equal to its stack of one and every
+replay to its eager dispatch at every bucket, no capture under 200 random
+requests (`serve_encode`, no hand-written kernel launched); the HTTP server
+with the pretrained subject on ``/features`` (held to harvest-then-encode)
+under 16 closed-loop clients (`serve_http`); and the server as a process of
+its own (``chip_smoke.py --serve-worker``) SIGTERMed under that load, every
+response bit-correct or a retryable 503 (`serve_drain`).
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -189,6 +198,11 @@ SUBJECT = dict(model="pythia-70m", lang_seed=7, corpus=(4096, 128), corpus_seed=
 HARVEST = dict(rows=768, seq=256, seed=13, layer=2, locs=("residual", "mlpout"), batch=64, chunk_size_gb=0.0625,
                chunks=3, heldout_rows=64, heldout_seed=17, ratio=8, sweep_batch=2048)
 HARVEST_TIED = (16, 2048, 4096, 512)  # K1/K2 at the harvest sweep's shape (M, B, N, D)
+# serving the harvest sweep's export (ROADMAP A7a): buckets 8..1024, top-k 32,
+# /features of 128-token sequences; 16 closed-loop HTTP clients; the drain's
+# worker attaches a seeded random Pythia-70M (the spec both processes build)
+SERVE = dict(max_batch=1024, topk=32, seq=128, rows_seed=23, token_rows=256, tokens_seed=29, requests=200,
+             clients=16, http_seconds=5.0, drain_seconds=3.0, subject_spec="random:pythia-70m:2:residual:0")
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -2545,7 +2559,7 @@ def phase_harvest_sweep(torch, root: Path, cfg, params, lang, store: Path):
     row (L0 >= 1) has FVU below 1, a member under one (the top of the l1
     grid, so early in training) has the zero reconstruction's FVU within
     1e-3, and the lowest-l1 member and at least half the grid are below 1.
-    Returns the launches."""
+    Returns the launches and the export (the serving phases load it)."""
     from sparse_coding__tpu_torch.data.activations import capture_fn
     from sparse_coding__tpu_torch.lm import make_tensor_name
     from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
@@ -2625,9 +2639,8 @@ def phase_harvest_sweep(torch, root: Path, cfg, params, lang, store: Path):
          captures=captures, capture_s=capture_s, heldout_rows=int(sample.shape[0]), l1=l1, fvu=fvu, l0=l0,
          members_fvu_below_1=sum(v < 1 for v in fvu), members_under_one_feature=quiet, zero_reconstruction_fvu=zero_fvu)
     del lds, loaded
-    shutil.rmtree(out)
     torch.cuda.empty_cache()
-    return launches
+    return launches, out / f"_{HARVEST['chunks'] - 1}" / "learned_dicts.pkl"
 
 
 def phase_harvest_kernels(torch, tk):
@@ -2635,6 +2648,470 @@ def phase_harvest_kernels(torch, tk):
     their plain versions, timed: kernels-line rows ``1h`` / ``3h``."""
     g = torch.Generator(device="cuda").manual_seed(1357)
     return tied_kernel_rows(torch, tk, g, HARVEST_TIED)
+
+
+# -- serving (ROADMAP A7a): the harvest sweep's export behind the engine ----------
+
+def serve_rows_pool(torch, cfg, params, lang):
+    """Held-out layer-2 residual rows of the subject (f32 on the host) and
+    held-out token sequences of the language, for the serving phases."""
+    from sparse_coding__tpu_torch.data.activations import capture_fn
+    from sparse_coding__tpu_torch.lm import make_tensor_name
+
+    name = make_tensor_name(HARVEST["layer"], "residual")
+    heldout = lang.sample(HARVEST["heldout_rows"], HARVEST["seq"], seed=SERVE["rows_seed"])
+    rows = capture_fn(cfg, [name], HARVEST["layer"] + 1)(params, torch.from_numpy(heldout).cuda())[name]
+    tokens = lang.sample(SERVE["token_rows"], SERVE["seq"], seed=SERVE["tokens_seed"])
+    return rows.reshape(-1, cfg.d_model).float().cpu(), tokens
+
+
+def serve_contract(torch, eng, reg, rows_pool, native=None):
+    """The contract at every bucket, dense and top-k 32, on the group of 16
+    lanes (the engine not started: this thread is its drainer): the graph
+    replay equals the eager dispatch of all lanes and every lane the stack
+    of one, bit for bit; top-k values are the dense codes at the indices;
+    the served rows agree with the raw `ld.encode` of the unpadded rows
+    within rtol 1e-6 / atol 1e-6 (elements that differ are counted). An
+    int8 registry (``native`` = the native engine) also stays within the
+    bound its quantization allows of the native codes. Returns per-bucket
+    counts."""
+    from sparse_coding__tpu_torch.serve.engine import encode_lanes
+
+    ids = reg.ids()
+    stack = eng._group_stack_for(ids[0])
+    check(stack.size == len(ids) == 16, f"one group of 16 lanes, got {stack.size} of {len(ids)}")
+    naive = {did: eng._naive_stack(did) for did in ids}
+    if stack.weights == "int8":
+        for s in naive.values():
+            s.dequant()
+    raws = [reg.get(did).ld for did in ids]
+    g = torch.Generator().manual_seed(SERVE["rows_seed"])
+    out = {"differ_unpadded": {}, "max_abs_unpadded": {}, "checked_lanes": 0}
+    for b in eng.buckets:
+        n = b if b == 8 else b - b // 8
+        off = int(torch.randint(0, rows_pool.shape[0] - n, (1,), generator=g))
+        rows = rows_pool[off:off + n].contiguous()
+        padded = eng._padded_on_device(rows, b)
+        dense = None
+        for kb in (None, SERVE["topk"]):
+            routed, _ = eng._dispatch(stack, rows, b, kb)
+            graph = routed.clone() if kb is None else tuple(t.clone() for t in routed)
+            eager = encode_lanes(stack.lanes, padded, kb)
+            pairs = [(graph, eager)] if kb is None else list(zip(graph, eager))
+            check(all(torch.equal(a, e) for a, e in pairs), f"bucket {b} k {kb}: graph replay != eager dispatch")
+            for lane, did in enumerate(ids):
+                one = encode_lanes(naive[did].lanes, padded, kb)
+                same = torch.equal(graph[lane], one[0]) if kb is None else all(
+                    torch.equal(a[lane], o[0]) for a, o in zip(graph, one))
+                check(same, f"bucket {b} k {kb}: lane {lane} ({did}) != its stack of one")
+                out["checked_lanes"] += 1
+            if kb is None:
+                dense = graph
+            else:
+                idx, vals = graph
+                check(torch.equal(vals, torch.gather(dense, -1, idx.long())), f"bucket {b}: top-k values != codes")
+        x = rows.cuda()
+        # native: the registry's own dicts; int8: their dequantized stacks of one
+        raw = (torch.stack([ld.encode(x) for ld in raws]) if stack.weights == "native"
+               else torch.cat([encode_lanes(naive[did].lanes, x) for did in ids]))
+        served = dense[:, :n]
+        differ = int((served != raw).sum())
+        out["differ_unpadded"][b] = differ
+        out["max_abs_unpadded"][b] = float((served - raw).abs().max())
+        check(torch.allclose(served, raw, rtol=1e-6, atol=1e-6), f"bucket {b}: served rows vs unpadded raw encode")
+        if native is not None:
+            nstack = native._group_stack_for(ids[0])
+            ref = encode_lanes(nstack.lanes, padded, None)[:, :n]
+            # |Δc| <= Σ_d |x_d| |ΔW_nd|: half a quantization step a row plus
+            # the fp16 product's rounding (relu is 1-Lipschitz)
+            w = torch.stack([ld.encoder for ld in raws])
+            scale = w.abs().amax(dim=-1, keepdim=True) / 127
+            # (|q| <= 127 steps of a scale rounded to fp16, products rounded
+            # to fp16), plus the f32 products' own rounding
+            step = scale * (0.5 + 127 * 2.0 ** -10) + w.abs() * 2.0 ** -10
+            lim = torch.einsum("bd,gnd->gbn", x.abs(), step) + 1e-4 + 1e-5 * ref.abs()
+            check(bool(((served - ref).abs() <= lim).all()), f"bucket {b}: int8 codes beyond the quantization bound")
+            out.setdefault("int8_max_abs_vs_native", {})[b] = float((served - ref).abs().max())
+    return out
+
+
+def serve_requests(torch, eng, rows_pool, n_requests: int, seed: int):
+    """``n_requests`` of random sizes 1..max_batch, half dense, half top-k
+    of random k 1..32, from 8 threads; every tenth checked against the stack
+    of one at its bucket. Returns the requests served."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = eng.registry.ids()
+    plan = []
+    for i in range(n_requests):
+        n = int(rng.integers(1, eng.max_batch + 1))
+        off = int(rng.integers(0, rows_pool.shape[0] - n))
+        k = None if i % 2 == 0 else int(rng.integers(1, SERVE["topk"] + 1))
+        plan.append((ids[int(rng.integers(0, len(ids)))], off, n, k))
+    done = [None] * n_requests
+
+    def client(c):
+        for i in range(c, n_requests, 8):
+            did, off, n, k = plan[i]
+            r = eng.submit(did, rows_pool[off:off + n], top_k=k)
+            r.result(120)
+            done[i] = r
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in range(0, n_requests, 10):
+        did, off, n, k = plan[i]
+        got, want = done[i].codes, eng.encode_naive(did, rows_pool[off:off + n], top_k=k, bucket=done[i].bucket)
+        same = np.array_equal(got, want) if k is None else all(np.array_equal(a, b) for a, b in zip(got, want))
+        check(same, f"request {i} ({did}, {n} rows, k {k}) != its stack of one at bucket {done[i].bucket}")
+    return done
+
+
+def phase_serve_encode(torch, export: Path, rows_pool):
+    """The harvest sweep's export (16 TiedSAE, D 512, N 4096) in two
+    registries, native and int8-resident, each behind `EncodeEngine
+    (max_batch=1024)`: `warmup(topk_ks=(32,))` captures 8 buckets x (dense,
+    top-k 32) graphs (int8: and its dequant graph); `serve_contract` at
+    every bucket; 200 requests of random sizes and ks capture nothing more;
+    replay and eager ms per bucket (CUDA events), the dequant's ms, graph
+    count, pool bytes, peak. No hand-written kernel runs: the port's launch
+    counts stay 0."""
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.serve.engine import EncodeEngine, encode_lanes
+    from sparse_coding__tpu_torch.serve.registry import DictRegistry
+
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    engines, report = {}, {}
+    for weights in ("native", "int8"):
+        reg = DictRegistry(device="cuda")
+        t0 = time.perf_counter()
+        ids = reg.load_export(export, weights=weights)
+        load_s = time.perf_counter() - t0
+        eng = EncodeEngine(reg, max_batch=SERVE["max_batch"], max_wait_ms=1.0)
+        t0 = time.perf_counter()
+        n = eng.warmup(topk_ks=(SERVE["topk"],))
+        warm_s = time.perf_counter() - t0
+        want = 2 * len(eng.buckets) + (weights == "int8")
+        check(eng.captures == want and n == 2 * len(eng.buckets), f"{weights}: {eng.captures} captures, want {want}")
+        captures = eng.captures
+        contract = serve_contract(torch, eng, reg, rows_pool, native=engines.get("native"))
+        stack = eng._group_stack_for(ids[0])
+        ms = {}
+        for b in eng.buckets:
+            for kb in (None, SERVE["topk"]):
+                gr = stack.graphs[(b, "float32", kb)]
+                padded = eng._padded_on_device(rows_pool[:b], b)
+                ms[f"b{b}_{'dense' if kb is None else f'k{kb}'}"] = {
+                    "replay_ms": time_ms(torch, gr.graph.replay, reps=10),
+                    "eager_ms": time_ms(torch, lambda: encode_lanes(stack.lanes, padded, kb), reps=5)}
+        dequant_ms = time_ms(torch, stack.graphs[("dequant",)].graph.replay, reps=20) if weights == "int8" else None
+        eng.start()
+        t0 = time.perf_counter()
+        served = serve_requests(torch, eng, rows_pool, SERVE["requests"], seed=SERVE["rows_seed"] + len(engines))
+        wall = time.perf_counter() - t0
+        check(eng.captures == captures, f"{weights}: {eng.captures - captures} captures after warmup")
+        eng.stop()
+        engines[weights] = eng
+        report[weights] = dict(dicts=len(ids), lanes=stack.size, load_s=load_s, warmup_s=warm_s,
+                               capture_s=eng.capture_seconds, graphs=captures, dispatch_ms=ms, dequant_ms=dequant_ms,
+                               requests=len(served), requests_wall_s=wall,
+                               rows=sum(r.cost_rows for r in served), batches=eng.stats["batches"],
+                               batch_occupancy=eng.batch_occupancy, captures_after_warmup=eng.captures - captures,
+                               **contract)
+    torch.cuda.synchronize()
+    pools = graph_pool_bytes(torch)
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+    check(not any(launches.values()), f"serving launched the port's kernels: {launches}")
+    G, N_, D_ = 16, HARVEST["ratio"] * 512, 512
+    bounds = {b: max(2 * G * b * N_ * D_ / PEAK_F32_FLOPS, (G * N_ * D_ + b * D_ + G * b * N_) * 4 / PEAK_BYTES) * 1e3
+              for b in engines["native"].buckets}
+    emit("serve_encode", export=str(export.name), max_batch=SERVE["max_batch"], topk=SERVE["topk"],
+         buckets=list(engines["native"].buckets), graph_pool_bytes=pools, peak_allocated_bytes=peak,
+         kernel_launches=sum(launches.values()), f32_bound_ms=bounds, **report)
+    del engines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_load(url: str, ids, rows_pool, tokens, seconds: float, check_every: int, seed: int, expected=None,
+               stop_after=None, sigterm=None):
+    """Closed-loop load from ``SERVE['clients']`` `ServeClient` threads for
+    ``seconds`` (or until ``stop_after`` is set): dense /encode of 1..64 rows
+    in json, npz and raw, /encode top-k 32 and /features top-k 32 of 1..8
+    sequences. Every ``check_every``-th response of a client is recorded
+    (or, with ``expected(kind, did, payload, k, bucket)``, checked on the
+    spot). A refused connection means the server is gone: once ``sigterm``
+    is set the client stops there (retrying a closed ephemeral port can
+    connect the client to itself); before, it is a failure. Returns the
+    outcomes, latencies and records."""
+    import threading
+    import urllib.error
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.serve.server import RetryableRejection, ServeClient
+
+    lock = threading.Lock()
+    res = {"ok": 0, "rejected": 0, "conn_error": 0, "bad": [], "lat_ms": [], "rows": 0, "records": [],
+           "checked": 0, "by_kind": {}}
+    t_end = time.perf_counter() + seconds
+
+    def client(c):
+        rng = np.random.default_rng(seed + c)
+        cl = ServeClient(url, timeout=60)
+        i = 0
+        while time.perf_counter() < t_end and not (stop_after is not None and stop_after.is_set()):
+            i += 1
+            did = ids[int(rng.integers(0, len(ids)))]
+            pick = int(rng.integers(0, 5))
+            fmt = ("json", "npz", "raw")[pick % 3]
+            if pick < 4:
+                n = int(rng.integers(1, 65))
+                off = int(rng.integers(0, rows_pool.shape[0] - n))
+                kind, payload, k = "encode", rows_pool[off:off + n].numpy(), (None if pick < 3 else SERVE["topk"])
+            else:
+                s = int(rng.integers(1, 9))
+                off = int(rng.integers(0, tokens.shape[0] - s))
+                kind, payload, k = "features", tokens[off:off + s], SERVE["topk"]
+            t0 = time.perf_counter()
+            try:
+                if kind == "encode":
+                    got = cl.encode(did, payload, format=fmt, top_k=k)
+                else:
+                    got = cl.encode_features(did, tokens=payload, format=fmt, top_k=k)
+            except RetryableRejection:
+                with lock:
+                    res["rejected"] += 1
+                continue
+            except (urllib.error.URLError, ConnectionError, OSError) as e:
+                with lock:
+                    if sigterm is not None and sigterm.is_set():
+                        res["conn_error"] += 1
+                    else:
+                        res["bad"].append(f"{kind} {fmt} after {time.perf_counter() - t0:.1f} s: {e!r}"[:300])
+                return
+            except Exception as e:  # a torn response or any unclean failure
+                with lock:
+                    res["bad"].append(f"{kind} {fmt}: {e!r}"[:300])
+                continue
+            lat = (time.perf_counter() - t0) * 1e3
+            meta = cl.last_meta
+            rows = payload.shape[0] * (payload.shape[1] if kind == "features" else 1)
+            rec = (kind, did, payload, k, meta["bucket"], got)
+            ok_bits = None
+            if expected is not None:
+                want = expected(*rec[:5])
+                ok_bits = np.array_equal(got, want) if k is None else all(
+                    np.array_equal(a, b) for a, b in zip(got, want))
+            with lock:
+                res["lat_ms"].append(lat)
+                res["rows"] += rows
+                res["by_kind"][f"{kind}_{fmt}_{'dense' if k is None else 'topk'}"] = res["by_kind"].get(
+                    f"{kind}_{fmt}_{'dense' if k is None else 'topk'}", 0) + 1
+                if ok_bits is False:
+                    res["bad"].append(f"{kind} {fmt} {did} k {k} bucket {meta['bucket']}: wrong bits")
+                else:
+                    res["ok"] += 1
+                res["checked"] += ok_bits is not None
+                if expected is None and res["ok"] % check_every == 0:
+                    res["records"].append(rec)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE["clients"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def latency_summary(lat_ms):
+    import numpy as np
+
+    if not lat_ms:
+        return {}
+    a = np.sort(np.asarray(lat_ms))
+    return {q: float(a[min(len(a) - 1, int(round(p * (len(a) - 1))))]) for q, p in
+            (("p50_ms", 0.5), ("p95_ms", 0.95), ("p99_ms", 0.99))}
+
+
+def phase_serve_http(torch, export: Path, cfg, params, rows_pool, tokens):
+    """`ServeServer` on 127.0.0.1 on the card: the export's 16 dicts and the
+    pretrained subject attached at layer 2's residual; `warmup` and
+    `warmup_features(128, topk_ks=(32,))`; ``/features`` held to
+    `harvest_to_device` then encode for 1, 2, 4 and 8 sequences; then
+    `serve_load` for ``SERVE['http_seconds']``, every tenth response held to
+    the engine's stack of one at its bucket; no capture after warmup."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.activations import harvest_to_device
+    from sparse_coding__tpu_torch.serve.registry import DictRegistry
+    from sparse_coding__tpu_torch.serve.server import ServeServer
+    from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
+
+    reg = DictRegistry(device="cuda")
+    ids = reg.load_export(export)
+    reg.attach_subject("subject", params, cfg, HARVEST["layer"], "residual", source="subject_pretrain")
+    tel = RunTelemetry()
+    srv = ServeServer(reg, max_batch=SERVE["max_batch"], max_wait_ms=2.0, telemetry=tel).start()
+    try:
+        eng = srv.engine
+        t0 = time.perf_counter()
+        n = eng.warmup(topk_ks=(SERVE["topk"],)) + eng.warmup_features(SERVE["seq"], topk_ks=(SERVE["topk"],))
+        warm_s = time.perf_counter() - t0
+        warm_graphs = eng.captures
+        seqs_cap = eng._seq_cap(SERVE["seq"])
+        check(warm_graphs == 2 * (len(eng.buckets) + seqs_cap.bit_length()), f"{warm_graphs} captures after warmup")
+        # /features == harvest_to_device then encode, dense and top-k
+        features_equal = 0
+        for s in (1, 2, 4, 8):
+            toks = tokens[:s]
+            fused = eng.encode_features(ids[0], toks)
+            (chunk,) = harvest_to_device(params, cfg, toks, [HARVEST["layer"]], ["residual"], batch_size=s,
+                                         chunk_size_gb=s * SERVE["seq"] * cfg.d_model * 2 / 1024**3, n_chunks=1,
+                                         device="cuda")
+            two_step = eng.encode(ids[0], chunk[(HARVEST["layer"], "residual")])
+            check(np.array_equal(fused, two_step), f"/features of {s} sequences != harvest_to_device then encode")
+            idx, vals = eng.encode_features(ids[0], toks, top_k=SERVE["topk"])
+            check(np.array_equal(vals, np.take_along_axis(fused, idx.astype(np.int64), axis=1)),
+                  f"/features top-k of {s} sequences != its dense codes")
+            features_equal += 1
+        # the two-step reference's fp16 /encode rows took graphs of their own
+        captures = eng.captures
+        spans0 = {c: tel.counters.get(f"span.{c}.seconds", 0.0) for c in ("encode", "request_wait", "dequant")}
+        batches0, rows0, padded0 = eng.stats["batches"], eng.stats["rows"], eng.stats["padded_rows"]
+        res = serve_load(srv.address, ids, rows_pool, tokens, SERVE["http_seconds"], check_every=10, seed=101)
+        check(res["bad"] == [] and res["rejected"] == 0 and res["conn_error"] == 0, f"serve_http outcomes {res['bad'][:5]}")
+        for kind, did, payload, k, bucket, got in res["records"]:
+            if kind == "encode":
+                want = eng.encode_naive(did, payload, top_k=k, bucket=bucket)
+            else:
+                want = eng.features_naive(did, payload, top_k=k, seq_bucket=bucket // SERVE["seq"])
+            same = np.array_equal(got, want) if k is None else all(np.array_equal(a, b) for a, b in zip(got, want))
+            check(same, f"served {kind} {did} k {k} at bucket {bucket} != the stack of one")
+        check(eng.captures == captures, f"{eng.captures - captures} captures under load")
+        spans = {c: tel.counters.get(f"span.{c}.seconds", 0.0) - spans0[c] for c in spans0}
+        batches = eng.stats["batches"] - batches0
+        rows = eng.stats["rows"] - rows0
+        occupancy = rows / max(1, rows + eng.stats["padded_rows"] - padded0)
+        emit("serve_http", dicts=len(ids), subject=f"{SUBJECT['model']} layer {HARVEST['layer']} residual (pretrained)",
+             clients=SERVE["clients"], seconds=res["wall_s"], warmup_dispatches=n, warmup_s=warm_s, graphs=warm_graphs,
+             fp16_reference_graphs=captures - warm_graphs,
+             capture_s=eng.capture_seconds, features_bit_equal_harvest=features_equal,
+             requests=res["ok"], requests_per_s=res["ok"] / res["wall_s"], rows_per_s=res["rows"] / res["wall_s"],
+             **latency_summary(res["lat_ms"]), checked_bit_equal=len(res["records"]), mix=res["by_kind"],
+             span_seconds=spans, batches=batches, batch_occupancy=occupancy, captures_under_load=eng.captures - captures,
+             wire=srv.wire_stats)
+    finally:
+        srv.stop()
+        tel.close()
+    torch.cuda.empty_cache()
+
+
+def serve_worker(argv) -> int:
+    """``chip_smoke.py --serve-worker <export> <port_file> <events_dir>``: the
+    port's server (`serve.server.main`) as a process of its own on the card,
+    with `SERVE['subject_spec']` attached for /features."""
+    from sparse_coding__tpu_torch.serve.server import main as serve_main
+
+    return serve_main([argv[0], "--port", "0", "--port-file", argv[1], "--events", argv[2], "--max-batch",
+                       str(SERVE["max_batch"]), "--max-wait-ms", "2", "--warmup-topk", str(SERVE["topk"]),
+                       "--subject", SERVE["subject_spec"], "--subject-seq-len", str(SERVE["seq"])])
+
+
+def phase_serve_drain(torch, root: Path, export: Path, rows_pool, tokens):
+    """`serve_worker` under `serve_load`, SIGTERMed mid-load: it must exit 0
+    after "drained clean", every response bit-equal to this process's
+    stack of one at its bucket (the same export, the same seeded random
+    subject), every other outcome a retryable 503 or a refused connection
+    after the listener closed: none dropped."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.serve.engine import EncodeEngine
+    from sparse_coding__tpu_torch.serve.registry import DictRegistry
+    from sparse_coding__tpu_torch.serve.server import attach_subject_from_spec
+
+    reg = DictRegistry(device="cuda")
+    ids = reg.load_export(export)
+    attach_subject_from_spec(reg, SERVE["subject_spec"])
+    ref = EncodeEngine(reg, max_batch=SERVE["max_batch"])
+    cache, lock = {}, threading.Lock()
+
+    def expected(kind, did, payload, k, bucket):
+        key = (kind, did, payload.tobytes(), payload.shape, k, bucket)
+        with lock:
+            if key not in cache:
+                cache[key] = (ref.encode_naive(did, payload, top_k=k, bucket=bucket) if kind == "encode" else
+                              ref.features_naive(did, payload, top_k=k, seq_bucket=bucket // SERVE["seq"]))
+            return cache[key]
+
+    port_file, events = root / "serve_port", root / "serve_events"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--serve-worker", str(export), str(port_file),
+                             str(events)], env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while not port_file.exists() and time.time() < deadline:
+            if proc.poll() is not None:
+                check(False, f"serve worker died early: {proc.stdout.read()[-3000:]}")
+            time.sleep(0.2)
+        check(port_file.exists(), "serve worker never bound a port")
+        ready_s = time.perf_counter() - t_start
+        url = f"http://127.0.0.1:{port_file.read_text().strip()}"
+        stop, sigterm = threading.Event(), threading.Event()
+        box = {}
+        loader = threading.Thread(target=lambda: box.update(res=serve_load(
+            url, ids, rows_pool, tokens, 600.0, check_every=1, seed=202, expected=expected, stop_after=stop,
+            sigterm=sigterm)))
+        t_load = time.perf_counter()
+        loader.start()
+        time.sleep(SERVE["drain_seconds"])
+        sigterm.set()
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        exited = threading.Thread(target=lambda: box.update(rc=proc.wait(), exit_s=time.perf_counter() - t_term))
+        exited.start()
+        time.sleep(1.0)  # the clients keep sending through the drain
+        stop.set()
+        loader.join(120)
+        exited.join(120)
+        rc = box.get("rc")
+        out = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = box["res"]
+    check(rc == 0 and "drained clean" in out, f"serve worker exit {rc}: {out[-3000:]}")
+    check(res["bad"] == [], f"serve_drain bad outcomes {res['bad'][:5]}")
+    check(res["ok"] > 0 and res["checked"] == res["ok"], f"serve_drain outcomes {res['ok']} ok, {res['checked']} checked")
+    drained = [json.loads(line) for line in (events / "events.jsonl").read_text().splitlines()
+               if '"serve_drained"' in line]
+    check(len(drained) == 1, "no serve_drained event")
+    emit("serve_drain", worker_ready_s=ready_s, requests_ok_bit_equal=res["ok"], rejected_503=res["rejected"],
+         refused_after_close=res["conn_error"], dropped=len(res["bad"]), exit=rc, exit_s=box.get("exit_s"),
+         drain_s=drained[0].get("drain_s"), worker_tail=out.strip().splitlines()[-1],
+         served_by_worker=drained[0].get("requests"), requests_per_s_before_sigterm=res["ok"] / (t_term - t_load),
+         **latency_summary(res["lat_ms"]), mix=res["by_kind"], subject=SERVE["subject_spec"])
 
 
 def main() -> int:
@@ -2653,6 +3130,8 @@ def main() -> int:
         return bls_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--harvest-worker"]:
         return harvest_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--serve-worker"]:
+        return serve_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -2798,8 +3277,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         folders = phase_harvest(torch, harvest_root, lm_cfg, lm_params, lang)
         phase_harvest_resume(torch, harvest_root, folders)
-        harvest_launches = phase_harvest_sweep(torch, harvest_root, lm_cfg, lm_params, lang,
-                                               folders[(HARVEST["layer"], "residual")])
+        harvest_launches, export = phase_harvest_sweep(torch, harvest_root, lm_cfg, lm_params, lang,
+                                                       folders[(HARVEST["layer"], "residual")])
+        # serving (ROADMAP A7a): the sweep's 16 dicts behind the engine, the
+        # HTTP server with the pretrained subject, a SIGTERM drain under load
+        torch.cuda.empty_cache()
+        rows_pool, serve_tokens = serve_rows_pool(torch, lm_cfg, lm_params, lang)
+        phase_serve_encode(torch, export, rows_pool)
+        phase_serve_http(torch, export, lm_cfg, lm_params, rows_pool, serve_tokens)
+        phase_serve_drain(torch, harvest_root, export, rows_pool, serve_tokens)
         del lm_params
     for row in harvest_rows:
         row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])

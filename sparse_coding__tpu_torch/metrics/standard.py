@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from sparse_coding__tpu_torch.models.learned_dict import LEARNED_DICT_REGISTRY, LearnedDict
+from sparse_coding__tpu_torch.models.learned_dict import LearnedDict, stack_key
 
 
 def _as_dict(d) -> torch.Tensor:
@@ -231,28 +231,14 @@ def ridge_regression_auroc(activations, labels, **kwargs) -> float:
 
 # -- evaluating many dicts at once -----------------------------------------------
 
-def _leaves(ld) -> List[torch.Tensor]:
-    """A registered dict's array leaves in field order (a dict field's by
-    sorted key, as a pytree flattens it)."""
-    out = []
-    for f in LEARNED_DICT_REGISTRY[type(ld)][0]:
-        v = getattr(ld, f)
-        out += [v[k] for k in sorted(v)] if isinstance(v, dict) else [v]
-    return out
-
-
 def group_stackable_dicts(learned_dicts: List[Any]) -> List[List[int]]:
-    """Indices grouped by (class, static fields, leaf shapes and dtypes), the
-    JAX package's pytree-structure key: the dicts of a group give metric
-    values of one shape. An unregistered dict is a group of its own."""
+    """Indices grouped by `models.learned_dict.stack_key` (class, static
+    fields, leaf shapes and dtypes), the JAX package's pytree-structure key:
+    the dicts of a group give metric values of one shape. An unregistered
+    dict is a group of its own."""
     groups: Dict[Any, List[int]] = {}
     for i, ld in enumerate(learned_dicts):
-        if type(ld) not in LEARNED_DICT_REGISTRY:
-            groups[("unregistered", i)] = [i]
-            continue
-        statics = tuple(repr(getattr(ld, f, None)) for f in LEARNED_DICT_REGISTRY[type(ld)][1])
-        key = (type(ld), statics, tuple((tuple(t.shape), str(t.dtype)) for t in _leaves(ld)))
-        groups.setdefault(key, []).append(i)
+        groups.setdefault(stack_key(ld) or ("unregistered", i), []).append(i)
     return list(groups.values())
 
 

@@ -15,7 +15,7 @@ the port's own streams, not JAX's.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,40 @@ def register_learned_dict(cls, array_fields: Tuple[str, ...], static_fields: Tup
     LEARNED_DICT_REGISTRY[cls] = (array_fields, static_fields)
     LEARNED_DICT_CLASSES[cls.__qualname__] = cls
     return cls
+
+
+def dict_leaves(ld) -> List[Tuple[str, Optional[str], Any]]:
+    """A registered dict's array leaves in field order, ``(field, key,
+    value)`` (a dict-valued field's entries by sorted key, as a pytree
+    flattens it); an unregistered dict has none."""
+    out: List[Tuple[str, Optional[str], Any]] = []
+    for f in LEARNED_DICT_REGISTRY.get(type(ld), ((), ()))[0]:
+        v = getattr(ld, f)
+        out += [(f, k, v[k]) for k in sorted(v)] if isinstance(v, dict) else [(f, None, v)]
+    return out
+
+
+def with_leaves(ld, values: List[Any]):
+    """A shallow copy of ``ld`` whose array leaves (`dict_leaves` order) are
+    ``values``."""
+    new = type(ld).__new__(type(ld))
+    new.__dict__.update(ld.__dict__)
+    for (f, k, _), v in zip(dict_leaves(ld), values):
+        if k is None:
+            setattr(new, f, v)
+        else:
+            setattr(new, f, {**getattr(new, f), k: v})
+    return new
+
+
+def stack_key(ld) -> Optional[Tuple]:
+    """The JAX package's pytree-structure key: class, static fields and
+    every array leaf's shape and dtype (None for an unregistered dict).
+    Dicts with equal keys give values of one shape and stack."""
+    if type(ld) not in LEARNED_DICT_REGISTRY:
+        return None
+    statics = tuple(repr(getattr(ld, f, None)) for f in LEARNED_DICT_REGISTRY[type(ld)][1])
+    return (type(ld).__qualname__, statics, tuple((tuple(t.shape), str(t.dtype)) for _, _, t in dict_leaves(ld)))
 
 
 class Identity(LearnedDict):

@@ -12,8 +12,10 @@ Kinds the port writes: ``run_start`` (config + environment fingerprint),
 ``provenance``, ``feature_stats``, ``snapshot`` (counters + gauges) and
 ``run_end``.
 
-Counters and gauges are host-side Python numbers: bumping them never touches
-the card. The JAX package's compile bridge (``jax.monitoring``,
+Counters, gauges and fixed-bucket histograms (`RunTelemetry.hist_observe`,
+the serving tier's latency histograms) are host-side Python numbers:
+bumping them never touches the card. ``tags`` are constant fields stamped
+into every record (a serve replica's ``{"replica": ...}``). The JAX package's compile bridge (``jax.monitoring``,
 ``tracked_jit``) has no counterpart here.
 """
 
@@ -27,8 +29,13 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-__all__ = ["RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "read_events",
+__all__ = ["DEFAULT_LATENCY_BUCKETS_MS", "RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "read_events",
            "run_fingerprint"]
+
+# fixed log-spaced latency buckets (ms): 0.25 ms ... 2048 ms, each bound 2x
+# the previous (the JAX package's): histograms of different writers merge
+# by adding their buckets
+DEFAULT_LATENCY_BUCKETS_MS = tuple(0.25 * 2 ** i for i in range(14))
 
 # live instances receiving handle-less signals (removed on close)
 _ACTIVE: List["RunTelemetry"] = []
@@ -94,15 +101,19 @@ class RunTelemetry:
     there. `close` writes ``run_end`` unless one was written."""
 
     def __init__(self, out_dir: Optional[str] = None, run_name: str = "run",
-                 config: Optional[Dict[str, Any]] = None, file_name: str = "events.jsonl"):
+                 config: Optional[Dict[str, Any]] = None, file_name: str = "events.jsonl",
+                 tags: Optional[Dict[str, Any]] = None):
         self.run_name = run_name
         self._config = config
+        self.tags = dict(tags or {})
         self._lock = threading.Lock()
         self._seq = 0
+        self._t0 = time.time()
         self._t0_mono = time.monotonic()
         self._chunk_t0_mono: Optional[float] = None
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
+        self._hists: Dict[str, Dict[str, Any]] = {}
         self._run_end_written = False
         self._fh = None
         self.path: Optional[Path] = None
@@ -128,7 +139,8 @@ class RunTelemetry:
         """Write one record of kind ``etype`` and return it."""
         with self._lock:
             self._seq += 1
-            rec = {"seq": self._seq, "ts": time.time(), "mono": round(time.monotonic(), 6), "event": etype, **fields}
+            rec = {"seq": self._seq, "ts": time.time(), "mono": round(time.monotonic(), 6), "event": etype, **self.tags,
+                   **fields}
             if self._fh is not None:
                 self._fh.write(json.dumps(rec, default=str) + "\n")
                 self._fh.flush()
@@ -187,19 +199,50 @@ class RunTelemetry:
         with self._lock:
             self._gauges[name] = float(value)
 
+    def hist_observe(self, name: str, value: float, buckets: Optional[tuple] = None):
+        """One observation into a fixed-bucket histogram (made on the first
+        observe; ``buckets`` matters only then, default
+        `DEFAULT_LATENCY_BUCKETS_MS`). Flushed by `snapshot`, rendered by
+        `telemetry.metrics_http`."""
+        v = float(value)
+        with self._lock:
+            h = self._hists.get(name)
+            if h is None:
+                bounds = tuple(float(b) for b in (buckets or DEFAULT_LATENCY_BUCKETS_MS))
+                h = self._hists[name] = {"bounds": bounds, "counts": [0] * (len(bounds) + 1), "sum": 0.0, "count": 0}
+            h["sum"] += v
+            h["count"] += 1
+            for i, b in enumerate(h["bounds"]):
+                if v <= b:
+                    h["counts"][i] += 1
+                    break
+            else:
+                h["counts"][-1] += 1  # overflow
+
     @property
     def counters(self) -> Dict[str, float]:
         return dict(self._counters)
+
+    @property
+    def hists(self) -> Dict[str, Dict[str, Any]]:
+        with self._lock:
+            return {k: {"bounds": list(h["bounds"]), "counts": list(h["counts"]), "sum": h["sum"], "count": h["count"]}
+                    for k, h in self._hists.items()}
 
     @property
     def gauges(self) -> Dict[str, float]:
         return dict(self._gauges)
 
     def snapshot(self):
-        """One record of every counter and gauge."""
+        """One record of every counter and gauge (and of the histograms, only
+        when there are any, as the JAX package writes it)."""
         with self._lock:
             counters = {k: round(v, 4) if isinstance(v, float) else v for k, v in sorted(self._counters.items())}
             gauges = dict(sorted(self._gauges.items()))
+            hists = {k: {"bounds": list(h["bounds"]), "counts": list(h["counts"]), "sum": round(h["sum"], 4),
+                         "count": h["count"]} for k, h in sorted(self._hists.items())}
+        if hists:
+            return self.event("snapshot", counters=counters, gauges=gauges, hists=hists)
         return self.event("snapshot", counters=counters, gauges=gauges)
 
     def close(self, status: str = "ok"):

@@ -25,14 +25,16 @@ between two snapshots' firing distributions.
 
 The flush resets the sketch with ``zero_()`` on the buffers' own tensors:
 a captured step graph froze their addresses and stays valid across it. The
-serving half (`ServeFeatureStats`) waits for ROADMAP A7, the run summary and
-the ``features`` CLI for A9; each raises if it is reached.
+serving half (`ServeFeatureStats`) accumulates the encode engine's per-lane
+sketches after each dispatch. The run summary and the ``features`` CLI wait
+for ROADMAP A9 and raise if they are reached.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -167,18 +169,116 @@ def feature_stats_pack(aux, stats: Dict[str, torch.Tensor], cfg: FeatureStatsCon
     return update_feature_stats(stats, c, cfg)
 
 
-def _serving_not_ported(*_a, **_k):
-    raise NotImplementedError("the serving half of the feature sketch is not ported yet — ROADMAP A7")
+def _update_topk(stats: Dict[str, torch.Tensor], idx: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
+                 cfg: FeatureStatsConfig) -> Dict[str, torch.Tensor]:
+    """Sparse top-k window update for every lane: ``idx``/``vals`` the
+    ``[G, rows, k]`` top-k outputs, ``mask`` ``[G, rows]``. Only the kept
+    top-k magnitudes count (the JAX package's documented truncation bias:
+    firings below the top k are invisible on this path)."""
+    with torch.no_grad():
+        g, n_feats = stats["featstat_fire"].shape
+        a = torch.abs(vals.to(torch.float32))
+        valid = mask > 0
+        fired = (a > 0) & valid[:, :, None]
+        flat = idx.reshape(g, -1).to(torch.int64)
+
+        def scat_add(updates: torch.Tensor) -> torch.Tensor:
+            return torch.zeros((g, n_feats), dtype=torch.float32, device=a.device).scatter_add_(
+                1, flat, updates.reshape(g, -1))
+
+        v_live = torch.where(fired, vals.to(torch.float32), 0.0)
+        a_live = torch.where(fired, a, 0.0)
+        bidx = _bucket_index(a, cfg)
+        hist = torch.stack([scat_add((fired & (bidx == b)).to(torch.float32)) for b in range(cfg.n_buckets)], dim=-1)
+        peak = torch.zeros((g, n_feats), dtype=torch.float32, device=a.device).scatter_reduce_(
+            1, flat, a_live.reshape(g, -1), reduce="amax")
+        return {
+            "featstat_rows": stats["featstat_rows"] + valid.to(torch.float32).sum(dim=1),
+            "featstat_fire": stats["featstat_fire"] + scat_add(fired.to(torch.float32)),
+            "featstat_sum": stats["featstat_sum"] + scat_add(v_live),
+            "featstat_sumsq": stats["featstat_sumsq"] + scat_add(v_live * v_live),
+            "featstat_max": torch.maximum(stats["featstat_max"], peak),
+            "featstat_hist": stats["featstat_hist"] + hist,
+        }
 
 
-_update_topk = _accumulate_dense = _accumulate_topk = _serving_not_ported
+def _accumulate_dense(stats, codes, mask, cfg: FeatureStatsConfig):
+    """Stacked dense update: ``codes`` [G, rows, F], ``mask`` [G, rows]."""
+    return update_feature_stats(stats, codes, cfg, mask=mask)
+
+
+def _accumulate_topk(stats, idx, vals, mask, cfg: FeatureStatsConfig):
+    """Stacked sparse update: ``idx``/``vals`` [G, rows, k], ``mask`` [G, rows]."""
+    return _update_topk(stats, idx, vals, mask, cfg)
 
 
 class ServeFeatureStats:
-    """The serve tier's accumulator: not ported yet (ROADMAP A7)."""
+    """Serve-side accumulator: one device sketch per (lane set, n_feats).
 
-    def __init__(self, *a, **k):
-        _serving_not_ported()
+    The engine calls `accumulate_dense` / `accumulate_topk` on its drainer
+    right after a dispatch, on the dispatch's device outputs: device work
+    only, no host sync. `flush` is the one sync (one batched copy), writes a
+    ``feature_stats.serveNNNN.npz`` snapshot per lane set, runs the drift
+    check against a baseline when one is set, and resets the window."""
+
+    def __init__(self, cfg=None, scope: str = "serve"):
+        self.cfg = cfg if isinstance(cfg, FeatureStatsConfig) else FeatureStatsConfig()
+        self.scope = scope
+        self.baseline: Optional[FeatureSnapshot] = None
+        self._acc: Dict[Tuple[Tuple[str, ...], int], Dict[str, torch.Tensor]] = {}
+        self._last_flush = time.monotonic()
+
+    def set_baseline(self, snap: Optional["FeatureSnapshot"]) -> None:
+        self.baseline = snap
+
+    def _stats_for(self, ids: Tuple[str, ...], n_feats: int, device):
+        key = (ids, n_feats)
+        if key not in self._acc:
+            self._acc[key] = init_feature_stats(len(ids), n_feats, self.cfg, device=device)
+        return key, self._acc[key]
+
+    @staticmethod
+    def _mask(mask, device) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(mask, dtype=np.float32)).to(device)
+
+    def accumulate_dense(self, ids, n_feats, codes: torch.Tensor, mask) -> None:
+        """``codes`` [G, rows, F] on the device, ``mask`` [G, rows] on the host."""
+        key, stats = self._stats_for(tuple(ids), int(n_feats), codes.device)
+        self._acc[key] = _accumulate_dense(stats, codes, self._mask(mask, codes.device), self.cfg)
+
+    def accumulate_topk(self, ids, n_feats, idx: torch.Tensor, vals: torch.Tensor, mask) -> None:
+        """``idx``/``vals`` [G, rows, k] on the device, ``mask`` [G, rows]."""
+        key, stats = self._stats_for(tuple(ids), int(n_feats), vals.device)
+        self._acc[key] = _accumulate_topk(stats, idx, vals, self._mask(mask, vals.device), self.cfg)
+
+    @property
+    def seconds_since_flush(self) -> float:
+        return time.monotonic() - self._last_flush
+
+    def flush(self, telemetry, out_dir, extra: Optional[Dict] = None) -> List[Dict]:
+        """Snapshot and reset every accumulated lane set; the per-snapshot
+        summaries (none when no window saw a row)."""
+        self._last_flush = time.monotonic()
+        if not self._acc:
+            return []
+        fspan = Span(telemetry, "feature_flush", name=self.scope).begin()
+        try:
+            keys = sorted(self._acc)
+            host_all = _to_host([self._acc[k] for k in keys])
+            self._acc = {}
+            summaries = []
+            for (ids, _n), host in zip(keys, host_all):
+                if float(np.sum(host["featstat_rows"])) <= 0:
+                    continue
+                snap = write_snapshot(out_dir, self.scope, host, list(ids), self.cfg, meta=extra)
+                agg = snapshot_aggregates(snap)
+                drift = drift_report(self.baseline, snap) if self.baseline is not None else None
+                summary = _emit_flush(telemetry, snap, agg, drift, extra=extra)
+                summary["snapshot"] = snap
+                summaries.append(summary)
+            return summaries
+        finally:
+            fspan.end()
 
 
 # ---------------------------------------------------------------------------

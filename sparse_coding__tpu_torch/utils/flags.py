@@ -20,7 +20,7 @@ class Flag:
     """One declared ``SC_*`` env flag. ``kind`` picks the parse ``get()``
     applies: ``str`` (raw string, default applied, never None), ``opt_str``
     (raw string or None), ``float``, ``bool01`` (True iff exactly ``"1"``),
-    ``truthy`` (True iff set outside ``("", "0", "false", "off")``) or
+    ``int``, ``truthy`` (True iff set outside ``("", "0", "false", "off")``) or
     ``onoff`` (default on: False iff one of ``("0", "false", "off")``)."""
 
     name: str
@@ -44,6 +44,8 @@ class Flag:
             return raw if raw is not None else ""
         if self.kind == "float":
             return None if raw is None else float(raw)
+        if self.kind == "int":
+            return None if raw is None else int(raw)
         if self.kind == "bool01":
             return raw == "1"
         if self.kind == "truthy":
@@ -72,6 +74,10 @@ FLAGS: Dict[str, Flag] = {
              "Fault-injection spec 'action[:site][:key=val...]' (utils.faults)."),
         Flag("SC_TRACE_WINDOW", "opt_str", None, "telemetry.profiling",
              "A profiler window 'N:M' (steps); not ported yet, so a driver refuses it."),
+        Flag("SC_SYNC_RETRIES", "int", "3", "utils.sync",
+             "Attempts of the shared retry engine (clamped to >= 1 at the call site)."),
+        Flag("SC_SYNC_BACKOFF", "float", "1.0", "utils.sync",
+             "Base seconds of its exponential backoff (clamped to >= 0 at the call site)."),
     )
 }
 
@@ -83,6 +89,8 @@ SC_CHUNK_VERIFY = FLAGS["SC_CHUNK_VERIFY"]
 SC_CHUNK_LOSS_BUDGET = FLAGS["SC_CHUNK_LOSS_BUDGET"]
 SC_FAULT = FLAGS["SC_FAULT"]
 SC_TRACE_WINDOW = FLAGS["SC_TRACE_WINDOW"]
+SC_SYNC_RETRIES = FLAGS["SC_SYNC_RETRIES"]
+SC_SYNC_BACKOFF = FLAGS["SC_SYNC_BACKOFF"]
 
 
 def recompute_code() -> bool:

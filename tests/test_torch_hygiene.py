@@ -35,14 +35,21 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.fista_kernel",
     "sparse_coding__tpu_torch.ops.tied_sae_kernel",
     "sparse_coding__tpu_torch.ops.topk_kernel",
+    "sparse_coding__tpu_torch.serve",
+    "sparse_coding__tpu_torch.serve.engine",
+    "sparse_coding__tpu_torch.serve.registry",
+    "sparse_coding__tpu_torch.serve.server",
+    "sparse_coding__tpu_torch.serve.wire",
     "sparse_coding__tpu_torch.telemetry",
     "sparse_coding__tpu_torch.telemetry.anomaly",
     "sparse_coding__tpu_torch.telemetry.events",
     "sparse_coding__tpu_torch.telemetry.feature_stats",
     "sparse_coding__tpu_torch.telemetry.health",
+    "sparse_coding__tpu_torch.telemetry.metrics_http",
     "sparse_coding__tpu_torch.telemetry.profiling",
     "sparse_coding__tpu_torch.telemetry.provenance",
     "sparse_coding__tpu_torch.telemetry.spans",
+    "sparse_coding__tpu_torch.telemetry.tracing",
     "sparse_coding__tpu_torch.train.basic_l1_sweep",
     "sparse_coding__tpu_torch.train.checkpoint",
     "sparse_coding__tpu_torch.train.experiments",
@@ -57,6 +64,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.utils.manifest",
     "sparse_coding__tpu_torch.utils.optim",
     "sparse_coding__tpu_torch.utils.precision",
+    "sparse_coding__tpu_torch.utils.sync",
     "sparse_coding__tpu_torch.utils.trace",
 ]
 
@@ -67,7 +75,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'sparse_coding__tpu' or m.startswith('sparse_coding__tpu.'))\n"
+        " or m == 'sparse_coding__tpu' or m.startswith('sparse_coding__tpu.') or m == 'ml_dtypes')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -83,6 +91,14 @@ def test_sources_never_name_jax_or_the_jax_package():
     assert len(files) > 10
     offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_no_port_module_imports_ml_dtypes():
+    """The card's machine has no ml_dtypes: bf16 crosses the host boundary as
+    a torch tensor (the wire carries its uint16 bits)."""
+    pattern = re.compile(r"^\s*(import ml_dtypes|from ml_dtypes)|importlib\.import_module\(.ml_dtypes", re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())] == []
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
