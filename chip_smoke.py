@@ -73,7 +73,13 @@ requests (`serve_encode`, no hand-written kernel launched); the HTTP server
 with the pretrained subject on ``/features`` (held to harvest-then-encode)
 under 16 closed-loop clients (`serve_http`); and the server as a process of
 its own (``chip_smoke.py --serve-worker``) SIGTERMed under that load, every
-response bit-correct or a retryable 503 (`serve_drain`).
+response bit-correct or a retryable 503 (`serve_drain`); then the replicated
+tier (`serve_tier`): ``python -m sparse_coding__tpu_torch.serve.replicaset``
+with 2 replica processes on the card behind its router, under 8 closed-loop
+`RouterClient` threads, one replica SIGKILLed and relaunched, then a second
+generation of the export (each dict's rows rolled by one) rolled out through
+the swap file, then the tier SIGTERMed: every response bit-equal to the stack
+of one of its declared generation at its bucket, none dropped, none torn.
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -203,6 +209,13 @@ HARVEST_TIED = (16, 2048, 4096, 512)  # K1/K2 at the harvest sweep's shape (M, B
 # worker attaches a seeded random Pythia-70M (the spec both processes build)
 SERVE = dict(max_batch=1024, topk=32, seq=128, rows_seed=23, token_rows=256, tokens_seed=29, requests=200,
              clients=16, http_seconds=5.0, drain_seconds=3.0, subject_spec="random:pythia-70m:2:residual:0")
+# the replicated tier (ROADMAP A7b) on that export: the replicaset CLI at its
+# default max_batch 256 with 2 replicas, 8 closed-loop RouterClient threads
+# (dense json of 1..64 rows and top-k 32); load windows before the kill and
+# after the swap, and 8 x 25 requests a turn for the 1-vs-2-replica and
+# direct-vs-router comparisons
+SERVE_TIER = dict(replicas=2, clients=8, max_rows=64, topk=32, before_s=4.0, after_s=3.0, compare_requests=25,
+                  seed=303, ready_timeout_s=300.0, readmit_timeout_s=180.0, swap_timeout_s=240.0)
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
 FISTA_ROW8 = dict(M=2, B=256, N=512, D=128, iters=100)
@@ -3114,6 +3127,400 @@ def phase_serve_drain(torch, root: Path, export: Path, rows_pool, tokens):
          **latency_summary(res["lat_ms"]), mix=res["by_kind"], subject=SERVE["subject_spec"])
 
 
+# -- the replicated tier (ROADMAP A7b): the replicaset CLI on the card ------------
+
+def rolled_export(torch, src: Path, dst: Path) -> Path:
+    """Generation 1 of an export: the same ids, each TiedSAE's rows (encoder
+    and bias) rolled by one feature, so every code moves to the next index."""
+    from sparse_coding__tpu_torch.models.learned_dict import TiedSAE
+    from sparse_coding__tpu_torch.train.checkpoint import load_learned_dicts, save_learned_dicts
+
+    out = []
+    for ld, hp in load_learned_dicts(src, verify=True, device="cpu"):
+        check(type(ld) is TiedSAE, f"{type(ld).__name__}: the tier phase rolls TiedSAE rows")
+        out.append((TiedSAE(torch.roll(ld.encoder, 1, 0), torch.roll(ld.encoder_bias, 1, 0),
+                            (ld.center_trans, ld.center_rot, ld.center_scale), ld.norm_encoder), hp))
+    dst.mkdir(parents=True, exist_ok=True)
+    save_learned_dicts(dst / src.name, out)
+    return dst / src.name
+
+
+def read_jsonl(path: Path):
+    """The records of an events file another process is writing (a torn
+    last line is skipped)."""
+    out = []
+    if path.exists():
+        for line in path.read_text().splitlines():
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return out
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps``: {pid: used MiB}, pids as the
+    driver sees them (another pid namespace than this process's may show
+    other numbers, or none)."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    apps = {}
+    for line in res.stdout.strip().splitlines():
+        pid, _, mib = (x.strip() for x in line.partition(","))
+        if pid.isdigit():
+            apps[int(pid)] = float(mib) if mib.replace(".", "", 1).isdigit() else mib
+    return apps
+
+
+def card_used_mib() -> float:
+    """``nvidia-smi --query-gpu=memory.used``: MiB in use on the card, by
+    every process."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(res.stdout.split()[0])
+
+
+def tier_load(url: str, ids, rows_pool, expected, stop, seed: int):
+    """Closed-loop load from ``SERVE_TIER['clients']`` `RouterClient` threads
+    until ``stop`` is set: json /encode of 1..64 rows, dense or top-k 32.
+    Every 200 is held on the spot to ``expected(generation, did, off, n, k,
+    bucket)``; a router shed or a retryable 503 is counted (and backed off
+    50 ms), anything else is a failure. Returns the outcomes (with a record a
+    response: wall time done, ms, rows, generation, replica, attempts) and
+    the started threads."""
+    import threading
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.serve.router import RouterClient, ShedRejection
+    from sparse_coding__tpu_torch.serve.server import RetryableRejection
+
+    lock = threading.Lock()
+    res = {"ok": 0, "shed": 0, "rejected": 0, "bad": [], "records": [], "retried_ok": 0, "topk": 0}
+
+    def client(c):
+        rng = np.random.default_rng(seed + c)
+        cl = RouterClient(url, timeout=60)
+        while not stop.is_set():
+            did = ids[int(rng.integers(0, len(ids)))]
+            n = int(rng.integers(1, SERVE_TIER["max_rows"] + 1))
+            off = int(rng.integers(0, rows_pool.shape[0] - n))
+            k = SERVE_TIER["topk"] if rng.integers(0, 2) else None
+            t0 = time.perf_counter()
+            try:
+                got, meta = cl.encode_with_meta(did, rows_pool[off:off + n].numpy(), top_k=k)
+            except ShedRejection:
+                with lock:
+                    res["shed"] += 1
+                time.sleep(0.05)
+                continue
+            except RetryableRejection:
+                with lock:
+                    res["rejected"] += 1
+                time.sleep(0.05)
+                continue
+            except Exception as e:  # a dropped request, a torn response, any unclean failure
+                with lock:
+                    res["bad"].append(f"{did} {n} rows k {k}: {e!r}"[:300])
+                continue
+            ms, done = (time.perf_counter() - t0) * 1e3, time.time()
+            gen, bucket = meta["generation"], cl.last_meta["bucket"]
+            want = expected(gen, did, off, n, k, bucket)
+            same = want is not None and (np.array_equal(got, want) if k is None else
+                                         all(np.array_equal(a, b) for a, b in zip(got, want)))
+            with lock:
+                if not same:
+                    res["bad"].append(f"{did} {n} rows k {k} gen {gen} bucket {bucket}: wrong or torn bits")
+                    continue
+                res["ok"] += 1
+                res["topk"] += k is not None
+                res["retried_ok"] += meta["attempts"] > 1
+                res["records"].append((done, ms, n, gen, meta["replica"], meta["attempts"]))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_TIER["clients"])]
+    for t in threads:
+        t.start()
+    return res, threads
+
+
+def window(records, t0: float, t1: float):
+    """Requests/s, rows/s and latency over the responses done in [t0, t1)."""
+    sel = [r for r in records if t0 <= r[0] < t1]
+    span = max(1e-9, t1 - t0)
+    return {"seconds": t1 - t0, "requests": len(sel), "requests_per_s": len(sel) / span,
+            "rows_per_s": sum(r[2] for r in sel) / span, "retried": sum(r[5] > 1 for r in sel),
+            **latency_summary([r[1] for r in sel])}
+
+
+def phase_serve_tier(torch, root: Path, export: Path, rows_pool):
+    """The replicated tier on the card: ``python -m
+    sparse_coding__tpu_torch.serve.replicaset`` as a process of its own (2
+    replicas at max_batch 256, each its own process and CUDA context, the
+    router, ``--swap-file``, ``--metrics-port``) under `tier_load`; one
+    replica SIGKILLed mid-load, then generation 1 (`rolled_export`) rolled
+    out through the swap file, then the tier SIGTERMed. Every response must
+    be bit-equal to this process's stack of one for its declared generation
+    at its bucket, every other outcome a retryable 503 (none dropped), both
+    replicas' ``run_start`` on cuda, the killed one marked dead and
+    readmitted, generation 0 before the swap and 1 after it, exit 0. Prints
+    the load by window, 1 vs 2 replicas and the router's added latency
+    (`serve.loadgen.run_load` through in-process routers and straight to a
+    replica), the kill timeline, the swap walls, memory and captures a
+    replica, and the router's retries, hedges and sheds."""
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.serve.engine import EncodeEngine
+    from sparse_coding__tpu_torch.serve.loadgen import run_load
+    from sparse_coding__tpu_torch.serve.registry import DictRegistry
+    from sparse_coding__tpu_torch.serve.router import Router
+    from sparse_coding__tpu_torch.serve.server import ServeClient
+    from sparse_coding__tpu_torch.telemetry.metrics_http import family_value, scrape
+
+    t_phase = time.perf_counter()
+    tier = root / "serve_tier"
+    exports = [export, rolled_export(torch, export, tier / "gen1")]
+    refs = []
+    for exp in exports:
+        reg = DictRegistry(device="cuda")
+        ids = reg.load_export(exp)
+        refs.append(EncodeEngine(reg, max_batch=256))
+    cache, ref_lock = {}, threading.Lock()
+
+    def expected(gen, did, off, n, k, bucket):
+        if gen not in (0, 1):
+            return None
+        key = (gen, did, off, n, k, bucket)
+        with ref_lock:
+            if key not in cache:
+                cache[key] = refs[gen].encode_naive(did, rows_pool[off:off + n], top_k=k, bucket=bucket)
+            return cache[key]
+
+    run_dir, port_file, swap_file, log_path = tier / "run", tier / "router_port", tier / "swap", tier / "tier.log"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+    env["PYTHONPATH"] = str(REPO)
+    cmd = [sys.executable, "-m", "sparse_coding__tpu_torch.serve.replicaset", str(export), "--replicas",
+           str(SERVE_TIER["replicas"]), "--run-dir", str(run_dir), "--port", "0", "--port-file", str(port_file),
+           "--swap-file", str(swap_file), "--metrics-port", "0", "--warmup-topk", str(SERVE_TIER["topk"])]
+    used_before = card_used_mib()
+    with open(log_path, "w") as log:
+        t_spawn = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    rs_events, router_events = run_dir / "replicaset_events.jsonl", run_dir / "router_events.jsonl"
+    stop = threading.Event()
+    threads = []
+
+    def wait_for(cond, timeout: float, what: str):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            got = cond()
+            if got:
+                return got
+            check(proc.poll() is None, f"the tier exited {proc.returncode} waiting for {what}: "
+                                       f"{log_path.read_text()[-3000:]}")
+            time.sleep(0.1)
+        check(False, f"timed out after {timeout} s waiting for {what}")
+
+    def spawned_pids():
+        return {e["replica"]: e["pid"] for e in read_jsonl(rs_events) if e["event"] == "replica_spawn"}
+
+    def replica_urls():
+        return {f"replica{i}": f"http://127.0.0.1:{(run_dir / f'replica{i}' / 'port').read_text().strip()}"
+                for i in range(SERVE_TIER["replicas"])}
+
+    def healthz(url):
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.loads(r.read())
+
+    try:
+        wait_for(port_file.exists, SERVE_TIER["ready_timeout_s"], "the router's port file")
+        ready_s = time.perf_counter() - t_spawn
+        url = f"http://127.0.0.1:{port_file.read_text().strip()}"
+        metrics_url = wait_for(lambda: re.search(r"/metrics on (http://\S+)/metrics", log_path.read_text()), 30,
+                               "the replicaset's metrics address").group(1)
+        pids0, urls0 = spawned_pids(), replica_urls()
+        captures0 = {rid: healthz(u)["captures"] for rid, u in urls0.items()}
+        memory0, used_ready = compute_apps(), card_used_mib()
+
+        # -- before the kill ---------------------------------------------------------
+        res, threads = tier_load(url, ids, rows_pool, expected, stop, SERVE_TIER["seed"])
+        t_load = time.time()
+        time.sleep(SERVE_TIER["before_s"])
+
+        # -- SIGKILL replica1 mid-load, by its replica_spawn pid ---------------------
+        victim = pids0["replica1"]
+        used_kill = card_used_mib()
+        t_kill = time.time()
+        os.kill(victim, signal.SIGKILL)
+        samples, readmitted = [], threading.Event()
+
+        def sample_card():  # the card's memory in use, from the kill to the readmission
+            while not readmitted.is_set() and time.time() < t_kill + SERVE_TIER["readmit_timeout_s"]:
+                samples.append((time.time() - t_kill, card_used_mib()))
+                time.sleep(0.1)
+
+        sampler = threading.Thread(target=sample_card)
+        sampler.start()
+
+        def after_kill(events, pred):
+            return next((e for e in read_jsonl(events) if e.get("ts", 0) >= t_kill and pred(e)), None)
+
+        readmit = wait_for(lambda: after_kill(router_events, lambda e: e["event"] == "router_replica_state" and
+                                              e["replica"] == "replica1" and e["to"] == "live"),
+                           SERVE_TIER["readmit_timeout_s"], "the killed replica's readmission")
+        t_readmit = readmit["ts"]
+        readmitted.set()
+        dead = after_kill(router_events, lambda e: e["event"] == "router_replica_state" and e["replica"] == "replica1"
+                          and e["to"] == "dead")
+        exited = after_kill(rs_events, lambda e: e["event"] == "replica_exit" and e["replica"] == "replica1")
+        respawn = after_kill(rs_events, lambda e: e["event"] == "replica_spawn" and e["replica"] == "replica1")
+        ready = after_kill(rs_events, lambda e: e["event"] == "replica_ready" and e["replica"] == "replica1")
+        sampler.join(60)
+        check(dead is not None, "the router never marked the killed replica dead")
+        check(exited is not None and exited["classification"] == "killed", f"replica exit record {exited}")
+        check(respawn is not None and respawn["pid"] != victim and ready is not None, "no relaunch recorded")
+        port_mtime = (run_dir / "replica1" / "port").stat().st_mtime
+        timeline = {"dead_s": dead["ts"] - t_kill, "exit_classified_s": exited["ts"] - t_kill,
+                    "spawn_s": respawn["ts"] - t_kill, "port_file_s": port_mtime - t_kill,
+                    "ready_s": ready["ts"] - t_kill, "readmit_s": t_readmit - t_kill,
+                    "downtime_seconds": ready.get("downtime_seconds"), "dead_reason": dead["reason"],
+                    "card_used_mib_at_kill": used_kill,
+                    "card_used_mib_low_before_spawn": min((u for t, u in samples if t < respawn["ts"] - t_kill),
+                                                          default=None),
+                    "card_used_mib_at_readmit": samples[-1][1] if samples else None}
+        # the victim's memory is back before its successor starts when the
+        # card's use falls by most of a replica's share before the spawn
+        replica_mib = (used_ready - used_before) / SERVE_TIER["replicas"]
+        timeline["victim_memory_released_before_successor_spawn"] = (
+            None if timeline["card_used_mib_low_before_spawn"] is None else
+            used_kill - timeline["card_used_mib_low_before_spawn"] >= 0.5 * replica_mib)
+
+        # -- roll out generation 1 through the swap file -----------------------------
+        time.sleep(1.0)
+        tmp = swap_file.with_name(swap_file.name + ".tmp")
+        tmp.write_text(str(exports[1]) + "\n")
+        t_swap = time.time()
+        tmp.rename(swap_file)
+        done = wait_for(lambda: next((e for e in read_jsonl(rs_events) if e["event"] == "rolling_swap_done"), None),
+                        SERVE_TIER["swap_timeout_s"], "the rolling swap")
+        t_swapped = done["ts"]
+        check(done["generation"] == 1 and done["replicas"] == SERVE_TIER["replicas"], f"rolling swap {done}")
+        time.sleep(SERVE_TIER["after_s"])
+        t_end = time.time()
+        stop.set()
+        for t in threads:
+            t.join(120)
+        check(not any(t.is_alive() for t in threads), "a tier client never returned")
+        records = res["records"]
+
+        # -- 1 vs 2 replicas, and the router's added latency, same load --------------
+        urls = replica_urls()
+        captures1 = {rid: healthz(u)["captures"] for rid, u in urls.items()}
+        memory1 = compute_apps()
+        rng = np.random.default_rng(SERVE_TIER["seed"] + 99)
+
+        def payload(r):
+            n = int(r.integers(1, SERVE_TIER["max_rows"] + 1))
+            off = int(r.integers(0, rows_pool.shape[0] - n))
+            return rows_pool[off:off + n].numpy(), (SERVE_TIER["topk"] if r.integers(0, 2) else None)
+
+        def measured(client):
+            out = run_load(lambda did, p: client.encode(did, p[0], top_k=p[1]), ids,
+                           n_clients=SERVE_TIER["clients"], requests_per_client=SERVE_TIER["compare_requests"],
+                           seed=int(rng.integers(0, 2**31)), payload_fn=payload, rows_of=lambda p: p[0].shape[0])
+            check(out["errors"] == 0 and out["shed"] == 0 and out["rejected"] == 0, f"comparison load {out}")
+            return {k: out[k] for k in ("requests_per_sec", "rows_per_sec", "p50_ms", "p95_ms", "p99_ms")}
+
+        routers = {"router_1_replica": Router({"replica0": urls["replica0"]}).start(),
+                   "router_2_replicas": Router(urls).start()}
+        compare = {k: [] for k in ("direct_replica0", "router_1_replica", "router_2_replicas")}
+        try:
+            for name in ("direct_replica0", "router_1_replica", "router_2_replicas", "router_2_replicas",
+                         "router_1_replica", "direct_replica0"):
+                client = ServeClient(urls["replica0"]) if name == "direct_replica0" else routers[name].client()
+                compare[name].append(measured(client))
+        finally:
+            for r in routers.values():
+                r.stop()
+
+        def mean(name, key):
+            return sum(t[key] for t in compare[name]) / len(compare[name])
+
+        fams = scrape(url)
+        router_counts = {k: family_value(fams, f"router.{k}", "_total", 0.0) for k in
+                         ("requests", "ok", "retried_ok", "retries", "hedges", "sheds", "failed", "forwards")}
+        supervisor = {k: family_value(scrape(metrics_url), f"replicaset.{k}", "_total", 0.0) for k in
+                      ("deaths", "deaths.killed", "restarts", "swaps")}
+
+        # -- SIGTERM the tier ---------------------------------------------------------
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+        exit_s = time.perf_counter() - t_term
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:  # the replicas share the tier's process group: none outlives the phase
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    out = log_path.read_text()
+    check(rc == 0 and "drain requested" in out, f"the tier exited {rc}: {out[-3000:]}")
+    check(res["bad"] == [], f"serve_tier bad outcomes ({len(res['bad'])}): {res['bad'][:5]}")
+    gens_before = {r[3] for r in records if r[0] < t_swap}
+    gens_after = {r[3] for r in records if r[0] >= t_swapped}
+    check(gens_before == {0} and gens_after == {1}, f"generations before the swap {gens_before}, after {gens_after}")
+    devices = {}
+    for i in range(SERVE_TIER["replicas"]):
+        starts = [e for e in read_jsonl(run_dir / f"replica{i}" / "events.jsonl") if e["event"] == "run_start"]
+        devices[f"replica{i}"] = [e["config"]["device"] for e in starts]
+        check(starts and all(d == "cuda" for d in devices[f"replica{i}"]), f"replica{i} run_start devices {devices}")
+    rs_recs, r_recs = read_jsonl(rs_events), read_jsonl(router_events)
+    swap_walls = {}
+    for rid in urls:
+        q = next(e["ts"] for e in r_recs if e["event"] == "router_replica_quiesced" and e["replica"] == rid
+                 and e["ts"] >= t_swap)
+        a = next(e["ts"] for e in r_recs if e["event"] == "router_replica_readmitted" and e["replica"] == rid
+                 and e["ts"] >= q)
+        drained = next(e for e in rs_recs if e["event"] == "replica_drained" and e["replica"] == rid and e["ts"] >= q)
+        swap_walls[rid] = {"quiesce_to_readmit_s": a - q, "drain_s": drained["seconds"],
+                           "drain_exit_code": drained["exit_code"]}
+        check(drained["exit_code"] == 0, f"{rid} drained with exit {drained['exit_code']}")
+
+    def by_replica(pids, memory):
+        return {rid: {"pid": pid, "used_mib": memory.get(pid, "not listed")} for rid, pid in pids.items()}
+
+    emit("serve_tier", replicas=SERVE_TIER["replicas"], clients=SERVE_TIER["clients"], max_batch=256,
+         tier_ready_s=ready_s, requests_ok_bit_equal=res["ok"], topk_ok=res["topk"], retried_ok=res["retried_ok"],
+         shed_503=res["shed"], retryable_503=res["rejected"], dropped=len(res["bad"]), exit=rc, exit_s=exit_s,
+         windows={"before_kill": window(records, t_load, t_kill), "across_restart": window(records, t_kill, t_readmit),
+                  "across_swap": window(records, t_swap, t_swapped), "after_swap": window(records, t_swapped, t_end)},
+         compare={name: {"requests_per_s": mean(name, "requests_per_sec"), "rows_per_s": mean(name, "rows_per_sec"),
+                         "p50_ms": mean(name, "p50_ms"), "p99_ms": mean(name, "p99_ms"), "turns": compare[name]}
+                  for name in compare},
+         router_added_p50_ms=mean("router_1_replica", "p50_ms") - mean("direct_replica0", "p50_ms"),
+         two_over_one_replica_requests=mean("router_2_replicas", "requests_per_sec") /
+         mean("router_1_replica", "requests_per_sec"),
+         kill_timeline=timeline, swap_walls=swap_walls, swap_s=t_swapped - t_swap, run_start_devices=devices,
+         card_used_mib={"before_tier": used_before, "tier_ready": used_ready, "per_replica": replica_mib},
+         memory_at_start=by_replica(pids0, memory0), memory_after_swap=by_replica(spawned_pids(), memory1),
+         compute_apps_listed={"at_start": memory0, "after_swap": memory1},
+         captures_at_start=captures0, captures_after_swap=captures1, router=router_counts,
+         replicaset=supervisor, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -3286,6 +3693,10 @@ def main() -> int:
         phase_serve_encode(torch, export, rows_pool)
         phase_serve_http(torch, export, lm_cfg, lm_params, rows_pool, serve_tokens)
         phase_serve_drain(torch, harvest_root, export, rows_pool, serve_tokens)
+        # the replicated tier (ROADMAP A7b): the replicaset CLI's two replica
+        # processes behind its router, a SIGKILL and a rolling swap under load
+        torch.cuda.empty_cache()
+        phase_serve_tier(torch, harvest_root, export, rows_pool)
         del lm_params
     for row in harvest_rows:
         row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])

@@ -1,6 +1,6 @@
 """Online feature-inference serving over trained `LearnedDict`s.
 
-Counterpart of the JAX package's `serve/`, single-process tier (ROADMAP A7a):
+Counterpart of the JAX package's `serve/`. The single process:
 
   - `serve.registry.DictRegistry`: verified export loads, hot
     add/swap/remove, int8-resident weights, attached subject LMs;
@@ -13,8 +13,15 @@ Counterpart of the JAX package's `serve/`, single-process tier (ROADMAP A7a):
     ``/dicts``, ``/healthz``, ``/metrics``) with the SIGTERM drain, and
     `ServeClient`.
 
-The replica tier (`Router`, `RouterClient`, `ReplicaSet`, `ShedRejection`)
-is ROADMAP A7b and raises.
+The replicated tier:
+
+  - `serve.router.Router`: the HTTP front end over N replicas (health
+    states, retry on another replica, hedging, bounded shedding, generation
+    pinning) and `RouterClient`, whose `ShedRejection` is the router's fast
+    retryable 503;
+  - `serve.replicaset.ReplicaSet`: N server processes supervised with a
+    restart budget, and drain-aware rolling dict swaps;
+  - `serve.loadgen`: the closed-loop load generator.
 """
 
 __all__ = [
@@ -34,11 +41,14 @@ _EXPORTS = {
     "DictRegistry": "sparse_coding__tpu_torch.serve.registry",
     "EncodeEngine": "sparse_coding__tpu_torch.serve.engine",
     "EngineClosed": "sparse_coding__tpu_torch.serve.engine",
+    "ReplicaSet": "sparse_coding__tpu_torch.serve.replicaset",
+    "Router": "sparse_coding__tpu_torch.serve.router",
+    "RouterClient": "sparse_coding__tpu_torch.serve.router",
     "ServeClient": "sparse_coding__tpu_torch.serve.server",
     "ServeServer": "sparse_coding__tpu_torch.serve.server",
+    "ShedRejection": "sparse_coding__tpu_torch.serve.router",
     "SubjectLM": "sparse_coding__tpu_torch.serve.registry",
 }
-_REPLICA_TIER = ("ReplicaSet", "Router", "RouterClient", "ShedRejection")
 
 
 def __getattr__(name: str):
@@ -48,6 +58,4 @@ def __getattr__(name: str):
         import importlib
 
         return getattr(importlib.import_module(_EXPORTS[name]), name)
-    if name in _REPLICA_TIER:
-        raise NotImplementedError(f"{name}: the replica tier (router, replica sets) is not ported yet — ROADMAP A7b")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

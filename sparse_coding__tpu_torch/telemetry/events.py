@@ -254,6 +254,13 @@ class RunTelemetry:
             self._fh.close()
             self._fh = None
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close(status="ok" if exc_type is None else f"error: {exc_type.__name__}: {exc}")
+        return False
+
 
 def read_events(path) -> List[Dict[str, Any]]:
     """Parse an events.jsonl back into records."""

@@ -20,10 +20,14 @@ last byte of the just-committed chunk file, bit rot a digest catches).
 Sites the port plants: ``chunk_loop`` (top of each sweep chunk: chunk),
 ``checkpoint_commit`` (data written, not committed: path),
 ``checkpoint_committed`` (after the commit: path), ``export`` (top of
-`save_learned_dicts`: path), and in `data.chunks.save_chunk`
+`save_learned_dicts`: path), in `data.chunks.save_chunk`
 ``chunk_write`` (data staged, nothing landed: chunk), ``chunk_pair``
 (between the pair's file operations: chunk) and ``chunk_committed`` (after
-the chunk's manifest commit: chunk, path).
+the chunk's manifest commit: chunk, path), ``serve_loop`` (each tick of the
+serve server's drain-wait loop: tick; ``kill:serve_loop:tick=40`` SIGKILLs
+a serve replica mid-flight) and ``router_forward`` (in `serve.router` just
+before a forward: replica; ``io_error`` there is a transport failure the
+router retries on another replica).
 
 Selectors: ``chunk=N`` / ``step=N`` / ``epoch=N`` / ``tick=N`` /
 ``replica=ID`` match the context; ``every=N`` fires on every Nth matching

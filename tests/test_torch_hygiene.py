@@ -37,9 +37,13 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.topk_kernel",
     "sparse_coding__tpu_torch.serve",
     "sparse_coding__tpu_torch.serve.engine",
+    "sparse_coding__tpu_torch.serve.loadgen",
     "sparse_coding__tpu_torch.serve.registry",
+    "sparse_coding__tpu_torch.serve.replicaset",
+    "sparse_coding__tpu_torch.serve.router",
     "sparse_coding__tpu_torch.serve.server",
     "sparse_coding__tpu_torch.serve.wire",
+    "sparse_coding__tpu_torch.supervise",
     "sparse_coding__tpu_torch.telemetry",
     "sparse_coding__tpu_torch.telemetry.anomaly",
     "sparse_coding__tpu_torch.telemetry.events",
@@ -55,6 +59,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.train.experiments",
     "sparse_coding__tpu_torch.train.loop",
     "sparse_coding__tpu_torch.train.preemption",
+    "sparse_coding__tpu_torch.trace",
     "sparse_coding__tpu_torch.train.sweep",
     "sparse_coding__tpu_torch.utils.config",
     "sparse_coding__tpu_torch.utils.device",
