@@ -51,9 +51,16 @@ experiment catalog (`train/experiments.py`): its kernels at the shapes it
 gives them (K1/K2 at M 32, N 256; K_s/K_d/the sparse K2 at M 16, N 256,
 k 1..151), then `run_sweep_synthetic` at width 512 with three builders in
 bf16 over one store (`synthetic_linear_range`, `tied_vs_not_experiment`,
-`topk_experiment`) and the default builder in exact f32, each ensemble's
-launches counted and none outside the train loops, the export, the
-evaluation, the matched MCS and the streaming moments checked. Then the
+`topk_experiment`) and the default builder in exact f32, then the four
+ablation builders (LISTA, thresholding, the 96-member masked dict-ratio
+stack also in bf16, positive) in f32, each ensemble's launches counted and
+none outside the train loops (the ablations launch none), the export, the
+evaluation, the matched MCS and the streaming moments checked; then the
+signatures no builder trains (`signatures`: tied-centred, masked, reverse,
+residual-denoising, semi-linear, RICA, DirectCoef at D 512, N 2048, 8
+members): graph steps bit-equal to eager ones, the card's steps to the
+CPU's at a small shape, and `calc_pca` of a 65,536-row chunk against
+float64 with its whitening. Then the
 subject LM and the activation harvest (`lm/`, `data/activations.py`) at
 Pythia-70M's full width: a seeded random init pretrained on the trigram
 language for 300 steps (the loss must fall by a nat), layer 2's residual
@@ -179,9 +186,16 @@ BLS = dict(members=len(BLS_L1), width=512, n_dict=2048, batch=1024, chunks=2, ro
 # in bf16 compute (the config's ``dtype``; the route to the kernels), then
 # the driver's default builder at its default precision (exact f32,
 # autograd: no hand-written kernel); the TopK builder at recall 0.95
-# (`TopKEncoderApprox`)
+# (`TopKEncoderApprox`); then the four ablation builders (ROADMAP A8a) at
+# the catalog's default exact f32 (autograd: LISTA's 16 x 3 layers at N
+# 512, 16 thresholding SAEs at N 2048, the 96-member masked dict-ratio stack
+# of N 2560, 16 positive SAEs at N 512), the dict-ratio stack also in bf16
+# (the masked signature applies the policy; still autograd, no kernel)
 EXPERIMENTS = dict(builders=(("synthetic_linear_range", "bfloat16"), ("tied_vs_not_experiment", "bfloat16"),
-                             ("topk_experiment", "bfloat16"), ("synthetic_linear_range", "float32")),
+                             ("topk_experiment", "bfloat16"), ("synthetic_linear_range", "float32"),
+                             ("residual_denoising_experiment", "float32"), ("thresholding_experiment", "float32"),
+                             ("dict_ratio_experiment", "float32"), ("dict_ratio_experiment", "bfloat16"),
+                             ("run_positive_experiment", "float32")),
                    width=512, batch=1024, chunks=2, rows_per_chunk=65536, epochs=1, topk_recall=0.95,
                    eval_rows=4096)
 # the new shapes the catalog gives the kernels (M, B, N, D): a tied
@@ -190,6 +204,13 @@ EXPERIMENTS = dict(builders=(("synthetic_linear_range", "bfloat16"), ("tied_vs_n
 EXP_TIED = (32, 1024, 256, 512)
 EXP_TOPK = (16, 1024, 256, 512)
 EXP_KS = list(range(1, 161, 10))
+# the signatures no builder trains (ROADMAP A8a), at the catalog's width:
+# D 512, N 2048, 8 members, batch 1024, Adam lr 1e-3, exact f32; graph
+# replays against eager steps at that width, then the same steps at a small
+# shape (D 64, N 256, 4 members, batch 256) on the card against the CPU;
+# `calc_pca` of a 65,536-row chunk against float64 numpy
+SIGNATURES = dict(width=512, n_dict=2048, members=8, batch=1024, steps=3, small=(64, 256, 4, 256),
+                  pca_rows=65536, pca_seed=41)
 # the subject LM and its activation harvest (ROADMAP A5), at Pythia-70M's
 # full width (`lm.model.config_for`: NeoX, 6 layers, d 512, 8 heads, d_mlp
 # 2048, vocab 50304, rotary 0.25), cut in depth only: pretrained from a
@@ -2215,14 +2236,16 @@ def graph_pool_bytes(torch):
 def phase_experiments_synthetic(torch, root: Path, launches_at):
     """The experiment catalog as a user runs it: `run_sweep_synthetic` with
     builders in turn (`EXPERIMENTS`) over one synthetic store (the first run
-    builds it and saves its ground truth), three in bf16 compute and the
-    default builder in exact f32. Launches: every count set to 0 just before
-    a run and read just after, and around each of its train loop calls set
-    to 0 on entry and read on exit, so each ensemble's launches are its
-    loops' and no kernel may launch outside the loops. K1 = K2 = steps on
-    each bf16 tied ensemble, none of the hand-written kernels on the untied
-    and the f32 ones, K_s = K_d = the sparse K2 = steps on each TopK
-    ensemble. The export reloads in the port equal to what the sweep
+    builds it and saves its ground truth), three in bf16 compute, the
+    default builder in exact f32, then the four ablation builders (LISTA,
+    thresholding, the masked dict-ratio stack also in bf16, positive).
+    Launches: every count set to 0 just before a run and read just after,
+    and around each of its train loop calls set to 0 on entry and read on
+    exit, so each ensemble's launches are its loops' and no kernel may
+    launch outside the loops. K1 = K2 = steps on each bf16 tied ensemble,
+    none of the hand-written kernels on the untied, the ablations' and the
+    f32 ones (their route is autograd), K_s = K_d = the sparse K2 = steps on
+    each TopK ensemble. The export reloads in the port equal to what the sweep
     returned; `evaluate_dicts` equals each dict evaluated alone (rtol 1e-6);
     `hungarian_matched_mcs` of each ensemble's first member against the
     saved ground truth; `calc_moments_streaming` of each run's first dict
@@ -2234,7 +2257,7 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
     import numpy as np
 
     from sparse_coding__tpu_torch.metrics import standard as sm
-    from sparse_coding__tpu_torch.models.learned_dict import LEARNED_DICT_REGISTRY
+    from sparse_coding__tpu_torch.models.learned_dict import dict_leaves
     from sparse_coding__tpu_torch.ops import fista_kernel as fk
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
@@ -2247,7 +2270,9 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
     width, batch = E["width"], E["batch"]
     store = root / "act"
     steps = E["chunks"] * E["rows_per_chunk"] // batch  # per ensemble
-    fused = {"FunctionalTiedSAE": ("tied_sae_fwd", "tied_sae_bwd_adam"), "FunctionalSAE": (),
+    # the hand-written kernels each signature's bf16 step launches (the
+    # others take the autograd step: none)
+    fused = {"FunctionalTiedSAE": ("tied_sae_fwd", "tied_sae_bwd_adam"),
              "TopKEncoderApprox": ("topk_scores", "topk_decode", "tied_sae_bwd_adam_sparse")}
     real_loop = sweep_mod.ensemble_train_loop
 
@@ -2310,7 +2335,7 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
         ensembles, total = [], 0
         for ens, args, ens_name in held:
             sig = ens.sig.__name__
-            kernels = fused[sig] if dtype == "bfloat16" else ()
+            kernels = fused.get(sig, ()) if dtype == "bfloat16" else ()
             want = dict.fromkeys(counts(), 0)
             want.update(dict.fromkeys(kernels, steps))
             got = per_ens.get(id(ens))
@@ -2332,8 +2357,10 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
         check(len(loaded) == len(lds) == sum(e["members"] for e in ensembles), f"{name}: {len(loaded)} exported")
         for (a, ha), (b, hb) in zip(lds, loaded):
             check(type(a) is type(b) and ha == hb, f"{name}: export {type(b).__name__} {hb}, wrote {ha}")
-            for f in LEARNED_DICT_REGISTRY[type(a)][0]:
-                check(torch.equal(getattr(a, f), getattr(b, f)), f"{name}: exported {f} differs")
+            la, lb = dict_leaves(a), dict_leaves(b)
+            check(len(la) == len(lb) and all(fa == fb and pa == pb and torch.equal(ta, tb)
+                                             for (fa, pa, ta), (fb, pb, tb) in zip(la, lb)),
+                  f"{name}: an exported array of {type(a).__name__} differs")
         dicts = [ld for ld, _ in loaded]
         sample = torch.from_numpy(np.load(store / "0.npy")[:E["eval_rows"]]).cuda().float()
         torch.cuda.synchronize()
@@ -2390,6 +2417,161 @@ def phase_experiments_synthetic(torch, root: Path, launches_at):
         del held, lds, loaded, dicts, per_ens, ens, builder
         shutil.rmtree(out)  # its checkpoint and export: ~1 GB a builder
         torch.cuda.empty_cache()
+
+
+def signature_models(pkg, width: int, n_dict: int, members: int):
+    """``(name, signature, init kwargs, member hparams)`` of the signatures
+    no catalog builder trains, an l1 (or sparsity) grid over ``members``."""
+    grid = [10 ** (-4 + 2 * i / max(members - 1, 1)) for i in range(members)]
+    tied = dict(activation_size=width, n_dict_components=n_dict)
+    return [
+        ("FunctionalTiedCenteredSAE", pkg.FunctionalTiedCenteredSAE, tied, [{"l1_alpha": a} for a in grid]),
+        ("FunctionalMaskedSAE", pkg.FunctionalMaskedSAE, dict(activation_size=width, n_components_stack=n_dict),
+         [{"l1_alpha": 1e-3, "n_dict_components": n_dict * (i % 4 + 1) // 4} for i in range(members)]),
+        ("FunctionalReverseSAE", pkg.FunctionalReverseSAE, tied,
+         [{"l1_alpha": a, "bias_decay": 0.05 * (i % 2)} for i, a in enumerate(grid)]),
+        ("FunctionalResidualDenoisingSAE", pkg.FunctionalResidualDenoisingSAE,
+         dict(d_activation=width, n_features=n_dict, n_hidden_layers=3), [{"l1_alpha": a} for a in grid]),
+        ("SemiLinearSAE", pkg.SemiLinearSAE, tied, [{"l1_alpha": a} for a in grid]),
+        ("RICA", pkg.RICA, tied, [{"sparsity_coef": 0.1, "sparsity_loss": "l1" if i % 2 else "smooth_l1"}
+                                  for i in range(members)]),
+        ("DirectCoefOptimizer", pkg.DirectCoefOptimizer, dict(d_activation=width, n_features=n_dict),
+         [{"l1_alpha": a} for a in grid]),
+    ]
+
+
+def phase_signatures(torch, pkg):
+    """The signatures no catalog builder trains (`SIGNATURES`): for each, at
+    D 512, N 2048, 8 members, batch 1024 (exact f32, autograd): from cloned
+    states, ``steps`` replays of the captured step (`step_scan`) against
+    ``steps`` eager `step_batch` calls, losses and state bit for bit, one
+    capture, no hand-written kernel launched; its graph steps a second
+    (CUDA events over the replays), the peak allocated memory and the graph
+    pool's bytes. Then the same steps at the small shape on the card and on
+    the CPU, each from the CPU's state (`Ensemble.from_state`): losses rtol
+    1e-5 and params within 1e-2 lr (the f32 autograd parity tests' bounds),
+    except elements whose CPU gradient is f32 cancellation noise (at most
+    1e-6 of the leaf's largest), which Adam turns into up to its bound
+    (1 - b1) / sqrt(1 - b2) lr in either place: those within that bound.
+    Then `models.pca.calc_pca` of one chunk on the card against a float64
+    numpy covariance and mean, and its `get_centering_transform` whitening
+    the chunk to unit covariance."""
+    import numpy as np
+    from _torch_moments import state_differences
+
+    from sparse_coding__tpu_torch.models import pca
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+
+    S = SIGNATURES
+    t_phase = time.perf_counter()
+    results = {}
+    for name, sig, common, hparams in signature_models(pkg, S["width"], S["n_dict"], S["members"]):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pools_before = graph_pool_bytes(torch) or {}
+        a = pkg.build_ensemble(sig, 11, hparams, optimizer_kwargs={"learning_rate": LR}, device="cuda", **common)
+        b = pkg.Ensemble.from_state(a.state_dict(), sig=sig, device="cuda")
+        check(a._route(S["batch"], False, False) == "autograd", f"signatures {name}: route")
+        g = torch.Generator(device="cuda").manual_seed(S["pca_seed"])
+        xs = torch.randn((S["steps"] + 1, S["batch"], S["width"]), generator=g, device="cuda")
+        for mod in (tk, kk, fk):
+            mod.reset_launches()
+        a.step_scan(xs[:1])
+        b.step_batch(xs[0])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        la = a.step_scan(xs[1:])
+        end.record()
+        lb = [b.step_batch(x)[0] for x in xs[1:]]
+        torch.cuda.synchronize()
+        launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+        check(not any(launches.values()), f"signatures {name}: hand-written kernels launched {launches}")
+        check(a.captures == 1, f"signatures {name}: {a.captures} captures")
+        for k in lb[0]:
+            check(torch.equal(la[k], torch.stack([l[k] for l in lb])), f"signatures {name}: graph {k} differs")
+        diff = state_differences(a.state, b.state)
+        check(diff == [], f"signatures {name}: graph state differs from eager at {diff}")
+        check(all(bool(torch.isfinite(v).all()) for v in la.values()), f"signatures {name}: losses {la}")
+        replay_ms = start.elapsed_time(end) / S["steps"]
+        peak = torch.cuda.max_memory_allocated() - before
+        pools = graph_pool_bytes(torch)
+        pool_bytes = None if pools is None else sum(v for k, v in pools.items() if k not in pools_before)
+        del a, b, xs, la, lb
+        torch.cuda.empty_cache()
+        small = signature_small_parity(torch, pkg, sig, name, hparams, common)
+        results[name] = dict(members=S["members"], steps=S["steps"], graph_step_ms=replay_ms,
+                             steps_per_s=1000.0 / replay_ms, peak_allocated_bytes=peak, graph_pool_bytes=pool_bytes,
+                             bit_equal=True, launches=0, small_parity=small, seconds=time.perf_counter() - t0)
+
+    # streaming PCA of one chunk, against float64
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(S["pca_seed"])
+    D_ = S["width"]
+    scales = torch.linspace(1.0, 16.0, D_, device="cuda")
+    mix = torch.linalg.qr(torch.randn((D_, D_), generator=g, device="cuda"))[0]
+    x = (torch.randn((S["pca_rows"], D_), generator=g, device="cuda") * scales) @ mix + 3.0
+    fit = pca.calc_pca(x, device="cuda")
+    ref = x.cpu().double().numpy()
+    mean64, cov64 = ref.mean(0), np.cov(ref.T, bias=True)
+    mean_err = float(np.abs(fit.get_mean().cpu().double().numpy() - mean64).max())
+    cov_err = float(np.abs(fit.cov.cpu().double().numpy() - cov64).max() / np.abs(cov64).max())
+    check(mean_err <= 1e-4 and cov_err <= 1e-4, f"signatures pca: mean err {mean_err}, cov rel err {cov_err}")
+    t, r, s_ = fit.get_centering_transform()
+    w = (((x - t) @ r) * s_).double()
+    white_err = float((w.T @ w / w.shape[0] - torch.eye(D_, device="cuda", dtype=torch.float64)).abs().max())
+    check(white_err <= 1e-3, f"signatures pca: whitened covariance off the identity by {white_err}")
+    pca_s = time.perf_counter() - t0
+    del x, w, fit
+    torch.cuda.empty_cache()
+    emit("signatures", width=S["width"], n_dict=S["n_dict"], batch=S["batch"], signatures=results,
+         pca=dict(rows=S["pca_rows"], mean_max_abs_err=mean_err, cov_max_rel_err=cov_err,
+                  whitened_cov_max_err=white_err, seconds=pca_s),
+         seconds=time.perf_counter() - t_phase)
+
+
+def signature_small_parity(torch, pkg, sig, name, hparams, common):
+    """``steps`` steps at `SIGNATURES`' small shape, each from the CPU
+    ensemble's state on both the CPU and the card (see `phase_signatures`):
+    the worst loss rel error, param error in lr, and the noise elements'
+    count."""
+    from sparse_coding__tpu_torch.utils.tree import tree_leaves
+
+    S = SIGNATURES
+    D_, N_, M_, B_ = S["small"]
+    grid = hparams[:M_]
+    kw = {k: (N_ if v == S["n_dict"] else D_ if v == S["width"] else v) for k, v in common.items()}
+    if name == "FunctionalMaskedSAE":
+        grid = [dict(hp, n_dict_components=N_ * (i % 4 + 1) // 4) for i, hp in enumerate(grid)]
+    cpu = pkg.build_ensemble(sig, 5, grid, optimizer_kwargs={"learning_rate": LR}, device="cpu", **kw)
+    x = torch.randn((S["steps"], B_, D_), generator=torch.Generator().manual_seed(7))
+    bound = (1 - B1) / (1 - B2) ** 0.5 * LR
+    worst_loss, worst_param, noisy_n = 0.0, 0.0, 0
+    for k in range(S["steps"]):
+        card = pkg.Ensemble.from_state(cpu.state_dict(), sig=sig, device="cuda")
+        before = [t.clone() for t in tree_leaves(cpu.state.params)]
+        grads = tree_leaves(cpu._grads(cpu.state.params, cpu.state.buffers, x[k])[0])
+        lc, _ = cpu.step_batch(x[k])
+        lg, _ = card.step_batch(x[k].cuda())
+        for key in lc:
+            rel = float(((lg[key].cpu() - lc[key]).abs() / lc[key].abs().clamp_min(1e-30)).max())
+            worst_loss = max(worst_loss, rel)
+        for gr, p0, pc, pg in zip(grads, before, tree_leaves(cpu.state.params), tree_leaves(card.state.params)):
+            noisy = gr.abs() <= 1e-6 * gr.abs().max()
+            noisy_n += int(noisy.sum())
+            d = (pg.cpu() - pc).abs()
+            check(float(torch.where(noisy, (pg.cpu() - p0).abs(), torch.zeros_like(d)).max()) <= bound * 1.0001,
+                  f"signatures {name}: a noise element moved past Adam's bound")
+            worst_param = max(worst_param, float(torch.where(noisy, torch.zeros_like(d), d).max()) / LR)
+        del card
+    check(worst_loss <= 1e-5, f"signatures {name}: card vs CPU loss rel {worst_loss}")
+    check(worst_param <= 1e-2, f"signatures {name}: card vs CPU params {worst_param} lr")
+    return dict(shape=dict(D=D_, N=N_, M=M_, B=B_), steps=S["steps"], max_loss_rel=worst_loss,
+                max_param_diff_lr=worst_param, noise_elements=noisy_n)
 
 
 def harvest_chunk_rows(cfg) -> int:
@@ -3671,6 +3853,10 @@ def main() -> int:
         sig = "FunctionalTiedSAE" if row["name"] in ("tied_sae_fwd", "tied_sae_bwd_adam") else "TopKEncoderApprox"
         row.update(path="experiments_synthetic", launches=launches_at[sig][row["name"]])
     rows += exp_rows
+    # the signatures no builder trains (ROADMAP A8a): graph = eager at full
+    # width, card = CPU at a small shape, and the streaming PCA
+    torch.cuda.empty_cache()
+    phase_signatures(torch, pkg)
 
     # the subject LM and the activation harvest (ROADMAP A5) at Pythia-70M's
     # width: pretrain, harvest (disk and device, bf16), a killed and resumed

@@ -12,11 +12,32 @@ from sparse_coding__tpu_torch.ensemble import (
     EnsembleState,
     build_ensemble,
 )
-from sparse_coding__tpu_torch.models.fista import Fista, FunctionalFista
-from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
-from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox, TopKLearnedDict
+from sparse_coding__tpu_torch.models import (
+    RICA,
+    DirectCoefOptimizer,
+    DirectCoefSearch,
+    Fista,
+    FunctionalFista,
+    FunctionalLISTADenoisingSAE,
+    FunctionalMaskedSAE,
+    FunctionalMaskedTiedSAE,
+    FunctionalPositiveTiedSAE,
+    FunctionalResidualDenoisingSAE,
+    FunctionalReverseSAE,
+    FunctionalSAE,
+    FunctionalThresholdingSAE,
+    FunctionalTiedCenteredSAE,
+    FunctionalTiedSAE,
+    SemiLinearSAE,
+    TopKEncoder,
+    TopKEncoderApprox,
+    TopKLearnedDict,
+)
 
 __all__ = [
     "Ensemble", "EnsembleState", "build_ensemble", "FunctionalSAE", "FunctionalTiedSAE",
     "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict", "Fista", "FunctionalFista",
+    "FunctionalTiedCenteredSAE", "FunctionalThresholdingSAE", "FunctionalMaskedTiedSAE", "FunctionalMaskedSAE",
+    "FunctionalReverseSAE", "FunctionalLISTADenoisingSAE", "FunctionalResidualDenoisingSAE",
+    "FunctionalPositiveTiedSAE", "SemiLinearSAE", "RICA", "DirectCoefOptimizer", "DirectCoefSearch",
 ]

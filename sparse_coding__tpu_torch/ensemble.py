@@ -1,7 +1,8 @@
 """Stacked-ensemble runtime: train N dictionary models at once.
 
-Counterpart of `sparse_coding__tpu/ensemble.py`. Params and buffers are dicts
-of tensors stacked on a leading member axis; the batch is shared by all
+Counterpart of `sparse_coding__tpu/ensemble.py`. Params and buffers are trees
+(`utils.tree`: nested dicts and lists, as the JAX package's pytrees) of
+tensors stacked on a leading member axis; the batch is shared by all
 members, or per member (``per_model``: [M, B, D]). A step picks one of three
 paths, by the JAX package's rules and independent of the device:
 
@@ -58,8 +59,9 @@ from sparse_coding__tpu_torch.utils import flags
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.optim import apply_updates, f32
+from sparse_coding__tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
-Params = Dict[str, Optional[torch.Tensor]]
+Params = Dict[str, Any]
 
 
 def optim_str_to_func(optim_str: str):
@@ -122,38 +124,27 @@ def _mask_updates(updates: Params, mask: torch.Tensor) -> Params:
         m = mask.reshape(mask.shape + (1,) * (u.ndim - 1))
         return torch.where(m > 0, u, torch.zeros_like(u))
 
-    return {k: one(u) for k, u in updates.items()}
+    return tree_map(one, updates)
 
 
 def stack_pytrees(trees: Sequence[Params]) -> Params:
-    """Stack per-member dicts on a new leading axis (None stays None)."""
-    return {
-        k: None if trees[0][k] is None else torch.stack([t[k] for t in trees])
-        for k in trees[0]
-    }
+    """Stack per-member trees on a new leading axis (None stays None)."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
 
 def unstack_pytree(tree: Params, n: int) -> List[Params]:
-    return [{k: None if v is None else v[i] for k, v in tree.items()} for i in range(n)]
+    return [tree_map(lambda v: v[i], tree) for i in range(n)]
 
 
 def _map_tensors(v, fn):
-    """``fn`` applied to every tensor of a state (dicts and dataclasses
+    """``fn`` applied to every tensor of a state (its trees and dataclasses
     rebuilt around them; None and scalars kept)."""
-    if isinstance(v, torch.Tensor):
-        return fn(v)
-    if isinstance(v, dict):
-        return {k: _map_tensors(x, fn) for k, x in v.items()}
-    if dataclasses.is_dataclass(v):
-        return type(v)(**{f.name: _map_tensors(getattr(v, f.name), fn) for f in dataclasses.fields(v)})
-    return v
+    return tree_map(lambda t: fn(t) if isinstance(t, torch.Tensor) else t, v)
 
 
 def _tensors(v) -> List[torch.Tensor]:
-    """Every tensor of a state, in a fixed order."""
-    out: List[torch.Tensor] = []
-    _map_tensors(v, out.append)
-    return out
+    """Every tensor of a state, in JAX's tree order."""
+    return [t for t in tree_leaves(v) if isinstance(t, torch.Tensor)]
 
 
 def _copy_into(dst, src) -> None:
@@ -166,6 +157,9 @@ def _copy_into(dst, src) -> None:
     elif isinstance(dst, dict):
         for k, v in dst.items():
             _copy_into(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for v, w in zip(dst, src):
+            _copy_into(v, w)
     elif dataclasses.is_dataclass(dst):
         for f in dataclasses.fields(dst):
             _copy_into(getattr(dst, f.name), getattr(src, f.name))
@@ -173,7 +167,7 @@ def _copy_into(dst, src) -> None:
 
 def _member(tree: Params, i: int) -> Params:
     """Member ``i`` of stacked params or buffers, its member axis kept (length 1)."""
-    return {k: None if v is None else v[i : i + 1] for k, v in tree.items()}
+    return tree_map(lambda v: v[i : i + 1], tree)
 
 
 def _stack_losses(losses: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -274,7 +268,7 @@ class Ensemble:
         self.tx = optim_str_to_func(optimizer)(**self.optimizer_kwargs)
         params = stack_pytrees([p for p, _ in models])
         buffers = stack_pytrees([b for _, b in models])
-        dev = next(iter(params.values())).device
+        dev = tree_leaves(params)[0].device
         if self.health is not None:
             buffers[FIRE_EMA_KEY] = init_fire_ema(self.n_models, n_feats_of(models[0][0]), device=dev)
         if self.feature_stats is not None:
@@ -311,7 +305,7 @@ class Ensemble:
 
     @property
     def device(self) -> torch.device:
-        return next(iter(self.state.params.values())).device
+        return tree_leaves(self.state.params)[0].device
 
     def _fused_adam_config(self) -> Optional[Dict[str, Any]]:
         """The kernel's Adam constants, or None when the fused-Adam kernel
@@ -454,14 +448,13 @@ class Ensemble:
             self._grads(_member(params, i), _member(exec_buffers, i), batch[i : i + 1] if per_model else batch)
             for i in range(self.n_models)
         ]
-        return tuple({k: torch.cat([p[j][k] for p in parts]) for k in parts[0][j]} for j in range(3))
+        return tuple(tree_map(lambda *xs: torch.cat(xs), *[p[j] for p in parts]) for j in range(3))
 
     def _grads(self, params, exec_buffers, batch):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
         with px.compute(self.compute_dtype):
             total, (loss_dict, aux) = self.sig.loss(leaves, exec_buffers, batch)
-        g = torch.autograd.grad(total.sum(), list(leaves.values()))
-        grads = dict(zip(leaves, g))
+        grads = tree_unflatten(leaves, torch.autograd.grad(total.sum(), tree_leaves(leaves)))
         return grads, {k: v.detach() for k, v in loss_dict.items()}, {k: v.detach() for k, v in aux.items()}
 
     def step_scan(self, batches: torch.Tensor, per_model: bool = False) -> Dict[str, torch.Tensor]:
@@ -584,8 +577,7 @@ class Ensemble:
         """Every member as a `LearnedDict` (tensors detached copies)."""
         out = []
         for p, b in self.unstack():
-            p = {k: v.detach().clone() for k, v in p.items()}
-            out.append(self.sig.to_learned_dict(p, b))
+            out.append(self.sig.to_learned_dict(tree_map(lambda v: v.detach().clone(), p), b))
         return out
 
     def state_dict(self) -> Dict[str, Any]:
@@ -609,15 +601,17 @@ class Ensemble:
         """Rebuild from `state_dict` on ``device`` (None = cuda). The
         signature is found by its class name among the port's own (a record
         of either package names them alike), unless ``sig`` is given."""
-        from sparse_coding__tpu_torch.models.fista import FunctionalFista
-        from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
-        from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
+        from sparse_coding__tpu_torch import models as m
 
         device = resolve_device(device)
         if sig is None:
             name = state_dict["sig"].rpartition(".")[2]
-            sigs = {s.__name__: s for s in (FunctionalTiedSAE, FunctionalSAE, TopKEncoder, TopKEncoderApprox,
-                                            FunctionalFista)}
+            sigs = {s.__name__: s for s in (
+                m.FunctionalTiedSAE, m.FunctionalSAE, m.TopKEncoder, m.TopKEncoderApprox, m.FunctionalFista,
+                m.FunctionalTiedCenteredSAE, m.FunctionalThresholdingSAE, m.FunctionalMaskedTiedSAE,
+                m.FunctionalMaskedSAE, m.FunctionalReverseSAE, m.FunctionalLISTADenoisingSAE,
+                m.FunctionalResidualDenoisingSAE, m.FunctionalPositiveTiedSAE, m.SemiLinearSAE, m.RICA,
+                m.DirectCoefOptimizer)}
             if name not in sigs:
                 raise ValueError(f"unknown signature {state_dict['sig']!r}")
             sig = sigs[name]

@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from sparse_coding__tpu_torch.ensemble import EnsembleState
-from sparse_coding__tpu_torch.lm.model import tree_map
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment
+from sparse_coding__tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 def _tensor(a, device) -> Optional[torch.Tensor]:
@@ -45,30 +45,34 @@ def state_from_jax_numpy(
 ) -> EnsembleState:
     """params (``{"encoder", "encoder_bias"}`` of a tied SAE, ``{"dict"}`` of
     a TopK signature, ``{"encoder", "encoder_bias", "decoder"}`` of the
-    untied `FunctionalSAE` and of `FunctionalFista`: any dict of params
-    goes), buffers (None for absent centering; FISTA's
+    untied `FunctionalSAE` and of `FunctionalFista`, LISTA's nested
+    ``encoder_layers`` dict, the semi-linear SAE's list of layers: any tree
+    of dicts and lists goes), buffers (None for absent centering; FISTA's
     ``hessian_diag``, the health pack's ``health_fire_ema`` and the feature
     sketch's ``featstat_*`` like any other), and optax's
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
-    ``{"count", "mu", "nu"}`` — each moment keeps its storage: f32, bf16, or
-    an int8 ``QuantMoment`` node (q and scale). With
+    ``{"count", "mu", "nu"}``, the moments trees of the params' structure —
+    each moment keeps its storage: f32, bf16, or an int8 ``QuantMoment``
+    node (q and scale). With
     ``opt_state=None`` the moments start at zero. Every array carries the
     leading member axis."""
     device = resolve_device(device)
-    p = {k: _tensor(v, device) for k, v in params.items()}
-    b = {k: _tensor(v, device) for k, v in buffers.items()}
+    p = tree_map(lambda v: _tensor(v, device), params)
+    b = tree_map(lambda v: _tensor(v, device), buffers)
     if opt_state is None:
-        n = next(iter(p.values())).shape[0]
+        n = tree_leaves(p)[0].shape[0]
         adam = AdamState(
             count=torch.zeros(n, dtype=torch.int32, device=device),
-            mu={k: torch.zeros_like(v) for k, v in p.items()},
-            nu={k: torch.zeros_like(v) for k, v in p.items()},
+            mu=tree_map(torch.zeros_like, p),
+            nu=tree_map(torch.zeros_like, p),
         )
     else:
+        # the moments walked along the params' structure: a JAX QuantMoment
+        # node at a leaf's place is taken whole
         adam = AdamState(
             count=_tensor(opt_state["count"], device).to(torch.int32),
-            mu={k: _moment(v, device) for k, v in opt_state["mu"].items()},
-            nu={k: _moment(v, device) for k, v in opt_state["nu"].items()},
+            mu=tree_map(lambda _p, v: _moment(v, device), p, opt_state["mu"]),
+            nu=tree_map(lambda _p, v: _moment(v, device), p, opt_state["nu"]),
         )
     return EnsembleState(params=p, buffers=b, opt_state=adam, step=int(step))
 

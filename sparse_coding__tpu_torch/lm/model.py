@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from sparse_coding__tpu_torch.utils.device import resolve_device
+from sparse_coding__tpu_torch.utils.tree import tree_map
 
 Pytree = Any
 
@@ -186,15 +187,6 @@ def init_params(generator, cfg: LMConfig, dtype=torch.float32, device=None) -> P
                     "b_out": zeros(d)},
         })
     return params
-
-
-def tree_map(fn: Callable, tree: Pytree) -> Pytree:
-    """``fn`` on every tensor of a param tree (dicts, lists and tuples)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def tree_leaves(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:

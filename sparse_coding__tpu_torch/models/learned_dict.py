@@ -20,7 +20,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
+from sparse_coding__tpu_torch.utils.tree import tree_paths, tree_unflatten
+
+
+def jclip(x: torch.Tensor, lo: Optional[float] = None, hi: Optional[float] = None) -> torch.Tensor:
+    """``jnp.clip``: ``min(max(x, lo), hi)``, whose gradient at either edge
+    is 0.5 (the two arguments of a tie share it), where `torch.clamp`'s is
+    1."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype, device=x.device))
+    return x
 
 
 def _norm_rows(m: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -76,14 +89,16 @@ def register_learned_dict(cls, array_fields: Tuple[str, ...], static_fields: Tup
     return cls
 
 
-def dict_leaves(ld) -> List[Tuple[str, Optional[str], Any]]:
-    """A registered dict's array leaves in field order, ``(field, key,
-    value)`` (a dict-valued field's entries by sorted key, as a pytree
-    flattens it); an unregistered dict has none."""
-    out: List[Tuple[str, Optional[str], Any]] = []
+def dict_leaves(ld) -> List[Tuple[str, Tuple, Any]]:
+    """A registered dict's array leaves in the JAX package's pytree order,
+    ``(field, path, value)``: the fields in registry order, each field's tree
+    (a dict of params, LISTA's nested layers, the semi-linear SAE's list of
+    layers) by sorted key and list order, ``path`` the keys and indices
+    inside the field (``()`` for a plain array); an unregistered dict has
+    none."""
+    out: List[Tuple[str, Tuple, Any]] = []
     for f in LEARNED_DICT_REGISTRY.get(type(ld), ((), ()))[0]:
-        v = getattr(ld, f)
-        out += [(f, k, v[k]) for k in sorted(v)] if isinstance(v, dict) else [(f, None, v)]
+        out += [(f, path, v) for path, v in tree_paths(getattr(ld, f))]
     return out
 
 
@@ -92,11 +107,10 @@ def with_leaves(ld, values: List[Any]):
     ``values``."""
     new = type(ld).__new__(type(ld))
     new.__dict__.update(ld.__dict__)
-    for (f, k, _), v in zip(dict_leaves(ld), values):
-        if k is None:
-            setattr(new, f, v)
-        else:
-            setattr(new, f, {**getattr(new, f), k: v})
+    values = iter(values)
+    for f in LEARNED_DICT_REGISTRY[type(ld)][0]:
+        v = getattr(ld, f)
+        setattr(new, f, tree_unflatten(v, [next(values) for _ in tree_paths(v)]))
     return new
 
 
@@ -242,22 +256,26 @@ class ReverseSAE(LearnedDict):
 def thresholding_encode(params: Dict[str, torch.Tensor], batch: torch.Tensor,
                         learned_dict: torch.Tensor) -> torch.Tensor:
     """The smooth relu6 soft-threshold encode of the thresholding SAE (the JAX
-    package's `FunctionalThresholdingSAE.encode`, unstacked params): scores
-    of the centred batch, scaled by the learnable gain and squared scale,
-    then ``relu6(60 (c - 0.9)) / 6 + relu(c - 1)``, times the squared scale."""
-    batch = batch - params["centering"][None, :]
-    c = (batch @ learned_dict.T).float()
-    a_sq = params["activation_scale"] ** 2
-    c = (c + params["activation_gain"]) / torch.clamp(a_sq, min=1e-8)
-    c = torch.clamp(60.0 * (c - 0.9), 0.0, 6.0) / 6.0 + torch.relu(c - 1.0)
+    package's `FunctionalThresholdingSAE.encode`): scores of the centred
+    batch, scaled by the learnable gain and squared scale, then ``relu6(60 (c
+    - 0.9)) / 6 + relu(c - 1)``, times the squared scale. One member's params
+    and dictionary [N, D] give codes [B, N]; stacked ones [M, N, D] give [M,
+    B, N] (the batch [B, D] or [M, B, D]). The scores' matmul runs in the
+    precision policy's compute dtype, the rest in f32; both clips have
+    `jnp.clip`'s gradient (`jclip`)."""
+    batch = batch - params["centering"][..., None, :]
+    c = px.acc_f32(torch.matmul(px.cast_in(batch), px.cast_in(learned_dict).transpose(-2, -1)))
+    a_sq = (params["activation_scale"] ** 2)[..., None, :]
+    c = (c + params["activation_gain"][..., None, :]) / jclip(a_sq, 1e-8)
+    c = jclip(60.0 * (c - 0.9), 0.0, 6.0) / 6.0 + torch.relu(c - 1.0)
     return c * a_sq
 
 
 class ThresholdingSAE_export(LearnedDict):
-    """Inference view of the thresholding SAE: its raw param dict
-    (``encoder``, ``activation_scale``, ``activation_gain``, ``centering``)
-    and the smooth-threshold encode. (Its training signature is not ported
-    yet — ROADMAP A8.)"""
+    """Inference view of the thresholding SAE (`models.sae.
+    FunctionalThresholdingSAE`): its raw param dict (``encoder``,
+    ``activation_scale``, ``activation_gain``, ``centering``) and the
+    smooth-threshold encode."""
 
     def __init__(self, params: Dict[str, torch.Tensor]):
         self.params = params

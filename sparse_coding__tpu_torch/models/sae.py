@@ -1,10 +1,15 @@
-"""The sparse autoencoder training signatures: tied and untied.
+"""The sparse autoencoder training signatures.
 
-Counterpart of `sparse_coding__tpu/models/sae.py::FunctionalTiedSAE` and
-`::FunctionalSAE`. The
-functions take the STACKED params/buffers of an ensemble: every tensor has a
-leading member axis ``M`` (the JAX package's vmap written out), and losses
-come back as ``[M]`` vectors. Loss conventions, as in the JAX package:
+Counterpart of `sparse_coding__tpu/models/sae.py`: `FunctionalSAE`,
+`FunctionalTiedSAE`, `FunctionalTiedCenteredSAE` (a learnable centre),
+`FunctionalThresholdingSAE` (the smooth soft threshold), the masked
+`FunctionalMaskedTiedSAE` / `FunctionalMaskedSAE` (several dict sizes in one
+stack: the code times a keep mask, ``dict_size`` an int32 buffer) and
+`FunctionalReverseSAE`. (The JAX package's data-parallel
+`FunctionalTiedSAEDP` waits for the mesh, ROADMAP A6b.) The functions take
+the STACKED params/buffers of an ensemble: every tensor has a leading member
+axis ``M`` (the JAX package's vmap written out), and losses come back as
+``[M]`` vectors. Loss conventions, as in the JAX package:
   - reconstruction = mean squared error over all elements,
   - l1 = batch mean of per-example L1 norms of the code,
   - bias_decay = L2 norm of the encoder bias (zero gradient at 0),
@@ -14,8 +19,8 @@ Under the bf16 policy (`utils.precision`) matmul operands and the code run in
 bf16 and reductions in f32; with the policy off the math is exact f32. The
 fused path (`fused_grads_stacked`, `fused_adam_step`) runs the hand-written
 kernels of `ops.tied_sae_kernel` (their plain versions for CPU tensors).
-The untied signature has no fused path (neither has the JAX package's): it
-always takes the autograd step, which `Ensemble.step_scan` captures into a
+Only the tied signature has a fused path (as in the JAX package): the others
+always take the autograd step, which `Ensemble.step_scan` captures into a
 CUDA graph like every other route.
 """
 
@@ -25,7 +30,14 @@ from typing import Optional
 
 import torch
 
-from sparse_coding__tpu_torch.models.learned_dict import TiedSAE, UntiedSAE, _norm_rows
+from sparse_coding__tpu_torch.models.learned_dict import (
+    ReverseSAE,
+    ThresholdingSAE_export,
+    TiedSAE,
+    UntiedSAE,
+    _norm_rows,
+    thresholding_encode,
+)
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.optim import (
@@ -70,6 +82,43 @@ def _mse_f32(x_hat: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-member mean squared error over all elements [M], in f32."""
     diff = px.acc_f32(x_hat) - px.acc_f32(target)
     return torch.mean(diff * diff, dim=(-2, -1))
+
+
+def _encode_mm(dictionary: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
+    """Stacked scores ``x·Dᵀ`` [M, B, N] in the compute dtype."""
+    return torch.matmul(px.cast_in(batch), px.cast_in(dictionary).transpose(-2, -1))
+
+
+def _decode_mm(dictionary: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``c·D`` [M, B, D] accumulated and kept in f32 (bf16-valued operands
+    under the policy)."""
+    return torch.matmul(px.cast_in(c).float(), px.cast_in(dictionary).float())
+
+
+def _bias(params) -> torch.Tensor:
+    """The stacked encoder bias [M, 1, N], in the compute dtype."""
+    return px.cast_in(params["encoder_bias"])[:, None, :]
+
+
+def _mask_buffers(n_dict_components: int, n_components_stack: int, l1_alpha: float, bias_decay: float,
+                  dtype, device):
+    """The masked signatures' buffers: ``dict_size`` (int32) and the keep mask
+    ``coef_keep`` (1 on the first ``dict_size`` rows of the stack)."""
+    keep = torch.arange(n_components_stack, device=device) < n_dict_components
+    return {
+        "l1_alpha": torch.tensor(l1_alpha, dtype=dtype, device=device),
+        "bias_decay": torch.tensor(bias_decay, dtype=dtype, device=device),
+        "dict_size": torch.tensor(n_dict_components, dtype=torch.int32, device=device),
+        "coef_keep": keep.to(dtype),
+    }
+
+
+def _l1_losses(x_hat, target, c, buffers):
+    """``(total, loss_data)`` of reconstruction + l1."""
+    l_reconstruction = _mse_f32(x_hat, target)
+    l_l1 = buffers["l1_alpha"] * _l1(c)
+    total = l_reconstruction + l_l1
+    return total, {"loss": total, "l_reconstruction": l_reconstruction, "l_l1": l_l1}
 
 
 class FunctionalSAE:
@@ -285,3 +334,179 @@ class FunctionalTiedSAE:
         l_l1 = buffers["l1_alpha"] * l_l1_raw
         loss_data = {"loss": l_rec + l_l1 + l_bias_decay, "l_reconstruction": l_rec, "l_l1": l_l1}
         return new_params, new_state, loss_data
+
+
+class FunctionalTiedCenteredSAE:
+    """Tied SAE with a learnable centre translation: params ``center`` [D],
+    ``encoder`` [N, D], ``encoder_bias`` [N]; buffer ``l1_alpha``."""
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int, n_dict_components: int, l1_alpha: float,
+             center: Optional[torch.Tensor] = None, dtype=torch.float32, device=None):
+        """One member's (params, buffers), unstacked: the centre (zero unless
+        given), a glorot-uniform encoder, a zero bias."""
+        device = device if device is not None else generator.device
+        params = {
+            "center": center if center is not None else torch.zeros(activation_size, dtype=dtype, device=device),
+            "encoder": glorot_uniform((n_dict_components, activation_size), generator, dtype, device),
+            "encoder_bias": torch.zeros(n_dict_components, dtype=dtype, device=device),
+        }
+        return params, {"l1_alpha": torch.tensor(l1_alpha, dtype=dtype, device=device)}
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data, {"c": c [M, B, N]})): reconstruction of the
+        centred batch + l1."""
+        learned_dict = _norm_rows(params["encoder"])
+        batch_centered = batch - params["center"][:, None, :]
+        c = torch.relu(_encode_mm(learned_dict, batch_centered) + _bias(params))
+        total, loss_data = _l1_losses(_decode_mm(learned_dict, c), batch_centered, c, buffers)
+        return total, (loss_data, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member as a `TiedSAE` centred by its learned translation."""
+        return TiedSAE(params["encoder"], params["encoder_bias"], centering=(params["center"], None, None),
+                       norm_encoder=True)
+
+
+class FunctionalThresholdingSAE:
+    """Smooth relu6-based soft-thresholding encoder with a learnable
+    per-feature scale and gain: params ``encoder`` [N, D],
+    ``activation_scale`` [N] (ones), ``activation_gain`` [N] (zeros),
+    ``centering`` [D] (zeros, as the JAX package adds it); buffer
+    ``l1_alpha``. The encode is `models.learned_dict.thresholding_encode`."""
+
+    encode = staticmethod(thresholding_encode)
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int, n_dict_components: int, l1_alpha: float,
+             dtype=torch.float32, device=None):
+        """One member's (params, buffers), unstacked."""
+        device = device if device is not None else generator.device
+        params = {
+            "encoder": glorot_uniform((n_dict_components, activation_size), generator, dtype, device),
+            "activation_scale": torch.ones(n_dict_components, dtype=dtype, device=device),
+            "activation_gain": torch.zeros(n_dict_components, dtype=dtype, device=device),
+            "centering": torch.zeros(activation_size, dtype=dtype, device=device),
+        }
+        return params, {"l1_alpha": torch.tensor(l1_alpha, dtype=dtype, device=device)}
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data, {"c": c [M, B, N] f32}))."""
+        learned_dict = _norm_rows(params["encoder"])
+        c = thresholding_encode(params, batch, learned_dict)
+        total, loss_data = _l1_losses(_decode_mm(learned_dict, c), batch, c, buffers)
+        return total, (loss_data, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member as a `ThresholdingSAE_export` of its raw params."""
+        return ThresholdingSAE_export(params)
+
+
+class FunctionalMaskedTiedSAE:
+    """Tied SAE padded to ``n_components_stack`` rows with a coefficient keep
+    mask, so members of different dict sizes share one stack: params
+    ``encoder`` [S, D], ``encoder_bias`` [S]; buffers ``l1_alpha``,
+    ``bias_decay`` (kept, unused by the loss, as in the JAX package),
+    ``dict_size`` (int32) and ``coef_keep`` [S]. The code is ``relu(...) *
+    coef_keep`` (a multiply, so one captured step serves every size)."""
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int, n_dict_components: int, n_components_stack: int,
+             l1_alpha: float, bias_decay: float = 0.0, dtype=torch.float32, device=None):
+        """One member's (params, buffers), unstacked: a glorot-uniform encoder
+        of the stack's rows, a zero bias."""
+        device = device if device is not None else generator.device
+        params = {
+            "encoder": glorot_uniform((n_components_stack, activation_size), generator, dtype, device),
+            "encoder_bias": torch.zeros(n_components_stack, dtype=dtype, device=device),
+        }
+        return params, _mask_buffers(n_dict_components, n_components_stack, l1_alpha, bias_decay, dtype, device)
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data, {"c": c [M, B, S]}))."""
+        learned_dict = _norm_rows(params["encoder"])
+        c = torch.relu(_encode_mm(learned_dict, batch) + _bias(params)) * px.cast_in(buffers["coef_keep"])[:, None, :]
+        total, loss_data = _l1_losses(_decode_mm(learned_dict, c), batch, c, buffers)
+        return total, (loss_data, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member's first ``dict_size`` rows as a `TiedSAE`."""
+        n = int(buffers["dict_size"])
+        return TiedSAE(params["encoder"][:n], params["encoder_bias"][:n], norm_encoder=True)
+
+
+class FunctionalMaskedSAE:
+    """The untied masked SAE (`FunctionalMaskedTiedSAE`'s buffers): params
+    ``encoder`` [S, D], ``encoder_bias`` [S], ``decoder`` [S, D]."""
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int, n_dict_components: int, n_components_stack: int,
+             l1_alpha: float, bias_decay: float = 0.0, dtype=torch.float32, device=None):
+        """One member's (params, buffers), unstacked: glorot-uniform encoder
+        then decoder (drawn in that order), a zero bias."""
+        device = device if device is not None else generator.device
+        shape = (n_components_stack, activation_size)
+        params = {
+            "encoder": glorot_uniform(shape, generator, dtype, device),
+            "encoder_bias": torch.zeros(n_components_stack, dtype=dtype, device=device),
+            "decoder": glorot_uniform(shape, generator, dtype, device),
+        }
+        return params, _mask_buffers(n_dict_components, n_components_stack, l1_alpha, bias_decay, dtype, device)
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data, {"c": c [M, B, S]}))."""
+        learned_dict = _norm_rows(params["decoder"])
+        c = torch.relu(_encode_mm(params["encoder"], batch) + _bias(params))
+        c = c * px.cast_in(buffers["coef_keep"])[:, None, :]
+        total, loss_data = _l1_losses(_decode_mm(learned_dict, c), batch, c, buffers)
+        return total, (loss_data, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member's first ``dict_size`` rows as an `UntiedSAE`."""
+        n = int(buffers["dict_size"])
+        return UntiedSAE(params["encoder"][:n], params["decoder"][:n], params["encoder_bias"][:n])
+
+
+class FunctionalReverseSAE:
+    """Tied SAE that subtracts the bias again from the active features before
+    decoding (``where(c > 0, c - b, c)``): params ``encoder`` [N, D],
+    ``encoder_bias`` [N]; buffers ``l1_alpha``, ``bias_decay``."""
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int, n_dict_components: int, l1_alpha: float,
+             bias_decay: float = 0.0, dtype=torch.float32, device=None):
+        """One member's (params, buffers), unstacked."""
+        device = device if device is not None else generator.device
+        params = {
+            "encoder": glorot_uniform((n_dict_components, activation_size), generator, dtype, device),
+            "encoder_bias": torch.zeros(n_dict_components, dtype=dtype, device=device),
+        }
+        buffers = {
+            "l1_alpha": torch.tensor(l1_alpha, dtype=dtype, device=device),
+            "bias_decay": torch.tensor(bias_decay, dtype=dtype, device=device),
+        }
+        return params, buffers
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data with ``l_bias_decay``, {"c": c [M, B, N]}))."""
+        learned_dict = _norm_rows(params["encoder"])
+        c = torch.relu(_encode_mm(learned_dict, batch) + _bias(params))
+        c = torch.where(c > 0.0, c - _bias(params), c)
+        total, loss_data = _l1_losses(_decode_mm(learned_dict, c), batch, c, buffers)
+        l_bias_decay = buffers["bias_decay"] * _safe_l2(params["encoder_bias"])
+        total = total + l_bias_decay
+        return total, ({**loss_data, "loss": total, "l_bias_decay": l_bias_decay}, {"c": c})
+
+    @staticmethod
+    def to_learned_dict(params, buffers):
+        """One member as a `ReverseSAE`."""
+        return ReverseSAE(params["encoder"], params["encoder_bias"], norm_encoder=True)

@@ -40,10 +40,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-# models.topk and models.fista register TopKLearnedDict and Fista: imported
-# so that a process that imports only this module loads their exports too
-from sparse_coding__tpu_torch.models import fista as _fista  # noqa: F401
-from sparse_coding__tpu_torch.models import topk as _topk  # noqa: F401
+# the model modules register their learned-dict classes: `models` imports
+# them all, so a process that imports only this module loads every export
+import sparse_coding__tpu_torch.models  # noqa: F401
 from sparse_coding__tpu_torch.models.learned_dict import (
     LEARNED_DICT_CLASSES,
     LEARNED_DICT_REGISTRY,
@@ -59,6 +58,7 @@ from sparse_coding__tpu_torch.utils.manifest import (
     verify_manifest,
     write_manifest,
 )
+from sparse_coding__tpu_torch.utils.tree import tree_map
 
 MANIFEST_NAME = "sc_manifest.json"
 STATE_FILE = "state.pt"
@@ -83,17 +83,14 @@ def export_class_path(cls) -> str:
 
 
 def _to_numpy(v):
-    """An array field as the record holds it: tensors as numpy arrays, a dict
-    of them (`ThresholdingSAE_export.params`) as a dict of arrays."""
-    if isinstance(v, dict):
-        return {k: _to_numpy(x) for k, x in v.items()}
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+    """An array field as the record holds it: tensors as numpy arrays, a tree
+    of them (`ThresholdingSAE_export.params`, LISTA's nested layers, the
+    semi-linear SAE's list of layers) as the same tree of arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, v)
 
 
 def _from_numpy(v, device):
-    if isinstance(v, dict):
-        return {k: _from_numpy(x, device) for k, x in v.items()}
-    return torch.from_numpy(np.array(v)).to(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), v)
 
 
 def save_learned_dicts(path, learned_dicts: List[Tuple[Any, Dict[str, Any]]], manifest: bool = True,

@@ -17,9 +17,10 @@ stacked ensemble per dict size. What the port adds:
     PRNG: the same salts and order, other numbers.
 The run drivers (`run_sweep_synthetic`, `run_single_layer`, ...) take
 ``device`` and hand it to the builder and to `train.sweep.sweep`; their
-``overrides`` set any config field, ``dtype`` included. Not ported yet: the
-builders of signatures that wait for ROADMAP A8 (LISTA, thresholding,
-masked, positive: they raise) and a mesh (ROADMAP A6: raises).
+``overrides`` set any config field, ``dtype`` included. The ablations'
+signatures (LISTA, thresholding, masked, positive) apply the precision
+policy where the JAX signatures do (the masked and thresholding SAEs) and
+compute in f32 otherwise. Not ported yet: a mesh (ROADMAP A6: raises).
 """
 
 from __future__ import annotations
@@ -34,7 +35,14 @@ import torch
 from sparse_coding__tpu_torch.data.activations import MAX_SENTENCE_LEN
 from sparse_coding__tpu_torch.ensemble import Ensemble
 from sparse_coding__tpu_torch.lm.model import get_activation_size
-from sparse_coding__tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
+from sparse_coding__tpu_torch.models.lista import FunctionalLISTADenoisingSAE
+from sparse_coding__tpu_torch.models.positive import FunctionalPositiveTiedSAE
+from sparse_coding__tpu_torch.models.sae import (
+    FunctionalMaskedTiedSAE,
+    FunctionalSAE,
+    FunctionalThresholdingSAE,
+    FunctionalTiedSAE,
+)
 from sparse_coding__tpu_torch.models.topk import TopKEncoder, TopKEncoderApprox
 from sparse_coding__tpu_torch.train.sweep import sweep
 from sparse_coding__tpu_torch.utils.config import EnsembleArgs, SyntheticEnsembleArgs
@@ -64,10 +72,6 @@ def _key(cfg, salt: int = 0, device=None) -> torch.Generator:
     (the JAX package's salts); it draws the members in order. The draws are
     the port's own, not JAX's PRNG stream."""
     return torch.Generator(device=resolve_device(device)).manual_seed(int(cfg.seed) + int(salt))
-
-
-def _a8(name: str):
-    raise NotImplementedError(f"{name} trains a signature that is not ported yet — ROADMAP A8")
 
 
 # -- builders ---------------------------------------------------------------------
@@ -132,15 +136,20 @@ def synthetic_linear_range(cfg: EnsembleArgs, mesh=None, device=None):
     return ensembles, ["dict_size"], ["l1_alpha"], {"dict_size": dict_sizes, "l1_alpha": l1_vals}
 
 
+def _l1_grid(sig, cfg, l1_values, dict_size, name, mesh, device, *layers):
+    """One stack of ``sig`` over ``l1_values`` at ``dict_size`` (``layers``:
+    the signature's extra init arguments before the l1; no bias decay)."""
+    gen = _key(cfg, 0, device)
+    models = [sig.init(gen, cfg.activation_width, dict_size, *layers, l1) for l1 in l1_values]
+    ensembles = [_ensemble(sig, models, cfg, dict_size, name, mesh=mesh)]
+    return ensembles, ["dict_size"], ["l1_alpha"], {"dict_size": [dict_size], "l1_alpha": l1_values}
+
+
 def _l1_range(cfg, l1_values, name, mesh, device):
     """One stack over ``l1_values`` at ``cfg.learned_dict_ratio``, tied per
     ``cfg.tied_ae``, no bias decay."""
-    dict_size = int(cfg.activation_width * cfg.learned_dict_ratio)
     sig = FunctionalTiedSAE if cfg.tied_ae else FunctionalSAE
-    gen = _key(cfg, 0, device)
-    models = [sig.init(gen, cfg.activation_width, dict_size, l1, bias_decay=0.0) for l1 in l1_values]
-    ensembles = [_ensemble(sig, models, cfg, dict_size, name, mesh=mesh)]
-    return ensembles, ["dict_size"], ["l1_alpha"], {"dict_size": [dict_size], "l1_alpha": l1_values}
+    return _l1_grid(sig, cfg, l1_values, int(cfg.activation_width * cfg.learned_dict_ratio), name, mesh, device)
 
 
 def dense_l1_range_experiment(cfg: EnsembleArgs, mesh=None, device=None):
@@ -157,8 +166,11 @@ def simple_setoff(cfg: EnsembleArgs, mesh=None, device=None):
 
 
 def residual_denoising_experiment(cfg: EnsembleArgs, mesh=None, device=None):
-    """LISTA denoising SAEs (not ported yet: raises)."""
-    _a8("residual_denoising_experiment (FunctionalLISTADenoisingSAE)")
+    """LISTA denoising SAEs (`FunctionalLISTADenoisingSAE`, 3 layers): a
+    16-point l1 ``logspace(-5, -3, 16)`` at ``cfg.learned_dict_ratio``."""
+    dict_size = int(cfg.activation_width * cfg.learned_dict_ratio)
+    return _l1_grid(FunctionalLISTADenoisingSAE, cfg, list(np.logspace(-5, -3, 16)), dict_size,
+                    "residual_denoising", mesh, device, 3)
 
 
 def residual_denoising_comparison(cfg: EnsembleArgs, mesh=None, device=None):
@@ -167,8 +179,10 @@ def residual_denoising_comparison(cfg: EnsembleArgs, mesh=None, device=None):
 
 
 def thresholding_experiment(cfg: EnsembleArgs, mesh=None, device=None):
-    """Smooth-thresholding SAEs (not ported yet: raises)."""
-    _a8("thresholding_experiment (FunctionalThresholdingSAE)")
+    """Smooth-thresholding SAEs (`FunctionalThresholdingSAE`) at ratio 4, a
+    16-point l1 ``logspace(-4, -2, 16)``."""
+    return _l1_grid(FunctionalThresholdingSAE, cfg, list(np.logspace(-4, -2, 16)), int(cfg.activation_width * 4),
+                    "thresholding", mesh, device)
 
 
 def zero_l1_baseline(cfg: EnsembleArgs, mesh=None, device=None):
@@ -181,8 +195,20 @@ def zero_l1_baseline(cfg: EnsembleArgs, mesh=None, device=None):
 
 
 def dict_ratio_experiment(cfg: EnsembleArgs, mesh=None, device=None):
-    """Eight dict sizes in one masked stack (not ported yet: raises)."""
-    _a8("dict_ratio_experiment (FunctionalMaskedTiedSAE)")
+    """Eight dict sizes (``int(512 x)`` for x in ``linspace(1, 5, 8)``: 512
+    to 2560) × 12 repeats in ONE masked stack (`FunctionalMaskedTiedSAE`,
+    each member padded to 2560 rows) at l1 1e-3: 96 members. ``dict_size``
+    is a buffer hyperparam (an int32 buffer a member), so the ensemble
+    hyperparams are empty."""
+    dict_sizes = [int(512 * x) for x in np.linspace(1, 5, 8)]
+    max_size = max(dict_sizes)
+    l1_value = 1e-3
+    n_repeats = 12
+    gen = _key(cfg, 0, device)
+    models = [FunctionalMaskedTiedSAE.init(gen, cfg.activation_width, s, max_size, l1_value)
+              for _ in range(n_repeats) for s in dict_sizes]
+    ensembles = [_ensemble(FunctionalMaskedTiedSAE, models, cfg, max_size, "dict_ratio", mesh=mesh)]
+    return ensembles, [], ["l1_alpha", "dict_size"], {"dict_size": dict_sizes, "l1_alpha": [l1_value]}
 
 
 def long_mlp_sweep(cfg: EnsembleArgs, mesh=None, device=None):
@@ -191,8 +217,11 @@ def long_mlp_sweep(cfg: EnsembleArgs, mesh=None, device=None):
 
 
 def run_positive_experiment(cfg: EnsembleArgs, mesh=None, device=None):
-    """Non-negative tied SAEs (not ported yet: raises)."""
-    _a8("run_positive_experiment (FunctionalPositiveTiedSAE)")
+    """Non-negative tied SAEs (`FunctionalPositiveTiedSAE`): a 16-point l1
+    ``logspace(-4, -2, 16)`` at ``cfg.learned_dict_ratio``."""
+    dict_size = int(cfg.activation_width * cfg.learned_dict_ratio)
+    return _l1_grid(FunctionalPositiveTiedSAE, cfg, list(np.logspace(-4, -2, 16)), dict_size, "positive", mesh,
+                    device)
 
 
 def pythia_1_4_b_dict(cfg: EnsembleArgs, mesh=None, device=None):

@@ -109,12 +109,14 @@ class DriverCheckpointer:
 
 
 def warn_if_ensemble_dead(ensemble: Ensemble, batch: torch.Tensor, context: str = "") -> bool:
-    """Warn when every member's codes are identically zero on a probe batch
-    (the Adam-lr x l1 collapse of large dictionaries). One host sync."""
+    """Warn when every member's code (the ``c`` of the signature's loss aux,
+    as the JAX package probes it; a signature without one counts as alive)
+    is identically zero on a probe batch (the Adam-lr x l1 collapse of large
+    dictionaries). One host sync."""
     st = ensemble.state
     with torch.no_grad():
-        c = ensemble.sig.encode(st.params, st.buffers, batch)
-        dead = not bool((c != 0).any())
+        c = ensemble.sig.loss(st.params, st.buffers, batch)[1][1].get("c")
+        dead = c is not None and not bool((c != 0).any())
     if dead:
         warnings.warn(
             f"DEAD ENSEMBLE{' (' + context + ')' if context else ''}: every member "

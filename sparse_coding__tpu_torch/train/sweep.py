@@ -57,6 +57,7 @@ from sparse_coding__tpu_torch.train.preemption import Preempted, ResumableAbort,
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.faults import fault_point
 from sparse_coding__tpu_torch.utils.logging import MetricLogger, make_hyperparam_name
+from sparse_coding__tpu_torch.utils.tree import tree_map
 
 SAVE_CHUNKS = {2**j for j in range(3, 10)}  # 8, 16, ..., 512
 
@@ -91,8 +92,8 @@ def unstacked_to_learned_dicts(ensemble: Ensemble, args: Dict[str, Any], ensembl
                 raise ValueError(f"Hyperparameter {bp} not found in buffers")
             val = buffers[bp].detach().cpu().numpy()
             hp[bp] = val.item() if val.ndim == 0 else val
-        params = {k: v.detach().clone() for k, v in params.items()}
-        learned_dicts.append((ensemble.sig.to_learned_dict(params, buffers), hp))
+        learned_dicts.append((ensemble.sig.to_learned_dict(tree_map(lambda v: v.detach().clone(), params), buffers),
+                              hp))
     return learned_dicts
 
 
@@ -111,9 +112,9 @@ def log_sweep_metrics(learned_dicts: List[Tuple[Any, Dict[str, Any]]], chunk: to
     small-vs-larger-dict MMCS grid per setting, written to
     ``<output_folder>/mmcs_grids_<chunk_num>.npz``. Returns the values. The
     JAX package also renders them as images; ``images=True`` raises until
-    the plotting is ported (ROADMAP A8)."""
+    the plotting is ported (ROADMAP A8b)."""
     if images:
-        raise NotImplementedError("the sweep's image dashboards are not ported yet — ROADMAP A8")
+        raise NotImplementedError("the sweep's image dashboards are not ported yet — ROADMAP A8b")
     idx = np.random.default_rng(seed).choice(chunk.shape[0], size=min(n_samples, chunk.shape[0]), replace=False)
     sample = chunk[torch.from_numpy(idx).to(chunk.device)]
     results: Dict[str, Any] = {"n_active": {}, "feat_counts": {}, "mmcs_grids": {}}
@@ -216,11 +217,11 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     ``_<i>/config.yaml`` at each save point, ``ckpt_<i>`` (newest
     ``cfg.checkpoint_keep``, default 3), ``events.jsonl`` and the metrics
     JSONL. The in-training image dashboards (``cfg.wandb_images``) wait for
-    ROADMAP A8 and raise."""
+    ROADMAP A8b and raise."""
     device = resolve_device(device)
     refuse_trace_window()
     if getattr(cfg, "wandb_images", False):
-        raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8")
+        raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8b")
     os.makedirs(cfg.dataset_folder, exist_ok=True)
     os.makedirs(cfg.output_folder, exist_ok=True)
     run_config = {k: v for k, v in sorted(getattr(cfg, "__dict__", {}).items())

@@ -1,5 +1,6 @@
-"""Adam and SGD over dicts of stacked tensors, in optax's update order, with
-the JAX package's compressed moment storage and learning-rate schedules.
+"""Adam and SGD over trees of stacked tensors (`utils.tree`: nested dicts
+and lists, the JAX package's pytrees), in optax's update order, with the JAX
+package's compressed moment storage and learning-rate schedules.
 
 Counterpart of `sparse_coding__tpu/utils/optim.py::adam`. For float moment
 storage that IS `optax.adam`; the expressions and their rounding follow optax
@@ -12,8 +13,10 @@ exactly, so the port and the JAX package step alike:
     u  = -lr * (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t) + eps_root) + eps)
     p  = p + u
 
-``1 - b1`` and ``1 - b2`` are python-float values rounded once to f32. Every
-leaf carries a leading member axis; ``count`` is ``[n_models]`` int32 (the
+``1 - b1`` and ``1 - b2`` are python-float values rounded once to f32. The
+moments are trees of the params' structure, and the leaves are walked in
+JAX's pytree order (sorted dict keys, list order), which numbers them for
+the stochastic stores' streams. Every leaf carries a leading member axis; ``count`` is ``[n_models]`` int32 (the
 JAX ensemble vmaps ``tx.init``), identical across members.
 
 Compressed storage (``scale_by_adam_compressed`` in the JAX package):
@@ -46,11 +49,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 from sparse_coding__tpu_torch.utils.precision import as_dtype
+from sparse_coding__tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 _MOMENT_DTYPES = (None, torch.float32, torch.bfloat16, torch.int8)
 _U32 = 0xFFFFFFFF
@@ -78,11 +82,11 @@ Moment = Union[torch.Tensor, QuantMoment]
 @dataclasses.dataclass
 class AdamState:
     """optax's ``ScaleByAdamState``: ``count`` [n_models] int32 and the
-    moment dicts, keyed like the params (values tensors or `QuantMoment`s)."""
+    moment trees, shaped like the params (leaves tensors or `QuantMoment`s)."""
 
     count: torch.Tensor
-    mu: Dict[str, Moment]
-    nu: Dict[str, Moment]
+    mu: Any
+    nu: Any
 
 
 def f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -218,13 +222,12 @@ class Adam:
             return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros_like(p, dtype=dtype or p.dtype)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
-        n = next(iter(params.values())).shape[0]
-        dev = next(iter(params.values())).device
+    def init(self, params) -> AdamState:
+        p0 = tree_leaves(params)[0]
         return AdamState(
-            count=torch.zeros(n, dtype=torch.int32, device=dev),
-            mu={k: self._init_moment(p, self.mu_dtype) for k, p in params.items()},
-            nu={k: self._init_moment(p, self.nu_dtype) for k, p in params.items()},
+            count=torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device),
+            mu=tree_map(lambda p: self._init_moment(p, self.mu_dtype), params),
+            nu=tree_map(lambda p: self._init_moment(p, self.nu_dtype), params),
         )
 
     def _store(self, value: torch.Tensor, prev: Moment, dtype, bits) -> Moment:
@@ -241,10 +244,11 @@ class Adam:
         del params
         count_inc = state.count + 1
         bc1, bc2 = bias_corrections(count_inc, self.b1, self.b2)
-        updates, mu_out, nu_out = {}, {}, {}
-        # leaves in sorted key order: the JAX package's tree order
-        for i, k in enumerate(sorted(grads)):
-            g, mu_prev, nu_prev = grads[k], state.mu[k], state.nu[k]
+        updates, mu_out, nu_out = [], [], []
+        # the moments at each gradient leaf, in the JAX package's tree order
+        at_leaves = []
+        tree_map(lambda *leaf: at_leaves.append(leaf), grads, state.mu, state.nu)
+        for i, (g, mu_prev, nu_prev) in enumerate(at_leaves):
             if isinstance(mu_prev, QuantMoment):
                 mu = f32(1 - self.b1, g) * g + f32(self.b1, g) * mu_prev.dequant()
             else:
@@ -253,16 +257,17 @@ class Adam:
             mu_hat = mu / _per_member(bc1, mu)
             nu_hat = nu / _per_member(bc2, nu)
             u = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
-            updates[k] = scale_by_learning_rate(self.learning_rate, state.count, u)
+            updates.append(scale_by_learning_rate(self.learning_rate, state.count, u))
             t = count_inc[0]
-            mu_out[k] = self._store(mu, mu_prev, self.mu_dtype,
-                                    lambda: _leaf_bits(mu, self.seed, t, i, _SALT_MU))
+            mu_out.append(self._store(mu, mu_prev, self.mu_dtype,
+                                      lambda: _leaf_bits(mu, self.seed, t, i, _SALT_MU)))
             nu_bits = lambda: _leaf_bits(nu, self.seed, t, i, _SALT_NU)
             if self.nu_dtype == torch.bfloat16:
-                nu_out[k] = stochastic_round(nu, nu_bits())
+                nu_out.append(stochastic_round(nu, nu_bits()))
             else:
-                nu_out[k] = self._store(nu, nu_prev, self.nu_dtype, nu_bits)
-        return updates, AdamState(count=count_inc, mu=mu_out, nu=nu_out)
+                nu_out.append(self._store(nu, nu_prev, self.nu_dtype, nu_bits))
+        return tree_unflatten(grads, updates), AdamState(
+            count=count_inc, mu=tree_unflatten(grads, mu_out), nu=tree_unflatten(grads, nu_out))
 
 
 def adam(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
@@ -334,15 +339,16 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 @dataclasses.dataclass
 class AdamWState:
-    """One model's AdamW state: ``count`` a 0-d int32, moments by leaf name."""
+    """One model's AdamW state: ``count`` a 0-d int32, moment trees shaped
+    like the params."""
 
     count: torch.Tensor
-    mu: Dict[str, torch.Tensor]
-    nu: Dict[str, torch.Tensor]
+    mu: Any
+    nu: Any
 
 
 class AdamW:
-    """``optax.adamw`` over a dict of one model's leaves (no member axis):
+    """``optax.adamw`` over a tree of one model's leaves (no member axis):
     ``scale_by_adam`` in f32, then ``add_decayed_weights`` (``u + wd · p``
     on every leaf), then ``scale_by_learning_rate``; ``eps`` outside the
     square root. A schedule is read at the count before the update, so
@@ -353,23 +359,25 @@ class AdamW:
         self.b1, self.b2, self.eps, self.eps_root = float(b1), float(b2), float(eps), float(eps_root)
         self.weight_decay = float(weight_decay)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
-        dev = next(iter(params.values())).device
+    def init(self, params) -> AdamWState:
+        dev = tree_leaves(params)[0].device
         return AdamWState(count=torch.zeros((), dtype=torch.int32, device=dev),
-                          mu={k: torch.zeros_like(p) for k, p in params.items()},
-                          nu={k: torch.zeros_like(p) for k, p in params.items()})
+                          mu=tree_map(torch.zeros_like, params), nu=tree_map(torch.zeros_like, params))
 
     def update(self, grads, state: AdamWState, params):
         count_inc = state.count + 1
         bc1, bc2 = bias_corrections(count_inc, self.b1, self.b2)
-        updates, mu_out, nu_out = {}, {}, {}
-        for k, g in grads.items():
-            mu = f32(1 - self.b1, g) * g + decayed_moment(self.b1, state.mu[k])
-            nu = f32(1 - self.b2, g) * (g * g) + f32(self.b2, g) * state.nu[k]
+
+        def leaf(g, mu_prev, nu_prev, p):
+            mu = f32(1 - self.b1, g) * g + decayed_moment(self.b1, mu_prev)
+            nu = f32(1 - self.b2, g) * (g * g) + f32(self.b2, g) * nu_prev
             u = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root) + self.eps)
-            u = u + f32(self.weight_decay, g) * params[k]
-            updates[k] = scale_by_learning_rate(self.learning_rate, state.count, u)
-            mu_out[k], nu_out[k] = mu, nu
+            u = u + f32(self.weight_decay, g) * p
+            return scale_by_learning_rate(self.learning_rate, state.count, u), mu, nu
+
+        out = []
+        tree_map(lambda *a: out.append(leaf(*a)), grads, state.mu, state.nu, params)
+        updates, mu_out, nu_out = (tree_unflatten(grads, [o[j] for o in out]) for j in range(3))
         return updates, AdamWState(count=count_inc, mu=mu_out, nu=nu_out)
 
 
@@ -398,13 +406,13 @@ class Sgd:
             )
         self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> SgdState:
-        p0 = next(iter(params.values()))
+    def init(self, params) -> SgdState:
+        p0 = tree_leaves(params)[0]
         return SgdState(count=torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device))
 
     def update(self, grads, state: SgdState, params=None):
         del params
-        updates = {k: scale_by_learning_rate(self.learning_rate, state.count, g) for k, g in grads.items()}
+        updates = tree_map(lambda g: scale_by_learning_rate(self.learning_rate, state.count, g), grads)
         return updates, SgdState(count=state.count + 1)
 
 
@@ -413,6 +421,6 @@ def sgd(learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = F
     return Sgd(learning_rate, momentum, nesterov)
 
 
-def apply_updates(params: Dict[str, torch.Tensor], updates: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """``optax.apply_updates``: ``p + u`` in the param dtype."""
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+def apply_updates(params, updates):
+    """``optax.apply_updates``: ``p + u`` in the param dtype, over the params' tree."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)

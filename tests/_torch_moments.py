@@ -78,12 +78,15 @@ def store_error_steps(got, v: torch.Tensor) -> torch.Tensor:
 
 
 def state_tensors(v):
-    """Every tensor of an ensemble state (dicts by key, dataclasses by field:
-    a `QuantMoment`'s q and scale, the optimizer's count)."""
+    """Every tensor of an ensemble state (dicts by key, lists in order,
+    dataclasses by field: a `QuantMoment`'s q and scale, the optimizer's
+    count)."""
     if isinstance(v, torch.Tensor):
         return [v]
     if isinstance(v, dict):
         return [t for k in sorted(v) for t in state_tensors(v[k])]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in state_tensors(x)]
     if dataclasses.is_dataclass(v):
         return [t for f in dataclasses.fields(v) for t in state_tensors(getattr(v, f.name))]
     return []

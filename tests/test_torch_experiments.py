@@ -40,8 +40,6 @@ from sparse_coding__tpu_torch.utils.config import EnsembleArgs
 PORTED = ["tied_vs_not_experiment", "topk_experiment", "synthetic_linear_range", "dense_l1_range_experiment",
           "simple_setoff", "residual_denoising_comparison", "zero_l1_baseline", "long_mlp_sweep",
           "pythia_1_4_b_dict"]
-A8 = ["residual_denoising_experiment", "thresholding_experiment", "dict_ratio_experiment",
-      "run_positive_experiment"]
 
 
 def _np(v):
@@ -102,15 +100,11 @@ def test_builders_compute_in_the_configs_dtype(dtype, want):
             2 if name == "tied_vs_not_experiment" else 4)
 
 
-@pytest.mark.parametrize("call", ["a8_" + n for n in A8] + ["mesh"])
+@pytest.mark.parametrize("call", ["mesh"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, tmp_path):
     cfg = EnsembleArgs(activation_width=16, batch_size=32)
-    if call.startswith("a8_"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            getattr(texp, call[3:])(cfg, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            texp.zero_l1_baseline(cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        texp.zero_l1_baseline(cfg, mesh=object(), device="cpu")
 
 
 def test_run_single_layer_trains_an_existing_store_at_a_given_width(tmp_path):

@@ -26,9 +26,16 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.lm.model",
     "sparse_coding__tpu_torch.lm.pretrain",
     "sparse_coding__tpu_torch.metrics.standard",
+    "sparse_coding__tpu_torch.models",
+    "sparse_coding__tpu_torch.models.direct_coef",
     "sparse_coding__tpu_torch.models.fista",
     "sparse_coding__tpu_torch.models.learned_dict",
+    "sparse_coding__tpu_torch.models.lista",
+    "sparse_coding__tpu_torch.models.pca",
+    "sparse_coding__tpu_torch.models.positive",
+    "sparse_coding__tpu_torch.models.rica",
     "sparse_coding__tpu_torch.models.sae",
+    "sparse_coding__tpu_torch.models.semilinear",
     "sparse_coding__tpu_torch.models.topk",
     "sparse_coding__tpu_torch.ops._build",
     "sparse_coding__tpu_torch.ops._wrap",
@@ -71,6 +78,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.utils.precision",
     "sparse_coding__tpu_torch.utils.sync",
     "sparse_coding__tpu_torch.utils.trace",
+    "sparse_coding__tpu_torch.utils.tree",
 ]
 
 
@@ -148,3 +156,17 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_ablation_builders_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """The catalog's A8a builders draw their members on the card unless
+    given ``device="cpu"`` (no silent fallback)."""
+    from sparse_coding__tpu_torch.train import experiments as texp
+    from sparse_coding__tpu_torch.utils.config import EnsembleArgs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = EnsembleArgs(activation_width=8, batch_size=16)
+    for builder in (texp.residual_denoising_experiment, texp.thresholding_experiment, texp.run_positive_experiment,
+                    texp.dict_ratio_experiment):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            builder(cfg)
