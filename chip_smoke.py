@@ -87,6 +87,19 @@ with 2 replica processes on the card behind its router, under 8 closed-loop
 generation of the export (each dict's rows rolled by one) rolled out through
 the swap file, then the tier SIGTERMed: every response bit-equal to the stack
 of one of its declared generation at its bucket, none dropped, none torn.
+Before serving, the paper's evaluation (`metrics/intervention.py`,
+`interp/`, `train/toy_models.py`) on the pretrained subject and the sweep's
+16 dicts (`evaluate_lm`): the loss under each dict's reconstruction over 64
+held-out sequences (identity = base loss, vmapped = per-dict bits, card vs
+CPU on one batch), `cache_all_activations` = `run_with_cache` + encode, and
+both ablation graphs (32 features; 4 positions x 8 features), each one
+captured CUDA graph replayed per feature, equal to an eager per-feature
+loop bit for bit; autointerp's activation frames for the 16 dicts over
+256 fragments (`interp_codes`, each frame's activations its dict's own
+capture + encode's bits; whether pandas and pyarrow import); and the superposition toy grid at
+`ToyArgs`' widths (`toy_grid`, N 512..16384, batch 4096, 400 epochs) with
+`run_single_go` card vs CPU from the same params and batches. None of the
+three launches a hand-written kernel (JAX computes them in plain XLA).
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -225,6 +238,16 @@ SUBJECT = dict(model="pythia-70m", lang_seed=7, corpus=(4096, 128), corpus_seed=
 HARVEST = dict(rows=768, seq=256, seed=13, layer=2, locs=("residual", "mlpout"), batch=64, chunk_size_gb=0.0625,
                chunks=3, heldout_rows=64, heldout_seed=17, ratio=8, sweep_batch=2048)
 HARVEST_TIED = (16, 2048, 4096, 512)  # K1/K2 at the harvest sweep's shape (M, B, N, D)
+# the paper's evaluation (ROADMAP A8b) on the pretrained subject and the
+# harvest sweep's export: 64 held-out sequences at the pretraining length,
+# batches of 16; the ablation graphs on the first batch (32 features
+# non-positional; 4 positions x 8 features positional); autointerp's device
+# half over 256 fragments of 64 tokens, 200 kept features; the toy grid at
+# `ToyArgs`' widths, and `run_single_go` card vs CPU at a smaller shape
+EVAL = dict(rows=64, seed=31, batch=16, ablate=32, positions=(1, 32, 64, 127), pos_feats=8, cpu_rtol=1e-4)
+INTERP = dict(fragments=256, seed=37, batch=32, max_features=200)
+TOY = dict(epochs=400, single=dict(activation_dim=256, n_ground_truth_components=512, n_components_dictionary=1024,
+                                   batch_size=1024, epochs=10))
 # serving the harvest sweep's export (ROADMAP A7a): buckets 8..1024, top-k 32,
 # /features of 128-token sequences; 16 closed-loop HTTP clients; the drain's
 # worker attaches a seeded random Pythia-70M (the spec both processes build)
@@ -2845,6 +2868,308 @@ def phase_harvest_kernels(torch, tk):
     return tied_kernel_rows(torch, tk, g, HARVEST_TIED)
 
 
+# -- the paper's evaluation (ROADMAP A8b): perplexity, ablation graphs, autointerp, toys --
+
+def zero_launches(torch):
+    """Every wrapper's launch count set to 0."""
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    return lambda: {k: v for k, v in {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}.items() if v}
+
+
+def timed(torch, fn):
+    """``(fn(), seconds)`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eager_ablation_edges(torch, iv, params, cfg, loc, ld, tokens, ablate, targets, make_hook, read):
+    """The ablation graph of one site written as a per-feature loop over the
+    public hooks and `cache_all_activations(hooks=)`, the edges reduced with
+    the module's reads: ``({edge: weight}, seconds)``."""
+    models, name = {loc: ld}, iv.get_model_tensor_name(loc)
+    t = torch.as_tensor(targets, device="cuda")
+    base = read(iv.cache_all_activations(params, cfg, models, tokens, device="cuda")[loc][None], t)
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in ablate:
+        acts = iv.cache_all_activations(params, cfg, models, tokens, hooks={name: make_hook(ld, f)}, device="cuda")
+        rows.append(torch.abs(base - read(acts[loc][None], t))[0].mean(dim=0))
+    w = torch.stack(rows).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    edges = {((loc, f), (loc, g)): float(w[i, j]) for j, g in enumerate(targets) for i, f in enumerate(ablate)
+             if f != g}
+    return edges, seconds
+
+
+def phase_evaluate_lm(torch, cfg, params, lang, export: Path):
+    """`metrics/intervention.py` on the pretrained subject with the harvest
+    sweep's 16 exported dicts at layer 2's residual, on 64 held-out
+    sequences at the subject's pretraining length in batches of 16. Counts
+    set to 0 just before each of its evaluation calls and read just after
+    (the reference runs and the eager loops are left out): no hand-written
+    kernel (JAX computes the path in plain XLA). `calculate_perplexity`: the identity
+    dict within 1e-5 of the base loss, the lowest-FVU dict's loss below
+    every zero-code member's (L0 < 1 on these rows), ``vmapped=True`` the
+    bits of ``False``, and one batch of two dicts recomputed on the CPU
+    within rtol 1e-4 (f32 sums in another order over a 50,304-word
+    log-softmax). `cache_all_activations`: the bits of `run_with_cache` +
+    encode. The two ablation graphs of the lowest-FVU dict on the first
+    batch (non-positional: its 32 most active features, each ablated and
+    read; positional: 4 positions × its 8 most active) equal the phase's
+    eager per-feature loop bit for bit, and two calls each other (the ms a
+    feature of both calls are printed: the first includes the process's
+    first capture)."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.lm import model as lm_model
+    from sparse_coding__tpu_torch.metrics import intervention as iv
+    from sparse_coding__tpu_torch.metrics.standard import evaluate_dicts
+    from sparse_coding__tpu_torch.models.learned_dict import Identity
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.utils.tree import tree_map
+
+    loc = (HARVEST["layer"], "residual")
+    seq = SUBJECT["corpus"][1]
+    tokens = lang.sample(EVAL["rows"], seq, seed=EVAL["seed"])
+    lds = ckpt_lib.load_learned_dicts(export, verify=True, device="cuda")
+    name = iv.get_model_tensor_name(loc)
+    with torch.inference_mode():
+        _, cache = lm_model.forward(params, torch.from_numpy(tokens).cuda(), cfg, cache_names=[name],
+                                    stop_at_layer=loc[0] + 1)
+        metrics = evaluate_dicts([ld for ld, _ in lds], cache[name].reshape(-1, cfg.d_model))
+    del cache
+    fvu, l0 = [m["fvu"] for m in metrics], [m["l0"] for m in metrics]
+    dicts = lds + [(Identity(cfg.d_model, device="cuda"), {"name": "identity"})]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    launches = {}
+
+    def count(read_launches):
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+
+    read_launches = zero_launches(torch)
+    (base, results), seconds = timed(torch, lambda: iv.calculate_perplexity(
+        params, cfg, dicts, loc, tokens, batch_size=EVAL["batch"], device="cuda"))
+    (base_s, results_s), seconds_s = timed(torch, lambda: iv.calculate_perplexity(
+        params, cfg, dicts, loc, tokens, batch_size=EVAL["batch"], vmapped=False, device="cuda"))
+    count(read_launches)
+    peak = torch.cuda.max_memory_allocated() - before
+    check(base == base_s and results == results_s, "calculate_perplexity: vmapped=True is not the bits of False")
+    losses = [v for _, v in results]
+    check(all(math.isfinite(v) for v in [base] + losses), f"losses {base} {losses}")
+    check(abs(losses[-1] - base) < 1e-5, f"identity dict's loss {losses[-1]} vs the base {base}")
+    best = int(np.argmin(fvu))
+    quiet = [i for i, v in enumerate(l0) if v < 1.0]
+    check(quiet and all(losses[best] < losses[i] for i in quiet),
+          f"lowest-FVU dict {best}'s loss {losses[best]} not below the zero-code members' {[losses[i] for i in quiet]}")
+
+    # one batch and two dicts recomputed on the CPU
+    pick = [best, quiet[0]]
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_lds = ckpt_lib.load_learned_dicts(export, verify=True, device="cpu")
+    batch0 = tokens[: EVAL["batch"]]
+    card = [float(iv.perplexity_under_reconstruction(params, cfg, lds[i][0], loc, batch0, device="cuda"))
+            for i in pick]
+    cpu = [float(iv.perplexity_under_reconstruction(cpu_params, cfg, cpu_lds[i][0], loc, batch0, device="cpu"))
+           for i in pick]
+    del cpu_params, cpu_lds
+    cpu_rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    check(max(cpu_rel) <= EVAL["cpu_rtol"], f"card vs CPU losses {card} {cpu}")
+
+    # cache_all_activations against run_with_cache + encode
+    ld = lds[best][0]
+    models = {loc: ld}
+    tok0 = torch.from_numpy(batch0).cuda()
+    read_launches = zero_launches(torch)
+    codes = iv.cache_all_activations(params, cfg, models, batch0, device="cuda")[loc]
+    count(read_launches)
+    with torch.inference_mode():
+        _, cache = lm_model.run_with_cache(params, tok0, cfg, [name])
+        want = ld.encode(cache[name].reshape(-1, cfg.d_model)).reshape(codes.shape)
+    check(torch.equal(codes, want), "cache_all_activations differs from run_with_cache + encode")
+    order = torch.argsort(codes.mean(dim=(0, 1)), descending=True, stable=True).tolist()
+    del cache, want
+
+    graphs = {}
+    for kind, ablate, make_hook, read, build in (
+        ("non_positional", order[: EVAL["ablate"]], iv.ablate_feature_intervention_non_positional,
+         iv._read_feature_non_positional, iv.build_ablation_graph_non_positional),
+        ("positional", [(p, f) for p in EVAL["positions"] for f in order[: EVAL["pos_feats"]]],
+         iv.ablate_feature_intervention, iv._read_feature_positional, iv.build_ablation_graph),
+    ):
+        def run():
+            return build(params, cfg, models, batch0, features_to_ablate={loc: ablate},
+                         target_features={loc: ablate}, device="cuda")
+
+        read_launches = zero_launches(torch)
+        first, first_s = timed(torch, run)
+        graph, g_s = timed(torch, run)
+        count(read_launches)
+        eager, e_s = eager_ablation_edges(torch, iv, params, cfg, loc, ld, tok0, ablate, ablate, make_hook, read)
+        check(graph == first, f"{kind} ablation graph differs between two calls")
+        check(len(graph) == len(ablate) * (len(ablate) - 1), f"{kind} graph has {len(graph)} edges")
+        check(set(graph) == set(eager) and all(graph[k] == eager[k] for k in graph),
+              f"{kind} ablation graph differs from the eager per-feature loop")
+        vals = np.asarray(list(graph.values()))
+        check(bool(np.isfinite(vals).all() and (vals >= 0).all() and (vals > 0).any()), f"{kind} edges {vals[:8]}")
+        graphs[kind] = dict(ablated=len(ablate), edges=len(graph), ms_per_feature=g_s / len(ablate) * 1e3,
+                            first_call_ms_per_feature=first_s / len(ablate) * 1e3,
+                            eager_loop_ms_per_feature=e_s / len(ablate) * 1e3, max_edge=float(vals.max()),
+                            nonzero_edges=int((vals > 0).sum()))
+    check(not launches, f"the evaluation launched hand-written kernels {launches}")
+    tokens_scored = (EVAL["rows"] // EVAL["batch"]) * EVAL["batch"] * seq
+    emit("evaluate_lm", model=SUBJECT["model"], location=list(loc), dicts=len(lds), rows=EVAL["rows"], seq=seq,
+         batch=EVAL["batch"], launches=launches, base_loss=base, losses=losses[:-1], identity_loss=losses[-1],
+         fvu=fvu, l0=l0, lowest_fvu_dict=best, zero_code_members=quiet,
+         perplexity_s=seconds, perplexity_per_dict_s=seconds_s,
+         edited_forwards_per_s=len(dicts) * tokens_scored / seq / EVAL["batch"] / seconds,
+         edited_tokens_per_s=len(dicts) * tokens_scored / seconds, peak_allocated_bytes=peak,
+         cpu_check=dict(dicts=pick, card=card, cpu=cpu, max_rel=max(cpu_rel), rtol=EVAL["cpu_rtol"]),
+         cache_all_activations_bit_equal=True, ablation=graphs)
+
+
+def phase_interp_codes(torch, cfg, params, lang, export: Path):
+    """`interp/pipeline.py::make_feature_activation_datasets` (capture and
+    encode on the card, the frames on the host) for the harvest sweep's 16
+    dicts over 256 fragments of `OPENAI_FRAGMENT_LEN` tokens, the CLI's 200
+    kept features: each frame's activation columns the bits of its dict's
+    own capture forward + encode. Counts set to 0 around the call: no
+    hand-written kernel. The device half alone (`_fragment_codes`) is timed
+    after it as a split. Also says whether pandas and pyarrow (the frames,
+    the parquet cache) import on this machine."""
+    import importlib
+
+    import numpy as np
+
+    from sparse_coding__tpu_torch.interp import pipeline
+    from sparse_coding__tpu_torch.interp.records import OPENAI_FRAGMENT_LEN
+    from sparse_coding__tpu_torch.lm import model as lm_model
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+
+    for package in ("pandas", "pyarrow"):
+        try:
+            version = importlib.import_module(package).__version__
+        except ImportError as e:
+            emit("interp_import", package=package, imports=False, error=str(e))
+        else:
+            emit("interp_import", package=package, imports=True, version=version)
+    layer, kept, n, L = HARVEST["layer"], INTERP["max_features"], INTERP["fragments"], OPENAI_FRAGMENT_LEN
+    lds = [ld for ld, _ in ckpt_lib.load_learned_dicts(export, verify=True, device="cuda")]
+    fragments = lang.sample(n, L, seed=INTERP["seed"])
+
+    def decode(row):
+        return [str(int(t)) for t in row]
+
+    kw = dict(max_features=kept, batch_size=INTERP["batch"], device="cuda")
+    pipeline.make_feature_activation_datasets(params, cfg, lds[:1], layer, "residual",  # warm-up
+                                              fragments[: INTERP["batch"]], decode, **kw)
+    read_launches = zero_launches(torch)
+    frames, seconds = timed(torch, lambda: pipeline.make_feature_activation_datasets(
+        params, cfg, lds, layer, "residual", fragments, decode, **kw))
+    launches = read_launches()
+    check(not launches, f"the interp pipeline launched hand-written kernels {launches}")
+    codes, device_s = timed(torch, lambda: pipeline._fragment_codes(params, cfg, lds, layer, "residual", fragments,
+                                                                    **kw))
+    columns = [f"feature_{i}_activation_{j}" for i in range(kept) for j in range(L)]
+    name = lm_model.make_tensor_name(layer, "residual")
+    toks = torch.from_numpy(fragments).cuda()
+    with torch.inference_mode():
+        for d, ld in enumerate(lds):
+            parts = []
+            for s in range(0, n, INTERP["batch"]):
+                _, cache = lm_model.forward(params, toks[s : s + INTERP["batch"]], cfg, cache_names=[name],
+                                            stop_at_layer=layer + 1)
+                acts = cache[name]
+                parts.append(ld.encode(acts.reshape(-1, cfg.d_model)).reshape(*acts.shape[:2], -1)[:, :, :kept])
+            want = torch.cat(parts).cpu().numpy()  # [n, L, kept]
+            df = frames[d]
+            check(df.shape == (n, 1 + kept * (L + 2))
+                  and list(df["fragment_token_strs"]) == [decode(r) for r in fragments]
+                  and np.array_equal(df[columns].to_numpy(), np.transpose(want, (0, 2, 1)).reshape(n, kept * L))
+                  and np.array_equal(df[[f"feature_{i}_max" for i in range(kept)]].to_numpy(), want.max(axis=1)),
+                  f"dict {d}'s activation frame differs from its own capture + encode")
+            check(np.array_equal(codes[d], want), f"dict {d}'s device-half codes differ from its own capture + encode")
+    emit("interp_codes", dicts=len(lds), fragments=n, fragment_len=L, batch=INTERP["batch"], max_features=kept,
+         launches=launches, seconds=seconds, fragments_per_s=n / seconds, dict_frames_per_s=n * len(lds) / seconds,
+         device_half_s=device_s, device_half_fragments_per_s=n / device_s,
+         bit_equal_dicts=len(lds), host_bytes=int(sum(c.nbytes for c in codes)))
+
+
+def phase_toy_grid(torch):
+    """`train/toy_models.py::run_toy_grid` at `ToyArgs`' own widths (256 →
+    dict ratios 2..64, N 512..16384; 512 ground-truth features, batch 4096,
+    the default l1 row) for `TOY["epochs"]` epochs: the MMCS and dead grids
+    and the seconds, MMCS finite and in [0, 1]. Then `run_single_go` on the
+    card and on the CPU from the same params (built on the CPU, moved) and
+    the same batches (drawn on the CPU, replayed) for a few steps: MMCS
+    within 1e-4 and the dead counts within 1% of N (f32 sums in another
+    order, amplified where Adam meets gradients near 0)."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+    from sparse_coding__tpu_torch.ensemble import _map_tensors
+    from sparse_coding__tpu_torch.train import toy_models
+    from sparse_coding__tpu_torch.utils.config import ToyArgs
+
+    cfg = ToyArgs(epochs=TOY["epochs"])
+    read_launches = zero_launches(torch)
+    grids, seconds = timed(torch, lambda: toy_models.run_toy_grid(cfg, device="cuda"))
+    launches = read_launches()
+    check(not launches, f"the toy grid launched hand-written kernels {launches}")
+    mmcs = grids["mmcs"]
+    check(mmcs.shape == (1, 6) and bool(np.isfinite(mmcs).all() and ((mmcs >= 0) & (mmcs <= 1)).all()),
+          f"toy MMCS grid {mmcs}")
+
+    small = ToyArgs(**TOY["single"])
+    cpu_gen = RandomDatasetGenerator(small.activation_dim, small.n_ground_truth_components, small.batch_size,
+                                     small.feature_num_nonzero, small.feature_prob_decay, False, key=small.seed,
+                                     device="cpu")
+    batches = [next(cpu_gen) for _ in range(small.epochs + 10)]
+    real = toy_models.build_ensemble
+
+    def on_cpu_then_moved(sig, key, hparams, device=None, **kw):
+        ens = real(sig, key, hparams, device="cpu", **kw)
+        ens.state = _map_tensors(ens.state, lambda t: t.to(device))
+        return ens
+
+    class Replay:
+        def __init__(self, device):
+            self._it = iter([b.to(device) for b in batches])
+            self.feats = cpu_gen.feats.to(device)
+
+        def __next__(self):
+            return next(self._it)
+
+    toy_models.build_ensemble = on_cpu_then_moved
+    try:
+        (ld_c, mmcs_c, dead_c), single_s = timed(torch, lambda: toy_models.run_single_go(small, Replay("cuda"),
+                                                                                         device="cuda"))
+        ld_h, mmcs_h, dead_h = toy_models.run_single_go(small, Replay("cpu"), device="cpu")
+    finally:
+        toy_models.build_ensemble = real
+    dec_diff = float((ld_c.decoder.cpu() - ld_h.decoder).abs().max())
+    check(abs(mmcs_c - mmcs_h) <= 1e-4 and abs(dead_c - dead_h) <= 0.01 * small.n_components_dictionary,
+          f"run_single_go card vs CPU: MMCS {mmcs_c} / {mmcs_h}, dead {dead_c} / {dead_h}")
+    steps = TOY["epochs"] * mmcs.shape[1]
+    emit("toy_grid", activation_dim=cfg.activation_dim, n_ground_truth=cfg.n_ground_truth_components,
+         batch=cfg.batch_size, epochs=cfg.epochs, l1_range=grids["l1_range"].tolist(),
+         ratio_range=grids["ratio_range"].tolist(), mmcs=mmcs.tolist(), n_dead=grids["n_dead"].tolist(),
+         launches=launches, seconds=seconds, steps=steps, steps_per_s=steps / seconds,
+         single_go=dict(cfg=TOY["single"], seconds=single_s, mmcs_card=mmcs_c, mmcs_cpu=mmcs_h, dead_card=dead_c,
+                        dead_cpu=dead_h, decoder_max_abs_diff=dec_diff))
+
+
 # -- serving (ROADMAP A7a): the harvest sweep's export behind the engine ----------
 
 def serve_rows_pool(torch, cfg, params, lang):
@@ -3872,6 +4197,15 @@ def main() -> int:
         phase_harvest_resume(torch, harvest_root, folders)
         harvest_launches, export = phase_harvest_sweep(torch, harvest_root, lm_cfg, lm_params, lang,
                                                        folders[(HARVEST["layer"], "residual")])
+        # the paper's evaluation (ROADMAP A8b): perplexity under each dict's
+        # reconstruction and the ablation graphs on the pretrained subject,
+        # autointerp's device half, the superposition toy grid
+        torch.cuda.empty_cache()
+        phase_evaluate_lm(torch, lm_cfg, lm_params, lang, export)
+        torch.cuda.empty_cache()
+        phase_interp_codes(torch, lm_cfg, lm_params, lang, export)
+        torch.cuda.empty_cache()
+        phase_toy_grid(torch)
         # serving (ROADMAP A7a): the sweep's 16 dicts behind the engine, the
         # HTTP server with the pretrained subject, a SIGTERM drain under load
         torch.cuda.empty_cache()

@@ -1,9 +1,9 @@
 """The dictionary models: training signatures and their inference views.
 
 Counterpart of `sparse_coding__tpu/models/__init__.py`, with the same names,
-less the host-side sklearn baselines `ICAEncoder` and `NMFEncoder` (they
-come with `train/baselines.py`, ROADMAP A8b) and the solve `fista`, whose
-name stays the submodule's.
+less the solve `fista`, whose name stays the submodule's. The host-side
+sklearn baselines `ICAEncoder` and `NMFEncoder` import sklearn only when
+one is made.
 """
 
 from sparse_coding__tpu_torch.models.learned_dict import (
@@ -59,4 +59,6 @@ from sparse_coding__tpu_torch.models.pca import (
     calc_mean,
     calc_pca,
 )
+from sparse_coding__tpu_torch.models.ica import ICAEncoder
+from sparse_coding__tpu_torch.models.nmf import NMFEncoder
 from sparse_coding__tpu_torch.models.rica import RICA, RICADict

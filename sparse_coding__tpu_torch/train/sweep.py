@@ -112,9 +112,9 @@ def log_sweep_metrics(learned_dicts: List[Tuple[Any, Dict[str, Any]]], chunk: to
     small-vs-larger-dict MMCS grid per setting, written to
     ``<output_folder>/mmcs_grids_<chunk_num>.npz``. Returns the values. The
     JAX package also renders them as images; ``images=True`` raises until
-    the plotting is ported (ROADMAP A8b)."""
+    the plotting is ported (ROADMAP A8c)."""
     if images:
-        raise NotImplementedError("the sweep's image dashboards are not ported yet — ROADMAP A8b")
+        raise NotImplementedError("the sweep's image dashboards are not ported yet — ROADMAP A8c")
     idx = np.random.default_rng(seed).choice(chunk.shape[0], size=min(n_samples, chunk.shape[0]), replace=False)
     sample = chunk[torch.from_numpy(idx).to(chunk.device)]
     results: Dict[str, Any] = {"n_active": {}, "feat_counts": {}, "mmcs_grids": {}}
@@ -217,11 +217,11 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     ``_<i>/config.yaml`` at each save point, ``ckpt_<i>`` (newest
     ``cfg.checkpoint_keep``, default 3), ``events.jsonl`` and the metrics
     JSONL. The in-training image dashboards (``cfg.wandb_images``) wait for
-    ROADMAP A8b and raise."""
+    ROADMAP A8c and raise."""
     device = resolve_device(device)
     refuse_trace_window()
     if getattr(cfg, "wandb_images", False):
-        raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8b")
+        raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8c")
     os.makedirs(cfg.dataset_folder, exist_ok=True)
     os.makedirs(cfg.output_folder, exist_ok=True)
     run_config = {k: v for k, v in sorted(getattr(cfg, "__dict__", {}).items())

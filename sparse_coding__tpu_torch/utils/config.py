@@ -1,9 +1,10 @@
 """Validated run configs: dataclasses with CLI flags and YAML export.
 
-Counterpart of `BaseArgs`, `TrainArgs`, `EnsembleArgs` and
-`SyntheticEnsembleArgs` of `sparse_coding__tpu/utils/config.py`, field for
-field, so one ``config.yaml`` describes a run of either package. Dtype
-fields stay names (``"float32"``); `DTYPES` maps them to torch dtypes
+Counterpart of `BaseArgs`, `TrainArgs`, `EnsembleArgs`,
+`SyntheticEnsembleArgs`, `ToyArgs`, `InterpArgs` and `InterpGraphArgs` of
+`sparse_coding__tpu/utils/config.py`, field for field, so one
+``config.yaml`` describes a run of either package. Dtype fields stay names
+(``"float32"``); `DTYPES` maps them to torch dtypes
 (`BaseArgs.torch_dtype`). The other Args classes come with the slices that
 use them.
 """
@@ -185,3 +186,85 @@ class SyntheticEnsembleArgs(EnsembleArgs):
     dataset_folder: str = "activation_data"
     n_ground_truth_components: int = 512
     correlated_components: bool = False
+
+
+@dataclass
+class ToyArgs(BaseArgs):
+    """The superposition toy models' grid (`train/toy_models.py`)."""
+
+    layer: int = 2
+    layer_loc: str = "residual"
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    dataset_name: str = "openwebtext"
+    tied_ae: bool = False
+    seed: int = 0
+    learned_dict_ratio: float = 1.0
+    output_folder: str = "outputs"
+    dtype: str = "float32"
+    activation_dim: int = 256
+    feature_prob_decay: float = 0.99
+    feature_num_nonzero: int = 5
+    correlated_components: bool = False
+    n_ground_truth_components: int = 512
+    noise_std: float = 0.1
+    l1_exp_low: int = -12
+    l1_exp_high: int = -11
+    l1_exp_base: float = 10 ** (1 / 4)
+    dict_ratio_exp_low: int = 1
+    dict_ratio_exp_high: int = 7
+    dict_ratio_exp_base: float = 2.0
+    batch_size: int = 4096
+    lr: float = 1e-3
+    epochs: int = 1
+    noise_level: float = 0.0
+    n_components_dictionary: int = 512
+    l1_alpha: float = 1e-3
+
+
+@dataclass
+class InterpArgs(BaseArgs):
+    """Autointerp (`interp/`)."""
+
+    layer: int = 2
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layer_loc: str = "residual"
+    n_feats_explain: int = 10
+    load_interpret_autoencoder: str = ""
+    tied_ae: bool = False
+    interp_name: str = ""
+    sort_mode: str = "max"
+    use_decoder: bool = True
+    df_n_feats: int = 200
+    top_k: int = 50
+    save_loc: str = ""
+    # context inputs (no network needed when all three are set): lm_params,
+    # a pickle of (params, LMConfig) written by either package; fragments,
+    # .npy [n, fragment_len] int tokens; token_strs, a json list mapping
+    # token id -> string. Empty: resolved from model_name/dataset_name.
+    lm_params: str = ""
+    fragments: str = ""
+    token_strs: str = ""
+    dataset_name: str = "openwebtext"
+    results_base: str = "auto_interp_results"
+    # >1: a thread pool over the per-feature explain/simulate calls
+    max_concurrent: int = 1
+
+    def validate(self):
+        if self.sort_mode not in ("max", "mean"):
+            raise ValueError(f"sort_mode must be max|mean, got {self.sort_mode}")
+
+
+@dataclass
+class InterpGraphArgs(BaseArgs):
+    """Reading autointerp results back (`interp/__main__.py read_results`)."""
+
+    layer: int = 1
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layer_loc: str = "mlp"
+    score_mode: str = "all"
+    run_all: bool = False
+    results_base: str = "auto_interp_results"
+
+    def validate(self):
+        if self.score_mode not in ("top", "random", "top_random", "all"):
+            raise ValueError(f"bad score_mode {self.score_mode}")

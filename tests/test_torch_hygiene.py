@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and its
 entry points run on the card unless asked for the CPU (no silent fallback)."""
 
+import pickle
 import re
 import subprocess
 import sys
@@ -14,23 +15,36 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "sparse_coding__tpu_torch"
 SLICE_MODULES = [
     "sparse_coding__tpu_torch",
-    "sparse_coding__tpu_torch.ensemble",
-    "sparse_coding__tpu_torch.interop",
+    "sparse_coding__tpu_torch.data",
     "sparse_coding__tpu_torch.data.activations",
     "sparse_coding__tpu_torch.data.chunks",
     "sparse_coding__tpu_torch.data.integrity",
+    "sparse_coding__tpu_torch.data.ioi",
     "sparse_coding__tpu_torch.data.synthetic",
     "sparse_coding__tpu_torch.data.synthetic_text",
+    "sparse_coding__tpu_torch.ensemble",
+    "sparse_coding__tpu_torch.interop",
+    "sparse_coding__tpu_torch.interp",
+    "sparse_coding__tpu_torch.interp.__main__",
+    "sparse_coding__tpu_torch.interp.batch",
+    "sparse_coding__tpu_torch.interp.clients",
+    "sparse_coding__tpu_torch.interp.pipeline",
+    "sparse_coding__tpu_torch.interp.records",
     "sparse_coding__tpu_torch.lm",
     "sparse_coding__tpu_torch.lm.convert",
     "sparse_coding__tpu_torch.lm.model",
     "sparse_coding__tpu_torch.lm.pretrain",
+    "sparse_coding__tpu_torch.metrics",
+    "sparse_coding__tpu_torch.metrics.clustering",
+    "sparse_coding__tpu_torch.metrics.intervention",
     "sparse_coding__tpu_torch.metrics.standard",
     "sparse_coding__tpu_torch.models",
     "sparse_coding__tpu_torch.models.direct_coef",
     "sparse_coding__tpu_torch.models.fista",
+    "sparse_coding__tpu_torch.models.ica",
     "sparse_coding__tpu_torch.models.learned_dict",
     "sparse_coding__tpu_torch.models.lista",
+    "sparse_coding__tpu_torch.models.nmf",
     "sparse_coding__tpu_torch.models.pca",
     "sparse_coding__tpu_torch.models.positive",
     "sparse_coding__tpu_torch.models.rica",
@@ -61,13 +75,16 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.telemetry.provenance",
     "sparse_coding__tpu_torch.telemetry.spans",
     "sparse_coding__tpu_torch.telemetry.tracing",
+    "sparse_coding__tpu_torch.trace",
+    "sparse_coding__tpu_torch.train",
+    "sparse_coding__tpu_torch.train.baselines",
     "sparse_coding__tpu_torch.train.basic_l1_sweep",
     "sparse_coding__tpu_torch.train.checkpoint",
     "sparse_coding__tpu_torch.train.experiments",
     "sparse_coding__tpu_torch.train.loop",
     "sparse_coding__tpu_torch.train.preemption",
-    "sparse_coding__tpu_torch.trace",
     "sparse_coding__tpu_torch.train.sweep",
+    "sparse_coding__tpu_torch.train.toy_models",
     "sparse_coding__tpu_torch.utils.config",
     "sparse_coding__tpu_torch.utils.device",
     "sparse_coding__tpu_torch.utils.faults",
@@ -75,6 +92,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.utils.logging",
     "sparse_coding__tpu_torch.utils.manifest",
     "sparse_coding__tpu_torch.utils.optim",
+    "sparse_coding__tpu_torch.utils.pickles",
     "sparse_coding__tpu_torch.utils.precision",
     "sparse_coding__tpu_torch.utils.sync",
     "sparse_coding__tpu_torch.utils.trace",
@@ -170,3 +188,70 @@ def test_ablation_builders_need_cuda_unless_asked_for_the_cpu(monkeypatch):
                     texp.dict_ratio_experiment):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             builder(cfg)
+
+
+def test_evaluation_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """The slice's evaluation, toy models, baselines and autointerp run on
+    the card unless given ``device="cpu"`` (no silent fallback)."""
+    from sparse_coding__tpu_torch.interp import InterpContext, run_many
+    from sparse_coding__tpu_torch.interp import pipeline
+    from sparse_coding__tpu_torch.lm import LMConfig, init_params
+    from sparse_coding__tpu_torch.metrics import intervention as iv
+    from sparse_coding__tpu_torch.models import ICAEncoder, NMFEncoder
+    from sparse_coding__tpu_torch.models.learned_dict import Identity
+    from sparse_coding__tpu_torch.train import baselines, toy_models
+    from sparse_coding__tpu_torch.utils import pickles
+    from sparse_coding__tpu_torch.utils.config import InterpArgs, ToyArgs
+
+    cfg = LMConfig(arch="neox", n_layers=1, d_model=16, n_heads=2, d_mlp=32, vocab_size=64, n_ctx=32)
+    params = init_params(0, cfg, device="cpu")
+    ld = Identity(16, device="cpu")
+    tokens = np.zeros((4, 8), np.int32)
+    models = {(0, "residual"): ld}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: iv.cache_all_activations(params, cfg, models, tokens),
+        lambda: iv.perplexity_under_reconstruction(params, cfg, ld, (0, "residual"), tokens),
+        lambda: iv.mean_reconstruction_loss(params, cfg, ld, (0, "residual"), [tokens]),
+        lambda: iv.calculate_perplexity(params, cfg, [(ld, {})], (0, "residual"), tokens),
+        lambda: iv.build_ablation_graph(params, cfg, models, tokens, {(0, "residual"): [(0, 1)]}),
+        lambda: iv.build_ablation_graph_non_positional(params, cfg, models, tokens, {(0, "residual"): [1]}),
+        lambda: toy_models.run_single_go(ToyArgs(activation_dim=8, n_ground_truth_components=16, batch_size=8)),
+        lambda: toy_models.run_toy_grid(ToyArgs(activation_dim=8, n_ground_truth_components=16, batch_size=8)),
+        lambda: ICAEncoder(8),
+        lambda: NMFEncoder(8),
+        lambda: baselines.run_layer_baselines(0, ["residual"], str(tmp_path), str(tmp_path / "out")),
+        lambda: pickles.loads(pickle.dumps({"a": np.zeros(2)})),
+        lambda: pipeline.make_feature_activation_datasets(params, cfg, [ld], 0, "residual", tokens, str),
+        lambda: run_many([("a", ld)], InterpArgs(layer=0, save_loc=str(tmp_path / "i")),
+                         InterpContext(params, cfg, tokens, str)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_interp_device_half_imports_without_pandas():
+    """The card's machine may lack pandas: the pipeline's device half imports
+    and runs with pandas made unimportable (only the frames need it)."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        "from sparse_coding__tpu_torch.interp import pipeline\n"
+        "import sparse_coding__tpu_torch.interp, sparse_coding__tpu_torch.interp.batch\n"
+        "from sparse_coding__tpu_torch.lm import LMConfig, init_params\n"
+        "from sparse_coding__tpu_torch.models.learned_dict import Identity\n"
+        "cfg = LMConfig(arch='neox', n_layers=1, d_model=16, n_heads=2, d_mlp=32, vocab_size=64, n_ctx=32)\n"
+        "codes = pipeline._fragment_codes(init_params(0, cfg, device='cpu'), cfg, [Identity(16, device='cpu')], 0,\n"
+        "                                 'residual', np.zeros((5, 8), np.int32), batch_size=4, device='cpu')\n"
+        "assert codes[0].shape == (5, 8, 16)\n"
+        "try:\n"
+        "    pipeline._codes_to_dataframe(codes[0], [['a'] * 8] * 5, 8)\n"
+        "except ImportError:\n"
+        "    sys.exit(0)\n"
+        "sys.exit(1)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
