@@ -100,11 +100,25 @@ capture + encode's bits; whether pandas and pyarrow import); and the superpositi
 `ToyArgs`' widths (`toy_grid`, N 512..16384, batch 4096, 400 epochs) with
 `run_single_go` card vs CPU from the same params and batches. None of the
 three launches a hand-written kernel (JAX computes them in plain XLA).
+After the toy grid, still before serving, the remaining single-card paths,
+none of which reaches a Pallas call in JAX (0 launches each): the
+long-context harvest on blockwise attention (`blockwise_harvest`: layer 2 at
+seq 8192 against dense attention, then 2 sequences of 32,768 tokens
+harvested into a store of 2 chunks), the big-batch trainer with dead-feature
+resurrection (`big_batch`: RESURRECT_r04's hyperparameters at ratio 32 on
+the harvested store, four resurrections, the device time of a step, a bf16
+arm, a worker SIGTERMed at the step-200 resurrection boundary and resumed to
+the same bits, card vs CPU at the tests' shape; ``chip_smoke.py
+--big-batch-worker`` is that process's entry) and the paper's experiments'
+device halves (`paper_experiments`: the PCA-perplexity sweep of 112 dicts,
+the embedding cosines, investigate, a feature case study, the dict
+comparisons; card vs CPU on small inputs).
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
 that counts fewer is printed as ``trace_short``. Prints one JSON line per
-phase, then the `kernels` line, the `nvidia-smi` line, and last
+phase, the smoke's total seconds, then the `kernels` line, the
+`nvidia-smi` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. Needs a CUDA device; never
 falls back to the CPU. Imports nothing of JAX or of `sparse_coding__tpu`.
@@ -248,6 +262,21 @@ EVAL = dict(rows=64, seed=31, batch=16, ablate=32, positions=(1, 32, 64, 127), p
 INTERP = dict(fragments=256, seed=37, batch=32, max_features=200)
 TOY = dict(epochs=400, single=dict(activation_dim=256, n_ground_truth_components=512, n_components_dictionary=1024,
                                    batch_size=1024, epochs=10))
+# long-context harvest (ROADMAP A5r): layer 2 of the pretrained subject at seq
+# 8192 (blockwise vs dense, JAX's pins), then 2 sequences of 32768 harvested
+BLOCKWISE = dict(seq=8192, long_seq=32768, long_chunks=2, tokens_seed=41, attn_seed=43, attn_atol=2e-5,
+                 capture_atol=2e-3)
+# the big-batch trainer (ROADMAP A6a) at RESURRECT_r04.json's hyperparameters
+# and Pythia-70M's width: ratio 32, l1 1e-3, batch 4096, lr 3e-4, f32; cut:
+# reinit_every 400 -> 100 and 450 steps (four resurrections, the last
+# followed by 50 steps, as RESURRECT_r04's last is by 200)
+BIG_BATCH = dict(ratio=32, l1=1e-3, batch=4096, lr=3e-4, steps=450, reinit_every=100, seed=47, bf16_steps=50,
+                 fault_step=199, sample=16384, sample_seed=59,
+                 small=dict(D=24, N=48, B=256, steps=30, rows=2048, seed=53, reinit_every=10, l1=3e-3, lr=1e-3))
+# the paper's experiments (ROADMAP A8c) on the subject and the sweep's 16 dicts
+PAPER = dict(pca_rows=65536, tokens=(64, 128), tokens_seed=61, token_batch=16, pca_step=8, n_sample=10000,
+             fragments=(256, 64), fragments_seed=67, feature=0, connections_rows=2048, small_rows=2,
+             small_fragments=8)
 # serving the harvest sweep's export (ROADMAP A7a): buckets 8..1024, top-k 32,
 # /features of 128-token sequences; 16 closed-loop HTTP clients; the drain's
 # worker attaches a seeded random Pythia-70M (the spec both processes build)
@@ -3170,6 +3199,366 @@ def phase_toy_grid(torch):
                         dead_cpu=dead_h, decoder_max_abs_diff=dec_diff))
 
 
+# -- the remaining single-card paths: blockwise harvest (A5r), big batch (A6a), experiments (A8c) --
+
+def phase_blockwise_harvest(torch, root: Path, cfg, params, lang):
+    """`lm/ring_attention.py::blockwise_attention` on the pretrained subject.
+    At seq 8192, batch 1: the attention of random [1, 8192, 8, 64] q/k/v
+    against dense attention (JAX's pin, atol 2e-5), then layer 2's residual
+    captured through `capture_fn(attn="blockwise")` against the dense
+    capture (JAX's pin on a capture, atol 2e-3), each timed with its peak
+    allocated bytes. Then `make_activation_dataset(attn="blockwise")` over 2
+    sequences of 32768 tokens into a store of 2 chunks (dense attention's
+    f32 scores alone would be 8 x 32768² x 4 B ≈ 34 GB a layer): every row
+    finite, and the first 8192 positions of the first sequence within 2e-3
+    of their capture at seq 8192 (causal: later tokens cannot change them).
+    Counts set to 0 around the phase: no hand-written kernel."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.activations import capture_fn, make_activation_dataset
+    from sparse_coding__tpu_torch.lm import make_tensor_name
+    from sparse_coding__tpu_torch.lm.model import dense_attention
+    from sparse_coding__tpu_torch.lm.ring_attention import blockwise_attention
+
+    S, L, layer = BLOCKWISE["seq"], BLOCKWISE["long_seq"], HARVEST["layer"]
+    read_launches = zero_launches(torch)
+    g = torch.Generator(device="cuda").manual_seed(BLOCKWISE["attn_seed"])
+    q, k, v = (torch.randn((1, S, cfg.n_heads, cfg.d_head), generator=g, device="cuda") for _ in range(3))
+    attn_err = float((dense_attention(q, k, v) - blockwise_attention()(q, k, v)).abs().max())
+    check(attn_err <= BLOCKWISE["attn_atol"], f"blockwise attention at seq {S}: max |Δ| {attn_err} vs dense")
+    del q, k, v
+    name = make_tensor_name(layer, "residual")
+    tokens = lang.sample(BLOCKWISE["long_chunks"], L, seed=BLOCKWISE["tokens_seed"])
+    short = torch.from_numpy(tokens[:1, :S]).cuda()
+
+    def capture(attn):
+        fn = capture_fn(cfg, [name], layer + 1, attn=attn)
+        fn(params, short[:, :512])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, seconds = timed(torch, lambda: fn(params, short)[name])
+        return out, seconds, torch.cuda.max_memory_allocated() - before
+
+    dense, dense_s, dense_peak = capture("dense")
+    block, block_s, block_peak = capture("blockwise")
+    cap_err = float((dense.float() - block.float()).abs().max())
+    check(cap_err <= BLOCKWISE["capture_atol"], f"blockwise capture at seq {S}: max |Δ| {cap_err} vs dense")
+    del dense
+    chunk_gb = L * cfg.d_model * 2 / 1024**3  # one sequence a chunk
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    folders, long_s = timed(torch, lambda: make_activation_dataset(
+        params, cfg, tokens, root / "long", [layer], ["residual"], batch_size=1, chunk_size_gb=chunk_gb,
+        attn="blockwise", device="cuda"))
+    long_peak = torch.cuda.max_memory_allocated() - before
+    launches = read_launches()
+    check(not launches, f"the blockwise harvest launched hand-written kernels {launches}")
+    folder = folders[(layer, "residual")]
+    for i in range(BLOCKWISE["long_chunks"]):
+        arr = np.load(folder / f"{i}.npy", mmap_mode="r")
+        check(arr.shape == (L, cfg.d_model) and arr.dtype == np.float16 and bool(np.isfinite(arr).all()),
+              f"long chunk {i}: {arr.shape} {arr.dtype}")
+    first = torch.from_numpy(np.load(folder / "0.npy")[:S]).cuda().float()
+    prefix_err = float((first - block[0].float()).abs().max())
+    check(prefix_err <= BLOCKWISE["capture_atol"], f"the long harvest's first {S} rows differ by {prefix_err}")
+    del block, first
+    emit("blockwise_harvest", layer=layer, loc="residual", q_block=512, kv_block=512, compute_dtype="float32",
+         attention_max_abs_err=attn_err, attention_atol=BLOCKWISE["attn_atol"], capture_max_abs_err=cap_err,
+         capture_atol=BLOCKWISE["capture_atol"], seq=S, dense_s=dense_s, dense_tokens_per_s=S / dense_s,
+         dense_peak_allocated_bytes=dense_peak, blockwise_s=block_s, blockwise_tokens_per_s=S / block_s,
+         blockwise_peak_allocated_bytes=block_peak, long_seq=L, long_chunks=BLOCKWISE["long_chunks"],
+         long_s=long_s, long_tokens_per_s=tokens.size / long_s, long_peak_allocated_bytes=long_peak,
+         long_prefix_max_abs_err=prefix_err, dense_scores_bytes_at_long_seq=cfg.n_heads * L * L * 4,
+         launches=launches)
+
+
+def big_batch_train(data, n_steps: int, **kw):
+    """`train_big_batch` of a tied SAE on ``data`` (the harvested store's
+    folder, or its rows on the card) at `BIG_BATCH`'s hyperparameters and
+    Pythia-70M's width, on the card (module level: the preemption workers
+    run the same one)."""
+    from sparse_coding__tpu_torch.lm import config_for
+    from sparse_coding__tpu_torch.models import FunctionalTiedSAE
+    from sparse_coding__tpu_torch.train.big_batch import train_big_batch
+
+    d = config_for(SUBJECT["model"]).d_model
+    hp = dict(activation_size=d, n_dict_components=BIG_BATCH["ratio"] * d, l1_alpha=BIG_BATCH["l1"])
+    data = str(data) if isinstance(data, Path) else data
+    return train_big_batch(FunctionalTiedSAE, hp, data, BIG_BATCH["batch"], n_steps, BIG_BATCH["seed"],
+                           learning_rate=BIG_BATCH["lr"], reinit_every=BIG_BATCH["reinit_every"], device="cuda", **kw)
+
+
+def big_batch_worker(argv) -> int:
+    """``chip_smoke.py --big-batch-worker <store> <ckpt_dir> <out.pt>
+    [--resume]``: the `big_batch` phase's run as a process of its own
+    (``SC_FAULT`` from the environment), its final params saved."""
+    import torch
+
+    state, _ = big_batch_train(argv[0], BIG_BATCH["steps"], checkpoint_dir=argv[1], resume="--resume" in argv[3:])
+    torch.save({k: v.cpu() for k, v in state.params.items()}, argv[2])
+    return 0
+
+
+def phase_big_batch(torch, root: Path, store: Path):
+    """`train/big_batch.py::train_big_batch` of a tied SAE on the harvested
+    layer-2 residual store (a folder: `load_store_dataset`), ratio 32 (N
+    16384), l1 1e-3, batch 4096, lr 3e-4, f32, 450 steps with a resurrection
+    every 100 (cut from RESURRECT_r04's 400): the resurrection log at
+    100..400, the export's FVU and L0 on 16,384 rows of the store (finite;
+    printed: 50 steps after resurrecting thousands of features the new rows
+    still fire widely). The device time of a step alone (eager steps and
+    their MSE back to back, CUDA events) against the run's wall gives the
+    host share. 50 steps in bf16 compute: finite, its MSE within half the
+    f32 arm's (`tests/test_train_drivers.py`'s bound), beside the zero
+    reconstruction's. A worker SIGTERMed in step 200
+    (``SC_FAULT=sigterm:step=199``: exit 75, its checkpoint at the step-200
+    resurrection boundary, where the ring is empty), then resumed in
+    another: its final params are the uninterrupted run's bits. At the CPU
+    tests' shape (D 24, N 48, B 256, 30 steps, resurrection every 10) the
+    card's run against the CPU's from the same key and rows: the same
+    resurrection steps, params within 30 x lr (Adam moves an element by at
+    most ~lr a step, so f32 sums in another order stay inside it). Counts
+    set to 0 around the phase: no hand-written kernel."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.chunks import load_store_dataset
+    from sparse_coding__tpu_torch.metrics.standard import fraction_variance_unexplained, sparsity_l0
+    from sparse_coding__tpu_torch.models import FunctionalTiedSAE
+    from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
+    from sparse_coding__tpu_torch.train import big_batch as bb
+    from sparse_coding__tpu_torch.utils.optim import adam
+
+    steps, B = BIG_BATCH["steps"], BIG_BATCH["batch"]
+    read_launches = zero_launches(torch)
+    log = []
+    tel = RunTelemetry()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    try:
+        (state, sig), wall = timed(torch, lambda: big_batch_train(store, steps, resurrection_log=log, telemetry=tel))
+    finally:
+        tel.close()
+    peak = torch.cuda.max_memory_allocated() - before
+    counters = {k: v for k, v in tel.counters.items() if k in ("train.steps", "resurrections", "resurrected_features")}
+    load_s = tel.counters.get("span.data_wait.seconds", 0.0)
+    ld = sig.to_learned_dict(state.params, state.buffers)
+    dataset, _ = load_store_dataset(store, device="cuda")
+    idx = torch.from_numpy(np.random.default_rng(BIG_BATCH["sample_seed"]).choice(
+        dataset.shape[0], BIG_BATCH["sample"], replace=False)).cuda()
+    sample = dataset[idx]
+    fvu, l0 = float(fraction_variance_unexplained(ld, sample)), float(sparsity_l0(ld, sample))
+    zero_mse = float((sample ** 2).mean())
+    emit("big_batch_run", steps=steps, resurrection_log=log, counters=counters, wall_s=wall, load_store_s=load_s,
+         step_ms=1e3 * (wall - load_s) / steps, export_fvu=fvu, export_l0=l0, peak_allocated_bytes=peak)
+    check([s for s, _ in log] == [100, 200, 300, 400], f"resurrection log {log}")
+    check(counters.get("train.steps") == steps and counters.get("resurrections") == 4, f"counters {counters}")
+    check(math.isfinite(fvu) and math.isfinite(l0), f"big-batch export FVU {fvu}, L0 {l0}")
+
+    # the device time of a step alone: eager steps with no host read between
+    # them, CUDA events around them (the host enqueues faster than the card runs)
+    gen = torch.Generator().manual_seed(0)
+    hp = dict(activation_size=dataset.shape[1], n_dict_components=BIG_BATCH["ratio"] * dataset.shape[1],
+              l1_alpha=BIG_BATCH["l1"])
+    params, buffers = FunctionalTiedSAE.init(gen, **hp, device="cpu")
+    tx = adam(BIG_BATCH["lr"])
+    params = {k: v.cuda() for k, v in params.items()}
+    buffers = {k: (v.cuda() if v is not None else None) for k, v in buffers.items()}
+    st = bb.BigBatchState(params, buffers, bb.init_opt_state(tx, params), torch.zeros(params["encoder"].shape[0],
+                          device="cuda"), torch.zeros((), dtype=torch.int32, device="cuda"))
+    step = bb.make_big_batch_step(FunctionalTiedSAE, tx)
+    x = dataset[torch.randint(0, dataset.shape[0], (B,), generator=gen).cuda()]
+
+    def one_step():
+        _, _, c = step(st, x)
+        bb.per_example_mse_from_codes(FunctionalTiedSAE, st.params, st.buffers, x, c)
+
+    device_ms = time_ms(torch, one_step, reps=20, warmup=3)
+    host_share = max(0.0, 1.0 - steps * device_ms / 1e3 / (wall - load_s))
+    del st, params, buffers, x
+
+    # bf16 compute, 50 steps, against an f32 arm of the same length
+    (s16, _), bf16_s = timed(torch, lambda: big_batch_train(dataset, BIG_BATCH["bf16_steps"], compute_dtype="bfloat16"))
+    (s32, _), f32_s = timed(torch, lambda: big_batch_train(dataset, BIG_BATCH["bf16_steps"]))
+    mse = {}
+    for arm, st in (("bf16", s16), ("f32", s32)):
+        x = sample[:512]
+        mse[arm] = float(((sig.to_learned_dict(st.params, st.buffers).predict(x) - x) ** 2).mean())
+    check(all(math.isfinite(v) for v in mse.values()) and abs(mse["bf16"] - mse["f32"]) < 0.5 * max(mse["f32"], 1e-6),
+          f"bf16 arm MSE {mse}")
+    del s16, s32, dataset
+
+    # preempted at the step-200 resurrection boundary, resumed: the same bits
+    def worker(*extra, fault=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+        if fault:
+            env["SC_FAULT"] = fault
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--big-batch-worker", str(store),
+                               str(root / "bb_ckpt"), str(root / "bb_resumed.pt"), *extra], env=env, cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t
+
+    fault = f"sigterm:step={BIG_BATCH['fault_step']}"
+    killed, killed_s = worker(fault=fault)
+    check(killed.returncode == 75, f"preempted big-batch run exited {killed.returncode}: {killed.stderr[-3000:]}")
+    ckpts = sorted(p.name for p in (root / "bb_ckpt").glob("ckpt_*"))
+    check(ckpts == [f"ckpt_{BIG_BATCH['fault_step'] + 1}"], f"checkpoints after the SIGTERM: {ckpts}")
+    resumed, resumed_s = worker("--resume")
+    check(resumed.returncode == 0, f"resumed big-batch run exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    got = torch.load(root / "bb_resumed.pt", weights_only=True)
+    for k, v in state.params.items():
+        check(torch.equal(got[k], v.cpu()), f"resumed {k} differs from the uninterrupted run's")
+
+    # the CPU tests' shape on the card and on the CPU, same key and rows
+    sm = BIG_BATCH["small"]
+    data = np.random.default_rng(sm["seed"]).standard_normal((sm["rows"], sm["D"])).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        slog = []
+        st, _ = bb.train_big_batch(FunctionalTiedSAE, dict(activation_size=sm["D"], n_dict_components=sm["N"],
+                                                           l1_alpha=sm["l1"]), data, sm["B"], sm["steps"],
+                                   sm["seed"], learning_rate=sm["lr"], reinit_every=sm["reinit_every"],
+                                   resurrection_log=slog, device=dev)
+        runs[dev] = (st, slog)
+    small_err = max(float((runs["cuda"][0].params[k].cpu() - runs["cpu"][0].params[k]).abs().max())
+                    for k in runs["cpu"][0].params)
+    small_tol = sm["steps"] * sm["lr"]
+    check([s for s, _ in runs["cuda"][1]] == [s for s, _ in runs["cpu"][1]] and small_err <= small_tol,
+          f"card vs CPU at the test shape: logs {runs['cuda'][1]} / {runs['cpu'][1]}, max |Δ| {small_err}")
+    launches = read_launches()
+    check(not launches, f"the big-batch trainer launched hand-written kernels {launches}")
+    activations = steps * B
+    emit("big_batch", source="RESURRECT_r04.json (ratio 32, l1 1e-3, batch 4096, lr 3e-4) at Pythia-70M layer 2",
+         width=int(state.params["encoder"].shape[1]), n_dict=int(state.params["encoder"].shape[0]), batch=B,
+         lr=BIG_BATCH["lr"], l1=BIG_BATCH["l1"], compute_dtype="float32", steps=steps,
+         reinit_every=BIG_BATCH["reinit_every"],
+         cut="reinit_every 400 -> 100, 450 steps (four resurrections, 50 steps after the last)",
+         resurrection_log=log, counters=counters, wall_s=wall, load_store_s=load_s,
+         step_ms=1e3 * (wall - load_s) / steps, activations_per_s=activations / (wall - load_s),
+         device_step_ms=device_ms,
+         host_share=host_share, peak_allocated_bytes=peak, export_fvu=fvu, export_l0=l0,
+         fvu_rows=f"{BIG_BATCH['sample']} rows drawn from the store", bf16_steps=BIG_BATCH["bf16_steps"],
+         bf16_s=bf16_s, f32_s=f32_s, bf16_vs_f32_mse=mse, zero_reconstruction_mse=zero_mse,
+         resume=dict(fault=fault, preempted_exit=killed.returncode, preempted_s=killed_s, checkpoint=ckpts[0],
+                     resumed_s=resumed_s, bit_equal_params=len(got)),
+         small=dict(shape=sm, max_abs_err=small_err, tolerance=small_tol, log_card=runs["cuda"][1],
+                    log_cpu=runs["cpu"][1]),
+         launches=launches)
+
+
+def phase_paper_experiments(torch, cfg, params, lang, export: Path, store: Path):
+    """The device halves of `experiments/` on the pretrained subject and the
+    harvest sweep's 16 dicts: `pca_perplexity_scores` (the PCA of 65,536
+    harvested rows; 16 dicts + 32 noise magnitudes + 32 dynamic and 32
+    static PCA dicts at pca_step 8 = 112 dicts x 4 batches of 16 x 128),
+    `embedding_cosine_scores` (the 50,304-row embedding and unembedding
+    against every dict), `investigate_scores` (dict 0 against dict 1),
+    `feature_activations` (one feature over 256 fragments of 64 tokens, as
+    `feature_case_study` runs it), `dict_compare` and
+    `inter_dict_connections` (on 2,048 harvested rows) between dicts 0 and
+    1; each timed. Checks: the zero-noise dict's FVU ~0 and its loss the
+    identity's, the static PCA's FVU falling with its components, every
+    score finite. Then card against CPU on small inputs (the CPU copies of
+    the params and two dicts): the edited-forward loss of 2 dicts on 2
+    sequences within rtol 1e-4 (f32 sums over a 50,304-word log-softmax),
+    the cosines within 1e-5, the investigate scores within 1e-5 of each
+    array's max (ENN runs to the hundreds), 8 fragments' activations within
+    1e-4 of their max, the matched similarities within 1e-5. Counts set to 0 around the phase: no hand-written kernel."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch import experiments as ex
+    from sparse_coding__tpu_torch.data.chunks import ChunkStore
+    from sparse_coding__tpu_torch.experiments.investigate import investigate_summary
+    from sparse_coding__tpu_torch.lm import model as lm_model
+    from sparse_coding__tpu_torch.metrics.intervention import mean_reconstruction_loss
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.utils import pickles
+    from sparse_coding__tpu_torch.utils.tree import tree_map
+
+    layer, loc = HARVEST["layer"], (HARVEST["layer"], "residual")
+    loaded = ckpt_lib.load_learned_dicts(export, verify=True, device="cuda")
+    lds = [ld for ld, _ in loaded]
+    read_launches = zero_launches(torch)
+    acts = ChunkStore(store).load(0, device="cuda")[: PAPER["pca_rows"]]
+    tokens = lang.sample(*PAPER["tokens"], seed=PAPER["tokens_seed"])
+    kw = dict(n_sample=PAPER["n_sample"], pca_step=PAPER["pca_step"], token_batch=PAPER["token_batch"], device="cuda")
+    scores, pca_s = timed(torch, lambda: ex.pca_perplexity_scores(params, cfg, loc, tokens, acts,
+                                                                  {"SAE": loaded}, **kw))
+    n_dicts = sum(len(v) for v in scores.values())
+    n_batches = PAPER["tokens"][0] // PAPER["token_batch"]
+    check(n_dicts == 16 + 32 + 2 * len(range(1, cfg.d_model // 2, PAPER["pca_step"])),
+          f"{n_dicts} dicts scored: {[(k, len(v)) for k, v in scores.items()]}")
+    check(all(math.isfinite(a) and math.isfinite(b) for pts in scores.values() for a, b in pts), "non-finite score")
+    noise0 = scores["Added Noise"][0]
+    static = [f for f, _ in scores["PCA (static)"]]
+    check(noise0[0] < 1e-5 and static[0] > static[-1], f"zero-noise FVU {noise0}, static PCA FVUs {static[:3]}..")
+    with torch.inference_mode():
+        base = float(np.mean([float(lm_model.lm_loss(params, torch.from_numpy(b).cuda(), cfg))
+                              for b in tokens.reshape(n_batches, -1, tokens.shape[1])]))
+    check(abs(noise0[1] - base) <= 1e-4 * base, f"zero-noise loss {noise0[1]} vs the unedited loss {base}")
+
+    dict_sets = {layer: [(str(i), ld) for i, ld in enumerate(lds)]}
+    cos, cos_s = timed(torch, lambda: ex.embedding_cosine_scores(params, dict_sets))
+    check(all(0.0 <= e <= 1.0 and 0.0 <= u <= 1.0 for _, e, u in cos[layer]), f"embedding cosines {cos}")
+    (mcs, ent, enn), inv_s = timed(torch, lambda: ex.investigate_scores(lds[0], lds[1]))
+    summary = {k: (None if isinstance(v, float) and math.isnan(v) else v)  # no NaN in the JSON line
+               for k, v in investigate_summary(mcs, ent, enn).items()}
+    fragments = lang.sample(*PAPER["fragments"], seed=PAPER["fragments_seed"])
+    per_tok, case_s = timed(torch, lambda: ex.feature_activations(params, cfg, lds[0], layer, "residual", fragments,
+                                                                 PAPER["feature"]))
+    study = ex.feature_case_study(params, cfg, lds[0], layer, "residual", fragments,
+                                  lambda row: [str(int(t)) for t in row], PAPER["feature"])
+    check(per_tok.shape == fragments.shape and bool(np.isfinite(per_tok).all())
+          and len(study["top_logit_tokens"]) == 10, f"case study {per_tok.shape}")
+    cmp, cmp_s = timed(torch, lambda: ex.dict_compare(lds[0], lds[1]))
+    rows = acts[: PAPER["connections_rows"]]
+    conn, conn_s = timed(torch, lambda: ex.inter_dict_connections(lds[0], lds[1], rows, rows))
+    check(bool(np.isfinite(cmp["matched_sims"]).all()) and conn["correlation"].shape == (lds[0].n_feats,
+                                                                                          lds[1].n_feats),
+          "dict_compare / inter_dict_connections")
+    launches = read_launches()
+    check(not launches, f"the experiments launched hand-written kernels {launches}")
+
+    # card against CPU on small inputs
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_lds = [pickles.loads(pickles.dumps(ld), device="cpu") for ld in lds[:2]]
+    small_toks = tokens[: PAPER["small_rows"]][None]
+    losses = {dev: [mean_reconstruction_loss(p, cfg, ld, loc, small_toks, device=dev) for ld in d]
+              for dev, p, d in (("cuda", params, lds[:2]), ("cpu", cpu_params, cpu_lds))}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    cos_c = ex.embedding_cosine_scores(cpu_params, {layer: [("0", cpu_lds[0]), ("1", cpu_lds[1])]})[layer]
+    cos_err = max(abs(a - b) for r, c in zip(cos[layer][:2], cos_c) for a, b in zip(r[1:], c[1:]))
+    inv_c = ex.investigate_scores(cpu_lds[0], cpu_lds[1])
+    inv_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip((mcs, ent, enn), inv_c))
+    small_frag = fragments[: PAPER["small_fragments"]]
+    fa = ex.feature_activations(params, cfg, lds[0], layer, "residual", small_frag, PAPER["feature"])
+    fc = ex.feature_activations(cpu_params, cfg, cpu_lds[0], layer, "residual", small_frag, PAPER["feature"])
+    frag_err = float(np.abs(fa - fc).max()) / max(float(np.abs(fc).max()), 1e-12)
+    cmp_c = ex.dict_compare(cpu_lds[0], cpu_lds[1])
+    sims_err = float(np.abs(np.sort(cmp["matched_sims"]) - np.sort(cmp_c["matched_sims"])).max())
+    check(loss_rel <= 1e-4 and cos_err <= 1e-5 and inv_err <= 1e-5 and frag_err <= 1e-4 and sims_err <= 1e-5,
+          f"card vs CPU: loss rel {loss_rel}, cosines {cos_err}, investigate {inv_err}, fragments {frag_err}, "
+          f"matched sims {sims_err}")
+    forwards = n_dicts * n_batches
+    emit("paper_experiments", dicts=len(lds), pca_rows=int(acts.shape[0]), pca_step=PAPER["pca_step"],
+         scored_dicts=n_dicts, token_batches=n_batches, tokens=list(PAPER["tokens"]), pca_perplexity_s=pca_s,
+         edited_forwards=forwards, edited_forwards_per_s=forwards / pca_s, base_loss=base,
+         zero_noise=list(noise0), sae_scores=scores["SAE"], embedding_cosine_s=cos_s,
+         embed_vocab=int(params["embed"].shape[0]), investigate_s=inv_s, investigate=summary,
+         case_study_s=case_s, case_study_fragments=list(PAPER["fragments"]), dict_compare_s=cmp_s,
+         frac_shared=cmp["frac_shared"], inter_dict_connections_s=conn_s,
+         connections_rows=PAPER["connections_rows"],
+         card_vs_cpu=dict(loss_max_rel=loss_rel, cosine_max_abs=cos_err, investigate_max_rel=inv_err,
+                          fragments_max_rel=frag_err, matched_sims_max_abs=sims_err),
+         launches=launches)
+
+
 # -- serving (ROADMAP A7a): the harvest sweep's export behind the engine ----------
 
 def serve_rows_pool(torch, cfg, params, lang):
@@ -4046,6 +4435,8 @@ def main() -> int:
         return harvest_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--serve-worker"]:
         return serve_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--big-batch-worker"]:
+        return big_batch_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -4054,6 +4445,7 @@ def main() -> int:
     from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
+    started = time.perf_counter()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4206,6 +4598,15 @@ def main() -> int:
         phase_interp_codes(torch, lm_cfg, lm_params, lang, export)
         torch.cuda.empty_cache()
         phase_toy_grid(torch)
+        # the remaining single-card paths (ROADMAP A5r, A6a, A8c): the long-context
+        # harvest on blockwise attention, the big-batch trainer with
+        # resurrection, the paper's experiments' device halves
+        torch.cuda.empty_cache()
+        phase_blockwise_harvest(torch, harvest_root, lm_cfg, lm_params, lang)
+        torch.cuda.empty_cache()
+        phase_big_batch(torch, harvest_root, folders[(HARVEST["layer"], "residual")])
+        torch.cuda.empty_cache()
+        phase_paper_experiments(torch, lm_cfg, lm_params, lang, export, folders[(HARVEST["layer"], "residual")])
         # serving (ROADMAP A7a): the sweep's 16 dicts behind the engine, the
         # HTTP server with the pretrained subject, a SIGTERM drain under load
         torch.cuda.empty_cache()
@@ -4231,6 +4632,7 @@ def main() -> int:
     emit("memory", step_peak_bytes=peak, graph_step_peak_bytes=graph_peak, tied_saving=peak["tied"] - peak["tied_capacity"],
          topk_saving=peak["topk"] - peak["topk_capacity"], code_tensor_bytes=code_bytes)
 
+    emit("total", seconds=time.perf_counter() - started)
     for row in rows:
         row["route"] = "cuda"
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,7 +1,6 @@
 """Data: synthetic generators, the chunk store, integrity checks, the
 activation harvest and the IOI prompts (counterpart of
-`sparse_coding__tpu/data`, with its names; `load_store_dataset` is not
-ported)."""
+`sparse_coding__tpu/data`, with its names)."""
 
 from sparse_coding__tpu_torch.data.synthetic import (
     RandomDatasetGenerator,
@@ -13,6 +12,7 @@ from sparse_coding__tpu_torch.data.chunks import (
     ChunkStore,
     chunk_path,
     generate_synthetic_chunks,
+    load_store_dataset,
     save_chunk,
 )
 from sparse_coding__tpu_torch.data.integrity import (

@@ -25,9 +25,11 @@ Tokenization is the reference's GPT-style concatenate-and-chunk: join
 documents with EOS, split the stream into exact ``max_length`` rows, drop
 the ragged tail.
 
-The sequence-parallel capture (``mesh``, ``seq_attn``) waits for ROADMAP
-A6, the blockwise attention (``attn="blockwise"``) for ROADMAP A5 (ring
-attention): both raise.
+``attn="blockwise"`` runs the capture forward on
+`lm.ring_attention.blockwise_attention` (one score tile live, so sequences
+far past dense attention's memory harvest on one card). The
+sequence-parallel capture (``mesh``, ``seq_attn``) waits for ROADMAP A6b
+and raises.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from sparse_coding__tpu_torch.data import integrity
 from sparse_coding__tpu_torch.data.chunks import ChunkStore, save_chunk
 from sparse_coding__tpu_torch.lm import model as lm_model
 from sparse_coding__tpu_torch.lm.convert import _canonical_hf_name, load_model
+from sparse_coding__tpu_torch.lm.ring_attention import blockwise_attention
 from sparse_coding__tpu_torch.telemetry.events import event_active
 from sparse_coding__tpu_torch.telemetry.spans import ACTIVE, span
 from sparse_coding__tpu_torch.utils.device import resolve_device
@@ -100,22 +103,32 @@ def load_tokenizer(model_name: str):
 
 # -- harvesting ---------------------------------------------------------------
 
-def _refuse_unported(mesh, seq_attn, attn):
+def _refuse_unported(mesh, seq_attn):
     if mesh is not None:
         raise NotImplementedError(f"the sequence-parallel harvest (mesh=, seq_attn={seq_attn!r}) is not ported "
-                                  "yet — ROADMAP A6")
-    if attn != "dense":
-        raise NotImplementedError(f"attn={attn!r}: the blockwise attention is not ported yet — "
-                                  "ROADMAP A5 (ring attention)")
+                                  "yet — ROADMAP A6b")
+
+
+def _attn_impl(attn: str):
+    """The single-card attention of a harvest: ``"dense"`` or ``"blockwise"``."""
+    if attn == "dense":
+        return lm_model.dense_attention
+    if attn == "blockwise":
+        return blockwise_attention()
+    raise ValueError(f"unknown single-device attn impl: {attn}")
 
 
 @lru_cache(maxsize=16)
-def _capture(lm_cfg: lm_model.LMConfig, names: Tuple[str, ...], stop_at: int, compute_dtype=None):
+def _capture(lm_cfg: lm_model.LMConfig, names: Tuple[str, ...], stop_at: int, compute_dtype=None,
+             attn: str = "dense"):
+    attn_impl = _attn_impl(attn)
+
     def capture(params, tokens):
         with torch.no_grad():
             if compute_dtype is not None:
                 params = lm_model.cast_params(params, compute_dtype)  # a no-op on pre-cast params
-            _, cache = lm_model.run_with_cache(params, tokens, lm_cfg, list(names), stop_at_layer=stop_at)
+            _, cache = lm_model.run_with_cache(params, tokens, lm_cfg, list(names), stop_at_layer=stop_at,
+                                               attn_impl=attn_impl)
             return {k: v.to(torch.float16) for k, v in cache.items()}
 
     return capture
@@ -125,11 +138,11 @@ def capture_fn(lm_cfg: lm_model.LMConfig, names: Sequence[str], stop_at: int, co
                attn: str = "dense"):
     """The harvest's capture forward ``(params, tokens [B, S]) -> {name:
     fp16 [B, S, w]}``, cached per (config, hook set, stop layer, compute
-    dtype). The cast to fp16 happens on the device. `make_activation_dataset`
-    and `harvest_to_device` run this function, so their activations are the
-    same bits for the same tokens."""
-    _refuse_unported(None, None, attn)
-    return _capture(lm_cfg, tuple(names), int(stop_at), as_dtype(compute_dtype))
+    dtype, attention). The cast to fp16 happens on the device.
+    `make_activation_dataset` and `harvest_to_device` run this function, so
+    their activations are the same bits for the same tokens. The attention
+    pattern cannot be captured under ``attn="blockwise"`` (it raises)."""
+    return _capture(lm_cfg, tuple(names), int(stop_at), as_dtype(compute_dtype), attn)
 
 
 def _probe_activation_size(lm_cfg, name: str, stop_at: int, seq_len: int) -> int:
@@ -336,7 +349,7 @@ def make_activation_dataset(
     refills quarantined holes bit for bit. Spans: ``step`` /
     ``harvest_forward`` and ``checkpoint`` / ``chunk_commit``, broadcast to
     any live `RunTelemetry`; a ``provenance`` event per committed chunk."""
-    _refuse_unported(mesh, seq_attn, attn)
+    _refuse_unported(mesh, seq_attn)
     device = resolve_device(device)
     names, stop_at, batches_per_chunk = _harvest_plan(lm_cfg, layers, layer_locs, chunk_size_gb, batch_size,
                                                       tokens.shape[1])
@@ -359,7 +372,7 @@ def make_activation_dataset(
     selected = None if only_chunks is None else {int(c) for c in only_chunks}
 
     compute_dtype = as_dtype(compute_dtype)
-    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype)
+    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype, attn)
     params = lm_model.cast_params(params, compute_dtype)  # pay the cast once
     drain = _Drain(batches_per_chunk, device)
 
@@ -429,12 +442,12 @@ def harvest_to_device(
     [rows, w] fp16}``, the values `make_activation_dataset` writes, without
     a trip through the host. ``save_folder`` also persists each chunk in
     ``store_dtype`` (the yielded chunks stay fp16)."""
-    _refuse_unported(mesh, seq_attn, attn)
+    _refuse_unported(mesh, seq_attn)
     device = resolve_device(device)
     names, stop_at, batches_per_chunk = _harvest_plan(lm_cfg, layers, layer_locs, chunk_size_gb, batch_size,
                                                       tokens.shape[1])
     compute_dtype = as_dtype(compute_dtype)
-    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype)
+    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype, attn)
     params = lm_model.cast_params(params, compute_dtype)
 
     folders = None

@@ -277,3 +277,43 @@ def generate_synthetic_chunks(
     for i in range(n_chunks):
         save_chunk(folder, i, torch.cat([next(generator) for _ in range(batches_per_chunk)]), dtype=dtype)
     return store
+
+
+def load_store_dataset(store, dtype=torch.float32, telemetry=None, budget=None,
+                       budget_frac: Optional[float] = None, device=None):
+    """Load a whole chunk store into one ``[N, d]`` tensor on ``device``
+    (None = cuda), surviving corrupt chunks in degraded mode.
+
+    The admission path for the trainers that sample rows from one array
+    (`train.big_batch.train_big_batch` takes a store folder through this):
+    every chunk is loaded and verified (``SC_CHUNK_VERIFY``); a chunk that
+    fails is quarantined by the load and accounted against a
+    `data.integrity.ChunkLossBudget`, and so is a chunk quarantined before
+    this run. Inside the budget its rows are absent from the result (the
+    ``data.chunks_skipped`` / ``data.rows_skipped`` counters record the
+    loss); past it the budget raises `ResumableAbort` (exit 75), as does a
+    store with no loadable chunk. Returns ``(dataset, budget)``."""
+    device = resolve_device(device)
+    if not isinstance(store, ChunkStore):
+        store = ChunkStore(store)
+    idx = store.indices()
+    quarantined = integrity.quarantined_indices(store.folder)
+    # a chunk both present and in the quarantine ledger (repaired since) counts once
+    n_total = max(len(set(idx) | set(quarantined)), 1)
+    if budget is None:
+        budget = integrity.ChunkLossBudget(n_total, telemetry=telemetry, budget_frac=budget_frac)
+    for q in quarantined:
+        if q not in idx:
+            budget.skip(q, "quarantined", rows=integrity.quarantined_rows(store.folder, q))
+    parts = []
+    for i in idx:
+        try:
+            parts.append(store.load(i, dtype=dtype, device=device))
+        except CorruptChunk as e:
+            budget.skip(i, e.reason, rows=integrity.quarantined_rows(store.folder, i))
+    if not parts:
+        from sparse_coding__tpu_torch.train.preemption import ResumableAbort
+
+        raise ResumableAbort(f"no loadable chunks in {store.folder} ({len(budget.skipped_chunks)} quarantined); "
+                             "scrub/repair the store")
+    return torch.cat(parts, dim=0), budget

@@ -208,15 +208,37 @@ def quarantine_chunk(folder, i: int, reason: str) -> List[Path]:
 class ChunkLossBudget:
     """How much of the dataset a run may lose to quarantine. `skip` counts
     distinct chunks (and their rows) and raises `ResumableAbort` once the
-    lost fraction exceeds ``budget_frac`` (``SC_CHUNK_LOSS_BUDGET``)."""
+    lost fraction exceeds ``budget_frac`` (``SC_CHUNK_LOSS_BUDGET``). The
+    counters, gauge and events go to ``telemetry``, or with None to every
+    live `RunTelemetry` (library callers still account)."""
 
-    def __init__(self, n_chunks: int, telemetry, budget_frac: Optional[float] = None):
+    def __init__(self, n_chunks: int, telemetry=None, budget_frac: Optional[float] = None):
         self.n_chunks = max(1, int(n_chunks))
         self.budget_frac = default_loss_budget() if budget_frac is None else float(budget_frac)
         self.telemetry = telemetry
         self.skipped_chunks: set = set()
         self.rows_skipped = 0
-        telemetry.gauge_set("data.budget_remaining_frac", self.budget_frac)
+        self._gauge(self.budget_frac)
+
+    def _counter(self, name: str, n: int = 1) -> None:
+        if self.telemetry is not None:
+            self.telemetry.counter_inc(name, n)
+        else:
+            counter_inc_active(name, n)
+
+    def _gauge(self, remaining: float) -> None:
+        from sparse_coding__tpu_torch.telemetry.events import gauge_set_active
+
+        if self.telemetry is not None:
+            self.telemetry.gauge_set("data.budget_remaining_frac", remaining)
+        else:
+            gauge_set_active("data.budget_remaining_frac", remaining)
+
+    def _event(self, etype: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.event(etype, **fields)
+        else:
+            event_active(etype, **fields)
 
     @property
     def loss_frac(self) -> float:
@@ -232,21 +254,20 @@ class ChunkLossBudget:
 
     def skip(self, chunk: int, reason: str, rows: Optional[int] = None) -> None:
         """Account one skipped chunk; raise `ResumableAbort` past the budget."""
-        t = self.telemetry
         self.skipped_chunks.add(int(chunk))
         if rows:
             self.rows_skipped += int(rows)
-            t.counter_inc("data.rows_skipped", int(rows))
-        t.counter_inc("data.chunks_skipped")
-        t.gauge_set("data.budget_remaining_frac", self.remaining_frac)
-        t.event("chunk_skipped", chunk=int(chunk), reason=reason, rows=rows,
-                loss_frac=round(self.loss_frac, 4), budget_frac=self.budget_frac)
+            self._counter("data.rows_skipped", int(rows))
+        self._counter("data.chunks_skipped")
+        self._gauge(self.remaining_frac)
+        self._event("chunk_skipped", chunk=int(chunk), reason=reason, rows=rows,
+                    loss_frac=round(self.loss_frac, 4), budget_frac=self.budget_frac)
         if self.exceeded:
             from sparse_coding__tpu_torch.train.preemption import ResumableAbort
 
-            t.counter_inc("data.budget_exhausted")
-            t.event("loss_budget_exhausted", chunks_lost=sorted(self.skipped_chunks),
-                    loss_frac=round(self.loss_frac, 4), budget_frac=self.budget_frac)
+            self._counter("data.budget_exhausted")
+            self._event("loss_budget_exhausted", chunks_lost=sorted(self.skipped_chunks),
+                        loss_frac=round(self.loss_frac, 4), budget_frac=self.budget_frac)
             raise ResumableAbort(
                 f"chunk loss budget exhausted: {len(self.skipped_chunks)}/{self.n_chunks} chunks lost "
                 f"({self.loss_frac:.1%} > {self.budget_frac:.1%} {LOSS_BUDGET_ENV}); scrub/repair the store and resume"

@@ -2,8 +2,9 @@
 
 `state_from_jax_numpy` takes the JAX `Ensemble`'s state as numpy arrays
 (``jax.device_get`` is the caller's: this module imports no JAX) and returns
-the port's `EnsembleState`; `lm_params_from_jax` does the same for a subject
-LM's param tree. Both packages then compute from the same point.
+the port's `EnsembleState`; `big_batch_state_from_jax_numpy` does the same
+for the big-batch trainer's `BigBatchState`, and `lm_params_from_jax` for a
+subject LM's param tree. Both packages then compute from the same point.
 """
 
 from __future__ import annotations
@@ -75,6 +76,34 @@ def state_from_jax_numpy(
             nu=tree_map(lambda _p, v: _moment(v, device), p, opt_state["nu"]),
         )
     return EnsembleState(params=p, buffers=b, opt_state=adam, step=int(step))
+
+
+def big_batch_state_from_jax_numpy(
+    params: Dict[str, Any],
+    buffers: Dict[str, Any],
+    opt_state: Dict[str, Any],
+    c_totals,
+    step,
+    device=None,
+):
+    """The JAX `train.big_batch.BigBatchState` as the port's: one member's
+    params and buffers (no member axis), optax's Adam state flattened to
+    ``{"count", "mu", "nu"}`` (``count`` 0-d int32), ``c_totals`` [n_feats]
+    and the 0-d int32 step, every array copied exactly to ``device``."""
+    from sparse_coding__tpu_torch.train.big_batch import BigBatchState
+
+    device = resolve_device(device)
+    return BigBatchState(
+        params=tree_map(lambda v: _tensor(v, device), params),
+        buffers=tree_map(lambda v: _tensor(v, device), buffers),
+        opt_state=AdamState(
+            count=_tensor(opt_state["count"], device).to(torch.int32).reshape(()),
+            mu=tree_map(lambda v: _moment(v, device), opt_state["mu"]),
+            nu=tree_map(lambda v: _moment(v, device), opt_state["nu"]),
+        ),
+        c_totals=_tensor(c_totals, device).to(torch.float32),
+        step=_tensor(step, device).to(torch.int32).reshape(()),
+    )
 
 
 def lm_params_from_jax(params_np, device=None):

@@ -14,8 +14,8 @@ Context inputs come from InterpArgs: `--lm_params` (a pickle of
 `utils.pickles`), `--fragments` (.npy int tokens `[n, fragment_len]`),
 `--token_strs` (json list: token id → string). When unset, the subject model
 and openwebtext fragments are pulled from the HF cache (network-free only if
-already cached). `read_results` draws violin plots, which need `plotting`
-(not ported yet, ROADMAP A8c). The explainer/simulator client
+already cached). `read_results` draws violin plots (`plotting`: needs
+matplotlib). The explainer/simulator client
 is auto-selected (`clients.default_client`): OpenAI when a key is configured,
 the offline lexicon client otherwise.
 """

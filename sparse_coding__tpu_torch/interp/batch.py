@@ -10,8 +10,8 @@ batch, not once per dict. Dictionary files of either package load
 
 Folder-name / tag conventions are kept verbatim so the JAX package's tooling
 parses these outputs: `make_tag_name`, `parse_folder_name`
-("tied_residual_l2_r4"). The violin plots of `read_results` need
-`plotting`, which is not ported yet (ROADMAP A8c).
+("tied_residual_l2_r4"). The violin plots of `read_results` are drawn by
+`plotting` (matplotlib, imported there only).
 """
 
 from __future__ import annotations
@@ -321,11 +321,19 @@ def read_results(
     activation_name: str, score_mode: str, results_base="auto_interp_results"
 ) -> Optional[Path]:
     """Violin plot + means of every transform's scores for one activation
-    folder. The plot needs `plotting`, which is not ported yet: with scores
-    to plot this raises naming ROADMAP A8c."""
+    folder (reference `read_results`, `interpret.py:691-761`), written to
+    ``<results_base>/<activation_name>/<score_mode>_means_and_violin.png``
+    (`plotting`: needs matplotlib). Returns the path, or None without
+    scores."""
     results_folder = Path(results_base) / activation_name
     scores = read_scores(results_folder, score_mode)
     if not scores:
         print(f"No scores found for {activation_name}")
         return None
-    raise NotImplementedError("the autointerp violin plots need `plotting`, which is not ported yet — ROADMAP A8c")
+    from sparse_coding__tpu_torch.plotting.plots import autointerp_violins, save_figure
+
+    fig = autointerp_violins({t: s for t, (_n, s) in scores.items()}, title=f"{activation_name} {score_mode}")
+    out = results_folder / f"{score_mode}_means_and_violin.png"
+    save_figure(fig, out)
+    print(f"Saved means and violin graph to {out}")
+    return out

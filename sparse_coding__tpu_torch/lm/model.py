@@ -18,9 +18,10 @@ Numerics kept from the JAX package (and not from HF's torch modules):
     with -1e30 and softmaxed in f32, and the probabilities cast back to the
     compute dtype before the ``v`` product.
 
-Attention is dense only; `positions` is kept for the sequence-parallel
-forward (the blockwise, ring and Ulysses attentions are not ported yet —
-ROADMAP A5 (ring attention) and A6).
+Attention is dense unless ``attn_impl`` says otherwise
+(`lm.ring_attention.blockwise_attention`, the single-card long-context
+recurrence); `positions` is kept for the sequence-parallel forward, whose
+ring and Ulysses attentions wait for ROADMAP A6b.
 
 Hook names (transformer_lens-compatible, as in JAX):
   blocks.{i}.hook_resid_post       residual after block i          ("residual")
@@ -262,12 +263,14 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
-def attention_block(p, x_normed, cfg: LMConfig, positions: Optional[torch.Tensor] = None,
-                    hook: Optional[Callable] = None, pattern_needed: bool = False):
+def attention_block(p, x_normed, cfg: LMConfig, attn_impl: Callable = dense_attention,
+                    positions: Optional[torch.Tensor] = None, hook: Optional[Callable] = None,
+                    pattern_needed: bool = False):
     """``(attn_out [B, S, d], z [B, S, H·Dh])``. ``positions`` are global
     token positions; ``hook(suffix, tensor)`` intercepts ``attn.hook_{q,k,v}``
     (post-rotary, flattened) and, with ``pattern_needed``,
-    ``attn.hook_pattern``."""
+    ``attn.hook_pattern`` (dense attention only: another ``attn_impl`` never
+    materializes the ``[B, H, Q, K]`` pattern, so asking for it raises)."""
     qkv = torch.einsum("thdm,bsm->tbshd", p["w_qkv"], x_normed) + p["b_qkv"][:, None, None]
     q, k, v = qkv[0], qkv[1], qkv[2]
     if cfg.arch == "neox":
@@ -284,9 +287,12 @@ def attention_block(p, x_normed, cfg: LMConfig, positions: Optional[torch.Tensor
         k = hook("attn.hook_k", flat(k)).reshape(k.shape)
         v = hook("attn.hook_v", flat(v)).reshape(v.shape)
     if pattern_needed:
+        if attn_impl is not dense_attention:
+            raise ValueError("hook_pattern needs dense attention — the blockwise and sequence-parallel "
+                             "impls never materialize the full [B,H,Q,K] pattern")
         z = dense_attention(q, k, v, pattern_cb=lambda pr: hook("attn.hook_pattern", pr))
     else:
-        z = dense_attention(q, k, v)  # [B, S, H, Dh]
+        z = attn_impl(q, k, v)  # [B, S, H, Dh]
     z_flat = z.reshape(*z.shape[:2], -1)
     out = torch.einsum("mhd,bshd->bsm", p["w_o"], z) + p["b_o"]
     return out, z_flat
@@ -312,13 +318,6 @@ def mlp_hidden(p, x_normed, cfg: LMConfig):
 HookFn = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _refuse_attn_impl(attn_impl):
-    if attn_impl is not None and attn_impl is not dense_attention:
-        raise NotImplementedError(
-            "only dense attention is ported; the blockwise, ring and Ulysses attentions are not ported yet — "
-            "ROADMAP A5 (ring attention), A6")
-
-
 def forward(
     params: Pytree,
     tokens: torch.Tensor,
@@ -332,8 +331,9 @@ def forward(
     """Run the model on int token ids ``[B, S]``. Returns (logits, or the
     residual at ``stop_at_layer``, cache). ``hooks[name]`` replaces the
     tensor at hook point ``name``; ``cache_names`` lists the points to
-    capture; ``stop_at_layer=n`` runs blocks ``[0, n)``."""
-    _refuse_attn_impl(attn_impl)
+    capture; ``stop_at_layer=n`` runs blocks ``[0, n)``; ``attn_impl``
+    (None: `dense_attention`) computes each block's attention."""
+    attn_impl = dense_attention if attn_impl is None else attn_impl
     hooks = hooks or {}
     want = set(cache_names or [])
     cache: Dict[str, torch.Tensor] = {}
@@ -357,7 +357,7 @@ def forward(
         p = params["blocks"][i]
         pfx = f"blocks.{i}"
         attn_out, z = attention_block(
-            p["attn"], layer_norm(x, p["ln1"], cfg.layer_norm_eps), cfg, positions,
+            p["attn"], layer_norm(x, p["ln1"], cfg.layer_norm_eps), cfg, attn_impl, positions,
             hook=lambda sfx, t, _pfx=pfx: at_hook(f"{_pfx}.{sfx}", t),
             pattern_needed=f"{pfx}.attn.hook_pattern" in needed,
         )

@@ -29,7 +29,8 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-__all__ = ["DEFAULT_LATENCY_BUCKETS_MS", "RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "read_events",
+__all__ = ["DEFAULT_LATENCY_BUCKETS_MS", "RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "gauge_set_active",
+           "read_events",
            "run_fingerprint"]
 
 # fixed log-spaced latency buckets (ms): 0.25 ms ... 2048 ms, each bound 2x
@@ -52,6 +53,12 @@ def counter_add_float_active(name: str, v: float) -> None:
     seconds); no live one: a no-op."""
     for t in list(_ACTIVE):
         t.counter_add_float(name, v)
+
+
+def gauge_set_active(name: str, value: float) -> None:
+    """Set a gauge on every live RunTelemetry (no live one: a no-op)."""
+    for t in list(_ACTIVE):
+        t.gauge_set(name, value)
 
 
 def event_active(etype: str, **fields) -> None:

@@ -1,6 +1,5 @@
 """Training drivers (counterpart of `sparse_coding__tpu/train`, with its
-names; `big_batch` is not ported yet, ROADMAP A6a, nor is the sweep's
-`format_hyperparam_val`). The drivers `sweep` and `basic_l1_sweep` keep
+names; the sweep's `format_hyperparam_val` is not ported). The drivers `sweep` and `basic_l1_sweep` keep
 their submodules' names here (``from sparse_coding__tpu_torch.train import
 sweep`` is the module; its function is ``sweep.sweep``)."""
 
@@ -41,4 +40,11 @@ from sparse_coding__tpu_torch.train.baselines import (
     run_layer_baselines,
 )
 from sparse_coding__tpu_torch.train import experiments
+from sparse_coding__tpu_torch.train.big_batch import (
+    BigBatchState,
+    WorstExamples,
+    make_big_batch_step,
+    resurrect_dead_features,
+    train_big_batch,
+)
 from sparse_coding__tpu_torch.train.toy_models import ToySAE, run_single_go, run_toy_grid

@@ -176,9 +176,10 @@ _TAG = "__dataclass__"
 
 def _state_classes() -> Dict[str, type]:
     from sparse_coding__tpu_torch.ensemble import EnsembleState
+    from sparse_coding__tpu_torch.train.big_batch import BigBatchState
     from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment, SgdState
 
-    return {c.__name__: c for c in (EnsembleState, AdamState, QuantMoment, SgdState)}
+    return {c.__name__: c for c in (EnsembleState, BigBatchState, AdamState, QuantMoment, SgdState)}
 
 
 def _to_plain(v):

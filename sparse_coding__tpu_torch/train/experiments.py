@@ -20,7 +20,7 @@ The run drivers (`run_sweep_synthetic`, `run_single_layer`, ...) take
 ``overrides`` set any config field, ``dtype`` included. The ablations'
 signatures (LISTA, thresholding, masked, positive) apply the precision
 policy where the JAX signatures do (the masked and thresholding SAEs) and
-compute in f32 otherwise. Not ported yet: a mesh (ROADMAP A6: raises).
+compute in f32 otherwise. Not ported yet: a mesh (ROADMAP A6b: raises).
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def _ensemble(sig, models, cfg, dict_size, name, extra_args=None, mesh=None):
     with an ``l1_alpha`` buffer (for the others a requested warm-up warns
     and is dropped: one sweep may mix model families)."""
     if mesh is not None:
-        raise NotImplementedError("sharding an ensemble over a mesh is not ported yet — ROADMAP A6")
+        raise NotImplementedError("sharding an ensemble over a mesh is not ported yet — ROADMAP A6b")
     warmup = getattr(cfg, "l1_warmup_steps", 0)
     if warmup > 0 and "l1_alpha" not in models[0][1]:
         warnings.warn(f"l1_warmup_steps={warmup} ignored for {sig.__name__} (no l1_alpha buffer)")

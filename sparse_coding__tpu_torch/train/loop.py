@@ -46,7 +46,7 @@ class DriverCheckpointer:
     `preemption.Preempted` (exit 75); otherwise, with ``every=N``, it
     checkpoints every N-th boundary (a ``periodic`` save). Every save is
     followed by retention GC (newest ``keep``). The pod cadence
-    (``sync_every``) waits for ROADMAP A6. `close()` stops polling and, once
+    (``sync_every``) waits for ROADMAP A6b. `close()` stops polling and, once
     no checkpointer polls, puts back the signal handlers that were
     replaced."""
 

@@ -155,7 +155,7 @@ def reset() -> None:
 def pod_agree_preempt(telemetry=None) -> bool:
     """The "checkpoint now?" decision at a boundary. The port runs on one
     host, so it is the local flag; the pod-wide agreement of the JAX package
-    comes with scale-out (ROADMAP A6)."""
+    comes with scale-out (ROADMAP A6b)."""
     del telemetry
     return preemption_requested()
 

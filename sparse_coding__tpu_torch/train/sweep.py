@@ -110,11 +110,10 @@ def log_sweep_metrics(learned_dicts: List[Tuple[Any, Dict[str, Any]]], chunk: to
     = features firing more than once on a seeded sample of the chunk, and
     its share) through ``logger``, and, when the sweep spans dict sizes, the
     small-vs-larger-dict MMCS grid per setting, written to
-    ``<output_folder>/mmcs_grids_<chunk_num>.npz``. Returns the values. The
-    JAX package also renders them as images; ``images=True`` raises until
-    the plotting is ported (ROADMAP A8c)."""
-    if images:
-        raise NotImplementedError("the sweep's image dashboards are not ported yet — ROADMAP A8c")
+    ``<output_folder>/mmcs_grids_<chunk_num>.npz``. Returns the values.
+    ``images=True`` also renders them, as the JAX package does whenever a
+    logger is given: the feature-activity overlay and each MMCS grid's
+    heatmap through ``logger.log_image`` (needs matplotlib: `plotting`)."""
     idx = np.random.default_rng(seed).choice(chunk.shape[0], size=min(n_samples, chunk.shape[0]), replace=False)
     sample = chunk[torch.from_numpy(idx).to(chunk.device)]
     results: Dict[str, Any] = {"n_active": {}, "feat_counts": {}, "mmcs_grids": {}}
@@ -153,6 +152,20 @@ def log_sweep_metrics(learned_dicts: List[Tuple[Any, Dict[str, Any]]], chunk: to
         logger.flush()
     if output_folder is not None and results["mmcs_grids"]:
         np.savez(Path(output_folder) / f"mmcs_grids_{chunk_num}.npz", **results["mmcs_grids"])
+    if images and logger is not None:
+        # the in-training image dashboards (reference `big_sweep.py:87-157`)
+        import matplotlib.pyplot as plt
+
+        from sparse_coding__tpu_torch.plotting import plots as figs
+
+        fig = figs.feature_activity_overlay(results["feat_counts"], n_samples=len(sample))
+        logger.log_image(chunk_num, "feature_activity", fig)
+        plt.close(fig)
+        for grid_name, scores in results["mmcs_grids"].items():
+            fig = figs.grid_heatmap(scores, x_tick_labels=dict_sizes[1:], y_tick_labels=l1_values,
+                                    x_label="dict size", y_label="l1_alpha", vmin=0.0, vmax=1.0)
+            logger.log_image(chunk_num, f"mmcs_grid_{grid_name}", fig)
+            plt.close(fig)
     return results
 
 
@@ -216,12 +229,13 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     ``cfg.output_folder``: ``_<i>/learned_dicts.pkl`` (+ sidecar) and
     ``_<i>/config.yaml`` at each save point, ``ckpt_<i>`` (newest
     ``cfg.checkpoint_keep``, default 3), ``events.jsonl`` and the metrics
-    JSONL. The in-training image dashboards (``cfg.wandb_images``) wait for
-    ROADMAP A8c and raise."""
+    JSONL. ``cfg.wandb_images`` renders the in-training image dashboards
+    every 10 chunks (`log_sweep_metrics` with ``images=True``: needs
+    matplotlib, so not on the card's machine)."""
     device = resolve_device(device)
     refuse_trace_window()
     if getattr(cfg, "wandb_images", False):
-        raise NotImplementedError("the sweep's image dashboards (cfg.wandb_images) are not ported yet — ROADMAP A8c")
+        import matplotlib  # noqa: F401  (the dashboards need it: fail before any training)
     os.makedirs(cfg.dataset_folder, exist_ok=True)
     os.makedirs(cfg.output_folder, exist_ok=True)
     run_config = {k: v for k, v in sorted(getattr(cfg, "__dict__", {}).items())
@@ -242,7 +256,7 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
             store = (init_synthetic_dataset(cfg, device) if getattr(cfg, "use_synthetic_dataset", False)
                      else init_model_dataset(cfg, device))
         print("Initialising ensembles...", end=" ")
-        ensembles, ensemble_hyperparams, buffer_hyperparams, _ranges = ensemble_init_func(cfg)
+        ensembles, ensemble_hyperparams, buffer_hyperparams, hyperparam_ranges = ensemble_init_func(cfg)
         print("Ensembles initialised.")
         logger = MetricLogger(out_dir=cfg.output_folder, run_name=run_name, use_wandb=getattr(cfg, "use_wandb", False),
                               on_flush=guard.observe)
@@ -330,9 +344,13 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
             def _save_ckpt(path, _i=i):
                 ckpt_lib.save_ensemble_checkpoint(path, ensembles, chunk_cursor=_i, provenance=run_ident)
 
+            want_metrics = getattr(cfg, "wandb_images", False) and i % 10 == 0
             want_save = i == len(chunk_order) - 1 or (i + 1) in SAVE_CHUNKS
-            if want_save:
+            if want_metrics or want_save:
                 learned_dicts = _export(ensembles)
+            if want_metrics:
+                log_sweep_metrics(learned_dicts, chunk, i, hyperparam_ranges, logger, cfg.output_folder, images=True)
+            if want_save:
                 iter_folder = Path(cfg.output_folder) / f"_{i}"
                 iter_folder.mkdir(parents=True, exist_ok=True)
                 with span(telemetry, "checkpoint", name="export", chunk=i):

@@ -18,6 +18,7 @@ with its pair torn) and ``corrupt_chunk`` (at ``chunk_committed``: flip the
 last byte of the just-committed chunk file, bit rot a digest catches).
 
 Sites the port plants: ``chunk_loop`` (top of each sweep chunk: chunk),
+``step_loop`` (top of each big-batch step: step),
 ``checkpoint_commit`` (data written, not committed: path),
 ``checkpoint_committed`` (after the commit: path), ``export`` (top of
 `save_learned_dicts`: path), in `data.chunks.save_chunk`

@@ -9,7 +9,8 @@ record per member and metric::
 
 to ``<out_dir>/<run_name>_metrics.jsonl``, the JAX package's schema. wandb
 is used when ``use_wandb=True`` and it imports; otherwise (as when it is not
-installed) the JSONL file is written.
+installed) the JSONL file is written. `log_image` logs a matplotlib figure
+(a wandb image, or a PNG under ``<out_dir>/images/``).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ class MetricLogger:
         self._buffer: List = []
         self._wandb = None
         self._jsonl = None
+        self._out_dir = None if out_dir is None else Path(out_dir)
         if use_wandb:
             try:
                 import wandb
@@ -78,6 +80,26 @@ class MetricLogger:
             path = Path(out_dir)
             path.mkdir(parents=True, exist_ok=True)
             self._jsonl = open(path / f"{run_name}_metrics.jsonl", "a")
+
+    def log_image(self, step: int, name: str, fig) -> Optional[Path]:
+        """Log a matplotlib figure: a wandb image when wandb is live, else a
+        PNG ``<out_dir>/images/<name>_<step>.png`` (the in-training
+        dashboard channel, as in the JAX package). Returns the written path
+        (None on the wandb path or without an ``out_dir``). The caller owns
+        the figure."""
+        if self._wandb is not None:
+            import wandb
+
+            # the chunk index rides alongside: images arrive per chunk, scalars per step
+            self._wandb.log({name: wandb.Image(fig), f"{name}_chunk": int(step)})
+            return None
+        if self._out_dir is None:
+            return None
+        img_dir = self._out_dir / "images"
+        img_dir.mkdir(parents=True, exist_ok=True)
+        path = img_dir / f"{name}_{int(step)}.png"
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        return path
 
     def log(self, step: int, tree: Dict[str, Any]):
         """Queue a dict of [n_models] tensors (or numbers). No host sync."""

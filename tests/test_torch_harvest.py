@@ -285,10 +285,14 @@ def test_what_the_harvest_does_not_port_raises_naming_its_item(subject, tmp_path
     kw = dict(layers=[1], layer_locs=["residual"], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tact.make_activation_dataset(tp, tc, tokens, tmp_path, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 \\(ring attention\\)"):
-        next(tact.harvest_to_device(tp, tc, tokens, attn="blockwise", **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 \\(ring attention\\)"):
-        tact.capture_fn(tc, ["blocks.0.hook_resid_post"], 1, attn="blockwise")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        next(tact.harvest_to_device(tp, tc, tokens, mesh=object(), **kw))
+    # the blockwise attention is ported (tests/test_torch_blockwise.py); an
+    # unknown single-card impl and the pattern under blockwise raise as in JAX
+    with pytest.raises(ValueError, match="unknown single-device attn impl"):
+        tact.capture_fn(tc, ["blocks.0.hook_resid_post"], 1, attn="ring")
+    with pytest.raises(ValueError, match="hook_pattern needs dense attention"):
+        tact.capture_fn(tc, ["blocks.0.attn.hook_pattern"], 1, attn="blockwise")(tp, torch.from_numpy(tokens[:2]))
 
 
 def test_tokenization_matches_jax():

@@ -23,6 +23,13 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.data.synthetic",
     "sparse_coding__tpu_torch.data.synthetic_text",
     "sparse_coding__tpu_torch.ensemble",
+    "sparse_coding__tpu_torch.experiments",
+    "sparse_coding__tpu_torch.experiments._figures",
+    "sparse_coding__tpu_torch.experiments.case_studies",
+    "sparse_coding__tpu_torch.experiments.check_l0_tokens",
+    "sparse_coding__tpu_torch.experiments.interp_moment_corrs",
+    "sparse_coding__tpu_torch.experiments.investigate",
+    "sparse_coding__tpu_torch.experiments.pca_perplexity",
     "sparse_coding__tpu_torch.interop",
     "sparse_coding__tpu_torch.interp",
     "sparse_coding__tpu_torch.interp.__main__",
@@ -34,6 +41,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.lm.convert",
     "sparse_coding__tpu_torch.lm.model",
     "sparse_coding__tpu_torch.lm.pretrain",
+    "sparse_coding__tpu_torch.lm.ring_attention",
     "sparse_coding__tpu_torch.metrics",
     "sparse_coding__tpu_torch.metrics.clustering",
     "sparse_coding__tpu_torch.metrics.intervention",
@@ -56,6 +64,8 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.fista_kernel",
     "sparse_coding__tpu_torch.ops.tied_sae_kernel",
     "sparse_coding__tpu_torch.ops.topk_kernel",
+    "sparse_coding__tpu_torch.plotting",
+    "sparse_coding__tpu_torch.plotting.plots",
     "sparse_coding__tpu_torch.serve",
     "sparse_coding__tpu_torch.serve.engine",
     "sparse_coding__tpu_torch.serve.loadgen",
@@ -79,6 +89,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.train",
     "sparse_coding__tpu_torch.train.baselines",
     "sparse_coding__tpu_torch.train.basic_l1_sweep",
+    "sparse_coding__tpu_torch.train.big_batch",
     "sparse_coding__tpu_torch.train.checkpoint",
     "sparse_coding__tpu_torch.train.experiments",
     "sparse_coding__tpu_torch.train.loop",
@@ -252,6 +263,74 @@ def test_interp_device_half_imports_without_pandas():
         "except ImportError:\n"
         "    sys.exit(0)\n"
         "sys.exit(1)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_long_context_big_batch_and_experiments_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """The blockwise harvest, the big-batch trainer, its store input and the
+    experiments' device halves and CLIs run on the card unless given the
+    CPU (no silent fallback)."""
+    from sparse_coding__tpu_torch import experiments as ex
+    from sparse_coding__tpu_torch.data.activations import harvest_to_device, make_activation_dataset
+    from sparse_coding__tpu_torch.data.chunks import load_store_dataset, save_chunk
+    from sparse_coding__tpu_torch.experiments import check_l0_tokens, interp_moment_corrs, investigate, pca_perplexity
+    from sparse_coding__tpu_torch.lm import LMConfig, init_params
+    from sparse_coding__tpu_torch.models import FunctionalTiedSAE
+    from sparse_coding__tpu_torch.train.big_batch import train_big_batch
+
+    cfg = LMConfig(arch="neox", n_layers=1, d_model=16, n_heads=2, d_mlp=32, vocab_size=64, n_ctx=32)
+    params = init_params(0, cfg, device="cpu")
+    tokens = np.zeros((4, 8), np.int32)
+    save_chunk(tmp_path / "store", 0, np.zeros((8, 16), np.float32))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = dict(activation_size=16, n_dict_components=32, l1_alpha=1e-3)
+    calls = [
+        lambda: make_activation_dataset(params, cfg, tokens, tmp_path / "h", [0], ["residual"], attn="blockwise"),
+        lambda: next(harvest_to_device(params, cfg, tokens, [0], ["residual"], attn="blockwise")),
+        lambda: train_big_batch(FunctionalTiedSAE, hp, np.zeros((8, 16), np.float32), 4, 1, 0),
+        lambda: train_big_batch(FunctionalTiedSAE, hp, tmp_path / "store", 4, 1, 0),
+        lambda: load_store_dataset(tmp_path / "store"),
+        lambda: ex.pca_perplexity_scores(params, cfg, (0, "residual"), tokens, np.zeros((8, 16)), {}),
+        lambda: ex.random_feature_diversity(tmp_path / "r", n=8, d=4),
+        lambda: pca_perplexity.main(["--dicts", "a", "--labels", "a", "--chunk", "c", "--tokens", "t",
+                                     "--lm-params", "p", "--layer", "0"]),
+        lambda: check_l0_tokens.main(["--lm-params", "p", "--dicts", "0:1:a"]),
+        lambda: investigate.main(["--smaller", "a:0", "--larger", "b:0"]),
+        lambda: interp_moment_corrs.main(["--entries", "a:0:c:r"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_the_port_and_its_device_halves_import_without_matplotlib():
+    """The card's machine has no matplotlib: the package, the experiments'
+    device halves, the big-batch trainer and the sweep import and run with
+    matplotlib made unimportable; an entry point that draws a figure, and
+    `plotting` itself, raise `ImportError` naming it."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import numpy as np, torch\n"
+        "import sparse_coding__tpu_torch, sparse_coding__tpu_torch.train.big_batch\n"
+        "import sparse_coding__tpu_torch.train.sweep, sparse_coding__tpu_torch.interp.batch\n"
+        "from sparse_coding__tpu_torch import experiments as ex\n"
+        "from sparse_coding__tpu_torch.models.learned_dict import Rotation\n"
+        "d = Rotation(torch.eye(4))\n"
+        "params = {'embed': torch.randn(10, 4), 'unembed': torch.randn(10, 4)}\n"
+        "assert len(ex.embedding_cosine_scores(params, {0: [('1', d)]})[0]) == 1\n"
+        "assert ex.investigate_scores(d, d)[0].shape == (4,)\n"
+        "for fn in (lambda: ex.run_embedding_cosine_check(params, {0: [('1', d)]}, 'unused'),\n"
+        "           lambda: ex.run_investigate(d, d, 'unused'),\n"
+        "           lambda: __import__('sparse_coding__tpu_torch.plotting')):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except ImportError as e:\n"
+        "        assert 'matplotlib' in str(e), e\n"
+        "    else:\n"
+        "        sys.exit(1)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

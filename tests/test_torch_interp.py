@@ -231,8 +231,10 @@ def test_read_results_violins_wait_for_plotting(tmp_path, setup):
     (tmp_path / "empty").mkdir()
     assert tbatch.read_results("empty", "top", results_base=tmp_path) is None
     tinterp.run_many([("sparse_coding", td[0])], _icfg(tmp_path / "l1_residual"), _ctx(setup))
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tbatch.read_results("l1_residual", "top", results_base=tmp_path)
+    # the violins are drawn now (`plotting`; their data against JAX's in
+    # tests/test_torch_plotting.py)
+    out = tbatch.read_results("l1_residual", "top", results_base=tmp_path)
+    assert out == tmp_path / "l1_residual" / "top_means_and_violin.png" and out.stat().st_size > 0
 
 
 def test_interp_args_match_jax_field_for_field():

@@ -190,9 +190,20 @@ def test_activation_sizes_and_names_match_jax(loc):
 
 
 def test_dense_only_attention_is_ported():
+    """Single-card attention is ported (dense, and the blockwise recurrence,
+    `tests/test_torch_blockwise.py`): any ``attn_impl`` is called in the
+    forward. The sequence-parallel attentions need a mesh and raise naming
+    ROADMAP A6b."""
+    from sparse_coding__tpu_torch.lm import ring_attention as tra
+
     _, tc, _, tp = _subject("neox")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 \\(ring attention\\)"):
-        tm.forward(tp, torch.from_numpy(_tokens()), tc, attn_impl=lambda q, k, v: q)
+    calls = []
+    tm.forward(tp, torch.from_numpy(_tokens()), tc, attn_impl=lambda q, k, v: calls.append(q.shape) or q)
+    assert len(calls) == tc.n_layers
+    for fn in (tra.ring_attention, tra.ulysses_attention, tra.make_sequence_parallel_fn,
+               tra.sequence_parallel_forward):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+            fn("data")
 
 
 # -- HF conversion ---------------------------------------------------------------

@@ -244,15 +244,21 @@ def test_what_waits_for_later_slices_raises_naming_the_roadmap(tmp_path):
     from sparse_coding__tpu_torch.data.activations import capture_fn
     from sparse_coding__tpu_torch.lm.model import config_for
 
-    cfg = tconfig.EnsembleArgs(dataset_folder=str(tmp_path / "empty"), output_folder=str(tmp_path / "o"))
-    # an empty store is harvested now (tests/test_torch_harvest.py); the
-    # harvest's blockwise/ring attention waits
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 \\(ring attention\\)"):
-        capture_fn(config_for("pythia-70m"), ["blocks.2.hook_resid_post"], 3, attn="blockwise")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tsweep.sweep(lambda c: None, dataclasses.replace(cfg, wandb_images=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tsweep.log_sweep_metrics([], torch.zeros(4, D), 0, {}, None, images=True)
+    from sparse_coding__tpu_torch.data.activations import make_activation_dataset
+    from sparse_coding__tpu_torch.lm import ring_attention
+    from sparse_coding__tpu_torch.train.big_batch import train_big_batch
+
+    # an empty store is harvested now (tests/test_torch_harvest.py), on the
+    # blockwise attention too, and the image dashboards are drawn
+    # (tests/test_torch_plotting.py); the mesh paths wait for ROADMAP A6b
+    assert callable(capture_fn(config_for("pythia-70m"), ["blocks.2.hook_resid_post"], 3, attn="blockwise"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        make_activation_dataset(None, config_for("pythia-70m"), np.zeros((1, 4), np.int32), tmp_path / "h", [2],
+                                ["residual"], mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        ring_attention.ring_attention("data")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        train_big_batch(None, {}, torch.zeros(4, D), 2, 1, 0, mesh=object(), device="cpu")
 
 
 def _random_tied(n, d, seed):
