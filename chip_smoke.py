@@ -113,6 +113,15 @@ the same bits, card vs CPU at the tests' shape; ``chip_smoke.py
 device halves (`paper_experiments`: the PCA-perplexity sweep of 112 dicts,
 the embedding cosines, investigate, a feature case study, the dict
 comparisons; card vs CPU on small inputs).
+Last, scale-out (`scaleout`) at BASELINE config 5's widths (D 1024, N
+32768, 4 tied members, batch 2048, bf16): K1/K2 (the WMMA kernels at D
+1024), K3 at the data axis' local batch and K_f at FISTA's, each against
+its plain version; a world of one over NCCL in this process (the
+unsharded bits); a world of two processes on the one card over gloo
+(``chip_smoke.py --scaleout-worker``: the model, data and dict axes held
+to the world of one, FISTA's sharded step, the sweep uninterrupted and with
+one rank SIGTERMed: both checkpoint one cursor and exit 75); the preempted
+sweep resumed here as a world of one.
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -129,6 +138,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1050,13 +1060,37 @@ def phase_step_time(torch, pkg, cfg, reps: int = 20):
     torch.cuda.reset_peak_memory_stats()
     ens.step_scan(xs[:3])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    losses = ens.step_scan(xs)
-    end.record()
-    enqueue_g = time.perf_counter() - t0
-    end.synchronize()
-    wall_g = time.perf_counter() - t0
+    # what can land in the timed window: the garbage collector's pauses and
+    # new device segments are counted there, and further calls' enqueues
+    # are timed each in its own window
+    gc_ms = []
+
+    def gc_timer(phase, info, t=[0.0]):
+        if phase == "start":
+            t[0] = time.perf_counter()
+        else:
+            gc_ms.append((time.perf_counter() - t[0]) * 1e3)
+
+    gc.callbacks.append(gc_timer)
+    segments0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        losses = ens.step_scan(xs)
+        end.record()
+        enqueue_g = time.perf_counter() - t0
+        end.synchronize()
+        wall_g = time.perf_counter() - t0
+        segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments0
+        # the enqueue of further calls, each its own window
+        repeat = []
+        for _ in range(4):
+            t1 = time.perf_counter()
+            ens.step_scan(xs)
+            repeat.append((time.perf_counter() - t1) * 1e3 / reps)
+            torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(gc_timer)
     peak_g = torch.cuda.max_memory_allocated() - before
     torch.cuda.empty_cache()
     pinned = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
@@ -1068,6 +1102,7 @@ def phase_step_time(torch, pkg, cfg, reps: int = 20):
               f"{cfg['path']}: graph enqueue {enqueue_g * 1e3 / reps} ms of a {ms_g} ms step")
     emit(f"{cfg['prefix']}step_scan", path=cfg["path"], steps=reps, ms_per_step=ms_g,
          host_enqueue_ms_per_step=enqueue_g * 1e3 / reps, wall_ms_per_step=wall_g * 1e3 / reps,
+         repeated_enqueue_ms_per_step=repeat, gc_pauses_ms=gc_ms, segments_allocated_in_window=segments,
          activations_per_s=reps * batch * ens.n_models / wall_g, step_peak_bytes=peak_g,
          reserved_unallocated_bytes=pinned)
     return peak, peak_g
@@ -1395,7 +1430,8 @@ def tied_kernel_rows(torch, tk, g, shape):
     k1 = dict(name="tied_sae_fwd", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu",
               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", shape=shape,
               max_abs_err=float((dxh_k.float() - dxh_p.float()).abs().max()),
-              variant="pipelined encode -> decode (TMA, wgmma), code stored",
+              variant=("pipelined encode -> decode (TMA, wgmma), code stored" if D <= 512 else
+                       "WMMA encode_kernel + decode_kernel, code stored"),
               ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
               plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
               library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20))
@@ -1411,7 +1447,7 @@ def tied_kernel_rows(torch, tk, g, shape):
     ct, xbt = c_k.transpose(1, 2), xb.expand(M, B, D)
     k2 = dict(name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", shape=shape, max_abs_err=k2_err,
-              variant="stored code, mu f32, nu f32",
+              variant="stored code, mu f32, nu f32" + ("" if D <= 512 else ", WMMA bwd_kernel"),
               ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 10),
               plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
               library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
@@ -1534,6 +1570,62 @@ def fista_agreement(torch, a_k, a_p, x, d):
     return diff, flips, abs(rk - rp) / rp
 
 
+def fista_kernel_row(torch, fk, tf, shape, line, seed, atol, reps, l1_grid):
+    """K_f against its plain loop at ``shape`` (`phase_fista_kernels` says
+    how it is held, timed and bounded): the kernels-line row."""
+    src = "sparse_coding__tpu_torch/ops/csrc/fista.cu"
+    M, B, N, D, iters = shape["M"], shape["B"], shape["N"], shape["D"], shape["iters"]
+    check(fk.shapes_supported(B, N, D), f"K_f does not take {shape}")
+    x, d, c0, l1 = fista_problem(torch, M, B, N, D, seed, l1_grid=l1_grid)
+    eta = tf.default_eta(d)
+    fk.reset_launches()
+    a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters)
+    with watching_plain_solves(torch, tf) as seen:
+        a_p, _ = tf.fista_codes(x, d, eta, l1, c0, iters)
+    torch.cuda.synchronize()
+    yhat_nnz = int(seen["yhat_nonzeros"])
+    check(fk.LAUNCHES["fista_solve"] == 1, f"K_f launches {fk.LAUNCHES}")
+    check(it_k.tolist() == [iters] * M, f"K_f iterations {it_k.tolist()}")
+    diff, flips, res_rel = fista_agreement(torch, a_k, a_p, x, d)
+    check(diff <= atol and flips < 1e-3 and res_rel <= 1e-4,
+          f"K_f at {shape}: max |diff| {diff}, support flips {flips}, ‖res‖² rel {res_rel}")
+    label = f"M={M},B={B},N={N},D={D},iters={iters}"
+    emit("fista_kernels", shape=label, max_abs_err=diff, bit_equal=bool(torch.equal(a_k, a_p)),
+         support_flip_share=flips, res_sq_rel_diff=res_rel, code_nonzero_share=float((a_k > 0).float().mean()),
+         yhat_nonzero_share=yhat_nnz / (M * B * N * iters), eta=eta.tolist())
+    del a_p
+    dt = d.transpose(1, 2)
+
+    def library():
+        for _ in range(iters):
+            torch.bmm(torch.bmm(c0, d), dt)
+
+    row = dict(
+        name="fista_solve", source=src, replaces=f"sparse_coding__tpu/ops/fista_pallas.py:{line}",
+        max_abs_err=diff, shape=label,
+        variant="one cooperative launch, f32 FMA tiles, operands by cp.async into two stages",
+        ms=time_ms(torch, lambda: fk.fista_cuda(x, d, eta, l1, c0, iters), reps, warmup=1),
+        plain_ms=time_ms(torch, lambda: tf.fista_codes(x, d, eta, l1, c0, iters), reps, warmup=1),
+        library_ms=time_ms(torch, library, reps, warmup=1),
+    )
+    # every iteration ran for every member (tol = 0): x − ŷ·D needs 2·D
+    # operations per non-zero of ŷ (counted over this run's iterations),
+    # res·Dᵀ 2·B·N·D; x, D and c0 read once, the codes written once. K_f's
+    # route is float32 FMAs (its codes must stay the plain loop's), so
+    # its bound is at the CUDA cores' rate; the same operations as three
+    # TF32 tensor-core products each are printed beside it
+    flops = 2 * D * yhat_nnz + 2 * B * N * D * iters * M
+    nbytes = 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M)
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    emit("fista_kernels", shape=label, variant=row["variant"], ms=row["ms"], was_ms=HOST_PACED_K_F_MS.get(label),
+         bound_ms=row["bound_ms"], bound_route="float32 FMA, CUDA cores (67 TFLOP/s)",
+         tensor_core_3xtf32_bound_ms=bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0], plain_ms=row["plain_ms"],
+         library_ms=row["library_ms"])
+    del x, d, c0, a_k
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_fista_kernels(torch, fk, tf):
     """K_f against its plain loop on the same η, at the shape where the JAX
     package picks `_fista_kernel` (M 2, B 256, N 512, D 128, 100 iterations)
@@ -1556,64 +1648,12 @@ def phase_fista_kernels(torch, fk, tf):
     iteration, the same on both sides. Last, one short solve at N 2050,
     D 130 (rows of no whole float4s) and a ragged batch of 200, at tol 0
     and 1e-3: codes within 1e-4, the same iteration counts."""
-    src = "sparse_coding__tpu_torch/ops/csrc/fista.cu"
-    rows = []
-    for shape, line, seed, atol, reps, l1_grid in (
-        (FISTA_ROW8, 54, 11, 1e-4, 10, FISTA_L1),
-        (dict(M=FM, B=FB, N=FN, D=FD, iters=FISTA_ITERS), 133, 12, 1e-3, 2, FISTA_L1),
-        (dict(M=BLS["members"], B=BLS["batch"], N=BLS["n_dict"], D=BLS["width"], iters=FISTA_ITERS), 133, 15, 1e-3,
-         2, BLS_L1),
-    ):
-        M, B, N, D, iters = shape["M"], shape["B"], shape["N"], shape["D"], shape["iters"]
-        check(fk.shapes_supported(B, N, D), f"K_f does not take {shape}")
-        x, d, c0, l1 = fista_problem(torch, M, B, N, D, seed, l1_grid=l1_grid)
-        eta = tf.default_eta(d)
-        fk.reset_launches()
-        a_k, it_k = fk.fista_cuda(x, d, eta, l1, c0, iters)
-        with watching_plain_solves(torch, tf) as seen:
-            a_p, _ = tf.fista_codes(x, d, eta, l1, c0, iters)
-        torch.cuda.synchronize()
-        yhat_nnz = int(seen["yhat_nonzeros"])
-        check(fk.LAUNCHES["fista_solve"] == 1, f"K_f launches {fk.LAUNCHES}")
-        check(it_k.tolist() == [iters] * M, f"K_f iterations {it_k.tolist()}")
-        diff, flips, res_rel = fista_agreement(torch, a_k, a_p, x, d)
-        check(diff <= atol and flips < 1e-3 and res_rel <= 1e-4,
-              f"K_f at {shape}: max |diff| {diff}, support flips {flips}, ‖res‖² rel {res_rel}")
-        label = f"M={M},B={B},N={N},D={D},iters={iters}"
-        emit("fista_kernels", shape=label, max_abs_err=diff, bit_equal=bool(torch.equal(a_k, a_p)),
-             support_flip_share=flips, res_sq_rel_diff=res_rel, code_nonzero_share=float((a_k > 0).float().mean()),
-             yhat_nonzero_share=yhat_nnz / (M * B * N * iters), eta=eta.tolist())
-        del a_p
-        dt = d.transpose(1, 2)
-
-        def library():
-            for _ in range(iters):
-                torch.bmm(torch.bmm(c0, d), dt)
-
-        row = dict(
-            name="fista_solve", source=src, replaces=f"sparse_coding__tpu/ops/fista_pallas.py:{line}",
-            max_abs_err=diff, shape=label,
-            variant="one cooperative launch, f32 FMA tiles, operands by cp.async into two stages",
-            ms=time_ms(torch, lambda: fk.fista_cuda(x, d, eta, l1, c0, iters), reps, warmup=1),
-            plain_ms=time_ms(torch, lambda: tf.fista_codes(x, d, eta, l1, c0, iters), reps, warmup=1),
-            library_ms=time_ms(torch, library, reps, warmup=1),
-        )
-        # every iteration ran for every member (tol = 0): x − ŷ·D needs 2·D
-        # operations per non-zero of ŷ (counted over this run's iterations),
-        # res·Dᵀ 2·B·N·D; x, D and c0 read once, the codes written once. K_f's
-        # route is float32 FMAs (its codes must stay the plain loop's), so
-        # its bound is at the CUDA cores' rate; the same operations as three
-        # TF32 tensor-core products each are printed beside it
-        flops = 2 * D * yhat_nnz + 2 * B * N * D * iters * M
-        nbytes = 4 * (B * D + M * N * D + 2 * M * B * N + 2 * M)
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
-        emit("fista_kernels", shape=label, variant=row["variant"], ms=row["ms"], was_ms=HOST_PACED_K_F_MS.get(label),
-             bound_ms=row["bound_ms"], bound_route="float32 FMA, CUDA cores (67 TFLOP/s)",
-             tensor_core_3xtf32_bound_ms=bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0], plain_ms=row["plain_ms"],
-             library_ms=row["library_ms"])
-        rows.append(row)
-        del x, d, c0, a_k
-        torch.cuda.empty_cache()
+    rows = [fista_kernel_row(torch, fk, tf, shape, line, seed, atol, reps, l1_grid)
+            for shape, line, seed, atol, reps, l1_grid in (
+                (FISTA_ROW8, 54, 11, 1e-4, 10, FISTA_L1),
+                (dict(M=FM, B=FB, N=FN, D=FD, iters=FISTA_ITERS), 133, 12, 1e-3, 2, FISTA_L1),
+                (dict(M=BLS["members"], B=BLS["batch"], N=BLS["n_dict"], D=BLS["width"], iters=FISTA_ITERS), 133,
+                 15, 1e-3, 2, BLS_L1))]
 
     # the early exit: one largest code change per member over its whole batch
     x, d, _, l1 = fista_problem(torch, FM, FB, FN, FD, 13, l1_grid=[30 * a for a in FISTA_L1], shared_dict=True)
@@ -4417,6 +4457,494 @@ def phase_serve_tier(torch, root: Path, export: Path, rows_pool):
          replicaset=supervisor, seconds=time.perf_counter() - t_phase)
 
 
+# -- scale-out (ROADMAP A6b's first part) at BASELINE config 5's widths ----------
+# the Pythia-410M residual (D 1024), a 32x dictionary (N 32768), 4 tied
+# members (l1 1e-4..3e-3, as scripts/dictpar_run.py), batch 2048, bf16
+# compute, Adam lr 1e-3 with f32 moments; planted data from the seed. A world
+# of one over NCCL in this process, then a world of two processes on the one
+# card over gloo (NCCL refuses two ranks on one device), each rank its own
+# CUDA context, the collectives' bytes through host memory. FISTA's sharded
+# step at config 3's widths (D 512, N 2048, 4 members, batch 2048, 500
+# iterations). The sweep: 2 chunks of 4,096 rows of config 5's width.
+SCALE = dict(width=1024, n_dict=32768, l1=[1e-4, 3e-4, 1e-3, 3e-3], batch=2048, steps=3, seed=71,
+             n_ground_truth=4096, nonzero=32, decay=0.996, sweep_rows=4096, timeout=240)
+SCALE_FISTA = dict(width=512, n_dict=2048, batch=2048, iters=500, seed=73)
+
+
+def scale_build(pkg, mesh=None, shard_dict=True, key=0):
+    ens = pkg.build_ensemble(pkg.FunctionalTiedSAE, key, [{"l1_alpha": a} for a in SCALE["l1"]],
+                             optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16",
+                             activation_size=SCALE["width"], n_dict_components=SCALE["n_dict"])
+    return ens if mesh is None else ens.shard(mesh, shard_dict)
+
+
+def scale_batches(torch):
+    """The planted batches [steps, B, D], drawn on the card from the seed
+    (every rank draws the same)."""
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    gen = RandomDatasetGenerator(SCALE["width"], SCALE["n_ground_truth"], SCALE["batch"], SCALE["nonzero"],
+                                 SCALE["decay"], False, key=SCALE["seed"])
+    return torch.stack([next(gen) for _ in range(SCALE["steps"])])
+
+
+def member_digests(torch, ens, first: int = 0):
+    """A digest of each held member's bits (params and moments), by global
+    member index: two int64 sums over the int32 views (plain and weighted by
+    position), computed on the card."""
+    st = ens.state
+    leaves = [st.params["encoder"], st.params["encoder_bias"], st.opt_state.mu["encoder"], st.opt_state.nu["encoder"],
+              st.opt_state.mu["encoder_bias"], st.opt_state.nu["encoder_bias"]]
+    out = {}
+    for i in range(leaves[0].shape[0]):
+        parts = []
+        for t in leaves:
+            v = t[i].contiguous().view(torch.int32).flatten().to(torch.int64)
+            w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521 + 1
+            parts += [int(v.sum()), int((v * w).sum())]
+        out[first + i] = parts
+    return out
+
+
+def timed_steps(torch, ens, batches, mesh=None):
+    """Eager steps, counted and timed: (losses [K, M], launches by kernel,
+    device ms a step, wall ms a step, the collectives' ms and bytes a step,
+    the peak device memory)."""
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = dict(mesh.stats) if mesh is not None else None
+    tk.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = torch.stack([ens.step_batch(b)[0]["loss"] for b in batches])
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    k = len(batches)
+    out = dict(losses=losses, launches=dict(tk.LAUNCHES), ms=start.elapsed_time(end) / k, wall_ms=wall * 1e3 / k,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if mesh is not None:
+        out["collective_ms"] = (mesh.stats["seconds"] - stats0["seconds"]) * 1e3 / k
+        out["collective_bytes"] = (mesh.stats["bytes"] - stats0["bytes"]) / k
+        out["collective_calls"] = (mesh.stats["calls"] - stats0["calls"]) / k
+    return out
+
+
+def scale_k3_row(torch, tk, g, shape):
+    """K3 at ``shape`` = (M, B, N, D) on K1's output, against its plain
+    version (cosine > 0.9999, max error < 1e-2 of the max), timed beside the
+    plain version, the bound and the `bmm` calls."""
+    dev = torch.device("cuda")
+    M, B, N, D = shape
+    label = f"M={M},B={B},N={N},D={D}"
+    d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((M, N), generator=g, device=dev) * 0.01
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    l1b = torch.logspace(-4, -2, M, device=dev) / B
+    gk, gbk = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    gp, gbp = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+    torch.cuda.synchronize()
+    cos, rel = grads_close(torch, gk, gp, f"K3 at {label} g_enc")
+    grads_close(torch, gbk, gbp, f"K3 at {label} g_bias")
+    nnz = int((c != 0).sum())
+    ct, xbt, dbt = c.transpose(1, 2), xb.expand(M, B, D), db.transpose(1, 2)
+    row = dict(name="tied_sae_bwd_grads", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
+               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201", shape=label,
+               max_abs_err=float((gk - gp).abs().max()),
+               variant="gradient out" + ("" if D <= 512 else ", WMMA bwd_kernel"),
+               ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b), 10),
+               plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh, c, nrm, db, l1b), 3),
+               library_ms=time_ms(torch, lambda: (torch.bmm(dxh, dbt), torch.bmm(ct, dxh), torch.bmm(ct, xbt)), 10))
+    row["bound_ms"], row["bound_by"] = bound(
+        6 * nnz * D,
+        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + M * N * D * 2 + M * N * D * 4 + M * N * 4 + M * 4)
+    emit("kernel", name="tied_sae_bwd_grads", shape=label, cos=cos, max_rel=rel, ms=row["ms"],
+         bound_ms=row["bound_ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    return row
+
+
+def scale_store(torch, root: Path) -> Path:
+    """The sweep's store: 2 fp16 chunks of config 5's width, planted."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    gen = RandomDatasetGenerator(SCALE["width"], SCALE["n_ground_truth"], 4096, SCALE["nonzero"], SCALE["decay"],
+                                 False, key=SCALE["seed"] + 1)
+    folder = root / "act"
+    generate_synthetic_chunks(gen, folder, 2, chunk_size_gb=SCALE["sweep_rows"] * SCALE["width"] * 2 / 1024**3,
+                              dtype=np.dtype("float16"))
+    return folder
+
+
+def scale_sweep_cfg(root: Path, out: str):
+    from sparse_coding__tpu_torch.utils.config import SyntheticEnsembleArgs
+
+    return SyntheticEnsembleArgs(use_synthetic_dataset=True, activation_width=SCALE["width"], n_chunks=2,
+                                 chunk_size_gb=SCALE["sweep_rows"] * SCALE["width"] * 2 / 1024**3, n_epochs=1,
+                                 batch_size=SCALE["batch"], dataset_folder=str(root / "act"),
+                                 output_folder=str(root / out), seed=0)
+
+
+def scale_sweep_init(mesh_shape):
+    """The sweep's one ensemble (config 5's 4 members), sharded on the mesh
+    of ``mesh_shape`` (None: unsharded)."""
+
+    def init(cfg):
+        import sparse_coding__tpu_torch as pkg
+        from sparse_coding__tpu_torch.parallel import make_mesh
+
+        ens = scale_build(pkg, None if mesh_shape is None else make_mesh(*mesh_shape))
+        return ([(ens, {"batch_size": cfg.batch_size, "dict_size": SCALE["n_dict"]}, "dictpar")], ["dict_size"],
+                ["l1_alpha"], {"l1_alpha": SCALE["l1"], "dict_size": [SCALE["n_dict"]]})
+
+    return init
+
+
+def scaleout_worker(argv) -> int:
+    """``chip_smoke.py --scaleout-worker <rank> <world> <root>``: one rank of
+    the world of two on the one card (gloo through a file store in
+    ``root``). Runs the cases in turn, each result written to
+    ``root/r<rank>.json`` as it finishes; the preempted sweep last (exit 75)."""
+    import warnings
+
+    import torch
+
+    import sparse_coding__tpu_torch as pkg
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.parallel import initialize_distributed, make_mesh
+    from sparse_coding__tpu_torch.parallel.mesh import DICT_AXIS
+    from sparse_coding__tpu_torch.train.preemption import Preempted
+    from sparse_coding__tpu_torch.train.sweep import sweep
+
+    warnings.simplefilter("ignore", UserWarning)  # the data axis' fused-Adam refusal, reported in the results
+    rank, world, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    t_init = time.perf_counter()
+    check(initialize_distributed(f"file://{root / 'store2'}", world, rank), "world of two did not start")
+    check(torch.distributed.get_backend() == "gloo" and torch.cuda.current_device() == 0, "backend / device")
+    refs = json.loads((root / "world1.json").read_text())
+    res = {"init_s": time.perf_counter() - t_init}
+    out = root / f"r{rank}.json"
+
+    def save():
+        out.write_text(json.dumps(res))
+
+    batches = scale_batches(torch)
+
+    # (2,1,1): each rank two members, their bits the world of one's
+    mesh = make_mesh(2, 1, 1)
+    ens = scale_build(pkg, mesh)
+    run = timed_steps(torch, ens, batches, mesh)
+    digests = member_digests(torch, ens, first=2 * mesh.coords["model"])
+    want = {int(k): v for k, v in refs["digests"].items()}
+    check(all(digests[i] == want[i] for i in digests), f"rank {rank}: (2,1,1) members differ from the world of one")
+    # the losses are sums of K1's per-block partials, whose reduction order
+    # torch picks by the tensor's shape (2 members here, 4 there): not bits
+    ref_losses = torch.tensor(refs["losses"])
+    loss_rel = float(((run["losses"].cpu() - ref_losses).abs() / ref_losses.abs()).max())
+    check(loss_rel < 1e-6, f"rank {rank}: (2,1,1) losses off the world of one's by {loss_rel}")
+    check(run["launches"]["tied_sae_fwd"] > 0 and run["launches"]["tied_sae_bwd_adam"] > 0,
+          f"(2,1,1) {run['launches']}")
+    res["model_211"] = dict({k: v for k, v in run.items() if k != "losses"}, members=sorted(digests), bit_equal=True,
+                            loss_max_rel=loss_rel)
+    del ens
+    torch.cuda.empty_cache()
+    save()
+
+    # (1,2,1): K1 + K3 on the local rows, one all-reduce, the port's Adam;
+    # the first step's summed gradient against the full batch's on the same
+    # route (K3's pins), the losses against the world of one's on that route
+    mesh = make_mesh(1, 2, 1)
+    ens = scale_build(pkg, mesh)
+    check(ens.fused_adam is None and ens._route(SCALE["batch"] // 2, False, False) == "fused_grads",
+          f"(1,2,1) route {ens._route(SCALE['batch'] // 2, False, False)}")
+    full = scale_build(pkg)
+    st, fst = ens.state, full.state
+    with torch.no_grad():
+        g_sh, _ = ens._data_mean(*ens.sig.fused_grads_stacked(st.params, st.buffers, ens.local_batch(batches[0])))
+        g_ref, _ = full.sig.fused_grads_stacked(fst.params, fst.buffers, batches[0])
+    cos, rel = grads_close(torch, g_sh["encoder"], g_ref["encoder"], "(1,2,1) summed g_enc")
+    cos_b, rel_b = grads_close(torch, g_sh["encoder_bias"], g_ref["encoder_bias"], "(1,2,1) summed g_bias")
+    del full, g_sh, g_ref
+    torch.cuda.empty_cache()
+    run = timed_steps(torch, ens, batches, mesh)
+    lrel = float(((run["losses"].cpu() - torch.tensor(refs["losses_grads"])).abs()
+                  / torch.tensor(refs["losses_grads"]).abs()).max())
+    check(lrel < 1e-3, f"(1,2,1) losses off the full batch's by {lrel}")
+    check(run["launches"]["tied_sae_fwd"] > 0 and run["launches"]["tied_sae_bwd_grads"] > 0
+          and run["launches"]["tied_sae_bwd_adam"] == 0, f"(1,2,1) {run['launches']}")
+    res["data_121"] = dict({k: v for k, v in run.items() if k != "losses"}, grad_cos=cos, grad_max_rel=rel,
+                           bias_grad_cos=cos_b, bias_grad_max_rel=rel_b, loss_max_rel=lrel)
+    del ens
+    torch.cuda.empty_cache()
+    save()
+
+    # (1,1,2): autograd on the local half of the dictionary, x_hat summed
+    mesh = make_mesh(1, 1, 2)
+    ens = scale_build(pkg, mesh)
+    check(ens._route(SCALE["batch"], False, False) == "autograd", "(1,1,2) route")
+    full = scale_build(pkg, None)
+    g_sh, _, _ = ens._grads(ens.state.params, ens.state.buffers, batches[0])
+    g_ref, _, _ = full._grads(full.state.params, full.state.buffers, batches[0])
+    n = SCALE["n_dict"] // 2
+    rows = slice(mesh.coords[DICT_AXIS] * n, (mesh.coords[DICT_AXIS] + 1) * n)
+    cos_d, rel_d = grads_close(torch, g_sh["encoder"], g_ref["encoder"][:, rows], "(1,1,2) g_enc rows")
+    del full, g_sh, g_ref
+    torch.cuda.empty_cache()
+    run = timed_steps(torch, ens, batches, mesh)
+    lrel = float(((run["losses"].cpu() - torch.tensor(refs["losses_autograd"])).abs()
+                  / torch.tensor(refs["losses_autograd"]).abs()).max())
+    check(lrel < 1e-3, f"(1,1,2) losses off the unsharded autograd run's by {lrel}")
+    check(sum(run["launches"].values()) == 0, f"(1,1,2) launched {run['launches']}")
+    res["dict_112"] = dict({k: v for k, v in run.items() if k != "losses"}, grad_cos=cos_d, grad_max_rel=rel_d,
+                           loss_max_rel=lrel)
+    del ens
+    torch.cuda.empty_cache()
+    save()
+
+    # FISTA at config 3 on (1,2,1): the gradient step, then K_f on each
+    # rank's rows and the update's sums over the data group
+    from sparse_coding__tpu_torch.train.loop import make_fista_decoder_update
+
+    mesh = make_mesh(1, 2, 1)
+    fens = fista_scale_build(pkg).shard(mesh)
+    x = fista_scale_batch(torch)
+    fk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, aux = fens.step_batch(x)
+    fens.state = make_fista_decoder_update(SCALE_FISTA["iters"])(fens.state, fens.local_batch(x), aux["c"], mesh=mesh)
+    torch.cuda.synchronize()
+    fista_s = time.perf_counter() - t0
+    launches = fk.LAUNCHES["fista_solve"]
+    check(launches == 1, f"rank {rank}: K_f launches {launches}")
+    st = fens.full_state()
+    if rank == 0:
+        torch.save({"loss": loss["loss"].cpu(), "decoder": st.params["decoder"].cpu(),
+                    "hessian": st.buffers["hessian_diag"].cpu()}, root / "fista_121.pt")
+    res["fista_121"] = dict(launches=launches, seconds=fista_s, collective_bytes=mesh.stats["bytes"])
+    del fens, st
+    torch.cuda.empty_cache()
+    save()
+
+    # the sweep on (1,2,1): uninterrupted, then rank 1 SIGTERMed at chunk 0
+    mesh_shape = (1, 2, 1)
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    sweep(scale_sweep_init(mesh_shape), scale_sweep_cfg(root, "sweep_full"), resume=False)
+    res["sweep_full"] = dict(seconds=time.perf_counter() - t0, launches=dict(tk.LAUNCHES))
+    save()
+    if rank == 1:
+        os.environ["SC_FAULT"] = "sigterm:chunk=0"
+    t0 = time.perf_counter()
+    try:
+        sweep(scale_sweep_init(mesh_shape), scale_sweep_cfg(root, "sweep_pre"), resume=False)
+        res["sweep_pre"] = dict(preempted=False)
+    except Preempted:
+        res["sweep_pre"] = dict(preempted=True, seconds=time.perf_counter() - t0)
+    save()
+    torch.distributed.destroy_process_group()
+    return 75 if res["sweep_pre"]["preempted"] else 0
+
+
+def fista_scale_build(pkg):
+    return pkg.build_ensemble(pkg.FunctionalFista, 0, [{"l1_alpha": a} for a in FISTA_L1],
+                              optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16",
+                              activation_size=SCALE_FISTA["width"], n_dict_components=SCALE_FISTA["n_dict"])
+
+
+def fista_scale_batch(torch):
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    gen = RandomDatasetGenerator(SCALE_FISTA["width"], 1024, SCALE_FISTA["batch"], 8, 0.996, False,
+                                 key=SCALE_FISTA["seed"])
+    return next(gen)
+
+
+def phase_scaleout(torch, root: Path):
+    """Scale-out at config 5's widths (see `SCALE`). Kernels first: K1 and K2
+    at (M 4, B 2048, N 32768, D 1024), K3 at the data axis' local batch of
+    1024, K_f at FISTA's local batch, each against its plain version. Then
+    the world of one over NCCL here: meshes (1,1,1) and (1,1,1) without the
+    dict cut, 3 steps each, bit-equal to the unsharded ensemble (K1 + K2
+    launched). Then a world of two processes on the one card over gloo
+    (``chip_smoke.py --scaleout-worker``): (2,1,1) every member the world of
+    one's bits (params and moments; the losses within rtol 1e-6: torch sums
+    K1's loss partials in an order it picks by the member count); (1,2,1)
+    K1 + K3 on the local rows, the summed gradient held to the full batch's
+    at K3's pins (cosine > 0.9999, max error < 1e-2 of the max: the same
+    kernels on two halves of the rows, summed in another order) and the
+    losses within rtol 1e-3 of the world of one's on that route (bf16
+    compute); (1,1,2) autograd with the decode summed over the
+    dict group, its gradient rows and losses held the same way; FISTA's step
+    on (1,2,1); the sweep uninterrupted, then with rank 1 SIGTERMed at chunk
+    0: both ranks checkpoint chunk 0 and exit 75. The preempted sweep then
+    resumes here as a world of one (elastic: the fused-Adam route on the
+    whole batch), and its export is held to the uninterrupted world of two's
+    by the update since the checkpoint (export less the checkpoint's params):
+    K3's cosine pin (> 0.9999), its relative L2 error under 1e-2, every
+    element within a quarter of lr a step (Adam moves an element about lr
+    a step; the two routes round their bf16 gradients apart, and Adam's
+    normalization leaves ~0.07 lr a step of that per element on the card).
+    FISTA's sharded step against this process' unsharded one: the losses
+    within rtol 1e-5, the decoder within 4 lr everywhere (Adam's step on it
+    before the update) and all but 1e-3 of it within 1e-6. The times of the
+    world of two are gloo through host memory with both ranks on one card:
+    not a multi-GPU figure. Returns the kernels-line rows."""
+    import sparse_coding__tpu_torch as pkg
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.models import fista as tf
+    from sparse_coding__tpu_torch.parallel import initialize_distributed, make_mesh
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.train.sweep import sweep
+
+    t_phase = time.perf_counter()
+    M_, B_, N_, D_ = len(SCALE["l1"]), SCALE["batch"], SCALE["n_dict"], SCALE["width"]
+    check(tk.shapes_supported(N_, D_, B_) and tk.shapes_supported(N_, D_, B_ // 2), "config 5 off the kernels")
+    g = torch.Generator(device="cuda").manual_seed(SCALE["seed"])
+    rows = tied_kernel_rows(torch, tk, g, (M_, B_, N_, D_))
+    rows.append(scale_k3_row(torch, tk, g, (M_, B_ // 2, N_, D_)))
+    rows.append(fista_kernel_row(torch, fk, tf, dict(M=len(FISTA_L1), B=SCALE_FISTA["batch"] // 2,
+                                                     N=SCALE_FISTA["n_dict"], D=SCALE_FISTA["width"],
+                                                     iters=SCALE_FISTA["iters"]), 133, 16, 1e-3, 2, FISTA_L1))
+    torch.cuda.empty_cache()
+
+    # the world of one over NCCL, in this process
+    check(initialize_distributed(f"file://{root / 'store1'}", 1, 0), "world of one did not start")
+    backend = str(torch.distributed.get_backend())
+    check(backend == "nccl", f"world of one on {backend}")
+    batches = scale_batches(torch)
+    ref = scale_build(pkg)
+    ref_run = timed_steps(torch, ref, batches)
+    check(ref_run["launches"]["tied_sae_fwd"] == SCALE["steps"] and
+          ref_run["launches"]["tied_sae_bwd_adam"] == SCALE["steps"], f"unsharded {ref_run['launches']}")
+    world1 = {"losses": ref_run["losses"].cpu().tolist(), "digests": member_digests(torch, ref)}
+    one = {}
+    for label, shard_dict in (("mesh_111", True), ("mesh_111_whole_dict", False)):
+        mesh = make_mesh(1, 1, 1)
+        ens = scale_build(pkg, mesh, shard_dict)
+        run = timed_steps(torch, ens, batches, mesh)
+        check(torch.equal(run["losses"], ref_run["losses"]), f"{label}: losses differ from unsharded")
+        for a, b in zip(ens.state_dict()["state"].params.values(), ref.state_dict()["state"].params.values()):
+            check(torch.equal(a, b), f"{label}: params differ from unsharded")
+        check(member_digests(torch, ens) == world1["digests"], f"{label}: moments differ from unsharded")
+        check(run["launches"] == ref_run["launches"], f"{label}: launches {run['launches']}")
+        one[label] = {k: v for k, v in run.items() if k != "losses"}
+        del ens
+    torch.distributed.destroy_process_group()
+    del ref
+    torch.cuda.empty_cache()
+    # the references on the other routes: fused grads + the port's Adam, and autograd
+    for name, fused in (("losses_grads", "grads"), ("losses_autograd", False)):
+        ens = scale_build(pkg)
+        if fused == "grads":
+            ens.fused_adam = None
+        else:
+            ens.fused = False
+        world1[name] = torch.stack([ens.step_batch(b)[0]["loss"] for b in batches]).cpu().tolist()
+        del ens
+        torch.cuda.empty_cache()
+    (root / "world1.json").write_text(json.dumps(world1))
+    emit("scaleout_world1", backend=backend, unsharded={k: v for k, v in ref_run.items() if k != "losses"}, **one)
+
+    # the world of two on the one card, over gloo
+    scale_store(torch, root)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--scaleout-worker", str(r), "2",
+                               str(root)], env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, start_new_session=True) for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=SCALE["timeout"])[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    world2_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    check(codes == [75, 75], f"world of two exited {codes}: {[e[-3000:] for e in errs]}")
+    res = [json.loads((root / f"r{r}.json").read_text()) for r in range(2)]
+    check(all(r["sweep_pre"]["preempted"] for r in res), "the preempted sweep did not preempt both ranks")
+    pre = root / "sweep_pre"
+    check(sorted(p.name for p in pre.glob("ckpt_*")) == ["ckpt_0"] and (pre / "ckpt_0" / "shards").is_dir(),
+          f"preempted checkpoints {sorted(p.name for p in pre.glob('ckpt_*'))}")
+    cursors = [[e["cursor"] for e in read_events(pre / f"events.p{r}.jsonl") if e["event"] == "preempt"]
+               for r in range(2)]
+    check(cursors == [[0], [0]], f"preempt cursors {cursors}")
+    emit("scaleout_world2", seconds=world2_s, transport="gloo through host memory, two ranks on one card "
+         "(not a multi-GPU figure)", **{f"rank{r}": res[r] for r in range(2)})
+
+    # the preempted sweep resumes as a world of one (elastic)
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    sweep(scale_sweep_init(None), scale_sweep_cfg(root, "sweep_pre"), resume=True)
+    resume_s = time.perf_counter() - t0
+    resume_launches = dict(tk.LAUNCHES)
+    check(resume_launches["tied_sae_fwd"] > 0 and resume_launches["tied_sae_bwd_adam"] > 0,
+          f"resume launches {resume_launches}")
+    got = ckpt_lib.load_learned_dicts(pre / "_1" / "learned_dicts.pkl", verify=True)
+    want = ckpt_lib.load_learned_dicts(root / "sweep_full" / "_1" / "learned_dicts.pkl", verify=True)
+    base = ckpt_lib.restore_ensemble_checkpoint(pre / "ckpt_0")["ensembles"]["dictpar"]["state"].params
+    steps_after = SCALE["sweep_rows"] // SCALE["batch"]
+    held = {}
+    for f in ("encoder", "encoder_bias"):
+        check(all(ha == hb for (_a, ha), (_b, hb) in zip(got, want)), "export hyperparams")
+        start = base[f].cuda()
+        upd_got = torch.stack([getattr(a, f) for a, _ in got]) - start
+        upd_want = torch.stack([getattr(b, f) for b, _ in want]) - start
+        a, b = upd_got.double().flatten(), upd_want.double().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        rel_l2 = float((a - b).norm() / b.norm())
+        worst = float((a - b).abs().max())
+        check(cos > 0.9999 and rel_l2 < 1e-2 and worst <= LR * steps_after / 4,
+              f"elastic resume {f} update: cos {cos}, relative L2 {rel_l2}, max |diff| {worst}")
+        held[f] = dict(update_cos=cos, update_rel_l2=rel_l2, max_abs_diff=worst)
+    emit("scaleout_elastic_resume", seconds=resume_s, launches=resume_launches, steps_after_checkpoint=steps_after,
+         sweep_full_launches_rank0=res[0]["sweep_full"]["launches"], **held)
+
+    # FISTA's sharded step against this process' unsharded one
+    fens = fista_scale_build(pkg)
+    x = fista_scale_batch(torch)
+    from sparse_coding__tpu_torch.train.loop import make_fista_decoder_update
+
+    loss, aux = fens.step_batch(x)
+    fens.state = make_fista_decoder_update(SCALE_FISTA["iters"])(fens.state, x, aux["c"])
+    sh = torch.load(root / "fista_121.pt")
+    lrel = float(((sh["loss"] - loss["loss"].cpu()).abs() / loss["loss"].cpu().abs()).max())
+    ddiff = (sh["decoder"] - fens.state.params["decoder"].cpu()).abs()
+    dshare = float((ddiff > 1e-6).float().mean())
+    check(lrel < 1e-5 and float(ddiff.max()) <= 4 * LR and dshare < 1e-3,
+          f"FISTA (1,2,1): loss rel {lrel}, decoder max |diff| {float(ddiff.max())}, share past 1e-6 {dshare}")
+    emit("scaleout_fista", loss_max_rel=lrel, decoder_max_abs_diff=float(ddiff.max()), decoder_share_past_1em6=dshare,
+         launches_by_rank=[r["fista_121"]["launches"] for r in res])
+    del fens
+    torch.cuda.empty_cache()
+    emit("scaleout", seconds=time.perf_counter() - t_phase)
+
+    # the kernels line: launches on the new paths (the world of two's rank 0)
+    k1, k2, k3, kf = rows
+    k1["launches"] = res[0]["model_211"]["launches"]["tied_sae_fwd"] + res[0]["data_121"]["launches"]["tied_sae_fwd"]
+    k2["launches"] = res[0]["model_211"]["launches"]["tied_sae_bwd_adam"]
+    k3["launches"] = res[0]["data_121"]["launches"]["tied_sae_bwd_grads"]
+    kf["launches"] = res[0]["fista_121"]["launches"]
+    for row in rows:
+        row["path"] = "scaleout"
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4437,6 +4965,8 @@ def main() -> int:
         return serve_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--big-batch-worker"]:
         return big_batch_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--scaleout-worker"]:
+        return scaleout_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -4622,6 +5152,13 @@ def main() -> int:
     for row in harvest_rows:
         row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])
     rows += harvest_rows
+
+    # scale-out (ROADMAP A6b's first part) at BASELINE config 5's widths: a
+    # world of one over NCCL, a world of two on the one card over gloo, the
+    # preempted sweep resumed as a world of one
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_scaleout_") as scale_root:
+        rows += phase_scaleout(torch, Path(scale_root))
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

@@ -30,6 +30,25 @@ metrics to the losses. The l1-warmup ramp is computed
 on the device from a device step counter, so no value that changes from step
 to step crosses from the host.
 
+`Ensemble.shard(mesh)` spreads the ensemble over a ``(model, data, dict)``
+mesh of `torch.distributed` ranks (`parallel.mesh`): each rank keeps its
+members and dictionary rows, takes its rows of every global batch, and
+returns the global losses. The routes under a mesh:
+  - model axis only (and a world of one): each rank steps its members on
+    the routes above, with no collective inside the step; a member's result
+    is the bits of the unsharded run's;
+  - data axis > 1: fused grads (K1 + K3) or autograd of the DP loss
+    (`FunctionalTiedSAE.bind_mesh`) on the local rows, ONE all-reduce of the
+    gradients and the losses over the data group, divided by its size, then
+    the port's optimizer (the fused Adam cannot see the summed gradient and
+    is refused);
+  - dict axis > 1 (``shard_dict``): autograd on the local dictionary rows,
+    the partial decode summed over the dict group
+    (`FunctionalTiedSAE.dict_parallel_loss`; other signatures gather their
+    dict-cut leaves for the loss and keep their part of the gradient).
+A step that holds a collective is never captured into a CUDA graph (the
+gloo collective is a host exchange): `step_scan` then runs eager steps.
+
 `Ensemble.step_batch` is one eager step. `Ensemble.step_scan` and
 `Ensemble.step_scan_idx` (the JAX package's ``lax.scan`` dispatches) run K
 steps: on CUDA each step is a replay of a CUDA graph captured from one step
@@ -174,6 +193,13 @@ def _stack_losses(losses: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.
     return {k: torch.stack([l[k] for l in losses]) for k in losses[0]}
 
 
+def _cuts_dict(specs) -> bool:
+    """Whether a state's specs cut any param or buffer leaf on the dict axis."""
+    from sparse_coding__tpu_torch.parallel.mesh import DICT_AXIS
+
+    return any(DICT_AXIS in spec for spec in tree_leaves((specs.params, specs.buffers)))
+
+
 class _StepGraph:
     """One captured step: the CUDA graph, its static input ``x`` (the batch
     each replay reads), its static losses [L, M] (``names`` in order), the
@@ -283,6 +309,10 @@ class Ensemble:
         one memory pool (the graphs of one ensemble never run at once), the
         number of captures and the host seconds spent in them."""
         self._step_t: Optional[torch.Tensor] = None
+        self._mesh = None
+        self._shard_dict = True
+        self._specs = None
+        self._sig_exec = self.sig
         self._graphs: Dict[tuple, _StepGraph] = {}
         self._capture_stream = None
         self._pool = None
@@ -333,6 +363,103 @@ class Ensemble:
             cfg["recompute_code"] = True
         return cfg
 
+    # -- scale-out -----------------------------------------------------------
+
+    def shard(self, mesh, shard_dict: bool = True) -> "Ensemble":
+        """Spread the ensemble over ``mesh`` (a `parallel.Mesh`; in place):
+        this rank keeps its members (model axis) and, with ``shard_dict``,
+        its rows of each member's dictionary (dict axis); `step_batch` and
+        `step_scan` then take global batches and keep their rows (data
+        axis). Every rank of the mesh must call it, and then step in
+        lockstep."""
+        from sparse_coding__tpu_torch.parallel import mesh as mesh_lib
+
+        if self._mesh is not None:
+            raise ValueError("this ensemble is already sharded; rebuild it from state_dict() to reshard")
+        specs = mesh_lib.infer_state_specs(self.state, self.n_models, mesh, shard_dict)
+        collectives = mesh.shape[mesh_lib.DATA_AXIS] > 1 or _cuts_dict(specs)
+        if collectives and (self.health is not None or self.feature_stats is not None):
+            raise ValueError("the health pack and the feature sketch read the whole batch's code and "
+                             "gradients; shard such an ensemble on the model axis only")
+        self.state = mesh_lib.shard_state(self.state, mesh, self.n_models, shard_dict)
+        self._adopt_slice(mesh, shard_dict, specs)
+        return self
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def _dict_parallel(self) -> bool:
+        """Whether any param or buffer leaf is cut on the dict axis."""
+        return self._mesh is not None and _cuts_dict(self._specs)
+
+    def _step_collectives(self) -> bool:
+        """Whether a step exchanges anything between ranks (a data axis, or
+        a dictionary cut on the dict axis)."""
+        from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+        return self._mesh is not None and (self._mesh.shape[DATA_AXIS] > 1 or self._dict_parallel())
+
+    def local_batch(self, batch: torch.Tensor, per_model: bool = False, leading: int = 0) -> torch.Tensor:
+        """This rank's rows (and, per member, members) of a global batch
+        (``leading`` whole axes first); the batch itself unsharded."""
+        if self._mesh is None:
+            return batch
+        from sparse_coding__tpu_torch.parallel import mesh as mesh_lib
+
+        cut = mesh_lib.per_model_batch_sharding if per_model else mesh_lib.batch_sharding
+        return cut(self._mesh, leading)(batch)
+
+    def _gather_losses(self, loss_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The losses of every member (last axis), gathered over the model
+        group in one exchange: the same values on every rank."""
+        from sparse_coding__tpu_torch.parallel.mesh import MODEL_AXIS
+
+        if self._mesh is None or self._mesh.groups[MODEL_AXIS] is None or not loss_dict:
+            return loss_dict
+        names = list(loss_dict)
+        stacked = self._mesh.all_gather(torch.stack([loss_dict[n] for n in names]), MODEL_AXIS, dim=-1)
+        return {n: stacked[i] for i, n in enumerate(names)}
+
+    def _data_mean(self, grads, loss_dict):
+        """The gradients and losses averaged over the data group: ONE
+        all-reduce of every gradient leaf and loss, divided by the group's
+        size."""
+        from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+        mesh = self._mesh
+        if mesh is None or mesh.groups[DATA_AXIS] is None:
+            return grads, loss_dict
+        g_leaves, names = tree_leaves(grads), list(loss_dict)
+        summed = mesh.all_reduce_many(g_leaves + [loss_dict[n] for n in names], DATA_AXIS)
+        out = [t / float(mesh.shape[DATA_AXIS]) for t in summed]
+        return tree_unflatten(grads, out[: len(g_leaves)]), dict(zip(names, out[len(g_leaves):]))
+
+    def _loss(self, params, exec_buffers, batch):
+        """The signature's loss on this rank's part: the plain one (or the
+        mesh's `bind_mesh` variant); on a dictionary cut on the dict axis the
+        signature's `dict_parallel_loss`, or its loss on the dict-cut leaves
+        gathered (each rank keeping its part of their gradient)."""
+        if not self._dict_parallel():
+            return self._sig_exec.loss(params, exec_buffers, batch)
+        from sparse_coding__tpu_torch.parallel import mesh as mesh_lib
+
+        mesh, specs = self._mesh, self._specs
+
+        def whole(leaf, spec, grad):
+            if not isinstance(leaf, torch.Tensor) or mesh_lib.DICT_AXIS not in spec:
+                return leaf
+            dim = spec.index(mesh_lib.DICT_AXIS)
+            return mesh_lib.gather_over(leaf, mesh, mesh_lib.DICT_AXIS, dim) if grad else \
+                mesh.all_gather(leaf, mesh_lib.DICT_AXIS, dim=dim)
+
+        buffers = tree_map(lambda b, sp: whole(b, sp, False), exec_buffers,
+                           {k: specs.buffers.get(k, mesh_lib.PartitionSpec()) for k in exec_buffers})
+        enc_spec = specs.params.get("encoder", ()) if isinstance(specs.params, dict) else ()
+        if hasattr(self.sig, "dict_parallel_loss") and mesh_lib.DICT_AXIS in enc_spec:
+            return self.sig.dict_parallel_loss(params, buffers, batch, mesh_lib.sum_over(mesh, mesh_lib.DICT_AXIS))
+        return self._sig_exec.loss(tree_map(lambda p, sp: whole(p, sp, True), params, specs.params), buffers, batch)
+
     # -- training ------------------------------------------------------------
 
     def set_update_mask(self, mask) -> "Ensemble":
@@ -343,6 +470,11 @@ class Ensemble:
         mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
         if mask.shape != (self.n_models,):
             raise ValueError(f"mask shape {tuple(mask.shape)} != ({self.n_models},)")
+        if self._mesh is not None:
+            from sparse_coding__tpu_torch.parallel.mesh import MODEL_AXIS, PartitionSpec, per_model_batch_sharding
+
+            mask = mask[per_model_batch_sharding(self._mesh).members(self.n_models)].clone()
+            self._specs.buffers["update_mask"] = PartitionSpec(MODEL_AXIS)
         self.state = dataclasses.replace(self.state, buffers={**self.state.buffers, "update_mask": mask})
         return self
 
@@ -371,7 +503,7 @@ class Ensemble:
         package's gate (per-member batches and ``unstacked`` refuse the fused
         kernels; a mask refuses the fused Adam; the signature checks the
         batch size)."""
-        if per_model or self.unstacked or not self.fused:
+        if per_model or self.unstacked or not self.fused or self._dict_parallel():
             return "autograd"
         adam = self.fused_adam is not None and not masked
         if hasattr(self.sig, "fused_batch_supported") and not self.sig.fused_batch_supported(
@@ -399,6 +531,7 @@ class Ensemble:
         aux: Dict[str, torch.Tensor] = {}
         if route == "autograd":
             grads, loss_dict, aux = self._autograd(st.params, exec_buffers, batch, per_model)
+            grads, loss_dict = self._data_mean(grads, loss_dict)
             loss_dict, extra = self._packs(st, grads, loss_dict, aux, step_t)
             with torch.no_grad():
                 params, opt_state = self._optimizer_step(st, grads, exec_buffers)
@@ -410,6 +543,7 @@ class Ensemble:
                 )
             else:
                 grads, loss_dict = self.sig.fused_grads_stacked(st.params, exec_buffers, batch)
+                grads, loss_dict = self._data_mean(grads, loss_dict)
                 params, opt_state = self._optimizer_step(st, grads, exec_buffers)
         return params, opt_state, loss_dict, aux, {}
 
@@ -432,11 +566,14 @@ class Ensemble:
         [n_models, B, D] with ``per_model``). Returns ``(loss_dict, aux)``,
         losses [n_models] left on the device (aux holds the code ``c`` on the
         autograd path, nothing on the fused paths). The new state is written
-        into the state's own tensors, so the captured graphs stay valid."""
+        into the state's own tensors, so the captured graphs stay valid.
+        Sharded: ``batch`` is the global batch, of which this rank takes its
+        part; the losses are every member's (the same on every rank), the
+        aux this rank's rows and members."""
         self._device_step()
-        loss_dict, aux = self._step_in_place(batch, per_model)
+        loss_dict, aux = self._step_in_place(self.local_batch(batch, per_model), per_model)
         self._state.step += 1
-        return loss_dict, aux
+        return self._gather_losses(loss_dict), aux
 
     def _autograd(self, params, exec_buffers, batch, per_model: bool):
         """Gradients of the signature's loss: of the stacked members at once
@@ -453,7 +590,7 @@ class Ensemble:
     def _grads(self, params, exec_buffers, batch):
         leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
         with px.compute(self.compute_dtype):
-            total, (loss_dict, aux) = self.sig.loss(leaves, exec_buffers, batch)
+            total, (loss_dict, aux) = self._loss(leaves, exec_buffers, batch)
         grads = tree_unflatten(leaves, torch.autograd.grad(total.sum(), tree_leaves(leaves)))
         return grads, {k: v.detach() for k, v in loss_dict.items()}, {k: v.detach() for k, v in aux.items()}
 
@@ -464,18 +601,40 @@ class Ensemble:
         On CUDA every step is a replay of the step's CUDA graph (captured when
         the step's signature is first seen, a host setting it read changed or
         the state it froze was replaced), each batch copied into the graph's
-        input; on CPU tensors a loop over `step_batch`."""
+        input; on CPU tensors a loop over `step_batch`. Sharded, each rank
+        takes its part of every batch, and the losses are gathered once at
+        the end; a step that exchanges gradients or decodes between ranks is
+        never captured (the steps run eagerly)."""
+        if self._mesh is not None:
+            local = self.local_batch(batches, per_model, leading=1)
+            if local.is_cuda and not self._step_collectives():
+                losses = self._replay(local.shape[1:], local.dtype, per_model, len(local),
+                                      lambda x, k: x.copy_(local[k]))
+            else:
+                losses = _stack_losses([self._eager_step(b, per_model) for b in local])
+            return self._gather_losses(losses)
         if not batches.is_cuda:
             return _stack_losses([self.step_batch(b, per_model)[0] for b in batches])
         return self._replay(batches.shape[1:], batches.dtype, per_model, len(batches),
                             lambda x, k: x.copy_(batches[k]))
+
+    def _eager_step(self, local_batch: torch.Tensor, per_model: bool) -> Dict[str, torch.Tensor]:
+        """One eager step on this rank's part, its losses left local."""
+        self._device_step()
+        loss_dict, _ = self._step_in_place(local_batch, per_model)
+        self._state.step += 1
+        return loss_dict
 
     def step_scan_idx(self, dataset: torch.Tensor, idxs, per_model: bool = False) -> Dict[str, torch.Tensor]:
         """K updates, batch k gathered from ``dataset`` [N, D] by the row
         indices ``idxs[k]`` (``idxs`` [K, B]): `step_scan` without the staged
         [K, B, D] copy. On CUDA each gather writes straight into the graph's
         input (`torch.index_select` with ``out=``). Shared batches only, as
-        in the JAX package."""
+        in the JAX package. Unsharded ensembles only (a sharded loop feeds
+        batches through `step_scan`)."""
+        if self._mesh is not None:
+            raise ValueError("step_scan_idx is single-shard; sharded ensembles batch "
+                             "through step_scan with presharded inputs")
         if per_model:
             raise ValueError("step_scan_idx is shared-batch only")
         idxs = torch.as_tensor(idxs, device=dataset.device)
@@ -568,9 +727,20 @@ class Ensemble:
 
     # -- export / checkpoint -------------------------------------------------
 
+    def full_state(self) -> EnsembleState:
+        """The whole state: this rank's own when unsharded; sharded, every
+        leaf gathered from the ranks' slices (every rank must call it)."""
+        if self._mesh is None:
+            return self.state
+        from sparse_coding__tpu_torch.parallel.mesh import gather_state
+
+        return gather_state(self.state, self._specs, self._mesh)
+
     def unstack(self) -> List[Tuple[Params, Params]]:
-        params = unstack_pytree(self.state.params, self.n_models)
-        buffers = unstack_pytree(self.state.buffers, self.n_models)
+        """Every member's ``(params, buffers)`` (gathered when sharded)."""
+        st = self.full_state()
+        params = unstack_pytree(st.params, self.n_models)
+        buffers = unstack_pytree(st.buffers, self.n_models)
         return list(zip(params, buffers))
 
     def to_learned_dicts(self) -> List[Any]:
@@ -581,7 +751,22 @@ class Ensemble:
         return out
 
     def state_dict(self) -> Dict[str, Any]:
-        """Checkpointable description; the state is copied to the host."""
+        """Checkpointable description; the state is copied to the host
+        (sharded: gathered whole first, on every rank)."""
+        return {**self._description(), "state": _map_tensors(self.full_state(), lambda t: t.detach().cpu().clone())}
+
+    def local_state_dict(self) -> Dict[str, Any]:
+        """`state_dict` with this rank's slice of the state only, and
+        ``local_slice``: the mesh's shape, this rank's coordinates, whether
+        the dictionary is cut and the leaves' axis tuples (what a sharded
+        checkpoint records for its elastic restore)."""
+        sd = {**self._description(), "state": _map_tensors(self.state, lambda t: t.detach().cpu().clone())}
+        if self._mesh is not None:
+            sd["local_slice"] = {"mesh": dict(self._mesh.shape), "coords": dict(self._mesh.coords),
+                                 "shard_dict": self._shard_dict, "specs": self._specs}
+        return sd
+
+    def _description(self) -> Dict[str, Any]:
         return {
             "n_models": self.n_models,
             "sig": f"{self.sig.__module__}.{self.sig.__qualname__}",
@@ -593,14 +778,18 @@ class Ensemble:
             "unstacked": self.unstacked,
             "health": None if self.health is None else dataclasses.asdict(self.health),
             "feature_stats": None if self.feature_stats is None else dataclasses.asdict(self.feature_stats),
-            "state": _map_tensors(self.state, lambda t: t.detach().cpu().clone()),
         }
 
     @staticmethod
-    def from_state(state_dict: Dict[str, Any], sig=None, device=None) -> "Ensemble":
+    def from_state(state_dict: Dict[str, Any], sig=None, device=None, mesh=None,
+                   shard_dict: bool = True) -> "Ensemble":
         """Rebuild from `state_dict` on ``device`` (None = cuda). The
         signature is found by its class name among the port's own (a record
-        of either package names them alike), unless ``sig`` is given."""
+        of either package names them alike), unless ``sig`` is given. With
+        ``mesh`` the ensemble comes back sharded: a record holding this
+        rank's slice for that mesh (``local_slice``, as
+        `train.checkpoint.restore_ensemble_checkpoint` assembles it) is taken
+        as it is, a whole state is cut (`shard`)."""
         from sparse_coding__tpu_torch import models as m
 
         device = resolve_device(device)
@@ -635,7 +824,27 @@ class Ensemble:
         self.state = _map_tensors(state_dict["state"], lambda t: t.to(device, copy=True))
         self.fused_adam = self._fused_adam_config()
         self._init_runtime()
+        local = state_dict.get("local_slice")
+        if local is not None:
+            if mesh is None or dict(mesh.shape) != dict(local["mesh"]) or dict(mesh.coords) != dict(local["coords"]):
+                raise ValueError("this record holds one rank's slice; rebuild it on the mesh and rank it was "
+                                 "assembled for (train.checkpoint.restore_ensemble_checkpoint)")
+            self._adopt_slice(mesh, bool(local["shard_dict"]), local["specs"])
+        elif mesh is not None:
+            self.shard(mesh, shard_dict)
         return self
+
+    def _adopt_slice(self, mesh, shard_dict: bool, specs) -> None:
+        """The runtime of a state that is this rank's slice on ``mesh``: the
+        mesh's loss (`bind_mesh`), and on a data axis no fused Adam."""
+        from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+        self._mesh, self._shard_dict, self._specs = mesh, bool(shard_dict), specs
+        self._sig_exec = self.sig.bind_mesh(mesh) if hasattr(self.sig, "bind_mesh") else self.sig
+        if self.fused_adam is not None and mesh.shape[DATA_AXIS] > 1:
+            _refuse_fused_adam(self.sig, "data-parallel mesh (the kernel's Adam would see only this rank's "
+                                         "gradient)")
+            self.fused_adam = None
 
 
 def build_ensemble(

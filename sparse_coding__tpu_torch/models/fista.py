@@ -164,11 +164,18 @@ def quadratic_basis_update(
     hessian_diag: torch.Tensor,
     step_size: float = 0.001,
     noneg: bool = False,
+    row_sum=None,
+    n_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Olshausen quadratic dictionary update with per-atom Hessian scaling,
     rows (atoms) renormalized — as the JAX package's. learned_dict
-    [M, N, D], res [M, B, D], ahat [M, B, N], hessian_diag [M, N]."""
-    d_basis = step_size * torch.matmul(res.transpose(1, 2), ahat) / ahat.shape[1]  # [M, D, N]
+    [M, N, D], res [M, B, D], ahat [M, B, N], hessian_diag [M, N]. With the
+    batch's rows spread over ranks, ``row_sum`` sums the residual-code
+    product over them and ``n_rows`` is the global batch size."""
+    prod = torch.matmul(res.transpose(1, 2), ahat)
+    if row_sum is not None:
+        prod = row_sum(prod)
+    d_basis = step_size * prod / (ahat.shape[1] if n_rows is None else n_rows)  # [M, D, N]
     d_basis = d_basis / (hessian_diag + lowest_activation)[:, None, :]
     new_dict = learned_dict + d_basis.transpose(1, 2)
     if noneg:
@@ -184,20 +191,28 @@ def dictionary_update(
     l1_alpha: torch.Tensor,
     num_iter: int = 500,
     solver=None,
+    row_sum=None,
+    n_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FISTA solve + basis update for every member; returns ``(new_dict,
     new_hessian, res)``. ``solver(batch, dicts, l1, warm) -> (codes, res)``
     replaces the plain `fista` (the train loop passes the selector of
-    `ops.fista_kernel`, which runs K_f on the card)."""
+    `ops.fista_kernel`, which runs K_f on the card). With the batch's rows
+    spread over ranks (a data axis), each rank solves its own rows and
+    ``row_sum`` sums the two batch reductions (the Hessian's mean of squared
+    codes, the basis update's product) over the ranks; ``n_rows`` is the
+    global batch size."""
     if solver is not None:
         coeffs_fista, res = solver(batch_centered, learned_dict, l1_alpha, coeffs)
     else:
         coeffs_fista, res = fista(batch_centered, learned_dict, l1_alpha, coeffs, num_iter)
-    new_hessian = (
-        hessian_diag * ((ACT_HISTORY_LEN - 1.0) / ACT_HISTORY_LEN)
-        + (coeffs_fista * coeffs_fista).mean(dim=1) / ACT_HISTORY_LEN
-    )
-    new_dict = quadratic_basis_update(learned_dict, res, coeffs_fista, 0.001, new_hessian)
+    if row_sum is None:
+        sq_mean = (coeffs_fista * coeffs_fista).mean(dim=1)
+    else:
+        sq_mean = row_sum((coeffs_fista * coeffs_fista).sum(dim=1)) / n_rows
+    new_hessian = hessian_diag * ((ACT_HISTORY_LEN - 1.0) / ACT_HISTORY_LEN) + sq_mean / ACT_HISTORY_LEN
+    new_dict = quadratic_basis_update(learned_dict, res, coeffs_fista, 0.001, new_hessian, row_sum=row_sum,
+                                      n_rows=n_rows)
     return new_dict, new_hessian, res
 
 

@@ -5,8 +5,9 @@ Counterpart of `sparse_coding__tpu/models/sae.py`: `FunctionalSAE`,
 `FunctionalThresholdingSAE` (the smooth soft threshold), the masked
 `FunctionalMaskedTiedSAE` / `FunctionalMaskedSAE` (several dict sizes in one
 stack: the code times a keep mask, ``dict_size`` an int32 buffer) and
-`FunctionalReverseSAE`. (The JAX package's data-parallel
-`FunctionalTiedSAEDP` waits for the mesh, ROADMAP A6b.) The functions take
+`FunctionalReverseSAE`, and the data-parallel `FunctionalTiedSAEDP` that
+`FunctionalTiedSAE.bind_mesh` picks on a mesh with a data axis (one
+gradient contraction, so one all-reduce operand). The functions take
 the STACKED params/buffers of an ensemble: every tensor has a leading member
 axis ``M`` (the JAX package's vmap written out), and losses come back as
 ``[M]`` vectors. Loss conventions, as in the JAX package:
@@ -257,6 +258,44 @@ class FunctionalTiedSAE:
             norm_encoder=True,
         )
 
+    @staticmethod
+    def bind_mesh(mesh):
+        """The signature a step on ``mesh`` runs (`Ensemble.shard`): on a
+        mesh with a data axis larger than 1 the DP loss, whose tied-weight
+        backward is one contraction (`FunctionalTiedSAEDP`); otherwise this
+        one (the fused backward's two operand copies pay only where a
+        gradient all-reduce is saved)."""
+        from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+        if mesh.shape.get(DATA_AXIS, 1) > 1:
+            return FunctionalTiedSAEDP
+        return FunctionalTiedSAE
+
+    @staticmethod
+    def dict_parallel_loss(params, buffers, batch, dict_sum):
+        """`loss` on this rank's slice of the dictionary rows (a mesh with a
+        dict axis): the code of the local rows, the partial decode summed
+        over the dict group by ``dict_sum`` (all-reduce forward, identity
+        backward), and the l1 and bias-decay terms from their summed
+        partials, so the losses are the whole dictionary's on every rank of
+        the group. ``buffers`` are whole (centering included). The aux code
+        is the local rows'. (The fused kernels compute the loss from the
+        whole decode inside K1, so a dictionary slice takes this autograd
+        route.)"""
+        learned_dict = _norm_rows(params["encoder"])
+        x = FunctionalTiedSAE.center(buffers, batch)
+        ld = px.cast_in(learned_dict)
+        c = torch.relu(torch.matmul(px.cast_in(x), ld.transpose(1, 2)) + px.cast_in(params["encoder_bias"])[:, None, :])
+        x_hat = dict_sum(torch.matmul(c.float(), ld.float()))
+        diff = x_hat - px.acc_f32(x)
+        l_reconstruction = torch.mean(diff * diff, dim=(-2, -1))
+        l_l1 = buffers["l1_alpha"] * dict_sum(px.acc_f32(torch.abs(c)).sum(dim=-1).mean(dim=-1))
+        b = params["encoder_bias"]
+        l_bias_decay = buffers["bias_decay"] * torch.sqrt(torch.clamp_min(dict_sum(torch.sum(b * b, dim=-1)), 1e-24))
+        total = l_reconstruction + l_l1 + l_bias_decay
+        loss_data = {"loss": total, "l_reconstruction": l_reconstruction, "l_l1": l_l1}
+        return total, (loss_data, {"c": c})
+
     # -- fused step (ops/tied_sae_kernel.py) ----------------------------------
 
     @staticmethod
@@ -334,6 +373,74 @@ class FunctionalTiedSAE:
         l_l1 = buffers["l1_alpha"] * l_l1_raw
         loss_data = {"loss": l_rec + l_l1 + l_bias_decay, "l_reconstruction": l_rec, "l_l1": l_l1}
         return new_params, new_state, loss_data
+
+
+class _TiedPairDP(torch.autograd.Function):
+    """Tied encode + decode ``(c, x_hat)`` with a data-parallel backward.
+
+    Autograd of the plain loss gives the tied dictionary two gradient-sized
+    partials (the encode's and the decode's transposes); this backward
+    computes their sum as ONE contraction over a doubled batch axis,
+
+        dD = [dpre; c]^T [x; dxh]   (stacked on the batch axis: one product)
+
+    so the gradient that the data group all-reduces is a single operand
+    (the JAX package's `_tied_pair_dp`). The forward is the plain loss's
+    (under the compute dtype active at the call, which the backward reuses:
+    it may run on another thread, outside the policy's context)."""
+
+    @staticmethod
+    def forward(ctx, d_hat, bias, x, compute_dtype):
+        with px.compute(compute_dtype):
+            ld = px.cast_in(d_hat)
+            c = torch.relu(torch.matmul(px.cast_in(x), ld.transpose(-2, -1)) + px.cast_in(bias)[:, None, :])
+        x_hat = torch.matmul(c.float(), ld.float())
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(d_hat, x, c)
+        return c, x_hat
+
+    @staticmethod
+    def backward(ctx, dc_out, dxh):
+        d_hat, x, c = ctx.saved_tensors
+        with px.compute(ctx.compute_dtype):
+            ld = px.cast_in(d_hat).float()
+            dc_decode = torch.matmul(dxh.float(), ld.transpose(-2, -1))
+            dpre = torch.where(c.float() > 0, px.acc_f32(dc_out) + dc_decode, torch.zeros((), device=c.device))
+            xs = x.expand(c.shape[:-1] + x.shape[-1:])
+            lhs = torch.cat([px.cast_in(dpre), px.cast_in(c)], dim=-2).float()  # [M, 2B, N]
+            rhs = torch.cat([px.cast_in(xs), px.cast_in(dxh)], dim=-2).float()  # [M, 2B, D]
+            g_dhat = torch.matmul(lhs.transpose(-2, -1), rhs).to(d_hat.dtype)
+            g_bias = dpre.sum(dim=-2).to(d_hat.dtype)
+            g_x = None
+            if ctx.needs_input_grad[2]:
+                g_x = torch.matmul(px.cast_in(dpre).float(), ld)
+                if x.dim() < g_x.dim():
+                    g_x = g_x.sum(dim=0)
+                g_x = g_x.to(x.dtype)
+        return g_dhat, g_bias, g_x, None
+
+
+class FunctionalTiedSAEDP(FunctionalTiedSAE):
+    """`FunctionalTiedSAE` with the one-contraction tied backward
+    (`_TiedPairDP`): an execution-only specialization that
+    `FunctionalTiedSAE.bind_mesh` selects on meshes with a data axis;
+    checkpoints and exports record the plain signature. `bind_mesh` is
+    inherited (binding again is idempotent)."""
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        """(total [M], (loss_data {name: [M]}, {"c": c [M, B, N]})): the plain
+        loss's values, the DP backward's gradients."""
+        learned_dict = _norm_rows(params["encoder"])
+        x = FunctionalTiedSAE.center(buffers, batch)
+        c, x_hat = _TiedPairDP.apply(learned_dict, params["encoder_bias"], x, px.current())
+        diff = x_hat - px.acc_f32(x)
+        l_reconstruction = torch.mean(diff * diff, dim=(-2, -1))
+        l_l1 = buffers["l1_alpha"] * px.acc_f32(torch.abs(c)).sum(dim=-1).mean(dim=-1)
+        l_bias_decay = buffers["bias_decay"] * _safe_l2(params["encoder_bias"])
+        total = l_reconstruction + l_l1 + l_bias_decay
+        loss_data = {"loss": total, "l_reconstruction": l_reconstruction, "l_l1": l_l1}
+        return total, (loss_data, {"c": c})
 
 
 class FunctionalTiedCenteredSAE:

@@ -67,10 +67,13 @@ def event_active(etype: str, **fields) -> None:
         t.event(etype, **fields)
 
 
-def run_fingerprint() -> Dict[str, Any]:
+def run_fingerprint(mesh=None) -> Dict[str, Any]:
     """Environment fingerprint for ``run_start``: python, torch, CUDA and the
-    device, where the JAX package reports jax and its devices. Best-effort: a
-    group that fails lands in ``fingerprint_error``, never fails the run."""
+    device, where the JAX package reports jax and its devices; the rank and
+    world size, the `torch.distributed` backend and, in a pod, the clock
+    offset to rank 0; ``mesh`` (a `parallel.Mesh`) adds its axis sizes.
+    Best-effort: a group that fails lands in ``fingerprint_error``, never
+    fails the run."""
     fp: Dict[str, Any] = {"python": sys.version.split()[0]}
     errors: List[str] = []
     try:
@@ -88,6 +91,20 @@ def run_fingerprint() -> Dict[str, Any]:
             fp["device_count"] = 1
     except (ImportError, RuntimeError, AssertionError) as e:
         errors.append(f"torch: {e!r}")
+    from sparse_coding__tpu_torch.telemetry import multihost as _mh
+
+    fp["process_index"], fp["process_count"] = _mh.process_info()
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            fp["distributed_backend"] = str(dist.get_backend())
+    except (ImportError, RuntimeError) as e:
+        errors.append(f"distributed: {e!r}")
+    clock = _mh.clock_state()
+    if clock:
+        fp["clock_offset_seconds"] = clock.get("offset_seconds")
+        fp["clock_uncertainty_seconds"] = clock.get("uncertainty_seconds")
     if errors:
         fp["fingerprint_error"] = "; ".join(errors)
     try:
@@ -97,6 +114,8 @@ def run_fingerprint() -> Dict[str, Any]:
             fp["git_sha"] = sha.stdout.strip()
     except (OSError, subprocess.SubprocessError):
         pass
+    if mesh is not None:
+        fp["mesh"] = {str(k): int(v) for k, v in mesh.shape.items()}
     return fp
 
 
@@ -105,7 +124,10 @@ class RunTelemetry:
 
     ``out_dir=None`` keeps everything in memory. A resumed process appends to
     the same log; ``generation`` counts the ``run_start`` records already
-    there. `close` writes ``run_end`` unless one was written."""
+    there. `close` writes ``run_end`` unless one was written. In a world of
+    several ranks (`telemetry.multihost.process_info`) the file is
+    ``events.p<i>.jsonl`` and every record carries ``process_index``; a
+    world of one keeps ``events.jsonl``, untagged."""
 
     def __init__(self, out_dir: Optional[str] = None, run_name: str = "run",
                  config: Optional[Dict[str, Any]] = None, file_name: str = "events.jsonl",
@@ -125,10 +147,14 @@ class RunTelemetry:
         self._fh = None
         self.path: Optional[Path] = None
         self.generation = 0
+        from sparse_coding__tpu_torch.telemetry import multihost as _mh
+
+        idx, count = _mh.process_info()
+        self.process_index: Optional[int] = idx if count > 1 else None
         if out_dir is not None:
             d = Path(out_dir)
             d.mkdir(parents=True, exist_ok=True)
-            self.path = d / file_name
+            self.path = d / _mh.per_process_file_name(file_name, idx, count)
             self.generation = self._count_prior_generations()
             self._fh = open(self.path, "a")
         _ACTIVE.append(self)
@@ -148,14 +174,16 @@ class RunTelemetry:
             self._seq += 1
             rec = {"seq": self._seq, "ts": time.time(), "mono": round(time.monotonic(), 6), "event": etype, **self.tags,
                    **fields}
+            if self.process_index is not None:
+                rec["process_index"] = self.process_index
             if self._fh is not None:
                 self._fh.write(json.dumps(rec, default=str) + "\n")
                 self._fh.flush()
         return rec
 
-    def run_start(self, config: Optional[Dict[str, Any]] = None):
+    def run_start(self, config: Optional[Dict[str, Any]] = None, mesh=None):
         return self.event("run_start", run_name=self.run_name, generation=self.generation,
-                          config=config if config is not None else self._config, fingerprint=run_fingerprint())
+                          config=config if config is not None else self._config, fingerprint=run_fingerprint(mesh=mesh))
 
     def chunk_start(self, chunk: int, **fields):
         self._chunk_t0_mono = time.monotonic()

@@ -23,7 +23,13 @@ def hbm_watermarks(devices: Sequence) -> Dict[str, Dict[str, int]]:
     """``{"d<i>": {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}}``
     for each CUDA device among ``devices``: the allocator's current and peak
     allocated bytes and the device's memory. Empty for a CPU run, as on the
-    JAX package's CPU backend."""
+    JAX package's CPU backend. In a world of several ranks the keys are
+    ``"p<rank>.d<i>"``, so the ranks' gauges stay apart once their logs are
+    merged (two ranks may share one card)."""
+    from sparse_coding__tpu_torch.telemetry.multihost import process_info
+
+    idx, count = process_info()
+    prefix = f"p{idx}." if count > 1 else ""
     out: Dict[str, Dict[str, int]] = {}
     for d in devices:
         d = torch.device(d)
@@ -31,7 +37,7 @@ def hbm_watermarks(devices: Sequence) -> Dict[str, Dict[str, int]]:
             continue
         i = d.index if d.index is not None else torch.cuda.current_device()
         stats = torch.cuda.memory_stats(i)
-        out[f"d{i}"] = {
+        out[f"{prefix}d{i}"] = {
             "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
             "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
             "bytes_limit": int(torch.cuda.get_device_properties(i).total_memory),

@@ -33,6 +33,7 @@ from sparse_coding__tpu_torch.models.fista import FunctionalFista
 from sparse_coding__tpu_torch.telemetry.anomaly import AnomalyGuard, AnomalyPolicy
 from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
 from sparse_coding__tpu_torch.telemetry.feature_stats import flush_ensemble_feature_stats
+from sparse_coding__tpu_torch.telemetry.multihost import check_desync, heartbeat
 from sparse_coding__tpu_torch.telemetry.profiling import record_hbm_watermarks, refuse_trace_window
 from sparse_coding__tpu_torch.telemetry.provenance import export_digest, producer_identity
 from sparse_coding__tpu_torch.telemetry.spans import span
@@ -135,6 +136,9 @@ def basic_l1_sweep(
         telemetry.event("provenance", artifact="export", path=str(path), digest=export_digest(path),
                         config_sha=run_ident.get("config_sha"), inputs=inputs)
 
+    # pod runs: ranks disagreeing on config/environment is a hard anomaly,
+    # caught before any training (a no-op in a world of one)
+    check_desync(telemetry, config=run_config)
     ckpt = DriverCheckpointer(output_folder, telemetry=telemetry, keep=checkpoint_keep, every=checkpoint_every)
     budget = data_integrity.ChunkLossBudget(n_chunk_slots, telemetry=telemetry)
     # (epoch, position) of the last completed chunk before this process
@@ -201,10 +205,14 @@ def basic_l1_sweep(
                                                      fista_iters=fista_iters, fista_tol=fista_tol,
                                                      telemetry=telemetry)
                 timer.tick()  # one tick a chunk pass; fenced at run_end
-                telemetry.chunk_end(chunk_idx, epoch=epoch, position=pos, steps=chunk.shape[0] // batch_size)
+                end_rec = telemetry.chunk_end(chunk_idx, epoch=epoch, position=pos,
+                                              steps=chunk.shape[0] // batch_size)
                 record_hbm_watermarks(telemetry, [device])
                 if feature_stats:
                     flush_ensemble_feature_stats(ens, telemetry, output_folder, model_names=model_names)
+                # pod heartbeat + straggler-skew gauges (a no-op in a world of one)
+                heartbeat(telemetry, step=int(telemetry.counters.get("train.steps", 0)),
+                          window_seconds=end_rec.get("seconds"))
                 if save_after_every:
                     learned_dicts = export()
                     save_export(out / f"epoch_{epoch}" / f"chunk_{pos}" / "learned_dicts.pkl")

@@ -24,8 +24,19 @@ Randomness: one CPU `torch.Generator` (``key``, an int seed or a generator)
 draws the init and then each step's batch indices (`batch_indices`), so a
 run on the card and one on the CPU sample the same rows, and a checkpoint's
 cursor (the generator's state) replays the rest of the run. These are the
-port's own draws, not JAX's PRNG stream. Data parallelism over a mesh waits
-for ROADMAP A6b: ``mesh=`` raises.
+port's own draws, not JAX's PRNG stream.
+
+Data parallelism (``mesh=``, a `parallel.Mesh`): every rank draws the same
+batch indices, takes its rows on the data axis, and computes the gradient
+of the mesh's loss (`sig.bind_mesh`: the tied SAE's one-contraction DP
+backward); the gradients, losses and code-activity counts are summed over
+the data group in ONE all-reduce (the gradients and losses then divided by
+its size), and every rank applies the same Adam update, so the state stays
+replicated. The per-example MSE of every row is gathered over the data
+group for the worst-example ring. Ranks on the other axes compute the same
+step. A pod heartbeat rides each resurrection boundary and the end of the
+run, and the preemption agreement runs every ``preempt_sync_every`` step
+boundaries.
 """
 
 from __future__ import annotations
@@ -97,7 +108,19 @@ def batch_indices(generator: torch.Generator, batch_size: int, n: int) -> np.nda
     return torch.randint(0, n, (batch_size,), generator=generator).numpy()
 
 
-def make_big_batch_step(sig, tx, l1_warmup_steps: int = 0):
+def _data_sum(mesh, grads, loss_dict, counts):
+    """The gradients, losses and code-activity counts summed over the data
+    group in one all-reduce; gradients and losses divided by its size."""
+    from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+    g_leaves, names = tree_leaves(grads), list(loss_dict)
+    *summed, counts = mesh.all_reduce_many(g_leaves + [loss_dict[n] for n in names] + [counts], DATA_AXIS)
+    out = [t / float(mesh.shape[DATA_AXIS]) for t in summed]
+    k = len(g_leaves)
+    return tree_unflatten(grads, out[:k]), dict(zip(names, out[k:])), counts
+
+
+def make_big_batch_step(sig, tx, l1_warmup_steps: int = 0, mesh=None):
     """``step(state, batch) -> (state, loss_dict, c)``: the gradient of
     ``sig.loss``, the optimizer update and the code-activity totals, written
     into ``state``'s own tensors (the same state comes back). The l1 ramp
@@ -105,7 +128,12 @@ def make_big_batch_step(sig, tx, l1_warmup_steps: int = 0):
     configured ``l1_alpha``) reads the device step counter; the stored
     buffers keep the configured value. Losses are 0-d, ``c`` is
     ``[B, n_feats]`` in the compute dtype. The loss runs under the precision
-    policy in effect at the call."""
+    policy in effect at the call. With ``mesh`` the batch is this rank's
+    rows, and the gradients, losses and counts are the data group's
+    (`_data_sum`)."""
+    from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+    data_parallel = mesh is not None and mesh.groups[DATA_AXIS] is not None
 
     def step(state: BigBatchState, batch: torch.Tensor):
         buffers = l1_warmup_buffers(state.buffers, state.step, l1_warmup_steps, sig)
@@ -113,15 +141,19 @@ def make_big_batch_step(sig, tx, l1_warmup_steps: int = 0):
         total, (loss_dict, aux) = sig.loss(_stack1(leaves), _stack1(buffers), batch)
         grads = tree_unflatten(leaves, torch.autograd.grad(total.sum(), tree_leaves(leaves)))
         with torch.no_grad():
+            c = aux["c"][0].detach()
+            counts = (c != 0).sum(dim=0)
+            loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+            if data_parallel:
+                grads, loss_dict, counts = _data_sum(mesh, grads, loss_dict, counts)
             updates, opt_state = tx.update(_stack1(grads), _stack1(state.opt_state), _stack1(state.params))
             params = apply_updates(_stack1(state.params), updates)
-            c = aux["c"][0].detach()
-            c_totals = state.c_totals + (c != 0).sum(dim=0)
+            c_totals = state.c_totals + counts
             _copy_into(state.params, _unstack1(params))
             _copy_into(state.opt_state, _unstack1(opt_state))
             state.c_totals.copy_(c_totals)
             state.step.add_(1)
-        return state, {k: v[0].detach() for k, v in loss_dict.items()}, c
+        return state, {k: v[0] for k, v in loss_dict.items()}, c
 
     return step
 
@@ -226,14 +258,14 @@ def train_big_batch(
     checkpoint and replays the remaining steps; the worst-example ring
     restarts empty, as in JAX, so a checkpoint taken at a resurrection
     boundary resumes to the uninterrupted run's bits. ``trace_trigger`` (the
-    profiler window) waits for ROADMAP A9 and must be None;
-    ``preempt_sync_every`` (the pod agreement cadence) has no effect on one
-    host."""
+    profiler window) waits for ROADMAP A9 and must be None. ``mesh`` (a
+    `parallel.Mesh`): the batch's rows are spread over its data axis (see
+    the module's notes); every rank must call this with the same arguments.
+    ``preempt_sync_every``: in a world of several ranks the preemption
+    agreement runs every that many step boundaries; in a world of one every
+    boundary reads the local flag."""
     from sparse_coding__tpu_torch.data.chunks import ChunkStore, load_store_dataset
 
-    if mesh is not None:
-        raise NotImplementedError("big-batch training over a mesh (data parallelism) is not ported yet — "
-                                  "ROADMAP A6b")
     if trace_trigger is not None:
         raise NotImplementedError("trace_trigger (the profiler window) is not ported yet — ROADMAP A9")
     refuse_trace_window()
@@ -249,13 +281,15 @@ def train_big_batch(
         return _train_big_batch(
             sig, init_hparams, dataset, batch_size, n_steps, key, learning_rate, reinit_every, worst_k,
             resurrection_log, encoder_norm_ratio, l1_warmup_steps, telemetry, checkpoint_dir, resume,
-            checkpoint_every, checkpoint_keep, device,
+            checkpoint_every, checkpoint_keep, device, mesh, preempt_sync_every,
         )
 
 
 def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learning_rate, reinit_every, worst_k,
                      resurrection_log, encoder_norm_ratio, l1_warmup_steps, telemetry, checkpoint_dir, resume,
-                     checkpoint_every, checkpoint_keep, device) -> Tuple[BigBatchState, Any]:
+                     checkpoint_every, checkpoint_keep, device, mesh=None,
+                     preempt_sync_every: int = 16) -> Tuple[BigBatchState, Any]:
+    from sparse_coding__tpu_torch.telemetry.multihost import heartbeat
     gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
     params, buffers = sig.init(gen, **init_hparams, device="cpu")
     to_dev = lambda v: v.to(device) if isinstance(v, torch.Tensor) else v  # noqa: E731
@@ -272,7 +306,8 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
         from sparse_coding__tpu_torch.train.loop import DriverCheckpointer
         from sparse_coding__tpu_torch.train.preemption import resume_requested
 
-        ckpt = DriverCheckpointer(checkpoint_dir, telemetry=telemetry, keep=checkpoint_keep, every=checkpoint_every)
+        ckpt = DriverCheckpointer(checkpoint_dir, telemetry=telemetry, keep=checkpoint_keep, every=checkpoint_every,
+                                  sync_every=preempt_sync_every)
         if resume_requested(resume):
             tree = ckpt.restore()
             if tree is not None:
@@ -282,7 +317,15 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
                 print(f"Resumed {checkpoint_dir} at step {start_step}")
 
     track = bool(reinit_every)
-    step_fn = make_big_batch_step(sig, tx, l1_warmup_steps=l1_warmup_steps)
+    rows = slice(0, batch_size)
+    sig_exec = sig
+    if mesh is not None:
+        from sparse_coding__tpu_torch.parallel.mesh import batch_sharding
+
+        rows = batch_sharding(mesh).rows(batch_size)
+        # the mesh's loss (the tied SAE's DP backward); the export keeps `sig`
+        sig_exec = sig.bind_mesh(mesh) if hasattr(sig, "bind_mesh") else sig
+    step_fn = make_big_batch_step(sig_exec, tx, l1_warmup_steps=l1_warmup_steps, mesh=mesh)
     worst = WorstExamples(worst_k)
     n = dataset.shape[0]
     cuda = device.type == "cuda"
@@ -306,10 +349,14 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
         for i in range(start_step, n_steps):
             fault_point("step_loop", step=i)
             idxs = batch_indices(gen, batch_size, n)
-            batch = torch.index_select(dataset, 0, torch.from_numpy(idxs).to(device, non_blocking=True))
+            batch = torch.index_select(dataset, 0, torch.from_numpy(idxs[rows]).to(device, non_blocking=True))
             state, _loss, c = step_fn(state, batch)
             if track:
                 mse = per_example_mse_from_codes(sig, state.params, state.buffers, batch, c)
+                if mesh is not None:
+                    from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
+
+                    mse = mesh.all_gather(mse, DATA_AXIS)  # every row's, in the batch's order
                 buf = mse_host[i % 2]
                 buf.copy_(mse, non_blocking=cuda)
                 ev = None
@@ -334,8 +381,9 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
                     telemetry.counter_inc("resurrections")
                     telemetry.counter_inc("resurrected_features", int(n_dead))
                     # a host-sync boundary: the device-memory watermark sample
-                    # (JAX's pod heartbeat here waits for ROADMAP A6b)
+                    # and the pod heartbeat (a no-op in a world of one)
                     record_hbm_watermarks(telemetry, [device])
+                    heartbeat(telemetry, step=i + 1)
                 if n_dead:
                     print(f"step {i+1}: resurrected {n_dead} dead features")
                 win = span(telemetry, "step", name="step_window").begin()
@@ -353,6 +401,7 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
         drain()
         if telemetry is not None:
             record_hbm_watermarks(telemetry, [device])
+            heartbeat(telemetry, step=n_steps)
     finally:
         win.end()  # the open step window: emitted even on preempt/crash
         if ckpt is not None:

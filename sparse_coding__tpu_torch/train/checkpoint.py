@@ -23,6 +23,18 @@ and, under ``SC_CKPT_VERIFY=digest``, sha256) is written beside it, and
 one ``os.replace`` onto ``ckpt_<i>`` commits. `latest_checkpoint` returns
 the newest committed directory that verifies, skipping torn or corrupt ones
 (each skip an ``anomaly`` event); `gc_checkpoints` keeps the newest K.
+
+**Sharded ensembles** (`Ensemble.shard` in a world of several ranks): each
+rank that holds a distinct slice writes it as ``shards/<name>/m<i>_k<j>.pt``
+(its model- and dict-axis coordinates) into the one staging dir; rank 0
+writes ``state.pt`` with the ensemble's description, the mesh it was saved
+on, every leaf's axis tuple and global shape, and commits after a barrier on
+the process group's store. No rank ever holds the whole state. The restore
+is elastic: `restore_ensemble_checkpoint` assembles, for the mesh in the
+template (or for none: the whole state), the part of every leaf each rank
+needs from the slices that overlap it, so a checkpoint saved under one
+factorization (or by one process) resumes under any other. A single-process
+checkpoint keeps the format above, unchanged.
 """
 
 from __future__ import annotations
@@ -271,26 +283,58 @@ def verify_checkpoint(ckpt_dir, depth: Optional[str] = None) -> Tuple[bool, str]
     return True, "ok"
 
 
-def save_checkpoint_tree(ckpt_dir, tree: Dict[str, Any], extra_manifest: Optional[Dict[str, Any]] = None) -> Path:
+def _pod_barrier(tag: str) -> None:
+    """Every rank reaches this point (an exchange on the process group's
+    store; a no-op in a world of one). It waits the store's own timeout,
+    not ``SC_MH_TIMEOUT_MS``: the ranks wait here for rank 0's writes (a
+    manifest's digests, a dataset's build), which take as long as they
+    take. A failed exchange raises: a commit must not rename a directory
+    another rank is still writing into."""
+    from sparse_coding__tpu_torch.telemetry.multihost import _kv_allgather, process_info
+
+    if process_info()[1] > 1 and _kv_allgather(tag, "done", store_timeout=True) is None:
+        raise RuntimeError(f"pod barrier {tag!r}: a rank did not arrive within the process group's timeout")
+
+
+def _save_file(path: Path, obj) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save_checkpoint_tree(ckpt_dir, tree: Dict[str, Any], extra_manifest: Optional[Dict[str, Any]] = None,
+                         shards: Optional[Dict[str, Any]] = None) -> Path:
     """Atomically save ``tree`` to ``ckpt_dir``: `torch.save` into a staging
     dir, the manifest beside it, then the rename (the commit point). A kill
     in between leaves only a staging dir, which `latest_checkpoint` never
-    considers and `gc_checkpoints` sweeps."""
+    considers and `gc_checkpoints` sweeps. In a world of several ranks every
+    rank writes its ``shards`` (``{relative path: tree}``) into the staging
+    dir, rank 0 writes ``tree``, and rank 0 commits once a barrier shows
+    every rank's writes done."""
+    from sparse_coding__tpu_torch.telemetry.multihost import process_info
+
     final = Path(ckpt_dir).absolute()
     final.parent.mkdir(parents=True, exist_ok=True)
     staging = _staging_dir(final)
-    if staging.exists():
+    idx, count = process_info()
+    if idx == 0 and staging.exists():
         shutil.rmtree(staging)
-    staging.mkdir()
-    with open(staging / STATE_FILE, "wb") as f:
-        torch.save(_to_plain(tree), f)
-        f.flush()
-        os.fsync(f.fileno())
+    _pod_barrier("ckpt_staged")  # nobody writes before a stale staging dir is gone
+    staging.mkdir(exist_ok=True)
+    for rel, obj in (shards or {}).items():
+        _save_file(staging / rel, _to_plain(obj))
+    if idx == 0:
+        _save_file(staging / STATE_FILE, _to_plain(tree))
     fault_point("checkpoint_commit", path=str(final))
-    _write_manifest(staging, extra=extra_manifest)
-    if final.exists():
-        shutil.rmtree(final)
-    os.replace(staging, final)
+    _pod_barrier("ckpt_written")
+    if idx == 0:
+        _write_manifest(staging, extra=extra_manifest)
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(staging, final)
+    _pod_barrier("ckpt_committed")
     fault_point("checkpoint_committed", path=str(final))
     return final
 
@@ -324,18 +368,134 @@ def gc_checkpoints(output_folder, keep: int = 3) -> List[Path]:
     return removed
 
 
+_SHAPE, _SPEC = "shape:", "spec:"
+
+
+def _encode_spec(spec) -> str:
+    return _SPEC + ",".join(a or "-" for a in spec)
+
+
+def _decode_spec(text: str) -> Tuple:
+    body = text[len(_SPEC):]
+    return tuple(None if a == "-" else a for a in body.split(",")) if body else ()
+
+
+def _shape_of(text: str) -> Tuple[int, ...]:
+    body = text[len(_SHAPE):]
+    return tuple(int(n) for n in body.split(",")) if body else ()
+
+
+def _sharded_record(ens, name: str):
+    """``(description, {relative path: this rank's slice})`` of a sharded
+    ensemble: the description (rank 0 writes it) records the mesh, each
+    leaf's axis tuple and global shape, and every slice file; a rank writes
+    its slice only if no rank before it on the data axis (and, for a
+    dictionary left whole, on the dict axis) holds the same one."""
+    from sparse_coding__tpu_torch.parallel.mesh import AXES, DATA_AXIS, DICT_AXIS, MODEL_AXIS
+
+    sd = ens.local_state_dict()
+    local = sd.pop("local_slice")
+    state = sd.pop("state")
+    mesh, specs = ens.mesh, local["specs"]
+    cut_dict = ens._dict_parallel()
+
+    def global_shape(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape = [n * (mesh.shape[spec[d]] if d < len(spec) and spec[d] else 1) for d, n in enumerate(leaf.shape)]
+        return _SHAPE + ",".join(str(n) for n in shape)
+
+    files = {f"m{i}_k{j}": f"shards/{name}/m{i}_k{j}.pt" for i in range(mesh.shape[MODEL_AXIS])
+             for j in range(mesh.shape[DICT_AXIS] if cut_dict else 1)}
+    sd["sharded"] = {
+        "mesh": {a: int(mesh.shape[a]) for a in AXES},
+        "dict_cut": cut_dict,
+        "specs": tree_map(lambda leaf, spec: _encode_spec(spec) if isinstance(leaf, torch.Tensor) else leaf,
+                          state, specs),
+        "shapes": tree_map(global_shape, state, specs),
+        "files": files,
+    }
+    mine = {}
+    if mesh.coords[DATA_AXIS] == 0 and (cut_dict or mesh.coords[DICT_AXIS] == 0):
+        mine[files[f"m{mesh.coords[MODEL_AXIS]}_k{mesh.coords[DICT_AXIS] if cut_dict else 0}"]] = state
+    return sd, mine
+
+
 def save_ensemble_checkpoint(ckpt_dir, ensembles: List[Tuple[Any, Dict[str, Any], str]], chunk_cursor: int = 0,
                              extra: Optional[Dict[str, Any]] = None,
                              provenance: Optional[Dict[str, Any]] = None) -> Path:
     """The sweep's whole state: each ensemble's `state_dict` (params,
     buffers, optimizer state, step, the routing flags) and args, and the
-    cursor, committed atomically. ``provenance`` rides in the manifest."""
+    cursor, committed atomically. ``provenance`` rides in the manifest. An
+    ensemble sharded over several ranks is written as its ranks' slices
+    (every rank must call this)."""
+    records, shards = {}, {}
+    for ens, _args, name in ensembles:
+        mesh = getattr(ens, "mesh", None)
+        if mesh is not None and mesh.world_size > 1:
+            records[name], mine = _sharded_record(ens, name)
+            shards.update(mine)
+        else:
+            records[name] = ens.state_dict()
     tree = {
         "cursor": {"chunk": int(chunk_cursor), **(extra or {})},
-        "ensembles": {name: ens.state_dict() for ens, _args, name in ensembles},
+        "ensembles": records,
         "args": {name: args for _ens, args, name in ensembles},
     }
-    return save_checkpoint_tree(ckpt_dir, tree, extra_manifest={"provenance": provenance} if provenance else None)
+    return save_checkpoint_tree(ckpt_dir, tree, extra_manifest={"provenance": provenance} if provenance else None,
+                                shards=shards)
+
+
+def _assemble(ckpt_dir: Path, sharded: Dict[str, Any], n_models: int, mesh=None, shard_dict: bool = True):
+    """The state of a sharded record, assembled for ``mesh`` (this rank's
+    part of every leaf by `parallel.mesh.infer_state_specs`' rules) or whole
+    (``mesh=None``), from the slice files that overlap it (read by memory
+    map: a rank reads only the bytes it keeps)."""
+    from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS, DICT_AXIS, MODEL_AXIS, leaf_slices, spec_for_shape
+    from sparse_coding__tpu_torch.utils.tree import tree_paths, tree_unflatten
+
+    saved = sharded["mesh"]
+    shapes = [v for _, v in tree_paths(sharded["shapes"])]
+    specs = [v for _, v in tree_paths(sharded["specs"])]
+    sources = {}
+    for key, rel in sharded["files"].items():
+        mi, kj = (int(p[1:]) for p in key.split("_"))
+        sources[key] = ({MODEL_AXIS: mi, DATA_AXIS: 0, DICT_AXIS: kj}, ckpt_dir / rel)
+    loaded: Dict[str, List[Any]] = {}
+
+    def leaves_of(key):
+        if key not in loaded:
+            obj = torch.load(sources[key][1], map_location="cpu", weights_only=True, mmap=True)
+            loaded[key] = [v for _, v in tree_paths(_from_plain(obj, _state_classes()))]
+        return loaded[key]
+
+    out = []
+    for j, v in enumerate(shapes):
+        if not (isinstance(v, str) and v.startswith(_SHAPE)):
+            out.append(v)
+            continue
+        shape = _shape_of(v)
+        spec_saved = _decode_spec(specs[j])
+        if mesh is None:
+            want = tuple(slice(0, n) for n in shape)
+        else:
+            want = leaf_slices(spec_for_shape(shape, n_models, mesh.shape, shard_dict), shape, mesh.shape,
+                               mesh.coords)
+        piece = None
+        for key, (coords, _path) in sources.items():
+            have = leaf_slices(spec_saved, shape, saved, coords)
+            lo = [max(w.start, h.start) for w, h in zip(want, have)]
+            hi = [min(w.stop, h.stop) for w, h in zip(want, have)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            src = leaves_of(key)[j]
+            if piece is None:
+                piece = torch.empty(tuple(w.stop - w.start for w in want), dtype=src.dtype)
+            dst_ix = tuple(slice(a - w.start, b - w.start) for a, b, w in zip(lo, hi, want))
+            src_ix = tuple(slice(a - h.start, b - h.start) for a, b, h in zip(lo, hi, have))
+            piece[dst_ix] = src[src_ix]
+        out.append(piece)
+    return tree_unflatten(sharded["shapes"], out)
 
 
 def restore_ensemble_checkpoint(ckpt_dir, template: Optional[Dict[str, Any]] = None):
@@ -343,7 +503,11 @@ def restore_ensemble_checkpoint(ckpt_dir, template: Optional[Dict[str, Any]] = N
     state's dataclasses rebuilt), or None when ``ckpt_dir`` does not exist.
     Read with ``weights_only=True``. ``template`` (``{"ensembles": {name:
     state_dict}}`` of the live ensembles) supplies the optimizer kwargs that
-    could not be saved (a schedule)."""
+    could not be saved (a schedule) and, as ``"mesh"`` / ``"shard_dict"``,
+    the mesh each ensemble resumes on: a sharded record is then assembled
+    into this rank's slice for that mesh (the record marked
+    ``local_slice``, for `Ensemble.from_state(..., mesh=mesh)`), and into
+    the whole state without one."""
     ckpt_dir = Path(ckpt_dir).absolute()
     if not ckpt_dir.exists():
         return None
@@ -351,6 +515,20 @@ def restore_ensemble_checkpoint(ckpt_dir, template: Optional[Dict[str, Any]] = N
         tree = _from_plain(torch.load(f, map_location="cpu", weights_only=True), _state_classes())
     live = (template or {}).get("ensembles", {})
     for name, sd in tree.get("ensembles", {}).items():
+        sharded = sd.pop("sharded", None)
+        if sharded is not None:
+            mesh = live.get(name, {}).get("mesh")
+            shard_dict = bool(live.get(name, {}).get("shard_dict", True))
+            if mesh is not None and mesh.world_size > 1:
+                from sparse_coding__tpu_torch.parallel.mesh import infer_state_specs
+
+                whole_shapes = tree_map(lambda v: _ShapeOnly(_shape_of(v)) if isinstance(v, str) and
+                                        v.startswith(_SHAPE) else v, sharded["shapes"])
+                sd["state"] = _assemble(ckpt_dir, sharded, sd["n_models"], mesh, shard_dict)
+                sd["local_slice"] = {"mesh": dict(mesh.shape), "coords": dict(mesh.coords), "shard_dict": shard_dict,
+                                     "specs": infer_state_specs(whole_shapes, sd["n_models"], mesh, shard_dict)}
+            else:
+                sd["state"] = _assemble(ckpt_dir, sharded, sd["n_models"])
         kw = sd.get("optimizer_kwargs", {})
         missing = [k for k, v in kw.items() if v == _CALLABLE]
         if missing and name not in live:
@@ -359,6 +537,13 @@ def restore_ensemble_checkpoint(ckpt_dir, template: Optional[Dict[str, Any]] = N
         for k in missing:
             kw[k] = live[name]["optimizer_kwargs"][k]
     return tree
+
+
+class _ShapeOnly:
+    """A leaf that has only a shape (the specs of a state not in memory)."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        self.shape = shape
 
 
 def latest_checkpoint(output_folder, depth: Optional[str] = None) -> Optional[Path]:

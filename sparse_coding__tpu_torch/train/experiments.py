@@ -20,7 +20,10 @@ The run drivers (`run_sweep_synthetic`, `run_single_layer`, ...) take
 ``overrides`` set any config field, ``dtype`` included. The ablations'
 signatures (LISTA, thresholding, masked, positive) apply the precision
 policy where the JAX signatures do (the masked and thresholding SAEs) and
-compute in f32 otherwise. Not ported yet: a mesh (ROADMAP A6b: raises).
+compute in f32 otherwise. ``mesh`` (a `parallel.Mesh`) shards every
+ensemble a builder returns (`Ensemble.shard`): a grid lives in one stacked
+ensemble per dict size, and the mesh spreads it over the ranks, so the
+builders need not know about devices.
 """
 
 from __future__ import annotations
@@ -53,9 +56,8 @@ def _ensemble(sig, models, cfg, dict_size, name, extra_args=None, mesh=None):
     """``(Ensemble, args, name)``: Adam at ``cfg.lr``, compute in
     ``cfg.dtype`` (float32: exact), ``cfg.l1_warmup_steps`` for signatures
     with an ``l1_alpha`` buffer (for the others a requested warm-up warns
-    and is dropped: one sweep may mix model families)."""
-    if mesh is not None:
-        raise NotImplementedError("sharding an ensemble over a mesh is not ported yet — ROADMAP A6b")
+    and is dropped: one sweep may mix model families); sharded over ``mesh``
+    when one is given."""
     warmup = getattr(cfg, "l1_warmup_steps", 0)
     if warmup > 0 and "l1_alpha" not in models[0][1]:
         warnings.warn(f"l1_warmup_steps={warmup} ignored for {sig.__name__} (no l1_alpha buffer)")
@@ -63,6 +65,8 @@ def _ensemble(sig, models, cfg, dict_size, name, extra_args=None, mesh=None):
     dtype = getattr(cfg, "dtype", "float32")
     ens = Ensemble(models, sig, "adam", {"learning_rate": cfg.lr},
                    compute_dtype=None if dtype == "float32" else dtype, l1_warmup_steps=warmup)
+    if mesh is not None:
+        ens.shard(mesh)
     args = {"batch_size": cfg.batch_size, "dict_size": dict_size, **(extra_args or {})}
     return ens, args, name
 

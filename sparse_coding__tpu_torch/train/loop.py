@@ -45,16 +45,22 @@ class DriverCheckpointer:
     `train.checkpoint`), writes a ``preempt`` event and raises
     `preemption.Preempted` (exit 75); otherwise, with ``every=N``, it
     checkpoints every N-th boundary (a ``periodic`` save). Every save is
-    followed by retention GC (newest ``keep``). The pod cadence
-    (``sync_every``) waits for ROADMAP A6b. `close()` stops polling and, once
+    followed by retention GC (newest ``keep``). In a world of several ranks
+    the decision is the pod's (`preemption.pod_agree_preempt`: any rank
+    flagged preempts all), and ``sync_every`` bounds how often that exchange
+    runs for drivers whose boundaries are per step (`train_big_batch`): only
+    every N-th boundary, counted alike on every rank; in a world of one
+    every boundary reads the local flag. `close()` stops polling and, once
     no checkpointer polls, puts back the signal handlers that were
     replaced."""
 
-    def __init__(self, output_folder, telemetry=None, keep: int = 3, every: Optional[int] = None):
+    def __init__(self, output_folder, telemetry=None, keep: int = 3, every: Optional[int] = None,
+                 sync_every: int = 1):
         self.out = Path(output_folder)
         self.telemetry = telemetry
         self.keep = keep
         self.every = every
+        self._sync_every = max(1, int(sync_every))
         self._n_boundaries = 0
         self._closed = False
         self.handlers_active = preemption.install_signal_handlers()
@@ -85,7 +91,10 @@ class DriverCheckpointer:
         category = "preempt_drain" if reason == "preempt" else "checkpoint"
         with span(self.telemetry, category, name=f"save:{reason}", cursor=int(cursor_id)):
             save_fn(path)
-            ckpt_lib.gc_checkpoints(self.out, keep=self.keep)
+            from sparse_coding__tpu_torch.telemetry.multihost import process_info
+
+            if process_info()[0] == 0:  # in a pod, rank 0 alone sweeps (the save ended on a barrier)
+                ckpt_lib.gc_checkpoints(self.out, keep=self.keep)
         if self.telemetry is not None:
             self.telemetry.event("checkpoint", path=str(path), cursor=int(cursor_id), reason=reason)
             self.telemetry.counter_inc("checkpoints")
@@ -96,8 +105,15 @@ class DriverCheckpointer:
         otherwise saves on the ``every`` cadence. ``already_saved``: the
         driver just checkpointed this cursor on its own schedule, and the
         preemption path reuses it (and the cadence skips it)."""
+        from sparse_coding__tpu_torch.telemetry.multihost import process_info
+
         self._n_boundaries += 1
-        if preemption.pod_agree_preempt(self.telemetry):
+        _, count = process_info()
+        if count > 1 and self._n_boundaries % self._sync_every != 0:
+            preempt = False
+        else:
+            preempt = preemption.pod_agree_preempt(self.telemetry)
+        if preempt:
             path = (self.out / f"ckpt_{int(cursor_id)}" if already_saved
                     else self.save(cursor_id, save_fn, reason="preempt"))
             if self.telemetry is not None:
@@ -115,7 +131,7 @@ def warn_if_ensemble_dead(ensemble: Ensemble, batch: torch.Tensor, context: str 
     dictionaries). One host sync."""
     st = ensemble.state
     with torch.no_grad():
-        c = ensemble.sig.loss(st.params, st.buffers, batch)[1][1].get("c")
+        c = ensemble._loss(st.params, st.buffers, batch)[1][1].get("c")
         dead = c is not None and not bool((c != 0).any())
     if dead:
         warnings.warn(
@@ -137,17 +153,40 @@ def make_fista_decoder_update(num_iter: int = 500, tol: float = 0.0) -> Callable
     card, its plain loop on the CPU), the Hessian EMA, the basis update.
     ``tol > 0`` lets each member stop early. A member that the state's
     ``update_mask`` freezes keeps its decoder and Hessian diagonal
-    (`torch.where`, so its NaNs stay out). Cached by its arguments."""
+    (`torch.where`, so its NaNs stay out). Cached by its arguments.
+
+    On a mesh (``mesh``, the sharded ensemble's: ``batch`` and ``c`` are
+    this rank's rows, the state its slice) each rank solves its own rows
+    (K_f on the card), the update's two batch reductions are summed over
+    the data group, and a dictionary cut on the dict axis
+    (``dict_cut``) is gathered whole for the solve, each rank keeping its
+    rows of the result (``c`` is then the whole dictionary's code, as the
+    gathering loss gives it)."""
 
     def solve(batch, learned_dict, l1_alpha, c):
         return fista_solve(batch, learned_dict, l1_alpha, c, num_iter, tol=tol)
 
     @torch.no_grad()
-    def update(state: EnsembleState, batch: torch.Tensor, c: torch.Tensor) -> EnsembleState:
+    def update(state: EnsembleState, batch: torch.Tensor, c: torch.Tensor, mesh=None,
+               dict_cut: bool = False) -> EnsembleState:
         decoder, hessian = state.params["decoder"], state.buffers["hessian_diag"]
+        kw = {}
+        whole_decoder, whole_hessian = decoder, hessian
+        if mesh is not None:
+            from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS, DICT_AXIS
+
+            kw = dict(row_sum=lambda t: mesh.all_reduce(t, DATA_AXIS), n_rows=batch.shape[0] * mesh.shape[DATA_AXIS])
+            if dict_cut:
+                whole_decoder = mesh.all_gather(decoder, DICT_AXIS, dim=1)
+                whole_hessian = mesh.all_gather(hessian, DICT_AXIS, dim=1)
         new_dict, new_hessian, _ = dictionary_update(
-            _norm_rows(decoder), hessian, batch, c, state.buffers["l1_alpha"], num_iter, solver=solve
+            _norm_rows(whole_decoder), whole_hessian, batch, c, state.buffers["l1_alpha"], num_iter, solver=solve,
+            **kw,
         )
+        if mesh is not None and dict_cut:
+            n = decoder.shape[1]
+            rows = slice(mesh.coords[DICT_AXIS] * n, (mesh.coords[DICT_AXIS] + 1) * n)
+            new_dict, new_hessian = new_dict[:, rows].contiguous(), new_hessian[:, rows].contiguous()
         mask = state.buffers.get("update_mask")
         if mask is not None:
             keep = mask > 0
@@ -193,6 +232,11 @@ def ensemble_train_loop(
     `make_fista_decoder_update` (``fista_iters``, ``fista_tol``) on the same
     batch and the step's code.
 
+    A sharded ensemble (`Ensemble.shard`): every rank draws the same
+    permutation from the same generator and hands `Ensemble.step_scan` the
+    global batches, of which each rank steps its part; the zero-copy
+    `Ensemble.step_scan_idx` route is for unsharded ensembles only.
+
     ``logger`` gets each step's losses (left on the device) and is flushed,
     one host copy, every ``log_every`` steps and at the end (the whole-chunk
     path: once, at the end). ``telemetry`` gets the route as gauges
@@ -237,8 +281,15 @@ def ensemble_train_loop(
             if fista_fn is not None:
                 batch = dataset[idxs[0]]
                 loss_dict, aux = ensemble.step_batch(batch)
-                ensemble.state = fista_fn(ensemble.state, batch, aux["c"])
+                if ensemble.mesh is None:
+                    ensemble.state = fista_fn(ensemble.state, batch, aux["c"])
+                else:
+                    ensemble.state = fista_fn(ensemble.state, ensemble.local_batch(batch), aux["c"],
+                                              mesh=ensemble.mesh, dict_cut=ensemble._dict_parallel())
                 losses = {name: v[None] for name, v in loss_dict.items()}
+            elif ensemble.mesh is not None:
+                losses = ensemble.step_scan(dataset[idxs.reshape(-1)].reshape(k, batch_size, -1))
+                loss_dict = {name: v[-1] for name, v in losses.items()}
             else:
                 losses = ensemble.step_scan_idx(dataset, idxs)
                 loss_dict = {name: v[-1] for name, v in losses.items()}

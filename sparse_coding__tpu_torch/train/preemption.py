@@ -153,11 +153,29 @@ def reset() -> None:
 
 
 def pod_agree_preempt(telemetry=None) -> bool:
-    """The "checkpoint now?" decision at a boundary. The port runs on one
-    host, so it is the local flag; the pod-wide agreement of the JAX package
-    comes with scale-out (ROADMAP A6b)."""
-    del telemetry
-    return preemption_requested()
+    """The pod-wide "checkpoint now?" decision, at lockstep boundaries.
+
+    A world of one: the local flag (no I/O). Several ranks: one exchange of
+    the local flags through the process group's store
+    (`telemetry.multihost._kv_allgather`); ANY rank flagged → True on EVERY
+    rank, so the whole world checkpoints the same cursor and exits 75
+    together (a rank that learns it from a peer writes a ``preempt_peer``
+    event). When the exchange fails (the coordinator gone, often the
+    preemption itself) it falls back to the local flag: better one rank
+    checkpointing than none."""
+    from sparse_coding__tpu_torch.telemetry.multihost import _kv_allgather, process_info
+
+    local = preemption_requested()
+    _, count = process_info()
+    if count <= 1:
+        return local
+    raw = _kv_allgather("preempt", "1" if local else "0")
+    if raw is None:
+        return local
+    agreed = any(v == "1" for v in raw)
+    if agreed and not local and telemetry is not None:
+        telemetry.event("preempt_peer", flagged=[i for i, v in enumerate(raw) if v == "1"])
+    return agreed
 
 
 def resume_requested(explicit: Optional[bool]) -> bool:

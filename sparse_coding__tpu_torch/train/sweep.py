@@ -21,6 +21,16 @@ Recovery, as in the JAX package:
     ``SC_CHUNK_LOSS_BUDGET`` (past it: exit 75); a read that keeps failing
     with an `OSError` exits 75 too (`ResumableAbort`).
 
+Sharded ensembles (an init function that calls `Ensemble.shard`, e.g. a
+catalog builder given ``mesh=``): every rank runs `sweep` in lockstep over
+the same store; the desync check and the fingerprint with the mesh open the
+run, each chunk ends on a pod heartbeat, checkpoints hold each rank's slices
+(`train.checkpoint`), a resume keeps the init function's mesh (elastic: the
+checkpoint may come from another factorization or from one process), and
+the exports are written once, by rank 0, from the gathered state. In a
+world of several ranks rank 0 builds a missing dataset while the others
+wait.
+
 The run explains itself from ``events.jsonl`` (`telemetry.events`) and the
 metrics JSONL (`utils.logging`), whose every flush the anomaly guard reads
 (`telemetry.anomaly`; ``cfg.anomaly_policy``, default: NaN/Inf and
@@ -47,7 +57,8 @@ from sparse_coding__tpu_torch.data.synthetic import SparseMixDataset
 from sparse_coding__tpu_torch.ensemble import Ensemble
 from sparse_coding__tpu_torch.metrics import standard as sm
 from sparse_coding__tpu_torch.telemetry.anomaly import AnomalyGuard, AnomalyPolicy
-from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
+from sparse_coding__tpu_torch.telemetry.events import RunTelemetry, run_fingerprint
+from sparse_coding__tpu_torch.telemetry.multihost import check_desync, heartbeat, process_info
 from sparse_coding__tpu_torch.telemetry.profiling import refuse_trace_window
 from sparse_coding__tpu_torch.telemetry.provenance import export_digest, producer_identity
 from sparse_coding__tpu_torch.telemetry.spans import span
@@ -252,12 +263,25 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     try:
         run_ident = producer_identity(config=run_config, fingerprint=telemetry.run_start()["fingerprint"],
                                       run_dir=cfg.output_folder)
+        # pod runs: a cross-rank config/environment mismatch is a hard
+        # `desync` anomaly before any training (a no-op in a world of one)
+        check_desync(telemetry, config=run_config)
+        rank, world = process_info()
         with span(telemetry, "data_wait", name="dataset_init"):
+            if rank != 0:
+                ckpt_lib._pod_barrier("dataset_init")  # rank 0 builds a missing store first
             store = (init_synthetic_dataset(cfg, device) if getattr(cfg, "use_synthetic_dataset", False)
                      else init_model_dataset(cfg, device))
+            if rank == 0:
+                ckpt_lib._pod_barrier("dataset_init")
         print("Initialising ensembles...", end=" ")
         ensembles, ensemble_hyperparams, buffer_hyperparams, hyperparam_ranges = ensemble_init_func(cfg)
         print("Ensembles initialised.")
+        mesh = next((ens.mesh for ens, _a, _n in ensembles if ens.mesh is not None), None)
+        if mesh is not None:
+            # the fingerprint with the mesh (and the backend), checked across ranks
+            telemetry.event("mesh", fingerprint=run_fingerprint(mesh=mesh))
+            check_desync(telemetry, config=run_config, mesh=mesh)
         logger = MetricLogger(out_dir=cfg.output_folder, run_name=run_name, use_wandb=getattr(cfg, "use_wandb", False),
                               on_flush=guard.observe)
 
@@ -271,11 +295,15 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
         ckpt = DriverCheckpointer(cfg.output_folder, telemetry=telemetry, keep=getattr(cfg, "checkpoint_keep", 3))
         start_chunk = 0
         if resume_requested(resume):
-            template = {"ensembles": {name: {"optimizer_kwargs": ens.optimizer_kwargs} for ens, _a, name in ensembles}}
+            # each ensemble resumes on the init function's mesh (elastic: the
+            # checkpoint may have been written under another one)
+            template = {"ensembles": {name: {"optimizer_kwargs": ens.optimizer_kwargs, "mesh": ens.mesh,
+                                             "shard_dict": ens._shard_dict} for ens, _a, name in ensembles}}
             tree = ckpt.restore(template)
             if tree is not None:
                 start_chunk = int(tree["cursor"]["chunk"]) + 1
-                ensembles = [(Ensemble.from_state(tree["ensembles"][name], sig=ens.sig, device=ens.device), args, name)
+                ensembles = [(Ensemble.from_state(tree["ensembles"][name], sig=ens.sig, device=ens.device,
+                                                  mesh=ens.mesh, shard_dict=ens._shard_dict), args, name)
                              for ens, args, name in ensembles]
                 print(f"Resumed {cfg.output_folder} at chunk {start_chunk}")
 
@@ -333,7 +361,8 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
                 if means is None:
                     print("Centring activations")
                     means = chunk.mean(dim=0)
-                    np.save(means_path, means.cpu().numpy())
+                    if rank == 0:
+                        np.save(means_path, means.cpu().numpy())
                 chunk = chunk - means[None, :]
 
             with span(telemetry, "step", name="chunk_train", chunk=i):
@@ -347,22 +376,26 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
             want_metrics = getattr(cfg, "wandb_images", False) and i % 10 == 0
             want_save = i == len(chunk_order) - 1 or (i + 1) in SAVE_CHUNKS
             if want_metrics or want_save:
-                learned_dicts = _export(ensembles)
-            if want_metrics:
+                learned_dicts = _export(ensembles)  # gathered whole on every rank
+            if want_metrics and rank == 0:
                 log_sweep_metrics(learned_dicts, chunk, i, hyperparam_ranges, logger, cfg.output_folder, images=True)
             if want_save:
                 iter_folder = Path(cfg.output_folder) / f"_{i}"
-                iter_folder.mkdir(parents=True, exist_ok=True)
-                with span(telemetry, "checkpoint", name="export", chunk=i):
-                    export_path = iter_folder / "learned_dicts.pkl"
-                    ckpt_lib.save_learned_dicts(export_path, learned_dicts, provenance=run_ident)
-                    telemetry.event("provenance", artifact="export", path=str(export_path),
-                                    digest=export_digest(export_path), config_sha=run_ident.get("config_sha"),
-                                    inputs=[{"kind": "store", "path": str(cfg.dataset_folder)}])
-                if hasattr(cfg, "save_yaml"):
-                    cfg.save_yaml(iter_folder / "config.yaml")
+                if rank == 0:  # one export, from the gathered state
+                    iter_folder.mkdir(parents=True, exist_ok=True)
+                    with span(telemetry, "checkpoint", name="export", chunk=i):
+                        export_path = iter_folder / "learned_dicts.pkl"
+                        ckpt_lib.save_learned_dicts(export_path, learned_dicts, provenance=run_ident)
+                        telemetry.event("provenance", artifact="export", path=str(export_path),
+                                        digest=export_digest(export_path), config_sha=run_ident.get("config_sha"),
+                                        inputs=[{"kind": "store", "path": str(cfg.dataset_folder)}])
+                    if hasattr(cfg, "save_yaml"):
+                        cfg.save_yaml(iter_folder / "config.yaml")
                 ckpt.save(i, _save_ckpt, reason="schedule")
-            telemetry.chunk_end(i, saved=bool(want_save))
+            end_rec = telemetry.chunk_end(i, saved=bool(want_save))
+            # pod heartbeat + straggler-skew gauges (a no-op in a world of one)
+            heartbeat(telemetry, step=int(telemetry.counters.get("train.steps", 0)),
+                      window_seconds=end_rec.get("seconds"))
             ckpt.boundary(i, _save_ckpt, already_saved=want_save)
 
         if not learned_dicts:  # resumed past the last chunk: export the restored state

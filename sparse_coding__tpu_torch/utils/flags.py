@@ -78,6 +78,18 @@ FLAGS: Dict[str, Flag] = {
              "Attempts of the shared retry engine (clamped to >= 1 at the call site)."),
         Flag("SC_SYNC_BACKOFF", "float", "1.0", "utils.sync",
              "Base seconds of its exponential backoff (clamped to >= 0 at the call site)."),
+        Flag("SC_MH_TIMEOUT_MS", "int", "60000", "telemetry.multihost",
+             "Pod telemetry KV-store exchange timeout in milliseconds (the checkpoint and dataset "
+             "barriers wait the process group's own timeout)."),
+        Flag("SC_CLOCK_RESYNC_EVERY", "int", None, "telemetry.multihost",
+             "Override the heartbeat count between cross-host clock-offset "
+             "resyncs (unset = the caller's configured cadence)."),
+        Flag("SC_TEST_CHUNK_SLEEP", "float", "0", "tests._torch_mp_worker",
+             "Test-only: seconds this host sleeps inside each chunk, to "
+             "fake a straggler in multi-process tests."),
+        Flag("SC_TEST_DESYNC", "truthy", "", "tests._torch_mp_worker",
+             "Test-only: poison this host's run config with its process "
+             "id to exercise pod desync detection."),
     )
 }
 
@@ -91,6 +103,10 @@ SC_FAULT = FLAGS["SC_FAULT"]
 SC_TRACE_WINDOW = FLAGS["SC_TRACE_WINDOW"]
 SC_SYNC_RETRIES = FLAGS["SC_SYNC_RETRIES"]
 SC_SYNC_BACKOFF = FLAGS["SC_SYNC_BACKOFF"]
+SC_MH_TIMEOUT_MS = FLAGS["SC_MH_TIMEOUT_MS"]
+SC_CLOCK_RESYNC_EVERY = FLAGS["SC_CLOCK_RESYNC_EVERY"]
+SC_TEST_CHUNK_SLEEP = FLAGS["SC_TEST_CHUNK_SLEEP"]
+SC_TEST_DESYNC = FLAGS["SC_TEST_DESYNC"]
 
 
 def recompute_code() -> bool:

@@ -79,7 +79,13 @@ class MetricLogger:
         if self._wandb is None and out_dir is not None:
             path = Path(out_dir)
             path.mkdir(parents=True, exist_ok=True)
-            self._jsonl = open(path / f"{run_name}_metrics.jsonl", "a")
+            # a world of several ranks writes one file per rank on the shared
+            # run dir (interleaved appends would tear lines)
+            from sparse_coding__tpu_torch.telemetry.multihost import process_info
+
+            idx, count = process_info()
+            stem = f"{run_name}_p{idx}" if count > 1 else run_name
+            self._jsonl = open(path / f"{stem}_metrics.jsonl", "a")
 
     def log_image(self, step: int, name: str, fig) -> Optional[Path]:
         """Log a matplotlib figure: a wandb image when wandb is live, else a

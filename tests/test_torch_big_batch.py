@@ -348,8 +348,13 @@ def test_sigterm_at_a_resurrection_boundary_resumes_to_the_same_bits(data, tmp_p
 
 
 def test_what_waits_raises_and_a_card_is_required(data):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 1, 0, mesh=object(), device="cpu")
+    # a mesh is taken now: a world of one's gives the unsharded run's bits
+    from sparse_coding__tpu_torch.parallel import make_mesh
+
+    plain, _ = tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 3, 0, device="cpu")
+    meshed, _ = tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 3, 0, mesh=make_mesh(), device="cpu")
+    for k in plain.params:
+        assert torch.equal(plain.params[k], meshed.params[k]), k
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 1, 0, trace_trigger=object(), device="cpu")
     if not torch.cuda.is_available():

@@ -102,9 +102,15 @@ def test_builders_compute_in_the_configs_dtype(dtype, want):
 
 @pytest.mark.parametrize("call", ["mesh"])
 def test_what_is_not_ported_raises_naming_its_roadmap_item(call, tmp_path):
+    """The catalog's last refusal (``mesh=``) is lifted: a builder given a
+    mesh returns its ensembles sharded on it (a world of one's here; the
+    sharded sweep itself is `tests/test_torch_elastic_resume.py`'s)."""
+    from sparse_coding__tpu_torch.parallel import make_mesh
+
     cfg = EnsembleArgs(activation_width=16, batch_size=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        texp.zero_l1_baseline(cfg, mesh=object(), device="cpu")
+    mesh = make_mesh()
+    ensembles = texp.zero_l1_baseline(cfg, mesh=mesh, device="cpu")[0]
+    assert [ens.mesh for ens, _, _ in ensembles] == [mesh] * len(ensembles)
 
 
 def test_run_single_layer_trains_an_existing_store_at_a_given_width(tmp_path):

@@ -59,6 +59,9 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.models.sae",
     "sparse_coding__tpu_torch.models.semilinear",
     "sparse_coding__tpu_torch.models.topk",
+    "sparse_coding__tpu_torch.parallel",
+    "sparse_coding__tpu_torch.parallel.distributed",
+    "sparse_coding__tpu_torch.parallel.mesh",
     "sparse_coding__tpu_torch.ops._build",
     "sparse_coding__tpu_torch.ops._wrap",
     "sparse_coding__tpu_torch.ops.fista_kernel",
@@ -81,6 +84,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.telemetry.feature_stats",
     "sparse_coding__tpu_torch.telemetry.health",
     "sparse_coding__tpu_torch.telemetry.metrics_http",
+    "sparse_coding__tpu_torch.telemetry.multihost",
     "sparse_coding__tpu_torch.telemetry.profiling",
     "sparse_coding__tpu_torch.telemetry.provenance",
     "sparse_coding__tpu_torch.telemetry.spans",
@@ -129,7 +133,8 @@ def test_sources_never_name_jax_or_the_jax_package():
     """Catches lazy imports the subprocess check cannot see."""
     pattern = re.compile(r"^\s*(import jax|from jax)|sparse_coding__tpu\.", re.M)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_moments.py",
-                                          REPO / "tests" / "_torch_harvest_worker.py"]
+                                          REPO / "tests" / "_torch_harvest_worker.py",
+                                          REPO / "tests" / "_torch_mp_worker.py"]
     assert len(files) > 10
     offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []
