@@ -121,7 +121,16 @@ unsharded bits); a world of two processes on the one card over gloo
 (``chip_smoke.py --scaleout-worker``: the model, data and dict axes held
 to the world of one, FISTA's sharded step, the sweep uninterrupted and with
 one rank SIGTERMed: both checkpoint one cursor and exit 75); the preempted
-sweep resumed here as a world of one.
+sweep resumed here as a world of one. Before it, still on the pretrained
+subject, the sequence-parallel harvest (ROADMAP A6b's second part; no
+Pallas call in JAX, 0 launches): ring and Ulysses attention and layer 2's
+capture at seq 8192 against dense in a world of one over NCCL
+(`seqpar_world1`), then in a world of two processes on the one card over
+gloo (``chip_smoke.py --seqpar-worker``, `seqpar_world2`), which also
+harvests 2 sequences of 8192 tokens with each strategy, rank 0 the only
+writer, held to the single-card harvest row for row. Last, host only, the
+run tools (`runtools`: the goodput ledger, report, timeline trace, SLO,
+monitor and skew windows) over the run dirs the smoke kept.
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -276,6 +285,19 @@ TOY = dict(epochs=400, single=dict(activation_dim=256, n_ground_truth_components
 # 8192 (blockwise vs dense, JAX's pins), then 2 sequences of 32768 harvested
 BLOCKWISE = dict(seq=8192, long_seq=32768, long_chunks=2, tokens_seed=41, attn_seed=43, attn_atol=2e-5,
                  capture_atol=2e-3)
+# the sequence-parallel harvest (ROADMAP A6b's second part) on the pretrained
+# subject: layer 2's residual at seq 8192 (the blockwise pins' length), ring
+# and Ulysses against dense (JAX's pins), in a world of one over NCCL and a
+# world of two processes on the one card over gloo; the world of two also
+# harvests 2 sequences of 8192 tokens with each strategy (one a chunk)
+SEQPAR = dict(seq=8192, harvest_seqs=2, tokens_seed=73, attn_seed=79, attn_atol=2e-5, capture_atol=2e-3, world=2,
+              timeout=600)
+# the run tools (ROADMAP A9's first group) over the run dirs the smoke wrote;
+# the SLO objectives evaluated over the serving process' events
+RUNTOOLS_SLO = {"windows": {"fast_burn_seconds": 10.0, "slow_burn_seconds": 60.0},
+                "objectives": [{"name": "availability", "type": "availability", "target": 0.99},
+                               {"name": "p99_latency", "type": "latency", "percentile": 0.99, "threshold_ms": 1000.0},
+                               {"name": "queue_depth", "type": "queue_depth", "max_depth": 4096}]}
 # the big-batch trainer (ROADMAP A6a) at RESURRECT_r04.json's hyperparameters
 # and Pythia-70M's width: ratio 32, l1 1e-3, batch 4096, lr 3e-4, f32; cut:
 # reinit_every 400 -> 100 and 450 steps (four resurrections, the last
@@ -323,6 +345,22 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPO = Path(__file__).resolve().parent
+
+
+# the run dirs the smoke keeps for the run tools' phase: name -> a copy of the
+# run's *.jsonl files (the runs' own folders are temporary)
+KEPT_RUNS: dict = {}
+
+
+def keep_run(name: str, src: Path, root: Path) -> None:
+    """Copy every ``*.jsonl`` under ``src`` into ``root/name`` (the relative
+    paths kept) and remember it for `phase_runtools`."""
+    dst = root / name
+    for f in Path(src).rglob("*.jsonl"):
+        (dst / f.relative_to(src)).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(f, dst / f.relative_to(src))
+    check(any(dst.rglob("*.jsonl")), f"no event logs under {src} to keep")
+    KEPT_RUNS[name] = dst
 
 
 def emit(phase: str, **fields) -> None:
@@ -4945,6 +4983,343 @@ def phase_scaleout(torch, root: Path):
     return rows
 
 
+def seqpar_peak(torch, fn, mesh=None):
+    """``(fn(), seconds, peak allocated bytes above the start, mesh.stats'
+    growth)`` of one call between two device synchronisations, after one
+    warm-up call (the first call of a shape pays the library's setup)."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    stats = dict(mesh.stats) if mesh is not None else {}
+    out, seconds = timed(torch, fn)
+    grown = {k: v - stats.get(k, 0) for k, v in mesh.stats.items()} if mesh is not None else {}
+    return out, seconds, torch.cuda.max_memory_allocated() - before, grown
+
+
+def phase_seqpar_world1(torch, root: Path, cfg, params, lang):
+    """The sequence-parallel path in a world of one over NCCL, in this
+    process (the degenerate ring and Ulysses, p = 1: no collective runs). At
+    seq 8192: ring and Ulysses attention on random [1, 8192, 8, 64] f32
+    q/k/v against dense attention (atol 2e-5), then layer 2's residual
+    through `make_sequence_parallel_fn(attn="ring" | "ulysses")` against
+    the dense forward's (atol 2e-3), each timed with its peak allocated
+    bytes. Saves q/k/v and the tokens for the world of two; returns the
+    dense references. Counts set to 0 around the phase: no hand-written
+    kernel (JAX computes these in plain XLA)."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.lm import make_tensor_name, run_with_cache
+    from sparse_coding__tpu_torch.lm.model import dense_attention
+    from sparse_coding__tpu_torch.lm.ring_attention import ATTN_IMPLS, make_sequence_parallel_fn
+    from sparse_coding__tpu_torch.parallel import initialize_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    S, layer = SEQPAR["seq"], HARVEST["layer"]
+    name = make_tensor_name(layer, "residual")
+    read_launches = zero_launches(torch)
+    check(initialize_distributed(f"file://{root / 'store_seqpar1'}", 1, 0), "world of one did not start")
+    backend = str(torch.distributed.get_backend())
+    check(backend == "nccl", f"world of one on {backend}")
+    mesh = make_mesh(1, 1, 1)
+    g = torch.Generator(device="cuda").manual_seed(SEQPAR["attn_seed"])
+    q, k, v = (torch.randn((1, S, cfg.n_heads, cfg.d_head), generator=g, device="cuda") for _ in range(3))
+    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu()}, root / "seqpar_qkv.pt")
+    dense_attn, dense_attn_s, dense_attn_peak, _ = seqpar_peak(torch, lambda: dense_attention(q, k, v))
+    res = {"dense": dict(attention_s=dense_attn_s, attention_peak_allocated_bytes=dense_attn_peak)}
+    for impl in ("ring", "ulysses"):
+        attn = ATTN_IMPLS[impl]("data", mesh=mesh)
+        out, secs, peak, _ = seqpar_peak(torch, lambda: attn(q, k, v))
+        err = float((out - dense_attn).abs().max())
+        check(err <= SEQPAR["attn_atol"], f"{impl} attention (world of one) at seq {S}: max |Δ| {err} vs dense")
+        res[impl] = dict(attention_max_abs_err=err, attention_s=secs, attention_peak_allocated_bytes=peak)
+        del out
+    del q, k, v
+    tokens = lang.sample(SEQPAR["harvest_seqs"], S, seed=SEQPAR["tokens_seed"])
+    np.save(root / "seqpar_tokens.npy", tokens)
+    short = torch.from_numpy(tokens[:1]).cuda()
+    with torch.no_grad():
+        dense_cap, dense_s, dense_peak, _ = seqpar_peak(
+            torch, lambda: run_with_cache(params, short, cfg, [name], stop_at_layer=layer + 1)[1][name])
+    res["dense"].update(capture_s=dense_s, capture_tokens_per_s=S / dense_s, capture_peak_allocated_bytes=dense_peak)
+    for impl in ("ring", "ulysses"):
+        fn = make_sequence_parallel_fn(cfg, mesh, cache_names=[name], stop_at_layer=layer + 1, attn=impl)
+        with torch.no_grad():
+            out, secs, peak, _ = seqpar_peak(torch, lambda: fn(params, short)[1][name])
+        err = float((out - dense_cap).abs().max())
+        check(out.shape == dense_cap.shape and err <= SEQPAR["capture_atol"],
+              f"{impl} capture (world of one) at seq {S}: {tuple(out.shape)}, max |Δ| {err} vs dense")
+        res[impl].update(capture_max_abs_err=err, capture_s=secs, capture_tokens_per_s=S / secs,
+                         capture_peak_allocated_bytes=peak)
+        del out
+    launches = read_launches()
+    check(not launches, f"the sequence-parallel path launched hand-written kernels {launches}")
+    check(mesh.stats["calls"] == 0, f"a world of one ran collectives {mesh.stats}")
+    torch.distributed.destroy_process_group()
+    emit("seqpar_world1", backend=backend, seq=S, layer=layer, loc="residual", heads=cfg.n_heads, d_head=cfg.d_head,
+         attention_atol=SEQPAR["attn_atol"], capture_atol=SEQPAR["capture_atol"], launches=launches,
+         seconds=time.perf_counter() - t_phase, **res)
+    return {"attn": dense_attn.cpu(), "capture": dense_cap.cpu(), "tokens": tokens}
+
+
+def seqpar_worker(argv) -> int:
+    """``chip_smoke.py --seqpar-worker <rank> <world> <root>``: one rank of
+    the sequence-parallel world of two on the one card (gloo through a file
+    store in ``root``, the collectives staged through host memory). On this
+    rank's half of the sequence: ring and Ulysses attention on the saved
+    q/k/v, layer 2's residual of the first saved sequence by each strategy,
+    then `make_activation_dataset(mesh=, seq_attn=)` of both saved
+    sequences into ``root/seqpar_<strategy>`` (one sequence a chunk), the
+    writes it made counted. Each rank's wall, tokens/s, `Mesh.stats` and
+    peak allocated bytes, and the output shards, go to
+    ``root/seqpar_r<rank>.pt``; its chunk windows to its own event log
+    under ``root/seqpar_run``."""
+    import numpy as np
+    import torch
+
+    from sparse_coding__tpu_torch.data import activations as tact
+    from sparse_coding__tpu_torch.lm import config_for, make_tensor_name
+    from sparse_coding__tpu_torch.lm.ring_attention import ATTN_IMPLS, make_sequence_parallel_fn
+    from sparse_coding__tpu_torch.parallel import initialize_distributed, make_mesh
+    from sparse_coding__tpu_torch.telemetry import RunTelemetry
+
+    rank, world, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    t_init = time.perf_counter()
+    check(initialize_distributed(f"file://{root / 'store_seqpar2'}", world, rank), "world of two did not start")
+    check(torch.distributed.get_backend() == "gloo" and torch.cuda.current_device() == 0, "backend / device")
+    mesh = make_mesh(1, world, 1)
+    res = {"init_s": time.perf_counter() - t_init}
+    cfg = config_for(SUBJECT["model"])
+    params = torch.load(root / "subject.pt", map_location="cuda")
+    S, layer = SEQPAR["seq"], HARVEST["layer"]
+    name = make_tensor_name(layer, "residual")
+    n, i = S // world, mesh.coords["data"]
+    qkv = {key: t.cuda()[:, i * n:(i + 1) * n] for key, t in torch.load(root / "seqpar_qkv.pt").items()}
+
+    def stats_since(before):
+        return {k: mesh.stats[k] - before.get(k, 0) for k in mesh.stats}
+
+    for impl in ("ring", "ulysses"):
+        attn = ATTN_IMPLS[impl]("data", mesh=mesh)
+        out, secs, peak, grown = seqpar_peak(torch, lambda: attn(qkv["q"], qkv["k"], qkv["v"]), mesh)
+        res[f"attn_{impl}"] = dict(out=out.cpu(), seconds=secs, peak_allocated_bytes=peak, stats=grown)
+        del out
+    del qkv
+    tokens = np.load(root / "seqpar_tokens.npy")
+    short = torch.from_numpy(tokens[:1]).cuda()
+    for impl in ("ring", "ulysses"):
+        fn = make_sequence_parallel_fn(cfg, mesh, cache_names=[name], stop_at_layer=layer + 1, attn=impl)
+        with torch.no_grad():
+            out, secs, peak, grown = seqpar_peak(torch, lambda: fn(params, short)[1][name], mesh)
+        res[f"capture_{impl}"] = dict(out=out.cpu(), seconds=secs, tokens_per_s=S / secs, peak_allocated_bytes=peak,
+                                      stats=grown)
+        del out
+    writes = []
+    real_save = tact.save_chunk
+
+    def counted_save(folder, idx, *a, **kw):
+        writes.append((Path(folder).name, int(idx)))
+        return real_save(folder, idx, *a, **kw)
+
+    tact.save_chunk = counted_save
+    tel = RunTelemetry(out_dir=str(root / "seqpar_run"), run_name="seqpar_world2",
+                       config={"seq": S, "world": world, "layer": layer})
+    tel.run_start(mesh=mesh)
+    chunk_gb = S * cfg.d_model * 2 / 1024**3  # one sequence a chunk
+    try:
+        for c, impl in enumerate(("ring", "ulysses")):
+            before = dict(mesh.stats)
+            torch.cuda.reset_peak_memory_stats()
+            tel.chunk_start(c, epoch=0, position=c)
+            _, secs = timed(torch, lambda: tact.make_activation_dataset(
+                params, cfg, tokens, root / f"seqpar_{impl}", [layer], ["residual"], batch_size=1,
+                chunk_size_gb=chunk_gb, mesh=mesh, seq_attn=impl, device="cuda"))
+            tel.chunk_end(c, epoch=0, position=c)
+            res[f"harvest_{impl}"] = dict(seconds=secs, tokens_per_s=tokens.size / secs,
+                                          peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                                          stats=stats_since(before))
+    finally:
+        tact.save_chunk = real_save
+    tel.run_end(status="ok")
+    tel.close()
+    res.update(writes=writes, stats=dict(mesh.stats), peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    torch.save(res, root / f"seqpar_r{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_seqpar_world2(torch, root: Path, cfg, params, ref):
+    """The sequence-parallel path in a world of two processes on the one
+    card over gloo (``chip_smoke.py --seqpar-worker``; the subject's params
+    from ``root/subject.pt``), 4096 tokens a rank: the gathered ring and
+    Ulysses attention against this process' dense attention (atol 2e-5),
+    the gathered captures against its dense capture (atol 2e-3), and each
+    strategy's sharded store (2 sequences of 8192 tokens, one a chunk)
+    against the single-card dense harvest of the same tokens, row for row
+    in the single-card order (atol 2e-3), rank 0 its only writer. The times
+    are gloo through host memory with both ranks on one card: not a
+    multi-GPU figure. Also reckons, from the ranks' measured peaks, the
+    longest sequence two ranks of each strategy could hold on this card."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.data.activations import make_activation_dataset
+    from sparse_coding__tpu_torch.lm import model as lm_model
+
+    t_phase = time.perf_counter()
+    S, layer, world = SEQPAR["seq"], HARVEST["layer"], SEQPAR["world"]
+    read_launches = zero_launches(torch)
+    tokens = ref["tokens"]
+    chunk_gb = S * cfg.d_model * 2 / 1024**3
+    plain_dir, plain_s = timed(torch, lambda: make_activation_dataset(
+        params, cfg, tokens, root / "seqpar_dense", [layer], ["residual"], batch_size=1, chunk_size_gb=chunk_gb,
+        device="cuda"))
+    plain = plain_dir[(layer, "residual")]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--seqpar-worker", str(r), str(world),
+                               str(root)], env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, start_new_session=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=SEQPAR["timeout"])[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    world_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * world, f"sequence-parallel world of two exited {codes}: {[e[-3000:] for e in errs]}")
+    res = [torch.load(root / f"seqpar_r{r}.pt") for r in range(world)]
+    out = {}
+    for impl in ("ring", "ulysses"):
+        attn = torch.cat([r[f"attn_{impl}"].pop("out") for r in res], dim=1)
+        a_err = float((attn - ref["attn"]).abs().max())
+        check(a_err <= SEQPAR["attn_atol"], f"{impl} attention (world of two) at seq {S}: max |Δ| {a_err} vs dense")
+        cap = torch.cat([r[f"capture_{impl}"].pop("out") for r in res], dim=1)
+        c_err = float((cap - ref["capture"]).abs().max())
+        check(cap.shape == ref["capture"].shape and c_err <= SEQPAR["capture_atol"],
+              f"{impl} capture (world of two) at seq {S}: max |Δ| {c_err} vs dense")
+        folder = root / f"seqpar_{impl}_l{layer}_residual"
+        h_err, h_max = 0.0, 0.0
+        for c in range(SEQPAR["harvest_seqs"]):
+            got, want = np.load(folder / f"{c}.npy"), np.load(plain / f"{c}.npy")
+            check(got.shape == want.shape == (S, cfg.d_model) and got.dtype == np.float16,
+                  f"{impl} store chunk {c}: {got.shape} {got.dtype}")
+            h_err = max(h_err, float(np.abs(got.astype(np.float32) - want.astype(np.float32)).max()))
+            h_max = max(h_max, float(np.abs(want.astype(np.float32)).max()))
+        check(h_err <= SEQPAR["capture_atol"], f"{impl} sharded store vs the single-card harvest: max |Δ| {h_err}")
+        # the store's fp16 step at its largest value: the captures' f32
+        # differences (~1e-6) flip some roundings by one step
+        out[impl] = dict(attention_max_abs_err=a_err, capture_max_abs_err=c_err, store_max_abs_err=h_err,
+                         store_max_abs_value=h_max)
+    check(sorted(res[0]["writes"]) == sorted((f"seqpar_{impl}_l{layer}_residual", c) for impl in ("ring", "ulysses")
+                                             for c in range(SEQPAR["harvest_seqs"])),
+          f"rank 0 wrote {res[0]['writes']}")
+    check(all(not r["writes"] for r in res[1:]), f"ranks past 0 wrote {[r['writes'] for r in res[1:]]}")
+    launches = read_launches()
+    check(not launches, f"the sequence-parallel path launched hand-written kernels {launches}")
+    # the longest seq two ranks hold: the peak above the params grows with
+    # (S/p)² (ring's score tile, Ulysses' H/p dense scores); two ranks share
+    # the card's memory, less this process' own
+    total = torch.cuda.get_device_properties(0).total_memory
+    params_bytes = sum(t.numel() * t.element_size() for t in lm_model.tree_leaves(params).values())
+    free_for_two = total - torch.cuda.memory_reserved()
+    reckoned = {}
+    for impl in ("ring", "ulysses"):
+        peak = max(r[f"capture_{impl}"]["peak_allocated_bytes"] for r in res)
+        scale = max(1.0, (free_for_two / world - params_bytes) / max(1, peak))
+        longest = int(S * math.sqrt(scale)) // 1024 * 1024
+        heads, rows = (cfg.n_heads, longest // world) if impl == "ring" else (cfg.n_heads // world, longest)
+        reckoned[impl] = dict(peak_allocated_bytes_at_seq=peak, longest_seq=longest,
+                              score_tile_bytes_at_longest=heads * rows * (longest // world if impl == "ring"
+                                                                          else longest) * 4)
+    ranks = {f"rank{r}": {k: v for k, v in res[r].items() if k != "writes"} for r in range(world)}
+    emit("seqpar_world2", seq=S, world=world, tokens_per_rank=S // world, layer=layer, loc="residual",
+         transport="gloo through host memory, two ranks on one card (not a multi-GPU figure)", seconds=world_s,
+         plain_harvest_s=plain_s, plain_harvest_tokens_per_s=tokens.size / plain_s, launches=launches,
+         reckoned=reckoned, card_total_bytes=total, phase_seconds=time.perf_counter() - t_phase, **out, **ranks)
+
+
+def phase_runtools(torch, runs: dict):
+    """The run tools (ROADMAP A9's first group) over the run dirs the smoke
+    wrote (`KEPT_RUNS`: the sweep's, basic_l1_sweep's, the serving process'
+    and the replicated tier's, the scale-out and sequence-parallel worlds
+    of two's per-process logs). Host only. `build_ledger` over the sweep's
+    run dir, its ``step`` spans summing to what `phase_sweep_train` reads;
+    every run's `render_markdown`, ledger and `render_ledger`; the
+    `timeline` CLI writing a Chrome trace that is read back; the SLO over
+    the serving process' events; one `monitor` render at a fixed ``now``;
+    `chunk_skew_windows` over both worlds of two. Prints sizes and
+    seconds."""
+    import contextlib
+    import io
+
+    from sparse_coding__tpu_torch import timeline
+    from sparse_coding__tpu_torch.telemetry import read_events
+    from sparse_coding__tpu_torch.telemetry.goodput import build_ledger, render_ledger, to_chrome_trace
+    from sparse_coding__tpu_torch.telemetry.monitor import RunMonitor, render
+    from sparse_coding__tpu_torch.telemetry.multihost import chunk_skew_windows
+    from sparse_coding__tpu_torch.telemetry.report import load_run, render_markdown
+    from sparse_coding__tpu_torch.telemetry.slo import evaluate_run_dir, render_slo
+
+    t_phase = time.perf_counter()
+    want = {"sweep", "basic_l1_sweep", "serve_drain", "serve_tier", "scaleout_world2", "seqpar_world2"}
+    check(want <= set(runs), f"kept run dirs {sorted(runs)}")
+    per_run = {}
+    for name, d in sorted(runs.items()):
+        t0 = time.perf_counter()
+        md = render_markdown(load_run(d))
+        t1 = time.perf_counter()
+        ledger = build_ledger(d)
+        text = render_ledger(ledger)
+        trace = to_chrome_trace(ledger)
+        t2 = time.perf_counter()
+        check(md.startswith("# Run report") and ledger["wall_seconds"] > 0 and trace["traceEvents"],
+              f"{name}: report / ledger / trace empty")
+        per_run[name] = dict(report_chars=len(md), report_s=t1 - t0, ledger_wall_seconds=ledger["wall_seconds"],
+                             goodput_frac=ledger["goodput_frac"], ledger_chars=len(text),
+                             trace_events=len(trace["traceEvents"]), ledger_s=t2 - t1,
+                             n_processes=ledger["n_processes"])
+    sweep_events = read_events(runs["sweep"] / "events.jsonl")
+    step_read = span_seconds(sweep_events, "step")
+    ledger = build_ledger(runs["sweep"])
+    step_ledger = sum(s["seconds"] for s in ledger["spans"] if s["category"] == "step" and not s.get("derived"))
+    check(abs(step_ledger - step_read) <= 1e-3 * max(1.0, step_read),
+          f"the ledger's step spans {step_ledger} s vs the sweep's {step_read} s")
+    trace_path = runs["sweep"] / "timeline_trace.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = timeline.main([str(runs["sweep"]), "--trace", str(trace_path)])
+    timeline_s = time.perf_counter() - t0
+    reread = json.loads(trace_path.read_text())
+    check(rc == 0 and reread["traceEvents"], f"timeline exited {rc}")
+    t0 = time.perf_counter()
+    slo = evaluate_run_dir(runs["serve_drain"], RUNTOOLS_SLO)
+    slo_text = render_slo(slo)
+    slo_s = time.perf_counter() - t0
+    check(slo["n_evaluated"] >= 1, f"the SLO evaluated nothing: {slo_text}")
+    mon = RunMonitor(runs["seqpar_world2"])
+    mon.poll()
+    last_ts = max(e.get("ts", 0) for f in runs["seqpar_world2"].rglob("*.jsonl") for e in read_events(f))
+    mon_text = render(mon, now=last_ts + 5.0)
+    skew = {}
+    for name in ("scaleout_world2", "seqpar_world2"):
+        events = load_run(runs[name])["events"]
+        windows = chunk_skew_windows(events)
+        check(windows, f"{name}: no chunk window seen by two processes")
+        skew[name] = dict(windows=len(windows), max_spread_s=max(w["spread"] for w in windows),
+                          processes=sorted({int(e.get("process_index", 0)) for e in events}))
+    emit("runtools", runs=per_run, sweep_step_span_s=step_read, ledger_step_span_s=step_ledger,
+         ledger_step_category_s=ledger["categories"].get("step"), timeline_s=timeline_s,
+         trace_bytes=trace_path.stat().st_size, trace_events=len(reread["traceEvents"]),
+         slo_verdict=slo["verdict"], slo_evaluated=slo["n_evaluated"], slo_failed=slo["n_failed"], slo_s=slo_s,
+         monitor_lines=len(mon_text.splitlines()), skew=skew, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -4967,6 +5342,8 @@ def main() -> int:
         return big_batch_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--scaleout-worker"]:
         return scaleout_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--seqpar-worker"]:
+        return seqpar_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO / "tests"))  # _torch_moments, _torch_trace: helpers the CUDA tests share
     import sparse_coding__tpu_torch as pkg
     from sparse_coding__tpu_torch.models import fista as tf
@@ -4976,6 +5353,7 @@ def main() -> int:
     from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
     started = time.perf_counter()
+    runs_root = tempfile.TemporaryDirectory(prefix="sc_chip_smoke_runs_")
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5074,6 +5452,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_bls_") as bls_root:
         bls_launches, control = phase_basic_l1_sweep_train(torch, tf, Path(bls_root))
+        keep_run("basic_l1_sweep", Path(bls_root) / "bls_a", Path(runs_root.name))
         torch.cuda.empty_cache()
         phase_basic_l1_sweep_resume(torch, Path(bls_root), control)
     bls_row = dict(fista_rows[2], path="basic_l1_sweep", launches=bls_launches)
@@ -5084,6 +5463,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_sweep_") as sweep_root:
         export = phase_sweep_train(torch, Path(sweep_root))
+        keep_run("sweep", Path(sweep_root) / "out_a", Path(runs_root.name))
         torch.cuda.empty_cache()
         phase_sweep_resume(torch, Path(sweep_root), export)
 
@@ -5148,7 +5528,17 @@ def main() -> int:
         # processes behind its router, a SIGKILL and a rolling swap under load
         torch.cuda.empty_cache()
         phase_serve_tier(torch, harvest_root, export, rows_pool)
-        del lm_params
+        keep_run("serve_drain", harvest_root / "serve_events", Path(runs_root.name))
+        keep_run("serve_tier", harvest_root / "serve_tier" / "run", Path(runs_root.name))
+        # the sequence-parallel harvest (ROADMAP A6b's second part) on the
+        # subject: a world of one over NCCL here, then a world of two
+        # processes on the one card over gloo
+        torch.cuda.empty_cache()
+        seqpar_ref = phase_seqpar_world1(torch, harvest_root, lm_cfg, lm_params, lang)
+        torch.cuda.empty_cache()
+        phase_seqpar_world2(torch, harvest_root, lm_cfg, lm_params, seqpar_ref)
+        keep_run("seqpar_world2", harvest_root / "seqpar_run", Path(runs_root.name))
+        del lm_params, seqpar_ref
     for row in harvest_rows:
         row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])
     rows += harvest_rows
@@ -5159,6 +5549,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_scaleout_") as scale_root:
         rows += phase_scaleout(torch, Path(scale_root))
+        keep_run("scaleout_world2", Path(scale_root) / "sweep_full", Path(runs_root.name))
+
+    # the run tools (ROADMAP A9's first group) over the run dirs kept above
+    phase_runtools(torch, KEPT_RUNS)
+    runs_root.cleanup()
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

@@ -27,9 +27,18 @@ the ragged tail.
 
 ``attn="blockwise"`` runs the capture forward on
 `lm.ring_attention.blockwise_attention` (one score tile live, so sequences
-far past dense attention's memory harvest on one card). The
-sequence-parallel capture (``mesh``, ``seq_attn``) waits for ROADMAP A6b
-and raises.
+far past dense attention's memory harvest on one card).
+
+``mesh=`` (a `parallel.make_mesh` mesh; every rank of the world calls the
+harvest with the same tokens) runs the sequence-parallel capture over its
+"data" axis (``seq_attn``: ``"ring"`` | ``"ulysses"``): each rank captures
+its slice of every sequence and casts it to fp16 on its device, and the
+shards are gathered over the axis on the sequence dim, so the rows keep the
+single-card ``(sequence, position)`` order. Rank 0 alone writes the chunk
+store, its manifests, the cursor and the ``events.jsonl`` spans, with the
+single-card commit (the store is byte-compatible with it); the other ranks
+write nothing and meet rank 0 at a barrier after each commit, so a resume
+sees one cursor.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ from sparse_coding__tpu_torch.data import integrity
 from sparse_coding__tpu_torch.data.chunks import ChunkStore, save_chunk
 from sparse_coding__tpu_torch.lm import model as lm_model
 from sparse_coding__tpu_torch.lm.convert import _canonical_hf_name, load_model
-from sparse_coding__tpu_torch.lm.ring_attention import blockwise_attention
+from sparse_coding__tpu_torch.lm.ring_attention import blockwise_attention, make_sequence_parallel_fn
+from sparse_coding__tpu_torch.parallel.mesh import DATA_AXIS
 from sparse_coding__tpu_torch.telemetry.events import event_active
 from sparse_coding__tpu_torch.telemetry.spans import ACTIVE, span
 from sparse_coding__tpu_torch.utils.device import resolve_device
@@ -103,12 +113,6 @@ def load_tokenizer(model_name: str):
 
 # -- harvesting ---------------------------------------------------------------
 
-def _refuse_unported(mesh, seq_attn):
-    if mesh is not None:
-        raise NotImplementedError(f"the sequence-parallel harvest (mesh=, seq_attn={seq_attn!r}) is not ported "
-                                  "yet — ROADMAP A6b")
-
-
 def _attn_impl(attn: str):
     """The single-card attention of a harvest: ``"dense"`` or ``"blockwise"``."""
     if attn == "dense":
@@ -143,6 +147,49 @@ def capture_fn(lm_cfg: lm_model.LMConfig, names: Sequence[str], stop_at: int, co
     their activations are the same bits for the same tokens. The attention
     pattern cannot be captured under ``attn="blockwise"`` (it raises)."""
     return _capture(lm_cfg, tuple(names), int(stop_at), as_dtype(compute_dtype), attn)
+
+
+def _build_capture(lm_cfg, names: Dict, stop_at: int, mesh, seq_attn: str, compute_dtype=None,
+                   attn: str = "dense"):
+    """The capture forward, single-card (`capture_fn`) or sequence-parallel
+    over ``mesh``'s data axis; both cast to fp16 on the device. The
+    sequence-parallel one returns this rank's shards ``[B, S/p, w]``."""
+    compute_dtype = as_dtype(compute_dtype)
+    if compute_dtype is not None and mesh is not None:
+        raise ValueError("compute_dtype is a single-device capture option")
+    if attn != "dense" and mesh is not None:
+        raise ValueError(
+            "attn is a single-device capture option; with a mesh choose the "
+            "sequence-parallel impl via seq_attn ('ring' | 'ulysses')"
+        )
+    if mesh is None:
+        return capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype, attn)
+    # built once: the attention and the group binding are reused batch after batch
+    seq_fn = make_sequence_parallel_fn(lm_cfg, mesh, cache_names=list(names.values()), stop_at_layer=stop_at,
+                                       attn=seq_attn)
+
+    def capture(params, tokens):
+        with torch.no_grad():
+            return {k: v.to(torch.float16) for k, v in seq_fn(params, tokens)[1].items()}
+
+    return capture
+
+
+def _gathered(cache: Dict, mesh) -> Dict:
+    """Sequence shards ``[B, S/p, w]`` gathered over the data axis on the
+    sequence dim (``[B, S, w]``): flattened, the rows are in the single-card
+    order. The cache itself on one card."""
+    if mesh is None:
+        return cache
+    return {k: mesh.all_gather(v, DATA_AXIS, dim=1) for k, v in cache.items()}
+
+
+def _barrier(mesh, tag: str) -> None:
+    """Every rank of the world meets here (nothing on one card)."""
+    if mesh is not None:
+        from sparse_coding__tpu_torch.train.checkpoint import _pod_barrier
+
+        _pod_barrier(tag)
 
 
 def _probe_activation_size(lm_cfg, name: str, stop_at: int, seq_len: int) -> int:
@@ -348,19 +395,24 @@ def make_activation_dataset(
     indices (the batch cursor still advances through the rest), which
     refills quarantined holes bit for bit. Spans: ``step`` /
     ``harvest_forward`` and ``checkpoint`` / ``chunk_commit``, broadcast to
-    any live `RunTelemetry`; a ``provenance`` event per committed chunk."""
-    _refuse_unported(mesh, seq_attn)
+    any live `RunTelemetry`; a ``provenance`` event per committed chunk.
+    ``mesh`` / ``seq_attn``: the sequence-parallel capture (module
+    docstring); every rank returns the folders, rank 0 alone writes them."""
     device = resolve_device(device)
     names, stop_at, batches_per_chunk = _harvest_plan(lm_cfg, layers, layer_locs, chunk_size_gb, batch_size,
                                                       tokens.shape[1])
+    capture = _build_capture(lm_cfg, names, stop_at, mesh, seq_attn, compute_dtype, attn)
+    writer = mesh is None or mesh.rank == 0
+    tel = ACTIVE if writer else None
     if single_folder:
         if len(names) != 1:
             raise ValueError("single_folder requires exactly one capture point")
         folders = {key: Path(dataset_folder) for key in names}
     else:
         folders = {(layer, loc): harvest_folder_name(dataset_folder, layer, loc) for layer, loc in names}
-    for f in folders.values():
-        f.mkdir(parents=True, exist_ok=True)
+    if writer:
+        for f in folders.values():
+            f.mkdir(parents=True, exist_ok=True)
 
     config_sha = _harvest_config_sha(layers, layer_locs, batch_size, chunk_size_gb, store_dtype, center_dataset,
                                      tokens.shape)
@@ -370,11 +422,10 @@ def make_activation_dataset(
     elif skip_chunks:
         skip_chunks = _verified_skip_chunks(folders, skip_chunks, config_sha)
     selected = None if only_chunks is None else {int(c) for c in only_chunks}
+    _barrier(mesh, "harvest_start")  # every rank has read the store before rank 0 writes to it
 
-    compute_dtype = as_dtype(compute_dtype)
-    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype, attn)
-    params = lm_model.cast_params(params, compute_dtype)  # pay the cast once
-    drain = _Drain(batches_per_chunk, device)
+    params = lm_model.cast_params(params, as_dtype(compute_dtype))  # pay the cast once
+    drain = _Drain(batches_per_chunk, device) if writer else None
 
     n_batches_total = tokens.shape[0] // batch_size
     max_chunks = n_chunks if n_chunks is not None else math.inf
@@ -387,13 +438,15 @@ def make_activation_dataset(
             batch_cursor += batches_per_chunk
             chunk_idx += 1
             continue
-        with span(ACTIVE, "step", name="harvest_forward", chunk=chunk_idx):
+        with span(tel, "step", name="harvest_forward", chunk=chunk_idx):
             for b, cache in enumerate(_chunk_caches(capture, params, tokens, batch_cursor, batches_per_chunk,
                                                     batch_size, device)):
-                drain.put(b, cache, names)
-            buffers = drain.arrays()
-        with span(ACTIVE, "checkpoint", name="chunk_commit", chunk=chunk_idx):
-            for key in names:
+                cache = _gathered(cache, mesh)
+                if writer:
+                    drain.put(b, cache, names)
+            buffers = drain.arrays() if writer else {}
+        with span(tel, "checkpoint", name="chunk_commit", chunk=chunk_idx):
+            for key in names if writer else ():
                 chunk = buffers[key]
                 if center_dataset:
                     if chunk_idx == 0 and key not in means:
@@ -414,10 +467,11 @@ def make_activation_dataset(
                              config_sha=config_sha)
             batch_cursor += batches_per_chunk
             chunk_idx += 1
-            if selected is None:
+            if selected is None and writer:
                 # after the chunk landed in every folder: "the last committed
                 # chunk" (repair passes fill holes and leave the cursor alone)
                 _write_harvest_cursor(folders, chunk_idx, batch_cursor, config_sha)
+        _barrier(mesh, "harvest_commit")
     return folders
 
 
@@ -441,17 +495,17 @@ def harvest_to_device(
     """Fused harvest → train: yield device-resident chunks ``{(layer, loc):
     [rows, w] fp16}``, the values `make_activation_dataset` writes, without
     a trip through the host. ``save_folder`` also persists each chunk in
-    ``store_dtype`` (the yielded chunks stay fp16)."""
-    _refuse_unported(mesh, seq_attn)
+    ``store_dtype`` (the yielded chunks stay fp16). With ``mesh`` every
+    rank yields the gathered chunk on its own device, in the single-card
+    row order, and rank 0 alone saves."""
     device = resolve_device(device)
     names, stop_at, batches_per_chunk = _harvest_plan(lm_cfg, layers, layer_locs, chunk_size_gb, batch_size,
                                                       tokens.shape[1])
-    compute_dtype = as_dtype(compute_dtype)
-    capture = capture_fn(lm_cfg, tuple(names.values()), stop_at, compute_dtype, attn)
-    params = lm_model.cast_params(params, compute_dtype)
+    capture = _build_capture(lm_cfg, names, stop_at, mesh, seq_attn, compute_dtype, attn)
+    params = lm_model.cast_params(params, as_dtype(compute_dtype))
 
     folders = None
-    if save_folder is not None:
+    if save_folder is not None and (mesh is None or mesh.rank == 0):
         folders = {(layer, loc): harvest_folder_name(save_folder, layer, loc) for (layer, loc) in names}
         for f in folders.values():
             f.mkdir(parents=True, exist_ok=True)
@@ -463,6 +517,7 @@ def harvest_to_device(
     while chunk_idx < max_chunks and batch_cursor + batches_per_chunk <= n_batches_total:
         parts: Dict[Tuple[int, str], List[torch.Tensor]] = {k: [] for k in names}
         for cache in _chunk_caches(capture, params, tokens, batch_cursor, batches_per_chunk, batch_size, device):
+            cache = _gathered(cache, mesh)
             for key, name in names.items():
                 parts[key].append(cache[name].reshape(-1, cache[name].shape[-1]))
         chunk = {key: torch.cat(p, dim=0) for key, p in parts.items()}

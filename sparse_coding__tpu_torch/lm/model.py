@@ -20,8 +20,8 @@ Numerics kept from the JAX package (and not from HF's torch modules):
 
 Attention is dense unless ``attn_impl`` says otherwise
 (`lm.ring_attention.blockwise_attention`, the single-card long-context
-recurrence); `positions` is kept for the sequence-parallel forward, whose
-ring and Ulysses attentions wait for ROADMAP A6b.
+recurrence, or its ring and Ulysses attentions over a mesh axis);
+`positions` are the global positions of a sequence-parallel shard.
 
 Hook names (transformer_lens-compatible, as in JAX):
   blocks.{i}.hook_resid_post       residual after block i          ("residual")

@@ -19,11 +19,13 @@ Where JAX's `NamedSharding` places an array, the port cuts it: `shard_state`
 keeps this rank's slice of every leaf by `infer_state_specs` (the JAX rules,
 leaf for leaf, as axis-name tuples), and `batch_sharding` /
 `per_model_batch_sharding` say which rows (and members) of a global batch
-this rank takes. Collectives go through `Mesh.all_reduce` /
-`Mesh.all_gather`: NCCL takes CUDA tensors as they are; gloo, the backend
-when ranks share a device or run on the CPU, receives a CUDA tensor's bytes
-through host memory (the computation never leaves the card). Every
-collective's bytes and seconds are counted in `Mesh.stats`: through host
+this rank takes. Collectives go through `Mesh.all_reduce`,
+`Mesh.all_gather`, `Mesh.ring_shift` (JAX's ``ppermute`` around the axis)
+and `Mesh.all_to_all` (its tiled ``all_to_all``): NCCL takes CUDA tensors as
+they are; gloo, the backend when ranks share a device or run on the CPU,
+receives a CUDA tensor's bytes through host memory (the computation never
+leaves the card). Every collective's bytes and seconds are counted in
+`Mesh.stats`, in all and under its own name (``"ring_shift.bytes"``): through host
 memory the clock starts once the card has finished the work queued before
 the exchange, so the seconds are the exchange's alone (the copy to the
 host would wait for that work anyway); on NCCL, which enqueues the
@@ -75,10 +77,12 @@ class Mesh:
             torch.cuda.synchronize(t.device)  # the rank's own queued work stays out of the exchange's time
         return time.perf_counter()
 
-    def _count(self, t: torch.Tensor, t0: float) -> None:
-        self.stats["calls"] += 1
-        self.stats["bytes"] += t.numel() * t.element_size()
-        self.stats["seconds"] += time.perf_counter() - t0
+    def _count(self, t: torch.Tensor, t0: float, kind: str) -> None:
+        seconds, nbytes = time.perf_counter() - t0, t.numel() * t.element_size()
+        for prefix in ("", kind + "."):
+            self.stats[prefix + "calls"] = self.stats.get(prefix + "calls", 0) + 1
+            self.stats[prefix + "bytes"] = self.stats.get(prefix + "bytes", 0) + nbytes
+            self.stats[prefix + "seconds"] = self.stats.get(prefix + "seconds", 0.0) + seconds
 
     def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum of ``t`` over ``axis``'s group, as a new tensor on ``t``'s
@@ -90,7 +94,7 @@ class Mesh:
         buf = t.detach().to("cpu", copy=True) if self._through_host(t) else t.detach().clone()
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         out = buf.to(t.device) if buf.device != t.device else buf
-        self._count(t, t0)
+        self._count(t, t0, "all_reduce")
         return out
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
@@ -106,7 +110,57 @@ class Mesh:
         dist.all_gather(parts, src, group=group)
         out = torch.cat(parts, dim=dim)
         out = out.to(t.device) if out.device != t.device else out
-        self._count(t, t0)
+        self._count(t, t0, "all_gather")
+        return out
+
+    def ring_shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """JAX's ``lax.ppermute`` with ``perm = [(i, (i + 1) % p)]``: this
+        rank's ``t`` goes to the next rank of ``axis``' group, and the
+        previous rank's arrives (``t`` itself where the axis has size 1).
+        The send and the receive are posted together before either is
+        waited on, so a ring of any size cannot deadlock."""
+        group = self.groups[axis]
+        if group is None:
+            return t
+        ranks, i = self.ranks[axis], self.coords[axis]
+        t0 = self._start(t)
+        src = t.detach().to("cpu") if self._through_host(t) else t.detach()
+        src = src.contiguous()
+        buf = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, ranks[(i + 1) % len(ranks)], group=group),
+               dist.P2POp(dist.irecv, buf, ranks[(i - 1) % len(ranks)], group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = buf.to(t.device) if buf.device != t.device else buf
+        self._count(t, t0, "ring_shift")
+        return out
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """JAX's tiled ``lax.all_to_all``: ``t`` split into p equal pieces on
+        ``split_dim``, piece j sent to the axis' j-th rank, and the pieces
+        received concatenated on ``concat_dim`` in the axis' order (``t``
+        itself where the axis has size 1)."""
+        group = self.groups[axis]
+        if group is None:
+            return t
+        p = len(self.ranks[axis])
+        if t.shape[split_dim] % p != 0:
+            raise ValueError(f"dim {split_dim} of size {t.shape[split_dim]} does not split into {p} pieces")
+        t0 = self._start(t)
+        src = t.detach().to("cpu") if self._through_host(t) else t.detach()
+        pieces = [c.contiguous() for c in torch.chunk(src, p, dim=split_dim)]
+        me = self.coords[axis]
+        got = [pieces[me] if j == me else torch.empty_like(c) for j, c in enumerate(pieces)]
+        # point to point, every send and receive posted before any wait:
+        # gloo has no all_to_all in every torch release
+        ops = [op for j, peer in enumerate(self.ranks[axis]) if j != me
+               for op in (dist.P2POp(dist.isend, pieces[j], peer, group=group),
+                          dist.P2POp(dist.irecv, got[j], peer, group=group))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = torch.cat(got, dim=concat_dim)
+        out = out.to(t.device) if out.device != t.device else out
+        self._count(t, t0, "all_to_all")
         return out
 
     def all_reduce_many(self, tensors: List[torch.Tensor], axis: str) -> List[torch.Tensor]:

@@ -20,8 +20,10 @@ CLI::
     python -m sparse_coding__tpu_torch.serve.loadgen --export out/learned_dicts.pkl \\
         --device cpu --clients 8 ...
 
-``--slo`` needs `telemetry/slo.py`, which is not ported yet (ROADMAP A9),
-and raises. Importable: `run_load` / `latency_stats`.
+``--slo slo.json`` evaluates the SLO objectives against the measured
+latency histogram and counts (`telemetry.slo.evaluate_measured`), adds the
+verdict under ``"slo"`` and exits 1 past budget. Importable: `run_load` /
+`latency_stats`.
 """
 
 from __future__ import annotations
@@ -307,12 +309,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--slo", default=None, metavar="slo.json",
                     help="evaluate SLO objectives against the measured "
                     "latency histogram/counts at the end of the run; "
-                    "exit 1 past budget (telemetry.slo, not ported yet: "
-                    "raises naming ROADMAP A9)")
+                    "exit 1 past budget (telemetry.slo)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.slo:
-        raise NotImplementedError("--slo needs telemetry/slo.py, which is not ported yet — ROADMAP A9")
 
     fmt, top_k = args.format, args.top_k
 
@@ -442,6 +441,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         finally:
             engine.stop()
     rc = 0 if result["errors"] == 0 else 1
+    if args.slo:
+        from sparse_coding__tpu_torch.telemetry.slo import evaluate_measured, load_config
+
+        slo_result = evaluate_measured(result, load_config(args.slo))
+        result["slo"] = slo_result
+        if not slo_result["ok"]:
+            rc = 1
     print(json.dumps(result, indent=1))
     return rc
 

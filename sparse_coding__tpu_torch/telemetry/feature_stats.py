@@ -507,6 +507,17 @@ def drift_report(base: FeatureSnapshot, cur: FeatureSnapshot, top_n: int = 10, m
 # ---------------------------------------------------------------------------
 
 
+def drift_band(score: float) -> str:
+    """The industry PSI reading: <0.1 stable, 0.1–0.25 drifting, else major."""
+    if score != score:
+        return "unknown"
+    if score < 0.1:
+        return "stable"
+    if score < 0.25:
+        return "drifting"
+    return "major"
+
+
 def _emit_flush(telemetry, snap: FeatureSnapshot, agg: Dict[str, float], drift: Optional[Dict],
                 extra: Optional[Dict] = None) -> Dict:
     """The gauges and the ``feature_stats`` pointer event of one snapshot

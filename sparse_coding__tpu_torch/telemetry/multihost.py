@@ -1,9 +1,10 @@
 """Pod-scale telemetry: per-process event logs that merge into one story.
 
-Counterpart of the pod half of `sparse_coding__tpu/telemetry/multihost.py`
-(the offline halves, `chunk_skew_windows` and `fingerprint_diff`, go with
-the report, ROADMAP A9). Every rank of a `torch.distributed` world is its
-own process with its own clock and its own disk writes, so:
+Counterpart of `sparse_coding__tpu/telemetry/multihost.py`: the pod half,
+and the offline half that the run tools read (`format_bytes`,
+`chunk_skew_windows`, `fingerprint_diff`). Every rank of a
+`torch.distributed` world is its own process with its own clock and its own
+disk writes, so:
 
   - **Per-process log layout.** `RunTelemetry` asks `process_info()` at
     construction: in a world of several ranks the event file becomes
@@ -40,9 +41,10 @@ from __future__ import annotations
 import datetime
 import hashlib
 import json
+import re
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from sparse_coding__tpu_torch.utils import flags
 
@@ -54,7 +56,27 @@ __all__ = [
     "heartbeat",
     "check_desync",
     "comparable_fingerprint",
+    "format_bytes",
+    "chunk_skew_windows",
+    "fingerprint_diff",
 ]
+
+# report / goodput / monitor recover a record's rank from its file name when
+# the record itself is untagged
+PROC_FILE_RE = re.compile(r"\.p(\d+)\.jsonl$")
+
+
+def format_bytes(v) -> str:
+    """Human bytes for report/monitor tables; '-' for None/non-numeric."""
+    try:
+        v = float(v)
+    except (TypeError, ValueError):
+        return "-"
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(v) < 1024 or unit == "TiB":
+            return f"{v:.2f} {unit}" if unit != "B" else f"{int(v)} B"
+        v /= 1024
+    return "-"  # pragma: no cover
 
 # fingerprint keys that must agree across a pod; everything else
 # (process_index, clock fields) is legitimately per-process
@@ -315,3 +337,70 @@ def check_desync(telemetry=None, config: Optional[Dict[str, Any]] = None, action
 
         raise AnomalyAbort(desc)
     return mismatched
+
+
+# -- offline halves: shared by report, goodput and monitor ----------------------
+
+def chunk_skew_windows(events: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Per-window cross-rank chunk-time skew from merged `chunk_end` events.
+
+    Windows are keyed by ``(epoch, chunk, position)`` (absent fields are
+    None: the drivers' chunk ids line up across ranks because the chunk
+    schedule is seed-derived and identical pod-wide). Only windows covered
+    by >= 2 distinct processes produce a row::
+
+        {"key": (...), "seconds": {proc: s, ...}, "max": s, "min": s,
+         "spread": s}
+
+    in first-seen order. Re-emitted windows (restarts) keep the last
+    observation per process.
+    """
+    windows: Dict[tuple, Dict[int, float]] = {}
+    order: List[tuple] = []
+    for e in events:
+        # seconds=None: a chunk_end without its chunk_start (a resumed
+        # generation's torn window) has no usable duration
+        if e.get("event") != "chunk_end" or not isinstance(e.get("seconds"), (int, float)):
+            continue
+        key = (e.get("epoch"), e.get("chunk"), e.get("position"))
+        proc = int(e.get("process_index", 0))
+        if key not in windows:
+            windows[key] = {}
+            order.append(key)
+        windows[key][proc] = float(e["seconds"])
+    out = []
+    for key in order:
+        secs = windows[key]
+        if len(secs) < 2:
+            continue
+        vals = list(secs.values())
+        out.append({"key": key, "seconds": secs, "max": max(vals), "min": min(vals),
+                    "spread": max(vals) - min(vals)})
+    return out
+
+
+def fingerprint_diff(run_starts: Sequence[Dict[str, Any]]) -> Dict[str, Dict[int, Any]]:
+    """Offline desync attribution: given merged ``run_start`` events,
+    ``{field: {process: value}}`` for every comparable fingerprint field
+    (`COMPARABLE_FINGERPRINT_KEYS`: the port's torch, CUDA and device fields
+    where the JAX package compares jax, jaxlib and its backend) or config on
+    which the ranks disagree; empty when all agree."""
+    per_proc: Dict[int, Dict[str, Any]] = {}
+    for s in run_starts:
+        proc = int(s.get("process_index", 0))
+        fp = s.get("fingerprint") or {}
+        row = {k: fp.get(k) for k in COMPARABLE_FINGERPRINT_KEYS}
+        row["config"] = s.get("config")
+        per_proc[proc] = row
+    if len(per_proc) < 2:
+        return {}
+    diff: Dict[str, Dict[int, Any]] = {}
+    fields = set()
+    for row in per_proc.values():
+        fields.update(row)
+    for f in sorted(fields):
+        vals = {p: per_proc[p].get(f) for p in sorted(per_proc)}
+        canon = {p: json.dumps(v, sort_keys=True, default=str) for p, v in vals.items()}
+        if len(set(canon.values())) > 1:
+            diff[f] = vals
+    return diff

@@ -25,7 +25,8 @@ from typing import Any, Dict, Optional
 
 from sparse_coding__tpu_torch.telemetry import events as _events
 
-__all__ = ["ACTIVE", "BADPUT_CATEGORIES", "GOODPUT_CATEGORIES", "Span", "span"]
+__all__ = ["ACTIVE", "BADPUT_CATEGORIES", "CATEGORIES", "DERIVED_CATEGORIES", "GOODPUT_CATEGORIES", "INNER_CATEGORIES",
+           "Span", "span"]
 
 
 class _ActiveSentinel:
@@ -43,6 +44,19 @@ BADPUT_CATEGORIES = (
     "compile", "data_wait", "checkpoint", "preempt_drain", "degraded_skip", "export_verify",
     "restart_backoff", "request_wait", "dequant", "forward", "feature_flush", "tower_poll", "lineage_verify",
 )
+# derived-only badput: reconstructed by `telemetry.goodput` from event
+# adjacency, never emitted as live spans
+DERIVED_CATEGORIES = (
+    "preempted_down",  # inter-generation downtime after a preemption
+    "reassign_gap",    # fleet lease-loss -> next-claim gap (item lineage)
+    "straggler_idle",  # fast ranks waiting on the slowest (skew windows)
+    "unaccounted",     # the honest remainder
+)
+# categories that may open INSIDE an enclosing goodput span; the ledger's
+# timestamp sweep handles nesting exactly, and the monitor's live
+# approximation subtracts these from its goodput sum so the two agree
+INNER_CATEGORIES = ("compile", "checkpoint", "preempt_drain", "dequant")
+CATEGORIES = GOODPUT_CATEGORIES + BADPUT_CATEGORIES + DERIVED_CATEGORIES
 
 
 class Span:

@@ -26,7 +26,14 @@ Scenarios (``kind``):
     ``SC_TEST_DESYNC``);
   - ``preempt``: `sweep` with ``SC_FAULT`` set on rank ``victim`` alone;
   - ``slow_root``: rank 0 busy past ``SC_MH_TIMEOUT_MS`` (as when it builds
-    a missing dataset) before a telemetry exchange and a pod barrier.
+    a missing dataset) before a telemetry exchange and a pod barrier;
+  - ``seqpar``: the sequence-parallel path on a ``(1, world, 1)`` mesh:
+    `Mesh.ring_shift` / `Mesh.all_to_all` on rank-numbered tensors, ring and
+    Ulysses attention on this rank's slice of ``qkv``, the sharded forward of
+    each ``models`` entry (params by `torch.save`, with a shard-local hook),
+    Ulysses' refusal of indivisible heads, and the sharded harvest
+    (`make_activation_dataset` and `harvest_to_device` with ``mesh=``), with
+    the chunk writes and the spans each rank made.
 """
 
 import functools
@@ -237,6 +244,79 @@ def slow_root(rank, sc):
     return {"probe": probe, "barrier_waited_s": waited}
 
 
+def seqpar(rank, sc):
+    import numpy as np
+    import torch
+
+    from sparse_coding__tpu_torch.data import activations as tact
+    from sparse_coding__tpu_torch.lm import model as tm
+    from sparse_coding__tpu_torch.lm.ring_attention import ATTN_IMPLS, make_sequence_parallel_fn, ring_attention
+    from sparse_coding__tpu_torch.lm.ring_attention import sequence_parallel_forward, ulysses_attention
+    from sparse_coding__tpu_torch.telemetry import RunTelemetry, read_events
+
+    mesh = _mesh(sc["mesh"])
+    p = mesh.shape["data"]
+    out = {"coords": mesh.coords["data"]}
+    base = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4) + 100 * rank
+    out["ring_shift"] = mesh.ring_shift(base, "data").numpy()
+    a2a = torch.arange(2 * 4 * 8, dtype=torch.float32).reshape(2, 4, 8) + 1000 * rank
+    out["all_to_all"] = mesh.all_to_all(a2a, "data", split_dim=2, concat_dim=1).numpy()
+    out["stats"] = dict(mesh.stats)
+
+    q, k, v = (torch.from_numpy(a) for a in np.load(sc["qkv"]))
+    n = q.shape[1] // p
+    i = mesh.coords["data"]
+    loc = [t[:, i * n:(i + 1) * n] for t in (q, k, v)]
+    out["attn"] = {name: ATTN_IMPLS[name]("data", mesh=mesh)(*loc).numpy() for name in ("ring", "ulysses")}
+    out["attn_noncausal_ring"] = ring_attention("data", mesh=mesh)(*loc, causal=False).numpy()
+
+    tokens = torch.from_numpy(np.load(sc["tokens"]))
+    out["forward"] = {}
+    for tag, (cfg_kw, params_path, name) in sc["models"].items():
+        cfg = tm.LMConfig(**cfg_kw)
+        params = torch.load(params_path, weights_only=False)
+        for attn in ("ring", "ulysses"):
+            logits, cache = sequence_parallel_forward(params, tokens, cfg, mesh, cache_names=[name],
+                                                          attn=attn)
+            hooked, _ = make_sequence_parallel_fn(cfg, mesh, hooks={name: lambda t: t * 0.5},
+                                                      attn=attn)(params, tokens)
+            out["forward"][tag, attn] = {"logits": logits.numpy(), "cache": cache[name].numpy(),
+                                         "hooked": hooked.numpy()}
+    try:
+        ulysses_attention("data", mesh=mesh)(*(torch.zeros(1, 4, 3, 2) for _ in range(3)))
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+
+    hv = sc["harvest"]
+    cfg = tm.LMConfig(**hv["cfg"])
+    params = torch.load(hv["params"], weights_only=False)
+    htok = np.load(hv["tokens"])
+    writes = []
+    real_save = tact.save_chunk
+    tact.save_chunk = lambda folder, i, *a, **kw: (writes.append((str(folder), int(i))), real_save(folder, i, *a,
+                                                                                                      **kw))[1]
+    tel = RunTelemetry(out_dir=Path(hv["root"]) / f"tel_r{rank}", run_name="seqpar")
+    try:
+        out["harvest"] = {}
+        for attn in ("ring", "ulysses"):
+            folders = tact.make_activation_dataset(params, cfg, htok, Path(hv["root"]) / attn, hv["layers"],
+                                                   ["residual"], batch_size=hv["batch_size"],
+                                                   chunk_size_gb=hv["chunk_size_gb"], n_chunks=hv["n_chunks"],
+                                                   mesh=mesh, seq_attn=attn, device="cpu")
+            out["harvest"][attn] = {str(key): str(f) for key, f in folders.items()}
+        chunks = tact.harvest_to_device(params, cfg, htok, hv["layers"], ["residual"], batch_size=hv["batch_size"],
+                                        chunk_size_gb=hv["chunk_size_gb"], n_chunks=hv["n_chunks"], mesh=mesh,
+                                        seq_attn="ring", save_folder=Path(hv["root"]) / "fused", device="cpu")
+        out["to_device"] = [{str(key): c.numpy() for key, c in chunk.items()} for chunk in chunks]
+    finally:
+        tact.save_chunk = real_save
+    tel.close()
+    out["writes"] = writes
+    out["spans"] = [e.get("name") for e in read_events(tel.path) if e.get("event") == "span"]
+    return out
+
+
 def spawn(world, scenarios, tmp, env_by_rank=None, timeout=180):
     """Run ``scenarios`` in a gloo world of ``world`` processes under
     ``tmp``: ``(return codes, each rank's results)``. Every process is
@@ -272,7 +352,7 @@ def spawn(world, scenarios, tmp, env_by_rank=None, timeout=180):
 
 
 SCENARIOS = {"steps": steps, "fista": fista, "elastic": elastic, "sweep": sweep, "big_batch": big_batch,
-             "telemetry": telemetry, "preempt": preempt, "slow_root": slow_root}
+             "telemetry": telemetry, "preempt": preempt, "slow_root": slow_root, "seqpar": seqpar}
 
 
 def main():

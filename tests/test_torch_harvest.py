@@ -283,10 +283,12 @@ def test_save_chunk_plants_the_jax_fault_sites(action, site, tmp_path, monkeypat
 def test_what_the_harvest_does_not_port_raises_naming_its_item(subject, tmp_path):
     _, tc, _, tp, tokens = subject
     kw = dict(layers=[1], layer_locs=["residual"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tact.make_activation_dataset(tp, tc, tokens, tmp_path, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        next(tact.harvest_to_device(tp, tc, tokens, mesh=object(), **kw))
+    # the sequence-parallel harvest is ported (tests/test_torch_seqpar.py);
+    # JAX's two single-device options raise its ValueError with a mesh
+    with pytest.raises(ValueError, match="compute_dtype is a single-device capture option"):
+        tact.make_activation_dataset(tp, tc, tokens, tmp_path, mesh=object(), compute_dtype="bfloat16", **kw)
+    with pytest.raises(ValueError, match="attn is a single-device capture option"):
+        next(tact.harvest_to_device(tp, tc, tokens, mesh=object(), attn="blockwise", **kw))
     # the blockwise attention is ported (tests/test_torch_blockwise.py); an
     # unknown single-card impl and the pattern under blockwise raise as in JAX
     with pytest.raises(ValueError, match="unknown single-device attn impl"):

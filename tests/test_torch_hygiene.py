@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.lm.pretrain",
     "sparse_coding__tpu_torch.lm.ring_attention",
     "sparse_coding__tpu_torch.metrics",
+    "sparse_coding__tpu_torch.monitor",
     "sparse_coding__tpu_torch.metrics.clustering",
     "sparse_coding__tpu_torch.metrics.intervention",
     "sparse_coding__tpu_torch.metrics.standard",
@@ -60,6 +61,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.models.semilinear",
     "sparse_coding__tpu_torch.models.topk",
     "sparse_coding__tpu_torch.parallel",
+    "sparse_coding__tpu_torch.perfdiff",
     "sparse_coding__tpu_torch.parallel.distributed",
     "sparse_coding__tpu_torch.parallel.mesh",
     "sparse_coding__tpu_torch.ops._build",
@@ -69,6 +71,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.ops.topk_kernel",
     "sparse_coding__tpu_torch.plotting",
     "sparse_coding__tpu_torch.plotting.plots",
+    "sparse_coding__tpu_torch.report",
     "sparse_coding__tpu_torch.serve",
     "sparse_coding__tpu_torch.serve.engine",
     "sparse_coding__tpu_torch.serve.loadgen",
@@ -77,18 +80,26 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.serve.router",
     "sparse_coding__tpu_torch.serve.server",
     "sparse_coding__tpu_torch.serve.wire",
+    "sparse_coding__tpu_torch.slo",
     "sparse_coding__tpu_torch.supervise",
     "sparse_coding__tpu_torch.telemetry",
     "sparse_coding__tpu_torch.telemetry.anomaly",
     "sparse_coding__tpu_torch.telemetry.events",
     "sparse_coding__tpu_torch.telemetry.feature_stats",
+    "sparse_coding__tpu_torch.telemetry.goodput",
     "sparse_coding__tpu_torch.telemetry.health",
     "sparse_coding__tpu_torch.telemetry.metrics_http",
+    "sparse_coding__tpu_torch.telemetry.monitor",
     "sparse_coding__tpu_torch.telemetry.multihost",
     "sparse_coding__tpu_torch.telemetry.profiling",
     "sparse_coding__tpu_torch.telemetry.provenance",
+    "sparse_coding__tpu_torch.telemetry.report",
+    "sparse_coding__tpu_torch.telemetry.slo",
     "sparse_coding__tpu_torch.telemetry.spans",
+    "sparse_coding__tpu_torch.telemetry.tower",
     "sparse_coding__tpu_torch.telemetry.tracing",
+    "sparse_coding__tpu_torch.timeline",
+    "sparse_coding__tpu_torch.tower",
     "sparse_coding__tpu_torch.trace",
     "sparse_coding__tpu_torch.train",
     "sparse_coding__tpu_torch.train.baselines",

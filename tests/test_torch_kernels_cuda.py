@@ -1181,3 +1181,29 @@ def test_graph_replays_with_the_packs_are_eager_steps_across_a_flush(cuda, tmp_p
         assert torch.equal(la[k], torch.stack([l[k] for l in lb])), k
     assert state_differences(a.state, b.state) == []
     assert a.state.buffers["featstat_rows"].tolist() == [5 * 256.0] * 2
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_sequence_parallel_world_of_one_on_the_card_is_dense(cuda, impl):
+    """chip_smoke's ``seqpar_world1`` at seq 1024: ring and Ulysses attention
+    on a world of one (p = 1, no collective) against dense attention (atol
+    2e-5), and layer 2's residual of a random Pythia-70M through
+    `make_sequence_parallel_fn` against the dense forward's (atol 2e-3)."""
+    from sparse_coding__tpu_torch.lm import config_for, init_params, make_tensor_name, run_with_cache
+    from sparse_coding__tpu_torch.lm.model import dense_attention
+    from sparse_coding__tpu_torch.lm.ring_attention import ATTN_IMPLS, make_sequence_parallel_fn
+    from sparse_coding__tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, 1)
+    g = torch.Generator(device=cuda).manual_seed(43)
+    q, k, v = (torch.randn((1, 1024, 8, 64), generator=g, device=cuda) for _ in range(3))
+    assert float((ATTN_IMPLS[impl]("data", mesh=mesh)(q, k, v) - dense_attention(q, k, v)).abs().max()) <= 2e-5
+    cfg = config_for("pythia-70m")
+    params = init_params(0, cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=g, device=cuda)
+    name = make_tensor_name(2, "residual")
+    with torch.no_grad():
+        want = run_with_cache(params, tokens, cfg, [name], stop_at_layer=3)[1][name]
+        got = make_sequence_parallel_fn(cfg, mesh, cache_names=[name], stop_at_layer=3, attn=impl)(params, tokens)[1][name]
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 2e-3
+    assert mesh.stats["calls"] == 0

@@ -540,10 +540,12 @@ def test_loadgen_accounting_matches_the_jax_script():
     assert tl.latency_histogram(sample) == jl.latency_histogram(sample)
 
 
-def test_loadgen_targets_cli_against_port_servers(two_servers):
+def test_loadgen_targets_cli_against_port_servers(two_servers, tmp_path):
     """``--targets`` through an in-process router over two port servers, by
     the port's load generator and by JAX's script (whose router forwards
-    the same bytes): the same JSON keys and the same clean accounting."""
+    the same bytes): the same JSON keys and the same clean accounting; then
+    ``--url`` with ``--slo`` by both: the same objectives and verdicts (a
+    generous SLO passes, exit 0; an impossible one fails, exit 1)."""
     from sparse_coding__tpu_torch.serve import loadgen as tl
 
     a, b = two_servers
@@ -560,8 +562,20 @@ def test_loadgen_targets_cli_against_port_servers(two_servers):
     for out in outs.values():
         assert (out["requests"], out["errors"], out["shed"], out["rows"]) == (6, 0, 0, 12)
         assert out["replica_states"] == {"r0": "live", "r1": "live"} and out["router"]["ok"] == 6
-    with pytest.raises(NotImplementedError, match="A9"):
-        tl.main(["--url", a.address, "--slo", "slo.json"])
+    for threshold_ms, want_rc in ((60_000.0, 0), (0.0, 1)):
+        slo = tmp_path / "slo.json"
+        slo.write_text(json.dumps({"objectives": [
+            {"name": "availability", "type": "availability", "target": 0.5},
+            {"name": "p99", "type": "latency", "percentile": 0.99, "threshold_ms": threshold_ms}]}))
+        verdicts = {}
+        for name, main in (("port", tl.main), ("jax", _jax_loadgen().main)):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                rc = main(["--url", a.address, "--clients", "1", "--requests", "2", "--rows", "2", "--slo", str(slo)])
+            assert rc == want_rc, name
+            got = json.loads(buf.getvalue())["slo"]
+            verdicts[name] = (got["verdict"], [(o["name"], o["ok"]) for o in got["objectives"]])
+        assert verdicts["port"] == verdicts["jax"]
 
 
 def test_loadgen_outcomes_through_a_dead_router():

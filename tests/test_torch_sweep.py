@@ -246,21 +246,23 @@ def test_what_waits_for_later_slices_raises_naming_the_roadmap(tmp_path):
     from sparse_coding__tpu_torch.lm.model import config_for
 
     from sparse_coding__tpu_torch.data.activations import make_activation_dataset
-    from sparse_coding__tpu_torch.lm import ring_attention
+    from sparse_coding__tpu_torch.lm.ring_attention import ring_attention
     from sparse_coding__tpu_torch.train.big_batch import train_big_batch
 
     # an empty store is harvested now (tests/test_torch_harvest.py), on the
     # blockwise attention too, and the image dashboards are drawn
     # (tests/test_torch_plotting.py), and the big-batch trainer takes a mesh
-    # (tests/test_torch_elastic_resume.py); the sequence-parallel harvest
-    # waits for ROADMAP A6b's second part
+    # (tests/test_torch_elastic_resume.py); the sequence-parallel harvest is
+    # ported (tests/test_torch_seqpar.py): its single-device options raise
+    # JAX's ValueError with a mesh, and ring attention needs one
     assert callable(capture_fn(config_for("pythia-70m"), ["blocks.2.hook_resid_post"], 3, attn="blockwise"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(ValueError, match="single-device"):
         make_activation_dataset(None, config_for("pythia-70m"), np.zeros((1, 4), np.int32), tmp_path / "h", [2],
-                                ["residual"], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        ring_attention.ring_attention("data")
+                                ["residual"], mesh=object(), compute_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="mesh="):
+        ring_attention("data")
     assert "mesh" in inspect.signature(train_big_batch).parameters
+    assert not (tmp_path / "h_l2_residual").exists()
 
 
 def _random_tied(n, d, seed):
