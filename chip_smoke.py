@@ -312,6 +312,13 @@ PAPER = dict(pca_rows=65536, tokens=(64, 128), tokens_seed=61, token_batch=16, p
 # serving the harvest sweep's export (ROADMAP A7a): buckets 8..1024, top-k 32,
 # /features of 128-token sequences; 16 closed-loop HTTP clients; the drain's
 # worker attaches a seeded random Pythia-70M (the spec both processes build)
+# the profiling phase: the sweep driver over 2 fp16 chunks of 65,536 rows with
+# config 2's tied ensemble (32 steps a chunk), the trace window over chunk 1
+# (SC_TRACE_WINDOW in cumulative steps), the store drawn by a seeded
+# RandomDatasetGenerator on the card (its repair config is JSON)
+PROFILING = dict(chunks=2, chunk_size_gb=0.0625, window="32:64", audit_rows=65536,
+                 generator=dict(activation_dim=D, n_ground_truth_components=1024, batch_size=4096,
+                                feature_num_nonzero=8, feature_prob_decay=0.996, correlated=False, seed=83))
 SERVE = dict(max_batch=1024, topk=32, seq=128, rows_seed=23, token_rows=256, tokens_seed=29, requests=200,
              clients=16, http_seconds=5.0, drain_seconds=3.0, subject_spec="random:pythia-70m:2:residual:0")
 # the replicated tier (ROADMAP A7b) on that export: the replicaset CLI at its
@@ -350,13 +357,16 @@ REPO = Path(__file__).resolve().parent
 # the run dirs the smoke keeps for the run tools' phase: name -> a copy of the
 # run's *.jsonl files (the runs' own folders are temporary)
 KEPT_RUNS: dict = {}
+# walls a later phase prints beside its own: phase -> seconds
+PHASE_WALL: dict = {}
 
 
-def keep_run(name: str, src: Path, root: Path) -> None:
-    """Copy every ``*.jsonl`` under ``src`` into ``root/name`` (the relative
-    paths kept) and remember it for `phase_runtools`."""
+def keep_run(name: str, src: Path, root: Path, patterns=("*.jsonl",)) -> None:
+    """Copy every file under ``src`` matching ``patterns`` (``*.jsonl``: the
+    event and metric logs) into ``root/name`` (the relative paths kept) and
+    remember it for `phase_runtools` and `phase_features`."""
     dst = root / name
-    for f in Path(src).rglob("*.jsonl"):
+    for f in (f for pattern in patterns for f in Path(src).rglob(pattern)):
         (dst / f.relative_to(src)).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy2(f, dst / f.relative_to(src))
     check(any(dst.rglob("*.jsonl")), f"no event logs under {src} to keep")
@@ -390,7 +400,8 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     """(bound_ms, bound_by): the larger of operations over the peak of their
     type (bf16 unless given) and bytes over the memory rate. Products with
     the code c count only its non-zero entries: the work this run's data
-    needs."""
+    needs. The tied kernels' work is `ops.tied_sae_kernel.kernel_work`'s
+    count, the one a captured step's ``compile`` cost reads too."""
     t_ops, t_mem = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -533,10 +544,7 @@ def phase_kernels(torch, tk):
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
     )
     nnz = int((c_k != 0).sum())
-    k1["bound_ms"], k1["bound_by"] = bound(
-        2 * M * B * N * D + 2 * nnz * D,
-        B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4,
-    )
+    k1["bound_ms"], k1["bound_by"] = bound(*tk.kernel_work("tied_sae_fwd", M, B, N, D, nnz))
     emit("kernel", name="tied_sae_fwd", c_frac_differ=frac_c, dxh_frac_differ=frac_d,
          max_abs_err_dxh=k1_err, c_nonzero_frac=nnz / c_k.numel(), lrec=lrec_k.tolist(),
          ll1=ll1_k.tolist(), variant=k1["variant"], ms=k1["ms"], was_ms=FIRST_DESIGN_MS["tied_sae_fwd"],
@@ -565,11 +573,7 @@ def phase_kernels(torch, tk):
         library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k),
                                            torch.bmm(ct, xbt)), 10),
     )
-    k2["bound_ms"], k2["bound_by"] = bound(
-        6 * nnz * D,
-        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4
-        + 2 * (M * N * D * (4 + 2 + 4)) + M * N * 4 + 3 * M * 4,
-    )
+    k2["bound_ms"], k2["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", M, B, N, D, nnz, mu_bytes=2))
     rows.append(k2)
     del held
     k2_case(B, torch.float32, c_k, dxh_k, xb, d_raw, nrm)
@@ -595,11 +599,7 @@ def phase_kernels(torch, tk):
         library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k),
                                            torch.bmm(ct, xbt)), 10),
     )
-    k3["bound_ms"], k3["bound_by"] = bound(
-        6 * nnz * D,
-        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + M * N * D * 2
-        + M * N * D * 4 + M * N * 4 + M * 4,
-    )
+    k3["bound_ms"], k3["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_grads", M, B, N, D, nnz))
     rows.append(k3)
     for row in (k2, k3):
         emit("kernel", name=row["name"], variant=row["variant"], ms=row["ms"], was_ms=WMMA_MAINLOOP_MS[row["variant"]],
@@ -735,10 +735,7 @@ def phase_capacity_kernels(torch, tk):
         plain_ms=time_ms(torch, lambda: tk._fwd_nocode_plain(xb, db, bias, scale), 5),
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20),
     )
-    k1n["bound_ms"], k1n["bound_by"] = bound(
-        2 * M * B * N * D + 2 * nnz * D,
-        B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * D * 2 + 2 * M * (B // 64) * 4,
-    )
+    k1n["bound_ms"], k1n["bound_by"] = bound(*tk.kernel_work("tied_sae_fwd_nocode", M, B, N, D, nnz))
     summary = dict(k1n_dxh_bit_equal_k1=True, k1n_same_bits_twice=True, k1n_lrec_rel_vs_k1=lrec_rel,
                    k1n_ll1_rel_vs_k1=ll1_rel, k1n_dxh_frac_differ_plain=frac_d, k1n_ms=k1n["ms"],
                    k1n_was_ms=FIRST_DESIGN_MS["tied_sae_fwd_nocode"])
@@ -797,11 +794,8 @@ def phase_capacity_kernels(torch, tk):
     )
     # the rebuild's dense encode GEMM + the three on the code's non-zeros;
     # moments: int8 codes and scales, bf16 nu, each read and written once
-    k2["bound_ms"], k2["bound_by"] = bound(
-        2 * M * B * N * D + 6 * nnz * D,
-        B * D * 2 + M * B * D * 2 + M * N * 4 + M * N * 4 + M * N * 4
-        + 2 * (M * N * D * (4 + 1 + 2) + M * N * 4) + M * 4 + 2 * M * 4 + 4,
-    )
+    k2["bound_ms"], k2["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam_rc", M, B, N, D, nnz, mu_bytes=1,
+                                                           nu_bytes=2, mu_scaled=True))
     rows.append(k2)
     emit("kernel", name=k2["name"], variant=k2["variant"], ms=k2["ms"], was_ms=WMMA_MAINLOOP_MS[k2["variant"]],
          bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"])
@@ -1370,11 +1364,7 @@ def phase_topk_kernels(torch, tk, kk):
     )
     dense_ms["k2_mu_f32_nu_f32"] = time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 5)
     sparse_ms = {"k2_mu_f32_nu_f32": row["ms"]}
-    row["bound_ms"], row["bound_by"] = bound(
-        6 * nnz * TD,
-        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
-        + 2 * (TM * TN * TD * (4 + 4 + 4)) + TM * TN * 4 + 3 * TM * 4,
-    )
+    row["bound_ms"], row["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", TM, TB, TN, TD, nnz))
     rows.append(row)
     del held
     for sparse in (True, False):
@@ -1396,11 +1386,8 @@ def phase_topk_kernels(torch, tk, kk):
     )
     dense_ms["k2_mu_int8_nu_bf16"] = time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, seed_tile=kk.SEED_TILE), 5)
     sparse_ms["k2_mu_int8_nu_bf16"] = row["ms"]
-    row["bound_ms"], row["bound_by"] = bound(
-        6 * nnz * TD,
-        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4
-        + 2 * (TM * TN * TD * (4 + 1 + 2) + TM * TN * 4) + TM * TN * 4 + 3 * TM * 4 + 4,
-    )
+    row["bound_ms"], row["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", TM, TB, TN, TD, nnz, mu_bytes=1,
+                                                             nu_bytes=2, mu_scaled=True))
     capacity_rows = [row]
     del held
 
@@ -1424,11 +1411,7 @@ def phase_topk_kernels(torch, tk, kk):
     )
     dense_ms["k3"] = time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh_k, c_k, nrm, db, l1b), 5)
     sparse_ms["k3"] = row["ms"]
-    row["bound_ms"], row["bound_by"] = bound(
-        6 * nnz * TD,
-        TB * TD * 2 + TM * TB * TD * 2 + TM * TB * TN * 2 + TM * TN * 4 + TM * TN * TD * 2
-        + TM * TN * TD * 4 + TM * TN * 4 + TM * 4,
-    )
+    row["bound_ms"], row["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_grads", TM, TB, TN, TD, nnz))
     rows.append(row)
     # the two routes side by side at this shape (the dense route's own rows
     # are the tied paths', where it runs)
@@ -1473,9 +1456,7 @@ def tied_kernel_rows(torch, tk, g, shape):
               ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
               plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
               library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20))
-    k1["bound_ms"], k1["bound_by"] = bound(
-        2 * M * B * N * D + 2 * nnz * D,
-        B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4)
+    k1["bound_ms"], k1["bound_by"] = bound(*tk.kernel_work("tied_sae_fwd", M, B, N, D, nnz))
     emit("kernel", name="tied_sae_fwd", shape=shape, c_frac_differ=frac_c, dxh_frac_differ=frac_d,
          c_nonzero_frac=nnz / c_k.numel(), ms=k1["ms"], bound_ms=k1["bound_ms"], plain_ms=k1["plain_ms"])
     del c_p, dxh_p
@@ -1489,9 +1470,7 @@ def tied_kernel_rows(torch, tk, g, shape):
               ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 10),
               plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
               library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
-    k2["bound_ms"], k2["bound_by"] = bound(
-        6 * nnz * D,
-        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + 2 * (M * N * D * (4 + 4 + 4)) + M * N * 4 + 3 * M * 4)
+    k2["bound_ms"], k2["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", M, B, N, D, nnz))
     emit("kernel", name="tied_sae_bwd_adam", shape=shape, max_abs_err_d_new=k2_err, ms=k2["ms"],
          bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"])
     return [k1, k2]
@@ -1569,9 +1548,7 @@ def phase_experiment_kernels(torch, tk, kk):
                ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, sparse=True), 10),
                plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
                library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
-    k2s["bound_ms"], k2s["bound_by"] = bound(
-        6 * nnz * D,
-        B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + 2 * (M * N * D * (4 + 4 + 4)) + M * N * 4 + 3 * M * 4)
+    k2s["bound_ms"], k2s["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", M, B, N, D, nnz))
     rows.append(k2s)
     emit("kernel", name="topk path", shape=shape, s_frac_differ=frac_s, thresholds_bit_equal=True, c_bit_equal=True,
          dxh_frac_differ=frac_d, lrec_max_rel=rel, c_nonzero_frac=nnz / c_k.numel(),
@@ -2296,6 +2273,7 @@ def phase_sweep_train(torch, root: Path):
     # finite everywhere; each ensemble's lowest-l1 member has learned (the
     # high-l1 members of so short a run may still sit near FVU 1)
     check(all(math.isfinite(v) for v in fvu) and max(fvu[0], fvu[M]) < 0.75, f"sweep FVU {fvu}")
+    PHASE_WALL["sweep_train"] = wall
     emit("sweep_train", config="BASELINE config 2 widths", members={"A": M, "B": SWEEP["members_b"]}, routes=routes,
          chunks=SWEEP["chunks"], rows=rows, batch=B, steps_per_ensemble=steps, launches=launches,
          trace_short=short, wall_s=wall,
@@ -5320,6 +5298,355 @@ def phase_runtools(torch, runs: dict):
          monitor_lines=len(mon_text.splitlines()), skew=skew, seconds=time.perf_counter() - t_phase)
 
 
+def profiling_store(torch, root: Path) -> dict:
+    """The profiling sweep's store under ``root/act``, drawn on the card by a
+    seeded `RandomDatasetGenerator`: 2 fp16 chunks of 65,536 rows at D 512.
+    Returns its repair config (`data.scrub`'s synthetic schema)."""
+    from sparse_coding__tpu_torch.data.chunks import generate_synthetic_chunks
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    gen = dict(PROFILING["generator"])
+    seed = gen.pop("seed")
+    spec = dict(n_chunks=PROFILING["chunks"], chunk_size_gb=PROFILING["chunk_size_gb"], activation_width=D)
+    generate_synthetic_chunks(RandomDatasetGenerator(**gen, key=seed, device="cuda"), root / "act", **spec)
+    return {"kind": "synthetic", "generator": {**gen, "class": "RandomDatasetGenerator", "seed": seed},
+            "dtype": "float16", **spec}
+
+
+def profiling_cfg(out: str):
+    """The profiling sweep's config; folders relative to the run's working
+    directory, so a copy of the tree keeps its lineage joins."""
+    from sparse_coding__tpu_torch.utils.config import SyntheticEnsembleArgs
+
+    return SyntheticEnsembleArgs(
+        use_synthetic_dataset=True, activation_width=D, n_ground_truth_components=1024, feature_num_nonzero=8,
+        feature_prob_decay=0.996, n_chunks=PROFILING["chunks"], chunk_size_gb=PROFILING["chunk_size_gb"],
+        n_epochs=1, batch_size=B, dataset_folder="act", output_folder=out, seed=0,
+    )
+
+
+def profiling_init(cfg):
+    """Config 2's tied ensemble alone (8 members, Adam with bf16 mu, bf16
+    compute): K1 + K2 every step."""
+    import sparse_coding__tpu_torch as pkg
+
+    ens = pkg.build_ensemble(pkg.FunctionalTiedSAE, 0, [{"l1_alpha": x} for x in L1_GRID],
+                             optimizer_kwargs={"learning_rate": LR, "mu_dtype": "bfloat16"},
+                             compute_dtype="bfloat16", activation_size=D, n_dict_components=N)
+    return ([(ens, {"batch_size": cfg.batch_size, "dict_size": N}, "adam")], ["dict_size"], ["l1_alpha"],
+            {"l1_alpha": L1_GRID, "dict_size": [N]})
+
+
+def cli(main_fn, argv):
+    """``(exit code, stdout)`` of a CLI's ``main(argv)`` run in-process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    """Executions of each wrapper's kernel in a window's Chrome trace (its
+    ``kernel`` records by demangled name, `_torch_trace.SYMBOLS`)."""
+    from _torch_trace import kernel_counts
+
+    names = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return kernel_counts(names)
+
+
+def phase_profiling(torch, root: Path) -> dict:
+    """ROADMAP A9's profiling group on the card, at config 2's full width.
+
+    The sweep driver over 2 chunks twice (``SC_COST_CAPTURE=full`` both
+    times): a control, then with ``SC_TRACE_WINDOW`` over chunk 1. The
+    window's Chrome trace holds K1 and K2 records, counted beside the
+    wrappers' between the window's edges (a shortfall warns naming C3); the
+    capture's ``compile`` cost equals `kernel_work`'s K1 + K2 at that shape
+    and at the captured step's code nnz (the kernel rows' count), printed
+    beside the dense-code count;
+    the report renders the step on the roofline with the train loop's
+    CUDA-event step ms. Then an anomaly run with a NaN member fires its
+    trigger once, and `transfer_audit` wraps `ensemble_train_loop` on a
+    graph-route chunk under sync-debug mode ``"error"`` (passes), and over a
+    planted ``.item()`` (raises `TransferViolation`). Returns what
+    `phase_lineage_scrub` needs."""
+    import contextlib
+    import warnings
+
+    from _torch_trace import trace_shortfall
+    from sparse_coding__tpu_torch.data.chunks import ChunkStore
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.telemetry import (
+        AnomalyGuard,
+        AnomalyPolicy,
+        RunTelemetry,
+        TraceTrigger,
+        TransferViolation,
+        read_events,
+        transfer_audit,
+    )
+    from sparse_coding__tpu_torch.telemetry import profiling as tprof
+    from sparse_coding__tpu_torch.telemetry.report import _fmt, load_run, render_markdown
+    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
+    from sparse_coding__tpu_torch.train.sweep import sweep
+    from sparse_coding__tpu_torch.utils.logging import MetricLogger
+    from sparse_coding__tpu_torch.utils.trace import TRACE_FILE
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    check(tprof.peak_tflops(kind) * 1e12 == PEAK_BF16_FLOPS and tprof.hbm_gbps(kind) * 1e9 == PEAK_BYTES,
+          f"the port's peak table for {kind} is not the kernel table's")
+    repair = profiling_store(torch, root)
+    steps_chunk = int(PROFILING["chunk_size_gb"] * 1024**3 // (D * 2)) // B
+    runs = {}
+    # the wrappers' counts at the window's edges: read where the trigger
+    # opens it and where it closes it, the window's launches their difference
+    edges = {}
+    start0, stop0 = TraceTrigger._start, TraceTrigger._stop
+
+    def start_read(self, *a, **kw):
+        started = start0(self, *a, **kw)
+        if started is not None:
+            edges["start"] = dict(tk.LAUNCHES)
+        return started
+
+    def stop_read(self, *a, **kw):
+        if self.active:
+            edges["stop"] = dict(tk.LAUNCHES)
+        return stop0(self, *a, **kw)
+
+    for name, env in (("control", {"SC_COST_CAPTURE": "full"}),
+                      ("window", {"SC_COST_CAPTURE": "full", "SC_TRACE_WINDOW": PROFILING["window"]})):
+        tk.reset_launches()
+        TraceTrigger._start, TraceTrigger._stop = start_read, stop_read
+        try:
+            with environ(env), contextlib.chdir(root):
+                t0 = time.perf_counter()
+                sweep(profiling_init, profiling_cfg(f"out_{name}"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            TraceTrigger._start, TraceTrigger._stop = start0, stop0
+        events = read_events(root / f"out_{name}" / "events.jsonl")
+        runs[name] = dict(wall_s=wall, launches={k: v for k, v in tk.LAUNCHES.items() if v},
+                          chunk_s=[e["seconds"] for e in events if e["event"] == "chunk_end"], events=events)
+        check(runs[name]["launches"] == {"tied_sae_fwd": 2 * steps_chunk, "tied_sae_bwd_adam": 2 * steps_chunk},
+              f"{name} sweep launches {runs[name]['launches']}")
+    events = runs["window"]["events"]
+    traces = [e for e in events if e["event"] == "trace"]
+    check([(t["reason"], t["start_step"], t["stop_step"]) for t in traces]
+          == [("step_window", steps_chunk, 2 * steps_chunk)], f"trace events {traces}")
+    check(not [e for e in runs["control"]["events"] if e["event"] == "trace"], "the control run traced")
+    trace_file = root / traces[0]["dir"] / TRACE_FILE
+    in_trace = {k: v for k, v in trace_kernel_counts(trace_file).items() if v}
+    check(set(edges) == {"start", "stop"}, f"the window's edges were not read: {sorted(edges)}")
+    window_launches = {k: edges["stop"].get(k, 0) - edges["start"].get(k, 0) for k in ("tied_sae_fwd",
+                                                                                       "tied_sae_bwd_adam")}
+    check(all(v > 0 for v in window_launches.values()), f"the wrappers counted no launch in the window: "
+          f"{window_launches}")
+    check(in_trace.get("tied_sae_fwd", 0) > 0 and in_trace.get("tied_sae_bwd_adam", 0) > 0,
+          f"the window's trace holds no K1 or K2 record: {in_trace}")
+    short = trace_shortfall(in_trace, window_launches)
+    if short:
+        warnings.warn(f"ROADMAP C3: the window's trace missed launches (trace, wrappers): {short}")
+    compiles = [e for e in events if e["event"] == "compile"]
+    check([c["name"] for c in compiles] == ["ensemble.step_scan"], f"compile events {compiles}")
+    cost = compiles[0]["cost"]
+    nnz = cost.get("code_nnz")
+    check(nnz is not None and 0 < nnz < M * B * N, f"the capture recorded no code nnz: {cost}")
+    k1 = tk.kernel_work("tied_sae_fwd", M, B, N, D, nnz)
+    k2 = tk.kernel_work("tied_sae_bwd_adam", M, B, N, D, nnz, mu_bytes=2)
+    check((cost["flops"], cost["bytes_accessed"]) == (k1[0] + k2[0], k1[1] + k2[1]),
+          f"the capture's cost {cost} is not K1 + K2's work at its code nnz {k1}, {k2}")
+    dense = [tk.kernel_work(k, M, B, N, D, **kw) for k, kw in (("tied_sae_fwd", {}),
+                                                                ("tied_sae_bwd_adam", {"mu_bytes": 2}))]
+    dense_flops = float(sum(f for f, _ in dense))
+    check(cost.get("pool_bytes", 0) > 0, f"SC_COST_CAPTURE=full recorded no pool bytes: {cost}")
+    gauges = [e for e in events if e["event"] == "snapshot"][-1]["gauges"]
+    step_ms = gauges.get("perf.ensemble.step_scan.step_ms")
+    check(step_ms is not None and step_ms > 0, f"no step-time gauge: {sorted(gauges)}")
+    rl = tprof.roofline_summary(cost["flops"], cost["bytes_accessed"], kind, seconds=step_ms / 1e3)
+    rl_dense = tprof.roofline_summary(dense_flops, cost["bytes_accessed"], kind, seconds=step_ms / 1e3)
+    md = render_markdown(load_run(root / "out_window"))
+    sec = md[md.index("## Performance attribution"):].split("\n## ")[0]
+    row = [ln for ln in sec.splitlines() if ln.startswith("| ensemble.step_scan ")]
+    check(row and all(f"| {_fmt(rl[k])} |" in row[0] for k in ("attainable_tflops", "achieved_fraction"))
+          and f"| {rl['bound']} |" in row[0], f"the report's row {row} against {rl}")
+
+    # the anomaly trigger: a NaN member, two chunk passes, one capture
+    store = ChunkStore(root / "act")
+    chunk0, chunk1 = store.load(0, device="cuda"), store.load(1, device="cuda")
+    ens = profiling_init(profiling_cfg("unused"))[0][0][0]
+    with torch.no_grad():
+        ens.state.params["encoder"][M // 2].fill_(float("nan"))
+    adir = root / "anomaly"
+    tel = RunTelemetry(out_dir=str(adir), run_name="anomaly")
+    trigger = TraceTrigger(telemetry=tel, out_dir=str(adir))
+    guard = AnomalyGuard(telemetry=tel, out_dir=str(adir), policy=AnomalyPolicy(action="warn"), trace_trigger=trigger)
+    logger = MetricLogger(out_dir=str(adir), run_name="anomaly", on_flush=guard.observe)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        ensemble_train_loop(ens, chunk0, batch_size=B, key=1, logger=logger, telemetry=tel)
+        fired = trigger.active
+        ensemble_train_loop(ens, chunk1, batch_size=B, key=2, logger=logger, telemetry=tel)
+        trigger.on_step(2 * steps_chunk)
+    logger.close()
+    tel.close()
+    aevents = read_events(adir / "events.jsonl")
+    anomalies = [e for e in aevents if e["event"] == "anomaly"]
+    atraces = [e for e in aevents if e["event"] == "trace"]
+    check(fired and len(atraces) == 1 and len(anomalies) >= 2 and anomalies[0]["trace_dir"] == atraces[0]["dir"]
+          and all(a.get("trace_dir") is None for a in anomalies[1:]) and M // 2 in anomalies[0]["models"],
+          f"anomaly trigger: fired {fired}, traces {atraces}, anomalies {anomalies}")
+    anomaly_trace = trace_kernel_counts(Path(atraces[0]["dir"]) / TRACE_FILE)
+    del ens, guard
+
+    # the transfer audit over a graph-route chunk (both routes' graphs
+    # captured first: the audit reads the replays' loop)
+    ens = profiling_init(profiling_cfg("unused"))[0][0][0]
+    logger = MetricLogger(out_dir=str(root / "audit"), run_name="audit")
+    ensemble_train_loop(ens, chunk0, batch_size=B, key=1, logger=logger)
+    ensemble_train_loop(ens, chunk0, batch_size=B, key=2, logger=logger, progress_callback=lambda i, n: None)
+    captures = ens.captures
+    mode_before = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    with transfer_audit():
+        audit_mode = torch.cuda.get_sync_debug_mode()
+        ensemble_train_loop(ens, chunk1, batch_size=B, key=3, logger=logger)
+    audit_s = time.perf_counter() - t0
+    check(audit_mode == 2 and torch.cuda.get_sync_debug_mode() == mode_before and ens.captures == captures,
+          f"audit mode {audit_mode}, after {torch.cuda.get_sync_debug_mode()}, captures {ens.captures}")
+    caught = None
+    try:
+        with transfer_audit():
+            ensemble_train_loop(ens, chunk1, batch_size=B, key=4, logger=logger,
+                                progress_callback=lambda i, n: ens.state.params["encoder"].sum().item())
+    except TransferViolation as e:
+        caught = str(e)
+    check(caught is not None and "Tensor.item" in caught, f"the planted .item() was not caught: {caught}")
+    logger.close()
+    del ens, chunk0, chunk1
+    emit("profiling", config="BASELINE config 2", chunks=PROFILING["chunks"], steps_per_chunk=steps_chunk,
+         window=PROFILING["window"], wall_s={"sweep_train (3 chunks, 2 ensembles)": PHASE_WALL.get("sweep_train"),
+                                             "control": runs["control"]["wall_s"], "window": runs["window"]["wall_s"]},
+         chunk_s={k: v["chunk_s"] for k, v in runs.items()}, launches=runs["window"]["launches"],
+         window_launches=window_launches, trace_kernels=in_trace, trace_short=short,
+         trace_bytes=trace_file.stat().st_size, trace_start_s=traces[0]["start_s"], trace_stop_s=traces[0]["stop_s"],
+         cost=cost, roofline=rl, step_ms=step_ms,
+         dense_code=dict(flops=dense_flops, achieved_fraction=rl_dense.get("achieved_fraction"),
+                         achieved_tflops=rl_dense.get("achieved_tflops")),
+         anomaly=dict(anomalies=len(anomalies), traces=len(atraces), trace_kernels={k: v for k, v in
+                                                                                      anomaly_trace.items() if v}),
+         audit=dict(passed=True, seconds=audit_s, sync_debug_mode=audit_mode, planted=caught[:120]),
+         seconds=time.perf_counter() - t_phase)
+    return {"repair": repair}
+
+
+def lineage_verify_root(root: Path) -> dict:
+    """`verify_graph` at the digest tier over every artifact under ``root``
+    (the harvest's stores, runs, checkpoints and exports): nodes, edges,
+    failures and seconds."""
+    from sparse_coding__tpu_torch.telemetry.provenance import build_graph, verify_graph
+
+    t0 = time.perf_counter()
+    graph = build_graph([root])
+    t1 = time.perf_counter()
+    failures = verify_graph(graph, "digest")
+    t2 = time.perf_counter()
+    failing = [(i, n["verify"]) for i, n in sorted(graph.nodes.items()) if str(n.get("verify", "")).startswith("FAIL")]
+    return dict(nodes=len(graph.nodes), edges=len(graph.edges), verified=sum(1 for n in graph.nodes.values()
+                                                                             if n.get("verify")),
+                failures=failures, failing=failing[:10], tainted=len(graph.tainted()),
+                types={t: sum(1 for n in graph.nodes.values() if n["type"] == t)
+                       for t in sorted({n["type"] for n in graph.nodes.values()})},
+                build_s=t1 - t0, verify_s=t2 - t1)
+
+
+def phase_lineage_scrub(torch, root: Path, repair: dict, harvest_lineage: dict):
+    """The lineage graph and the scrub on a copy of the profiling sweep's
+    store, run dir and export: ``lineage check`` exits 0; one byte of chunk
+    1 flipped, ``scrub`` exits 1 and quarantines it; ``lineage blast
+    chunk:act#1`` names the export and ``lineage check`` exits 1; ``scrub
+    --repair`` with the store's synthetic config (drawn again on the card)
+    exits 0 with the chunk bit-equal to the original, and ``lineage check``
+    exits 0. Beside it the digest-tier `verify_graph` over the harvest root
+    (`lineage_verify_root`, run before that root went away)."""
+    from sparse_coding__tpu_torch import lineage, scrub
+    from sparse_coding__tpu_torch.data.chunks import chunk_path
+
+    t_phase = time.perf_counter()
+    copy = root / "lineage_copy"
+    for sub in ("act", "out_window"):
+        shutil.copytree(root / sub, copy / sub)
+    store = copy / "act"
+    times = {}
+
+    def step(name, fn, argv):
+        t0 = time.perf_counter()
+        rc, out = cli(fn, argv)
+        times[name] = time.perf_counter() - t0
+        return rc, out
+
+    rc_clean, _ = step("check_clean", lineage.main, ["check", str(copy)])
+    check(rc_clean == 0, f"lineage check on the sweep's tree exited {rc_clean}")
+    target = chunk_path(store, 1)
+    original = target.read_bytes()
+    raw = bytearray(original)
+    raw[len(raw) // 2] ^= 0x01
+    target.write_bytes(bytes(raw))
+    rc_scrub, out_scrub = step("scrub", scrub.main, [str(store)])
+    check(rc_scrub == 1 and (store / "quarantine" / "sc_quarantine.1.json").exists() and not target.exists(),
+          f"scrub exited {rc_scrub}: {out_scrub[-500:]}")
+    rc_blast, blast = step("blast", lineage.main, ["blast", "chunk:act#1", str(copy)])
+    export_id = "export:out_window/_1/learned_dicts.pkl"
+    check(rc_blast == 1 and export_id in blast and "tainted: quarantined" in blast, f"blast exited {rc_blast}: {blast}")
+    rc_taint, taint = step("check_tainted", lineage.main, ["check", str(copy)])
+    check(rc_taint == 1 and "chunk:act#1" in taint, f"lineage check over the taint exited {rc_taint}: {taint}")
+    (copy / "repair.json").write_text(json.dumps(repair))
+    rc_repair, out_repair = step("repair", scrub.main, [str(store), "--repair", str(copy / "repair.json")])
+    check(rc_repair == 0, f"scrub --repair exited {rc_repair}: {out_repair[-800:]}")
+    bit_equal = target.read_bytes() == original
+    check(bit_equal, "the repaired chunk is not the original's bits")
+    rc_after, after = step("check_repaired", lineage.main, ["check", str(copy)])
+    check(rc_after == 0, f"lineage check after the repair exited {rc_after}: {after}")
+    emit("lineage_scrub", exits=dict(check=rc_clean, scrub=rc_scrub, blast=rc_blast, check_tainted=rc_taint,
+                                     repair=rc_repair, check_repaired=rc_after),
+         blast_names_export=True, repaired_bit_equal=bit_equal, chunk_bytes=len(original), seconds_by_step=times,
+         harvest_root=harvest_lineage, seconds=time.perf_counter() - t_phase)
+    check(harvest_lineage["failures"] == 0, f"verify_graph over the harvest root: {harvest_lineage['failing']}")
+
+
+def phase_features(torch, run_dir: Path):
+    """The ``features`` CLI over `basic_l1_sweep`'s run dir (its snapshots
+    and events, kept by `keep_run`): exit 0, and each snapshot's aggregates
+    are the run's ``feature_stats`` flush events'."""
+    from sparse_coding__tpu_torch import features
+    from sparse_coding__tpu_torch.telemetry import read_events
+
+    t0 = time.perf_counter()
+    rc, out = cli(features.main, [str(run_dir), "--json"])
+    check(rc == 0, f"features --json exited {rc}")
+    info = json.loads(out)
+    rc_text, text = cli(features.main, [str(run_dir)])
+    check(rc_text == 0 and text.startswith("feature surface"), f"features exited {rc_text}: {text[:300]}")
+    events = read_events(run_dir / "events.jsonl")
+    flushes = [e for e in events if e["event"] == "feature_stats"]
+    spans = [e for e in events if e["event"] == "span" and e["category"] == "feature_flush"]
+    check([s["gen"] for s in info["snapshots"]] == [e["gen"] for e in flushes] and len(spans) >= len(flushes),
+          f"snapshots {[s['gen'] for s in info['snapshots']]} vs flushes {[e['gen'] for e in flushes]}")
+    worst = max(abs(s[k] - e[k]) for s, e in zip(info["snapshots"], flushes) for k in ("dead_frac", "gini", "hot_frac"))
+    check(worst <= 1e-6, f"the CLI's aggregates differ from the flush events' by {worst}")
+    emit("features", snapshots=len(info["snapshots"]), flush_spans=len(spans), latest=info["latest"],
+         dead=info["dead"]["count"], drift=info["drift"], max_abs_diff_vs_events=worst,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -5452,7 +5779,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_bls_") as bls_root:
         bls_launches, control = phase_basic_l1_sweep_train(torch, tf, Path(bls_root))
-        keep_run("basic_l1_sweep", Path(bls_root) / "bls_a", Path(runs_root.name))
+        keep_run("basic_l1_sweep", Path(bls_root) / "bls_a", Path(runs_root.name),
+                 patterns=("*.jsonl", "feature_stats.*.npz"))
         torch.cuda.empty_cache()
         phase_basic_l1_sweep_resume(torch, Path(bls_root), control)
     bls_row = dict(fista_rows[2], path="basic_l1_sweep", launches=bls_launches)
@@ -5539,6 +5867,9 @@ def main() -> int:
         phase_seqpar_world2(torch, harvest_root, lm_cfg, lm_params, seqpar_ref)
         keep_run("seqpar_world2", harvest_root / "seqpar_run", Path(runs_root.name))
         del lm_params, seqpar_ref
+        # the lineage graph over everything the harvest root holds, verified
+        # at the digest tier before the root goes (printed by lineage_scrub)
+        harvest_lineage = lineage_verify_root(harvest_root)
     for row in harvest_rows:
         row.update(path="harvest_sweep", launches=harvest_launches[row["name"]])
     rows += harvest_rows
@@ -5553,6 +5884,14 @@ def main() -> int:
 
     # the run tools (ROADMAP A9's first group) over the run dirs kept above
     phase_runtools(torch, KEPT_RUNS)
+    # A9's profiling, lineage and features surfaces: the trace window, the
+    # step's cost on the roofline and the transfer audit at config 2; the
+    # lineage graph and the scrub on that sweep's tree; the features CLI
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_profiling_") as prof_root:
+        profiled = phase_profiling(torch, Path(prof_root))
+        phase_lineage_scrub(torch, Path(prof_root), profiled["repair"], harvest_lineage)
+    phase_features(torch, KEPT_RUNS["basic_l1_sweep"])
     runs_root.cleanup()
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied

@@ -23,7 +23,7 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -263,19 +263,42 @@ class ChunkStore:
             t.join(timeout=60)
 
 
+SYNTHETIC_PRODUCER = "sparse_coding__tpu_torch"  # the stamp `data.scrub`'s repair checks
+
+
+def synthetic_stamp(generator) -> Dict[str, str]:
+    """The ``provenance`` a synthetic chunk's manifest carries: the package,
+    the generator class and the device type whose `torch.Generator` stream
+    drew it (the CPU's and CUDA's streams differ), so a repair can tell
+    whether it can give the chunk's bits back."""
+    dev = getattr(generator, "device", None)
+    return {"synthetic": {"producer": SYNTHETIC_PRODUCER, "generator": type(generator).__name__,
+                          "device": torch.device(dev).type if dev is not None else "cpu"}}
+
+
 def generate_synthetic_chunks(
     generator, folder, n_chunks: int, chunk_size_gb: float = 2.0,
-    activation_width: Optional[int] = None, dtype=np.float16,
+    activation_width: Optional[int] = None, dtype=np.float16, only_chunks: Optional[Sequence[int]] = None,
 ) -> ChunkStore:
     """Materialize a generator into chunk files of the ``dtype`` tier (see
     `save_chunk`): each chunk holds the whole batches that fit in
-    ``chunk_size_gb`` at ``dtype``'s item size."""
+    ``chunk_size_gb`` at ``dtype``'s item size; each manifest carries
+    `synthetic_stamp`.
+
+    ``only_chunks``: write just those indices. The generator still draws
+    every chunk's batches, so chunk ``k``'s data is the same whichever subset
+    is written (what `data.scrub`'s repair refills a hole with, on the
+    device type that drew the store)."""
     store = ChunkStore(folder)
     width = activation_width or generator.activation_dim
     rows_per_chunk = int(chunk_size_gb * 1024**3 // (width * np.dtype(dtype).itemsize))
     batches_per_chunk = max(1, rows_per_chunk // generator.batch_size)
+    selected = None if only_chunks is None else {int(c) for c in only_chunks}
+    stamp = synthetic_stamp(generator)
     for i in range(n_chunks):
-        save_chunk(folder, i, torch.cat([next(generator) for _ in range(batches_per_chunk)]), dtype=dtype)
+        parts = [next(generator) for _ in range(batches_per_chunk)]  # drawn also when skipped
+        if selected is None or i in selected:
+            save_chunk(folder, i, torch.cat(parts), dtype=dtype, provenance=stamp)
     return store
 
 

@@ -60,7 +60,9 @@ graph stays valid across eager steps.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -73,7 +75,10 @@ from sparse_coding__tpu_torch.telemetry.feature_stats import (
     feature_stats_pack,
     init_feature_stats,
 )
+from sparse_coding__tpu_torch.telemetry.audit import allowed_transfer
+from sparse_coding__tpu_torch.telemetry.events import compile_active, telemetry_live
 from sparse_coding__tpu_torch.telemetry.health import FIRE_EMA_KEY, HealthConfig, health_pack, init_fire_ema, n_feats_of
+from sparse_coding__tpu_torch.telemetry.profiling import capture_mode
 from sparse_coding__tpu_torch.utils import flags
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
@@ -213,6 +218,20 @@ class _StepGraph:
         self.graph, self.x, self.losses, self.names = graph, x, losses, names
         self.leaves = leaves
         self.ident = _identity(leaves)
+        self.cost: Optional[Dict[str, Any]] = None  # `Ensemble.step_cost` at its capture
+
+
+def _scan_entry(per_model: bool) -> str:
+    """The JAX package's entry-point name of a `step_scan` dispatch."""
+    return "ensemble.step_scan_per_model" if per_model else "ensemble.step_scan"
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the allocator holds in the private memory ``pool`` (a step
+    graph pool's), from its segment snapshot (a host-side query)."""
+    want = tuple(pool)
+    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+               if seg.get("segment_pool_id") is not None and tuple(seg["segment_pool_id"]) == want)
 
 
 def _identity(leaves: Sequence[torch.Tensor]) -> List[tuple]:
@@ -609,14 +628,14 @@ class Ensemble:
             local = self.local_batch(batches, per_model, leading=1)
             if local.is_cuda and not self._step_collectives():
                 losses = self._replay(local.shape[1:], local.dtype, per_model, len(local),
-                                      lambda x, k: x.copy_(local[k]))
+                                      lambda x, k: x.copy_(local[k]), _scan_entry(per_model))
             else:
                 losses = _stack_losses([self._eager_step(b, per_model) for b in local])
             return self._gather_losses(losses)
         if not batches.is_cuda:
             return _stack_losses([self.step_batch(b, per_model)[0] for b in batches])
         return self._replay(batches.shape[1:], batches.dtype, per_model, len(batches),
-                            lambda x, k: x.copy_(batches[k]))
+                            lambda x, k: x.copy_(batches[k]), _scan_entry(per_model))
 
     def _eager_step(self, local_batch: torch.Tensor, per_model: bool) -> Dict[str, torch.Tensor]:
         """One eager step on this rank's part, its losses left local."""
@@ -642,14 +661,17 @@ class Ensemble:
             return _stack_losses([self.step_batch(torch.index_select(dataset, 0, i))[0] for i in idxs])
         shape = (idxs.shape[1],) + tuple(dataset.shape[1:])
         return self._replay(shape, dataset.dtype, False, len(idxs),
-                            lambda x, k: torch.index_select(dataset, 0, idxs[k], out=x))
+                            lambda x, k: torch.index_select(dataset, 0, idxs[k], out=x), "ensemble.step_scan_idx")
 
-    def _replay(self, shape, dtype, per_model: bool, K: int, fill) -> Dict[str, torch.Tensor]:
+    def _replay(self, shape, dtype, per_model: bool, K: int, fill,
+                entry: str = "ensemble.step_scan") -> Dict[str, torch.Tensor]:
         """K steps on CUDA by graph replays; ``fill(x, k)`` writes batch k
         into the graph's input ``x``. When no valid graph exists, the first
         batch is a real eager step on the capture stream (which also warms
         up the lazy initialisations capture must not meet), then the step is
-        captured."""
+        captured: the port's compile, recorded as a ``compile`` event named
+        ``entry`` with its host seconds and cost (`step_cost`) on every open
+        `RunTelemetry` (``SC_COST_CAPTURE``)."""
         self._device_step()
         key = (per_model, tuple(shape), dtype, "update_mask" in self.state.buffers, self._settings())
         g = self._graphs.get(key)
@@ -660,7 +682,10 @@ class Ensemble:
         if g is None:
             t0 = time.perf_counter()
             g, first = self._capture(key, shape, dtype, per_model, fill)
-            self.capture_seconds += time.perf_counter() - t0
+            seconds = time.perf_counter() - t0
+            self.capture_seconds += seconds
+            if g.cost is not None:
+                compile_active(entry, seconds, cost=g.cost)
         out = torch.empty((len(g.names), K, self.n_models), dtype=g.losses.dtype, device=self.device)
         k0 = 0
         if first is not None:
@@ -710,8 +735,18 @@ class Ensemble:
         # the side stream waits for everything the main stream enqueued, so
         # memory the side stream allocates or reuses is never still in use
         side.wait_stream(main)
+        mode = capture_mode() if telemetry_live() else "off"
+        route = self._route(shape[-2], "update_mask" in self.state.buffers, per_model)
+        counter = nnz = None
+        if mode != "off" and route == "autograd":
+            from torch.utils.flop_counter import FlopCounterMode
+
+            counter = FlopCounterMode(display=False)
         with torch.cuda.stream(side):
-            first_losses, _ = self._step_in_place(x, per_model)
+            if mode != "off" and route != "autograd" and hasattr(self.sig, "code_nnz"):
+                nnz = self.sig.code_nnz(self.state.params, x)  # the first step's code
+            with counter if counter is not None else contextlib.nullcontext():
+                first_losses, _ = self._step_in_place(x, per_model)
             self._state.step += 1
             names = list(first_losses)
             first = torch.stack([first_losses[n] for n in names])
@@ -721,9 +756,59 @@ class Ensemble:
                 losses = torch.stack([loss_dict[n] for n in names])
         main.wait_stream(side)
         g = _StepGraph(graph, x, losses, names, self._leaves())
+        if mode != "off":
+            if nnz is not None:
+                with allowed_transfer():  # one host read a capture, and only with cost capture on
+                    nnz = nnz.item()
+            g.cost = self.step_cost(shape, dtype, per_model, code_nnz=nnz,
+                                    counted_flops=None if counter is None else counter.get_total_flops())
+            if g.cost is not None and mode == "full":
+                g.cost["pool_bytes"] = _pool_bytes(self._pool)
         self._graphs[key] = g
         self.captures += 1
         return g, first
+
+    def step_cost(self, shape, dtype=torch.float32, per_model: bool = False, code_nnz: Optional[int] = None,
+                  counted_flops: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The analytic cost of one step on a batch of ``shape`` ([B, D], or
+        [M, B, D] with ``per_model``): the JAX package's ``compile`` cost
+        fields, ``flops`` and ``bytes_accessed`` per step, and ``method``.
+
+        On a fused route the signature counts its kernels'
+        (``sig.fused_step_work``, `ops.tied_sae_kernel.kernel_work`, the one
+        count the kernel table's bounds read too) at the code's ``code_nnz``
+        non-zero entries (a capture passes its first step's, and the cost
+        records it, ``code_nnz``, and its share; None counts a dense code); on
+        the autograd route the FLOPs are ``counted_flops``
+        (`torch.utils.flop_counter.FlopCounterMode` over the eager step
+        before a capture) and the bytes every state leaf read once and
+        written once plus the batch read once. None where no count exists
+        (a fused route of a signature without one, or the autograd route
+        without ``counted_flops``)."""
+        B = int(shape[-2])
+        route = self._route(B, "update_mask" in self.state.buffers, per_model)
+        if route != "autograd":
+            if not hasattr(self.sig, "fused_step_work"):
+                return None
+            rc = bool((self.fused_adam or {}).get("recompute_code")) if route == "fused_adam" else False
+            work = self.sig.fused_step_work(self.state.params, self.state.opt_state, B, route, recompute_code=rc,
+                                            nnz=code_nnz)
+            cost = {"flops": work["flops"], "bytes_accessed": work["bytes_accessed"], "route": route,
+                    "method": "analytic: " + " + ".join(work["kernels"])}
+            if code_nnz is None:
+                cost["method"] += " (dense code)"
+            else:
+                M, N = self.state.params["encoder"].shape[:2]
+                cost["method"] += " (the captured step's code nnz)"
+                cost["code_nnz"], cost["code_nonzero_frac"] = int(code_nnz), code_nnz / (M * B * N)
+            return cost
+        if counted_flops is None:
+            return None
+        state_bytes = sum(t.numel() * t.element_size() for t in _tensors(self.state.params)
+                          + _tensors(self.state.buffers) + _tensors(self.state.opt_state))
+        batch_bytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return {"flops": float(counted_flops), "bytes_accessed": float(2 * state_bytes + batch_bytes),
+                "route": route, "method": "FlopCounterMode; state leaves read and written once, the batch read once"}
 
     # -- export / checkpoint -------------------------------------------------
 

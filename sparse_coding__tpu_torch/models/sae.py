@@ -42,6 +42,7 @@ from sparse_coding__tpu_torch.models.learned_dict import (
 from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.optim import (
+    QuantMoment,
     as_u32,
     bias_corrections,
     decayed_moment,
@@ -330,6 +331,43 @@ class FunctionalTiedSAE:
         grads = {"encoder": g_enc, "encoder_bias": g_bias + g_decay}
         loss_data = {"loss": l_rec + l_l1 + l_bias_decay, "l_reconstruction": l_rec, "l_l1": l_l1}
         return grads, loss_data
+
+    @staticmethod
+    def fused_step_work(params, opt_state, batch_size: int, route: str, recompute_code: bool = False,
+                        nnz: Optional[int] = None):
+        """``{"flops", "bytes_accessed", "kernels"}`` of one fused step at
+        this shape, from `ops.tied_sae_kernel.kernel_work` with the code's
+        ``nnz`` non-zero entries (`code_nnz`; None: a dense code, the most
+        the step can need): K1 + K2 (K1n + K2 rebuilding the code with
+        ``recompute_code``) on the ``"fused_adam"`` route, K1 + K3 on
+        ``"fused_grads"`` (the bias and optimizer arithmetic outside the
+        kernels is not counted)."""
+        M, N, D = params["encoder"].shape
+        B = int(batch_size)
+
+        def size(mom):
+            return (1, True) if isinstance(mom, QuantMoment) else (mom.element_size(), False)
+
+        if route == "fused_adam":
+            (mu_b, scaled), (nu_b, _) = size(opt_state.mu["encoder"]), size(opt_state.nu["encoder"])
+            names = (("tied_sae_fwd_nocode", "tied_sae_bwd_adam_rc") if recompute_code
+                     else ("tied_sae_fwd", "tied_sae_bwd_adam"))
+            kw = {"mu_bytes": mu_b, "nu_bytes": nu_b, "mu_scaled": scaled}
+            work = [tk.kernel_work(names[0], M, B, N, D, nnz), tk.kernel_work(names[1], M, B, N, D, nnz, **kw)]
+        elif route == "fused_grads":
+            names = ("tied_sae_fwd", "tied_sae_bwd_grads")
+            work = [tk.kernel_work(n, M, B, N, D, nnz) for n in names]
+        else:
+            raise ValueError(f"fused_step_work: no kernel route {route!r}")
+        return {"flops": float(sum(f for f, _ in work)), "bytes_accessed": float(sum(b for _, b in work)),
+                "kernels": list(names)}
+
+    @staticmethod
+    def code_nnz(params, batch) -> torch.Tensor:
+        """The non-zero entries of the code the fused step's K1 writes for
+        ``batch`` [B, D] at ``params`` (a 0-d device tensor; `fused_step_work`'s
+        ``nnz`` once read)."""
+        return tk.code_nnz(params["encoder"], params["encoder_bias"], batch)
 
     @staticmethod
     def fused_adam_step(params, buffers, batch, opt_state, lr, b1, b2, eps, recompute_code=False):

@@ -56,7 +56,7 @@ TopK step's 128), not the CUDA kernel's own.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -121,6 +121,43 @@ def shapes_supported(n_dict: int, d_act: int, batch: int = None) -> bool:
     if d_act not in WIDTHS or n_dict % FWD_COLS:
         return False
     return batch is None or batch % FWD_ROWS == 0
+
+
+def kernel_work(kernel: str, M: int, B: int, N: int, D: int, nnz: Optional[int] = None,
+                mu_bytes: int = 4, nu_bytes: int = 4, mu_scaled: bool = False) -> Tuple[int, int]:
+    """``(flops, bytes)`` one launch of ``kernel`` needs at ``(M, B, N, D)``:
+    the operations of its products and the bytes it must move (each input
+    read once, each output written once). THE count: the kernel rows' bounds
+    (`chip_smoke.py`) and a captured step's ``cost`` (`Ensemble.step_cost`)
+    both read it. Products with the code c count its ``nnz`` non-zero
+    entries (`code_nnz`; None: all ``M·B·N``, the most a step can need). ``mu_bytes`` /
+    ``nu_bytes`` are K2's moment element sizes; ``mu_scaled`` an int8 mu
+    with its f32 row scales (read and written) and the seed word.
+
+    Kernels: ``tied_sae_fwd`` (K1), ``tied_sae_fwd_nocode`` (K1n),
+    ``tied_sae_bwd_adam`` (K2 on the stored code, either route),
+    ``tied_sae_bwd_adam_rc`` (K2 rebuilding the code), ``tied_sae_bwd_grads``
+    (K3, either route)."""
+    nnz = M * B * N if nnz is None else int(nnz)
+    moments = 2 * (M * N * D * (4 + mu_bytes + nu_bytes) + (M * N * 4 if mu_scaled else 0))
+    seed = 4 if mu_scaled else 0
+    if kernel == "tied_sae_fwd":
+        return (2 * M * B * N * D + 2 * nnz * D,
+                B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * N * 2 + M * B * D * 2 + 4 * M * 4)
+    if kernel == "tied_sae_fwd_nocode":
+        return (2 * M * B * N * D + 2 * nnz * D,
+                B * D * 2 + M * N * D * 2 + M * N * 4 + M * B * D * 2 + 2 * M * (B // 64) * 4)
+    if kernel == "tied_sae_bwd_adam":
+        return (6 * nnz * D,
+                B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + moments + M * N * 4 + 3 * M * 4 + seed)
+    if kernel == "tied_sae_bwd_adam_rc":
+        return (2 * M * B * N * D + 6 * nnz * D,
+                B * D * 2 + M * B * D * 2 + 3 * M * N * 4 + moments + M * 4 + 2 * M * 4 + seed)
+    if kernel == "tied_sae_bwd_grads":
+        return (6 * nnz * D,
+                B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + M * N * D * 2 + M * N * D * 4 + M * N * 4
+                + M * 4)
+    raise ValueError(f"kernel_work: unknown kernel {kernel!r}")
 
 
 # -- K1 -----------------------------------------------------------------------
@@ -431,6 +468,17 @@ def _prepare(d_raw, bias, batch):
     )
     nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
     return nrm, batch.to(bf16), bias.to(fp32).contiguous(), 2.0 / (B * D)
+
+
+def code_nnz(d_raw, bias, batch, rows: int = 1024) -> torch.Tensor:
+    """The non-zero entries of the bf16 code K1 writes for ``batch`` at the
+    raw encoder ``d_raw`` [M, N, D] and ``bias`` [M, N]: `kernel_work`'s
+    ``nnz``, as a 0-d int64 tensor on the batch's device (no host read).
+    K1's encode in plain arithmetic on the fused step's operands, ``rows``
+    batch rows at a time (the f32 code of a block is all that exists)."""
+    nrm, xb, b, _ = _prepare(d_raw, bias, batch)
+    db = normalized_rows_bf16(d_raw, nrm)
+    return sum(torch.count_nonzero(_encode_plain(xb[i:i + rows], db, b)[0]) for i in range(0, xb.shape[0], rows))
 
 
 def tied_sae_adam_step_stacked(d_raw, bias, mu_d, nu_d, batch, l1_alpha, bc, seed, lr, b1, b2, eps,

@@ -21,8 +21,8 @@ a dead-feature jump (``health_dead_frac`` rising by more than
 ``dead_jump`` between observations). Masked members drop out of detection.
 
 The port runs on one host: a bundle's name carries no process prefix. A
-profiler trace trigger (`telemetry.profiling.TraceTrigger` in the JAX
-package) is not ported yet (ROADMAP A9): ``trace_trigger`` must be None.
+``trace_trigger`` (`telemetry.profiling.TraceTrigger`) is fired once, on the
+first anomaly: a torch.profiler window over the steps right after it.
 """
 
 from __future__ import annotations
@@ -81,8 +81,10 @@ class AnomalyGuard:
     bookkeeping-only (the indices are still excluded from detection and
     reported). `checkpoint_fn(bundle_dir) -> path` (optional) is invoked once
     per bundle to dump whatever checkpoint the caller wants alongside.
-    `trace_trigger` must be None until the profiler trace trigger is ported
-    (ROADMAP A9); the ``trace_dir`` fields of events and bundles stay None.
+    `trace_trigger` (optional, a `telemetry.profiling.TraceTrigger`) is fired
+    on the first anomaly: a profiler trace of the steps right after the
+    blowup starts immediately, and its directory is recorded in both the
+    anomaly event and the diagnostic bundle.
     """
 
     def __init__(
@@ -95,10 +97,8 @@ class AnomalyGuard:
         checkpoint_fn: Optional[Callable[[Path], Any]] = None,
         trace_trigger=None,
     ):
-        if trace_trigger is not None:
-            raise NotImplementedError("the anomaly-triggered profiler trace (TraceTrigger) is not ported yet — "
-                                      "ROADMAP A9; pass trace_trigger=None")
         self.telemetry = telemetry
+        self.trace_trigger = trace_trigger
         self.policy = policy or AnomalyPolicy()
         self.ensemble = ensemble
         self.model_names = list(model_names) if model_names else None
@@ -214,7 +214,12 @@ class AnomalyGuard:
         models = sorted({f["model"] for f in found})
         kinds = sorted({f["kind"] for f in found})
         step = max(f["step"] for f in found)
-        trace_dir = None  # no trace trigger in the port yet (ROADMAP A9)
+        trace_dir = None
+        if self.trace_trigger is not None:
+            try:  # a refused capture (profiler busy, ...) must not mask detection
+                trace_dir = self.trace_trigger.fire(reason=",".join(kinds), step=step)
+            except Exception:
+                trace_dir = None
         bundle_path = self._dump_bundle(step, kinds, found, trace_dir=trace_dir)
         if self.telemetry is not None:
             for kind in kinds:

@@ -9,14 +9,16 @@ tools read the port's logs). One record per line::
 Kinds the port writes: ``run_start`` (config + environment fingerprint),
 ``chunk_start`` / ``chunk_end``, ``span`` (`telemetry.spans`), ``resume``,
 ``checkpoint``, ``preempt``, ``anomaly``, ``chunk_skipped``,
-``provenance``, ``feature_stats``, ``snapshot`` (counters + gauges) and
-``run_end``.
+``provenance``, ``feature_stats``, ``compile`` (a step's CUDA-graph capture
+with its cost: `Ensemble.step_cost`), ``trace`` (a profiler window),
+``snapshot`` (counters + gauges) and ``run_end``.
 
 Counters, gauges and fixed-bucket histograms (`RunTelemetry.hist_observe`,
 the serving tier's latency histograms) are host-side Python numbers:
 bumping them never touches the card. ``tags`` are constant fields stamped
 into every record (a serve replica's ``{"replica": ...}``). The JAX package's compile bridge (``jax.monitoring``,
-``tracked_jit``) has no counterpart here.
+``tracked_jit``) has no counterpart here: the port's ``compile`` records come
+from `Ensemble`'s graph captures (`compile_active`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-__all__ = ["DEFAULT_LATENCY_BUCKETS_MS", "RunTelemetry", "counter_add_float_active", "counter_inc_active", "event_active", "gauge_set_active",
+__all__ = ["DEFAULT_LATENCY_BUCKETS_MS", "RunTelemetry", "compile_active", "counter_add_float_active", "counter_inc_active",
+           "event_active", "gauge_set_active",
            "read_events",
            "run_fingerprint"]
 
@@ -65,6 +68,17 @@ def event_active(etype: str, **fields) -> None:
     """Emit an event on every live RunTelemetry (layers without a handle)."""
     for t in list(_ACTIVE):
         t.event(etype, **fields)
+
+
+def telemetry_live() -> bool:
+    """Whether any RunTelemetry is open (a handle-less layer's cheap check)."""
+    return bool(_ACTIVE)
+
+
+def compile_active(name: str, seconds: float, cost: Optional[Dict[str, Any]] = None) -> None:
+    """A ``compile`` record on every live RunTelemetry (no live one: a no-op)."""
+    for t in list(_ACTIVE):
+        t.compile(name, seconds, cost=cost)
 
 
 def run_fingerprint(mesh=None) -> Dict[str, Any]:
@@ -184,6 +198,21 @@ class RunTelemetry:
     def run_start(self, config: Optional[Dict[str, Any]] = None, mesh=None):
         return self.event("run_start", run_name=self.run_name, generation=self.generation,
                           config=config if config is not None else self._config, fingerprint=run_fingerprint(mesh=mesh))
+
+    def compile(self, name: str, seconds: float, cache_hit: Optional[bool] = None,
+                cost: Optional[Dict[str, Any]] = None):
+        """One capture of entry point ``name`` (the port's jit compile: a
+        step's CUDA graph), its host seconds and, given, its ``cost``
+        (``flops``, ``bytes_accessed``, ...) for the report's roofline.
+        The JAX package's record and counters."""
+        self.counter_inc(f"compile.{name}.count")
+        self.counter_add_float(f"compile.{name}.seconds", seconds)
+        fields: Dict[str, Any] = {"name": name, "seconds": round(seconds, 4)}
+        if cache_hit is not None:
+            fields["cache_hit"] = bool(cache_hit)
+        if cost:
+            fields["cost"] = cost
+        return self.event("compile", **fields)
 
     def chunk_start(self, chunk: int, **fields):
         self._chunk_t0_mono = time.monotonic()

@@ -26,8 +26,9 @@ between two snapshots' firing distributions.
 The flush resets the sketch with ``zero_()`` on the buffers' own tensors:
 a captured step graph froze their addresses and stays valid across it. The
 serving half (`ServeFeatureStats`) accumulates the encode engine's per-lane
-sketches after each dispatch. The run summary and the ``features`` CLI wait
-for ROADMAP A9 and raise if they are reached.
+sketches after each dispatch. `summarize_run` / `render_features` / `main`
+are the run summary and the ``features`` CLI over a run's snapshots
+(top-firing, dead and top-drifting features), the JAX package's output.
 """
 
 from __future__ import annotations
@@ -580,8 +581,188 @@ def flush_ensemble_feature_stats(ens, telemetry, out_dir, model_names: Optional[
         fspan.end()
 
 
-def _cli_not_ported(*_a, **_k):
-    raise NotImplementedError("the feature-stats run summary and the `features` CLI are not ported yet — ROADMAP A9")
+# -- CLI: python -m sparse_coding__tpu_torch.features <run_dir> --------------
 
 
-summarize_run = render_features = main = _cli_not_ported
+def _latest(snaps: List[FeatureSnapshot], scope: str) -> Optional[FeatureSnapshot]:
+    scoped = [s for s in snaps if s.scope == scope]
+    return scoped[-1] if scoped else None
+
+
+def summarize_run(
+    run_dir,
+    baseline: Optional[str] = None,
+    diff: Optional[Sequence[str]] = None,
+    top_n: int = 10,
+    method: str = "psi",
+) -> Optional[Dict]:
+    """The CLI's analysis payload (also the ``--json`` document).
+
+    Baseline resolution for the drift section, most to least explicit:
+    ``--diff GEN_A GEN_B`` (both addressed by gen token), ``--baseline``
+    (an npz path), latest-train → latest-serve (the train↔serve question),
+    first → last within the only scope present (did training itself move).
+    Returns None when the run dir holds no snapshots."""
+    snaps = load_run_snapshots(run_dir)
+    if not snaps:
+        return None
+    by_gen = {s.gen: s for s in snaps}
+    latest = _latest(snaps, "serve") or _latest(snaps, "train")
+
+    rate = np.zeros((latest.n_feats,), np.float64)
+    lanes = 0
+    for m in range(latest.fire.shape[0]):
+        if latest.rows[m] > 0:
+            rate += latest.fire[m] / float(latest.rows[m])
+            lanes += 1
+    rate = rate / max(lanes, 1)
+    order = np.argsort(rate)[::-1]
+    dead = np.flatnonzero(latest.fire.sum(axis=0) == 0)
+
+    base = cur = None
+    if diff:
+        gen_a, gen_b = diff
+        if gen_a not in by_gen or gen_b not in by_gen:
+            known = ", ".join(sorted(by_gen))
+            raise SystemExit(f"unknown gen in --diff (have: {known})")
+        base, cur = by_gen[gen_a], by_gen[gen_b]
+    elif baseline is not None:
+        base, cur = FeatureSnapshot.load(baseline), latest
+    elif _latest(snaps, "train") is not None and _latest(snaps, "serve") is not None:
+        base, cur = _latest(snaps, "train"), _latest(snaps, "serve")
+    else:
+        scoped = [s for s in snaps if s.scope == latest.scope]
+        if len(scoped) >= 2:
+            base, cur = scoped[0], scoped[-1]
+
+    drift = (
+        drift_report(base, cur, top_n=top_n, method=method)
+        if base is not None
+        else None
+    )
+    info = {
+        "run_dir": str(run_dir),
+        "snapshots": [
+            {"gen": s.gen, "scope": s.scope, "n_feats": s.n_feats,
+             "names": list(s.names), **snapshot_aggregates(s)}
+            for s in snaps
+        ],
+        "latest": {"gen": latest.gen, "scope": latest.scope,
+                   **snapshot_aggregates(latest)},
+        "top_firing": [
+            [int(i), round(float(rate[i]), 6)]
+            for i in order[: max(0, int(top_n))]
+            if rate[i] > 0
+        ],
+        "dead": {
+            "count": int(dead.size),
+            "frac": round(float(dead.size) / latest.n_feats, 6),
+            "features": [int(i) for i in dead[: max(0, int(top_n))]],
+        },
+        "drift": None,
+    }
+    if drift is not None:
+        info["drift"] = {
+            "baseline": base.gen,
+            "current": cur.gen,
+            "method": drift["method"],
+            "score": round(drift["score"], 6),
+            "band": drift_band(drift["score"]),
+            "top": [[f, round(d, 6)] for f, d in drift["top"]],
+        }
+    return info
+
+
+def render_features(info: Dict) -> str:
+    """Human rendering of `summarize_run`'s payload (golden-pinned — keep
+    byte-stable across refactors)."""
+    counts: Dict[str, int] = {}
+    for s in info["snapshots"]:
+        counts[s["scope"]] = counts.get(s["scope"], 0) + 1
+    lines = [f"feature surface: {info['run_dir']}"]
+    lines.append(
+        "  snapshots: "
+        + ", ".join(f"{n} {scope}" for scope, n in sorted(counts.items()))
+    )
+    la = info["latest"]
+    lines.append(
+        f"  latest {la['gen']}: rows {la['rows']:.0f}  "
+        f"dead {la['dead_frac']:.1%}  gini {la['gini']:.3f}  "
+        f"hot1% {la['hot_frac']:.1%}"
+    )
+    if info["top_firing"]:
+        lines.append(
+            "  top-firing: "
+            + ", ".join(f"{f} ({r:.1%})" for f, r in info["top_firing"][:5])
+        )
+    d = info["dead"]
+    feats = ", ".join(str(f) for f in d["features"])
+    lines.append(
+        f"  dead features: {d['count']} ({d['frac']:.1%})"
+        + (f": {feats}" if feats else "")
+    )
+    dr = info["drift"]
+    if dr is None:
+        lines.append("  drift: no comparable snapshot pair")
+    else:
+        lines.append(
+            f"  drift {dr['baseline']} -> {dr['current']} ({dr['method']}): "
+            f"score {dr['score']:.3f}  [{dr['band'].upper()}]"
+        )
+        if dr["top"]:
+            lines.append(
+                "    top drifting: "
+                + ", ".join(f"{f} ({v:.2f})" for f, v in dr["top"][:5])
+            )
+    return "\n".join(lines) + "\n"
+
+
+def main(argv=None) -> int:
+    """``python -m sparse_coding__tpu_torch.features <run_dir>``.
+
+    Exit codes mirror the slo CLI: 0 healthy / drift below threshold,
+    1 drift score at or past ``--threshold``, 3 no feature snapshots in the
+    run dir (distinct so CI can tell "no data" from "drifted")."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m sparse_coding__tpu_torch.features",
+        description="Dictionary feature surface: firing stats + drift "
+        "(docs/observability.md §10)",
+    )
+    ap.add_argument("run_dir", help="run directory holding feature_stats.*.npz")
+    ap.add_argument("--json", action="store_true", help="machine-readable output")
+    ap.add_argument("--top", type=int, default=10, help="list length (default 10)")
+    ap.add_argument(
+        "--diff", nargs=2, metavar=("GEN_A", "GEN_B"),
+        help="drift between two snapshot gens (e.g. train0000 serve0002)",
+    )
+    ap.add_argument(
+        "--baseline", default=None,
+        help="baseline npz path (overrides latest-train as drift baseline)",
+    )
+    ap.add_argument(
+        "--threshold", type=float, default=None,
+        help="exit 1 when the drift score reaches this (PSI scale)",
+    )
+    ap.add_argument("--method", choices=("psi", "js"), default="psi")
+    args = ap.parse_args(argv)
+
+    info = summarize_run(
+        args.run_dir, baseline=args.baseline, diff=args.diff,
+        top_n=args.top, method=args.method,
+    )
+    if info is None:
+        print(f"no feature snapshots under {args.run_dir}", flush=True)
+        return 3
+    if args.json:
+        print(json.dumps(info, indent=1, sort_keys=True))
+    else:
+        print(render_features(info), end="")
+    if (
+        args.threshold is not None
+        and info["drift"] is not None
+        and info["drift"]["score"] >= args.threshold
+    ):
+        return 1
+    return 0

@@ -19,10 +19,12 @@ Counterpart of `sparse_coding__tpu/telemetry/report.py`, section for
 section, over the same event format. Where the port records something else,
 its section reads the port's own: the fingerprint shows torch, CUDA and the
 device where JAX shows jax, jaxlib and its backend; "Performance
-attribution" renders the HBM watermarks the port records and says that the
-JAX package's XLA cost capture is not ported (ROADMAP A9, profiling);
-"Provenance" renders the digests the run's ``provenance`` events carry (the
-lineage graph is ROADMAP A9's second group).
+attribution" puts each captured step graph's cost (the ``compile`` events
+of `Ensemble` captures: an analytic count, not XLA's cost analysis) on the
+card's roofline from the port's peak table (`telemetry.profiling.PEAKS`),
+with the step's measured device time where the train loop recorded it
+(the ``perf.<entry>.step_ms`` gauges). "Provenance" renders the lineage
+graph over the run directory, as JAX's does.
 
 Use ``--out report.md`` to also write the summary next to the artifacts.
 """
@@ -42,9 +44,10 @@ from sparse_coding__tpu_torch.telemetry.multihost import (
 
 __all__ = ["load_run", "render_markdown", "main"]
 
-COST_CAPTURE_NOTE = ("_Per-entry-point cost capture and the roofline (the JAX package's XLA cost analysis) "
-                     "are not ported: ROADMAP A9, profiling._")
-LINEAGE_NOTE = "_The lineage graph over these digests is not ported yet: ROADMAP A9, its second group._"
+COST_NOTE = ("_Each row is one captured step graph: FLOPs and bytes counted analytically (the kernels' work "
+             "at the captured step's code nnz, or FlopCounterMode on the autograd route), not XLA's cost "
+             "analysis; the step ms is the train loop's CUDA-event time of a graph step "
+             "(`perf.<entry>.step_ms`)._")
 
 # columns shown first when present; any other metric follows alphabetically
 _PREFERRED_METRICS = [
@@ -244,14 +247,63 @@ def _compile_section(run, lines: List[str]):
 
 
 def _perf_section(run, lines: List[str]):
-    """Performance attribution: HBM watermarks (+ OOM headroom) and
-    captured trace windows. The JAX package's per-entry-point XLA cost and
-    roofline rows read its compile events' cost capture, which is not
-    ported (ROADMAP A9, profiling): the section says so and states no
-    peak."""
+    """Performance attribution: each captured step's cost on the card's
+    roofline (with its measured step time where recorded), HBM watermarks
+    (+ OOM headroom) and captured trace windows."""
     lines.append("## Performance attribution")
     lines.append("")
     wrote = False
+
+    # device kind (for the peak table) from the run fingerprint
+    device_kind = None
+    for s in _events_of(run, "run_start"):
+        device_kind = (s.get("fingerprint") or {}).get("device_kind") or device_kind
+
+    # latest captured cost per entry point (a recapture overwrites: the last
+    # graph is the one the run kept replaying)
+    costs: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+    for c in _events_of(run, "compile"):
+        if isinstance(c.get("cost"), dict):
+            costs[c.get("name", "?")] = c["cost"]
+    if costs:
+        from sparse_coding__tpu_torch.telemetry.profiling import hbm_gbps, peak_tflops, roofline_summary
+
+        gauges = _merged_gauges(run)
+        lines.append(
+            "| entry point | GFLOP | HBM MiB | FLOPs/byte | bound | attainable TFLOP/s "
+            "| step ms | achieved TFLOP/s | of attainable | graph pool |"
+        )
+        lines.append("|---|---:|---:|---:|---|---:|---:|---:|---:|---:|")
+        for name, cost in costs.items():
+            flops = cost.get("flops")
+            byts = cost.get("bytes_accessed")
+            step_ms = gauges.get(f"perf.{name}.step_ms")
+            rl = None
+            if flops and byts:
+                rl = roofline_summary(flops, byts, device_kind, seconds=step_ms / 1e3 if step_ms else None)
+            lines.append(
+                f"| {name} "
+                f"| {_fmt(flops / 1e9 if flops else None)} "
+                f"| {_fmt(byts / 2**20 if byts else None)} "
+                f"| {_fmt(rl['arithmetic_intensity'] if rl else None)} "
+                f"| {rl['bound'] if rl else '-'} "
+                f"| {_fmt(rl['attainable_tflops'] if rl else None)} "
+                f"| {_fmt(step_ms)} "
+                f"| {_fmt(rl.get('achieved_tflops') if rl else None)} "
+                f"| {_fmt(rl.get('achieved_fraction') if rl else None)} "
+                f"| {_bytes(cost.get('pool_bytes'))} |"
+            )
+        lines.append("")
+        lines.append(COST_NOTE)
+        lines.append("")
+        if any(c.get("flops") and c.get("bytes_accessed") for c in costs.values()):
+            tf, bw = peak_tflops(device_kind), hbm_gbps(device_kind)
+            lines.append(
+                f"Roofline peaks for **{device_kind or 'an unnamed device'}**: {tf:.0f} TFLOP/s bf16, "
+                f"{bw:.0f} GB/s HBM (ridge at {tf * 1e3 / bw:.0f} FLOPs/byte)."
+            )
+            lines.append("")
+        wrote = True
 
     # HBM watermarks from the last snapshot's gauges (per process, merged);
     # keys are `hbm.d<i>.<field>` single-host, `hbm.p<i>.d<j>.<field>` pods
@@ -291,10 +343,8 @@ def _perf_section(run, lines: List[str]):
         wrote = True
 
     if not wrote:
-        lines.append("_(no HBM gauges or traces)_")
+        lines.append("_(no cost-annotated compile events, HBM gauges, or traces)_")
         lines.append("")
-    lines.append(COST_CAPTURE_NOTE)
-    lines.append("")
 
 
 def _pod_section(run, lines: List[str]):
@@ -1093,28 +1143,21 @@ def _incidents_section(run, lines: List[str]):
 
 
 def _provenance_section(run, lines: List[str]):
-    """Artifact digests: one row per artifact kind of the run's
-    ``provenance`` events (exports and checkpoints with their content
-    digests, harvested chunks with their config digest). The JAX package
-    renders its lineage graph here; the graph is not ported yet (ROADMAP
-    A9's second group). Omitted when the run recorded no provenance."""
-    recs = _events_of(run, "provenance")
-    if not recs:
+    """Artifact lineage: build the provenance graph over the reported
+    directory and render the node/edge census plus any tainted artifacts
+    with their blast radius. Omitted when the graph holds nothing beyond the
+    run's own event stream."""
+    from sparse_coding__tpu_torch.telemetry.provenance import build_graph, render_summary
+
+    try:
+        graph = build_graph([run["dir"]])
+    except Exception:
         return
-    kinds: "OrderedDict[str, List[Dict[str, Any]]]" = OrderedDict()
-    for r in recs:
-        kinds.setdefault(str(r.get("artifact", "?")), []).append(r)
+    if not any(n["type"] != "training-run" for n in graph.nodes.values()):
+        return
     lines.append("## Provenance")
     lines.append("")
-    lines.append("| artifact | records | last digest | last path |")
-    lines.append("|---|---:|---|---|")
-    for kind, rs in kinds.items():
-        last = rs[-1]
-        digest = last.get("digest") or last.get("config_sha")
-        where = last.get("path") or last.get("store")
-        lines.append(f"| {kind} | {len(rs)} | {f'`{digest}`' if digest else '-'} | {where or '-'} |")
-    lines.append("")
-    lines.append(LINEAGE_NOTE)
+    lines.extend(render_summary(graph))
     lines.append("")
 
 

@@ -44,9 +44,9 @@ the tower's own telemetry (``DIR/tower_events.jsonl``), so the watcher
 is itself watchable.
 
 Counterpart of `sparse_coding__tpu/telemetry/tower.py`, copied: it scrapes
-the port's replicas and routers (`telemetry.metrics_http`). Not ported yet
-(ROADMAP A9): a fleet dir's gauges (a fleet directory raises) and the
-tainted-artifact lineage of incidents (the lineage graph; none is listed).
+the port's replicas and routers (`telemetry.metrics_http`), and lists an
+incident's tainted lineage from the port's provenance graph. Not ported yet
+(ROADMAP A9): a fleet dir's gauges (a fleet directory raises; `fleet/`).
 """
 
 from __future__ import annotations
@@ -939,11 +939,26 @@ class Tower:
         }
 
     def _tainted_artifacts(self) -> List[Dict[str, Any]]:
-        """Quarantined-artifact lineage for incident timelines: the JAX
-        package reads it from its provenance graph, which the port does not
-        have yet (the lineage graph is ROADMAP A9's second group), so none
-        is listed."""
-        return []
+        """Quarantined-artifact lineage for incident timelines: build the
+        provenance graph over the tower's run dirs and list every tainted
+        node with its downstream blast size. Best-effort — a torn manifest
+        must never block incident opening."""
+        if not self.run_dirs:
+            return []
+        try:
+            from sparse_coding__tpu_torch.telemetry.provenance import build_graph
+
+            graph = build_graph([p for p in self.run_dirs if p.exists()])
+            out = []
+            for node in graph.tainted():
+                out.append({
+                    "id": node["id"],
+                    "reason": node.get("taint_reason"),
+                    "downstream": len(graph.closure(node["id"], "down")),
+                })
+            return out[:10]
+        except Exception:
+            return []
 
     # -- the autoscaler sensor contract ---------------------------------------
 

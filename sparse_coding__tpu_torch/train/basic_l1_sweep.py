@@ -34,7 +34,7 @@ from sparse_coding__tpu_torch.telemetry.anomaly import AnomalyGuard, AnomalyPoli
 from sparse_coding__tpu_torch.telemetry.events import RunTelemetry
 from sparse_coding__tpu_torch.telemetry.feature_stats import flush_ensemble_feature_stats
 from sparse_coding__tpu_torch.telemetry.multihost import check_desync, heartbeat
-from sparse_coding__tpu_torch.telemetry.profiling import record_hbm_watermarks, refuse_trace_window
+from sparse_coding__tpu_torch.telemetry.profiling import TraceTrigger, record_hbm_watermarks
 from sparse_coding__tpu_torch.telemetry.provenance import export_digest, producer_identity
 from sparse_coding__tpu_torch.telemetry.spans import span
 from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
@@ -101,7 +101,6 @@ def basic_l1_sweep(
     within ``SC_CHUNK_LOSS_BUDGET``, past it (or on a read that keeps
     failing) exit 75 (`ResumableAbort`)."""
     device = resolve_device(device)
-    refuse_trace_window()
     if l1_values is None:
         l1_values = list(np.logspace(-4, -2, 8))
     store = ChunkStore(dataset_folder)
@@ -153,8 +152,11 @@ def basic_l1_sweep(
             start_pos = int(tree["cursor"]["position"])
             n_trained = int(tree["cursor"]["n_trained"])
             print(f"Resumed {output_folder} at epoch {start_epoch} chunk position {start_pos}")
+    # triggered trace capture: SC_TRACE_WINDOW="N:M" (steps) arms a profiler
+    # window; the guard's first anomaly arms one itself
+    trigger = TraceTrigger.from_env(telemetry=telemetry, out_dir=output_folder)
     guard = AnomalyGuard(telemetry=telemetry, out_dir=output_folder, policy=anomaly_policy, ensemble=ens,
-                         model_names=model_names)
+                         model_names=model_names, trace_trigger=trigger)
     logger = MetricLogger(out_dir=output_folder, run_name="basic_l1_sweep", model_names=model_names,
                           on_flush=guard.observe)
     timer = StepTimer()
@@ -210,9 +212,10 @@ def basic_l1_sweep(
                 record_hbm_watermarks(telemetry, [device])
                 if feature_stats:
                     flush_ensemble_feature_stats(ens, telemetry, output_folder, model_names=model_names)
+                cum_steps = int(telemetry.counters.get("train.steps", 0))
+                trigger.on_step(cum_steps)
                 # pod heartbeat + straggler-skew gauges (a no-op in a world of one)
-                heartbeat(telemetry, step=int(telemetry.counters.get("train.steps", 0)),
-                          window_seconds=end_rec.get("seconds"))
+                heartbeat(telemetry, step=cum_steps, window_seconds=end_rec.get("seconds"))
                 if save_after_every:
                     learned_dicts = export()
                     save_export(out / f"epoch_{epoch}" / f"chunk_{pos}" / "learned_dicts.pkl")
@@ -250,6 +253,7 @@ def basic_l1_sweep(
             close_exc = e
             if status == "ok":
                 status = f"error: {type(e).__name__}: {e}"
+        trigger.close()  # stop any in-flight trace window before run_end
         ckpt.close()
         if feature_stats:
             try:  # the tail window: rows since the last chunk boundary

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from sparse_coding__tpu_torch.ensemble import _copy_into, _map_tensors, _tensors, l1_warmup_buffers
-from sparse_coding__tpu_torch.telemetry.profiling import record_hbm_watermarks, refuse_trace_window
+from sparse_coding__tpu_torch.telemetry.profiling import TraceTrigger, record_hbm_watermarks
 from sparse_coding__tpu_torch.telemetry.spans import span
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.device import resolve_device
@@ -257,8 +257,10 @@ def train_big_batch(
     ``resume=True`` (or ``SC_RESUME=1``) restores the newest committed
     checkpoint and replays the remaining steps; the worst-example ring
     restarts empty, as in JAX, so a checkpoint taken at a resurrection
-    boundary resumes to the uninterrupted run's bits. ``trace_trigger`` (the
-    profiler window) waits for ROADMAP A9 and must be None. ``mesh`` (a
+    boundary resumes to the uninterrupted run's bits. ``trace_trigger`` (a
+    `telemetry.profiling.TraceTrigger`; None builds one from
+    ``SC_TRACE_WINDOW``) is stepped at every step boundary and closed at the
+    end, also on a preemption or a crash. ``mesh`` (a
     `parallel.Mesh`): the batch's rows are spread over its data axis (see
     the module's notes); every rank must call this with the same arguments.
     ``preempt_sync_every``: in a world of several ranks the preemption
@@ -266,10 +268,11 @@ def train_big_batch(
     boundary reads the local flag."""
     from sparse_coding__tpu_torch.data.chunks import ChunkStore, load_store_dataset
 
-    if trace_trigger is not None:
-        raise NotImplementedError("trace_trigger (the profiler window) is not ported yet — ROADMAP A9")
-    refuse_trace_window()
     device = resolve_device(device)
+    if trace_trigger is None:
+        # callers without a trigger still honour SC_TRACE_WINDOW: an unarmed
+        # trigger costs one int compare a step
+        trace_trigger = TraceTrigger.from_env(telemetry=telemetry)
     if isinstance(dataset, (str, ChunkStore)) or hasattr(dataset, "__fspath__"):
         with span(telemetry, "data_wait", name="load_store_dataset"):
             dataset, _budget = load_store_dataset(dataset, telemetry=telemetry, device=device)
@@ -281,14 +284,14 @@ def train_big_batch(
         return _train_big_batch(
             sig, init_hparams, dataset, batch_size, n_steps, key, learning_rate, reinit_every, worst_k,
             resurrection_log, encoder_norm_ratio, l1_warmup_steps, telemetry, checkpoint_dir, resume,
-            checkpoint_every, checkpoint_keep, device, mesh, preempt_sync_every,
+            checkpoint_every, checkpoint_keep, device, mesh, preempt_sync_every, trace_trigger,
         )
 
 
 def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learning_rate, reinit_every, worst_k,
                      resurrection_log, encoder_norm_ratio, l1_warmup_steps, telemetry, checkpoint_dir, resume,
                      checkpoint_every, checkpoint_keep, device, mesh=None,
-                     preempt_sync_every: int = 16) -> Tuple[BigBatchState, Any]:
+                     preempt_sync_every: int = 16, trace_trigger=None) -> Tuple[BigBatchState, Any]:
     from sparse_coding__tpu_torch.telemetry.multihost import heartbeat
     gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
     params, buffers = sig.init(gen, **init_hparams, device="cpu")
@@ -389,6 +392,8 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
                 win = span(telemetry, "step", name="step_window").begin()
             if telemetry is not None:
                 telemetry.counter_inc("train.steps")
+            if trace_trigger is not None:
+                trace_trigger.on_step(i + 1)  # host-side int compares only
             if ckpt is not None:
                 # cursor = completed steps + the generator's state after this
                 # step's draw (a resumed run replays the same batches)
@@ -403,7 +408,10 @@ def _train_big_batch(sig, init_hparams, dataset, batch_size, n_steps, key, learn
             record_hbm_watermarks(telemetry, [device])
             heartbeat(telemetry, step=n_steps)
     finally:
+        # a leaked profiler window would block every later capture in the process
         win.end()  # the open step window: emitted even on preempt/crash
+        if trace_trigger is not None:
+            trace_trigger.close(n_steps)
         if ckpt is not None:
             ckpt.close()
     return state, sig

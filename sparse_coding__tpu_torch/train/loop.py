@@ -29,6 +29,7 @@ from sparse_coding__tpu_torch.ensemble import Ensemble, EnsembleState
 from sparse_coding__tpu_torch.models.fista import dictionary_update
 from sparse_coding__tpu_torch.models.learned_dict import _norm_rows
 from sparse_coding__tpu_torch.ops.fista_kernel import fista_solve
+from sparse_coding__tpu_torch.telemetry.audit import allowed_transfer
 from sparse_coding__tpu_torch.telemetry.spans import span
 from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
 from sparse_coding__tpu_torch.train import preemption
@@ -132,7 +133,8 @@ def warn_if_ensemble_dead(ensemble: Ensemble, batch: torch.Tensor, context: str 
     st = ensemble.state
     with torch.no_grad():
         c = ensemble._loss(st.params, st.buffers, batch)[1][1].get("c")
-        dead = c is not None and not bool((c != 0).any())
+        with allowed_transfer():  # the once-a-chunk probe: a sanctioned sync (telemetry.audit)
+            dead = c is not None and not bool((c != 0).any())
     if dead:
         warnings.warn(
             f"DEAD ENSEMBLE{' (' + context + ')' if context else ''}: every member "
@@ -202,6 +204,33 @@ def make_fista_decoder_update(num_iter: int = 500, tol: float = 0.0) -> Callable
     return update
 
 
+class _StepTiming:
+    """CUDA events around the whole-chunk dispatch of graph replays: after
+    the logger's flush (which waits for the card) their interval, over the
+    steps, is the ``perf.ensemble.step_scan.step_ms`` gauge the report's
+    roofline reads. Nothing is read before the flush, and a pass that
+    captured a graph (its eager step and capture leave the card idle) sets
+    no gauge."""
+
+    GAUGE = "perf.ensemble.step_scan.step_ms"
+
+    def __init__(self, ensemble, dataset, telemetry, logger):
+        self.on = telemetry is not None and logger is not None and dataset.is_cuda and ensemble.mesh is None
+        self.telemetry, self.ensemble = telemetry, ensemble
+        if self.on:
+            self.captures = ensemble.captures
+            self.start, self.end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def stop(self):
+        if self.on:
+            self.end.record()
+
+    def report(self, n_steps: int):
+        if self.on and self.ensemble.captures == self.captures and self.end.query():
+            self.telemetry.gauge_set(self.GAUGE, self.start.elapsed_time(self.end) / n_steps)
+
+
 def ensemble_train_loop(
     ensemble: Ensemble,
     dataset: torch.Tensor,
@@ -263,7 +292,9 @@ def ensemble_train_loop(
     )
     if whole_chunk:
         shuffled = dataset[perm[: n_batches * batch_size]].reshape(n_batches, batch_size, -1)
+        timing = _StepTiming(ensemble, dataset, telemetry, logger)
         losses = ensemble.step_scan(shuffled)
+        timing.stop()
         del shuffled
         loss_dict = {k: v[-1] for k, v in losses.items()}
         if telemetry is not None:
@@ -273,6 +304,7 @@ def ensemble_train_loop(
             for j in range(n_batches):
                 logger.log(j, {name: v[j] for name, v in losses.items()})
             logger.flush()
+        timing.report(n_batches)
     else:
         i = 0
         while i < n_batches:

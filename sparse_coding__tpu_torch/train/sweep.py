@@ -59,7 +59,7 @@ from sparse_coding__tpu_torch.metrics import standard as sm
 from sparse_coding__tpu_torch.telemetry.anomaly import AnomalyGuard, AnomalyPolicy
 from sparse_coding__tpu_torch.telemetry.events import RunTelemetry, run_fingerprint
 from sparse_coding__tpu_torch.telemetry.multihost import check_desync, heartbeat, process_info
-from sparse_coding__tpu_torch.telemetry.profiling import refuse_trace_window
+from sparse_coding__tpu_torch.telemetry.profiling import TraceTrigger, record_hbm_watermarks
 from sparse_coding__tpu_torch.telemetry.provenance import export_digest, producer_identity
 from sparse_coding__tpu_torch.telemetry.spans import span
 from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
@@ -244,7 +244,6 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     every 10 chunks (`log_sweep_metrics` with ``images=True``: needs
     matplotlib, so not on the card's machine)."""
     device = resolve_device(device)
-    refuse_trace_window()
     if getattr(cfg, "wandb_images", False):
         import matplotlib  # noqa: F401  (the dashboards need it: fail before any training)
     os.makedirs(cfg.dataset_folder, exist_ok=True)
@@ -257,8 +256,12 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
     ckpt: Optional[DriverCheckpointer] = None
     # one logger carries every ensemble, so the loss-spike windows would mix
     # members of different ensembles: spikes off unless the config says
+    # triggered trace capture: the env-armed step window (SC_TRACE_WINDOW) or
+    # the first anomaly; trace dirs land in events.jsonl and the bundles
+    trigger = TraceTrigger.from_env(telemetry=telemetry, out_dir=cfg.output_folder)
     guard = AnomalyGuard(telemetry=telemetry, out_dir=cfg.output_folder,
-                         policy=getattr(cfg, "anomaly_policy", None) or AnomalyPolicy(spikes=False))
+                         policy=getattr(cfg, "anomaly_policy", None) or AnomalyPolicy(spikes=False),
+                         trace_trigger=trigger)
     status = "ok"
     try:
         run_ident = producer_identity(config=run_config, fingerprint=telemetry.run_start()["fingerprint"],
@@ -393,9 +396,13 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
                         cfg.save_yaml(iter_folder / "config.yaml")
                 ckpt.save(i, _save_ckpt, reason="schedule")
             end_rec = telemetry.chunk_end(i, saved=bool(want_save))
+            # boundary perf attribution: device-memory gauges (a host query, no
+            # device sync) and the trace window's arming on train steps
+            record_hbm_watermarks(telemetry, [device])
+            cum_steps = int(telemetry.counters.get("train.steps", 0))
+            trigger.on_step(cum_steps)
             # pod heartbeat + straggler-skew gauges (a no-op in a world of one)
-            heartbeat(telemetry, step=int(telemetry.counters.get("train.steps", 0)),
-                      window_seconds=end_rec.get("seconds"))
+            heartbeat(telemetry, step=cum_steps, window_seconds=end_rec.get("seconds"))
             ckpt.boundary(i, _save_ckpt, already_saved=want_save)
 
         if not learned_dicts:  # resumed past the last chunk: export the restored state
@@ -418,6 +425,7 @@ def sweep(ensemble_init_func: Callable, cfg, resume: Optional[bool] = None,
             close_exc = e
             if status == "ok":
                 status = f"error: {type(e).__name__}: {e}"
+        trigger.close(int(telemetry.counters.get("train.steps", 0)))  # before run_end
         if ckpt is not None:
             ckpt.close()
         telemetry.run_end(status=status, masked_models=sorted(guard.masked))

@@ -72,8 +72,14 @@ FLAGS: Dict[str, Flag] = {
              "Max fraction of a store's chunks that may be quarantined (unset = 0.05)."),
         Flag("SC_FAULT", "opt_str", None, "utils.faults",
              "Fault-injection spec 'action[:site][:key=val...]' (utils.faults)."),
+        Flag("SC_COST_CAPTURE", "str", "1", "telemetry.profiling",
+             "Per-capture cost depth: 0/false/no/off disables, full/2/memory adds the step "
+             "graph pool's bytes, anything else = the analytic FLOPs and bytes only.",
+             ("0", "1", "full")),
         Flag("SC_TRACE_WINDOW", "opt_str", None, "telemetry.profiling",
-             "A profiler window 'N:M' (steps); not ported yet, so a driver refuses it."),
+             "start:stop step window for a triggered torch.profiler trace (TraceTrigger.from_env)."),
+        Flag("SC_TRACE_DIR", "opt_str", None, "telemetry.profiling",
+             "Directory a triggered trace capture writes into (default: the run's output dir)."),
         Flag("SC_SYNC_RETRIES", "int", "3", "utils.sync",
              "Attempts of the shared retry engine (clamped to >= 1 at the call site)."),
         Flag("SC_SYNC_BACKOFF", "float", "1.0", "utils.sync",
@@ -100,7 +106,9 @@ SC_CKPT_VERIFY = FLAGS["SC_CKPT_VERIFY"]
 SC_CHUNK_VERIFY = FLAGS["SC_CHUNK_VERIFY"]
 SC_CHUNK_LOSS_BUDGET = FLAGS["SC_CHUNK_LOSS_BUDGET"]
 SC_FAULT = FLAGS["SC_FAULT"]
+SC_COST_CAPTURE = FLAGS["SC_COST_CAPTURE"]
 SC_TRACE_WINDOW = FLAGS["SC_TRACE_WINDOW"]
+SC_TRACE_DIR = FLAGS["SC_TRACE_DIR"]
 SC_SYNC_RETRIES = FLAGS["SC_SYNC_RETRIES"]
 SC_SYNC_BACKOFF = FLAGS["SC_SYNC_BACKOFF"]
 SC_MH_TIMEOUT_MS = FLAGS["SC_MH_TIMEOUT_MS"]

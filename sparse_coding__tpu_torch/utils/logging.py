@@ -43,8 +43,12 @@ def _to_host(trees: List[Dict[str, Any]]) -> List[Dict[str, np.ndarray]]:
     by_device: Dict[torch.device, list] = {}
     for leaf in leaves:
         by_device.setdefault(leaf[2].device, []).append(leaf)
+    from sparse_coding__tpu_torch.telemetry.audit import allowed_transfer
+
     for group in by_device.values():
-        flat = torch.cat([v.detach().reshape(-1).float() for _, _, v in group]).cpu().numpy()
+        # the flush boundary: the one sanctioned copy of a window (telemetry.audit)
+        with allowed_transfer():
+            flat = torch.cat([v.detach().reshape(-1).float() for _, _, v in group]).cpu().numpy()
         pos = 0
         for i, k, v in group:
             n = v.numel()

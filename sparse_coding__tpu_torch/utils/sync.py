@@ -90,4 +90,4 @@ def retry_with_backoff(
 
 def sync(*_a, **_k):
     """The remote sync engine: not ported yet."""
-    raise NotImplementedError("remote sync (rsync / gsutil / aws) is not ported yet — ROADMAP A9")
+    raise NotImplementedError("remote `sync()` (rsync / gsutil / aws) is not ported yet — ROADMAP A9")

@@ -143,8 +143,23 @@ def test_mask_action_freezes_the_members_of_a_port_ensemble(tmp_path):
     assert torch.equal(after[1], before[1]) and not torch.equal(after[0], before[0])
 
 
-def test_a_trace_trigger_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ta.AnomalyGuard(trace_trigger=object())
+def test_a_trace_trigger_fires_on_the_first_anomaly_only(tmp_path, monkeypatch):
+    from _torch_profiler_stub import stub_profiler
+    from sparse_coding__tpu_torch.telemetry import RunTelemetry, TraceTrigger, read_events
+
+    calls = stub_profiler(monkeypatch)
+    tel = RunTelemetry(out_dir=str(tmp_path), run_name="anom")
+    tt = TraceTrigger(telemetry=tel, out_dir=str(tmp_path))
+    guard = ta.AnomalyGuard(telemetry=tel, out_dir=str(tmp_path), policy=ta.AnomalyPolicy(action="warn"),
+                            trace_trigger=tt)
+    with pytest.warns(RuntimeWarning):
+        guard.observe([3], [{"loss": np.array([np.nan, 1.0], np.float32)}])
+    tt.on_step(4)
+    with pytest.warns(RuntimeWarning):
+        guard.observe([5], [{"loss": np.array([1.0, np.nan], np.float32)}])
+    tel.close()
+    assert calls["started"] == [str(tmp_path / "trace_anomaly_step3")] and calls["stopped"] == 1
+    anomalies = [e for e in read_events(tmp_path / "events.jsonl") if e["event"] == "anomaly"]
+    assert anomalies[0]["trace_dir"] == calls["started"][0] and anomalies[1]["trace_dir"] is None
     with pytest.raises(ValueError, match="unknown anomaly action"):
         ta.AnomalyPolicy(action="page")

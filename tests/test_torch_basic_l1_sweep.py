@@ -254,10 +254,18 @@ def test_a_corrupt_chunk_is_skipped_within_the_budget(tmp_path, monkeypatch):
     assert len(load_run_snapshots(tmp_path / "out")) == 3
 
 
-def test_a_trace_window_names_its_roadmap_item(tmp_path, monkeypatch):
+def test_a_trace_window_captures_one_boundary_window(tmp_path, monkeypatch):
+    """JAX's drive of ``SC_TRACE_WINDOW=2:4`` through the driver: one step a
+    chunk (4 boundaries over 2 epochs), the window from boundary 2 to 4."""
+    from _torch_profiler_stub import stub_profiler
+
+    calls = stub_profiler(monkeypatch)
     monkeypatch.setenv("SC_TRACE_WINDOW", "2:4")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbls.basic_l1_sweep(str(tmp_path), str(tmp_path / "out"), device="cpu", **KW)
+    store = _jax_store(tmp_path / "store")
+    tbls.basic_l1_sweep(str(store), str(tmp_path / "out"), device="cpu", **KW)
+    traces = [e for e in read_events(tmp_path / "out" / "events.jsonl") if e["event"] == "trace"]
+    assert [(t["reason"], t["start_step"], t["stop_step"]) for t in traces] == [("step_window", 2, 4)]
+    assert calls["started"] == [str(tmp_path / "out" / "trace_step2")] and calls["stopped"] == 1
 
 
 def test_nan_member_is_flagged_by_the_guard_and_masked(tmp_path, monkeypatch):

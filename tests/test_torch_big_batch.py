@@ -347,7 +347,7 @@ def test_sigterm_at_a_resurrection_boundary_resumes_to_the_same_bits(data, tmp_p
     assert torch.equal(full.c_totals, resumed.c_totals) and int(resumed.opt_state.count) == 30
 
 
-def test_what_waits_raises_and_a_card_is_required(data):
+def test_a_mesh_and_a_trace_trigger_are_taken_and_a_card_is_required(data, monkeypatch):
     # a mesh is taken now: a world of one's gives the unsharded run's bits
     from sparse_coding__tpu_torch.parallel import make_mesh
 
@@ -355,8 +355,13 @@ def test_what_waits_raises_and_a_card_is_required(data):
     meshed, _ = tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 3, 0, mesh=make_mesh(), device="cpu")
     for k in plain.params:
         assert torch.equal(plain.params[k], meshed.params[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 1, 0, trace_trigger=object(), device="cpu")
+    from _torch_profiler_stub import stub_profiler
+    from sparse_coding__tpu_torch.telemetry import TraceTrigger
+
+    calls = stub_profiler(monkeypatch)
+    tt = TraceTrigger(start_step=1, stop_step=2)
+    tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 3, 0, trace_trigger=tt, device="cpu")
+    assert calls["started"] == [str(os.path.join("trace", "trace_step1"))] and calls["stopped"] == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tbb.train_big_batch(FunctionalTiedSAE, HP, data, B, 1, 0)

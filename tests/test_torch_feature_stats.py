@@ -188,10 +188,80 @@ def test_train_step_bit_identical_with_packs_on(sig):
         "health_grad_norm", "health_dict_norm", "health_nonfinite", "health_dead_frac"}
 
 
-def test_serving_half_and_cli_name_their_roadmap_items():
-    # the serving half came with ROADMAP A7a (held against JAX's in
-    # tests/test_torch_serve.py); the run summary and CLI still name A9
+def test_serving_half_and_the_run_summary_of_an_empty_dir(tmp_path):
+    # the serving half is held against JAX's in tests/test_torch_serve.py
     stats = tfs.ServeFeatureStats()
     assert stats.cfg == tfs.FeatureStatsConfig() and stats.flush(None, ".") == []
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfs.summarize_run(".")
+    assert tfs.summarize_run(tmp_path) is None
+
+
+# -- the run summary and the `features` CLI (tests/test_feature_stats.py:437-484)
+
+from pathlib import Path  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN_FEATURES = REPO / "tests" / "golden" / "feature_run"
+
+
+def test_features_cli_golden_output_and_exit_codes(tmp_path, capsys, monkeypatch):
+    from sparse_coding__tpu_torch.features import main as features_main
+
+    expected = (GOLDEN_FEATURES / "expected_cli.txt").read_text()
+    monkeypatch.chdir(REPO)
+    assert features_main(["tests/golden/feature_run"]) == 0
+    assert capsys.readouterr().out == expected
+    # exit 1 past threshold, 3 on a dir with no snapshots
+    assert features_main(["tests/golden/feature_run", "--threshold", "0.25"]) == 1
+    assert features_main([str(tmp_path)]) == 3
+
+
+@pytest.mark.parametrize("argv", [[], ["--json"], ["--diff", "train0000", "train0001"], ["--method", "js", "--top", "3"],
+                                  ["--baseline", str(GOLDEN_FEATURES / "feature_stats.train0000.npz")]])
+def test_features_cli_matches_jax(capsys, argv):
+    from sparse_coding__tpu.features import main as jax_main
+    from sparse_coding__tpu_torch.features import main as features_main
+
+    rc_j = jax_main([str(GOLDEN_FEATURES)] + argv)
+    out_j = capsys.readouterr().out
+    rc_t = features_main([str(GOLDEN_FEATURES)] + argv)
+    assert (rc_t, capsys.readouterr().out) == (rc_j, out_j)
+
+
+def test_features_cli_json_and_diff(capsys):
+    from sparse_coding__tpu_torch.features import main as features_main
+
+    assert features_main([str(GOLDEN_FEATURES), "--json"]) == 0
+    info = __import__("json").loads(capsys.readouterr().out)
+    assert info["drift"]["band"] == "major"
+    assert info["drift"]["baseline"] == "train0001"
+    assert info["drift"]["current"] == "serve0000"
+    assert info["drift"]["score"] == pytest.approx(4.074, abs=1e-3)
+    assert info["dead"]["features"] == [30, 31]
+    # --diff addresses gens explicitly: the train-only control pair is stable
+    assert features_main([str(GOLDEN_FEATURES), "--diff", "train0000", "train0001", "--threshold", "0.25"]) == 0
+    assert "[STABLE]" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="unknown gen"):
+        features_main([str(GOLDEN_FEATURES), "--diff", "train0000", "nope"])
+
+
+def test_features_cli_over_a_port_run_matches_its_flushes(tmp_path, capsys):
+    """The summary over snapshots the port's flush wrote: its aggregates are
+    the ``feature_stats`` events' (the card's `features` phase checks the
+    same over `basic_l1_sweep`'s run dir)."""
+    from sparse_coding__tpu_torch.features import main as features_main
+
+    ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], activation_size=8,
+                         n_dict_components=16, feature_stats=True, device="cpu")
+    tel = RunTelemetry(out_dir=str(tmp_path), run_name="fs")
+    g = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        ens.step_batch(torch.randn(32, 8, generator=g))
+        tfs.flush_ensemble_feature_stats(ens, tel, tmp_path)
+    tel.close()
+    assert features_main([str(tmp_path), "--json"]) == 0
+    info = __import__("json").loads(capsys.readouterr().out)
+    flushes = [e for e in read_events(tmp_path / "events.jsonl") if e["event"] == "feature_stats"]
+    assert [s["gen"] for s in info["snapshots"]] == [e["gen"] for e in flushes]
+    for snap, ev in zip(info["snapshots"], flushes):
+        for k in ("dead_frac", "gini", "hot_frac"):
+            assert snap[k] == pytest.approx(ev[k], abs=1e-6), k

@@ -20,6 +20,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.data.chunks",
     "sparse_coding__tpu_torch.data.integrity",
     "sparse_coding__tpu_torch.data.ioi",
+    "sparse_coding__tpu_torch.data.scrub",
     "sparse_coding__tpu_torch.data.synthetic",
     "sparse_coding__tpu_torch.data.synthetic_text",
     "sparse_coding__tpu_torch.ensemble",
@@ -30,6 +31,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.experiments.interp_moment_corrs",
     "sparse_coding__tpu_torch.experiments.investigate",
     "sparse_coding__tpu_torch.experiments.pca_perplexity",
+    "sparse_coding__tpu_torch.features",
     "sparse_coding__tpu_torch.interop",
     "sparse_coding__tpu_torch.interp",
     "sparse_coding__tpu_torch.interp.__main__",
@@ -37,6 +39,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.interp.clients",
     "sparse_coding__tpu_torch.interp.pipeline",
     "sparse_coding__tpu_torch.interp.records",
+    "sparse_coding__tpu_torch.lineage",
     "sparse_coding__tpu_torch.lm",
     "sparse_coding__tpu_torch.lm.convert",
     "sparse_coding__tpu_torch.lm.model",
@@ -72,6 +75,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.plotting",
     "sparse_coding__tpu_torch.plotting.plots",
     "sparse_coding__tpu_torch.report",
+    "sparse_coding__tpu_torch.scrub",
     "sparse_coding__tpu_torch.serve",
     "sparse_coding__tpu_torch.serve.engine",
     "sparse_coding__tpu_torch.serve.loadgen",
@@ -84,6 +88,7 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.supervise",
     "sparse_coding__tpu_torch.telemetry",
     "sparse_coding__tpu_torch.telemetry.anomaly",
+    "sparse_coding__tpu_torch.telemetry.audit",
     "sparse_coding__tpu_torch.telemetry.events",
     "sparse_coding__tpu_torch.telemetry.feature_stats",
     "sparse_coding__tpu_torch.telemetry.goodput",

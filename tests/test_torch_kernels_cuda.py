@@ -1207,3 +1207,44 @@ def test_sequence_parallel_world_of_one_on_the_card_is_dense(cuda, impl):
         got = make_sequence_parallel_fn(cfg, mesh, cache_names=[name], stop_at_layer=3, attn=impl)(params, tokens)[1][name]
     assert got.shape == want.shape and float((got - want).abs().max()) <= 2e-3
     assert mesh.stats["calls"] == 0
+
+
+def test_transfer_audit_passes_a_graph_route_chunk_and_catches_a_planted_pull(cuda, tmp_path):
+    """`telemetry.audit.transfer_audit` over `ensemble_train_loop` on one
+    chunk of the graph route (config 2's members at a small width, the
+    graph captured on a warm-up chunk): sync-debug mode is ``"error"`` in
+    the block and every sync the loop makes is a sanctioned one (the
+    flush, the dead probe); an ``.item()`` planted in the loop raises
+    `TransferViolation`; the mode in force before comes back after."""
+    from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
+    from sparse_coding__tpu_torch.telemetry import TransferViolation, allowed_transfer, transfer_audit
+    from sparse_coding__tpu_torch.train.loop import ensemble_train_loop
+    from sparse_coding__tpu_torch.utils.logging import MetricLogger
+
+    ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": a} for a in (1e-4, 1e-3)], activation_size=128,
+                         n_dict_components=512, compute_dtype="bfloat16",
+                         optimizer_kwargs={"learning_rate": 1e-3, "mu_dtype": "bfloat16"})
+    assert ens.fused_adam is not None
+    g = torch.Generator(device=cuda).manual_seed(0)
+    chunk = torch.randn((32768, 128), generator=g, device=cuda)  # the permutation of 32k rows stays on the card
+    logger = MetricLogger(out_dir=str(tmp_path), run_name="audit")
+    ensemble_train_loop(ens, chunk, batch_size=256, key=1, logger=logger)  # captures the step's graph
+    assert ens.captures == 1
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with transfer_audit():
+            assert torch.cuda.get_sync_debug_mode() == 2
+            ensemble_train_loop(ens, chunk, batch_size=256, key=2, logger=logger)
+            with allowed_transfer():
+                assert torch.cuda.get_sync_debug_mode() == 0
+        assert torch.cuda.get_sync_debug_mode() == 1 and ens.captures == 1
+        leak = lambda i, n: ens.state.params["encoder"].sum().item()  # noqa: E731
+        with pytest.raises(TransferViolation):
+            with transfer_audit():
+                ensemble_train_loop(ens, chunk, batch_size=256, key=3, progress_callback=leak, dead_check=False)
+        with pytest.raises(TransferViolation, match="synchronizing"):
+            with transfer_audit():
+                torch.nonzero(chunk[:8] > 0)  # an implicit sync the interposer cannot see
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    logger.close()
