@@ -39,7 +39,16 @@ store of 2 chunks of 4,096 rows, 2 epochs: K_f every step, no plain solve,
 exports, feature snapshots and health metrics checked; then the same run
 SIGTERMed after epoch 1's first chunk in a process of its own and resumed
 in another (``chip_smoke.py --bls-worker``), its exports, firing EMA and
-snapshots the uninterrupted run's bits. Then the sweep driver
+snapshots the uninterrupted run's bits; then the fleet scheduler over that
+driver (`fleet`, ROADMAP A9's fleet group): the 8 members packed into 2
+items of 4 from that run's device-memory watermark, two worker processes on
+the card (``chip_smoke.py --fleet-worker``, the port's worker CLI) under
+a 6 s lease, w0 with a torn checkpoint, a transient chunk read and a SIGKILL
+after its second item's ``ckpt_0``, this process ticking the scheduler that
+reaps the dead lease so the other worker resumes the item: 8 members done,
+0 lost, each group's export the bits of an uninterrupted control run, a run
+dir served by the registry and the runs pushed to a local "remote" and
+pulled back through `utils.sync`. Then the sweep driver
 (`train/sweep.py::sweep`) at BASELINE config 2's widths over a
 `SparseMixDataset` store of 3 chunks of 65,536 rows: ensemble A (the tied
 path's 8 members, Adam) launches K1 + K2 every step, ensemble B (4 members,
@@ -153,6 +162,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2165,6 +2175,331 @@ def phase_basic_l1_sweep_resume(torch, root: Path, control: Path):
          preempted_s=killed_s, resumed_exit=resumed.returncode, resumed_s=resumed_s, checkpoint="ckpt_2",
          run_end=statuses, bit_equal_arrays=n, fire_ema_bit_equal=True, snapshots_bit_equal=len(snaps[0]),
          resume_cursor=next(e for e in events if e["event"] == "resume")["cursor"])
+
+
+# the fleet scheduler (ROADMAP A9's fleet group) over the FISTA driver: BLS_L1
+# packed into 2 items of 4 members from bls_a's watermark, each item 1 epoch
+# over bls_store's 2 chunks with a checkpoint at every chunk (8 steps of K_f at
+# M 4, B 1024, N 2048, D 512); worker w0 alone first, under three faults (the
+# kill's every=2 counts the chunk-1 tops w0 passes, so it lands on w0's second
+# item, after that item's ckpt_0): the torn first save of
+# its first item (released for another attempt), a transient chunk read
+# (retried in place) and a SIGKILL at the top of its second item's chunk 1;
+# w1 starts once w0 holds its second item, and resumes it from ckpt_0 after
+# the scheduler (this process) reaps the dead lease
+FLEET = dict(groups=2, reserve=0.2, lease_seconds=6.0, poll=0.2, idle_exit=180.0, tick=0.25, deadline_s=420.0,
+             w0_fault="kill:chunk_loop:chunk=1:every=2:times=1;torn_checkpoint;io_error:chunk_read:times=1",
+             sync_backoff="0.1", serve_rows=1024)
+
+
+def fleet_counts_path(fleet: Path, wid: str) -> Path:
+    return fleet / f".smoke_counts_{wid}.json"
+
+
+def fleet_worker(argv) -> int:
+    """``chip_smoke.py --fleet-worker <fleet> <worker_id>``: the port's fleet
+    worker CLI (`sparse_coding__tpu_torch.fleet.worker.main`, on the card) as a
+    process of its own (``SC_FAULT`` from the environment), under the watch
+    for plain FISTA solves. The wrappers' launch counts (0 at the start of
+    this process) and the plain solves are written to a file at every
+    checkpoint commit and chunk top, the sites its faults fire at, and at
+    the end, so a SIGKILLed worker leaves the counts of everything it
+    launched. Any plain solve fails the process."""
+    import torch
+
+    from sparse_coding__tpu_torch.fleet import worker as worker_mod
+    from sparse_coding__tpu_torch.models import fista as tf
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.train import basic_l1_sweep as bls_mod
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_mod
+
+    fleet, wid = Path(argv[0]), argv[1]
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    with watching_plain_solves(torch, tf) as plain:
+        def record():
+            counts = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+            tmp = fleet_counts_path(fleet, wid).with_suffix(".tmp")
+            tmp.write_text(json.dumps({"launches": counts, "plain_solves": plain["calls"]}))
+            os.replace(tmp, fleet_counts_path(fleet, wid))
+
+        patched = {}
+        for mod in (ckpt_mod, bls_mod):
+            real = patched[mod] = mod.fault_point
+
+            def recording(site, _real=real, **ctx):
+                if site in ("checkpoint_commit", "chunk_loop"):
+                    record()
+                _real(site, **ctx)
+
+            mod.fault_point = recording
+        try:
+            rc = worker_mod.main([str(fleet), "--worker-id", wid, "--lease-seconds", str(FLEET["lease_seconds"]),
+                                  "--poll", str(FLEET["poll"]), "--idle-exit", str(FLEET["idle_exit"])])
+        finally:
+            for mod, real in patched.items():
+                mod.fault_point = real
+            record()
+        check(plain["calls"] == 0, f"{plain['calls']} plain FISTA solves ran in fleet worker {wid}")
+    return rc
+
+
+def local_host_runner(cmd):
+    """`utils.sync`'s transport for a "remote" on this machine's own
+    filesystem, host ``localhost``: the listing ``ssh`` runs its command in
+    a local shell, rsync runs here without its ssh transport (the package's
+    python mirror where rsync is not installed). No network is touched."""
+    from sparse_coding__tpu_torch.utils import sync
+
+    if cmd[0] == "ssh":
+        return subprocess.run(["bash", "-c", cmd[-1]], capture_output=True, text=True, timeout=60)
+    check(cmd[0] == "rsync", f"unexpected transfer tool {cmd}")
+    args = list(cmd)
+    if "-e" in args:
+        i = args.index("-e")
+        del args[i:i + 2]
+    args[-2:] = [p.split("localhost:", 1)[-1] for p in args[-2:]]
+    if shutil.which("rsync"):
+        return subprocess.run(args, capture_output=True, text=True, timeout=120)
+    sync._local_sync(args[-2], args[-1], None, None, "--delete" in args)
+    return subprocess.CompletedProcess(args, 0, "local python mirror", "")
+
+
+def phase_fleet(torch, tf, root: Path, watermark_run: Path):
+    """The fleet path on the card (ROADMAP A9's fleet group): `pack_members`
+    sizes 2 groups of 4 from the per-member bytes ``bls_a`` recorded
+    (`member_bytes_from_run`), `build_sweep_items` submits them as
+    `basic_l1_sweep` items over ``bls_store`` (BASELINE config 1's width, 1
+    epoch, a checkpoint at every chunk), and two worker processes on the one
+    card (``--fleet-worker``: the port's worker CLI) drain the queue while
+    this process ticks the `FleetScheduler` with a 6 s lease. Worker w0
+    (`FLEET`'s faults): its first item's first checkpoint is torn (the item
+    is released and w0 runs it again from the start), its first chunk read
+    fails once (retried in place: ``io.retry``), and it is SIGKILLed at its
+    second item's chunk 1, after that item's ``ckpt_0``; the scheduler reaps
+    the dead lease and w1 resumes the item from ``ckpt_0``. Checks: 8
+    members done, 0 lost; the killed item's lineage ``["lease_expired",
+    "done"]`` resumed from ``ckpt_0``; every run dir verifies
+    (`verify_export`); each group's ``epoch_0`` export bit-equal to an
+    uninterrupted control run of it in this process; K_f launches across the
+    workers equal to the steps their run dirs record and the controls' to
+    theirs, no other kernel and no plain solve anywhere; the fleet report,
+    the monitor's fleet view, the goodput gap and the tower's gauges; a run
+    dir served by `DictRegistry` (its dicts' encode bit-equal to the loaded
+    export's); the runs pushed to a local "remote" and pulled back by
+    `utils.sync`, verified. Returns the workers' K_f launches."""
+    import numpy as np
+
+    from sparse_coding__tpu_torch.fleet import (
+        FleetScheduler, WorkQueue, build_sweep_items, load_fleet, member_bytes_from_run, pack_members,
+        render_fleet_markdown, verify_export,
+    )
+    from sparse_coding__tpu_torch.monitor import main as monitor_main
+    from sparse_coding__tpu_torch.ops import fista_kernel as fk
+    from sparse_coding__tpu_torch.ops import tied_sae_kernel as tk
+    from sparse_coding__tpu_torch.ops import topk_kernel as kk
+    from sparse_coding__tpu_torch.serve.registry import DictRegistry
+    from sparse_coding__tpu_torch.telemetry import RunTelemetry, read_events
+    from sparse_coding__tpu_torch.telemetry.goodput import build_ledger, fleet_reassignment_gaps
+    from sparse_coding__tpu_torch.telemetry.tower import _fleet_gauges
+    from sparse_coding__tpu_torch.train import checkpoint as ckpt_lib
+    from sparse_coding__tpu_torch.train.basic_l1_sweep import basic_l1_sweep
+    from sparse_coding__tpu_torch.utils.manifest import sha256_file
+    from sparse_coding__tpu_torch.utils.sync import pull_latest_outputs, push_outputs
+
+    t_phase = time.perf_counter()
+    store, fleet = root / "bls_store", root / "fleet"
+    members = len(BLS_L1)
+    per_member = member_bytes_from_run(watermark_run, members)
+    check(per_member is not None and per_member > 0, f"no device-memory watermark in {watermark_run}")
+    group = members // FLEET["groups"]
+    # the budget that holds `group` members and not one more, after the reserve
+    budget = (group + 0.5) * per_member / (1.0 - FLEET["reserve"])
+    groups = pack_members(BLS_L1, hbm_budget_bytes=budget, reserve_fraction=FLEET["reserve"],
+                          watermark_run_dir=watermark_run, watermark_members=members)
+    check([len(g) for g in groups] == [group] * FLEET["groups"], f"packed {[len(g) for g in groups]}")
+    base = dict(dataset_folder=str(store), activation_width=BLS["width"], batch_size=BLS["batch"], n_epochs=1,
+                checkpoint_every=1)
+    q = WorkQueue(fleet)
+    items = [it["item"] for it in build_sweep_items(q, groups, base)]
+    first, second = items
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SC_")}
+    env["SC_SYNC_BACKOFF"] = FLEET["sync_backoff"]
+    logs, procs = {}, {}
+
+    def spawn(wid, fault=None):
+        logs[wid] = open(fleet / f".smoke_{wid}.log", "w")
+        procs[wid] = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--fleet-worker", str(fleet), wid],
+                                      env={**env, **({"SC_FAULT": fault} if fault else {})}, cwd=REPO,
+                                      stdout=logs[wid], stderr=subprocess.STDOUT)
+
+    def tail(wid):
+        logs[wid].flush()
+        return (fleet / f".smoke_{wid}.log").read_text()[-3000:]
+
+    sched_tel = RunTelemetry(out_dir=str(fleet), run_name="fleet_scheduler", file_name="scheduler_events.jsonl",
+                             config={"lease_seconds": FLEET["lease_seconds"]})
+    sched_tel.run_start()
+    sched = FleetScheduler(fleet, lease_seconds=FLEET["lease_seconds"], telemetry=sched_tel)
+    for mod in (tk, kk, fk):
+        mod.reset_launches()
+    actions, w0_rc, killed_at = [], None, None
+    t_workers = time.perf_counter()
+    try:
+        spawn("w0", FLEET["w0_fault"])
+        deadline = time.time() + FLEET["deadline_s"]
+        while not any(l.get("item") == second and l.get("worker") == "w0" for l in q.leases()):
+            check(procs["w0"].poll() is None, f"w0 exited {procs['w0'].returncode} early: {tail('w0')}")
+            check(time.time() < deadline, "w0 never claimed its second item")
+            actions += sched.tick()
+            time.sleep(FLEET["tick"])
+        w0_second_claim_s = time.perf_counter() - t_workers
+        spawn("w1")
+        while not q.finished():
+            check(time.time() < deadline, f"fleet unfinished: {q.state()['item_counts']}\n{tail('w0')}\n{tail('w1')}")
+            if w0_rc is None and procs["w0"].poll() is not None:
+                w0_rc, killed_at = procs["w0"].returncode, time.perf_counter() - t_workers
+                check(w0_rc == -signal.SIGKILL, f"w0 exited {w0_rc}, not SIGKILLed: {tail('w0')}")
+            check(procs["w1"].poll() is None, f"w1 exited {procs['w1'].returncode} early: {tail('w1')}")
+            actions += sched.tick()
+            time.sleep(FLEET["tick"])
+        workers_s = time.perf_counter() - t_workers
+        check(procs["w1"].wait(timeout=120) == 0, f"w1 exited {procs['w1'].returncode}: {tail('w1')}")
+        if w0_rc is None:
+            w0_rc = procs["w0"].wait(timeout=60)
+        check(w0_rc == -signal.SIGKILL, f"w0 exited {w0_rc}, not SIGKILLed")
+        state = sched.run(poll_every=FLEET["tick"], max_seconds=30)  # the final re-verification pass
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for f in logs.values():
+            f.close()
+        sched_tel.close()
+    smoke_launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+    check(not any(smoke_launches.values()), f"the scheduler's process launched {smoke_launches}")
+    check(state["members"] == {"queued": 0, "running": 0, "orphaned": 0, "done": members, "lost": 0},
+          f"fleet members {state['members']}")
+    kinds = [a["kind"] for a in actions]
+    check(kinds == ["lease_expired"], f"scheduler actions {actions}")
+
+    done = {it["item"]: it for it in q.items("done")}
+    lineage = {k: [(e.get("worker"), e.get("outcome"), e.get("resumed_from")) for e in it["lineage"]]
+               for k, it in done.items()}
+    check(lineage[first] == [("w0", "failed", None), ("w0", "done", None)], f"{first} lineage {lineage[first]}")
+    check("torn_checkpoint" in done[first]["lineage"][0].get("error", ""), f"{first} failed how? {done[first]}")
+    check(lineage[second] == [("w0", "lease_expired", None), ("w1", "done", "ckpt_0")],
+          f"{second} lineage {lineage[second]}")
+    for item in items:
+        ok, reason = verify_export(q.run_dir(item))
+        check(ok, f"{item}: export does not verify: {reason}")
+
+    steps, io_retry, statuses = {}, {}, {}
+    for item in items:
+        events = read_events(q.run_dir(item) / "events.jsonl")
+        steps[item] = sum(int(e.get("steps", 0)) for e in events if e["event"] == "chunk_end")
+        io_retry[item] = max([e["counters"].get("io.retry", 0) for e in events if e["event"] == "snapshot"] or [0])
+        statuses[item] = [e["status"] for e in events if e["event"] == "run_end"]
+    chunk_steps = BLS["rows_per_chunk"] // BLS["batch"]
+    check(steps == {first: 3 * chunk_steps, second: 2 * chunk_steps}, f"steps per item {steps}")
+    check(io_retry[first] >= 1, f"io.retry per item {io_retry}")
+    check(statuses[second] == ["ok"] and statuses[first][-1] == "ok", f"run_end statuses {statuses}")
+
+    counts = {wid: json.loads(fleet_counts_path(fleet, wid).read_text()) for wid in ("w0", "w1")}
+    worker_kf = sum(c["launches"]["fista_solve"] for c in counts.values())
+    for wid, c in counts.items():
+        others = {k: v for k, v in c["launches"].items() if k != "fista_solve" and v}
+        check(not others and c["plain_solves"] == 0, f"{wid}: other launches {others}, {c['plain_solves']} plain")
+    # w0: its first item twice (the torn attempt's chunk, then both chunks),
+    # its second item's chunk 0; w1: that item's chunk 1 after the resume
+    check({wid: c["launches"]["fista_solve"] for wid, c in counts.items()} == {"w0": 4 * chunk_steps,
+                                                                               "w1": chunk_steps},
+          f"K_f launches per worker {counts}")
+    check(worker_kf == sum(steps.values()), f"workers' K_f launches {worker_kf} != their steps {steps}")
+
+    # an uninterrupted control of each group, in this process under the same
+    # watch; its launches read from the wrappers' counts (no profiler trace:
+    # a comparison, not the path)
+    t_controls = time.perf_counter()
+    control_kf, equal_arrays = 0, 0
+    for item, grp in zip(items, groups):
+        out = root / f"fleet_control_{item}"
+        for mod in (tk, kk, fk):
+            mod.reset_launches()
+        with watching_plain_solves(torch, tf) as plain:
+            basic_l1_sweep(output_folder=str(out), l1_values=list(grp), **base)
+        launches = {**tk.LAUNCHES, **kk.LAUNCHES, **fk.LAUNCHES}
+        want = {k: 0 for k in launches}
+        want["fista_solve"] = 2 * chunk_steps
+        check(launches == want and plain["calls"] == 0, f"control {item}: {launches}, {plain['calls']} plain")
+        control_kf += launches["fista_solve"]
+        got = ckpt_lib.load_learned_dicts(q.run_dir(item) / "epoch_0" / "learned_dicts.pkl", verify=True)
+        ref = ckpt_lib.load_learned_dicts(out / "epoch_0" / "learned_dicts.pkl", verify=True)
+        check([h for _, h in got] == [h for _, h in ref] and len(got) == group, f"{item}: hyperparams")
+        for (g, _), (r, _) in zip(got, ref):
+            for f in ("encoder", "encoder_bias", "decoder"):
+                check(torch.equal(getattr(g, f), getattr(r, f)), f"{item}: {f} differs from the uninterrupted run")
+                equal_arrays += 1
+    controls_s = time.perf_counter() - t_controls
+
+    # the fleet through the port's tools
+    md = render_fleet_markdown(load_fleet(fleet))
+    check(f"**{members} done**" in md and "**0 lost**" in md and "ckpt_0" in md, f"fleet report:\n{md}")
+    rc, mon = cli(monitor_main, [str(fleet), "--once"])
+    fleet_line = next((ln.strip() for ln in mon.splitlines() if ln.strip().startswith("fleet:")), None)
+    check(rc == 0 and fleet_line is not None and f"{members} done" in fleet_line and "0 lost" in fleet_line,
+          f"monitor fleet view (rc {rc}):\n{mon}")
+    gaps = fleet_reassignment_gaps(fleet)
+    ledger = build_ledger(fleet)
+    # lease loss → next claim: the torn item's release and w0's re-claim, the
+    # killed item's reap and w1's claim (the gap the lease length sets)
+    check([(g["item"], g["from_worker"], g["to_worker"]) for g in gaps] == [(first, "w0", "w0"), (second, "w0", "w1")],
+          f"gaps {gaps}")
+    check(ledger["reassignment_gaps"] == gaps, "the ledger's reassignment gaps")
+    gauges = _fleet_gauges(fleet, time.time())
+    check(gauges["fleet.pending_items"] == 0.0 and gauges["fleet.leased_items"] == 0.0, f"tower gauges {gauges}")
+
+    # serve a done run dir: the registry verifies the dir, its dicts encode as the export's own
+    rows = torch.from_numpy(np.load(store / "0.npy")[:FLEET["serve_rows"]]).cuda().float()
+    reg = DictRegistry(device="cuda")
+    ids = reg.load_export(q.run_dir(second))
+    loaded = ckpt_lib.load_learned_dicts(q.run_dir(second) / "epoch_0" / "learned_dicts.pkl", verify=True)
+    check(len(ids) == group, f"registry ids {ids}")
+    for did, (ld, _) in zip(ids, loaded):
+        check(torch.equal(reg.get(did).ld.encode(rows), ld.encode(rows)), f"{did}: served encode differs")
+
+    # push the runs to a "remote" on this filesystem and pull the newest back
+    remote = f"localhost:{root / 'remote'}"
+    (root / "remote" / "outputs").mkdir(parents=True)  # the remote's tree exists, as on a real host
+    t_sync = time.perf_counter()
+    push_outputs(fleet / "runs", remote=remote, runner=local_host_runner)
+    pull_latest_outputs(remote=remote, local=str(root / "pulled"), runner=local_host_runner)
+    sync_s = time.perf_counter() - t_sync
+    for item in items:
+        pulled = root / "pulled" / "runs" / item
+        ok, reason = verify_export(pulled)
+        check(ok, f"pulled {item}: {reason}")
+        check(sha256_file(pulled / "export_manifest.json") == sha256_file(q.run_dir(item) / "export_manifest.json"),
+              f"pulled {item}: manifest differs")
+        a = ckpt_lib.load_learned_dicts(pulled / "epoch_0" / "learned_dicts.pkl", verify=True)
+        b = ckpt_lib.load_learned_dicts(q.run_dir(item) / "epoch_0" / "learned_dicts.pkl", verify=True)
+        check(all(torch.equal(x.decoder, y.decoder) for (x, _), (y, _) in zip(a, b)), f"pulled {item}: dicts differ")
+
+    emit("fleet", config="BASELINE config 1", bytes_per_member=per_member, hbm_budget_bytes=budget,
+         groups=[len(g) for g in groups], items=items, members_done=state["members"]["done"],
+         members_lost=state["members"]["lost"], w0_fault=FLEET["w0_fault"], w0_exit=w0_rc,
+         lease_seconds=FLEET["lease_seconds"], lineage=lineage, steps=steps, io_retry=io_retry,
+         kf_launches_workers={wid: c["launches"]["fista_solve"] for wid, c in counts.items()},
+         kf_launches_controls=control_kf, plain_solves=0, export_arrays_bit_equal=equal_arrays,
+         reassignment_gap_s={g["item"]: g["seconds"] for g in gaps}, tower_gauges=gauges, monitor_fleet_line=fleet_line,
+         served_dicts=len(ids), synced_runs=len(items), w0_second_claim_s=w0_second_claim_s,
+         w0_killed_at_s=killed_at, workers_s=workers_s, controls_s=controls_s, sync_s=sync_s,
+         phase_s=time.perf_counter() - t_phase)
+    return worker_kf
 
 
 def sweep_cfg(root: Path, out: str):
@@ -5661,6 +5996,8 @@ def main() -> int:
         return sweep_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--bls-worker"]:
         return bls_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        return fleet_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--harvest-worker"]:
         return harvest_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--serve-worker"]:
@@ -5783,6 +6120,11 @@ def main() -> int:
                  patterns=("*.jsonl", "feature_stats.*.npz"))
         torch.cuda.empty_cache()
         phase_basic_l1_sweep_resume(torch, Path(bls_root), control)
+        # the fleet scheduler (ROADMAP A9's fleet group) over the same driver:
+        # 2 items packed from bls_a's watermark, two worker processes, a
+        # killed worker's item resumed by the other, then serve and sync
+        torch.cuda.empty_cache()
+        fleet_launches = phase_fleet(torch, tf, Path(bls_root), control)
     bls_row = dict(fista_rows[2], path="basic_l1_sweep", launches=bls_launches)
     rows.append(bls_row)
 
@@ -5881,6 +6223,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="sc_chip_smoke_scaleout_") as scale_root:
         rows += phase_scaleout(torch, Path(scale_root))
         keep_run("scaleout_world2", Path(scale_root) / "sweep_full", Path(runs_root.name))
+    # the fleet's K_f shape is the data axis' local one (row 9s, timed by the
+    # scale-out phase): the same row again with the fleet workers' launches
+    fleet_shape = (f"M={len(BLS_L1) // FLEET['groups']},B={BLS['batch']},N={BLS['n_dict']},D={BLS['width']},"
+                   f"iters={FISTA_ITERS}")
+    fleet_rows = [r for r in rows if r["name"] == "fista_solve" and r["shape"] == fleet_shape]
+    check(len(fleet_rows) == 1, f"no K_f row at the fleet's shape {fleet_shape}")
+    rows.append(dict(fleet_rows[0], path="fleet", launches=fleet_launches))
 
     # the run tools (ROADMAP A9's first group) over the run dirs kept above
     phase_runtools(torch, KEPT_RUNS)

@@ -12,7 +12,8 @@ Quantized chunks move to the device as they are stored and are dequantized
 there to float16 by plain torch ops (``q · scale`` in float16, as the JAX
 package's XLA dequant). The layout is the JAX package's, so a store written
 by either package reads in the other. A load verifies the chunk first
-(`data.integrity`): one that fails is quarantined and raises `CorruptChunk`.
+(`data.integrity`): one that fails is quarantined and raises `CorruptChunk`;
+a transient read error is retried on the shared backoff schedule.
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ from sparse_coding__tpu_torch.data.integrity import (  # noqa: F401  (the store'
     chunk_path,
     scale_path,
 )
+from sparse_coding__tpu_torch.telemetry.events import counter_inc_active
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.faults import fault_point
 from sparse_coding__tpu_torch.utils.manifest import sha256_file
+from sparse_coding__tpu_torch.utils.sync import retry_with_backoff
 
 
 def quantize_rows_int8(array: np.ndarray):
@@ -192,7 +195,15 @@ class ChunkStore:
         every depth. The stored bytes (fp16, int8 or packed int4) cross to
         the device as they are; quantized chunks are dequantized there to
         float16, then every tier is upcast there. ``dtype=None`` keeps
-        float16."""
+        float16.
+
+        Transient read errors (an ``OSError`` from a network filesystem under
+        churn) are retried on the shared `utils.sync.retry_with_backoff`
+        schedule (``SC_SYNC_RETRIES`` / ``SC_SYNC_BACKOFF``), each retry
+        counted as ``io.retry`` on the live telemetry; a missing file, a
+        directory or a permission error fails at once; a schedule that burns
+        out counts ``io.exhausted`` and re-raises (the drivers exit 75). The
+        ``chunk_read`` fault site (chunk, attempt) injects such errors."""
         device = resolve_device(device)
         if not chunk_path(self.folder, i).exists():
             if integrity.is_quarantined(self.folder, i):
@@ -204,17 +215,35 @@ class ChunkStore:
             ok, reason = integrity.verify_chunk(self.folder, i, depth=depth)
             if not ok:
                 self._corrupt(i, reason)
+            if integrity.read_chunk_manifest(self.folder, i) is not None:
+                counter_inc_active("data.chunks_verified")
+
+        def _read(attempt: int):
+            fault_point("chunk_read", chunk=int(i), attempt=attempt)
+            a = np.load(chunk_path(self.folder, i))
+            sp = scale_path(self.folder, i)
+            s = np.load(sp) if a.dtype in (np.int8, np.uint8) and sp.exists() else None
+            return a, s
+
         try:
-            arr = np.load(chunk_path(self.folder, i))
+            arr, scales = retry_with_backoff(
+                _read, retry_on=(OSError,),
+                give_up_on=(FileNotFoundError, IsADirectoryError, NotADirectoryError, PermissionError),
+                on_retry=lambda attempt, exc: counter_inc_active("io.retry"),
+            )
+        except (FileNotFoundError, IsADirectoryError, NotADirectoryError, PermissionError):
+            raise
         except ValueError as e:  # truncated or garbled bytes: corruption
             self._corrupt(i, f"unreadable npy: {e}")
-        sp = scale_path(self.folder, i)
+        except OSError:
+            counter_inc_active("io.exhausted")
+            raise
         if arr.dtype in (np.int8, np.uint8):
-            if not sp.exists():
+            if scales is None:
                 self._corrupt(i, f"quantized ({arr.dtype.name}) chunk bytes with no scale file — torn pair")
             q = torch.from_numpy(arr).to(device)
-            scales = torch.from_numpy(np.load(sp)).to(device)
-            x = dequant_int4(q, scales) if arr.dtype == np.uint8 else dequant_int8(q, scales)
+            s = torch.from_numpy(scales).to(device)
+            x = dequant_int4(q, s) if arr.dtype == np.uint8 else dequant_int8(q, s)
         elif arr.dtype == np.float16:
             x = torch.from_numpy(arr).to(device)
         else:

@@ -8,7 +8,8 @@ them:
     to its sidecar manifest by `train.checkpoint.load_learned_dicts(verify=
     True)`; a legacy export without one loads with a warning) or a plain
     directory of them. A fleet run directory (``export_manifest.json``) is
-    refused: `fleet/` is not ported yet (ROADMAP A9).
+    verified whole first (`fleet.worker.verify_export`), then its pickles
+    load without re-hashing.
   - **Hot add/swap/remove** under a lock, each bumping ``generation``; the
     engine re-reads the registry when the generation moves.
   - **int8 residency.** ``weights="int8"`` quantizes every 2-D floating leaf
@@ -292,16 +293,24 @@ class DictRegistry:
 
         ``path`` is one ``learned_dicts.pkl`` (held to its sidecar manifest;
         a legacy export without one warns) or a directory whose every
-        ``learned_dicts.pkl`` loads, each held to its own sidecar.
+        ``learned_dicts.pkl`` loads: a fleet run dir's (one with
+        ``export_manifest.json``) held to that manifest as a whole, any other
+        directory's each to its own sidecar.
         ``dict_ids`` overrides the generated ids (``<stem or prefix>:<i>``).
         Nothing registers unless everything loads and checks out."""
         from sparse_coding__tpu_torch.telemetry.provenance import export_digest
         from sparse_coding__tpu_torch.train.checkpoint import export_manifest_path, load_learned_dicts
 
         path = Path(path)
+        dir_verified = False
         if path.is_dir():
-            if (path / "export_manifest.json").is_file():
-                raise NotImplementedError(f"{path} is a fleet run directory: fleet/ is not ported yet — ROADMAP A9")
+            from sparse_coding__tpu_torch.fleet.worker import EXPORT_MANIFEST, verify_export
+
+            if (path / EXPORT_MANIFEST).is_file():
+                ok, reason = verify_export(path)
+                if not ok:
+                    raise ValueError(f"export dir {path} failed manifest verification: {reason}")
+                dir_verified = True
             pkls = sorted(path.rglob("learned_dicts.pkl"))
             if not pkls:
                 raise FileNotFoundError(f"no learned_dicts.pkl under {path}")
@@ -312,7 +321,9 @@ class DictRegistry:
 
         loaded: List[Tuple[Path, int, Any, Dict[str, Any]]] = []
         for pkl in pkls:
-            if export_manifest_path(pkl).is_file():
+            if dir_verified:  # the dir's manifest digest-verified every pkl already
+                records = load_learned_dicts(pkl, verify=False, device=self.device)
+            elif export_manifest_path(pkl).is_file():
                 records = load_learned_dicts(pkl, verify=True, device=self.device)
             else:
                 warnings.warn(f"legacy learned-dict export {pkl} has no sidecar manifest: loaded unverified",

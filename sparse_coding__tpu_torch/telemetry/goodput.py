@@ -41,8 +41,8 @@ Perfetto / chrome://tracing. `python -m sparse_coding__tpu_torch.timeline` is
 the CLI over both (docs/observability.md §7).
 
 Counterpart of `sparse_coding__tpu/telemetry/goodput.py`, copied; a fleet
-directory (a fleet queue's lineage) raises: `fleet/` is not ported yet
-(ROADMAP A9).
+directory's reassignment gaps come from its queue's item lineage
+(`fleet.queue`).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ import json
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
+from sparse_coding__tpu_torch.fleet.queue import is_fleet_dir
 from sparse_coding__tpu_torch.telemetry.multihost import (
     PROC_FILE_RE as _PROC_FILE_RE,
     chunk_skew_windows,
@@ -62,7 +63,6 @@ __all__ = [
     "build_ledger",
     "build_ledger_from_streams",
     "fleet_reassignment_gaps",
-    "is_fleet_dir",
     "to_chrome_trace",
     "render_ledger",
 ]
@@ -315,27 +315,35 @@ def _match_restarts(
     return stamped
 
 
-def is_fleet_dir(path) -> bool:
-    """Does ``path`` hold a fleet queue (``queue/pending/``, the JAX
-    package's `fleet.queue` layout)?"""
-    return (Path(path) / "queue" / "pending").is_dir()
-
-
-def refuse_fleet_dir(path, what: str) -> None:
-    """Raise on a fleet directory: the fleet views of the run tools wait for
-    `fleet/`, which is not ported yet."""
-    if is_fleet_dir(path):
-        raise NotImplementedError(f"{path} is a fleet directory: {what} reads fleet/, which is not ported yet "
-                                  "— ROADMAP A9")
-
-
 def fleet_reassignment_gaps(fleet_dir) -> List[Dict[str, Any]]:
     """Wall time items spent between losing a lease and being re-claimed,
-    from a fleet queue's item lineage: empty for a directory that is not a
-    fleet's; a fleet directory raises (`fleet/` is not ported yet, ROADMAP
-    A9)."""
-    refuse_fleet_dir(fleet_dir, "the goodput ledger")
-    return []
+    from the queue's item lineage (docs/FLEET.md) — the fleet-level badput
+    the per-run event logs cannot see. Empty for non-fleet directories."""
+    if not is_fleet_dir(fleet_dir):
+        return []
+    gaps: List[Dict[str, Any]] = []
+    queue = Path(fleet_dir) / "queue"
+    for bucket in ("pending", "leased", "done", "failed"):
+        for p in sorted(queue.glob(f"{bucket}/*.json")):
+            try:
+                with open(p) as f:
+                    item = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                continue
+            lineage = item.get("lineage") or []
+            for prev, nxt in zip(lineage, lineage[1:]):
+                t0 = _num(prev.get("released_ts"))
+                t1 = _num(nxt.get("claimed_ts"))
+                if t0 is None or t1 is None or t1 <= t0:
+                    continue
+                gaps.append({
+                    "item": item.get("item", p.stem),
+                    "seconds": t1 - t0,
+                    "start_ts": t0,
+                    "from_worker": prev.get("worker"),
+                    "to_worker": nxt.get("worker"),
+                })
+    return gaps
 
 
 def build_ledger_from_streams(

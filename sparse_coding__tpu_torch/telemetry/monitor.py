@@ -22,9 +22,8 @@ Follow mode exits 0 once every discovered process has written ``run_end``.
 Torn trailing lines (a writer mid-append) are NOT malformed: the tail
 buffers them until the newline arrives.
 
-Fleet directories (a `queue/pending/` layout, docs/FLEET.md) would get an
-extra **fleet view** block; `fleet/` is not ported yet, so the port's
-monitor refuses them (ROADMAP A9). The fleet view: per-worker liveness and
+Fleet directories (`fleet.queue.is_fleet_dir` — a `queue/pending/` layout,
+docs/FLEET.md) get an extra **fleet view** block: per-worker liveness and
 lease ages read straight from the lease/ledger files, plus the member
 ledger (done/running/orphaned/queued/lost)::
 
@@ -392,13 +391,45 @@ def _age(now: float, ts: Optional[float]) -> str:
 
 
 def fleet_lines(run_dir, now: float) -> List[str]:
-    """The fleet view (per-worker liveness, lease ages and the member
-    ledger of a fleet queue): empty for ordinary run dirs; a fleet
-    directory raises, `fleet/` is not ported yet (ROADMAP A9)."""
-    from sparse_coding__tpu_torch.telemetry.goodput import refuse_fleet_dir
+    """The fleet view: when the monitored directory holds a fleet
+    queue (`fleet.queue.is_fleet_dir`), render per-worker liveness, lease
+    ages, and the member ledger — done/running/orphaned/queued/**lost** —
+    from the queue files themselves (no events needed, so a fleet whose
+    scheduler died still renders). Empty list for ordinary run dirs."""
+    from sparse_coding__tpu_torch.fleet.queue import WorkQueue, is_fleet_dir
 
-    refuse_fleet_dir(run_dir, "the monitor's fleet view")
-    return []
+    if not is_fleet_dir(run_dir):
+        return []
+    st = WorkQueue(run_dir, create=False).state(now=now)
+    c, m = st["item_counts"], st["members"]
+    lines = [
+        f"  fleet: items {c['done']} done / {c['leased']} leased / "
+        f"{c['pending']} pending / {c['failed']} failed | members "
+        f"{m['done']} done / {m['running']} running / {m['orphaned']} orphaned"
+        f" / {m['queued']} queued / {m['lost']} lost"
+        + ("  ⚠ LOST MEMBERS" if m["lost"] else "")
+    ]
+    by_worker = {l.get("worker"): l for l in st["leases"].values()}
+    bits = []
+    for w in st["workers"]:
+        wid = w.get("worker", "?")
+        if w.get("quarantined"):
+            bits.append(f"{wid} QUARANTINED ({w.get('strikes', 0)} strikes)")
+            continue
+        lease = by_worker.get(wid)
+        if lease is not None:
+            age = now - float(lease.get("renewed_ts", now))
+            left = float(lease.get("expires_ts", now)) - now
+            state = (
+                f"lease {lease.get('item', '?')} (age {age:.1f}s, "
+                + (f"expires in {left:.1f}s)" if left > 0 else "EXPIRED)")
+            )
+            bits.append(f"{wid} {state}")
+        else:
+            bits.append(f"{wid} idle {_age(now, w.get('last_seen_ts'))}")
+    if bits:
+        lines.append("  workers: " + "; ".join(bits))
+    return lines
 
 
 def render(mon: RunMonitor, now: Optional[float] = None) -> str:

@@ -44,9 +44,9 @@ the tower's own telemetry (``DIR/tower_events.jsonl``), so the watcher
 is itself watchable.
 
 Counterpart of `sparse_coding__tpu/telemetry/tower.py`, copied: it scrapes
-the port's replicas and routers (`telemetry.metrics_http`), and lists an
-incident's tainted lineage from the port's provenance graph. Not ported yet
-(ROADMAP A9): a fleet dir's gauges (a fleet directory raises; `fleet/`).
+the port's replicas and routers (`telemetry.metrics_http`), reads a fleet
+dir's queue state through the port's `fleet.queue`, and lists an incident's
+tainted lineage from the port's provenance graph.
 """
 
 from __future__ import annotations
@@ -1117,13 +1117,29 @@ def _families_to_maps(fams) -> Tuple[Dict[str, float], Dict[str, float],
 
 
 def _fleet_gauges(fleet_dir, now: float) -> Dict[str, float]:
-    """Queue-state gauges of one fleet dir (idle/busy workers, pending/
-    leased items): nothing for a directory that is not a fleet's; a fleet
-    directory raises, `fleet/` is not ported yet (ROADMAP A9)."""
-    from sparse_coding__tpu_torch.telemetry.goodput import refuse_fleet_dir
+    """Queue-state gauges for one fleet dir (idle/busy workers, pending/
+    leased items) — the fleet idle-capacity signal `pool_state` exposes."""
+    from sparse_coding__tpu_torch.fleet.queue import WorkQueue, is_fleet_dir
 
-    refuse_fleet_dir(fleet_dir, "the tower's fleet gauges")
-    return {}
+    if not is_fleet_dir(fleet_dir):
+        return {}
+    try:
+        st = WorkQueue(fleet_dir, create=False).state(now=now)
+    except Exception:
+        return {}
+    c = st.get("item_counts") or {}
+    leases = st.get("leases") or {}
+    busy = {l.get("worker") for l in leases.values() if l.get("worker")}
+    workers = [
+        w for w in (st.get("workers") or []) if not w.get("quarantined")
+    ]
+    idle = [w for w in workers if w.get("worker") not in busy]
+    return {
+        "fleet.idle_workers": float(len(idle)),
+        "fleet.busy_workers": float(len(busy)),
+        "fleet.pending_items": float(c.get("pending", 0)),
+        "fleet.leased_items": float(c.get("leased", 0)),
+    }
 
 
 def _goodput_frac(span_seconds: Dict[str, float]) -> Optional[float]:

@@ -4,8 +4,8 @@
 goodput/badput ledger (`telemetry.goodput`) from every ``events*.jsonl``
 under the run directory — merged across processes, resume generations, and
 the supervisor's restart log — and prints it: total wall, goodput %, the
-badput breakdown, and the widest badput spans. A fleet directory raises
-(`fleet/` is not ported yet, ROADMAP A9).
+badput breakdown, and the widest badput spans. On a fleet directory the
+ledger adds the items' lease-loss → re-claim gaps (``reassign_gap``).
 
 Options:
 

@@ -24,7 +24,8 @@ Sites the port plants: ``chunk_loop`` (top of each sweep chunk: chunk),
 `save_learned_dicts`: path), in `data.chunks.save_chunk`
 ``chunk_write`` (data staged, nothing landed: chunk), ``chunk_pair``
 (between the pair's file operations: chunk) and ``chunk_committed`` (after
-the chunk's manifest commit: chunk, path), ``serve_loop`` (each tick of the
+the chunk's manifest commit: chunk, path), in `data.chunks.ChunkStore.load`
+``chunk_read`` (each read attempt: chunk, attempt), ``serve_loop`` (each tick of the
 serve server's drain-wait loop: tick; ``kill:serve_loop:tick=40`` SIGKILLs
 a serve replica mid-flight) and ``router_forward`` (in `serve.router` just
 before a forward: replica; ``io_error`` there is a transport failure the

@@ -80,6 +80,8 @@ FLAGS: Dict[str, Flag] = {
              "start:stop step window for a triggered torch.profiler trace (TraceTrigger.from_env)."),
         Flag("SC_TRACE_DIR", "opt_str", None, "telemetry.profiling",
              "Directory a triggered trace capture writes into (default: the run's output dir)."),
+        Flag("SC_TPU_REMOTE", "str", "", "utils.sync",
+             "host:dir (or gs:// / s3://) target of the remote sync helpers; empty = none given."),
         Flag("SC_SYNC_RETRIES", "int", "3", "utils.sync",
              "Attempts of the shared retry engine (clamped to >= 1 at the call site)."),
         Flag("SC_SYNC_BACKOFF", "float", "1.0", "utils.sync",
@@ -109,6 +111,7 @@ SC_FAULT = FLAGS["SC_FAULT"]
 SC_COST_CAPTURE = FLAGS["SC_COST_CAPTURE"]
 SC_TRACE_WINDOW = FLAGS["SC_TRACE_WINDOW"]
 SC_TRACE_DIR = FLAGS["SC_TRACE_DIR"]
+SC_TPU_REMOTE = FLAGS["SC_TPU_REMOTE"]
 SC_SYNC_RETRIES = FLAGS["SC_SYNC_RETRIES"]
 SC_SYNC_BACKOFF = FLAGS["SC_SYNC_BACKOFF"]
 SC_MH_TIMEOUT_MS = FLAGS["SC_MH_TIMEOUT_MS"]

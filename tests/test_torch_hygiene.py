@@ -32,6 +32,11 @@ SLICE_MODULES = [
     "sparse_coding__tpu_torch.experiments.investigate",
     "sparse_coding__tpu_torch.experiments.pca_perplexity",
     "sparse_coding__tpu_torch.features",
+    "sparse_coding__tpu_torch.fleet",
+    "sparse_coding__tpu_torch.fleet.queue",
+    "sparse_coding__tpu_torch.fleet.report",
+    "sparse_coding__tpu_torch.fleet.scheduler",
+    "sparse_coding__tpu_torch.fleet.worker",
     "sparse_coding__tpu_torch.interop",
     "sparse_coding__tpu_torch.interp",
     "sparse_coding__tpu_torch.interp.__main__",
@@ -150,7 +155,8 @@ def test_sources_never_name_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import jax|from jax)|sparse_coding__tpu\.", re.M)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_moments.py",
                                           REPO / "tests" / "_torch_harvest_worker.py",
-                                          REPO / "tests" / "_torch_mp_worker.py"]
+                                          REPO / "tests" / "_torch_mp_worker.py",
+                                          REPO / "tests" / "_torch_fleet_drivers.py"]
     assert len(files) > 10
     offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []

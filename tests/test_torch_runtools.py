@@ -30,7 +30,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "golden"
 GOLDEN_RUNS = ["goodput_run", "resumed_run", "pod_run", "serve_run", "router_run", "traced_run", "feature_run",
-               "lineage_run"]
+               "lineage_run", "fleet_run"]
 SLO_CFG = json.loads((GOLDEN / "traced_run" / "slo.json").read_text())
 SLO_STRICT = json.loads((GOLDEN / "traced_run" / "slo_strict.json").read_text())
 
@@ -220,7 +220,7 @@ def _cli(main, argv):
 
 @pytest.mark.parametrize("argv", [["--goodput-floor", "0"], ["--goodput-floor", "99.9"], ["--json"], ["--trace"]],
                          ids=["floor_ok", "floor_fail", "json", "trace"])
-@pytest.mark.parametrize("name", ["gens_port", "pod_port", "sweep_port", "goodput_run"])
+@pytest.mark.parametrize("name", ["gens_port", "pod_port", "sweep_port", "goodput_run", "fleet_run"])
 def test_timeline_cli_matches_jax(run_dirs, name, argv, tmp_path):
     jt, tt = _mods("timeline")
     d = str(run_dirs[name])
@@ -232,7 +232,10 @@ def test_timeline_cli_matches_jax(run_dirs, name, argv, tmp_path):
         got.append((rc, out, _dump(trace)))
     assert got[1] == got[0]
     rc = got[0][0]
-    assert rc == (1 if argv == ["--goodput-floor", "99.9"] else 0)
+    if name == "fleet_run" and argv[0] == "--goodput-floor":
+        assert rc == 3  # the golden fleet run has no spans: no floor can gate it
+    else:
+        assert rc == (1 if argv == ["--goodput-floor", "99.9"] else 0)
 
 
 def test_cli_exit_codes_match_jax(run_dirs, tmp_path):
@@ -321,18 +324,25 @@ def test_perfdiff_matches_jax(tmp_path, new):
         assert _cli(tp.main, argv) == _cli(jp.main, argv)
 
 
-def test_fleet_directories_raise_naming_the_roadmap(run_dirs):
-    from sparse_coding__tpu_torch.telemetry import goodput, monitor, tower
-
-    fleet = GOLDEN / "fleet_run"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        goodput.build_ledger(fleet)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        monitor.fleet_lines(fleet, now=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tower._fleet_gauges(fleet, now=0.0)
-    assert goodput.fleet_reassignment_gaps(run_dirs["gens_port"]) == []
-    assert tower._fleet_gauges(run_dirs["gens_port"], now=0.0) == {}
+def test_fleet_views_match_jax_on_the_golden_fleet_run(run_dirs):
+    """The three fleet views (the goodput ledger's reassignment gaps, the
+    monitor's fleet lines, the tower's fleet gauges) on the golden fleet
+    run, and on an ordinary run dir (none of them)."""
+    (jg, tg), (jm, tm), (jt, tt) = _mods("telemetry.goodput"), _mods("telemetry.monitor"), _mods("telemetry.tower")
+    fleet = run_dirs["fleet_run"]
+    now = _now(fleet)
+    gaps = tg.fleet_reassignment_gaps(fleet)
+    assert gaps and _dump(gaps) == _dump(jg.fleet_reassignment_gaps(fleet))
+    ledger = tg.build_ledger(fleet)
+    assert ledger["reassignment_gaps"] and _dump(ledger) == _dump(jg.build_ledger(fleet))
+    lines = tm.fleet_lines(fleet, now)
+    assert lines[0].startswith("  fleet: items 2 done") and lines == jm.fleet_lines(fleet, now)
+    gauges = tt._fleet_gauges(fleet, now)
+    assert gauges["fleet.pending_items"] == 0.0 and gauges == jt._fleet_gauges(fleet, now)
+    plain = run_dirs["gens_port"]
+    assert tg.fleet_reassignment_gaps(plain) == jg.fleet_reassignment_gaps(plain) == []
+    assert tm.fleet_lines(plain, now) == jm.fleet_lines(plain, now) == []
+    assert tt._fleet_gauges(plain, now=0.0) == jt._fleet_gauges(plain, now=0.0) == {}
 
 
 def test_tower_and_scrape_render_read_a_port_metrics_server(tmp_path):

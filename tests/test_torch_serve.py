@@ -20,6 +20,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import jax
@@ -288,8 +289,21 @@ def test_trace_context_and_retry_schedule_match_the_jax_package(monkeypatch):
     assert sync.retry_with_backoff(flaky, attempts=3, base_delay=0.25, sleep=slept.append,
                                    delay_floor_from=lambda e: 0.4) == "ok"
     assert calls == [0, 1, 2] and slept == [0.4, 0.5]
-    with pytest.raises(NotImplementedError, match="A9"):
-        sync.sync("a", "b")
+    # sync() builds JAX's command for each scheme and retries a failing tool
+    for src, dst, kw in (("/a/", "host:proj", {"excludes": ["*.hdf"], "ssh_port": 2222}),
+                         ("/a/", "gs://b/x", {"delete": True}), ("s3://b/x", "/a", {"includes": ["*.csv"]})):
+        args = (src, dst, kw.get("includes"), kw.get("excludes"), kw.get("delete", False), kw.get("ssh_port", 22))
+        assert sync._build_command(*args) == jsync._build_command(*args)
+    runs = []
+
+    def failing_tool(cmd):
+        runs.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "boom")
+
+    monkeypatch.setattr(sync.time, "sleep", slept.append)
+    with pytest.raises(RuntimeError, match="after 5 attempts"):
+        sync.sync("/a/", "host:proj", runner=failing_tool)
+    assert len(runs) == 5 and runs[0] == jsync._build_command("/a/", "host:proj", None, None, False, 22)
 
 
 # -- the port's own contract ---------------------------------------------------------
@@ -446,7 +460,7 @@ def test_features_texts_path(monkeypatch):
 
 # -- JAX's tests/test_serve.py, case for case -------------------------------------------
 
-@pytest.mark.parametrize("case", ["verifies_manifest", "legacy_warns", "fleet_dir_raises", "validates_first",
+@pytest.mark.parametrize("case", ["verifies_manifest", "legacy_warns", "fleet_dir_verifies", "validates_first",
                                   "hot_add_swap_remove", "int8_rejects_leafless", "int8_quantizes_bf16"])
 def test_registry_cases(tmp_path, registry4, case):
     p = tmp_path / "learned_dicts.pkl"
@@ -463,15 +477,32 @@ def test_registry_cases(tmp_path, registry4, case):
         save_learned_dicts(p, [(_tied(0), {})], manifest=False)
         with pytest.warns(RuntimeWarning, match="legacy"):
             assert len(DictRegistry(device="cpu").load_export(p)) == 1
-    elif case == "fleet_dir_raises":
+    elif case == "fleet_dir_verifies":
+        from sparse_coding__tpu_torch.fleet import write_export_manifest
+
+        JRegistry = jregistry.DictRegistry
+
         for member in ("m0", "m1"):
             (tmp_path / member).mkdir()
             save_learned_dicts(tmp_path / member / "learned_dicts.pkl", [(_tied(len(member)), {})])
         reg = DictRegistry(device="cpu")
         assert sorted(reg.load_export(tmp_path)) == ["m0:0", "m1:0"]
-        (tmp_path / "export_manifest.json").write_text("{}")
-        with pytest.raises(NotImplementedError, match="A9"):
-            DictRegistry(device="cpu").load_export(tmp_path)
+        # a fleet run dir: its export manifest verifies the whole dir (then
+        # no sidecar is needed), as in the JAX package's registry
+        write_export_manifest(tmp_path)
+        for member in ("m0", "m1"):
+            (tmp_path / member / "learned_dicts.pkl.manifest.json").unlink()
+        fleet_reg = DictRegistry(device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            ids = fleet_reg.load_export(tmp_path)
+        assert sorted(ids) == sorted(JRegistry().load_export(tmp_path)) == ["m0:0", "m1:0"]
+        assert torch.equal(fleet_reg.get("m1:0").ld.encoder, reg.get("m1:0").ld.encoder)
+        with open(tmp_path / "m0" / "learned_dicts.pkl", "ab") as f:
+            f.write(b"\x00")
+        for registry in (DictRegistry(device="cpu"), JRegistry()):
+            with pytest.raises(ValueError, match="failed manifest verification"):
+                registry.load_export(tmp_path)
     elif case == "validates_first":
         save_learned_dicts(p, [(_tied(0), {}), (_tied(1), {})])
         reg = DictRegistry(device="cpu")
