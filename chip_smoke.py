@@ -29,6 +29,13 @@ as replays of its captured CUDA graph (`Ensemble.step_scan`, the route
 `ensemble_train_loop` takes). On the four fused paths at full width, 8 graph
 steps are held bit for bit to 8 eager steps from a cloned state (losses,
 params, moments, count, step) and must launch the same kernels as often.
+Then the optimizer leftovers (`optim_leftovers`, ROADMAP A2) on the tied
+path's ensemble at config 2's width: SGD with momentum 0.9, SGD with
+Nesterov and a bf16 trace, and Adam with fp16 mu (the fused Adam refuses it
+with one warning), each stepping on K1 + K3 then the port's optimizer: 8
+graph replays held bit for bit to 8 eager steps, K1 = K3 = 8 a run and no
+K2, its graph step and host enqueue timed, a small-width run held to the
+CPU's, K3 timed at row 5's shape.
 Then the health pack and the feature sketch on the tied path at full width
 (they turn the fused kernels off, as in JAX): 8 replays of the captured
 autograd step with the packs against 8 eager steps, bit for bit, and a twin
@@ -139,7 +146,10 @@ gloo (``chip_smoke.py --seqpar-worker``, `seqpar_world2`), which also
 harvests 2 sequences of 8192 tokens with each strategy, rank 0 the only
 writer, held to the single-card harvest row for row. Last, host only, the
 run tools (`runtools`: the goodput ledger, report, timeline trace, SLO,
-monitor and skew windows) over the run dirs the smoke kept.
+monitor and skew windows) over the run dirs the smoke kept, and the
+port's static analyzer (`sclint`: ``python -m sparse_coding__tpu_torch.analysis
+--contracts`` over the port and this script, in a subprocess on this
+machine, which has no JAX: 0 findings, every contract ok).
 Launch counts are the wrappers' (`ops/_wrap.py::LaunchCounts`, kept on the
 card, so graph replays count), each set to 0 just before a run and read
 just after; a profiler trace of the run may not count more, and a trace
@@ -222,6 +232,17 @@ FISTA = dict(
                n_dict_components=FN),
     data=dict(n_ground_truth_components=1024, feature_num_nonzero=8, feature_prob_decay=0.996, key=2),
     l0_max=None, store_dtype="float16", rows_per_chunk=8192, env={},
+)
+# the optimizer leftovers at BASELINE config 2 (the tied path's 8 members,
+# widths, l1 grid, batch and planted data; bf16 compute): SGD with momentum,
+# SGD with Nesterov and a bf16 trace, Adam with fp16 mu. None is fused into
+# K2: each step is K1 + K3, then the port's optimizer
+OPTIM_LEFTOVERS = dict(
+    arms=(("sgd_momentum", "sgd", {"learning_rate": 1e-2, "momentum": 0.9}),
+          ("sgd_nesterov_bf16_trace", "sgd",
+           {"learning_rate": 1e-2, "momentum": 0.9, "nesterov": True, "accumulator_dtype": "bfloat16"}),
+          ("adam_fp16_mu", "adam", {"learning_rate": LR, "mu_dtype": "float16"})),
+    steps=8, reps=20, seed=83,
 )
 # the sweep driver at BASELINE config 2's widths: a SparseMixDataset store of
 # 3 fp16 chunks of 65,536 rows (1024 components, 8 active, decay 0.996), one
@@ -1183,12 +1204,122 @@ def phase_graph_parity(torch, pkg, cfg, steps: int = 8):
     del a, b
 
 
-def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, **kw):
+def phase_optim_leftovers(torch, pkg, tk, smi: str):
+    """The optimizer leftovers on config 2's tied ensemble (`OPTIM_LEFTOVERS`):
+    each arm is refused by the fused Adam (SGD has no kernel; fp16 mu gives
+    the one-time refusal warning, once) and steps on fused grads, K1 + K3,
+    then the port's optimizer. From cloned states, ``steps`` replays of the
+    captured step equal ``steps`` eager steps bit for bit (losses, params,
+    trace or moments, count, step), and each run launches K1 and K3 once a
+    step and nothing else. Then each arm's graph step ms (CUDA events over
+    ``reps`` replays) beside the host's enqueue ms, its small-width run on
+    the card held to the CPU's (`phase_small_parity`), and K3 at row 5's
+    shape against its plain version. Returns (K3's kernels-line row, the
+    phase's launches by wrapper)."""
+    import warnings
+
+    from _torch_moments import state_differences
+    from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    cfg, steps, reps = OPTIM_LEFTOVERS, OPTIM_LEFTOVERS["steps"], OPTIM_LEFTOVERS["reps"]
+    gen = RandomDatasetGenerator(activation_dim=D, batch_size=B, correlated=False, device="cuda",
+                                 **dict(TIED["data"], key=cfg["seed"]))
+    xs = torch.stack([next(gen) for _ in range(steps + 1)])
+    total = {}
+    for arm, optimizer, kwargs in cfg["arms"]:
+        t_arm = time.perf_counter()
+        torch.cuda.empty_cache()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            a = pkg.build_ensemble(pkg.FunctionalTiedSAE, 4, TIED["hparams"], optimizer=optimizer,
+                                   **{**TIED["build"], "optimizer_kwargs": kwargs})
+            b = pkg.Ensemble.from_state(a.state_dict(), sig=a.sig, device="cuda")
+            a.step_scan(xs[:1])
+            b.step_batch(xs[0])
+            counts = [run_counted(torch, run) for run in (lambda: a.step_scan(xs[1:]),
+                                                          lambda: [b.step_batch(x)[0] for x in xs[1:]])]
+        refusals = [str(w.message) for w in caught if "fused-Adam kernel refused" in str(w.message)]
+        want_refusals = 1 if optimizer == "adam" else 0
+        check(len(refusals) == want_refusals and all("unsupported moment storage" in r for r in refusals),
+              f"{arm}: refusal warnings {refusals}")
+        check(a.fused and a.fused_adam is None and a._route(B, False, False) == "fused_grads",
+              f"{arm}: fused {a.fused}, fused Adam {a.fused_adam}")
+        (la, ga, sa), (lb, gb, sb) = counts
+        want = {"tied_sae_fwd": steps, "tied_sae_bwd_grads": steps}
+        check(a.captures == 1, f"{arm}: {a.captures} captures")
+        for name, got in (("graph", ga), ("eager", gb)):
+            check({k: v for k, v in got.items() if v} == want, f"{arm}: {name} launched {got}")
+        for k in lb[0]:
+            check(torch.equal(la[k], torch.stack([l[k] for l in lb])), f"{arm}: graph {k} differs from eager")
+        diff = state_differences(a.state, b.state)
+        check(diff == [], f"{arm}: graph state differs from eager at {diff}")
+        check(bool(torch.isfinite(la["loss"]).all()), f"{arm}: losses {la['loss'][-1]}")
+        for got in (ga, gb):
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        opt = a.state.opt_state
+        carried = ({"trace": str(opt.trace["encoder"].dtype)} if optimizer == "sgd"
+                   else {"mu": str(opt.mu["encoder"].dtype), "nu": str(opt.nu["encoder"].dtype)})
+        # the graph step on a batch already on the card, and the host's enqueue
+        x20 = xs[1].unsqueeze(0).expand(reps, B, D)
+        a.step_scan(x20[:2])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        a.step_scan(x20)
+        end.record()
+        enqueue = time.perf_counter() - t0
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        check(a.captures == 1, f"{arm}: {a.captures} captures after the timing")
+        del a, b
+        phase_small_parity(torch, pkg, pkg.FunctionalTiedSAE, optimizer=optimizer, optimizer_kwargs=kwargs,
+                           hparams=[{"l1_alpha": 1e-3}, {"l1_alpha": 3e-3}], activation_size=128,
+                           n_dict_components=512)
+        emit("optim_leftovers", arm=arm, optimizer=optimizer, kwargs={k: str(v) for k, v in kwargs.items()},
+             members=M, batch=B, width=D, n_dict=N, steps=steps, route="fused_grads", captures=1,
+             launches={"graph": ga, "eager": gb}, bit_equal=True, carried=carried, refusal_warnings=refusals,
+             trace_short={"graph": sa, "eager": sb}, graph_ms_per_step=ms,
+             host_enqueue_ms_per_step=enqueue * 1e3 / reps, seconds=time.perf_counter() - t_arm, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    k3 = scale_k3_row(torch, tk, torch.Generator(device="cuda").manual_seed(cfg["seed"]), (M, B, N, D))
+    emit("optim_leftovers_k3", shape=k3["shape"], ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+         library_ms=k3["library_ms"], launches=total, nvidia_smi=smi)
+    return k3, total
+
+
+def phase_sclint():
+    """The port's static analyzer on the card's machine (which has no JAX):
+    ``python -m sparse_coding__tpu_torch.analysis --contracts
+    sparse_coding__tpu_torch chip_smoke.py`` as a subprocess must exit 0 with
+    no finding and every contract ok (partition coverage of the Adam, SGD
+    trace, fp16-mu and int8-mu states; the span tables; the flags table)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", "sparse_coding__tpu_torch.analysis", "--contracts", "--json",
+                           "sparse_coding__tpu_torch", "chip_smoke.py"], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"sclint exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    bad = [c for c in doc["contracts"] if not c["ok"]]
+    check(doc["findings"] == [] and not bad and len(doc["contracts"]) == 3,
+          f"sclint: findings {doc['findings']}, failed contracts {bad}")
+    emit("sclint", exit_code=proc.returncode, files_scanned=doc["files_scanned"], findings=len(doc["findings"]),
+         contracts={c["name"]: c["summary"] for c in doc["contracts"]}, seconds=seconds)
+
+
+def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, optimizer="adam", **kw):
     """A few fused steps at a small shape (D 128, N 512, batch 256) on the
     card and on the CPU (the plain versions) from the same state must agree:
     losses within 1e-3, the dictionary within 2 lr per step, and its median
     difference under 1/20 of the median distance the steps moved it (so a
-    step that left the dictionary alone fails). With int8 mu (whose
+    step that left the dictionary alone fails). An Adam the fused kernel
+    refuses (fp16 mu) and SGD step on fused grads (K1 + K3) + the port's
+    optimizer; SGD moves each element by lr times its trace, not by ~lr, so
+    its dictionary is held within 1e-2 of the largest distance moved. With
+    int8 mu (whose
     stochastic store draws the same counter-hash bits on both) a code that
     one side's f32 sums put across a rounding boundary moves a
     small-gradient element's next update by up to ~lr·step/|g|: there the
@@ -1196,14 +1327,16 @@ def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, **k
     envelope of the JAX package's int8 two-step test; and after the first
     step, from the same state, >= 99% of mu's int8 codes equal (streams of
     other seeds agree on about half)."""
-    kw = dict(optimizer_kwargs=optimizer_kwargs, compute_dtype="bfloat16", **kw)
+    kw = dict(optimizer=optimizer, optimizer_kwargs=optimizer_kwargs, compute_dtype="bfloat16", **kw)
     int8 = optimizer_kwargs.get("mu_dtype") == "int8"
+    fused_adam = optimizer == "adam" and optimizer_kwargs.get("mu_dtype") != "float16"
     with environ(env or {}):
         ens_c = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
         ens_g = pkg.build_ensemble(sig, 3, hparams, device="cpu", **kw)
         ens_g = pkg.Ensemble.from_state(ens_g.state_dict(), device="cuda")
     name = sig.__name__
-    check(ens_g.fused_adam is not None, f"small parity {name}: the fused-Adam path is off")
+    check(ens_g.fused and (ens_g.fused_adam is not None) == fused_adam,
+          f"small parity {name}: fused {ens_g.fused}, fused Adam {ens_g.fused_adam} ({optimizer_kwargs})")
     leaf = next(iter(ens_c.state.params))  # the dictionary: "encoder" or "dict"
     start = ens_c.state.params[leaf].clone()
     x = torch.randn((3, 256, 128), generator=torch.Generator().manual_seed(5))
@@ -1214,18 +1347,23 @@ def phase_small_parity(torch, pkg, sig, hparams, optimizer_kwargs, env=None, **k
         worst_loss = max(worst_loss, float(((lg["loss"].cpu() - lc["loss"]) / lc["loss"]).abs().max()))
         diff = (ens_g.state.params[leaf].cpu() - ens_c.state.params[leaf]).abs()
         dp, med = float(diff.max()), float(diff.median())
-        moved = float((ens_c.state.params[leaf] - start).abs().median())
+        moved_all = (ens_c.state.params[leaf] - start).abs()
+        moved = float(moved_all.median())
         worst_param, ratio = max(worst_param, dp), max(ratio, med / max(moved, 1e-30))
         check(worst_loss < 1e-3, f"small parity {name}: loss rel {worst_loss}")
-        ok = (med <= LR * (k + 1) and dp <= 50 * LR) if int8 else dp <= 2 * LR * (k + 1)
+        if optimizer == "sgd":
+            ok, least = dp <= 1e-2 * float(moved_all.max()), 0.0
+        else:
+            ok = (med <= LR * (k + 1) and dp <= 50 * LR) if int8 else dp <= 2 * LR * (k + 1)
+            least = 0.5 * LR
         check(ok, f"small parity {name}: {leaf} diff max {dp}, median {med} after {k + 1} steps")
-        check(moved > 0.5 * LR and med < 0.05 * moved,
+        check(moved > least and med < 0.05 * moved,
               f"small parity {name}: {leaf} moved {moved} (median), card vs CPU median {med} after {k + 1} steps")
         if int8:
             qg, qc = ens_g.state.opt_state.mu[leaf].q.cpu(), ens_c.state.opt_state.mu[leaf].q
             codes_equal.append(float((qg == qc).float().mean()))
             check(k > 0 or codes_equal[0] >= 0.99, f"small parity {name}: {codes_equal[0]} of mu's int8 codes equal")
-    emit("small_parity", sig=name, moments={k: str(v) for k, v in optimizer_kwargs.items()},
+    emit("small_parity", sig=name, optimizer=optimizer, moments={k: str(v) for k, v in optimizer_kwargs.items()},
          recompute_code=bool(env), steps=3, max_loss_rel=worst_loss, max_dict_diff=worst_param,
          max_median_diff_over_moved=ratio, mu_int8_codes_equal=codes_equal or None)
 
@@ -6081,6 +6219,15 @@ def main() -> int:
     phase_graph_parity(torch, pkg, TIED_CAPACITY)
     rows += label(capacity_rows, TIED_CAPACITY, drive(TIED_CAPACITY), tied_shape)
 
+    # the optimizer leftovers (ROADMAP A2) at config 2: SGD with momentum,
+    # Nesterov with a bf16 trace and fp16-mu Adam, each K1 + K3 a step; K1's
+    # row is the tied path's (the same shape), K3's timed in the phase
+    torch.cuda.empty_cache()
+    k3_row, optim_launches = phase_optim_leftovers(torch, pkg, tk, smi)
+    k1_row = next(r for r in rows if r["name"] == "tied_sae_fwd" and r["path"] == TIED["path"])
+    rows += [dict(k1_row, path="optim_leftovers", launches=optim_launches["tied_sae_fwd"]),
+             dict(k3_row, path="optim_leftovers", launches=optim_launches["tied_sae_bwd_grads"])]
+
     # TopK k-sweep path (BASELINE config 4), then at the capacity setting
     torch.cuda.empty_cache()
     topk_rows, topk_capacity_rows = phase_topk_kernels(torch, tk, kk)
@@ -6242,6 +6389,9 @@ def main() -> int:
         phase_lineage_scrub(torch, Path(prof_root), profiled["repair"], harvest_lineage)
     phase_features(torch, KEPT_RUNS["basic_l1_sweep"])
     runs_root.cleanup()
+    # the port's static analyzer (ROADMAP A9's last group) and its contracts,
+    # on this machine, which has no JAX
+    phase_sclint()
 
     # the capacity setting's memory: no [M, B, N] code tensor on the tied
     # path, compressed moments on both

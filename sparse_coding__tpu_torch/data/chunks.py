@@ -22,7 +22,6 @@ import json
 import os
 import queue
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -39,7 +38,6 @@ from sparse_coding__tpu_torch.data.integrity import (  # noqa: F401  (the store'
 from sparse_coding__tpu_torch.telemetry.events import counter_inc_active
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.faults import fault_point
-from sparse_coding__tpu_torch.utils.manifest import sha256_file
 from sparse_coding__tpu_torch.utils.sync import retry_with_backoff
 
 
@@ -132,18 +130,7 @@ def save_chunk(folder, i: int, array, dtype=np.float16, provenance=None) -> Path
         files[sp.name] = sp
     elif sp.exists():
         sp.unlink()
-    manifest = {
-        "format": 1,
-        "chunk": int(i),
-        "created_at": time.time(),
-        "rows": int(host.shape[0]),
-        "shape": [int(s) for s in stored.shape],
-        "store_dtype": tier,
-        "files": {name: {"bytes": p.stat().st_size, "sha256": sha256_file(p)} for name, p in files.items()},
-    }
-    if provenance:
-        manifest["provenance"] = provenance
-    integrity.write_json_atomic(chunk_manifest_path(folder, i), manifest)
+    integrity.write_chunk_manifest(folder, i, files, host.shape[0], stored.shape, tier, provenance)
     fault_point("chunk_committed", chunk=int(i), path=str(path))
     return path
 

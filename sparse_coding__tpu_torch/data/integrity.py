@@ -91,6 +91,28 @@ def write_json_atomic(path: Path, obj: Dict[str, Any]) -> Path:
     return path
 
 
+def write_chunk_manifest(folder, i: int, files: Dict[str, Path], rows: int, shape, store_dtype: str,
+                         provenance: Optional[Dict[str, Any]] = None) -> Path:
+    """Commit chunk ``i``: hash its landed data files and replace the
+    manifest onto its final name, the one atomic commit point of the
+    chunk-pair write (`data.chunks.save_chunk`). Digests are always recorded
+    (``SC_CHUNK_VERIFY`` tunes reads only). The JAX package's manifest, key
+    for key."""
+    manifest = {
+        "format": 1,
+        "chunk": int(i),
+        "created_at": time.time(),
+        "rows": int(rows),
+        "shape": [int(s) for s in shape],
+        "store_dtype": str(store_dtype),
+        "files": {name: {"bytes": Path(p).stat().st_size, "sha256": sha256_file(Path(p))}
+                  for name, p in files.items()},
+    }
+    if provenance:
+        manifest["provenance"] = provenance
+    return write_json_atomic(chunk_manifest_path(folder, i), manifest)
+
+
 def read_chunk_manifest(folder, i: int) -> Optional[Dict[str, Any]]:
     try:
         with open(chunk_manifest_path(folder, i)) as f:

@@ -84,6 +84,20 @@ def sample_correlated_dataset(gen: torch.Generator, corr_chol, feats, frac_nonze
     return correlated_from_draws(corr_chol, z, thresh, values, fix_idx, strengths, feats, frac_nonzero, decay)
 
 
+def sample_rand_dataset(gen: torch.Generator, feats: torch.Tensor, component_probs: torch.Tensor,
+                        n_components: int, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uncorrelated sparse codes → activations (JAX `sample_rand_dataset`):
+    Bernoulli gates at each component's probability × uniform values ×
+    uniform strengths, drawn from ``gen`` on ``feats``' device in that order.
+    Returns (codes, data)."""
+    dev = feats.device
+    thresh = torch.rand((batch_size, n_components), generator=gen, device=dev)
+    values = torch.rand((batch_size, n_components), generator=gen, device=dev)
+    codes = torch.where(thresh <= component_probs[None, :], values, torch.zeros_like(values))
+    strengths = torch.rand((batch_size, n_components), generator=gen, device=dev)
+    return codes, (codes * strengths) @ feats
+
+
 def sample_noise(gen: torch.Generator, noise_chol, noise_magnitude_scale: float, batch_size: int) -> torch.Tensor:
     """Correlated gaussian noise ``(z @ Lᵀ) · scale`` from the noise
     covariance's Cholesky factor L."""
@@ -129,14 +143,10 @@ class RandomDatasetGenerator:
         return self.send(None)
 
     def send(self, _ignored=None) -> torch.Tensor:
-        n, bs, g, dev = self.n_ground_truth_components, self.batch_size, self._gen, self.device
+        n, bs, g = self.n_ground_truth_components, self.batch_size, self._gen
         if self.correlated:
             return sample_correlated_dataset(g, self.corr_chol, self.feats, self.frac_nonzero, self.decay, n, bs)[1]
-        thresh = torch.rand((bs, n), generator=g, device=dev)
-        values = torch.rand((bs, n), generator=g, device=dev)
-        codes = torch.where(thresh <= self.component_probs[None, :], values, torch.zeros_like(values))
-        strengths = torch.rand((bs, n), generator=g, device=dev)
-        return (codes * strengths) @ self.feats
+        return sample_rand_dataset(g, self.feats, self.component_probs, n, bs)[1]
 
 
 class SparseMixDataset:

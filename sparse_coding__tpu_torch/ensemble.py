@@ -13,8 +13,8 @@ paths, by the JAX package's rules and independent of the device:
     implements, no update mask, a shared batch and a stacked ensemble;
   - fused grads (K1 or K_s + K_d, then K3) + the port's optimizer (+ the
     NaN-safe update mask): the same, with a masked ensemble or an optimizer
-    the kernel cannot fuse (SGD, a learning-rate schedule, an unknown Adam
-    kwarg);
+    the kernel cannot fuse (SGD with or without momentum, a learning-rate
+    schedule, fp16 mu, an unknown Adam kwarg);
   - autograd of the signature's loss under the precision policy otherwise
     (exact f32 with ``compute_dtype=None``; per-member batches; ``unstacked``,
     which differentiates one member at a time); its ``aux`` carries the
@@ -120,9 +120,10 @@ def l1_warmup_buffers(buffers: Params, step: torch.Tensor, warmup_steps: int, si
     return {**buffers, "l1_alpha": buffers["l1_alpha"] * ramp}
 
 
-# the Adam kwargs the fused kernel implements (every moment storage the
-# port's Adam takes — f32, bf16, int8 — is one the kernel implements)
+# the Adam kwargs the fused kernel implements, and the moment storage its
+# epilogue writes (f32, bf16, int8; fp16 mu is refused, as in the JAX package)
 _FUSED_ADAM_KWARGS = {"learning_rate", "b1", "b2", "eps", "mu_dtype", "nu_dtype", "seed"}
+_FUSED_ADAM_MOMENT_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _FUSED_ADAM_WARNED: set = set()
 
 
@@ -369,6 +370,11 @@ class Ensemble:
             _refuse_fused_adam(self.sig, f"unknown optimizer kwargs {sorted(extra)}")
             return None
         kw = self.optimizer_kwargs
+        bad_dtypes = [f"{name}={kw.get(name)}" for name in ("mu_dtype", "nu_dtype")
+                      if (px.as_dtype(kw.get(name)) or torch.float32) not in _FUSED_ADAM_MOMENT_DTYPES]
+        if bad_dtypes:
+            _refuse_fused_adam(self.sig, f"unsupported moment storage {bad_dtypes}")
+            return None
         if callable(kw.get("learning_rate")):
             _refuse_fused_adam(self.sig, "non-scalar learning_rate (schedule)")
             return None

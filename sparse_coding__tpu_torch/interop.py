@@ -16,7 +16,7 @@ import torch
 
 from sparse_coding__tpu_torch.ensemble import EnsembleState
 from sparse_coding__tpu_torch.utils.device import resolve_device
-from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment
+from sparse_coding__tpu_torch.utils.optim import AdamState, QuantMoment, SgdState
 from sparse_coding__tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -50,16 +50,31 @@ def state_from_jax_numpy(
     ``encoder_layers`` dict, the semi-linear SAE's list of layers: any tree
     of dicts and lists goes), buffers (None for absent centering; FISTA's
     ``hessian_diag``, the health pack's ``health_fire_ema`` and the feature
-    sketch's ``featstat_*`` like any other), and optax's
-    ``(ScaleByAdamState(count, mu, nu), EmptyState())`` flattened to
-    ``{"count", "mu", "nu"}``, the moments trees of the params' structure —
-    each moment keeps its storage: f32, bf16, or an int8 ``QuantMoment``
-    node (q and scale). With
-    ``opt_state=None`` the moments start at zero. Every array carries the
-    leading member axis."""
+    sketch's ``featstat_*`` like any other), and the optimizer state:
+      - Adam: optax's ``(ScaleByAdamState(count, mu, nu), EmptyState())``
+        flattened to ``{"count", "mu", "nu"}``, the moments trees of the
+        params' structure — each moment keeps its storage: f32, bf16, fp16,
+        or an int8 ``QuantMoment`` node (q and scale);
+      - SGD with momentum: optax's ``TraceState`` as ``{"trace"}`` (a tree of
+        the params' structure, in its accumulator dtype) plus ``"count"``
+        where the JAX state has one (a schedule's ``ScaleByScheduleState``);
+        without it the count is ``step``, the number of updates made (a
+        constant rate never reads it);
+      - SGD without momentum: ``{}`` or ``{"count"}`` (optax keeps no
+        trace).
+    With ``opt_state=None`` the Adam moments start at zero. Every array
+    carries the leading member axis."""
     device = resolve_device(device)
     p = tree_map(lambda v: _tensor(v, device), params)
     b = tree_map(lambda v: _tensor(v, device), buffers)
+    if opt_state is not None and "mu" not in opt_state:
+        n = tree_leaves(p)[0].shape[0]
+        count = (_tensor(opt_state["count"], device).to(torch.int32) if "count" in opt_state
+                 else torch.full((n,), int(step), dtype=torch.int32, device=device))
+        trace = opt_state.get("trace")
+        sgd = SgdState(count=count, trace=None if trace is None else tree_map(lambda _p, v: _tensor(v, device),
+                                                                              p, trace))
+        return EnsembleState(params=p, buffers=b, opt_state=sgd, step=int(step))
     if opt_state is None:
         n = tree_leaves(p)[0].shape[0]
         adam = AdamState(

@@ -1,12 +1,11 @@
 """Validated run configs: dataclasses with CLI flags and YAML export.
 
-Counterpart of `BaseArgs`, `TrainArgs`, `EnsembleArgs`,
-`SyntheticEnsembleArgs`, `ToyArgs`, `InterpArgs` and `InterpGraphArgs` of
-`sparse_coding__tpu/utils/config.py`, field for field, so one
-``config.yaml`` describes a run of either package. Dtype fields stay names
-(``"float32"``); `DTYPES` maps them to torch dtypes
-(`BaseArgs.torch_dtype`). The other Args classes come with the slices that
-use them.
+Counterpart of every Args class of `sparse_coding__tpu/utils/config.py`
+(`BaseArgs`, `TrainArgs`, `EnsembleArgs`, `SyntheticEnsembleArgs`,
+`ErasureArgs`, `ToyArgs`, `InterpArgs`, `InvestigateArgs`,
+`InterpGraphArgs`), field for field, so one ``config.yaml`` describes a run
+of either package. Dtype fields stay names (``"float32"``); `DTYPES` maps
+them to torch dtypes (`BaseArgs.torch_dtype`).
 """
 
 from __future__ import annotations
@@ -189,6 +188,18 @@ class SyntheticEnsembleArgs(EnsembleArgs):
 
 
 @dataclass
+class ErasureArgs(BaseArgs):
+    """The concept-erasure experiment's inputs (JAX `ErasureArgs`)."""
+
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layer: Optional[int] = None
+    count_cutoff: int = 10000
+    output_folder: str = "output_erasure_pca"
+    activation_filename: str = "activation_data_erasure.npz"
+    dict_filename: str = ""
+
+
+@dataclass
 class ToyArgs(BaseArgs):
     """The superposition toy models' grid (`train/toy_models.py`)."""
 
@@ -252,6 +263,15 @@ class InterpArgs(BaseArgs):
     def validate(self):
         if self.sort_mode not in ("max", "mean"):
             raise ValueError(f"sort_mode must be max|mean, got {self.sort_mode}")
+
+
+@dataclass
+class InvestigateArgs(BaseArgs):
+    """`experiments/investigate.py`'s threshold and layer (JAX
+    `InvestigateArgs`)."""
+
+    threshold: float = 0.9
+    layer: int = 2
 
 
 @dataclass

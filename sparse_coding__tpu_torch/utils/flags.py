@@ -2,14 +2,20 @@
 
 Counterpart of `sparse_coding__tpu/utils/flags.py`, cut to the flags the port
 uses; each keeps the JAX package's name, default, kind and parse, because the
-same environment drives runs of either package.
+same environment drives runs of either package. The generated reference
+table lives in README.md's port section between `DOCS_BEGIN` and `DOCS_END`:
+
+    python -m sparse_coding__tpu_torch.utils.flags [--markdown | --check-docs | --update-docs]
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
+
+__all__ = ["Flag", "FLAGS", "markdown_table", "DOCS_BEGIN", "DOCS_END"]
 
 # spellings that turn a default-on / truthy flag off
 _FALSY = ("", "0", "false", "off")
@@ -125,3 +131,87 @@ def recompute_code() -> bool:
     in the backward instead of storing the [M, B, N] code tensor. On only for
     the literal ``"1"`` (default ``"0"``). Read when an ensemble is built."""
     return SC_RECOMPUTE_CODE.get()
+
+
+# -- docs generation ----------------------------------------------------------
+
+DOCS_BEGIN = ("<!-- PORT_FLAGS_TABLE_BEGIN (generated by python -m sparse_coding__tpu_torch.utils.flags "
+              "--update-docs; do not edit by hand) -->")
+DOCS_END = "<!-- PORT_FLAGS_TABLE_END -->"
+
+_KIND_DOC = {
+    "str": "string",
+    "opt_str": "string",
+    "int": "int",
+    "float": "float",
+    "bool01": "bool (\"1\" enables)",
+    "truthy": "bool (set+non-falsy enables)",
+    "onoff": "bool (0/false/off disables)",
+}
+
+
+def markdown_table() -> str:
+    """The flags reference table, one row per registered flag."""
+    lines = ["| Flag | Type | Default | Owner | Meaning |", "| --- | --- | --- | --- | --- |"]
+    for name in sorted(FLAGS):
+        f = FLAGS[name]
+        default = "*(unset)*" if f.default is None else f"`{f.default}`"
+        kind = _KIND_DOC[f.kind] + (" (" + "/".join(f.choices) + ")" if f.choices else "")
+        lines.append(f"| `{f.name}` | {kind} | {default} | `{f.owner}` | {f.help} |")
+    return "\n".join(lines)
+
+
+def _docs_path() -> Path:
+    """The document holding the table: the repo's README.md."""
+    return Path(__file__).resolve().parents[2] / "README.md"
+
+
+def render_docs_section() -> str:
+    return DOCS_BEGIN + "\n" + markdown_table() + "\n" + DOCS_END
+
+
+def check_docs(text: Optional[str] = None) -> bool:
+    """True iff the generated table in README.md's port section is current."""
+    if text is None:
+        text = _docs_path().read_text()
+    return render_docs_section() in text
+
+
+def update_docs() -> bool:
+    """Rewrite the marked table section. Returns True on change."""
+    path = _docs_path()
+    text = path.read_text()
+    start = text.index(DOCS_BEGIN)
+    end = text.index(DOCS_END) + len(DOCS_END)
+    new = text[:start] + render_docs_section() + text[end:]
+    if new != text:
+        path.write_text(new)
+        return True
+    return False
+
+
+def _main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m sparse_coding__tpu_torch.utils.flags",
+                                 description="The port's SC_* flag registry: print / sync the docs table.")
+    g = ap.add_mutually_exclusive_group()
+    g.add_argument("--markdown", action="store_true", help="print the generated flags table")
+    g.add_argument("--check-docs", action="store_true", help="exit 1 if README.md's port table is stale")
+    g.add_argument("--update-docs", action="store_true", help="rewrite the table section in README.md")
+    args = ap.parse_args(argv)
+    if args.check_docs:
+        if check_docs():
+            print("README.md port flags table: up to date")
+            return 0
+        print("README.md port flags table is STALE — run python -m sparse_coding__tpu_torch.utils.flags --update-docs")
+        return 1
+    if args.update_docs:
+        print("updated" if update_docs() else "already up to date")
+        return 0
+    print(markdown_table())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

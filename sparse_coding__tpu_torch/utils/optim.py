@@ -37,6 +37,10 @@ deterministic, on the device, and unbiased, which is the contract
 (`tests/test_torch_capacity_optim.py`). The fused kernels' stores use the
 same hash with the kernel's own tile seeds (`ops.tied_sae_kernel.tile_bits`).
 
+Float moment storage (``mu_dtype`` float32, bfloat16 or float16): the
+moment is computed in the gradient's dtype and cast to its storage dtype at
+the end, the update reading the unrounded value (optax's ``mu_dtype``).
+
 Schedules: ``learning_rate`` may be a callable ``count → lr`` over the
 ``[n_models]`` int32 step count (the count before this update, as optax's
 ``scale_by_schedule`` sees it), written in torch ops so it runs on the
@@ -56,7 +60,10 @@ import torch
 from sparse_coding__tpu_torch.utils.precision import as_dtype
 from sparse_coding__tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
-_MOMENT_DTYPES = (None, torch.float32, torch.bfloat16, torch.int8)
+# the storage tiers: mu takes optax's float storage (f16 too) and the JAX
+# package's int8; nu the JAX package's tiers, whose other values it refuses
+_MU_DTYPES = (None, torch.float32, torch.bfloat16, torch.float16, torch.int8)
+_NU_DTYPES = (None, torch.float32, torch.bfloat16, torch.int8)
 _U32 = 0xFFFFFFFF
 # salts of the unfused stores' streams (the JAX package folds 0x5117 into
 # the int8-mu key; any fixed value decorrelates the streams)
@@ -204,11 +211,10 @@ class Adam:
     def __init__(self, learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
                  mu_dtype=None, nu_dtype=None, seed: int = 0):
         mu_dtype, nu_dtype = as_dtype(mu_dtype), as_dtype(nu_dtype)
-        if mu_dtype not in _MOMENT_DTYPES or nu_dtype not in _MOMENT_DTYPES:
-            raise NotImplementedError(
-                f"adam(mu_dtype={mu_dtype}, nu_dtype={nu_dtype}): moment storage "
-                "other than float32, bfloat16 or int8 is not ported"
-            )
+        if nu_dtype not in _NU_DTYPES:
+            raise ValueError(f"nu_dtype must be None/float32/bfloat16/int8, got {nu_dtype}")
+        if mu_dtype not in _MU_DTYPES:
+            raise ValueError(f"mu_dtype must be None/float32/bfloat16/float16/int8, got {mu_dtype}")
         self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
         self.b1, self.b2, self.eps, self.eps_root = float(b1), float(b2), float(eps), float(eps_root)
         self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
@@ -272,9 +278,9 @@ class Adam:
 
 def adam(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
          mu_dtype=None, nu_dtype=None, seed: int = 0) -> Adam:
-    """`optax.adam` with the JAX package's storage knobs (``mu_dtype`` and
-    ``nu_dtype`` in {None, float32, bfloat16, int8}; ``seed`` seeds the
-    stochastic stores)."""
+    """`optax.adam` with the JAX package's storage knobs (``mu_dtype`` in
+    {None, float32, bfloat16, float16, int8}, ``nu_dtype`` in {None, float32,
+    bfloat16, int8}; ``seed`` seeds the stochastic stores)."""
     return Adam(learning_rate, b1, b2, eps, eps_root, mu_dtype, nu_dtype, seed)
 
 
@@ -388,37 +394,63 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=
 
 @dataclasses.dataclass
 class SgdState:
-    """``count`` [n_models] int32: the schedules' step."""
+    """``count`` [n_models] int32 (the schedules' step) and, with momentum,
+    optax's ``TraceState.trace``: a tree of the params' structure, every
+    leaf stacked ``[n_models, ...]`` in the accumulator dtype (None without
+    momentum)."""
 
     count: torch.Tensor
+    trace: Any = None
 
 
 class Sgd:
-    """``optax.sgd`` without momentum: ``-lr · g``, the rate a float or a
-    schedule. Momentum and Nesterov are not ported yet (ROADMAP A2's
-    leftovers): no driver of either package passes them."""
+    """``optax.sgd`` over stacked tensors: ``optax.trace`` then the learning
+    rate (a float or a schedule). With ``momentum``, in optax's order::
 
-    def __init__(self, learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False):
-        if momentum is not None or nesterov:
-            raise NotImplementedError(
-                f"sgd(momentum={momentum}, nesterov={nesterov}): the momentum trace is not ported yet "
-                "— ROADMAP A2 (leftovers)"
-            )
+        new_trace = g + momentum * trace        # momentum rounded to the
+                                                # trace's dtype first
+        u = new_trace, or g + momentum * new_trace with nesterov
+        trace = new_trace cast to accumulator_dtype
+
+    ``accumulator_dtype`` None keeps the sum's own dtype (the params'). Without
+    ``momentum`` there is no trace and ``nesterov`` is ignored, as optax's
+    ``sgd`` ignores it (its ``identity()``)."""
+
+    def __init__(self, learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False,
+                 accumulator_dtype=None):
         self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
+        self.momentum = None if momentum is None else float(momentum)
+        self.nesterov = bool(nesterov)
+        self.accumulator_dtype = as_dtype(accumulator_dtype)
 
     def init(self, params) -> SgdState:
         p0 = tree_leaves(params)[0]
-        return SgdState(count=torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device))
+        trace = None
+        if self.momentum is not None:
+            trace = tree_map(lambda p: torch.zeros_like(p, dtype=self.accumulator_dtype or p.dtype), params)
+        return SgdState(count=torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device), trace=trace)
+
+    def _trace(self, grads, trace):
+        """(the updates before the rate, the new carried trace)."""
+        if self.momentum is None:
+            return grads, None
+        new = tree_map(lambda g, t: g + decayed_moment(self.momentum, t), grads, trace)
+        u = tree_map(lambda g, t: g + decayed_moment(self.momentum, t), grads, new) if self.nesterov else new
+        if self.accumulator_dtype is not None:
+            new = tree_map(lambda t: t.to(self.accumulator_dtype), new)
+        return u, new
 
     def update(self, grads, state: SgdState, params=None):
         del params
-        updates = tree_map(lambda g: scale_by_learning_rate(self.learning_rate, state.count, g), grads)
-        return updates, SgdState(count=state.count + 1)
+        u, trace = self._trace(grads, state.trace)
+        updates = tree_map(lambda v: scale_by_learning_rate(self.learning_rate, state.count, v), u)
+        return updates, SgdState(count=state.count + 1, trace=trace)
 
 
-def sgd(learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False) -> Sgd:
+def sgd(learning_rate=1e-3, momentum: Optional[float] = None, nesterov: bool = False,
+        accumulator_dtype=None) -> Sgd:
     """``optax.sgd`` over stacked tensors."""
-    return Sgd(learning_rate, momentum, nesterov)
+    return Sgd(learning_rate, momentum, nesterov, accumulator_dtype)
 
 
 def apply_updates(params, updates):

@@ -15,6 +15,13 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "sparse_coding__tpu_torch"
 SLICE_MODULES = [
     "sparse_coding__tpu_torch",
+    "sparse_coding__tpu_torch.analysis",
+    "sparse_coding__tpu_torch.analysis.__main__",
+    "sparse_coding__tpu_torch.analysis.context",
+    "sparse_coding__tpu_torch.analysis.contracts",
+    "sparse_coding__tpu_torch.analysis.engine",
+    "sparse_coding__tpu_torch.analysis.findings",
+    "sparse_coding__tpu_torch.analysis.rules",
     "sparse_coding__tpu_torch.data",
     "sparse_coding__tpu_torch.data.activations",
     "sparse_coding__tpu_torch.data.chunks",

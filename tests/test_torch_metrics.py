@@ -48,23 +48,28 @@ def test_metrics_match_jax():
 
 
 def test_unported_options_raise():
-    """What the port still lacks raises; ``correlated=True`` and ``"sgd"``,
-    which raised here until the sweep slice ported them, now build."""
+    """What the JAX package refuses raises here too: an unknown optimizer,
+    and a ``nu_dtype`` outside its tiers (ValueError, as its
+    `scale_by_adam_compressed`). ``correlated=True`` and ``"sgd"``, which
+    raised here until the sweep slice ported them, build; so do
+    ``mu_dtype="float16"`` and SGD's momentum, which raised until the
+    optimizer leftovers were ported."""
     from sparse_coding__tpu_torch import FunctionalTiedSAE, build_ensemble
     from sparse_coding__tpu_torch.data.synthetic import RandomDatasetGenerator
 
     kw = dict(activation_size=32, n_dict_components=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer_kwargs={"mu_dtype": "float16"}, **kw)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="lion", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="sgd",
-                       optimizer_kwargs={"learning_rate": 0.05, "momentum": 0.9}, **kw)
+    with pytest.raises(ValueError, match="nu_dtype must be"):
+        build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer_kwargs={"nu_dtype": "float16"}, **kw)
     assert torch.isfinite(next(RandomDatasetGenerator(32, 64, 16, 4, 0.99, True, key=0, device="cpu"))).all()
-    ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer="sgd", **kw)
-    loss, _ = ens.step_batch(torch.randn(16, 32, generator=torch.Generator().manual_seed(0)))
-    assert torch.isfinite(loss["loss"]).all()
+    x = torch.randn(16, 32, generator=torch.Generator().manual_seed(0))
+    for optimizer, okw in (("sgd", {}), ("adam", {"mu_dtype": "float16"}),
+                           ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "nesterov": True})):
+        ens = build_ensemble(FunctionalTiedSAE, 0, [{"l1_alpha": 1e-3}], optimizer=optimizer,
+                             optimizer_kwargs=okw, **kw)
+        loss, _ = ens.step_batch(x)
+        assert torch.isfinite(loss["loss"]).all()
 
 
 def test_random_generator_is_seeded_and_planted():
