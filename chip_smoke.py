@@ -130,8 +130,9 @@ device halves (`paper_experiments`: the PCA-perplexity sweep of 112 dicts,
 the embedding cosines, investigate, a feature case study, the dict
 comparisons; card vs CPU on small inputs).
 Last, scale-out (`scaleout`) at BASELINE config 5's widths (D 1024, N
-32768, 4 tied members, batch 2048, bf16): K1/K2 (the WMMA kernels at D
-1024), K3 at the data axis' local batch and K_f at FISTA's, each against
+32768, 4 tied members, batch 2048, bf16): K1 (the WMMA kernels at D
+1024) and K2 (the wgmma mainloop in clusters of four blocks), K3 at the
+data axis' local batch (the same mainloop) and K_f at FISTA's, each against
 its plain version; a world of one over NCCL in this process (the
 unsharded bits); a world of two processes on the one card over gloo
 (``chip_smoke.py --scaleout-worker``: the model, data and dict axes held
@@ -369,6 +370,11 @@ FISTA_RAGGED = dict(M=2, B=200, N=2050, D=130, iters=50)
 # variant; printed beside this run's times as "was_ms"
 WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int8, nu bf16": 2.961,
                     "gradient out": 1.940}
+# the dense K2/K3's times at BASELINE config 5 (D 1024; K3 at B 1024) on
+# the WMMA mainloop that the wgmma mainloop in clusters of four replaced
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W), by kernel; printed
+# beside this run's times as "was_ms"
+WMMA_D1024_MS = {"tied_sae_bwd_adam": 22.671, "tied_sae_bwd_grads": 10.660}
 # K1's, K1n's, K_d's and K_s's times in their first designs (WMMA tiles: K1
 # an encode and a decode launch with the code between them in device memory,
 # K_d a dense masked product, K1n three phases between block barriers, K_s
@@ -481,17 +487,69 @@ def grads_close(torch, a, b, what: str, max_rel: float = 1e-2, min_cos: float = 
 
 def wgmma_plans(libs):
     """The dense K2/K3's wgmma plans as the built libraries compute them
-    (`sc_tied_sae_bwd_plan`): stages and dynamic shared memory bytes by
-    width, code (stored or rebuilt) and int8 moment tiers."""
+    (`sc_tied_sae_bwd_plan`): stages, dynamic shared memory bytes and the
+    blocks of a cluster by width, code (stored or rebuilt; D 1024 on the
+    stored code only) and int8 moment tiers."""
     out = {}
-    for lib, code in (("tied_sae_bwd", "stored"), ("tied_sae_bwd_rc", "rebuilt")):
-        for d in (128, 256, 512):
+    for lib, code, widths in (("tied_sae_bwd", "stored", (128, 256, 512, 1024)),
+                              ("tied_sae_bwd_rc", "rebuilt", (128, 256, 512))):
+        for d in widths:
             for i8 in (0, 1, 2):
-                got = (ctypes.c_int * 2)()
+                got = (ctypes.c_int * 3)()
                 if libs[lib].sc_tied_sae_bwd_plan(d, i8, ctypes.addressof(got)) != 0:
                     raise RuntimeError(f"sc_tied_sae_bwd_plan refused D {d}")
-                out[f"d{d}_{code}_int8x{i8}"] = {"stages": got[0], "smem_bytes": got[1]}
+                out[f"d{d}_{code}_int8x{i8}"] = {"stages": got[0], "smem_bytes": got[1], "cluster": got[2]}
     return out
+
+
+def dense_bwd_variant(D: int) -> str:
+    """The dense K2/K3's mainloop at width D on the stored code, as a kernel
+    row's variant ends ("": the wgmma mainloop at D <= 512)."""
+    if D <= 512:
+        return ""
+    return ", wgmma wg_bwd_kernel in clusters of four" if D == 1024 else ", WMMA bwd_kernel"
+
+
+def cuda_kernel_names(torch, fn) -> dict:
+    """``{kernel name: executions}`` the card ran while ``fn`` ran, from a
+    profiler trace (the card drained before the trace ends)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+def d1024_mainloop(torch, tk) -> dict:
+    """The dense K3 and K2 (f32 moments) at D 1024 on the stored code, one
+    launch each at one cluster's shape (M 2, B 64, N 128), under a profiler
+    trace: the card must run `wg_bwd_kernel<…, 1024>` for both and no WMMA
+    `bwd_kernel`, the mainloop the config 5 rows name. Returns the kernels'
+    names and executions."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1024)
+    M, B, N, D = 2, 64, 128, 1024
+    d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
+    nrm = torch.sqrt(torch.sum(d_raw * d_raw, dim=-1))
+    db = (d_raw / nrm[..., None]).to(torch.bfloat16)
+    xb = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((M, N), generator=g, device=dev) * 0.01
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    l1b = torch.logspace(-4, -2, M, device=dev) / B
+    mu, nu = torch.zeros_like(d_raw), torch.zeros_like(d_raw)
+    bc = torch.tensor([[1 - B1, 1 - B2]] * M, device=dev)
+    torch.cuda.synchronize()
+    names = cuda_kernel_names(torch, lambda: (tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b),
+                                              tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1b, bc,
+                                                                   LR, B1, B2, EPS)))
+
+    def ran(kernel):
+        return any(kernel in n for n in names)
+
+    check(ran("wg_bwd_kernel<false, 0, 0, false, 1024>") and ran("wg_bwd_kernel<true, 0, 0, false, 1024>")
+          and not ran("::bwd_kernel<"), f"the D 1024 K3 and K2 ran {sorted(names)}")
+    return names
 
 
 def parse_ptxas(log: str):
@@ -1614,13 +1672,14 @@ def tied_kernel_rows(torch, tk, g, shape):
     ct, xbt = c_k.transpose(1, 2), xb.expand(M, B, D)
     k2 = dict(name="tied_sae_bwd_adam", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", shape=shape, max_abs_err=k2_err,
-              variant="stored code, mu f32, nu f32" + ("" if D <= 512 else ", WMMA bwd_kernel"),
+              variant="stored code, mu f32, nu f32" + dense_bwd_variant(D),
               ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held), 10),
               plain_ms=time_ms(torch, lambda: _k2_plain(tk, *args()), 3),
               library_ms=time_ms(torch, lambda: (torch.bmm(dxh_k, dbt), torch.bmm(ct, dxh_k), torch.bmm(ct, xbt)), 10))
     k2["bound_ms"], k2["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam", M, B, N, D, nnz))
-    emit("kernel", name="tied_sae_bwd_adam", shape=shape, max_abs_err_d_new=k2_err, ms=k2["ms"],
-         bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"])
+    emit("kernel", name="tied_sae_bwd_adam", shape=shape, variant=k2["variant"], max_abs_err_d_new=k2_err,
+         ms=k2["ms"], bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
+         **({"was_ms": WMMA_D1024_MS["tied_sae_bwd_adam"]} if D == 1024 else {}))
     return [k1, k2]
 
 
@@ -5046,15 +5105,20 @@ def scale_k3_row(torch, tk, g, shape):
     row = dict(name="tied_sae_bwd_grads", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_bwd.cu",
                replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:201", shape=label,
                max_abs_err=float((gk - gp).abs().max()),
-               variant="gradient out" + ("" if D <= 512 else ", WMMA bwd_kernel"),
+               variant="gradient out" + dense_bwd_variant(D),
                ms=time_ms(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b), 10),
                plain_ms=time_ms(torch, lambda: tk._grads_plain(xb, dxh, c, nrm, db, l1b), 3),
                library_ms=time_ms(torch, lambda: (torch.bmm(dxh, dbt), torch.bmm(ct, dxh), torch.bmm(ct, xbt)), 10))
+    # the kernels a trace of one more launch sees, recorded and not held:
+    # late in the smoke a trace once saw none (ROADMAP C3)
+    late = cuda_kernel_names(torch, lambda: tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b))
     row["bound_ms"], row["bound_by"] = bound(
         6 * nnz * D,
         B * D * 2 + M * B * D * 2 + M * B * N * 2 + M * N * 4 + M * N * D * 2 + M * N * D * 4 + M * N * 4 + M * 4)
-    emit("kernel", name="tied_sae_bwd_grads", shape=label, cos=cos, max_rel=rel, ms=row["ms"],
-         bound_ms=row["bound_ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    emit("kernel", name="tied_sae_bwd_grads", shape=label, variant=row["variant"], cos=cos, max_rel=rel,
+         traced=late,
+         ms=row["ms"], bound_ms=row["bound_ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+         **({"was_ms": WMMA_D1024_MS["tied_sae_bwd_grads"]} if D == 1024 else {}))
     return row
 
 
@@ -6171,7 +6235,10 @@ def main() -> int:
     # the wgmma mainloop's kernels: registers, spills (ptxas) and, from the
     # built libraries' own plan, the stages and dynamic shared memory of
     # each width and number of int8 moment tiers
-    emit("wgmma_kernels", plans=wgmma_plans(_build.load()),
+    plans = wgmma_plans(_build.load())
+    check(all(plans[f"d1024_stored_int8x{i}"]["cluster"] == 4 and plans[f"d1024_stored_int8x{i}"]["stages"] >= 2
+              for i in range(3)), f"the D 1024 plan {plans}")
+    emit("wgmma_kernels", plans=plans, d1024_traced=d1024_mainloop(torch, tk),
          ptxas=[dict(f, library=lib) for lib in ("tied_sae_bwd", "tied_sae_bwd_rc")
                 for f in ptxas[lib] if f["function"].startswith("wg_bwd_kernel")])
 

@@ -6,19 +6,25 @@ Builds variants of `ops/csrc/tied_sae_bwd.cuh` by text edits into
 ``build/dense_bwd_probe/<variant>/`` (one nvcc each, all at once; each
 library exports the wgmma mainloop's K3 and K2 with bf16 mu and f32 nu on
 the stored code, and K2 with int8 mu and bf16 nu rebuilding the code, at
-D 256 and 512) and times them through their C entries with CUDA events (one child process a
-variant and turn, every variant and then again in reverse order; a variant
-that hangs is cut after 180 s and named), at BASELINE config 2 (M 8, B 2048,
-N 4096, D 512: on the stored code a cluster of two blocks splits 128 rows'
+D 256 and 512; K3 and K2 on the stored code at D 1024) and times them
+through their C entries with CUDA events (one child process a variant and
+turn, every variant and then again in reverse order; a variant that hangs
+is cut after 180 s and named), at BASELINE config 2 (M 8, B 2048, N 4096,
+D 512: on the stored code a cluster of two blocks splits 128 rows'
 columns; rebuilding it a block of 64 rows splits its columns over the two
-warpgroups) and at the same shape with D 256 (128-row blocks, no split):
+warpgroups), at the same shape with D 256 (128-row blocks, no split) and at
+BASELINE config 5 (M 4, B 2048, N 32768, D 1024: a cluster of four blocks
+splits 128 rows' columns, dc's partials meeting by a reduce-scatter and an
+all-gather):
   - shipped: the source as it is;
   - no_gemm1 / no_gemm2 / no_gemms: the dc product, the gradient products,
     or both dropped (their registers stay zero);
-  - no_gemms_no_exchange: also without the exchange of dc's depth halves
-    (D 512: through distributed shared memory, or shared memory and two
-    barriers a tile): what is left is the TMA ring, the mask and the
+  - no_gemms_no_exchange: also without the exchange of dc's depth partials
+    (D 512 and 1024: through distributed shared memory, or shared memory and
+    two barriers a tile): what is left is the TMA ring, the mask and the
     epilogue;
+  - no_exchange: the exchange alone dropped (each block keeps its own
+    partial: wrong values, the products' and the ring's time);
   - no_epilogue: the shared epilogue dropped (the gradient stays on chip);
   - stages2 / stages3: the ring capped at 2 or 3 stages (D 256 takes 4).
 Each variant's K3 gradient's cosine against the plain version is reported
@@ -39,7 +45,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SRC = REPO / "sparse_coding__tpu_torch" / "ops" / "csrc"
 WORK = REPO / "build" / "dense_bwd_probe"
-CASES = {"config2_d512": (8, 2048, 4096, 512), "d256": (8, 2048, 4096, 256)}
+CASES = {"config2_d512": (8, 2048, 4096, 512), "d256": (8, 2048, 4096, 256),
+         "config5_d1024": (4, 2048, 32768, 1024)}
 
 ENTRY = r'''
 #include "tied_sae_bwd.cuh"
@@ -57,7 +64,9 @@ int probe_k3(const void* x, const void* dxh, const void* c, const void* nrm, con
   a.l1_over_b = static_cast<const float*>(l1_over_b);
   a.B = B, a.N = N, a.D = D;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return D == 512 ? launch_wg<false, kF32, kF32, false, 512>(a, M, st) : launch_wg<false, kF32, kF32, false, 256>(a, M, st);
+  return D == 1024  ? launch_wg<false, kF32, kF32, false, 1024>(a, M, st)
+         : D == 512 ? launch_wg<false, kF32, kF32, false, 512>(a, M, st)
+                    : launch_wg<false, kF32, kF32, false, 256>(a, M, st);
 }
 int probe_k2(const void* x, const void* dxh, const void* c, const void* nrm, void* d_raw, void* mu, void* nu,
              void* g_bias, const void* l1_over_b, const void* bc, int M, int B, int N, int D, void* stream) {
@@ -75,7 +84,9 @@ int probe_k2(const void* x, const void* dxh, const void* c, const void* nrm, voi
   a.lr = 1e-3f, a.b1 = 0.9f, a.b2 = 0.999f, a.eps = 1e-8f, a.omb1 = 0.1f, a.omb2 = 0.001f;
   a.B = B, a.N = N, a.D = D;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return D == 512 ? launch_wg<true, kBf16, kF32, false, 512>(a, M, st) : launch_wg<true, kBf16, kF32, false, 256>(a, M, st);
+  return D == 1024  ? launch_wg<true, kBf16, kF32, false, 1024>(a, M, st)
+         : D == 512 ? launch_wg<true, kBf16, kF32, false, 512>(a, M, st)
+                    : launch_wg<true, kBf16, kF32, false, 256>(a, M, st);
 }
 int probe_k2rc(const void* x, const void* dxh, const void* bias, const void* nrm, void* d_raw, void* mu,
                void* mu_scale, void* nu, void* g_bias, const void* l1_over_b, const void* bc, const void* seed,
@@ -120,8 +131,16 @@ def drop_call(src: str, prefix: str) -> str:
 GEMM1 = "sm90::wgmma_ss<kWgTb, 0, 0>("
 GEMM2 = ("sm90::wgmma_ss<kNw, 1, 1>(", "sm90::wgmma_rs<kNw, 1>(")
 EXCHANGE = [("if constexpr (kMode == kColSplit) {\n#pragma unroll", "if constexpr (false) {\n#pragma unroll"),
-            ("} else if constexpr (kMode == kPairSplit) {\n        float4* slot", "} else if constexpr (false) {\n        float4* slot"),
-            ("if constexpr (kMode != kRowSplit) {\n        const float4* other;", "if constexpr (false) {\n        const float4* other;")]
+            ("} else if constexpr (kMode == kPairSplit) {\n          float4* slot",
+             "} else if constexpr (false) {\n          float4* slot"),
+            ("if constexpr (kMode != kRowSplit) {\n        const float4* other;", "if constexpr (false) {\n        const float4* other;"),
+            # the cluster of four: no sends, no waits
+            ("        if (wt == 0) {  // this slot's phases", "        if (false) {  // this slot's phases"),
+            ("sm90::st_async(sm90::map_rank(slot, q), make_float4(dc[4 * q],",
+             "if (false) sm90::st_async(sm90::map_rank(slot, q), make_float4(dc[4 * q],"),
+            ("sm90::st_async_v2(", "if (false) sm90::st_async_v2("),
+            ("        sm90::mbar_wait_cluster(&xfull[2 * x + wg], (t >> 1) & 1);\n", ""),
+            ("        sm90::mbar_wait_cluster(ag, (t >> 1) & 1);\n", "")]
 EPILOGUE = "epilogue<kAdam, kMu, kNu, kWgThreads, kBarAll, SwizzledDj>("
 
 
@@ -138,6 +157,10 @@ def variants(src: str):
         assert a in v, a
         v = v.replace(a, b)
     out["no_gemms_no_exchange"] = v
+    v = src
+    for a, b in EXCHANGE:
+        v = v.replace(a, b)
+    out["no_exchange"] = v
     out["no_epilogue"] = drop_call(drop_call(src, EPILOGUE), EPILOGUE)  # the producer's and the consumers' calls
     for st in (2, 3):
         v = src.replace("constexpr int kWgMaxStages = 4;", f"constexpr int kWgMaxStages = {st};")
@@ -211,6 +234,8 @@ def time_variant(name: str, reps: int) -> dict:
                                            g_bias.data_ptr(), l1b.data_ptr(), bc.data_ptr(), seed.data_ptr(),
                                            M, B, N, D, st),
         }
+        if D == 1024:
+            del fns["k2rc"]  # the rebuild at D 1024 runs the WMMA mainloop, which this probe does not build
         assert fns["k3"]() == 0
         gp, _ = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
         cos = float(torch.nn.functional.cosine_similarity(g_enc.flatten().double(), gp.flatten().double(), dim=0))
@@ -273,7 +298,7 @@ def main(argv=None) -> int:
         for name, runs in turns.items():
             good = [r[case] for r in runs if case in r]  # a turn cut before it printed adds nothing
             if good:
-                ms[name] = {w: statistics.median(r[w] for r in good) for w in ("k3", "k2", "k2rc")}
+                ms[name] = {w: statistics.median(r[w] for r in good) for w in ("k3", "k2", "k2rc") if w in good[0]}
                 ms[name]["k3_cos_vs_plain"] = good[0]["k3_cos_vs_plain"]
         result["cases"][case] = {"shape": list(shape), "ms": ms}
     result["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -3,9 +3,11 @@
     timeout 900 python scripts/dense_bwd_stress.py [--launches 2000] [--out stress.json]
 
 At M 8, B 2048, N 4096 and each width the wgmma mainloop takes (D 128, 256
-and 512; D 512 is BASELINE config 2), for K3, K2 on the stored code and K2
-rebuilding it, the latter two in each of the nine moment tiers (mu, nu each
-f32, bf16 or int8): runs a chain of launches through the public wrappers,
+and 512; D 512 is BASELINE config 2; D 1024, BASELINE config 5's width, on
+the stored code only: rebuilding the code there runs the WMMA mainloop), for
+K3, K2 on the stored code and K2 rebuilding it, the latter two in each of the
+nine moment tiers (mu, nu each f32, bf16 or int8): runs a chain of launches
+through the public wrappers,
 each K2 updating its encoder and moments in place, twice from the same
 start, and checks that the two chains end on the same bits and finite
 values. The tiers the tied paths run (K3; K2 stored with bf16 mu and f32
@@ -51,7 +53,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     runs, ok = {}, True
-    for D in (128, 256, 512):
+    for D in (128, 256, 512, 1024):
         g = torch.Generator(device=dev).manual_seed(D)
         d_raw = torch.randn((M, N, D), generator=g, device=dev) * 0.05
         bias = torch.randn((M, N), generator=g, device=dev) * 0.01
@@ -61,7 +63,8 @@ def main(argv=None) -> int:
         l1b = torch.linspace(1e-4, 1e-2, M, device=dev) / B
         bc = torch.tensor([[0.1, 0.001]] * M, device=dev)
         c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
-        variants = ["grads"] + [(rb, mu_t, nu_t) for rb in (False, True) for mu_t in TIERS for nu_t in TIERS]
+        rebuilds = (False,) if D == 1024 else (False, True)
+        variants = ["grads"] + [(rb, mu_t, nu_t) for rb in rebuilds for mu_t in TIERS for nu_t in TIERS]
         for variant in variants:
             if variant == "grads":
                 name, n = f"d{D} K3", args.launches

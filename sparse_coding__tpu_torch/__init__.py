@@ -11,6 +11,9 @@ from sparse_coding__tpu_torch.ensemble import (
     Ensemble,
     EnsembleState,
     build_ensemble,
+    optim_str_to_func,
+    stack_pytrees,
+    unstack_pytree,
 )
 from sparse_coding__tpu_torch.models import (
     RICA,
@@ -34,8 +37,11 @@ from sparse_coding__tpu_torch.models import (
     TopKLearnedDict,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
-    "Ensemble", "EnsembleState", "build_ensemble", "FunctionalSAE", "FunctionalTiedSAE",
+    "Ensemble", "EnsembleState", "build_ensemble", "optim_str_to_func", "stack_pytrees", "unstack_pytree",
+    "FunctionalSAE", "FunctionalTiedSAE",
     "TopKEncoder", "TopKEncoderApprox", "TopKLearnedDict", "Fista", "FunctionalFista",
     "FunctionalTiedCenteredSAE", "FunctionalThresholdingSAE", "FunctionalMaskedTiedSAE", "FunctionalMaskedSAE",
     "FunctionalReverseSAE", "FunctionalLISTADenoisingSAE", "FunctionalResidualDenoisingSAE",

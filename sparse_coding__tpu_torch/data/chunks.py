@@ -151,6 +151,10 @@ class ChunkStore:
     def __len__(self) -> int:
         return len(self.indices())
 
+    @property
+    def n_chunks(self) -> int:
+        return len(self)
+
     def slot_count(self) -> int:
         """The chunk-index domain: the highest index present or quarantined,
         plus one. Drivers iterate slots, so a quarantined chunk keeps its
@@ -245,10 +249,17 @@ class ChunkStore:
         except (OSError, ValueError):
             return "unknown"
 
-    def iter_chunks(self, order: Sequence[int], dtype=torch.float32, device=None) -> Iterator[torch.Tensor]:
+    def iter_chunks(self, order: Sequence[int], dtype=torch.float32, device=None,
+                    center=None) -> Iterator[torch.Tensor]:
         """Yield chunks in `order`, reading the next one on a background
-        thread while the caller trains on the current one."""
+        thread while the caller trains on the current one; ``center`` (a
+        [D] vector; float64 is taken as float32, as JAX's device arrays are)
+        is subtracted from every row."""
         device = resolve_device(device)
+        if center is not None:
+            center = torch.as_tensor(center, device=device)
+            if center.dtype == torch.float64:
+                center = center.float()
         q: "queue.Queue" = queue.Queue(maxsize=1)
         stop = threading.Event()
 
@@ -257,7 +268,10 @@ class ChunkStore:
                 for i in order:
                     if stop.is_set():
                         return
-                    q.put(("ok", self.load(int(i), dtype=dtype, device=device)))
+                    x = self.load(int(i), dtype=dtype, device=device)
+                    if center is not None:
+                        x = x - center[None, :]
+                    q.put(("ok", x))
                 q.put(("done", None))
             except Exception as e:  # surfaced in the consumer
                 q.put(("err", e))

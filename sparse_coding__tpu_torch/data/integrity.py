@@ -234,7 +234,7 @@ class ChunkLossBudget:
     counters, gauge and events go to ``telemetry``, or with None to every
     live `RunTelemetry` (library callers still account)."""
 
-    def __init__(self, n_chunks: int, telemetry=None, budget_frac: Optional[float] = None):
+    def __init__(self, n_chunks: int, budget_frac: Optional[float] = None, telemetry=None):
         self.n_chunks = max(1, int(n_chunks))
         self.budget_frac = default_loss_budget() if budget_frac is None else float(budget_frac)
         self.telemetry = telemetry

@@ -272,10 +272,10 @@ class Ensemble:
         sig,
         optimizer: str = "adam",
         optimizer_kwargs: Optional[Dict[str, Any]] = None,
+        unstacked: bool = False,
         compute_dtype=None,
         fused: Optional[bool] = None,
         l1_warmup_steps: int = 0,
-        unstacked: bool = False,
         health=False,
         feature_stats=False,
     ):

@@ -15,6 +15,8 @@ the port's own streams, not JAX's.
 
 from __future__ import annotations
 
+import copy
+
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,6 +73,22 @@ class LearnedDict:
 
     def n_dict_components(self) -> int:
         return self.get_learned_dict().shape[0]
+
+    def to_device(self, device) -> "LearnedDict":
+        """A copy with every tensor on ``device`` (its array leaves, any
+        other tensor it holds); a dict that makes its arrays on the fly
+        (`Identity`, …) then makes them there."""
+        device = torch.device(device)
+        if type(self) in LEARNED_DICT_REGISTRY:
+            new = with_leaves(self, [v.to(device) for _, _, v in dict_leaves(self)])
+        else:
+            new = copy.copy(self)
+        for name, value in list(vars(new).items()):
+            if isinstance(value, torch.Tensor):
+                setattr(new, name, value.to(device))
+        if hasattr(new, "device"):
+            new.device = device
+        return new
 
 
 # {cls: (array_fields, static_fields)}: serialization reconstructs instances

@@ -102,6 +102,17 @@ def _bias(params) -> torch.Tensor:
     return px.cast_in(params["encoder_bias"])[:, None, :]
 
 
+def _one_member(stacked_fn, params, buffers, batch):
+    """``stacked_fn`` (a signature's ``fused_grads_stacked``) on one member's
+    unstacked params and buffers: each tensor given a member axis of one, the
+    results' taken off again (JAX's single-model ``fused_grads``)."""
+    def up(tree):
+        return {k: v[None] if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+    grads, loss_data = stacked_fn(up(params), up(buffers), batch)
+    return {k: v[0] for k, v in grads.items()}, {k: v[0] for k, v in loss_data.items()}
+
+
 def _mask_buffers(n_dict_components: int, n_components_stack: int, l1_alpha: float, bias_decay: float,
                   dtype, device):
     """The masked signatures' buffers: ``dict_size`` (int32) and the keep mask
@@ -225,6 +236,18 @@ class FunctionalTiedSAE:
         return batch
 
     @staticmethod
+    def uncenter(buffers, batch):
+        """The inverse of `center`: batch [M, B, D] (or [B, D] with no
+        centering) back to the activations' frame."""
+        if buffers["center_scale"] is not None:
+            batch = batch / buffers["center_scale"][:, None, :]
+        if buffers["center_rot"] is not None:
+            batch = torch.matmul(batch, buffers["center_rot"])
+        if buffers["center_trans"] is not None:
+            batch = batch + buffers["center_trans"][:, None, :]
+        return batch
+
+    @staticmethod
     def encode(params, buffers, batch):
         learned_dict = _norm_rows(params["encoder"])
         x = FunctionalTiedSAE.center(buffers, batch)
@@ -315,6 +338,12 @@ class FunctionalTiedSAE:
         the answer; it is kept for the JAX signature."""
         n_dict, d_act = stacked_params["encoder"].shape[-2:]
         return tk.shapes_supported(n_dict, d_act, batch_size)
+
+    @staticmethod
+    def fused_grads(params, buffers, batch):
+        """One member's (unstacked) gradients + loss dict through
+        `fused_grads_stacked`."""
+        return _one_member(FunctionalTiedSAE.fused_grads_stacked, params, buffers, batch)
 
     @staticmethod
     def fused_grads_stacked(params, buffers, batch):

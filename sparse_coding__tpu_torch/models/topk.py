@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from sparse_coding__tpu_torch.models.learned_dict import LearnedDict, _norm_rows, register_learned_dict
+from sparse_coding__tpu_torch.models.sae import _one_member
 from sparse_coding__tpu_torch.ops import topk_kernel as kk
 from sparse_coding__tpu_torch.utils import precision as px
 from sparse_coding__tpu_torch.utils.optim import bias_corrections
@@ -128,16 +129,19 @@ class TopKEncoder:
         return _scatter_rank_masked(scores, top_vals, top_idx, _member_k(buffers, scores), cap, relu=True)
 
     @classmethod
+    def encode(cls, batch, buffers, normed_dict, cap: int):
+        """Stacked codes [M, B, N] of a shared batch [B, D] against the
+        normalized dictionary ``normed_dict`` [M, N, D], at most ``cap``
+        kept a row (the selection's static size), under the precision
+        policy (JAX's signature)."""
+        scores = torch.matmul(px.cast_in(batch), px.cast_in(normed_dict).transpose(-2, -1))
+        return cls._select(scores, buffers, cap)
+
+    @classmethod
     def _code(cls, params, buffers, batch):
         """(normalized dictionary [M, N, D] in the compute dtype, code [M, B, N])."""
         nd = px.cast_in(_norm_rows(params["dict"]))
-        scores = torch.matmul(px.cast_in(batch), nd.transpose(-2, -1))
-        return nd, cls._select(scores, buffers, cls._cap(params, buffers))
-
-    @classmethod
-    def encode(cls, params, buffers, batch):
-        """Stacked codes [M, B, N] of a shared batch [B, D]."""
-        return cls._code(params, buffers, batch)[1]
+        return nd, cls.encode(batch, buffers, nd, cls._cap(params, buffers))
 
     @classmethod
     def loss(cls, params, buffers, batch):
@@ -194,6 +198,12 @@ class TopKEncoderApprox(TopKEncoder):
         answer; it is kept for the JAX signature."""
         n_features, d_activation = stacked_params["dict"].shape[-2:]
         return kk.shapes_supported(n_features, d_activation, batch_size)
+
+    @staticmethod
+    def fused_grads(params, buffers, batch):
+        """One member's (unstacked) gradients + loss dict through
+        `fused_grads_stacked`."""
+        return _one_member(TopKEncoderApprox.fused_grads_stacked, params, buffers, batch)
 
     @staticmethod
     def fused_grads_stacked(params, buffers, batch):

@@ -97,6 +97,17 @@ __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) 
                : "memory");
 }
 
+// 8 bytes (two 32-bit words) into another block's shared memory, counted in
+// bytes on its barrier `bar` (both shared::cluster addresses)
+__device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t a, uint32_t b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(addr),
+               "r"(a), "r"(b), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(a) : "memory");
+}
+
 // -- TMA ------------------------------------------------------------------------
 
 // one box of a 2-D tensor map at (c0 = column, c1 = row) into dst; completion

@@ -36,7 +36,8 @@
 // them at ~4.6 TB/s into its SMs (scripts/dense_bwd_probe.py: the mainloop
 // with no products runs at that rate).
 //
-// The wgmma mainloop (`wg_bwd_kernel`, D 128, 256 and 512). A block is two
+// The wgmma mainloop (`wg_bwd_kernel`: D 128, 256 and 512, and D 1024 on the
+// stored code). A block is two
 // consumer warpgroups and a producer warpgroup, whose one issuing thread keeps
 // a ring of 2..4 stages (x, dxh and the code tile, each in 64-column panels
 // in TMA's 128-byte swizzle) filled by TMA against `mbarrier`s: no
@@ -56,15 +57,31 @@
 //     slot, counted on its mbarrier) and are added in rank order; after the
 //     batch the blocks trade quarters of the gradient so that block r holds
 //     rows [64 r, 64 r + 64) at every column for the epilogue;
+//   - D 1024, stored code: a cluster of four blocks shares 128 rows, block r
+//     holding columns [256 r, 256 r + 256). The four depth partials of dc
+//     meet by a reduce-scatter (block r adds batch columns [8 r, 8 r + 8) of
+//     the four in rank order 0 + 1 + 2 + 3, masks them and takes their bias
+//     gradient) and an all-gather of their bf16 A fragments, both by st.async
+//     counted on mbarriers: 18 KB sent a block and stage, against 48 KB for
+//     each block sending its whole f32 partial to the other three. The next
+//     stage's product and pieces go out before a stage's finish, so the
+//     reduce-scatter travels under the products (two slots of each buffer,
+//     beside the stages: 36 KB). After the batch the blocks trade pieces of
+//     the gradient and of the bias gradient so that block r holds rows
+//     [32 r, 32 r + 32) at every column for the epilogue;
 //   - D 512, code rebuilt (the encode needs whole rows of x and Dj): 64
 //     rows, one warpgroup a column half, dc's depth halves added through
 //     shared memory.
 // L2 reads a launch at config 2 on the stored code: ~1.3 GB (512 blocks,
 // each its column halves of x and dxh, 1 MB each, and its pair's 128-row
 // code tile, 0.5 MB), against ~2.2 GB for the WMMA mainloop's 64-row
-// tiles. Rebuilding the code, the column split still reads ~2.1 GB (512
-// blocks of 64 rows, each the member's whole x and dxh): the pair split
-// cannot take the encode, which needs whole rows of x and Dj. Multicasting each
+// tiles. At config 5 (M 4, B 2048, N 32768, D 1024) the cluster of four
+// reads ~10.7 GB (4096 blocks, each its quarter of x and dxh, 1 MiB each,
+// and its cluster's 128-row code tile, 0.5 MiB), against ~35 GB for the
+// WMMA mainloop's 32-row tiles. Rebuilding the code, the column split still
+// reads ~2.1 GB at config 2 (512 blocks of 64 rows, each the member's whole
+// x and dxh): the pair split cannot take the encode, which needs whole rows
+// of x and Dj. Multicasting each
 // x/dxh stage to a cluster of two 64-row blocks halves the L2 reads as well,
 // but not the bytes each SM takes in, and it ran slower than each block
 // loading its own (scripts/dense_bwd_probe.py): the design moves fewer bytes
@@ -76,17 +93,24 @@
 // tile (64 KB), the ring (4 stages of 40 KB at D 256, 3 in the pair split,
 // 2 of 68 KB in the column split), which becomes the f32 gradient tile after
 // the batch (130 KB), dc's partials (two 16 KB slots in the pair split,
-// 16 KB in the column split), radial sums and barriers: 222-227 KB at D 256
-// and 512. The epilogue (below) streams d_raw, mu and nu once, after the
+// 16 KB in the column split; in the cluster of four two 12 KB slots for the
+// reduce-scatter and two 6 KB slots for the all-gather, in the region beside
+// the stages), radial sums and barriers: 222-227 KB at D 256 and 512,
+// 226,544 B with 3 stages at D 1024. The epilogue (below)
+// streams d_raw, mu and nu once, after the
 // batch loop: a row's update needs its whole gradient (the radial sum, and
 // an int8 moment's absmax); an int8 moment's codes are read a second time,
 // once the absmax is known.
 //
-// D 768 and 1024 keep the WMMA mainloop (`bwd_kernel`): 16 warps, the
-// [Nt, D] gradient in WMMA accumulator registers (2 row bands x kCols column
-// blocks of 16 x 16 a warp: Nt 32), x, dxh and c through two cp.async
-// stages, dc's depth split into kParts slices summed in a fixed order, and
-// at D 768 x single-buffered (kSplitX).
+// D 768, and D 1024 rebuilding the code, keep the WMMA mainloop
+// (`bwd_kernel`): 16 warps, the [Nt, D] gradient in WMMA accumulator
+// registers (2 row bands x kCols column blocks of 16 x 16 a warp: Nt 32), x,
+// dxh and c through two cp.async stages (16 batch rows a stage at D 1024),
+// dc's depth split into kParts slices summed in a fixed order, and at D 768
+// x single-buffered (kSplitX). D 1024 rebuilding the code therefore sums
+// in another order than D 1024 on the stored code: the two routes' results
+// agree within the dense tolerances there, not bit for bit (at every other
+// width both routes run one mainloop and give the same bits).
 //
 // The code rebuild (kRecompute): c is not read from device memory; each
 // [32, Nt] code tile is rebuilt from the x tile and the dictionary tile
@@ -737,7 +761,7 @@ int launch_cols(const BwdArgs& a, int M, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// -- the wgmma mainloop (D in {128, 256, 512}) ------------------------------------
+// -- the wgmma mainloop (D 128, 256, 512; 1024 on the stored code) -----------------
 
 constexpr int kWgConsumers = 256;               // two consumer warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and a producer warpgroup (one thread issues)
@@ -756,37 +780,60 @@ constexpr int kBarAll = 2;                      // ... of every thread (the epil
 //     (st.async), so each block streams only its half of x and dxh. After
 //     the batch loop block r takes rows [64 r, 64 r + 64) at every column for
 //     the epilogue.
+//   kQuadSplit (D 1024, the stored code): the same with a cluster of four
+//     blocks and columns [256 r, 256 r + 256); the four depth partials of dc
+//     meet by a reduce-scatter and an all-gather through distributed shared
+//     memory (block r adds batch columns [8 r, 8 r + 8) of the four in rank
+//     order, masks them and sends their bf16 A fragments to the other
+//     three), and after the batch loop block r takes rows [32 r, 32 r + 32)
+//     at every column.
 //   kColSplit (D 512, the code rebuilt, whose encode needs whole rows of x
 //     and the dictionary): 64 rows; warpgroup w owns columns
 //     [256 w, 256 w + 256) and dc's depth slice over them, the two partials
 //     meeting in shared memory.
-constexpr int kRowSplit = 0, kPairSplit = 1, kColSplit = 2;
+constexpr int kRowSplit = 0, kPairSplit = 1, kColSplit = 2, kQuadSplit = 3;
 
 template <int kD, bool kRecompute>
 struct WgShape {
-  static constexpr int kMode = kD <= 256 ? kRowSplit : kRecompute ? kColSplit : kPairSplit;
+  static constexpr int kMode = kD <= 256 ? kRowSplit
+                               : kRecompute ? kColSplit
+                               : kD == 512  ? kPairSplit
+                                            : kQuadSplit;
   static constexpr int kNt = kMode == kColSplit ? 64 : 128;        // rows of the batch loop
-  static constexpr int kCluster = kMode == kPairSplit ? 2 : 1;
-  static constexpr int kDc = kMode == kPairSplit ? kD / 2 : kD;     // columns of x, dxh, Dj, g in the block
+  static constexpr int kCluster = kMode == kPairSplit ? 2 : kMode == kQuadSplit ? 4 : 1;
+  static constexpr int kDc = kD / kCluster;                         // columns of x, dxh, Dj, g in the block
   static constexpr int kNw = kMode == kColSplit ? kD / 2 : kDc;     // gradient columns of a warpgroup
   static constexpr int kDepth = kMode == kColSplit ? kD / 2 : kDc;  // depth of a warpgroup's dc product
-  static constexpr int kEpiRows = kMode == kPairSplit ? 64 : kNt;   // rows of the block's epilogue
+  static constexpr int kEpiRows = kNt / kCluster;                   // rows of the block's epilogue
   static constexpr uint32_t kDj = (uint32_t)kNt * kDc * 2;          // == kEpiRows * kD * 2
   static constexpr uint32_t kX = (uint32_t)kWgTb * kDc * 2;         // the x (or dxh) tile of a stage
   static constexpr uint32_t kC = (uint32_t)kWgTb * kNt * 2;
   static constexpr uint32_t kStage = 2 * kX + kC;
-  // dc's depth partials: two slots of every consumer's 16 floats (pair),
-  // or one of each warpgroup's (col)
-  static constexpr uint32_t kXchg = kMode == kPairSplit ? 2u * kWgConsumers * (kWgTb / 2) * 4
-                                    : kMode == kColSplit ? (uint32_t)kWgConsumers * (kWgTb / 2) * 4 : 0;
+  // dc's depth partials: two slots of every consumer's 16 floats (pair);
+  // one of each warpgroup's (col); two slots each of the reduce-scatter's
+  // pieces (a float4 of every consumer from each of the three other
+  // blocks) and of the all-gather's bf16 fragments (8 bytes each) (quad),
+  // which live beside the stages, in the region the gradient tile takes
+  // after the batch loop
+  static constexpr uint32_t kXchg = kMode == kPairSplit   ? 2u * kWgConsumers * (kWgTb / 2) * 4
+                                    : kMode == kColSplit  ? (uint32_t)kWgConsumers * (kWgTb / 2) * 4
+                                    : kMode == kQuadSplit ? 2u * (kCluster - 1) * kWgConsumers * (16 + 8)
+                                                          : 0;
+  static constexpr bool kXchgInRegion = kMode == kQuadSplit;
+  static constexpr int kXbars = kMode == kQuadSplit ? 8 : 4;  // the exchange's mbarriers
   static constexpr uint32_t kG = (uint32_t)kEpiRows * ld_f32(kD) * 4;
+  // after the gradient tile: the int8 moments' absmax words; then (quad) the
+  // four blocks' parts of the epilogue rows' bias gradient
+  static constexpr uint32_t kGbx = kMode == kQuadSplit ? (uint32_t)kCluster * kEpiRows * 4 : 0;
   static_assert(kNw <= 256 && kNw % 64 == 0 && kDc % 64 == 0, "whole 64-column panels, one wgmma wide");
   static_assert(kDj == (uint32_t)kEpiRows * kD * 2, "the epilogue's dictionary rows reuse the tile");
+  static_assert(kMode != kQuadSplit || kWgTb / 8 == kCluster, "a block reduces one 8-column piece of dc");
 };
 
 struct WgPlan {
   int stages;
   uint32_t region;  // the stages; after the batch loop the gradient tile and absmax words
+  uint32_t xchg;    // where dc's exchange buffers start, from the stages' base
   uint32_t total;   // dynamic shared memory, with 1024 bytes to align its base
 };
 
@@ -797,12 +844,15 @@ template <int kD, bool kRecompute>
 constexpr WgPlan wg_plan(int int8_moments) {
   using S = WgShape<kD, kRecompute>;
   for (int st = kWgMaxStages; st >= 2; --st) {
-    const uint32_t stages = st * S::kStage, g = S::kG + (int8_moments ? 2u * S::kEpiRows * 4 : 0u);
-    const uint32_t region = stages > g ? stages : g;
-    const uint32_t total = 1024 + S::kDj + region + S::kXchg + S::kEpiRows * 4 + (2 * st + 4) * 8;
-    if (total <= kMaxSmem) return WgPlan{st, region, total};
+    const uint32_t loop = st * S::kStage + (S::kXchgInRegion ? S::kXchg : 0u);
+    const uint32_t g = S::kG + (int8_moments || S::kGbx ? 2u * S::kEpiRows * 4 : 0u) + S::kGbx;
+    const uint32_t region = loop > g ? loop : g;
+    const uint32_t xchg = S::kXchgInRegion ? st * S::kStage : region;
+    const uint32_t total = 1024 + S::kDj + region + (S::kXchgInRegion ? 0u : S::kXchg) + S::kEpiRows * 4 +
+                           (2 * st + S::kXbars) * 8;
+    if (total <= kMaxSmem) return WgPlan{st, region, xchg, total};
   }
-  return WgPlan{0, 0, 0};
+  return WgPlan{0, 0, 0, 0};
 }
 
 // the TMA descriptors of one launch: x [B, D], dxh [M*B, D], c [M*B, N]
@@ -869,20 +919,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   bf16* dj_s = reinterpret_cast<bf16*>(smem);                   // [kDc/64][kNt][64], swizzled
   unsigned char* stage0 = smem + S::kDj;                        // stage s: x, dxh, c tiles, swizzled
-  float* xchg = reinterpret_cast<float*>(stage0 + pl.region);   // dc's depth partials
-  float* radial_s = xchg + S::kXchg / 4;                        // [kEpiRows]
+  float* xchg = reinterpret_cast<float*>(stage0 + pl.xchg);     // dc's depth partials
+  float* radial_s = reinterpret_cast<float*>(stage0 + pl.region + (S::kXchgInRegion ? 0u : S::kXchg));  // [kEpiRows]
   uint64_t* full = reinterpret_cast<uint64_t*>(radial_s + S::kEpiRows);  // [stages] the stage has landed
   uint64_t* empty = full + pl.stages;                           // [stages] the stage may be refilled
-  uint64_t* xfull = empty + pl.stages;                          // [2][2] slot, warpgroup: the peer's dc partial has landed (pair)
+  uint64_t* xfull = empty + pl.stages;                          // [kXbars] the other blocks' dc pieces have landed
   float* g_s = reinterpret_cast<float*>(stage0);                // [kEpiRows][ld_f32(kD)], after the batch loop
   int* amax_s = reinterpret_cast<int*>(stage0 + S::kG);         // [2][kEpiRows] |mu|, |nu| maxima (int8)
+  float* gbx = reinterpret_cast<float*>(stage0 + S::kG + 2 * S::kEpiRows * 4);  // [kCluster][kEpiRows] (quad)
 
   const int B = a.B, N = a.N;
   const int m = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t rank = kCluster > 1 ? sm90::cluster_rank() : 0;
-  const int n0 = kMode == kPairSplit ? (blockIdx.x >> 1) * kNt : blockIdx.x * kNt;  // first row of the loop
-  const int col0 = kMode == kPairSplit ? rank * kDc : 0;                            // first column held
-  const int epi_n0 = kMode == kPairSplit ? n0 + 64 * rank : n0;                     // first row of the epilogue
+  const int n0 = (blockIdx.x / kCluster) * kNt;  // first row of the loop
+  const int col0 = rank * kDc;                     // first column held
+  const int epi_n0 = n0 + S::kEpiRows * rank;      // first row of the epilogue
   const size_t row0 = (size_t)m * N + n0;
   const int n_tiles = B / kWgTb;
 
@@ -891,7 +942,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], 2);  // each consumer warpgroup
     }
-    for (int i = 0; i < 4; ++i) sm90::mbar_init(&xfull[i], 1);
+    for (int i = 0; i < S::kXbars; ++i) sm90::mbar_init(&xfull[i], 1);
     sm90::fence_mbar_init();
   }
   if (tid < kWgConsumers) load_dj_swizzled<kAdam, kNt, kDc>(a, dj_s, row0, col0);
@@ -951,7 +1002,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // (w % 2) and column blocks w / 2 + 4 i, with their bias
     constexpr int kEnc = (kWgTb / 16) * (kNt / 8) / (kWgConsumers / 32);
     static_assert(kWgTb / 16 == 2, "the encode's row blocks: two per tile");
-    static_assert(!kRecompute || kMode != kPairSplit, "the encode needs whole rows");
+    static_assert(!kRecompute || kCluster == 1, "the encode needs whole rows");
     float ebias[kEnc][2];
     if constexpr (kRecompute) {
       const float* bm = static_cast<const float*>(a.code) + row0;
@@ -964,81 +1015,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
 
     // Per tile: dc's product (this warpgroup's depth partial), sent to where
-    // the other half is; then the tile's finish: g += c^T . dxh, which needs
-    // no dc, runs on the tensor cores while the halves meet and the mask is
-    // applied; then g += bf16(dc)^T . x, and the stage is released.
+    // the other parts are; then the tile's finish: g += c^T . dxh, which
+    // needs no dc, runs on the tensor cores while the parts meet and the
+    // mask is applied; then g += bf16(dc)^T . x, and the stage is released.
     float dc[kWgTb / 2];  // dc^T [64 x kWgTb], wgmma accumulator layout
     float4* x4 = reinterpret_cast<float4*>(xchg);
     auto stage_of = [&](int t) { return stage0 + (t % pl.stages) * S::kStage; };
 
-    // the finish of tile t, whose partial is in dc
-    auto finish = [&](int t) {
-      const int s = t % pl.stages;
-      const unsigned char* c_s = stage_of(t) + 2 * S::kX;
-      const uint32_t xs = sm90::smem_u32(stage_of(t)), ds = xs + S::kX, cs = xs + 2 * S::kX;
-      sm90::fence_regs(acc);
-      sm90::wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgTb / 16; ++kk)
-        sm90::wgmma_ss<kNw, 1, 1>(acc, sm90::desc(cs + (rbase / 64) * kPanelX + kk * 2048, kPanelX, 1024),
-                                  sm90::desc(ds + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
-      sm90::wg_commit();
-      // the other depth half (column split: the other warpgroup's, in shared
-      // memory; pair split: the peer block's, in slot t % 2); p0 + p1 in
-      // that order
-      if constexpr (kMode != kRowSplit) {
-        const float4* other;
-        if constexpr (kMode == kColSplit) {
-          sm90::bar_sync(kBarConsumers, kWgConsumers);
-          other = x4 + (wg ^ 1) * (kWgTb / 8) * 128 + wt;
-        } else {
-          sm90::mbar_wait_cluster(&xfull[2 * (t & 1) + wg], (t >> 1) & 1);
-          other = x4 + (t & 1) * (kWgConsumers * (kWgTb / 8)) + tid;
-        }
-        const bool first = kMode == kColSplit ? wg == 0 : rank == 0;
-        float ov[kWgTb / 2];
-#pragma unroll
-        for (int q = 0; q < kWgTb / 8; ++q) {
-          const float4 o = other[q * (kMode == kColSplit ? 128 : kWgConsumers)];
-          ov[4 * q] = o.x, ov[4 * q + 1] = o.y, ov[4 * q + 2] = o.z, ov[4 * q + 3] = o.w;
-        }
-        if constexpr (kMode == kColSplit) sm90::bar_sync(kBarConsumers, kWgConsumers);  // the buffer is free again
-#pragma unroll
-        for (int e = 0; e < kWgTb / 2; ++e) dc[e] = first ? __fadd_rn(dc[e], ov[e]) : __fadd_rn(ov[e], dc[e]);
-      }
-
-      // relu mask on the code, the l1 term, the bias gradient; then bf16(dc^T)
-      // as the register A operand of the second gradient product
-#pragma unroll
-      for (int j = 0; j < kWgTb / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int b = 8 * j + 2 * t4 + (e & 1), n = rbase + g + 8 * (e >> 1);
-          const float cv = __bfloat162float(*reinterpret_cast<const bf16*>(c_s + sm90::swz(b, n, kWgTb)));
-          const float v = cv > 0.f ? __fadd_rn(dc[4 * j + e], l1b) : 0.f;
-          dc[4 * j + e] = v;
-          gb[e >> 1] = __fadd_rn(gb[e >> 1], v);
-        }
-      uint32_t af[kWgTb / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kWgTb / 16; ++kk)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) af[kk][q] = sm90::pack_bf16(dc[8 * kk + 2 * q], dc[8 * kk + 2 * q + 1]);
-
-      // g += bf16(dc)^T . x (depth kWgTb)
-      sm90::wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgTb / 16; ++kk)
-        sm90::wgmma_rs<kNw, 1>(acc, af[kk], sm90::desc(xs + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
-      sm90::wg_commit();
-      sm90::wg_wait<0>();
-      sm90::fence_regs(acc);
-      if (wt == 0) sm90::mbar_arrive(&empty[s]);  // this warpgroup is done with stage s
-    };
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % pl.stages;
-      sm90::mbar_wait(&full[s], (t / pl.stages) & 1);
+    // tile t's stage landed; [kRecompute: its code rebuilt]; its partial in dc
+    auto dc_product = [&](int t) {
+      sm90::mbar_wait(&full[t % pl.stages], (t / pl.stages) & 1);
       unsigned char* c_s = stage_of(t) + 2 * S::kX;
       const uint32_t xs = sm90::smem_u32(stage_of(t)), ds = xs + S::kX;
 
@@ -1098,27 +1084,202 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       sm90::wg_commit();
       sm90::wg_wait<0>();
       sm90::fence_regs(dc);
-      // send this warpgroup's partial (column split: into its half of the
-      // buffer; pair split: each consumer to the same thread of the peer,
-      // by st.async into slot t % 2 there, counted on the peer's xfull of
-      // that slot and warpgroup; the peer's warpgroup sends tile t + 2's
-      // into the slot only after it has all of this warpgroup's tile t + 1
-      // partials, so after every read of tile t's here)
-      if constexpr (kMode == kColSplit) {
+    };
+    // g += c^T . dxh of tile t (committed, not waited on)
+    auto c_product = [&](int t) {
+      const uint32_t xs = sm90::smem_u32(stage_of(t)), ds = xs + S::kX, cs = xs + 2 * S::kX;
+      sm90::fence_regs(acc);
+      sm90::wg_fence();
 #pragma unroll
-        for (int q = 0; q < kWgTb / 8; ++q)
-          x4[(wg * (kWgTb / 8) + q) * 128 + wt] = make_float4(dc[4 * q], dc[4 * q + 1], dc[4 * q + 2], dc[4 * q + 3]);
-      } else if constexpr (kMode == kPairSplit) {
-        float4* slot = x4 + (t & 1) * (kWgConsumers * (kWgTb / 8));
-        uint64_t* bar = &xfull[2 * (t & 1) + wg];
-        if (wt == 0) sm90::mbar_expect_tx(bar, 128 * (kWgTb / 2) * 4);
-        const uint32_t peer_bar = sm90::map_rank(sm90::smem_u32(bar), rank ^ 1);
+      for (int kk = 0; kk < kWgTb / 16; ++kk)
+        sm90::wgmma_ss<kNw, 1, 1>(acc, sm90::desc(cs + (rbase / 64) * kPanelX + kk * 2048, kPanelX, 1024),
+                                  sm90::desc(ds + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
+      sm90::wg_commit();
+    };
+    // g += bf16(dc)^T . x of tile t (depth kWgTb) from the A fragments af;
+    // then the stage is released
+    auto x_product = [&](int t, const uint32_t (&af)[kWgTb / 16][4]) {
+      const uint32_t xs = sm90::smem_u32(stage_of(t));
+      sm90::wg_fence();
 #pragma unroll
-        for (int k = 0; k < kWgTb / 8; ++k)
-          sm90::st_async(sm90::map_rank(sm90::smem_u32(slot + k * kWgConsumers + tid), rank ^ 1),
-                         make_float4(dc[4 * k], dc[4 * k + 1], dc[4 * k + 2], dc[4 * k + 3]), peer_bar);
+      for (int kk = 0; kk < kWgTb / 16; ++kk)
+        sm90::wgmma_rs<kNw, 1>(acc, af[kk], sm90::desc(xs + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(acc);
+      if (wt == 0) sm90::mbar_arrive(&empty[t % pl.stages]);  // this warpgroup is done with the stage
+    };
+
+    // the finish of tile t, whose partial is in dc
+    auto finish = [&](int t) {
+      const unsigned char* c_s = stage_of(t) + 2 * S::kX;
+      c_product(t);
+      // the other depth half (column split: the other warpgroup's, in shared
+      // memory; pair split: the peer block's, in slot t % 2); p0 + p1 in
+      // that order
+      if constexpr (kMode != kRowSplit) {
+        const float4* other;
+        if constexpr (kMode == kColSplit) {
+          sm90::bar_sync(kBarConsumers, kWgConsumers);
+          other = x4 + (wg ^ 1) * (kWgTb / 8) * 128 + wt;
+        } else {
+          sm90::mbar_wait_cluster(&xfull[2 * (t & 1) + wg], (t >> 1) & 1);
+          other = x4 + (t & 1) * (kWgConsumers * (kWgTb / 8)) + tid;
+        }
+        const bool first = kMode == kColSplit ? wg == 0 : rank == 0;
+        float ov[kWgTb / 2];
+#pragma unroll
+        for (int q = 0; q < kWgTb / 8; ++q) {
+          const float4 o = other[q * (kMode == kColSplit ? 128 : kWgConsumers)];
+          ov[4 * q] = o.x, ov[4 * q + 1] = o.y, ov[4 * q + 2] = o.z, ov[4 * q + 3] = o.w;
+        }
+        if constexpr (kMode == kColSplit) sm90::bar_sync(kBarConsumers, kWgConsumers);  // the buffer is free again
+#pragma unroll
+        for (int e = 0; e < kWgTb / 2; ++e) dc[e] = first ? __fadd_rn(dc[e], ov[e]) : __fadd_rn(ov[e], dc[e]);
       }
-      finish(t);
+
+      // relu mask on the code, the l1 term, the bias gradient; then bf16(dc^T)
+      // as the register A operand of the second gradient product
+#pragma unroll
+      for (int j = 0; j < kWgTb / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 8 * j + 2 * t4 + (e & 1), n = rbase + g + 8 * (e >> 1);
+          const float cv = __bfloat162float(*reinterpret_cast<const bf16*>(c_s + sm90::swz(b, n, kWgTb)));
+          const float v = cv > 0.f ? __fadd_rn(dc[4 * j + e], l1b) : 0.f;
+          dc[4 * j + e] = v;
+          gb[e >> 1] = __fadd_rn(gb[e >> 1], v);
+        }
+      uint32_t af[kWgTb / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWgTb / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) af[kk][q] = sm90::pack_bf16(dc[8 * kk + 2 * q], dc[8 * kk + 2 * q + 1]);
+
+      x_product(t, af);
+    };
+
+    if constexpr (kMode == kQuadSplit) {
+      // The cluster of four (quad split): block r sums batch columns
+      // [8 r, 8 r + 8) of the four partials in rank order 0 + 1 + 2 + 3 (each
+      // consumer the pieces of the same thread of every block: 4 values), masks
+      // them, takes their bias gradient and sends their bf16 A fragments to
+      // the other three blocks. Tile t + 1's product and pieces go out before
+      // tile t's finish, so they travel while tile t's products run, and each
+      // kind of buffer has two slots (t % 2), with a reduce-scatter and an
+      // all-gather mbarrier a slot and warpgroup. A block sends tile t + 2's
+      // pieces only after it has every other block's tile t fragments, each
+      // sent after that block read its tile t pieces; it sends its tile t + 2
+      // fragments only after it has their tile t + 2 pieces, each sent after
+      // that block read its tile t fragments (its tile t + 1 finish is done).
+      const int src = (int)rank;
+      const float4* scat = x4;  // [2][kCluster - 1][kWgConsumers]: the other blocks' pieces
+      const uint2* gath = reinterpret_cast<const uint2*>(x4 + 2 * (kCluster - 1) * kWgConsumers);  // ... fragments
+      auto peer_of = [&](int q) { return q < src ? q : q - 1; };  // block q's index among this block's peers
+      auto mine_at = [&](int q) { return src < q ? src : src - 1; };  // this block's index among q's peers
+      float own[4];  // this block's piece of the last tile scattered
+      auto scatter = [&](int t) {
+        const int x = t & 1;
+        uint64_t* rs = &xfull[2 * x + wg];
+        if (wt == 0) {  // this slot's phases (its last ones, tile t - 2's, were waited on here)
+          sm90::mbar_expect_tx(rs, (kCluster - 1) * 128 * 16);
+          sm90::mbar_expect_tx(&xfull[4 + 2 * x + wg], (kCluster - 1) * 128 * 8);
+        }
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          if (q == src) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) own[e] = dc[4 * q + e];
+            continue;
+          }
+          const uint32_t slot = sm90::smem_u32(scat + (x * (kCluster - 1) + mine_at(q)) * kWgConsumers + tid);
+          sm90::st_async(sm90::map_rank(slot, q), make_float4(dc[4 * q], dc[4 * q + 1], dc[4 * q + 2], dc[4 * q + 3]),
+                         sm90::map_rank(sm90::smem_u32(rs), q));
+        }
+      };
+      auto finish_quad = [&](int t, const float (&piece)[4]) {
+        const int x = t & 1;
+        const unsigned char* c_s = stage_of(t) + 2 * S::kX;
+        c_product(t);
+        sm90::mbar_wait_cluster(&xfull[2 * x + wg], (t >> 1) & 1);
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          float p[4];
+          if (q == src) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p[e] = piece[e];
+          } else {
+            const float4 o = scat[(x * (kCluster - 1) + peer_of(q)) * kWgConsumers + tid];
+            p[0] = o.x, p[1] = o.y, p[2] = o.z, p[3] = o.w;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = q == 0 ? p[e] : __fadd_rn(v[e], p[e]);
+        }
+        // relu mask on the code, the l1 term, the bias gradient: this block's columns
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 8 * src + 2 * t4 + (e & 1), n = rbase + g + 8 * (e >> 1);
+          const float cv = __bfloat162float(*reinterpret_cast<const bf16*>(c_s + sm90::swz(b, n, kWgTb)));
+          v[e] = cv > 0.f ? __fadd_rn(v[e], l1b) : 0.f;
+          gb[e >> 1] = __fadd_rn(gb[e >> 1], v[e]);
+        }
+        const uint2 frag = make_uint2(sm90::pack_bf16(v[0], v[1]), sm90::pack_bf16(v[2], v[3]));
+        uint64_t* ag = &xfull[4 + 2 * x + wg];
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          if (q == src) continue;
+          const uint32_t slot = sm90::smem_u32(gath + (x * (kCluster - 1) + mine_at(q)) * kWgConsumers + tid);
+          sm90::st_async_v2(sm90::map_rank(slot, q), frag.x, frag.y, sm90::map_rank(sm90::smem_u32(ag), q));
+        }
+        sm90::mbar_wait_cluster(ag, (t >> 1) & 1);
+        // column group j of dc^T is words 2 (j % 2) and 2 (j % 2) + 1 of fragment j / 2
+        uint32_t af[kWgTb / 16][4];
+#pragma unroll
+        for (int j = 0; j < kCluster; ++j) {
+          uint2 w = frag;
+          if (j != src) w = gath[(x * (kCluster - 1) + peer_of(j)) * kWgConsumers + tid];
+          af[j >> 1][2 * (j & 1)] = w.x;
+          af[j >> 1][2 * (j & 1) + 1] = w.y;
+        }
+        x_product(t, af);
+      };
+
+      dc_product(0);
+      scatter(0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const float piece[4] = {own[0], own[1], own[2], own[3]};
+        if (t + 1 < n_tiles) {
+          dc_product(t + 1);
+          scatter(t + 1);
+        }
+        finish_quad(t, piece);
+      }
+    } else {
+      for (int t = 0; t < n_tiles; ++t) {
+        dc_product(t);
+        // send this warpgroup's partial (column split: into its half of the
+        // buffer; pair split: each consumer to the same thread of the peer,
+        // by st.async into slot t % 2 there, counted on the peer's xfull of
+        // that slot and warpgroup; the peer's warpgroup sends tile t + 2's
+        // into the slot only after it has all of this warpgroup's tile t + 1
+        // partials, so after every read of tile t's here)
+        if constexpr (kMode == kColSplit) {
+#pragma unroll
+          for (int q = 0; q < kWgTb / 8; ++q)
+            x4[(wg * (kWgTb / 8) + q) * 128 + wt] = make_float4(dc[4 * q], dc[4 * q + 1], dc[4 * q + 2], dc[4 * q + 3]);
+        } else if constexpr (kMode == kPairSplit) {
+          float4* slot = x4 + (t & 1) * (kWgConsumers * (kWgTb / 8));
+          uint64_t* bar = &xfull[2 * (t & 1) + wg];
+          if (wt == 0) sm90::mbar_expect_tx(bar, 128 * (kWgTb / 2) * 4);
+          const uint32_t peer_bar = sm90::map_rank(sm90::smem_u32(bar), rank ^ 1);
+#pragma unroll
+          for (int k = 0; k < kWgTb / 8; ++k)
+            sm90::st_async(sm90::map_rank(sm90::smem_u32(slot + k * kWgConsumers + tid), rank ^ 1),
+                           make_float4(dc[4 * k], dc[4 * k + 1], dc[4 * k + 2], dc[4 * k + 3]), peer_bar);
+        }
+        finish(t);
+      }
     }
 
     // bias gradient: the row's four lanes, a fixed butterfly
@@ -1128,25 +1289,38 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       gb[h] = __fadd_rn(gb[h], __shfl_xor_sync(0xffffffffu, gb[h], 2));
     }
     constexpr int ldg = ld_f32(kD);
-    if constexpr (kMode == kPairSplit) {
-      // warpgroup w's rows [64 w, 64 w + 64) go to block w's epilogue: its
-      // columns of them into that block's gradient tile (here or in the
-      // peer), once both blocks are done with their stages; then this block
-      // reloads its epilogue rows' dictionary at every column
+    if constexpr (kCluster > 1) {
+      // loop row n goes to block n / kEpiRows's epilogue: this block's
+      // columns of it into that block's gradient tile (here or in a peer),
+      // once every block of the cluster is done with its stages; then this
+      // block reloads its epilogue rows' dictionary at every column
       sm90::cluster_sync();
-      const uint32_t g_dst = sm90::map_rank(sm90::smem_u32(g_s), wg);
 #pragma unroll
-      for (int j = 0; j < kNw / 8; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + g + 8 * h;
+        const int dst = row / S::kEpiRows;
+        const uint32_t g_dst = sm90::map_rank(sm90::smem_u32(g_s + (row % S::kEpiRows) * ldg + col0), dst);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          sm90::st_cluster(g_dst + ((g + 8 * h) * ldg + col0 + 8 * j + 2 * t4) * 4, acc[4 * j + 2 * h],
-                           acc[4 * j + 2 * h + 1]);
-      if (t4 == 0 && wg == (int)rank) {
-        a.g_bias[row0 + 64 * wg + g] = gb[0];
-        a.g_bias[row0 + 64 * wg + g + 8] = gb[1];
+        for (int j = 0; j < kNw / 8; ++j)
+          sm90::st_cluster(g_dst + (8 * j + 2 * t4) * 4, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if constexpr (kMode == kQuadSplit) {  // this block's columns' part, to the row's block
+          if (t4 == 0)
+            sm90::st_cluster_f32(sm90::map_rank(sm90::smem_u32(gbx + rank * S::kEpiRows + row % S::kEpiRows), dst),
+                                 gb[h]);
+        } else if (t4 == 0 && dst == (int)rank) {
+          a.g_bias[row0 + row] = gb[h];
+        }
       }
-      load_dj_swizzled<kAdam, 64, kD>(a, dj_s, (size_t)m * N + epi_n0, 0);
+      load_dj_swizzled<kAdam, S::kEpiRows, kD>(a, dj_s, (size_t)m * N + epi_n0, 0);
       sm90::cluster_sync();
+      if constexpr (kMode == kQuadSplit) {  // the epilogue rows' bias gradient: the parts in rank order
+        if (tid < S::kEpiRows) {
+          float sum = gbx[tid];
+#pragma unroll
+          for (int q = 1; q < kCluster; ++q) sum = __fadd_rn(sum, gbx[q * S::kEpiRows + tid]);
+          a.g_bias[(size_t)m * N + epi_n0 + tid] = sum;
+        }
+      }
     } else {
       sm90::bar_sync(kBarConsumers, kWgConsumers);  // the stages are consumed: they become the gradient tile
 #pragma unroll
@@ -1202,9 +1376,11 @@ int launch_wg(const BwdArgs& a, int M, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// D 128 .. 512: the wgmma mainloop; D 768 and 1024 the WMMA one (3 column
-// blocks a warp at 768, where 32768 / D is no multiple of 32; 32 rows a
-// block at both)
+// D 128 .. 512, and D 1024 on the stored code: the wgmma mainloop; D 768,
+// and D 1024 rebuilding the code, the WMMA one (3 column blocks a warp at
+// 768, where 32768 / D is no multiple of 32; 32 rows a block at both). A
+// launch the chosen mainloop refuses returns its error: no other mainloop
+// is tried.
 template <bool kAdam, int kMu, int kNu, bool kRecompute>
 int launch(const BwdArgs& a, int M, cudaStream_t st) {
   switch (a.D) {
@@ -1212,7 +1388,9 @@ int launch(const BwdArgs& a, int M, cudaStream_t st) {
     case 256: return launch_wg<kAdam, kMu, kNu, kRecompute, 256>(a, M, st);
     case 512: return launch_wg<kAdam, kMu, kNu, kRecompute, 512>(a, M, st);
     case 768: return launch_cols<kAdam, kMu, kNu, kRecompute, 3>(a, M, st);
-    case 1024: return launch_cols<kAdam, kMu, kNu, kRecompute, 4>(a, M, st);
+    case 1024:
+      if constexpr (kRecompute) return launch_cols<kAdam, kMu, kNu, true, 4>(a, M, st);
+      else return launch_wg<kAdam, kMu, kNu, false, 1024>(a, M, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1278,21 +1456,29 @@ int adam_entry(const void* x, const void* dxh, const void* code, const void* nrm
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma mainloop's plan at width D (128, 256 or 512) with int8_moments
-// (0..2) int8 moment tiers: out[0] the stages of its ring, out[1] its
-// dynamic shared memory in bytes. Returns cudaErrorInvalidValue at another D.
-template <bool kRecompute>
-int plan_entry(int D, int int8_moments, int* out) {
-  WgPlan p{};
-  switch (D) {
-    case 128: p = wg_plan<128, kRecompute>(int8_moments); break;
-    case 256: p = wg_plan<256, kRecompute>(int8_moments); break;
-    case 512: p = wg_plan<512, kRecompute>(int8_moments); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The wgmma mainloop's plan at width D (128, 256 or 512; 1024 on the stored
+// code) with int8_moments (0..2) int8 moment tiers: out[0] the stages of its
+// ring, out[1] its dynamic shared memory in bytes, out[2] the blocks of its
+// cluster. Returns cudaErrorInvalidValue at a width it does not run.
+template <int kD, bool kRecompute>
+int plan_of(int int8_moments, int* out) {
+  const WgPlan p = wg_plan<kD, kRecompute>(int8_moments);
   out[0] = p.stages;
   out[1] = (int)p.total;
+  out[2] = WgShape<kD, kRecompute>::kCluster;
   return 0;
+}
+template <bool kRecompute>
+int plan_entry(int D, int int8_moments, int* out) {
+  switch (D) {
+    case 128: return plan_of<128, kRecompute>(int8_moments, out);
+    case 256: return plan_of<256, kRecompute>(int8_moments, out);
+    case 512: return plan_of<512, kRecompute>(int8_moments, out);
+    case 1024:
+      if constexpr (kRecompute) return (int)cudaErrorInvalidValue;
+      else return plan_of<1024, false>(int8_moments, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -98,11 +98,14 @@ LAUNCHES = LaunchCounts((
 SALT_MU_INT8, SALT_NU_INT8, SALT_NU_BF16 = 0x5117A55A, 0x00A11CE5, 0
 TIED_SEED_TILE = 256
 
-# the widths the kernels are written for. The dense K2/K3 blocks take 128
-# dictionary rows at D 128 and 256 and at D 512 on the stored code (a cluster
-# of two blocks), 64 rows at D 512 rebuilding the code and 32 at D 768 and
-# 1024 (csrc/tied_sae_bwd.cuh, which holds its tiles and shared-memory plans
-# and asserts that each divides K1's 128-column tile)
+# the widths the kernels are written for. The dense K2/K3 run the wgmma
+# mainloop at D 128, 256 and 512, and at D 1024 on the stored code: blocks of
+# 128 dictionary rows at D 128 and 256, 128 rows shared by a cluster of two
+# blocks at D 512 and of four at D 1024 on the stored code, 64 rows at D 512
+# rebuilding the code; D 768, and D 1024 rebuilding the code, keep the WMMA
+# mainloop's 32-row blocks (csrc/tied_sae_bwd.cuh, which holds its tiles and
+# shared-memory plans and asserts that each block's, or cluster's, rows
+# divide K1's 128-column tile)
 WIDTHS = (128, 256, 512, 768, 1024)
 # the widths at which K1 and K1n run the pipelined encode → decode (64-row
 # blocks, TMA stages, `wgmma`); 768 and 1024 keep the WMMA kernels

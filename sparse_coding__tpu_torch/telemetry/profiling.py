@@ -171,9 +171,11 @@ class TraceTrigger:
         whole window, one boundary-to-boundary window is captured). It is
         written into ``<out_dir>/trace_step<N>``. `from_env` reads
         ``SC_TRACE_WINDOW="N:M"`` and ``SC_TRACE_DIR``.
-      - **anomaly**: `AnomalyGuard` calls ``fire(reason=...)`` on the first
-        anomaly; the capture starts at once and stops at the next
-        ``on_step`` call. One a run.
+      - **anomaly** (``on_anomaly=True``, the default): `AnomalyGuard` calls
+        ``fire(reason=...)`` on the first anomaly; the capture starts at once
+        and stops after ``anomaly_windows`` further ``on_step`` calls (at
+        least 1). One a run. With ``on_anomaly=False`` `fire` starts
+        nothing.
 
     Every capture emits a ``trace`` event (``dir``, ``reason``,
     ``start_step``, ``stop_step``, and the host seconds the profiler took
@@ -183,11 +185,14 @@ class TraceTrigger:
     directory."""
 
     def __init__(self, telemetry=None, out_dir: Optional[str] = None, start_step: Optional[int] = None,
-                 stop_step: Optional[int] = None, trace_dir: Optional[str] = None):
+                 stop_step: Optional[int] = None, on_anomaly: bool = True, anomaly_windows: int = 1,
+                 trace_dir: Optional[str] = None):
         self.telemetry = telemetry
         self.out_dir = Path(out_dir) if out_dir is not None else None
         self.start_step = start_step
         self.stop_step = stop_step
+        self.on_anomaly = bool(on_anomaly)
+        self.anomaly_windows = max(1, int(anomaly_windows))
         self._trace_dir_override = trace_dir
         self._active: Optional[str] = None       # dir of the window WE started
         self._active_reason: Optional[str] = None
@@ -195,7 +200,7 @@ class TraceTrigger:
         self._active_start_s: Optional[float] = None
         self._window_done = False                # the step window fires once
         self._anomaly_fired = False              # the first anomaly only
-        self._stop_next = False                  # stop at the next on_step call
+        self._stop_after: Optional[int] = None   # countdown of on_step calls
         self.last_trace_dir: Optional[str] = None
 
     @classmethod
@@ -222,22 +227,22 @@ class TraceTrigger:
         return str(base / f"trace_{tag}")
 
     def _start(self, log_dir: str, reason: str, step: Optional[int]) -> Optional[str]:
-        from sparse_coding__tpu_torch.utils import trace as trace_mod
+        from sparse_coding__tpu_torch.utils.trace import start_trace_safe
 
         t0 = time.perf_counter()
-        if not trace_mod.start_trace_safe(log_dir):
+        if not start_trace_safe(log_dir):
             return None
         self._active, self._active_reason, self._active_start_step = log_dir, reason, step
         self._active_start_s = time.perf_counter() - t0
         return log_dir
 
     def _stop(self, step: Optional[int] = None):
-        from sparse_coding__tpu_torch.utils import trace as trace_mod
+        from sparse_coding__tpu_torch.utils.trace import stop_trace_safe
 
         if self._active is None:
             return
         t0 = time.perf_counter()
-        trace_mod.stop_trace_safe()
+        stop_trace_safe()
         stop_s = time.perf_counter() - t0
         self.last_trace_dir = self._active
         if self.telemetry is not None:
@@ -246,7 +251,7 @@ class TraceTrigger:
                                  start_s=round(self._active_start_s, 4), stop_s=round(stop_s, 4))
             self.telemetry.counter_inc("trace.captures")
         self._active = self._active_reason = None
-        self._stop_next = False
+        self._stop_after = None
 
     @property
     def active(self) -> bool:
@@ -257,7 +262,11 @@ class TraceTrigger:
         train-step count. Host-side integer compares only."""
         step = int(step)
         if self._active is not None:
-            if self._stop_next or (self.stop_step is not None and step >= self.stop_step):
+            if self._stop_after is not None:
+                self._stop_after -= 1
+                if self._stop_after <= 0:
+                    self._stop(step)
+            elif self.stop_step is not None and step >= self.stop_step:
                 self._stop(step)
             return
         if (not self._window_done and self.start_step is not None and self.stop_step is not None
@@ -267,19 +276,21 @@ class TraceTrigger:
             if started is not None and step >= self.stop_step:
                 # boundaries coarser than the window: capture one
                 # boundary-to-boundary window from here, not nothing
-                self._stop_next = True
+                self._stop_after = 1
 
     def fire(self, reason: str = "anomaly", step: Optional[int] = None) -> Optional[str]:
-        """Anomaly-path arming: start a capture now, stopping at the next
-        `on_step` call. Returns its directory when a capture started (the
-        first anomaly, profiler free), else None; a refused start leaves the run's one anomaly capture unused."""
-        if self._anomaly_fired or self._active is not None:
+        """Anomaly-path arming: start a capture now, stopping after
+        `anomaly_windows` further `on_step` calls. Returns its directory when
+        a capture started (anomaly arming on, the first anomaly, profiler
+        free), else None; a refused start leaves the run's one anomaly
+        capture unused."""
+        if not self.on_anomaly or self._anomaly_fired or self._active is not None:
             return None
         tag = f"anomaly_step{step}" if step is not None else "anomaly"
         started = self._start(self._dir_for(tag), reason, step)
         if started is not None:
             self._anomaly_fired = True
-            self._stop_next = True
+            self._stop_after = self.anomaly_windows
         return started
 
     def close(self, step: Optional[int] = None):

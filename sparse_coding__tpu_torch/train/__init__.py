@@ -1,5 +1,5 @@
 """Training drivers (counterpart of `sparse_coding__tpu/train`, with its
-names; the sweep's `format_hyperparam_val` is not ported). The drivers `sweep` and `basic_l1_sweep` keep
+names). The drivers `sweep` and `basic_l1_sweep` keep
 their submodules' names here (``from sparse_coding__tpu_torch.train import
 sweep`` is the module; its function is ``sweep.sweep``)."""
 
@@ -19,6 +19,7 @@ from sparse_coding__tpu_torch.train.preemption import (
 )
 from sparse_coding__tpu_torch.train.sweep import (
     filter_learned_dicts,
+    format_hyperparam_val,
     init_model_dataset,
     init_synthetic_dataset,
     log_sweep_metrics,

@@ -236,14 +236,15 @@ def ensemble_train_loop(
     dataset: torch.Tensor,
     batch_size: int,
     key: int,
+    logger: Optional[MetricLogger] = None,
+    log_every: int = 16,
+    fista_update: Optional[bool] = None,
+    fista_iters: int = 500,
+    fista_tol: float = 0.0,
     progress_callback: Optional[Callable[[int, int], None]] = None,
     scan_steps: int = 8,
     dead_check: bool = True,
     bulk_shuffle_max_bytes: int = 2 << 30,
-    fista_iters: int = 500,
-    fista_tol: float = 0.0,
-    logger: Optional[MetricLogger] = None,
-    log_every: int = 16,
     telemetry=None,
 ) -> Dict[str, torch.Tensor]:
     """Train the ensemble for one pass over ``dataset`` [N, d] (on the
@@ -256,10 +257,10 @@ def ensemble_train_loop(
     `Ensemble.step_scan_idx` takes ``scan_steps`` batches at a time (the
     remainder one at a time), gathering each from ``dataset``.
 
-    A signature with ``has_fista_decoder_update`` takes ``scan_steps`` 1,
-    and each `Ensemble.step_batch` is followed by
-    `make_fista_decoder_update` (``fista_iters``, ``fista_tol``) on the same
-    batch and the step's code.
+    With the FISTA decoder update on (``fista_update``; None: the
+    signature's ``has_fista_decoder_update``) ``scan_steps`` is 1, and each
+    `Ensemble.step_batch` is followed by `make_fista_decoder_update`
+    (``fista_iters``, ``fista_tol``) on the same batch and the step's code.
 
     A sharded ensemble (`Ensemble.shard`): every rank draws the same
     permutation from the same generator and hands `Ensemble.step_scan` the
@@ -274,9 +275,10 @@ def ensemble_train_loop(
     if telemetry is not None:
         telemetry.gauge_set("train.fused", float(bool(ensemble.fused)))
         telemetry.gauge_set("train.fused_adam", float(ensemble.fused_adam is not None))
-    fista_fn = None
-    if getattr(ensemble.sig, "has_fista_decoder_update", False):
-        fista_fn = make_fista_decoder_update(fista_iters, tol=fista_tol)
+    if fista_update is None:
+        fista_update = bool(getattr(ensemble.sig, "has_fista_decoder_update", False))
+    fista_fn = make_fista_decoder_update(fista_iters, tol=fista_tol) if fista_update else None
+    if fista_fn is not None:
         scan_steps = 1
     n = dataset.shape[0]
     n_batches = n // batch_size

@@ -67,7 +67,7 @@ from sparse_coding__tpu_torch.train.loop import DriverCheckpointer, ensemble_tra
 from sparse_coding__tpu_torch.train.preemption import Preempted, ResumableAbort, resume_requested
 from sparse_coding__tpu_torch.utils.device import resolve_device
 from sparse_coding__tpu_torch.utils.faults import fault_point
-from sparse_coding__tpu_torch.utils.logging import MetricLogger, make_hyperparam_name
+from sparse_coding__tpu_torch.utils.logging import MetricLogger, format_hyperparam_val, make_hyperparam_name
 from sparse_coding__tpu_torch.utils.tree import tree_map
 
 SAVE_CHUNKS = {2**j for j in range(3, 10)}  # 8, 16, ..., 512

@@ -72,11 +72,20 @@ from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
 pytestmark = pytest.mark.cuda
 
-# M, B, N, D: every width the kernels take (D 768 single-buffers x, D 1024
-# runs 16-row batch stages), then the two main paths' full shapes (tied SAE,
-# TopK config 4)
+# M, B, N, D: every width the kernels take (the dense K2/K3 at D 768 and K2
+# rebuilding the code at D 1024 run the WMMA mainloop, D 768 single-buffering
+# x and D 1024 in 16-row batch stages; D 1024 on the stored code runs the
+# wgmma mainloop in a cluster of four blocks), then the two main paths' full
+# shapes (tied SAE, TopK config 4)
 SHAPES = [(2, 256, 512, 128), (2, 128, 256, 256), (2, 256, 512, 768), (2, 256, 256, 1024),
           (8, 2048, 4096, 512), (7, 2048, 12288, 768)]
+# M, B, N, D at D 1024 on the stored code (a cluster of four blocks): one
+# cluster (N 128) at the smallest batch, a batch that wraps the ring of three
+# stages unevenly (B 320: 10 tiles), then BASELINE config 5 (Pythia-410M's
+# residual, 32x): K2 at its batch of 2048, K3 at the data axis' local batch
+# of 1024
+QUAD_SMALL = [(2, 64, 128, 1024), (3, 320, 256, 1024)]
+QUAD_K2_FULL, QUAD_K3_FULL = (4, 2048, 32768, 1024), (4, 1024, 32768, 1024)
 # M, B, N, D and k per member: the CPU tests' shape, then BASELINE config 4
 TOPK_SHAPES = [((2, 256, 512, 128), (7, 31)), ((7, 2048, 12288, 768), (1, 11, 31, 61, 91, 121, 151))]
 LR = 1e-3
@@ -161,7 +170,7 @@ def _hold_adam_step(step, d_raw, g_p, mu_dtype, seed):
     return out
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + QUAD_SMALL + [QUAD_K2_FULL])
 @pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
 def test_bwd_adam_kernel_matches_plain(cuda, shape, mu_dtype):
     M, B, N, D = shape
@@ -169,20 +178,25 @@ def test_bwd_adam_kernel_matches_plain(cuda, shape, mu_dtype):
     c, dxh, _, _ = tk._fwd_plain(xb, db, bias, 2.0 / (B * D))
     dj = (d_raw / nrm[..., None]).to(torch.bfloat16)
     gr, gb_p = tk._grads_plain(xb, dxh, c, nrm, dj, l1b)
+    tk.reset_launches()
     out = _hold_adam_step(
         lambda d, mu, nu, bc: tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d, mu, nu, l1b, bc, *HP),
         d_raw, gr, mu_dtype, seed=2,
     )
+    assert tk.LAUNCHES["tied_sae_bwd_adam"] == 2  # steps 1 and 10
     assert_grads_close(out[3], gb_p, "g_bias")
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + QUAD_SMALL + [QUAD_K3_FULL])
 def test_bwd_grads_kernel_matches_plain(cuda, shape):
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=3)
     c, dxh, _, _ = tk._fwd_plain(xb, db, bias, 2.0 / (B * D))
+    tk.reset_launches()
     g_k, gb_k = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
     g_p, gb_p = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tied_sae_bwd_grads"] == 1
     assert_grads_close(g_k, g_p, "g_enc")
     assert_grads_close(gb_k, gb_p, "g_bias")
 
@@ -561,11 +575,16 @@ def test_fwd_nocode_gives_the_same_bits_twice(cuda, shape):
     assert all(same_bits(a, b) for a, b in zip(*outs))
 
 
-@pytest.mark.parametrize("shape", SHAPES[:4] + SHAPES[4:5])
+@pytest.mark.parametrize("shape", SHAPES[:3] + SHAPES[4:5])
 @pytest.mark.parametrize("tiers", [("bfloat16", "float32")] + TIERS)
 def test_bwd_adam_rebuild_is_bit_identical_to_the_stored_code(cuda, shape, tiers):
     """K2 rebuilding the code from x, D̂ and the bias == K2 on K1's stored
-    code: d_new, the moments (codes and scales) and g_bias, bit for bit."""
+    code: d_new, the moments (codes and scales) and g_bias, bit for bit, at
+    every width where both routes run one mainloop. At D 1024 the stored
+    code runs the wgmma mainloop and the rebuild the WMMA one, which sum in
+    other orders (a fault against JAX's recompute, ROADMAP C8); there
+    `test_bwd_adam_compressed_epilogue_matches_plain` holds the rebuild in
+    these tiers."""
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=5)
     c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
@@ -580,23 +599,46 @@ def test_bwd_adam_rebuild_is_bit_identical_to_the_stored_code(cuda, shape, tiers
         assert same_bits(a, b)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("tiers", TIERS)
-def test_bwd_adam_compressed_epilogue_matches_plain(cuda, shape, tiers):
-    """K2's epilogue against `_adam_plain` on the same gradient (K3's, which
-    runs K2's gradient code on the same bf16 rows): the stochastic stores
-    draw the same counter-hash bits, so int8 codes and bf16 nu agree in
-    >= 99.9% of elements, never more than one code or ulp apart, scales
-    within 1e-6."""
+# (mu, nu) storage tiers, all nine
+ALL_TIERS = [(mu, nu) for mu in ("float32", "bfloat16", "int8") for nu in ("float32", "bfloat16", "int8")]
+# shape, (mu, nu) tiers and whether K2 rebuilds the code: every width on the
+# stored code in the compressed tiers; D 1024's cluster of four in every
+# tier, at one cluster and at config 5; K2 rebuilding the code at D 1024 (the
+# WMMA mainloop) in the tiers the bit-identity test takes at other widths
+EPILOGUE_CASES = ([(s, t, False) for s in SHAPES for t in TIERS]
+                  + [(s, t, False) for s in (QUAD_SMALL[0], QUAD_K2_FULL) for t in ALL_TIERS]
+                  + [(SHAPES[3], t, True) for t in [("bfloat16", "float32")] + TIERS])
+
+
+@pytest.mark.parametrize("shape,tiers,rebuild", EPILOGUE_CASES)
+def test_bwd_adam_compressed_epilogue_matches_plain(cuda, shape, tiers, rebuild):
+    """K2's epilogue against `_adam_plain` on the same gradient: the
+    stochastic stores draw the same counter-hash bits, so int8 codes and bf16
+    nu agree in >= 99.9% of elements, never more than one code or ulp apart,
+    scales within 1e-6. On the stored code the gradient is K3's, which runs
+    K2's gradient code on the same bf16 rows. Rebuilding the code (D 1024,
+    where no K3 runs that mainloop) it is the one K2 itself leaves in f32 mu
+    from zero moments at b1 = 0 (mu_new = 1 * g exactly), held against the
+    plain gradient of K1's code, with that launch's g_bias."""
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=8)
     c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
-    g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+    if rebuild:
+        zeros = torch.zeros_like(d_raw)
+        bc1 = torch.tensor([[1.0, 1 - HP[2]]] * M, device=cuda)
+        _, g, _, gb = tk.tied_sae_bwd_adam(xb, dxh, None, nrm, d_raw.clone(), zeros.clone(), zeros.clone(), l1b,
+                                           bc1, LR, 0.0, *HP[2:], bias=bias)
+        g_p, gb_p = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
+        assert_grads_close(g, g_p, "g_enc")
+        assert_grads_close(gb, gb_p, "g_bias")
+    else:
+        g, gb = tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
     mu, nu = _moments(d_raw, *tiers, seed=9)
     bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
     seed_tile = 128 if D == 768 else tk.TIED_SEED_TILE
-    d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu),
-                                                 l1b, bc, *HP, seed=11, seed_tile=seed_tile)
+    d_k, mu_k, nu_k, gb_k = tk.tied_sae_bwd_adam(xb, dxh, None if rebuild else c, nrm, d_raw.clone(),
+                                                 clone_moment(mu), clone_moment(nu), l1b, bc, *HP, seed=11,
+                                                 seed_tile=seed_tile, bias=bias if rebuild else None)
     d_p, mu_p, nu_p = tk._adam_plain(g, d_raw, mu, nu, bc, *HP, seed=11, seed_tile=seed_tile)
     torch.cuda.synchronize()
     assert torch.equal(gb_k, gb)
@@ -675,7 +717,7 @@ def test_dense_wgmma_route_matches_plain(cuda, shape):
     assert all(same_bits(a, b) for a, b in zip(*outs))
 
 
-@pytest.mark.parametrize("shape", [WG_CASES[2], SHAPES[4]])
+@pytest.mark.parametrize("shape", [WG_CASES[2], SHAPES[4], QUAD_SMALL[0], QUAD_K2_FULL])
 @pytest.mark.parametrize("variant", ["grads"] + K2_VARIANTS)
 def test_dense_route_gives_the_same_bits_twice(cuda, shape, variant):
     """No float atomics, a fixed order for every sum (the dc depth halves
@@ -696,6 +738,46 @@ def test_dense_route_gives_the_same_bits_twice(cuda, shape, variant):
                 for _ in range(2)]
     torch.cuda.synchronize()
     assert all(same_bits(a, b) for a, b in zip(*outs))
+
+
+# -- the dense route at D 1024 on the stored code: a cluster of four ------------
+
+
+def test_dense_d1024_plans_and_launches_a_cluster_of_four(cuda):
+    """The built libraries' plan at D 1024 on the stored code: clusters of
+    four blocks, at least two stages, within the shared memory a block may
+    use, in every int8 tier; the rebuilt route's library has no wgmma plan
+    there. A traced K3 and K2 at D 1024 run `wg_bwd_kernel<…, 1024>` and no
+    WMMA `bwd_kernel`."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparse_coding__tpu_torch.ops import _build
+    from sparse_coding__tpu_torch.ops._wrap import MAX_SMEM
+
+    libs = _build.load()
+    for i8 in (0, 1, 2):
+        got = (ctypes.c_int * 3)()
+        assert libs["tied_sae_bwd"].sc_tied_sae_bwd_plan(1024, i8, ctypes.addressof(got)) == 0
+        stages, smem, cluster = list(got)
+        assert cluster == 4 and stages >= 2 and smem <= MAX_SMEM, (i8, list(got))
+        assert libs["tied_sae_bwd_rc"].sc_tied_sae_bwd_plan(1024, i8, ctypes.addressof(got)) != 0
+    shape = QUAD_SMALL[0]
+    M, B, N, D = shape
+    d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=40)
+    c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    mu, nu = _moments(d_raw, "bfloat16", "float32", seed=41)
+    bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
+        tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), mu, nu, l1b, bc, *HP)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert any("wg_bwd_kernel<false, 0, 0, false, 1024>" in n for n in names), names
+    assert any("wg_bwd_kernel<true, 1, 0, false, 1024>" in n for n in names), names
+    assert not any("::bwd_kernel<" in n for n in names), names
 
 
 # K_f: M, B, N, D, iterations — the shape where JAX picks `_fista_kernel`,

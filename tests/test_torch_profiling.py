@@ -314,7 +314,7 @@ def test_trigger_close_stops_inflight_capture(tmp_path, fake_profiler):
 def test_a_real_profiler_window_writes_a_chrome_trace(tmp_path):
     """torch.profiler, started and stopped from code; a second start while
     the window is open warns and returns False (one session a process)."""
-    from sparse_coding__tpu_torch.utils import trace as ttrace
+    ttrace = importlib.import_module("sparse_coding__tpu_torch.utils.trace")  # `utils.trace` is the function
 
     assert ttrace.start_trace_safe(str(tmp_path / "w"))
     try:

@@ -312,7 +312,9 @@ def test_topk_trains_over_a_chunk_store(tmp_path):
     assert ens.state.step == 8 and sum(tk.LAUNCHES.values()) == 0
     assert float(loss().mean()) < float(before.mean())
     assert not warn_if_ensemble_dead(ens, probe)
-    c = TopKEncoderApprox.encode(ens.state.params, ens.state.buffers, probe)
+    params, buffers = ens.state.params, ens.state.buffers
+    c = TopKEncoderApprox.encode(probe, buffers, ttopk._norm_rows(params["dict"]),
+                                 TopKEncoderApprox._cap(params, buffers))
     assert c.shape == (2, 512, 512)
     l0 = (c != 0).sum(-1).float().mean(-1)
     assert (l0 <= torch.tensor(KS)).all()
