@@ -130,11 +130,14 @@ device halves (`paper_experiments`: the PCA-perplexity sweep of 112 dicts,
 the embedding cosines, investigate, a feature case study, the dict
 comparisons; card vs CPU on small inputs).
 Last, scale-out (`scaleout`) at BASELINE config 5's widths (D 1024, N
-32768, 4 tied members, batch 2048, bf16): K1 (the WMMA kernels at D
-1024) and K2 (the wgmma mainloop in clusters of four blocks), K3 at the
-data axis' local batch (the same mainloop) and K_f at FISTA's, each against
-its plain version; a world of one over NCCL in this process (the
-unsharded bits); a world of two processes on the one card over gloo
+32768, 4 tied members, batch 2048, bf16): K1 and K1n (the pipelined kernel
+in clusters of two blocks), K2 on the stored code and rebuilding it (the
+wgmma mainloop in clusters of four blocks), K3 at the data axis' local
+batch (the same mainloop) and K_f at FISTA's, each against its plain
+version; a world of one over NCCL in this process (the unsharded bits, and
+one capacity step, K1n + K2 rebuilding the code, held bit for bit to K1 +
+K2 on the stored code in the same moment tiers); a world of two processes
+on the one card over gloo
 (``chip_smoke.py --scaleout-worker``: the model, data and dict axes held
 to the world of one, FISTA's sharded step, the sweep uninterrupted and with
 one rank SIGTERMed: both checkpoint one cursor and exit 75); the preempted
@@ -311,7 +314,7 @@ HARVEST_TIED = (16, 2048, 4096, 512)  # K1/K2 at the harvest sweep's shape (M, B
 # `ToyArgs`' widths, and `run_single_go` card vs CPU at a smaller shape
 EVAL = dict(rows=64, seed=31, batch=16, ablate=32, positions=(1, 32, 64, 127), pos_feats=8, cpu_rtol=1e-4)
 INTERP = dict(fragments=256, seed=37, batch=32, max_features=200)
-TOY = dict(epochs=400, single=dict(activation_dim=256, n_ground_truth_components=512, n_components_dictionary=1024,
+TOY = dict(epochs=200, single=dict(activation_dim=256, n_ground_truth_components=512, n_components_dictionary=1024,
                                    batch_size=1024, epochs=10))
 # long-context harvest (ROADMAP A5r): layer 2 of the pretrained subject at seq
 # 8192 (blockwise vs dense, JAX's pins), then 2 sequences of 32768 harvested
@@ -356,9 +359,9 @@ SERVE = dict(max_batch=1024, topk=32, seq=128, rows_seed=23, token_rows=256, tok
 # the replicated tier (ROADMAP A7b) on that export: the replicaset CLI at its
 # default max_batch 256 with 2 replicas, 8 closed-loop RouterClient threads
 # (dense json of 1..64 rows and top-k 32); load windows before the kill and
-# after the swap, and 8 x 25 requests a turn for the 1-vs-2-replica and
+# after the swap, and 8 x 12 requests a turn for the 1-vs-2-replica and
 # direct-vs-router comparisons
-SERVE_TIER = dict(replicas=2, clients=8, max_rows=64, topk=32, before_s=4.0, after_s=3.0, compare_requests=25,
+SERVE_TIER = dict(replicas=2, clients=8, max_rows=64, topk=32, before_s=4.0, after_s=3.0, compare_requests=12,
                   seed=303, ready_timeout_s=300.0, readmit_timeout_s=180.0, swap_timeout_s=240.0)
 # the shape at which the JAX package picks `_fista_kernel` (`pallas_fits`);
 # at config 3 it picks `_fista_kernel_hbm_dict`
@@ -375,6 +378,13 @@ WMMA_MAINLOOP_MS = {"stored code, mu bf16, nu f32": 2.147, "code rebuilt, mu int
 # (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W), by kernel; printed
 # beside this run's times as "was_ms"
 WMMA_D1024_MS = {"tied_sae_bwd_adam": 22.671, "tied_sae_bwd_grads": 10.660}
+# K1's, K1n's and K2-rebuilding-the-code's (int8 mu, bf16 nu) times at
+# config 5 on the WMMA kernels that the pipelined pair split and the
+# cluster of four replaced: K1's `encode_kernel` + `decode_kernel`
+# (chip_smoke.py), K1n's `nocode_kernel<32, 4>` and K2's `bwd_kernel<…, 4>`
+# (scripts/torch_kernel_ab.py --configs 5, the parent's two turns' mean),
+# on an NVIDIA H100 80GB HBM3, 700 W; printed beside this run's as "was_ms"
+WMMA_D1024_FWD_MS = {"tied_sae_fwd": 7.417, "tied_sae_fwd_nocode": 11.985, "tied_sae_bwd_adam_rc": 41.054}
 # K1's, K1n's, K_d's and K_s's times in their first designs (WMMA tiles: K1
 # an encode and a decode launch with the code between them in device memory,
 # K_d a dense masked product, K1n three phases between block barriers, K_s
@@ -410,8 +420,13 @@ def keep_run(name: str, src: Path, root: Path, patterns=("*.jsonl",)) -> None:
     KEPT_RUNS[name] = dst
 
 
+# when this process loaded the script: every phase line carries its seconds
+# since then as "t_s", so a phase's wall is the difference of two lines'
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -488,11 +503,16 @@ def grads_close(torch, a, b, what: str, max_rel: float = 1e-2, min_cos: float = 
 def wgmma_plans(libs):
     """The dense K2/K3's wgmma plans as the built libraries compute them
     (`sc_tied_sae_bwd_plan`): stages, dynamic shared memory bytes and the
-    blocks of a cluster by width, code (stored or rebuilt; D 1024 on the
-    stored code only) and int8 moment tiers."""
+    blocks of a cluster by width, code (stored or rebuilt) and int8 moment
+    tiers; and K1/K1n's pipelined plan by width (`sc_tied_sae_fwd_plan`)."""
     out = {}
+    for d in (128, 256, 512, 1024):
+        got = (ctypes.c_int * 3)()
+        if libs["tied_sae_fwd"].sc_tied_sae_fwd_plan(d, ctypes.addressof(got)) != 0:
+            raise RuntimeError(f"sc_tied_sae_fwd_plan refused D {d}")
+        out[f"fwd_d{d}"] = {"stages": got[0], "smem_bytes": got[1], "cluster": got[2]}
     for lib, code, widths in (("tied_sae_bwd", "stored", (128, 256, 512, 1024)),
-                              ("tied_sae_bwd_rc", "rebuilt", (128, 256, 512))):
+                              ("tied_sae_bwd_rc", "rebuilt", (128, 256, 512, 1024))):
         for d in widths:
             for i8 in (0, 1, 2):
                 got = (ctypes.c_int * 3)()
@@ -503,8 +523,8 @@ def wgmma_plans(libs):
 
 
 def dense_bwd_variant(D: int) -> str:
-    """The dense K2/K3's mainloop at width D on the stored code, as a kernel
-    row's variant ends ("": the wgmma mainloop at D <= 512)."""
+    """The dense K2/K3's mainloop at width D (the code stored or rebuilt),
+    as a kernel row's variant ends ("": the wgmma mainloop at D <= 512)."""
     if D <= 512:
         return ""
     return ", wgmma wg_bwd_kernel in clusters of four" if D == 1024 else ", WMMA bwd_kernel"
@@ -522,11 +542,13 @@ def cuda_kernel_names(torch, fn) -> dict:
 
 
 def d1024_mainloop(torch, tk) -> dict:
-    """The dense K3 and K2 (f32 moments) at D 1024 on the stored code, one
-    launch each at one cluster's shape (M 2, B 64, N 128), under a profiler
-    trace: the card must run `wg_bwd_kernel<…, 1024>` for both and no WMMA
-    `bwd_kernel`, the mainloop the config 5 rows name. Returns the kernels'
-    names and executions."""
+    """K1, K1n, the dense K3, K2 (f32 moments) on the stored code and K2
+    rebuilding it at D 1024, one launch each at one cluster's shape (M 2,
+    B 64, N 128), under a profiler trace: the card must run
+    `pp_fwd_kernel<1024, …>` for K1 and K1n, `wg_bwd_kernel<…, 1024>` for
+    the three others, and no WMMA `encode_kernel`, `decode_kernel`,
+    `nocode_kernel` or `bwd_kernel`: the kernels the config 5 rows name.
+    Returns the kernels' names and executions."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1024)
     M, B, N, D = 2, 64, 128, 1024
@@ -540,15 +562,21 @@ def d1024_mainloop(torch, tk) -> dict:
     mu, nu = torch.zeros_like(d_raw), torch.zeros_like(d_raw)
     bc = torch.tensor([[1 - B1, 1 - B2]] * M, device=dev)
     torch.cuda.synchronize()
-    names = cuda_kernel_names(torch, lambda: (tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b),
-                                              tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw, mu, nu, l1b, bc,
-                                                                   LR, B1, B2, EPS)))
+    names = cuda_kernel_names(torch, lambda: (tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D)),
+                                              tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D)),
+                                              tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b),
+                                              tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), mu.clone(),
+                                                                   nu.clone(), l1b, bc, LR, B1, B2, EPS),
+                                              tk.tied_sae_bwd_adam(xb, dxh, None, nrm, d_raw, mu, nu, l1b, bc,
+                                                                   LR, B1, B2, EPS, bias=bias)))
 
     def ran(kernel):
         return any(kernel in n for n in names)
 
-    check(ran("wg_bwd_kernel<false, 0, 0, false, 1024>") and ran("wg_bwd_kernel<true, 0, 0, false, 1024>")
-          and not ran("::bwd_kernel<"), f"the D 1024 K3 and K2 ran {sorted(names)}")
+    want = ("pp_fwd_kernel<1024, true>", "pp_fwd_kernel<1024, false>", "wg_bwd_kernel<false, 0, 0, false, 1024>",
+            "wg_bwd_kernel<true, 0, 0, false, 1024>", "wg_bwd_kernel<true, 0, 0, true, 1024>")
+    gone = ("::encode_kernel(", "::decode_kernel(", "::nocode_kernel<", "::bwd_kernel<")
+    check(all(ran(k) for k in want) and not any(ran(k) for k in gone), f"the D 1024 kernels ran {sorted(names)}")
     return names
 
 
@@ -559,13 +587,17 @@ def parse_ptxas(log: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(sparse_bwd_kernel|wg_bwd_kernel|encode_kernel|decode_kernel|bwd_kernel|"
-                              r"scores_kernel|select_kernel|residual_kernel|update_kernel)", name)
+            short = re.search(r"(sparse_bwd_kernel|wg_bwd_kernel|pp_fwd_kernel|nocode_kernel|encode_kernel|"
+                              r"decode_kernel|bwd_kernel|scores_kernel|select_kernel|residual_kernel|update_kernel)",
+                              name)
             tmpl = re.search(r"ILb(\d)ELb(\d)ELi(\d)E", name)
             sparse = re.search(r"sparse_bwd_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E", name)
             dense = re.search(r"(wg_bwd_kernel|bwd_kernel)ILb(\d)ELi(\d)ELi(\d)ELb(\d)ELi(\d+)E", name)
+            fwd = re.search(r"pp_fwd_kernelILi(\d+)ELb(\d)E", name)
             label = short.group(1) if short else name
-            if sparse:
+            if fwd:
+                label += "<d={},store_code={}>".format(*fwd.groups())
+            elif sparse:
                 label += "<adam={},mu_tier={},nu_tier={},d={}>".format(*sparse.groups()[:3], 128 * int(sparse.group(4)))
             elif dense:
                 last = "d" if dense.group(1) == "wg_bwd_kernel" else "cols"
@@ -1626,12 +1658,14 @@ def phase_topk_kernels(torch, tk, kk):
     return rows, capacity_rows
 
 
-def tied_kernel_rows(torch, tk, g, shape):
+def tied_kernel_rows(torch, tk, g, shape, capacity: bool = False):
     """K1, then K2 on its code (Adam with f32 moments, l1 `logspace(-4, -2,
     M)`), at ``shape`` = (M, B, N, D) on random inputs from ``g``, against
     their plain versions with the main paths' tolerances, timed beside the
-    plain versions, the bound and the `bmm` library calls. Returns the two
-    kernels-line rows."""
+    plain versions, the bound and the `bmm` library calls; with
+    ``capacity`` then K1n and K2 rebuilding the code on the same inputs
+    (`capacity_kernel_rows`). Returns the kernels-line rows: K1, K2 [, K1n,
+    K2 rebuilding the code]."""
     dev = torch.device("cuda")
     M, B, N, D = shape
     shape = f"M={M},B={B},N={N},D={D}"
@@ -1657,14 +1691,15 @@ def tied_kernel_rows(torch, tk, g, shape):
     k1 = dict(name="tied_sae_fwd", source="sparse_coding__tpu_torch/ops/csrc/tied_sae_fwd.cu",
               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:191", shape=shape,
               max_abs_err=float((dxh_k.float() - dxh_p.float()).abs().max()),
-              variant=("pipelined encode -> decode (TMA, wgmma), code stored" if D <= 512 else
-                       "WMMA encode_kernel + decode_kernel, code stored"),
+              variant=fwd_variant(D) + ", code stored",
               ms=time_ms(torch, lambda: tk.tied_sae_fwd(xb, db, bias, scale), 20),
               plain_ms=time_ms(torch, lambda: tk._fwd_plain(xb, db, bias, scale), 5),
               library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 20))
     k1["bound_ms"], k1["bound_by"] = bound(*tk.kernel_work("tied_sae_fwd", M, B, N, D, nnz))
-    emit("kernel", name="tied_sae_fwd", shape=shape, c_frac_differ=frac_c, dxh_frac_differ=frac_d,
-         c_nonzero_frac=nnz / c_k.numel(), ms=k1["ms"], bound_ms=k1["bound_ms"], plain_ms=k1["plain_ms"])
+    emit("kernel", name="tied_sae_fwd", shape=shape, variant=k1["variant"], c_frac_differ=frac_c,
+         dxh_frac_differ=frac_d, c_nonzero_frac=nnz / c_k.numel(), ms=k1["ms"], bound_ms=k1["bound_ms"],
+         plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
+         **({"was_ms": WMMA_D1024_FWD_MS["tied_sae_fwd"]} if D == 1024 else {}))
     del c_p, dxh_p
     l1b = torch.logspace(-4, -2, M, device=dev) / B
     args, k2_err = check_k2(torch, tk, g, torch.float32, (xb, dxh_k, c_k, nrm), d_raw, l1b, f"{shape} mu=f32")
@@ -1680,7 +1715,102 @@ def tied_kernel_rows(torch, tk, g, shape):
     emit("kernel", name="tied_sae_bwd_adam", shape=shape, variant=k2["variant"], max_abs_err_d_new=k2_err,
          ms=k2["ms"], bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
          **({"was_ms": WMMA_D1024_MS["tied_sae_bwd_adam"]} if D == 1024 else {}))
-    return [k1, k2]
+    if not capacity:
+        return [k1, k2]
+    del held
+    return [k1, k2, *capacity_kernel_rows(torch, tk, g, (M, B, N, D), (xb, db, bias, nrm, d_raw, l1b),
+                                          (c_k, dxh_k, lrec_k, ll1_k))]
+
+
+def fwd_variant(D: int) -> str:
+    """K1's / K1n's kernel at width D, as a kernel row's variant begins."""
+    if D == 768:
+        return "WMMA encode_kernel + decode_kernel"
+    return "pipelined encode -> decode (TMA, wgmma)" + (" in clusters of two" if D == 1024 else "")
+
+
+def capacity_kernel_rows(torch, tk, g, shape, inputs, k1_out):
+    """K1n, then K2 rebuilding the code at the capacity tiers (int8 mu, bf16
+    nu), at ``shape`` on K1's ``inputs`` (x, D̂, bias, norms, raw encoder,
+    l1/B) and outputs ``k1_out`` (c, dxh, loss sums): K1n's dxh K1's bits,
+    the same bits on two launches, within the plain version's tolerances;
+    K2 rebuilding the code == K2 on K1's stored code bit for bit (d_new,
+    codes, scales, nu, g_bias), its epilogue held to the plain Adam on K3's
+    gradient (`check_epilogue`); each timed beside its plain version, the
+    bound and the `bmm` library calls. Returns the two kernels-line rows."""
+    from _torch_moments import adam_moments, clone_moment, same_bits
+
+    M, B, N, D = shape
+    label = f"M={M},B={B},N={N},D={D}"
+    xb, db, bias, nrm, d_raw, l1b = inputs
+    c_k, dxh_k, lrec_k, ll1_k = k1_out
+    scale = 2.0 / (B * D)
+    src = "sparse_coding__tpu_torch/ops/csrc/"
+    dxh_n, lrec_n, ll1_n = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
+    again = tk.tied_sae_fwd_nocode(xb, db, bias, scale)
+    dxh_p, lrec_p = tk._decode_plain(xb, db, c_k, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(dxh_n.view(torch.int16), dxh_k.view(torch.int16)), f"K1n at {label}: dxh differs from K1's")
+    check(all(same_bits(a, b) for a, b in zip((dxh_n, lrec_n, ll1_n), again)), f"K1n at {label}: two launches differ")
+    del again
+    lrec_rel = float(((lrec_n - lrec_k).abs() / lrec_k.abs()).max())
+    ll1_rel = float(((ll1_n - ll1_k).abs() / ll1_k.abs()).max())
+    check(lrec_rel < 1e-5 and ll1_rel < 1e-5, f"K1n at {label}: loss sums vs K1 {lrec_rel}, {ll1_rel}")
+    frac_d, ulp_d = bf16_close(torch, dxh_n, dxh_p)
+    check(ulp_d and frac_d < 1e-2, f"K1n at {label} dxh: {frac_d} differ from plain, within 1 ulp: {ulp_d}")
+    lrec_plain_rel = float(((lrec_n - lrec_p).abs() / lrec_p.abs()).max())
+    check(lrec_plain_rel < 1e-3, f"K1n at {label} l_rec: max rel {lrec_plain_rel}")
+    nnz = int((c_k != 0).sum())
+    xbm, dbt = xb.expand(M, B, D), db.transpose(1, 2)
+    k1n = dict(name="tied_sae_fwd_nocode", source=src + "tied_sae_fwd.cu",
+               replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:195", shape=label,
+               max_abs_err=float((dxh_n.float() - dxh_p.float()).abs().max()), variant=fwd_variant(D) + ", no code stored",
+               ms=time_ms(torch, lambda: tk.tied_sae_fwd_nocode(xb, db, bias, scale), 20),
+               plain_ms=time_ms(torch, lambda: tk._fwd_nocode_plain(xb, db, bias, scale), 3),
+               library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(xbm, dbt), db), 10))
+    del dxh_p, dxh_n
+    k1n["bound_ms"], k1n["bound_by"] = bound(*tk.kernel_work("tied_sae_fwd_nocode", M, B, N, D, nnz))
+    emit("kernel", name="tied_sae_fwd_nocode", shape=label, variant=k1n["variant"], dxh_bit_equal_k1=True,
+         same_bits_twice=True, lrec_rel_vs_k1=lrec_rel, ll1_rel_vs_k1=ll1_rel, dxh_frac_differ_plain=frac_d,
+         ms=k1n["ms"], was_ms=WMMA_D1024_FWD_MS["tied_sae_fwd_nocode"] if D == 1024 else None,
+         bound_ms=k1n["bound_ms"], plain_ms=k1n["plain_ms"], library_ms=k1n["library_ms"])
+
+    # K2 rebuilding the code == K2 on K1's stored code, at the capacity tiers
+    mu, nu = adam_moments(d_raw, "int8", "bfloat16", g)
+    bc = adam_bc(torch, M, 10, d_raw.device)
+    outs = [tk.tied_sae_bwd_adam(xb, dxh_k, code, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc,
+                                 LR, B1, B2, EPS, seed=7, bias=b) for code, b in ((c_k, None), (None, bias))]
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(*outs)), f"K2 at {label}: rebuilding the code differs from the stored")
+    del outs, mu, nu
+    agree, cap_args, _ = check_epilogue(torch, tk, (xb, dxh_k, c_k, nrm), d_raw, l1b, "int8", "bfloat16",
+                                        tk.TIED_SEED_TILE, g, f"K2 epilogue at {label}")
+
+    def rebuilt():
+        a = list(cap_args())
+        a[2] = None
+        return a
+
+    def plain(a):
+        xb_, dxh_, _, nrm_, d_, mu_, nu_, l1b_, bc_ = a[:9]
+        dj = (d_ / nrm_[..., None]).to(torch.bfloat16)
+        gr, gbias = tk._grads_plain(xb_, dxh_, None, nrm_, dj, l1b_, bias)
+        return (*tk._adam_plain(gr, d_, mu_, nu_, bc_, LR, B1, B2, EPS, seed=3), gbias)
+
+    held = rebuilt()
+    k2 = dict(name="tied_sae_bwd_adam", source=src + "tied_sae_bwd_rc.cu",
+              replaces="sparse_coding__tpu/ops/tied_sae_kernel.py:255", shape=label,
+              max_abs_err=agree["max_abs_err_d_new"], variant="code rebuilt, mu int8, nu bf16" + dense_bwd_variant(D),
+              ms=time_ms(torch, lambda: tk.tied_sae_bwd_adam(*held, seed=3, bias=bias), 10),
+              plain_ms=time_ms(torch, lambda: plain(rebuilt()), 3),
+              library_ms=time_ms(torch, lambda: rebuild_gemms(torch, xbm, dbt, dxh_k), 10))
+    del held
+    k2["bound_ms"], k2["bound_by"] = bound(*tk.kernel_work("tied_sae_bwd_adam_rc", M, B, N, D, nnz, mu_bytes=1,
+                                                           nu_bytes=2, mu_scaled=True))
+    emit("kernel", name="tied_sae_bwd_adam", shape=label, variant=k2["variant"], rebuild_bit_equal_stored=True,
+         epilogue=agree, ms=k2["ms"], was_ms=WMMA_D1024_FWD_MS["tied_sae_bwd_adam_rc"] if D == 1024 else None,
+         bound_ms=k2["bound_ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"])
+    return [k1n, k2]
 
 
 def phase_experiment_kernels(torch, tk, kk):
@@ -5019,9 +5149,9 @@ SCALE = dict(width=1024, n_dict=32768, l1=[1e-4, 3e-4, 1e-3, 3e-3], batch=2048, 
 SCALE_FISTA = dict(width=512, n_dict=2048, batch=2048, iters=500, seed=73)
 
 
-def scale_build(pkg, mesh=None, shard_dict=True, key=0):
+def scale_build(pkg, mesh=None, shard_dict=True, key=0, optimizer_kwargs=None):
     ens = pkg.build_ensemble(pkg.FunctionalTiedSAE, key, [{"l1_alpha": a} for a in SCALE["l1"]],
-                             optimizer_kwargs={"learning_rate": LR}, compute_dtype="bfloat16",
+                             optimizer_kwargs=optimizer_kwargs or {"learning_rate": LR}, compute_dtype="bfloat16",
                              activation_size=SCALE["width"], n_dict_components=SCALE["n_dict"])
     return ens if mesh is None else ens.shard(mesh, shard_dict)
 
@@ -5052,6 +5182,16 @@ def member_digests(torch, ens, first: int = 0):
             parts += [int(v.sum()), int((v * w).sum())]
         out[first + i] = parts
     return out
+
+
+def state_tensors(ens):
+    """The tensors of an ensemble's params and Adam moments (an int8
+    moment's codes and scales), in the trees' order."""
+    from _torch_moments import moment_parts
+
+    st = ens.state
+    return list(st.params.values()) + [t for tree in (st.opt_state.mu, st.opt_state.nu) for v in tree.values()
+                                       for t in moment_parts(v)]
 
 
 def timed_steps(torch, ens, batches, mesh=None):
@@ -5323,12 +5463,17 @@ def fista_scale_batch(torch):
 
 
 def phase_scaleout(torch, root: Path):
-    """Scale-out at config 5's widths (see `SCALE`). Kernels first: K1 and K2
-    at (M 4, B 2048, N 32768, D 1024), K3 at the data axis' local batch of
-    1024, K_f at FISTA's local batch, each against its plain version. Then
-    the world of one over NCCL here: meshes (1,1,1) and (1,1,1) without the
-    dict cut, 3 steps each, bit-equal to the unsharded ensemble (K1 + K2
-    launched). Then a world of two processes on the one card over gloo
+    """Scale-out at config 5's widths (see `SCALE`). Kernels first: K1, K2,
+    K1n and K2 rebuilding the code (int8 mu, bf16 nu) at (M 4, B 2048, N
+    32768, D 1024), K3 at the data axis' local batch of 1024, K_f at FISTA's
+    local batch, each against its plain version. Then the world of one over
+    NCCL here: meshes (1,1,1) and (1,1,1) without the dict cut, 3 steps
+    each, bit-equal to the unsharded ensemble (K1 + K2 launched); then one
+    capacity step on (1,1,1) (int8 mu, bf16 nu) with the code rebuilt (K1n
+    + K2, SC_RECOMPUTE_CODE=1) held bit for bit (params and moments) to the
+    same step on the stored code (K1 + K2), the losses within rtol 1e-5
+    (K1n's loss partials are summed in another grouping). Then a world of
+    two processes on the one card over gloo
     (``chip_smoke.py --scaleout-worker``): (2,1,1) every member the world of
     one's bits (params and moments; the losses within rtol 1e-6: torch sums
     K1's loss partials in an order it picks by the member count); (1,2,1)
@@ -5365,7 +5510,7 @@ def phase_scaleout(torch, root: Path):
     M_, B_, N_, D_ = len(SCALE["l1"]), SCALE["batch"], SCALE["n_dict"], SCALE["width"]
     check(tk.shapes_supported(N_, D_, B_) and tk.shapes_supported(N_, D_, B_ // 2), "config 5 off the kernels")
     g = torch.Generator(device="cuda").manual_seed(SCALE["seed"])
-    rows = tied_kernel_rows(torch, tk, g, (M_, B_, N_, D_))
+    rows = tied_kernel_rows(torch, tk, g, (M_, B_, N_, D_), capacity=True)
     rows.append(scale_k3_row(torch, tk, g, (M_, B_ // 2, N_, D_)))
     rows.append(fista_kernel_row(torch, fk, tf, dict(M=len(FISTA_L1), B=SCALE_FISTA["batch"] // 2,
                                                      N=SCALE_FISTA["n_dict"], D=SCALE_FISTA["width"],
@@ -5394,6 +5539,33 @@ def phase_scaleout(torch, root: Path):
         check(run["launches"] == ref_run["launches"], f"{label}: launches {run['launches']}")
         one[label] = {k: v for k, v in run.items() if k != "losses"}
         del ens
+    torch.cuda.empty_cache()
+    # one capacity step on (1,1,1) (int8 mu, bf16 nu): K1n + K2 rebuilding
+    # the code held bit for bit to K1 + K2 on the stored code
+    cap = {}
+    for label, env in (("stored_code", {}), ("code_rebuilt", {"SC_RECOMPUTE_CODE": "1"})):
+        mesh = make_mesh(1, 1, 1)
+        with environ(env):
+            ens = scale_build(pkg, mesh, optimizer_kwargs=CAPACITY_ADAM)
+        check(ens.fused_adam is not None and ens.fused_adam.get("recompute_code", False) == bool(env),
+              f"capacity {label}: fused_adam {ens.fused_adam}")
+        run = timed_steps(torch, ens, batches[:1], mesh)
+        cap[label] = (run, [t.cpu() for t in state_tensors(ens)])  # off the card: the next step's peak is its own
+        del ens
+        torch.cuda.empty_cache()
+    (run_s, leaves_s), (run_r, leaves_r) = cap["stored_code"], cap["code_rebuilt"]
+    check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(leaves_s, leaves_r)),
+          "capacity step on (1,1,1): rebuilding the code differs from the stored code")
+    check(run_s["launches"]["tied_sae_fwd"] == 1 and run_r["launches"]["tied_sae_fwd_nocode"] == 1
+          and run_s["launches"]["tied_sae_bwd_adam"] == 1 and run_r["launches"]["tied_sae_bwd_adam"] == 1
+          and run_r["launches"]["tied_sae_fwd"] == 0, f"capacity step launches {run_s['launches']}, {run_r['launches']}")
+    cap_loss_rel = float(((run_r["losses"] - run_s["losses"]).abs() / run_s["losses"].abs()).max())
+    check(cap_loss_rel < 1e-5, f"capacity step losses: max rel {cap_loss_rel}")
+    one["capacity_mesh_111"] = {"bit_equal": True, "loss_max_rel": cap_loss_rel,
+                                **{lb: {k: v for k, v in r.items() if k != "losses"} for lb, r in
+                                   (("stored_code", run_s), ("code_rebuilt", run_r))}}
+    cap_launches = run_r["launches"]
+    del cap, leaves_s, leaves_r
     torch.distributed.destroy_process_group()
     del ref
     torch.cuda.empty_cache()
@@ -5487,8 +5659,11 @@ def phase_scaleout(torch, root: Path):
     torch.cuda.empty_cache()
     emit("scaleout", seconds=time.perf_counter() - t_phase)
 
-    # the kernels line: launches on the new paths (the world of two's rank 0)
-    k1, k2, k3, kf = rows
+    # the kernels line: launches on the new paths (the world of two's rank 0;
+    # K1n and K2 rebuilding the code: the capacity step on (1,1,1))
+    k1, k2, k1n, k2rc, k3, kf = rows
+    k1n["launches"] = cap_launches["tied_sae_fwd_nocode"]
+    k2rc["launches"] = cap_launches["tied_sae_bwd_adam"]
     k1["launches"] = res[0]["model_211"]["launches"]["tied_sae_fwd"] + res[0]["data_121"]["launches"]["tied_sae_fwd"]
     k2["launches"] = res[0]["model_211"]["launches"]["tied_sae_bwd_adam"]
     k3["launches"] = res[0]["data_121"]["launches"]["tied_sae_bwd_grads"]
@@ -6236,11 +6411,12 @@ def main() -> int:
     # built libraries' own plan, the stages and dynamic shared memory of
     # each width and number of int8 moment tiers
     plans = wgmma_plans(_build.load())
-    check(all(plans[f"d1024_stored_int8x{i}"]["cluster"] == 4 and plans[f"d1024_stored_int8x{i}"]["stages"] >= 2
-              for i in range(3)), f"the D 1024 plan {plans}")
+    check(all(plans[f"d1024_{code}_int8x{i}"]["cluster"] == 4 and plans[f"d1024_{code}_int8x{i}"]["stages"] >= 2
+              for i in range(3) for code in ("stored", "rebuilt")) and plans["fwd_d1024"]["cluster"] == 2,
+          f"the D 1024 plans {plans}")
     emit("wgmma_kernels", plans=plans, d1024_traced=d1024_mainloop(torch, tk),
-         ptxas=[dict(f, library=lib) for lib in ("tied_sae_bwd", "tied_sae_bwd_rc")
-                for f in ptxas[lib] if f["function"].startswith("wg_bwd_kernel")])
+         ptxas=[dict(f, library=lib) for lib in ("tied_sae_bwd", "tied_sae_bwd_rc", "tied_sae_fwd")
+                for f in ptxas[lib] if f["function"].startswith(("wg_bwd_kernel", "pp_fwd_kernel"))])
 
     def drive(cfg):
         """A path's main run and its export; the launch counts of the run."""

@@ -6,7 +6,7 @@ Builds variants of `ops/csrc/tied_sae_bwd.cuh` by text edits into
 ``build/dense_bwd_probe/<variant>/`` (one nvcc each, all at once; each
 library exports the wgmma mainloop's K3 and K2 with bf16 mu and f32 nu on
 the stored code, and K2 with int8 mu and bf16 nu rebuilding the code, at
-D 256 and 512; K3 and K2 on the stored code at D 1024) and times them
+D 256, 512 and 1024) and times them
 through their C entries with CUDA events (one child process a variant and
 turn, every variant and then again in reverse order; a variant that hangs
 is cut after 180 s and named), at BASELINE config 2 (M 8, B 2048, N 4096,
@@ -14,8 +14,8 @@ D 512: on the stored code a cluster of two blocks splits 128 rows'
 columns; rebuilding it a block of 64 rows splits its columns over the two
 warpgroups), at the same shape with D 256 (128-row blocks, no split) and at
 BASELINE config 5 (M 4, B 2048, N 32768, D 1024: a cluster of four blocks
-splits 128 rows' columns, dc's partials meeting by a reduce-scatter and an
-all-gather):
+splits 128 rows' columns, dc's partials, and rebuilding the code the code's
+quarter-depth partials, meeting by a reduce-scatter and an all-gather):
   - shipped: the source as it is;
   - no_gemm1 / no_gemm2 / no_gemms: the dc product, the gradient products,
     or both dropped (their registers stay zero);
@@ -108,7 +108,9 @@ int probe_k2rc(const void* x, const void* dxh, const void* bias, const void* nrm
   a.lr = 1e-3f, a.b1 = 0.9f, a.b2 = 0.999f, a.eps = 1e-8f, a.omb1 = 0.1f, a.omb2 = 0.001f;
   a.B = B, a.N = N, a.D = D;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return D == 512 ? launch_wg<true, kInt8, kBf16, true, 512>(a, M, st) : launch_wg<true, kInt8, kBf16, true, 256>(a, M, st);
+  return D == 1024  ? launch_wg<true, kInt8, kBf16, true, 1024>(a, M, st)
+         : D == 512 ? launch_wg<true, kInt8, kBf16, true, 512>(a, M, st)
+                    : launch_wg<true, kInt8, kBf16, true, 256>(a, M, st);
 }
 }
 '''
@@ -234,8 +236,6 @@ def time_variant(name: str, reps: int) -> dict:
                                            g_bias.data_ptr(), l1b.data_ptr(), bc.data_ptr(), seed.data_ptr(),
                                            M, B, N, D, st),
         }
-        if D == 1024:
-            del fns["k2rc"]  # the rebuild at D 1024 runs the WMMA mainloop, which this probe does not build
         assert fns["k3"]() == 0
         gp, _ = tk._grads_plain(xb, dxh, c, nrm, db, l1b)
         cos = float(torch.nn.functional.cosine_similarity(g_enc.flatten().double(), gp.flatten().double(), dim=0))

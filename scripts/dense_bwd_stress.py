@@ -2,9 +2,8 @@
 
     timeout 900 python scripts/dense_bwd_stress.py [--launches 2000] [--out stress.json]
 
-At M 8, B 2048, N 4096 and each width the wgmma mainloop takes (D 128, 256
-and 512; D 512 is BASELINE config 2; D 1024, BASELINE config 5's width, on
-the stored code only: rebuilding the code there runs the WMMA mainloop), for
+At M 8, B 2048, N 4096 and each width the wgmma mainloop takes (D 128, 256,
+512 and 1024; D 512 is BASELINE config 2, D 1024 BASELINE config 5's width), for
 K3, K2 on the stored code and K2 rebuilding it, the latter two in each of the
 nine moment tiers (mu, nu each f32, bf16 or int8): runs a chain of launches
 through the public wrappers,
@@ -63,7 +62,7 @@ def main(argv=None) -> int:
         l1b = torch.linspace(1e-4, 1e-2, M, device=dev) / B
         bc = torch.tensor([[0.1, 0.001]] * M, device=dev)
         c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
-        rebuilds = (False,) if D == 1024 else (False, True)
+        rebuilds = (False, True)
         variants = ["grads"] + [(rb, mu_t, nu_t) for rb in rebuilds for mu_t in TIERS for nu_t in TIERS]
         for variant in variants:
             if variant == "grads":

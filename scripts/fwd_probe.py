@@ -62,11 +62,12 @@ NO_GATHER = [("w[g][u] = __ldg(reinterpret_cast<const uint4*>(rp + u * 256));",
 NO_C_STORE = [("if (d0 == 0 && col < N) dst[col / 8]", "if (false && col < N) dst[col / 8]")]
 DECODE_MMA = ("""      sm90::wgmma_rs<S::kCols, 1>(acc, af[q], sm90::desc(ds + (wg * S::kCols / 64) * S::kPanel + q * 2048, S::kPanel, 1024));
 """, "      ;\n")
-ENCODE_MMA = ("""      sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
-                               sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
-""", "      ;\n")
-NO_EXCHANGE = ("    sm90::bar_sync(1 + (wt >> 5), 64);", "    ;")
-NO_CODE_STORE = ("    if constexpr (kStoreCode) {\n      // K1:", "    if constexpr (false) {\n      // K1:")
+ENCODE_MMA = ("""        sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
+                                 sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
+""", "        ;\n")
+NO_EXCHANGE = ("      sm90::bar_sync(1 + (wt >> 5), 64);", "      ;")
+NO_CODE_STORE = [("    if constexpr (kStoreCode && kPair) {", "    if constexpr (false) {"),
+                 ("    } else if constexpr (kStoreCode) {", "    } else if constexpr (false) {")]
 GATHER4_TWO_BLOCKS = [("constexpr int kGather = 2;", "constexpr int kGather = 4;"),
                       ("__launch_bounds__(kDecThreads, 3) decode_kernel", "__launch_bounds__(kDecThreads, 2) decode_kernel")]
 VARIANTS = {
@@ -74,7 +75,7 @@ VARIANTS = {
                  "no_gather_no_store": NO_GATHER + NO_C_STORE, "gather4_two_blocks": GATHER4_TWO_BLOCKS},
     "tied_sae_fwd": {"shipped": [], "no_decode_mma": [DECODE_MMA], "no_encode_mma": [ENCODE_MMA],
                      "no_mma": [DECODE_MMA, ENCODE_MMA],
-                     "no_exchange": [NO_EXCHANGE], "no_code_store": [NO_CODE_STORE]},
+                     "no_exchange": [NO_EXCHANGE], "no_code_store": NO_CODE_STORE},
 }
 
 # K_s as shipped (a TMA + wgmma GEMM, then a select on fp16 counts), by text

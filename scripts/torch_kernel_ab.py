@@ -3,6 +3,7 @@ turns (A, B, B, A): their CUDA kernels in one process, then their whole
 resident training steps.
 
     python scripts/torch_kernel_ab.py --a PARENT_DIR [--b .] [--reps 20] [--step-reps 30] [--kernels-only]
+                                      [--configs 2,3,4,5]
 
 Kernels: each checkout's `sparse_coding__tpu_torch/ops/csrc/{tied_sae_fwd,
 tied_sae_bwd,tied_sae_bwd_rc,tied_sae_bwd_sparse,topk_fwd,fista}.cu` is compiled with this checkout's
@@ -21,9 +22,13 @@ K3, through `sc_tied_sae_bwd_adam_sparse` and `sc_tied_sae_bwd_grads_sparse`
 where the checkout has them); and K_f (`sc_fista_solve`, with the grid
 barrier's count where the checkout's entry takes one) at BASELINE config 3
 cut to ``--fista-iters`` iterations and at row 8's shape (the dictionary's
-transpose passed too where the entry takes it). K1's outputs are
-compared on c and dxh: its loss partials changed layout in the checkout that
-moved K1 onto K1n's pipeline.
+transpose passed too where the entry takes it); and with ``--configs``
+naming 5, BASELINE config 5 (M 4, B 2048, N 32768, D 1024): K1, K1n, K2 on
+the stored code with f32 moments and K2 rebuilding the code with int8 mu
+and bf16 nu (the capacity tiers). ``--configs`` (default 2,3,4) picks the
+kernel cases by configuration (row 8's K_f goes with config 3). K1's
+outputs are compared on c and dxh: its loss partials changed layout in the
+checkouts that moved K1 onto K1n's pipeline (D 512, then D 1024).
 
 Steps: one child process per turn imports a checkout's package, builds the
 chip_smoke.py ensemble of a path (`TIED`, `TIED_CAPACITY`, `TOPK`,
@@ -95,6 +100,7 @@ def main(argv=None) -> int:
     ap.add_argument("--step-reps", type=int, default=30)
     ap.add_argument("--kernels-only", action="store_true", help="time the kernels, not the steps")
     ap.add_argument("--fista-iters", type=int, default=50, help="K_f's iterations at config 3")
+    ap.add_argument("--configs", default="2,3,4", help="the kernel cases' configurations (comma list of 2, 3, 4, 5)")
     ap.add_argument("--child-tree", help=argparse.SUPPRESS)
     ap.add_argument("--child-path", help=argparse.SUPPRESS)
     ap.add_argument("--child-save", help=argparse.SUPPRESS)
@@ -324,6 +330,62 @@ def main(argv=None) -> int:
         cases[f"fista_solve (config 3, {args.fista_iters} iterations)"] = k_f(
             (4, 2048, 2048, 512, args.fista_iters), 12)
         cases["fista_solve (row 8: M 2, B 256, N 512, D 128, 100 iterations)"] = k_f((2, 256, 512, 128, 100), 11)
+
+    configs = set(args.configs.split(","))
+    if "5" in configs:
+        # BASELINE config 5: K1, K1n; K2 on K1's code (f32 moments) and
+        # rebuilding it (int8 mu, bf16 nu). K1's loss partials are
+        # allocated for the larger of its two layouts (the WMMA tiles'
+        # [M, B/64, N/128], the pipelined pair's [M, B/64, 2]); K1n's are
+        # [M, B/32] in both (32-row blocks, or pairs of blocks a 64-row tile)
+        M5, B5, N5, D5 = 4, 2048, 32768, 1024
+        r5, b5, x5, n5, db5 = tied(M5, B5, N5, D5)
+        s5 = 2.0 / (B5 * D5)
+        c5 = torch.empty((M5, B5, N5), dtype=bf16, device=dev)
+        dxh5 = torch.empty((M5, B5, D5), dtype=bf16, device=dev)
+        part5 = torch.empty((M5, B5 // 64, N5 // 128), device=dev)
+        libs["b"]["tied_sae_fwd"].sc_tied_sae_fwd(x5.data_ptr(), db5.data_ptr(), b5.data_ptr(), c5.data_ptr(),
+                                                  dxh5.data_ptr(), part5.data_ptr(), torch.empty_like(part5).data_ptr(),
+                                                  M5, B5, N5, D5, s5, st)
+        l1b5 = torch.logspace(-4, -2, M5, device=dev) / B5
+        bc5 = torch.tensor([[0.1, 0.001]] * M5, device=dev)
+
+        def k1_5(lib):
+            outs = (torch.empty_like(c5), torch.empty_like(dxh5), torch.empty_like(part5), torch.empty_like(part5))
+            return lambda: (lib["tied_sae_fwd"].sc_tied_sae_fwd(
+                x5.data_ptr(), db5.data_ptr(), b5.data_ptr(), *(o.data_ptr() for o in outs), M5, B5, N5, D5, s5,
+                st), outs)[1][:2]
+
+        def k1n_5(lib):
+            outs = (torch.empty_like(dxh5), torch.empty((2, M5, B5 // 32), device=dev))
+            return lambda: (lib["tied_sae_fwd"].sc_tied_sae_fwd_nocode(
+                x5.data_ptr(), db5.data_ptr(), b5.data_ptr(), outs[0].data_ptr(), outs[1][0].data_ptr(),
+                outs[1][1].data_ptr(), M5, B5, N5, D5, s5, st), outs)[1][:1]
+
+        q5 = torch.randint(-127, 128, (M5, N5, D5), generator=g, device=dev).to(torch.int8)
+        q5_scale = torch.rand((M5, N5), generator=g, device=dev) * 1e-5 + 1e-6
+        nu5 = (torch.rand((M5, N5, D5), generator=g, device=dev) * 1e-6).to(bf16)
+
+        def k2_rebuild_5(lib):
+            held = (r5.clone(), q5.clone(), q5_scale.clone(), nu5.clone(), torch.empty(M5, N5, device=dev))
+            hp = (1e-3, 0.9, 0.999, 1e-8, 1 - 0.9, 1 - 0.999)
+
+            def run():
+                d, q, qs, n_, gb = held
+                lib["tied_sae_bwd_rc"].sc_tied_sae_bwd_adam_tiers(
+                    x5.data_ptr(), dxh5.data_ptr(), b5.data_ptr(), n5.data_ptr(), d.data_ptr(), q.data_ptr(),
+                    qs.data_ptr(), 2, n_.data_ptr(), None, 1, gb.data_ptr(), l1b5.data_ptr(), bc5.data_ptr(),
+                    seed.data_ptr(), 256, *hp, M5, B5, N5, D5, st)
+                return held
+            return run
+
+        cases["tied_sae_fwd (config 5)"] = k1_5
+        cases["tied_sae_fwd_nocode (config 5)"] = k1n_5
+        cases["tied_sae_bwd_adam (config 5, mu f32, nu f32)"] = lambda lib: k2(
+            lib, r5, torch.zeros_like(r5), torch.zeros_like(r5), x5, dxh5, c5, n5, l1b5, bc5, (M5, B5, N5, D5))
+        cases["tied_sae_bwd_adam (config 5, code rebuilt, mu int8, nu bf16)"] = k2_rebuild_5
+    cases = {k: v for k, v in cases.items()
+             if any(f"(config {c}" in k for c in configs) or ("row 8" in k and "3" in configs)}
 
     def timed(fn, reps):
         for _ in range(2):

@@ -46,6 +46,7 @@ SIGNATURES = {
     + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_grads_sparse": [_P] * 8 + [_I] * 4 + [_P],
     "sc_tied_sae_bwd_plan": [_I, _I, _P],
+    "sc_tied_sae_fwd_plan": [_I, _P],
     "sc_topk_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sc_topk_select": [_P] * 3 + [_I] * 3 + [_P],
     "sc_topk_decode": [_P] * 7 + [_I] * 4 + [_F, _P],

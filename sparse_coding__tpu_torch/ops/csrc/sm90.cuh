@@ -104,6 +104,14 @@ __device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t a, uint32_t 
                "r"(a), "r"(b), "r"(bar)
                : "memory");
 }
+// 16 bytes (four 32-bit words) into another block's shared memory, counted
+// in bytes on its barrier `bar` (both shared::cluster addresses)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void st_cluster_f32(uint32_t addr, float a) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(a) : "memory");
 }
@@ -170,6 +178,15 @@ template <int kN>
 __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// ... and register A operands of an asynchronous wgmma: kept (not reused)
+// until the wgmma that reads them has completed
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -36,8 +36,7 @@
 // them at ~4.6 TB/s into its SMs (scripts/dense_bwd_probe.py: the mainloop
 // with no products runs at that rate).
 //
-// The wgmma mainloop (`wg_bwd_kernel`: D 128, 256 and 512, and D 1024 on the
-// stored code). A block is two
+// The wgmma mainloop (`wg_bwd_kernel`: D 128, 256, 512 and 1024). A block is two
 // consumer warpgroups and a producer warpgroup, whose one issuing thread keeps
 // a ring of 2..4 stages (x, dxh and the code tile, each in 64-column panels
 // in TMA's 128-byte swizzle) filled by TMA against `mbarrier`s: no
@@ -57,8 +56,8 @@
 //     slot, counted on its mbarrier) and are added in rank order; after the
 //     batch the blocks trade quarters of the gradient so that block r holds
 //     rows [64 r, 64 r + 64) at every column for the epilogue;
-//   - D 1024, stored code: a cluster of four blocks shares 128 rows, block r
-//     holding columns [256 r, 256 r + 256). The four depth partials of dc
+//   - D 1024: a cluster of four blocks shares 128 rows, block r holding
+//     columns [256 r, 256 r + 256). The four depth partials of dc
 //     meet by a reduce-scatter (block r adds batch columns [8 r, 8 r + 8) of
 //     the four in rank order 0 + 1 + 2 + 3, masks them and takes their bias
 //     gradient) and an all-gather of their bf16 A fragments, both by st.async
@@ -68,7 +67,12 @@
 //     reduce-scatter travels under the products (two slots of each buffer,
 //     beside the stages: 36 KB). After the batch the blocks trade pieces of
 //     the gradient and of the bias gradient so that block r holds rows
-//     [32 r, 32 r + 32) at every column for the epilogue;
+//     [32 r, 32 r + 32) at every column for the epilogue. Rebuilding the
+//     code, each block also encodes its quarter-depth partial q_r of the
+//     stage's code tile (Dj . x^T, dc's layout), which meets the others by
+//     the same reduce-scatter (one slot, 12 KB a block and stage, sent under
+//     the previous stage's products) and travels, finished, with dc's
+//     fragments in the all-gather (16-byte messages);
 //   - D 512, code rebuilt (the encode needs whole rows of x and Dj): 64
 //     rows, one warpgroup a column half, dc's depth halves added through
 //     shared memory.
@@ -78,10 +82,11 @@
 // tiles. At config 5 (M 4, B 2048, N 32768, D 1024) the cluster of four
 // reads ~10.7 GB (4096 blocks, each its quarter of x and dxh, 1 MiB each,
 // and its cluster's 128-row code tile, 0.5 MiB), against ~35 GB for the
-// WMMA mainloop's 32-row tiles. Rebuilding the code, the column split still
+// WMMA mainloop's 32-row tiles; rebuilding the code it reads the same less
+// the code tiles. Rebuilding the code at D 512, the column split still
 // reads ~2.1 GB at config 2 (512 blocks of 64 rows, each the member's whole
-// x and dxh): the pair split cannot take the encode, which needs whole rows
-// of x and Dj. Multicasting each
+// x and dxh): the pair split would need the encode's partials exchanged as
+// at D 1024. Multicasting each
 // x/dxh stage to a cluster of two 64-row blocks halves the L2 reads as well,
 // but not the bytes each SM takes in, and it ran slower than each block
 // loading its own (scripts/dense_bwd_probe.py): the design moves fewer bytes
@@ -95,31 +100,35 @@
 // the batch (130 KB), dc's partials (two 16 KB slots in the pair split,
 // 16 KB in the column split; in the cluster of four two 12 KB slots for the
 // reduce-scatter and two 6 KB slots for the all-gather, in the region beside
-// the stages), radial sums and barriers: 222-227 KB at D 256 and 512,
-// 226,544 B with 3 stages at D 1024. The epilogue (below)
+// the stages; rebuilding the code, 32 KB stages without the code tile, 12 KB
+// all-gather slots and one 12 KB slot of code pieces), radial sums and
+// barriers: 222-227 KB at D 256 and 512, 226,544 B with 3 stages at D 1024
+// on the stored code, 226,560 B with 3 stages rebuilding it. The epilogue (below)
 // streams d_raw, mu and nu once, after the
 // batch loop: a row's update needs its whole gradient (the radial sum, and
 // an int8 moment's absmax); an int8 moment's codes are read a second time,
 // once the absmax is known.
 //
-// D 768, and D 1024 rebuilding the code, keep the WMMA mainloop
-// (`bwd_kernel`): 16 warps, the [Nt, D] gradient in WMMA accumulator
-// registers (2 row bands x kCols column blocks of 16 x 16 a warp: Nt 32), x,
-// dxh and c through two cp.async stages (16 batch rows a stage at D 1024),
-// dc's depth split into kParts slices summed in a fixed order, and at D 768
-// x single-buffered (kSplitX). D 1024 rebuilding the code therefore sums
-// in another order than D 1024 on the stored code: the two routes' results
-// agree within the dense tolerances there, not bit for bit (at every other
-// width both routes run one mainloop and give the same bits).
+// D 768 keeps the WMMA mainloop (`bwd_kernel`): 16 warps, the [Nt, D]
+// gradient in WMMA accumulator registers (2 row bands x kCols column blocks
+// of 16 x 16 a warp: Nt 32), x single-buffered (kSplitX), dxh and c through
+// two cp.async stages of 32 batch rows, dc's depth split into kParts slices
+// summed in a fixed order. At every width both routes (the code stored or
+// rebuilt) run one mainloop, which sums dc, the gradient and g_bias in the
+// same order on either, so they give the same bits.
 //
 // The code rebuild (kRecompute): c is not read from device memory; each
 // [32, Nt] code tile is rebuilt from the x tile and the dictionary tile
-// already in shared memory with K1's encode exactly — the same 16 x 16 x 16
-// products (mma.sync m16n8k16, fed by ldmatrix from the swizzled tiles in
-// the wgmma mainloop), one accumulator over the whole depth from k = 0, the
-// bias added by __fadd_rn after the product, jnp.maximum's NaN-keeping relu,
-// bf16 round to nearest — so it is bit-identical to K1's stored c (and the
-// step to the stored-code step).
+// already in shared memory with K1's encode exactly — the same k16 products,
+// the bias added by __fadd_rn after the product, jnp.maximum's NaN-keeping
+// relu, bf16 round to nearest — so it is bit-identical to K1's stored c (and
+// the step to the stored-code step). At D <= 768 that is one accumulator
+// over the whole depth from k = 0 (mma.sync m16n8k16, fed by ldmatrix from
+// the swizzled tiles in the wgmma mainloop); at D 1024 K1's order over the
+// depth's quarters (tied_sae_fwd.cu): q_r one k16 chain from zero over
+// [256 r, 256 r + 256) (block r's `wgmma` m64n32k16 chain, the code
+// transposed: each element is the same products in the same k order), and
+// c = bf16(relu(((q0 + q1) + (q2 + q3)) + b)).
 //
 // Every sum runs in an order fixed by the shapes alone (no float atomics),
 // so results are the same from run to run.
@@ -214,12 +223,6 @@ Plan make_plan(int D, int Nt, int tb, int parts, bool split_x, size_t epi) {
   p.epi = epi;
   p.total = p.dj + (p.loop > p.g + epi ? p.loop : p.g + epi) + (size_t)Nt * sizeof(float);
   return p;
-}
-
-// 32-row stages where they fit (every D but 1024), else 16-row stages
-Plan choose_plan(int D, int Nt, int parts, bool split_x, size_t epi) {
-  const Plan p = make_plan(D, Nt, 32, parts, split_x, epi);
-  return p.total <= kMaxSmem ? p : make_plan(D, Nt, 16, parts, split_x, epi);
 }
 
 struct BwdArgs {
@@ -750,7 +753,7 @@ int launch_cols(const BwdArgs& a, int M, cudaStream_t st) {
   constexpr int kParts = kCols == 3 ? 4 : 2;
   constexpr int kInt8Moments = kAdam ? (kMu == kInt8) + (kNu == kInt8) : 0;
   const size_t epi = kInt8Moments ? 2 * (size_t)Nt * sizeof(int) : 0;
-  const Plan p = choose_plan(D, Nt, kParts, kCols == 3, epi);
+  const Plan p = make_plan(D, Nt, 32, kParts, kCols == 3, epi);
   if (p.total > kMaxSmem || B % p.tb || N % Nt || (D / 16) % kParts)
     return (int)cudaErrorInvalidValue;
   auto kern = bwd_kernel<kAdam, kMu, kNu, kRecompute, kCols>;
@@ -761,7 +764,7 @@ int launch_cols(const BwdArgs& a, int M, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// -- the wgmma mainloop (D 128, 256, 512; 1024 on the stored code) -----------------
+// -- the wgmma mainloop (D 128, 256, 512, 1024) -------------------------------------
 
 constexpr int kWgConsumers = 256;               // two consumer warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and a producer warpgroup (one thread issues)
@@ -780,13 +783,19 @@ constexpr int kBarAll = 2;                      // ... of every thread (the epil
 //     (st.async), so each block streams only its half of x and dxh. After
 //     the batch loop block r takes rows [64 r, 64 r + 64) at every column for
 //     the epilogue.
-//   kQuadSplit (D 1024, the stored code): the same with a cluster of four
-//     blocks and columns [256 r, 256 r + 256); the four depth partials of dc
-//     meet by a reduce-scatter and an all-gather through distributed shared
-//     memory (block r adds batch columns [8 r, 8 r + 8) of the four in rank
-//     order, masks them and sends their bf16 A fragments to the other
-//     three), and after the batch loop block r takes rows [32 r, 32 r + 32)
-//     at every column.
+//   kQuadSplit (D 1024, the stored code or the code rebuilt): the same with
+//     a cluster of four blocks and columns [256 r, 256 r + 256); the four
+//     depth partials of dc meet by a reduce-scatter and an all-gather
+//     through distributed shared memory (block r adds batch columns
+//     [8 r, 8 r + 8) of the four in rank order, masks them and sends their
+//     bf16 A fragments to the other three), and after the batch loop block r
+//     takes rows [32 r, 32 r + 32) at every column. Rebuilding the code,
+//     each block also encodes its quarter-depth partial q_r of the code
+//     tile (the layout of dc's); the partials meet the same way, block r
+//     finishing batch columns [8 r, 8 r + 8) as
+//     bf16(relu(((q0 + q1) + (q2 + q3)) + b)) (K1's order at D 1024), and
+//     the bf16 code travels with dc's fragments in the all-gather, as the
+//     register A operand of g += c^T . dxh.
 //   kColSplit (D 512, the code rebuilt, whose encode needs whole rows of x
 //     and the dictionary): 64 rows; warpgroup w owns columns
 //     [256 w, 256 w + 256) and dc's depth slice over them, the two partials
@@ -795,10 +804,12 @@ constexpr int kRowSplit = 0, kPairSplit = 1, kColSplit = 2, kQuadSplit = 3;
 
 template <int kD, bool kRecompute>
 struct WgShape {
-  static constexpr int kMode = kD <= 256 ? kRowSplit
+  static constexpr int kMode = kD <= 256   ? kRowSplit
+                               : kD == 1024 ? kQuadSplit
                                : kRecompute ? kColSplit
-                               : kD == 512  ? kPairSplit
-                                            : kQuadSplit;
+                                            : kPairSplit;
+  // the cluster of four rebuilding the code: no code panel in the stages
+  static constexpr bool kQuadRebuild = kMode == kQuadSplit && kRecompute;
   static constexpr int kNt = kMode == kColSplit ? 64 : 128;        // rows of the batch loop
   static constexpr int kCluster = kMode == kPairSplit ? 2 : kMode == kQuadSplit ? 4 : 1;
   static constexpr int kDc = kD / kCluster;                         // columns of x, dxh, Dj, g in the block
@@ -807,20 +818,25 @@ struct WgShape {
   static constexpr int kEpiRows = kNt / kCluster;                   // rows of the block's epilogue
   static constexpr uint32_t kDj = (uint32_t)kNt * kDc * 2;          // == kEpiRows * kD * 2
   static constexpr uint32_t kX = (uint32_t)kWgTb * kDc * 2;         // the x (or dxh) tile of a stage
-  static constexpr uint32_t kC = (uint32_t)kWgTb * kNt * 2;
+  static constexpr uint32_t kC = kQuadRebuild ? 0u : (uint32_t)kWgTb * kNt * 2;
   static constexpr uint32_t kStage = 2 * kX + kC;
   // dc's depth partials: two slots of every consumer's 16 floats (pair);
   // one of each warpgroup's (col); two slots each of the reduce-scatter's
   // pieces (a float4 of every consumer from each of the three other
-  // blocks) and of the all-gather's bf16 fragments (8 bytes each) (quad),
-  // which live beside the stages, in the region the gradient tile takes
-  // after the batch loop
+  // blocks) and of the all-gather's bf16 fragments (8 bytes each; 16 with
+  // the rebuilt code's) (quad), and, rebuilding the code, one slot of the
+  // code partials' pieces (a float4 each), which live beside the stages,
+  // in the region the gradient tile takes after the batch loop
+  static constexpr uint32_t kAg = kQuadRebuild ? 16u : 8u;  // an all-gather message
   static constexpr uint32_t kXchg = kMode == kPairSplit   ? 2u * kWgConsumers * (kWgTb / 2) * 4
                                     : kMode == kColSplit  ? (uint32_t)kWgConsumers * (kWgTb / 2) * 4
-                                    : kMode == kQuadSplit ? 2u * (kCluster - 1) * kWgConsumers * (16 + 8)
+                                    : kMode == kQuadSplit ? 2u * (kCluster - 1) * kWgConsumers * (16 + kAg) +
+                                                                (kQuadRebuild ? (kCluster - 1) * kWgConsumers * 16u : 0u)
                                                           : 0;
   static constexpr bool kXchgInRegion = kMode == kQuadSplit;
-  static constexpr int kXbars = kMode == kQuadSplit ? 8 : 4;  // the exchange's mbarriers
+  // the exchange's mbarriers (quad: reduce-scatter and all-gather [slot]
+  // [warpgroup], then the code partials' [warpgroup])
+  static constexpr int kXbars = kMode == kQuadSplit ? (kQuadRebuild ? 10 : 8) : 4;
   static constexpr uint32_t kG = (uint32_t)kEpiRows * ld_f32(kD) * 4;
   // after the gradient tile: the int8 moments' absmax words; then (quad) the
   // four blocks' parts of the epilogue rows' bias gradient
@@ -998,13 +1014,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int i = 0; i < kNw / 2; ++i) acc[i] = 0.f;
     float gb[2] = {0.f, 0.f};  // bias gradient of rows g, g + 8: this thread's columns
 
-    // kRecompute: warp w encodes the m16n8 code fragments of row block
-    // (w % 2) and column blocks w / 2 + 4 i, with their bias
+    // kRecompute in one block: warp w encodes the m16n8 code fragments of
+    // row block (w % 2) and column blocks w / 2 + 4 i, with their bias
     constexpr int kEnc = (kWgTb / 16) * (kNt / 8) / (kWgConsumers / 32);
     static_assert(kWgTb / 16 == 2, "the encode's row blocks: two per tile");
-    static_assert(!kRecompute || kCluster == 1, "the encode needs whole rows");
+    static_assert(!kRecompute || kCluster == 1 || S::kQuadRebuild, "a block encodes whole rows, or its quarter");
     float ebias[kEnc][2];
-    if constexpr (kRecompute) {
+    if constexpr (kRecompute && kCluster == 1) {
       const float* bm = static_cast<const float*>(a.code) + row0;
 #pragma unroll
       for (int i = 0; i < kEnc; ++i) {
@@ -1018,17 +1034,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // the other parts are; then the tile's finish: g += c^T . dxh, which
     // needs no dc, runs on the tensor cores while the parts meet and the
     // mask is applied; then g += bf16(dc)^T . x, and the stage is released.
-    float dc[kWgTb / 2];  // dc^T [64 x kWgTb], wgmma accumulator layout
+    float dc[kWgTb / 2];   // dc^T [64 x kWgTb], wgmma accumulator layout
+    float enc[kWgTb / 2];  // quad rebuild: the code partial q_r^T, the same layout
     float4* x4 = reinterpret_cast<float4*>(xchg);
     auto stage_of = [&](int t) { return stage0 + (t % pl.stages) * S::kStage; };
 
-    // tile t's stage landed; [kRecompute: its code rebuilt]; its partial in dc
+    // tile t's stage landed; [kRecompute: its code rebuilt (one block), or
+    // its code partial in enc (quad)]; its partial in dc
     auto dc_product = [&](int t) {
       sm90::mbar_wait(&full[t % pl.stages], (t / pl.stages) & 1);
       unsigned char* c_s = stage_of(t) + 2 * S::kX;
       const uint32_t xs = sm90::smem_u32(stage_of(t)), ds = xs + S::kX;
 
-      if constexpr (kRecompute) {
+      if constexpr (kRecompute && kCluster == 1) {
         // c = bf16(relu(x . Dj^T + b)) as K1 encodes it: per m16n8 fragment
         // one mma.sync chain over the whole depth from k = 0, the bias added
         // after the product (so the same bits as K1's stored code)
@@ -1070,10 +1088,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         sm90::bar_sync(kBarConsumers, kWgConsumers);
       }
 
-      // dc^T [64 x kWgTb] = Dj . dxh^T over this warpgroup's depth
+      // dc^T [64 x kWgTb] = Dj . dxh^T over this warpgroup's depth [quad
+      // rebuild: and q_r^T [64 x kWgTb] = Dj . x^T over this block's quarter
+      // of the depth, one k16 chain from zero]
 #pragma unroll
       for (int i = 0; i < kWgTb / 2; ++i) dc[i] = 0.f;
       sm90::fence_regs(dc);
+      if constexpr (S::kQuadRebuild) {
+#pragma unroll
+        for (int i = 0; i < kWgTb / 2; ++i) enc[i] = 0.f;
+        sm90::fence_regs(enc);
+      }
       sm90::wg_fence();
 #pragma unroll
       for (int k = 0; k < S::kDepth; k += 16) {
@@ -1081,9 +1106,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         sm90::wgmma_ss<kWgTb, 0, 0>(dc, sm90::desc(dj_a + sm90::swz(rbase, kk, kNt), 16, 1024),
                                     sm90::desc(ds + sm90::swz(0, kk, kWgTb), 16, 1024));
       }
+      if constexpr (S::kQuadRebuild) {
+#pragma unroll
+        for (int k = 0; k < kDc; k += 16)
+          sm90::wgmma_ss<kWgTb, 0, 0>(enc, sm90::desc(dj_a + sm90::swz(rbase, k, kNt), 16, 1024),
+                                      sm90::desc(xs + sm90::swz(0, k, kWgTb), 16, 1024));
+      }
       sm90::wg_commit();
       sm90::wg_wait<0>();
       sm90::fence_regs(dc);
+      if constexpr (S::kQuadRebuild) sm90::fence_regs(enc);
     };
     // g += c^T . dxh of tile t (committed, not waited on)
     auto c_product = [&](int t) {
@@ -1172,18 +1204,31 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // sent after that block read its tile t pieces; it sends its tile t + 2
       // fragments only after it has their tile t + 2 pieces, each sent after
       // that block read its tile t fragments (its tile t + 1 finish is done).
+      // Rebuilding the code, the code partials' pieces of tile t + 1 (q_r's
+      // columns [8 q, 8 q + 8) to block q) have one slot: they go out once
+      // this block has every other block's tile t fragments, each sent after
+      // that block read its tile t code pieces, and travel under tile t's
+      // products. Block r then finishes its columns of the code,
+      // bf16(relu(((q0 + q1) + (q2 + q3)) + b)), masks dc on it and sends
+      // both as one 16-byte message; the code's fragments are the A operand
+      // of g += c^T . dxh, issued before g += bf16(dc^T) . x as on the stored
+      // code, so the gradient sums in the same order.
       const int src = (int)rank;
       const float4* scat = x4;  // [2][kCluster - 1][kWgConsumers]: the other blocks' pieces
-      const uint2* gath = reinterpret_cast<const uint2*>(x4 + 2 * (kCluster - 1) * kWgConsumers);  // ... fragments
+      const unsigned char* gath = reinterpret_cast<const unsigned char*>(x4 + 2 * (kCluster - 1) * kWgConsumers);
+      // ... their fragments ([2][kCluster - 1][kWgConsumers] messages of kAg bytes), then (rebuild) the code
+      // partials' pieces ([kCluster - 1][kWgConsumers] float4)
+      const float4* escat = reinterpret_cast<const float4*>(gath + 2 * (kCluster - 1) * kWgConsumers * S::kAg);
       auto peer_of = [&](int q) { return q < src ? q : q - 1; };  // block q's index among this block's peers
       auto mine_at = [&](int q) { return src < q ? src : src - 1; };  // this block's index among q's peers
-      float own[4];  // this block's piece of the last tile scattered
+      float own[4];                         // this block's piece of the last tile scattered
+      float eown[4] = {0.f, 0.f, 0.f, 0.f};  // ... and of its code partial (rebuild)
       auto scatter = [&](int t) {
         const int x = t & 1;
         uint64_t* rs = &xfull[2 * x + wg];
         if (wt == 0) {  // this slot's phases (its last ones, tile t - 2's, were waited on here)
           sm90::mbar_expect_tx(rs, (kCluster - 1) * 128 * 16);
-          sm90::mbar_expect_tx(&xfull[4 + 2 * x + wg], (kCluster - 1) * 128 * 8);
+          sm90::mbar_expect_tx(&xfull[4 + 2 * x + wg], (kCluster - 1) * 128 * S::kAg);
         }
 #pragma unroll
         for (int q = 0; q < kCluster; ++q) {
@@ -1197,12 +1242,36 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          sm90::map_rank(sm90::smem_u32(rs), q));
         }
       };
-      auto finish_quad = [&](int t, const float (&piece)[4]) {
+      // rebuild: tile t's code partial (in enc) to the other blocks' one slot
+      auto scatter_code = [&]() {
+        uint64_t* es = &xfull[8 + wg];
+        if (wt == 0) sm90::mbar_expect_tx(es, (kCluster - 1) * 128 * 16);  // its last phase was waited on here
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          if (q == src) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) eown[e] = enc[4 * q + e];
+            continue;
+          }
+          const uint32_t slot = sm90::smem_u32(escat + mine_at(q) * kWgConsumers + tid);
+          sm90::st_async(sm90::map_rank(slot, q),
+                         make_float4(enc[4 * q], enc[4 * q + 1], enc[4 * q + 2], enc[4 * q + 3]),
+                         sm90::map_rank(sm90::smem_u32(es), q));
+        }
+      };
+      // rebuild: the bias of loop rows rbase + g, rbase + g + 8
+      float qbias[2] = {0.f, 0.f};
+      if constexpr (kRecompute) {
+        const float* bm = static_cast<const float*>(a.code) + row0 + rbase + g;
+        qbias[0] = bm[0];
+        qbias[1] = bm[8];
+      }
+      auto finish_quad = [&](int t, const float (&piece)[4], const float (&epiece)[4]) {
         const int x = t & 1;
         const unsigned char* c_s = stage_of(t) + 2 * S::kX;
-        c_product(t);
+        if constexpr (!kRecompute) c_product(t);
         sm90::mbar_wait_cluster(&xfull[2 * x + wg], (t >> 1) & 1);
-        float v[4];
+        float v[4], cv[4];
 #pragma unroll
         for (int q = 0; q < kCluster; ++q) {
           float p[4];
@@ -1216,44 +1285,107 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) v[e] = q == 0 ? p[e] : __fadd_rn(v[e], p[e]);
         }
+        if constexpr (kRecompute) {
+          // this block's columns of the code: ((q0 + q1) + (q2 + q3)) + b
+          sm90::mbar_wait_cluster(&xfull[8 + wg], t & 1);
+          float p[kCluster][4];
+#pragma unroll
+          for (int q = 0; q < kCluster; ++q) {
+            if (q == src) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) p[q][e] = epiece[e];
+            } else {
+              const float4 o = escat[peer_of(q) * kWgConsumers + tid];
+              p[q][0] = o.x, p[q][1] = o.y, p[q][2] = o.z, p[q][3] = o.w;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float sum = __fadd_rn(__fadd_rn(p[0][e], p[1][e]), __fadd_rn(p[2][e], p[3][e]));
+            cv[e] = __bfloat162float(__float2bfloat16_rn(relu_keep_nan(__fadd_rn(sum, qbias[e >> 1]))));
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int b = 8 * src + 2 * t4 + (e & 1), n = rbase + g + 8 * (e >> 1);
+            cv[e] = __bfloat162float(*reinterpret_cast<const bf16*>(c_s + sm90::swz(b, n, kWgTb)));
+          }
+        }
         // relu mask on the code, the l1 term, the bias gradient: this block's columns
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int b = 8 * src + 2 * t4 + (e & 1), n = rbase + g + 8 * (e >> 1);
-          const float cv = __bfloat162float(*reinterpret_cast<const bf16*>(c_s + sm90::swz(b, n, kWgTb)));
-          v[e] = cv > 0.f ? __fadd_rn(v[e], l1b) : 0.f;
+          v[e] = cv[e] > 0.f ? __fadd_rn(v[e], l1b) : 0.f;
           gb[e >> 1] = __fadd_rn(gb[e >> 1], v[e]);
         }
-        const uint2 frag = make_uint2(sm90::pack_bf16(v[0], v[1]), sm90::pack_bf16(v[2], v[3]));
+        const uint4 frag = make_uint4(sm90::pack_bf16(v[0], v[1]), sm90::pack_bf16(v[2], v[3]),
+                                      sm90::pack_bf16(cv[0], cv[1]), sm90::pack_bf16(cv[2], cv[3]));
         uint64_t* ag = &xfull[4 + 2 * x + wg];
 #pragma unroll
         for (int q = 0; q < kCluster; ++q) {
           if (q == src) continue;
-          const uint32_t slot = sm90::smem_u32(gath + (x * (kCluster - 1) + mine_at(q)) * kWgConsumers + tid);
-          sm90::st_async_v2(sm90::map_rank(slot, q), frag.x, frag.y, sm90::map_rank(sm90::smem_u32(ag), q));
+          // this block's message lands at its own index among q's peers
+          const uint32_t slot = sm90::smem_u32(gath) + ((x * (kCluster - 1) + mine_at(q)) * kWgConsumers + tid) * S::kAg;
+          if constexpr (kRecompute)
+            sm90::st_async_v4(sm90::map_rank(slot, q), frag, sm90::map_rank(sm90::smem_u32(ag), q));
+          else
+            sm90::st_async_v2(sm90::map_rank(slot, q), frag.x, frag.y, sm90::map_rank(sm90::smem_u32(ag), q));
         }
         sm90::mbar_wait_cluster(ag, (t >> 1) & 1);
-        // column group j of dc^T is words 2 (j % 2) and 2 (j % 2) + 1 of fragment j / 2
-        uint32_t af[kWgTb / 16][4];
+        // column group j of dc^T (and of c^T) is words 2 (j % 2) and
+        // 2 (j % 2) + 1 of fragment j / 2
+        uint32_t af[kWgTb / 16][4], cf[kWgTb / 16][4];
 #pragma unroll
         for (int j = 0; j < kCluster; ++j) {
-          uint2 w = frag;
-          if (j != src) w = gath[(x * (kCluster - 1) + peer_of(j)) * kWgConsumers + tid];
+          uint4 w = frag;
+          if (j != src) {
+            const unsigned char* m8 = gath + ((x * (kCluster - 1) + peer_of(j)) * kWgConsumers + tid) * S::kAg;
+            if constexpr (kRecompute) {
+              w = *reinterpret_cast<const uint4*>(m8);
+            } else {
+              const uint2 w2 = *reinterpret_cast<const uint2*>(m8);
+              w.x = w2.x, w.y = w2.y;
+            }
+          }
           af[j >> 1][2 * (j & 1)] = w.x;
           af[j >> 1][2 * (j & 1) + 1] = w.y;
+          cf[j >> 1][2 * (j & 1)] = w.z;
+          cf[j >> 1][2 * (j & 1) + 1] = w.w;
         }
-        x_product(t, af);
+        if constexpr (kRecompute) {
+          // every other block has read its tile t code pieces: tile t + 1's go out
+          if (t + 1 < n_tiles) scatter_code();
+          // g += c^T . dxh, then g += bf16(dc^T) . x, both A operands from registers
+          const uint32_t xs = sm90::smem_u32(stage_of(t)), ds = xs + S::kX;
+          sm90::fence_regs(acc);
+          sm90::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWgTb / 16; ++kk)
+            sm90::wgmma_rs<kNw, 1>(acc, cf[kk], sm90::desc(ds + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
+#pragma unroll
+          for (int kk = 0; kk < kWgTb / 16; ++kk)
+            sm90::wgmma_rs<kNw, 1>(acc, af[kk], sm90::desc(xs + (cbase / 64) * kPanelX + kk * 2048, kPanelX, 1024));
+          sm90::wg_commit();
+          sm90::wg_wait<0>();
+          sm90::fence_regs(acc);
+          sm90::fence_regs(cf);
+          sm90::fence_regs(af);
+          if (wt == 0) sm90::mbar_arrive(&empty[t % pl.stages]);  // this warpgroup is done with the stage
+        } else {
+          x_product(t, af);
+        }
       };
 
       dc_product(0);
       scatter(0);
+      if constexpr (kRecompute) scatter_code();
       for (int t = 0; t < n_tiles; ++t) {
         const float piece[4] = {own[0], own[1], own[2], own[3]};
+        const float epiece[4] = {eown[0], eown[1], eown[2], eown[3]};
         if (t + 1 < n_tiles) {
           dc_product(t + 1);
           scatter(t + 1);
         }
-        finish_quad(t, piece);
+        finish_quad(t, piece, epiece);
       }
     } else {
       for (int t = 0; t < n_tiles; ++t) {
@@ -1376,11 +1508,10 @@ int launch_wg(const BwdArgs& a, int M, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// D 128 .. 512, and D 1024 on the stored code: the wgmma mainloop; D 768,
-// and D 1024 rebuilding the code, the WMMA one (3 column blocks a warp at
-// 768, where 32768 / D is no multiple of 32; 32 rows a block at both). A
-// launch the chosen mainloop refuses returns its error: no other mainloop
-// is tried.
+// D 128, 256, 512 and 1024: the wgmma mainloop; D 768 the WMMA one (3
+// column blocks a warp, where 32768 / D is no multiple of 32; 32 rows a
+// block). A launch the chosen mainloop refuses returns its error: no other
+// mainloop is tried.
 template <bool kAdam, int kMu, int kNu, bool kRecompute>
 int launch(const BwdArgs& a, int M, cudaStream_t st) {
   switch (a.D) {
@@ -1388,9 +1519,7 @@ int launch(const BwdArgs& a, int M, cudaStream_t st) {
     case 256: return launch_wg<kAdam, kMu, kNu, kRecompute, 256>(a, M, st);
     case 512: return launch_wg<kAdam, kMu, kNu, kRecompute, 512>(a, M, st);
     case 768: return launch_cols<kAdam, kMu, kNu, kRecompute, 3>(a, M, st);
-    case 1024:
-      if constexpr (kRecompute) return launch_cols<kAdam, kMu, kNu, true, 4>(a, M, st);
-      else return launch_wg<kAdam, kMu, kNu, false, 1024>(a, M, st);
+    case 1024: return launch_wg<kAdam, kMu, kNu, kRecompute, 1024>(a, M, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1456,8 +1585,7 @@ int adam_entry(const void* x, const void* dxh, const void* code, const void* nrm
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma mainloop's plan at width D (128, 256 or 512; 1024 on the stored
-// code) with int8_moments (0..2) int8 moment tiers: out[0] the stages of its
+// The wgmma mainloop's plan at width D (128, 256, 512 or 1024) with int8_moments (0..2) int8 moment tiers: out[0] the stages of its
 // ring, out[1] its dynamic shared memory in bytes, out[2] the blocks of its
 // cluster. Returns cudaErrorInvalidValue at a width it does not run.
 template <int kD, bool kRecompute>
@@ -1474,9 +1602,7 @@ int plan_entry(int D, int int8_moments, int* out) {
     case 128: return plan_of<128, kRecompute>(int8_moments, out);
     case 256: return plan_of<256, kRecompute>(int8_moments, out);
     case 512: return plan_of<512, kRecompute>(int8_moments, out);
-    case 1024:
-      if constexpr (kRecompute) return (int)cudaErrorInvalidValue;
-      else return plan_of<1024, false>(int8_moments, out);
+    case 1024: return plan_of<1024, kRecompute>(int8_moments, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

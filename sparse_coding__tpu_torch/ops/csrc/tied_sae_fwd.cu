@@ -16,9 +16,9 @@
 // (K1: 134 MB of them the code): ~0.10 ms at the bf16 tensor-core rate. The
 // TPU kernel keeps a whole 4 MB member dictionary in VMEM; an SM has 227 KB.
 //
-// Design at D 128, 256 and 512 (`pp_fwd_kernel<kD, kStoreCode>`, below, K1
-// with kStoreCode): a block of 64 batch rows keeps its x tile in shared
-// memory and its x^ [64, D] in the f32 `wgmma` accumulators of two
+// Design at D 128, 256, 512 and 1024 (`pp_fwd_kernel<kD, kStoreCode>`,
+// below, K1 with kStoreCode): a block of 64 batch rows keeps its x tile in
+// shared memory and its x^ [64, D] in the f32 `wgmma` accumulators of two
 // warpgroups, while TMA streams the member's dictionary (from L2) through a
 // ring of 64-row stages against mbarriers; each warpgroup's half of a code
 // tile leaves the encode's accumulators as the decode's register A operand
@@ -27,22 +27,28 @@
 // never makes a round trip through device memory. K1 stores each
 // warpgroup's half of the code tile while the decode's products run: a
 // rotation in each quad of threads turns the fragments' 4-byte pieces into
-// one 16-byte store a row. At D 768 and 1024, which no tied path runs, K1
-// keeps its first design, two WMMA launches (`encode_kernel`: bias + relu +
-// sum(c), writes c; `decode_kernel`: reads c back, writes dxh and
-// sum(err^2)) over two cp.async stages, and K1n one block of 16 warps a 32
-// rows (`nocode_kernel`) walking the dictionary in 32-row tiles.
-// Bits: the encode runs, per output element, one f32 chain of k16 steps over
-// the depth from k = 0 with the bias added after the product, and each x^
-// element is one accumulator carried across the dictionary in k16 steps in
-// N order. A `wgmma` k16 chain gives the bits of an `mma.sync` m16n8k16
-// chain on the same operands (WMMA 16 x 16 x 16 is two of those), so c, x^
-// and dxh are the same bits on every route, and K2's rebuild of the code
-// (`tied_sae_bwd.cuh`, `mma.sync`) reproduces K1's c. Loss sums are per-block
-// partials summed by the wrapper (no float atomics: the same bits every
-// run); they group per 64-row block on the pipelined kernel and per output
-// tile on the WMMA ones, so l_rec and l_l1 may differ between the two in
-// the last bits.
+// one 16-byte store a row. At D 1024 a cluster of two blocks shares the 64
+// rows, each holding half the columns (the pair split, below). At D 768,
+// which no tied path runs, K1 keeps its first design, two WMMA launches
+// (`encode_kernel`: bias + relu + sum(c), writes c; `decode_kernel`: reads c
+// back, writes dxh and sum(err^2)) over two cp.async stages, and K1n one
+// block of 16 warps a 32 rows (`nocode_kernel`) walking the dictionary in
+// 32-row tiles.
+// Bits: at D <= 768 the encode runs, per output element, one f32 chain of
+// k16 steps over the depth from k = 0. At D 1024 the code is summed from
+// quarters of the depth in one fixed order, the same in K1, K1n and K2's
+// rebuild (tied_sae_bwd.cuh): q_r (r = 0..3) is one k16 chain from zero over
+// depth [256 r, 256 r + 256), and c = bf16(relu(((q0 + q1) + (q2 + q3)) + b))
+// with each add rounded to nearest (__fadd_rn). Everywhere the bias is added
+// after the product, and each x^ element is one accumulator carried across
+// the dictionary in k16 steps in N order. A `wgmma` k16 chain gives the bits
+// of an `mma.sync` m16n8k16 chain on the same operands (WMMA 16 x 16 x 16 is
+// two of those), so c, x^ and dxh are the same bits on every route at a
+// width, and K2's rebuild of the code (`tied_sae_bwd.cuh`) reproduces K1's
+// c. Loss sums are per-block partials summed by the wrapper (no float
+// atomics: the same bits every run); they group per 64-row block (and
+// column half, at D 1024) on the pipelined kernel and per output tile on the
+// WMMA ones.
 
 #include "wmma_tile.cuh"
 #include "sm90.cuh"
@@ -193,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     lrec_part[((size_t)m * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = tot;
 }
 
-// -- K1n at D 768 and 1024 --------------------------------------------------------
+// -- K1n at D 768 ------------------------------------------------------------------
 
 constexpr int kNcThreads = 512;  // 16 warps
 constexpr int kNcWarps = kNcThreads / 32;
@@ -331,7 +337,7 @@ __global__ void __launch_bounds__(kNcThreads, 1) nocode_kernel(
   }
 }
 
-// -- K1 and K1n at D 128, 256, 512: a pipelined encode -> decode ---------------
+// -- K1 and K1n at D 128, 256, 512 and 1024: a pipelined encode -> decode ------
 
 // A block owns kPpRows = 64 batch rows and keeps their x tile resident in
 // shared memory; the member's dictionary streams through a ring of 64-row
@@ -350,9 +356,29 @@ __global__ void __launch_bounds__(kNcThreads, 1) nocode_kernel(
 // steps, in N order (m64nNk16, A from registers, Dj N-major from shared
 // memory). A chain of `wgmma` k16 steps gives the bits of a chain of
 // `mma.sync` m16n8k16 steps on the same operands (scripts/fwd_probe.py, and
-// the cuda tests hold K1n's dxh to the WMMA route's bit for bit at every
-// width), so c, x^ and dxh are the first design's. No barrier of the whole
-// block runs inside the loop. K1 (kStoreCode) adds the code's store.
+// the cuda tests hold K1n's dxh to K1's bit for bit at every width), so
+// c, x^ and dxh are the first design's. No barrier of the whole block runs
+// inside the loop. K1 (kStoreCode) adds the code's store.
+//
+// D 1024 (the pair split): x [64 x 1024] bf16 is 128 KB and x^ [64 x 1024]
+// f32 a whole register file, so a cluster of two blocks shares the 64 rows:
+// block r holds columns [512 r, 512 r + 512) of x, of each dictionary stage
+// and of x^, and does D 512's work on them. Per tile, warpgroup w encodes
+// its 32 code columns over the block's half of the depth as two quarter
+// chains, q_2r and q_2r+1 (each one k16 chain from zero over 256 columns),
+// and adds them. The halves meet by a reduce-scatter: block r finishes k16
+// step 2 w + r of the tile (16 code columns), receiving the peer's half-sum
+// of it (st.async into a slot, counted on an mbarrier) and computing
+// c = bf16(relu(((q0 + q1) + (q2 + q3)) + b)); sum(c) and K1's code store
+// take only those columns, so no element is counted or written twice. An
+// all-gather then shares the four bf16 fragments: each warpgroup writes its
+// own into its block's slot (for the other warpgroup, after the 64-thread
+// barrier) and st.async's it into the peer's. Each kind of slot is
+// double-buffered: a block sends tile t + 2's half-sums only after it has
+// the peer's tile t + 1 fragments, sent after the peer read tile t's. The
+// ring keeps D 512's two 64 KB stages; the exchange takes 32 KB (16 KB of
+// f32 half-sums, 16 KB of bf16 fragments, two slots each) where D 512's
+// warpgroup trade takes 16 KB, which is what fits.
 constexpr int kPpRows = 64;
 constexpr int kPpNt = 64;
 constexpr int kPpWarps = 8;
@@ -360,39 +386,53 @@ constexpr int kPpThreads = kPpWarps * 32;
 
 template <int kD>
 struct PpShape {
-  static constexpr int kStages = kD == 512 ? 2 : 4;
+  static constexpr int kCluster = kD == 1024 ? 2 : 1;  // blocks sharing the rows
+  static constexpr int kDc = kD / kCluster;            // columns of x, the stages and x^ in a block
+  static constexpr int kStages = kDc == 512 ? 2 : 4;
   static constexpr uint32_t kPanel = kPpRows * 128;  // bytes of a 64-column panel
-  static constexpr uint32_t kX = kPpRows * kD * 2;
-  static constexpr uint32_t kStage = kPpNt * kD * 2;
-  static constexpr uint32_t kXchg = 2 * 2 * 2 * 128 * 16;  // [slot][warpgroup][k16 step][thread] uint4
-  static constexpr int kCols = kD / 2;  // x^ columns of a warpgroup
-  static constexpr size_t kSmem = 1024 + kX + kStages * kStage + kXchg + (kStages + 1) * 8 + kStages * 4 + 2 * kPpWarps * 4;
+  static constexpr uint32_t kX = kPpRows * kDc * 2;
+  static constexpr uint32_t kStage = kPpNt * kDc * 2;
+  // the code tile's exchange. One block: [slot][warpgroup][k16 step][thread]
+  // uint4. The pair: the reduce-scatter's [slot][warpgroup][thread] two
+  // float4, then the all-gather's [slot][k16 step][thread] uint4
+  static constexpr uint32_t kRs = kCluster == 1 ? 0u : 2u * 2 * 128 * 32;
+  static constexpr uint32_t kXchg = kCluster == 1 ? 2u * 2 * 2 * 128 * 16 : kRs + 2u * 4 * 128 * 16;
+  static constexpr int kXbars = kCluster == 1 ? 0 : 6;  // pair: reduce-scatter [slot][warpgroup], all-gather [slot]
+  static constexpr int kCols = kDc / 2;                 // x^ columns of a warpgroup
+  static constexpr size_t kSmem = 1024 + kX + kStages * kStage + kXchg + (kStages + 1 + kXbars) * 8 + kStages * 4 +
+                                  2 * kPpWarps * 4;
   static_assert(kPpRows == kPpNt, "x and the dictionary stages share one swizzled tile height");
-  static_assert(kSmem <= (size_t)SC_MAX_SMEM, "K1n's x tile and stages fit a block");
+  static_assert(kDc <= 512 && kCols % 64 == 0, "a warpgroup's x^ is whole panels, one wgmma wide");
+  static_assert(kCluster == 1 || kDc == 512, "the pair's quarter chains: two of 256 columns a block");
+  static_assert(kSmem <= (size_t)SC_MAX_SMEM, "x, the stages and the exchange fit a block");
 };
 
 struct PpMaps {
   CUtensorMap x, dhat;
 };
 
-// grid (B/kPpRows, M): dxh and the loss partials of kPpRows batch rows;
-// with kStoreCode (K1) also their code c [M, B, N] bf16.
+// grid (B/kPpRows * cluster, M): dxh and the loss partials of kPpRows batch
+// rows (and of the block's columns, in a pair); with kStoreCode (K1) also
+// their code c [M, B, N] bf16.
 template <int kD, bool kStoreCode>
 __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
     const __grid_constant__ PpMaps maps, const float* __restrict__ bias, bf16* __restrict__ c,
     bf16* __restrict__ dxh, float* __restrict__ lrec_part, float* __restrict__ l1_part, float scale, int B,
     int N) {
   using S = PpShape<kD>;
+  constexpr bool kPair = S::kCluster == 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* x_s = smem;                                     // [kD/64][kPpRows][128 B]
-  unsigned char* stage0 = x_s + S::kX;                           // stage s: [kD/64][kPpNt][128 B]
+  unsigned char* x_s = smem;                                     // [kDc/64][kPpRows][128 B]
+  unsigned char* stage0 = x_s + S::kX;                           // stage s: [kDc/64][kPpNt][128 B]
   uint4* xchg = reinterpret_cast<uint4*>(stage0 + S::kStages * S::kStage);
   uint64_t* full = reinterpret_cast<uint64_t*>(xchg + S::kXchg / 16);  // [stages] the stage has landed
   uint64_t* xbar = full + S::kStages;                                 // the x tile has landed
-  int* done = reinterpret_cast<int*>(xbar + 1);                       // [stages] warps done with the stage, ever
+  uint64_t* pbar = xbar + 1;                                          // [kXbars] the pair's exchange
+  int* done = reinterpret_cast<int*>(pbar + S::kXbars);               // [stages] warps done with the stage, ever
   float* sums = reinterpret_cast<float*>(done + S::kStages);          // [2][kPpWarps]
-  const int m = blockIdx.y, b0 = blockIdx.x * kPpRows;
+  const uint32_t rank = kPair ? sm90::cluster_rank() : 0;
+  const int m = blockIdx.y, b0 = (blockIdx.x / S::kCluster) * kPpRows, col0 = rank * S::kDc;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tiles = N / kPpNt;
 
@@ -400,8 +440,9 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
   auto load_tile = [&](int t) {
     const int s = t % S::kStages;
     sm90::mbar_expect_tx(&full[s], S::kStage);
-    for (int p = 0; p < kD / 64; ++p)
-      sm90::tma_load(stage0 + s * S::kStage + p * S::kPanel, &maps.dhat, &full[s], p * 64, m * N + t * kPpNt);
+    for (int p = 0; p < S::kDc / 64; ++p)
+      sm90::tma_load(stage0 + s * S::kStage + p * S::kPanel, &maps.dhat, &full[s], col0 + p * 64,
+                     m * N + t * kPpNt);
   };
   if (tid == 0) {
     for (int s = 0; s < S::kStages; ++s) {
@@ -409,19 +450,23 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
       done[s] = 0;
     }
     sm90::mbar_init(xbar, 1);
+    for (int i = 0; i < S::kXbars; ++i) sm90::mbar_init(&pbar[i], 1);
     sm90::fence_mbar_init();
     sm90::mbar_expect_tx(xbar, S::kX);
-    for (int p = 0; p < kD / 64; ++p) sm90::tma_load(x_s + p * S::kPanel, &maps.x, xbar, p * 64, b0);
+    for (int p = 0; p < S::kDc / 64; ++p) sm90::tma_load(x_s + p * S::kPanel, &maps.x, xbar, col0 + p * 64, b0);
     for (int t = 0; t < S::kStages && t < n_tiles; ++t) load_tile(t);
   }
-  __syncthreads();
+  if constexpr (kPair) sm90::cluster_sync();  // the peer's barriers exist before anything is sent to them
+  else __syncthreads();
 
   const int wg = tid >> 7, wt = tid & 127;             // warpgroup, its thread
   const int g = 16 * (wt >> 5) + (lane >> 2), t4 = lane & 3;  // accumulator row, column pair
   const uint32_t xs = sm90::smem_u32(x_s);
-  const float* bm = bias + (size_t)m * N + 32 * wg + 2 * t4;
+  // the bias of this warpgroup's 32 code columns (one block), or of the k16
+  // step it finishes (pair: 2 wg + rank)
+  const float* bm = bias + (size_t)m * N + (kPair ? 16 * (2 * wg + (int)rank) : 32 * wg) + 2 * t4;
 
-  float acc[S::kCols / 2];  // x^ rows g, g + 8; columns wg*kCols + 8 j + 2 t4 (+1)
+  float acc[S::kCols / 2];  // x^ rows g, g + 8; columns wg*kCols + 8 j + 2 t4 (+1) of the block's
 #pragma unroll
   for (int i = 0; i < S::kCols / 2; ++i) acc[i] = 0.f;
   float l1 = 0.f;
@@ -432,53 +477,133 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
     const uint32_t ds = sm90::smem_u32(stage0 + s * S::kStage);
     float bv[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < (kPair ? 2 : 4); ++j) {
       const float2 b2 = *reinterpret_cast<const float2*>(bm + t * kPpNt + 8 * j);
       bv[2 * j] = b2.x, bv[2 * j + 1] = b2.y;
     }
     sm90::mbar_wait(&full[s], (t / S::kStages) & 1);
 
     // encode: code columns 32 wg .. + 31 of the tile, one chain from k = 0
+    // (pair: a chain over each quarter of the depth, then their sum)
     float e[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) e[i] = 0.f;
     sm90::fence_regs(e);
-    __syncwarp();
-    sm90::wg_fence();
+    if constexpr (kPair) {
+      float e2[16];
 #pragma unroll
-    for (int k = 0; k < kD; k += 16)
-      sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
-                               sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
-    sm90::wg_commit();
-    sm90::wg_wait<0>();
-    sm90::fence_regs(e);
+      for (int i = 0; i < 16; ++i) e2[i] = 0.f;
+      sm90::fence_regs(e2);
+      __syncwarp();
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < 256; k += 16)
+        sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
+                                 sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
+#pragma unroll
+      for (int k = 256; k < 512; k += 16)
+        sm90::wgmma_ss<32, 0, 0>(e2, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
+                                 sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(e);
+      sm90::fence_regs(e2);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) e[i] = __fadd_rn(e[i], e2[i]);  // q_2r + q_2r+1
+    } else {
+      __syncwarp();
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kD; k += 16)
+        sm90::wgmma_ss<32, 0, 0>(e, sm90::desc(xs + sm90::swz(0, k, kPpRows), 16, 1024),
+                                 sm90::desc(ds + sm90::swz(32 * wg, k, kPpNt), 16, 1024));
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(e);
+    }
 
-    // bias, relu (NaN kept), sum(c) from the f32 code, bf16: this
-    // warpgroup's two k16 A fragments (rows g, g + 8)
-    uint32_t af[4][4];  // the tile's four k16 steps; 2 wg, 2 wg + 1 are this warpgroup's
+    uint32_t af[4][4];  // the tile's four k16 steps: the decode's A operand
+    uint32_t own[4];    // pair: the k16 step this warpgroup finished
+    if constexpr (kPair) {
+      // reduce-scatter: the warpgroup's other k16 step (rank ^ 1 of its two)
+      // to the same thread of the peer's warpgroup; this one from the peer
+      const uint32_t peer = rank ^ 1;
+      float4* rs = reinterpret_cast<float4*>(xchg) + ((slot * 2 + wg) * 128 + wt) * 2;
+      uint64_t* rbar = &pbar[2 * slot + wg];
+      uint64_t* abar = &pbar[4 + slot];
+      if (wt == 0) sm90::mbar_expect_tx(rbar, 128 * 32);  // this slot's phase (its last one was waited on here)
+      if (tid == 0) sm90::mbar_expect_tx(abar, 2 * 128 * 16);
+      float send[8], mine[8];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+      for (int i = 0; i < 8; ++i) {
+        send[i] = rank ? e[i] : e[8 + i];
+        mine[i] = rank ? e[8 + i] : e[i];
+      }
+      const uint32_t rbar_peer = sm90::map_rank(sm90::smem_u32(rbar), peer);
+      sm90::st_async(sm90::map_rank(sm90::smem_u32(rs), peer), make_float4(send[0], send[1], send[2], send[3]),
+                     rbar_peer);
+      sm90::st_async(sm90::map_rank(sm90::smem_u32(rs + 1), peer), make_float4(send[4], send[5], send[6], send[7]),
+                     rbar_peer);
+      sm90::mbar_wait_cluster(rbar, (t >> 1) & 1);
+      const float4 p0 = rs[0], p1 = rs[1];
+      const float other[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      // c = bf16(relu(((q0 + q1) + (q2 + q3)) + b)), sum(c) from the f32 c
       float v[8];
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e4 = 0; e4 < 4; ++e4) {
-          v[4 * h + e4] = relu_keep_nan(__fadd_rn(e[4 * (2 * q + h) + e4], bv[2 * (2 * q + h) + (e4 & 1)]));
-          l1 = __fadd_rn(l1, v[4 * h + e4]);
+          const int i = 4 * h + e4;
+          const float q = rank ? __fadd_rn(other[i], mine[i]) : __fadd_rn(mine[i], other[i]);
+          v[i] = relu_keep_nan(__fadd_rn(q, bv[2 * h + (e4 & 1)]));
+          l1 = __fadd_rn(l1, v[i]);
         }
-      uint32_t* a = af[2 * wg + q];
-      a[0] = sm90::pack_bf16(v[0], v[1]);
-      a[1] = sm90::pack_bf16(v[2], v[3]);
-      a[2] = sm90::pack_bf16(v[4], v[5]);
-      a[3] = sm90::pack_bf16(v[6], v[7]);
-      xchg[((slot * 2 + wg) * 2 + q) * 128 + wt] = make_uint4(a[0], a[1], a[2], a[3]);
-    }
-    sm90::bar_sync(1 + (wt >> 5), 64);  // this warp and the warp of the same rows in the other warpgroup
+      own[0] = sm90::pack_bf16(v[0], v[1]);
+      own[1] = sm90::pack_bf16(v[2], v[3]);
+      own[2] = sm90::pack_bf16(v[4], v[5]);
+      own[3] = sm90::pack_bf16(v[6], v[7]);
+      // all-gather: this step's fragment into this block's slot (for the
+      // other warpgroup) and into the peer's
+      uint4* ag = xchg + S::kRs / 16 + slot * 4 * 128;
+      const int ks = 2 * wg + rank;
+      const uint4 f = make_uint4(own[0], own[1], own[2], own[3]);
+      ag[ks * 128 + wt] = f;
+      sm90::st_async_v4(sm90::map_rank(sm90::smem_u32(ag + ks * 128 + wt), peer), f,
+                        sm90::map_rank(sm90::smem_u32(abar), peer));
+      sm90::bar_sync(1 + (wt >> 5), 64);  // this warp and the warp of the same rows in the other warpgroup
+      sm90::mbar_wait_cluster(abar, (t >> 1) & 1);
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const uint4 o = xchg[((slot * 2 + (wg ^ 1)) * 2 + q) * 128 + wt];
-      uint32_t* a = af[2 * (wg ^ 1) + q];
-      a[0] = o.x, a[1] = o.y, a[2] = o.z, a[3] = o.w;
+      for (int q = 0; q < 4; ++q) {
+        const uint4 o = ag[q * 128 + wt];
+        af[q][0] = o.x, af[q][1] = o.y, af[q][2] = o.z, af[q][3] = o.w;
+      }
+    } else {
+      // bias, relu (NaN kept), sum(c) from the f32 code, bf16: this
+      // warpgroup's two k16 A fragments (rows g, g + 8)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            v[4 * h + e4] = relu_keep_nan(__fadd_rn(e[4 * (2 * q + h) + e4], bv[2 * (2 * q + h) + (e4 & 1)]));
+            l1 = __fadd_rn(l1, v[4 * h + e4]);
+          }
+        uint32_t* a = af[2 * wg + q];
+        a[0] = sm90::pack_bf16(v[0], v[1]);
+        a[1] = sm90::pack_bf16(v[2], v[3]);
+        a[2] = sm90::pack_bf16(v[4], v[5]);
+        a[3] = sm90::pack_bf16(v[6], v[7]);
+        xchg[((slot * 2 + wg) * 2 + q) * 128 + wt] = make_uint4(a[0], a[1], a[2], a[3]);
+      }
+      sm90::bar_sync(1 + (wt >> 5), 64);  // this warp and the warp of the same rows in the other warpgroup
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint4 o = xchg[((slot * 2 + (wg ^ 1)) * 2 + q) * 128 + wt];
+        uint32_t* a = af[2 * (wg ^ 1) + q];
+        a[0] = o.x, a[1] = o.y, a[2] = o.z, a[3] = o.w;
+      }
     }
 
     // decode: x^ += c . Dj, the tile's k16 steps in N order
@@ -488,7 +613,25 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
     for (int q = 0; q < 4; ++q)
       sm90::wgmma_rs<S::kCols, 1>(acc, af[q], sm90::desc(ds + (wg * S::kCols / 64) * S::kPanel + q * 2048, S::kPanel, 1024));
     sm90::wg_commit();
-    if constexpr (kStoreCode) {
+    if constexpr (kStoreCode && kPair) {
+      // K1: the k16 step this warpgroup finished, stored while the decode's
+      // products run. Of rows g and g + 8, thread t4 of a quad holds two
+      // columns (2 t4, 2 t4 + 1) of each of the step's two 8-column groups;
+      // a 4 x 4 rotation in the quad (three shuffles) gives it row
+      // g + 8 (t4 >> 1), group t4 & 1 whole: one 16-byte store
+      const uint32_t v[4] = {own[0], own[2], own[1], own[3]};  // by (row half, group) = (T >> 1, T & 1)
+      uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int give = (t4 - r) & 3, from = (t4 + r) & 3;
+        const uint32_t mine = give == 0 ? v[0] : give == 1 ? v[1] : give == 2 ? v[2] : v[3];
+        const uint32_t got = r == 0 ? mine : __shfl_sync(0xffffffffu, mine, (lane & ~3) | from);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = from == k ? got : o[k];
+      }
+      *reinterpret_cast<uint4*>(c + ((size_t)m * B + b0 + g + 8 * (t4 >> 1)) * N + t * kPpNt +
+                                16 * (2 * wg + (int)rank) + 8 * (t4 & 1)) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else if constexpr (kStoreCode) {
       // K1: this warpgroup's half of the code tile, stored while the decode's
       // products run (they only read the fragments). Of rows g and g + 8,
       // thread t4 of a quad holds two columns (2 t4, 2 t4 + 1) of each of
@@ -523,6 +666,8 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
       load_tile(t + S::kStages);
     }
   }
+  // pair: no block leaves while the peer may still write into it
+  if constexpr (kPair) sm90::cluster_sync();
 
   // dxh and sum(err^2) as decode_kernel's epilogue, x from the resident tile
   float sq = 0.f;
@@ -536,7 +681,7 @@ __global__ void __launch_bounds__(kPpThreads, 1) pp_fwd_kernel(
       const float e1 = __fsub_rn(acc[4 * j + 2 * h + 1], __high2float(xv));
       sq = __fadd_rn(sq, __fmul_rn(e0, e0));
       sq = __fadd_rn(sq, __fmul_rn(e1, e1));
-      *reinterpret_cast<__nv_bfloat162*>(dxh + ((size_t)m * B + b0 + r) * kD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dxh + ((size_t)m * B + b0 + r) * kD + col0 + col) =
           __floats2bfloat162_rn(__fmul_rn(scale, e0), __fmul_rn(scale, e1));
     }
   // deterministic sums: a fixed shuffle tree a warp, then the warps in order
@@ -573,9 +718,22 @@ int launch_pp(const void* x, const void* dhat, const void* bias, void* c, void* 
   auto kern = c != nullptr ? pp_fwd_kernel<kD, true> : pp_fwd_kernel<kD, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(B / kPpRows, M), kPpThreads, S::kSmem, st>>>(
-      maps, static_cast<const float*>(bias), static_cast<bf16*>(c), static_cast<bf16*>(dxh),
-      static_cast<float*>(lrec_part), static_cast<float*>(l1_part), scale, B, N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B / kPpRows * S::kCluster, M);
+  cfg.blockDim = dim3(kPpThreads);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S::kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, maps, static_cast<const float*>(bias), static_cast<bf16*>(c),
+                         static_cast<bf16*>(dxh), static_cast<float*>(lrec_part), static_cast<float*>(l1_part), scale,
+                         B, N);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -602,11 +760,12 @@ const char* sc_cuda_error_string(int code) { return cudaGetErrorString((cudaErro
 
 // Shapes: x [B, D] bf16, dhat [M, N, D] bf16, bias [M, N] f32; outputs c [M, B, N]
 // bf16, dxh [M, B, D] bf16 and the loss partials: at D 128, 256 and 512
-// (the pipelined kernel) l1_part and lrec_part [M, B/64] f32, at 768 and
-// 1024 l1_part [M, B/64, N/128] and lrec_part [M, B/64, D/128]. Needs
-// B % 64 == 0, N % 128 == 0, D % 128 == 0 (the Python wrapper checks).
-// Launches on `stream`, does not synchronise, and returns the CUDA error
-// code of the launches (0 on success).
+// (the pipelined kernel) l1_part and lrec_part [M, B/64] f32, at 1024 (its
+// pair split) [M, B/64, 2], at 768 l1_part [M, B/64, N/128] and lrec_part
+// [M, B/64, D/128]. Needs D in {128, 256, 512, 768, 1024}, B % 64 == 0,
+// N % 128 == 0 (the Python wrapper checks). Launches on `stream`, does not
+// synchronise, and returns the CUDA error code of the launches (0 on
+// success; cudaErrorInvalidValue for a shape it does not take).
 int sc_tied_sae_fwd(const void* x, const void* dhat, const void* bias, void* c, void* dxh,
                     void* l1_part, void* lrec_part, int M, int B, int N, int D, float scale,
                     void* stream) {
@@ -615,7 +774,9 @@ int sc_tied_sae_fwd(const void* x, const void* dhat, const void* bias, void* c, 
     case 128: return launch_pp<128>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 256: return launch_pp<256>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 512: return launch_pp<512>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
-    default: break;
+    case 1024: return launch_pp<1024>(x, dhat, bias, c, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    case 768: break;
+    default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaFuncSetAttribute(encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kSmemBytes);
@@ -636,10 +797,11 @@ int sc_tied_sae_fwd(const void* x, const void* dhat, const void* bias, void* c, 
 }
 
 // K1n. As sc_tied_sae_fwd without c: outputs dxh [M, B, D] bf16, lrec_part
-// and l1_part [M, B / rows] f32 (rows = 64 at D <= 512, else 32). Needs D in
-// {128, 256, 512, 768, 1024}, B and N multiples of rows (the Python wrapper
-// checks). Launches on `stream`, does not synchronise, returns the CUDA error
-// code (0 on success).
+// and l1_part [M, B / rows * blocks] f32 (rows = 64 at D <= 512 and 1024,
+// else 32; two blocks a row tile at 1024, else one). Needs D in {128, 256,
+// 512, 768, 1024}, B and N multiples of rows (the Python wrapper checks).
+// Launches on `stream`, does not synchronise, returns the CUDA error code
+// (0 on success).
 int sc_tied_sae_fwd_nocode(const void* x, const void* dhat, const void* bias, void* dxh,
                            void* lrec_part, void* l1_part, int M, int B, int N, int D, float scale,
                            void* stream) {
@@ -649,7 +811,27 @@ int sc_tied_sae_fwd_nocode(const void* x, const void* dhat, const void* bias, vo
     case 256: return launch_pp<256>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 512: return launch_pp<512>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
     case 768: return launch_nocode<32, 3>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
-    case 1024: return launch_nocode<32, 4>(x, dhat, bias, dxh, lrec_part, l1_part, M, B, N, D, scale, st);
+    case 1024: return launch_pp<1024>(x, dhat, bias, nullptr, dxh, lrec_part, l1_part, M, B, N, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The pipelined kernel's plan at width D (128, 256, 512 or 1024): out[0] the
+// stages of its ring, out[1] its dynamic shared memory in bytes, out[2] the
+// blocks of its cluster. Returns cudaErrorInvalidValue at a width it does
+// not run.
+int sc_tied_sae_fwd_plan(int D, int* out) {
+  auto put = [out](int stages, size_t smem, int cluster) {
+    out[0] = stages;
+    out[1] = (int)smem;
+    out[2] = cluster;
+    return 0;
+  };
+  switch (D) {
+    case 128: return put(PpShape<128>::kStages, PpShape<128>::kSmem, PpShape<128>::kCluster);
+    case 256: return put(PpShape<256>::kStages, PpShape<256>::kSmem, PpShape<256>::kCluster);
+    case 512: return put(PpShape<512>::kStages, PpShape<512>::kSmem, PpShape<512>::kCluster);
+    case 1024: return put(PpShape<1024>::kStages, PpShape<1024>::kSmem, PpShape<1024>::kCluster);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,13 +6,13 @@ step of the WHOLE stacked ensemble runs as hand-written CUDA kernels
 
   K1 `tied_sae_fwd`       (csrc/tied_sae_fwd.cu) replaces `_fwd_kernel`:
       c = relu(x·D̂ᵀ + b) (bf16), dxh = bf16(2/(B·D)·(x̂ − x)), Σerr², Σc;
-      at D ≤ 512 the pipelined encode → decode below, storing each code
-      tile as it leaves the encode.
+      at D 128/256/512/1024 the pipelined encode → decode below, storing
+      each code tile as it leaves the encode.
   K1n `tied_sae_fwd_nocode` (csrc/tied_sae_fwd.cu) replaces
       `_fwd_kernel_nocode`: K1 with each code tile kept on chip (never
       stored), for the code-recompute step (``SC_RECOMPUTE_CODE=1``); at
-      D ≤ 512 a pipelined encode → decode whose code passes from the
-      encode's accumulators to the decode's operand in registers.
+      D 128/256/512/1024 a pipelined encode → decode whose code passes from
+      the encode's accumulators to the decode's operand in registers.
   K2 `tied_sae_bwd_adam`  (csrc/tied_sae_bwd.cu, _rc.cu) replaces `_bwd_adam_kernel`
       + `_adam_epilogue` and covers `_bwd_adam_accum_kernel`: code cotangent
       → encoder gradient → normalisation VJP → Adam, the gradient kept on chip.
@@ -99,17 +99,18 @@ SALT_MU_INT8, SALT_NU_INT8, SALT_NU_BF16 = 0x5117A55A, 0x00A11CE5, 0
 TIED_SEED_TILE = 256
 
 # the widths the kernels are written for. The dense K2/K3 run the wgmma
-# mainloop at D 128, 256 and 512, and at D 1024 on the stored code: blocks of
-# 128 dictionary rows at D 128 and 256, 128 rows shared by a cluster of two
-# blocks at D 512 and of four at D 1024 on the stored code, 64 rows at D 512
-# rebuilding the code; D 768, and D 1024 rebuilding the code, keep the WMMA
-# mainloop's 32-row blocks (csrc/tied_sae_bwd.cuh, which holds its tiles and
-# shared-memory plans and asserts that each block's, or cluster's, rows
-# divide K1's 128-column tile)
+# mainloop at D 128, 256, 512 and 1024: blocks of 128 dictionary rows at D
+# 128 and 256, 128 rows shared by a cluster of two blocks at D 512 on the
+# stored code and of four at D 1024 (the code stored or rebuilt), 64 rows at
+# D 512 rebuilding the code; D 768 keeps the WMMA mainloop's 32-row blocks
+# (csrc/tied_sae_bwd.cuh, which holds its tiles and shared-memory plans and
+# asserts that each block's, or cluster's, rows divide K1's 128-column tile)
 WIDTHS = (128, 256, 512, 768, 1024)
 # the widths at which K1 and K1n run the pipelined encode → decode (64-row
-# blocks, TMA stages, `wgmma`); 768 and 1024 keep the WMMA kernels
-PIPELINED_MAX_D = 512
+# tiles, TMA stages, `wgmma`), with the blocks that share a tile: one block
+# at D ≤ 512, a cluster of two at 1024 (each block half the columns, the
+# code summed from quarters of the depth); 768 keeps the WMMA kernels
+PIPELINED_CLUSTER = {128: 1, 256: 1, 512: 1, 1024: 2}
 
 
 def reset_launches() -> None:
@@ -178,6 +179,16 @@ def _decode_plain(xb, db, cb, scale):
     return (f32(scale, err) * err).to(bf16), (err * err).sum(dim=(1, 2))
 
 
+def fwd_partials(M: int, B: int, N: int, D: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """The shapes of K1's loss partials (Σc's, Σerr²'s) at (M, B, N, D): per
+    64-row tile and block of it (two at D 1024) on the pipelined kernel, per
+    64 x 128 output tile of the WMMA encode and decode (D 768). The wrapper
+    sums each over all but the member axis, in a fixed order."""
+    if D in PIPELINED_CLUSTER:
+        return (M, B // FWD_ROWS, PIPELINED_CLUSTER[D]), (M, B // FWD_ROWS, PIPELINED_CLUSTER[D])
+    return (M, B // FWD_ROWS, N // FWD_COLS), (M, B // FWD_ROWS, D // FWD_COLS)
+
+
 def _fwd_plain(xb, db, bias, scale):
     cb, ll1 = _encode_plain(xb, db, bias)
     dxh, lrec = _decode_plain(xb, db, cb, scale)
@@ -187,9 +198,11 @@ def _fwd_plain(xb, db, bias, scale):
 def tied_sae_fwd(xb, db, bias, scale: float):
     """K1. xb [B, D] bf16, db [M, N, D] bf16 (normalized rows), bias [M, N]
     f32 → (c [M, B, N] bf16, dxh [M, B, D] bf16, Σerr² [M] f32, Σc [M] f32).
-    c and dxh carry the same bits at every width; the loss sums group their
-    partials per 64-row block at D ≤ 512 (as K1n's) and per output tile
-    above, so they may differ between the two in the last bits."""
+    At D 1024 the code is summed from quarters of the depth in the order
+    K1n and K2's rebuild use too (csrc/tied_sae_fwd.cu). c and dxh carry
+    K1n's and K2's rebuild's bits at every width; the loss sums group their
+    partials per 64-row block (and column half at D 1024) on the pipelined
+    kernel, as K1n's do, and per output tile at D 768 (`fwd_partials`)."""
     if not xb.is_cuda:
         return _fwd_plain(xb, db, bias, scale)
     name = "tied_sae_fwd"
@@ -203,11 +216,9 @@ def tied_sae_fwd(xb, db, bias, scale: float):
     require(shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     c = torch.empty((M, B, N), dtype=bf16, device=dev)
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
-    # the loss partials: per 64-row block on the pipelined kernel (D ≤ 512),
-    # else per 64 x 128 output tile of the WMMA encode and decode
-    l1_cols, lrec_cols = (1, 1) if D <= PIPELINED_MAX_D else (N // FWD_COLS, D // FWD_COLS)
-    l1_part = torch.empty((M, B // FWD_ROWS, l1_cols), dtype=fp32, device=dev)
-    lrec_part = torch.empty((M, B // FWD_ROWS, lrec_cols), dtype=fp32, device=dev)
+    l1_shape, lrec_shape = fwd_partials(M, B, N, D)
+    l1_part = torch.empty(l1_shape, dtype=fp32, device=dev)
+    lrec_part = torch.empty(lrec_shape, dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_fwd"]
     rc = lib.sc_tied_sae_fwd(
         xb.data_ptr(), db.data_ptr(), bias.data_ptr(), c.data_ptr(), dxh.data_ptr(),
@@ -220,10 +231,11 @@ def tied_sae_fwd(xb, db, bias, scale: float):
 
 
 def nocode_tile(d_act: int) -> Tuple[int, int]:
-    """K1n's (batch rows, dictionary rows) per block: a block keeps its rows'
-    whole x̂ [rows, D] in f32 registers while it walks the dictionary (at
-    D ≤ 512 in 64-row TMA stages, csrc/tied_sae_fwd.cu `pp_fwd_kernel`)."""
-    return (64, 64) if d_act <= PIPELINED_MAX_D else (32, 32)
+    """K1n's (batch rows, dictionary rows) per block tile: its blocks keep
+    the rows' whole x̂ [rows, D] in f32 registers while they walk the
+    dictionary (at D 128/256/512/1024 in 64-row TMA stages,
+    csrc/tied_sae_fwd.cu `pp_fwd_kernel`, at 1024 two blocks a tile)."""
+    return (64, 64) if d_act in PIPELINED_CLUSTER else (32, 32)
 
 
 def nocode_shapes_supported(n_dict: int, d_act: int, batch: int) -> bool:
@@ -242,8 +254,9 @@ def _fwd_nocode_plain(xb, db, bias, scale):
 def tied_sae_fwd_nocode(xb, db, bias, scale: float):
     """K1n: K1 without the code store. xb [B, D] bf16, db [M, N, D] bf16,
     bias [M, N] f32 → (dxh [M, B, D] bf16, Σerr² [M] f32, Σc [M] f32). dxh is
-    bit-equal to K1's; the loss sums group their partials per block and may
-    differ from K1's in the last bits."""
+    bit-equal to K1's at every width (at D 1024 the code summed from the
+    depth's quarters in K1's order); the loss sums group their partials per
+    block and may differ from K1's in the last bits."""
     if not xb.is_cuda:
         return _fwd_nocode_plain(xb, db, bias, scale)
     name = "tied_sae_fwd_nocode"
@@ -256,7 +269,7 @@ def tied_sae_fwd_nocode(xb, db, bias, scale: float):
     require(xb.shape == (B, D) and bias.shape == (M, N), f"{name}: shape mismatch")
     require(nocode_shapes_supported(N, D, B), f"{name}: shape (B={B}, N={N}, D={D}) not supported")
     dxh = torch.empty((M, B, D), dtype=bf16, device=dev)
-    parts = torch.empty((2, M, B // nocode_tile(D)[0]), dtype=fp32, device=dev)
+    parts = torch.empty((2, M, B // nocode_tile(D)[0] * PIPELINED_CLUSTER.get(D, 1)), dtype=fp32, device=dev)
     lib = _build.load()["tied_sae_fwd"]
     rc = lib.sc_tied_sae_fwd_nocode(
         xb.data_ptr(), db.data_ptr(), bias.data_ptr(), dxh.data_ptr(), parts[0].data_ptr(),

@@ -3,9 +3,9 @@
 `shapes_supported` is the one shape predicate of the tied-SAE kernels: it
 must take every (N, D, B) it took before the wgmma mainloop (the WMMA
 mainloop's dictionary tiles: 256 rows at D 128, 128 at 256, 64 at 512, 32
-at 768 and 1024). The wgmma mainloop now runs D 128, 256 and 512 and, on
-the stored code, D 1024 (128 rows shared by a cluster of four blocks); D
-768 and D 1024 rebuilding the code keep the WMMA mainloop. The tiles and
+at 768 and 1024). The wgmma mainloop now runs D 128, 256, 512 and 1024
+(at 1024 128 rows shared by a cluster of four blocks, on the stored code
+and rebuilding it); D 768 keeps the WMMA mainloop. The tiles and
 shared-memory plans of the dense route live in the CUDA source alone
 (`ops/csrc/tied_sae_bwd.cuh`), which asserts at compile time that each
 block's (or cluster's) rows divide K1's 128-column tile.

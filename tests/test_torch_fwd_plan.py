@@ -6,10 +6,10 @@ Each must take every (N, D, B) it took in its first design: K_s and K_d the
 forward output tiles of `csrc/wmma_tile.cuh` (B % 64, N % 128, D % 128)
 with one row of N 16-bit keys for K_s's select in a block's shared memory;
 K1n the tied kernels' widths with 64-row blocks and dictionary tiles at
-D ≤ 512 and 32-row ones at 768 and 1024; K1 the tied kernels' widths with
-the WMMA tiles (64 x 128), 768 and 1024 included, whichever kernel runs
-them now. CPU tensors run the plain versions and never reach the kernel
-build.
+D ≤ 512 and 32-row ones at 768 and 1024 (now 64-row tiles at 1024 too, two
+blocks a tile); K1 the tied kernels' widths with the WMMA tiles (64 x 128),
+768 and 1024 included, whichever kernel runs them now. CPU tensors run the
+plain versions and never reach the kernel build.
 """
 
 import numpy as np
@@ -92,15 +92,60 @@ def test_fwd_nocode_takes_every_shape_it_took_before(d, k):
 @pytest.mark.parametrize("d", sorted(tk.WIDTHS))
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96])
 def test_fwd_takes_every_shape_it_took_before(d, k):
-    """K1 at D ≤ 512 runs on the pipelined kernel (64-row blocks, 64-row
-    dictionary stages), at 768 and 1024 on its WMMA kernels: every shape
-    its first design took is still taken, and its route follows D alone."""
+    """K1 at D 128, 256 and 512 runs on the pipelined kernel (64-row
+    blocks, 64-row dictionary stages), at 1024 on the same kernel in
+    clusters of two blocks (each half the columns), at 768 on its WMMA
+    kernels: every shape its first design took is still taken, and its
+    route follows D alone."""
     n = 128 * k
     for b in BATCHES:
         assert _old_k1_supported(n, d, b)
         assert tk.shapes_supported(n, d, b), (n, d, b)
         assert b % tk.nocode_tile(d)[0] == 0 and n % tk.nocode_tile(d)[1] == 0
-    assert (d <= tk.PIPELINED_MAX_D) == (d in (128, 256, 512))
+    assert tk.PIPELINED_CLUSTER.get(d) == {128: 1, 256: 1, 512: 1, 1024: 2, 768: None}[d]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 32, 96, 256])
+def test_fwd_pair_split_at_d1024_takes_every_shape_k1_and_k1n_took(k):
+    """At D 1024 K1 and K1n run the pipelined kernel in clusters of two
+    blocks (64-row tiles, each block half the columns): every (N, B) that
+    K1's WMMA kernels and K1n's 32-row blocks took is still taken, up to
+    config 5's N 32768. K1's loss partials are a block's each, two a 64-row
+    tile ([M, B/64, 2]); K1n's as many ([M, B/32])."""
+    n = 128 * k
+    for b in BATCHES:
+        assert _old_k1_supported(n, 1024, b) and _old_k1n_supported(n, 1024, b)
+        assert tk.shapes_supported(n, 1024, b) and tk.nocode_shapes_supported(n, 1024, b), (n, b)
+        rows, nt = tk.nocode_tile(1024)
+        assert b % rows == 0 and n % nt == 0
+        assert tk.fwd_partials(4, b, n, 1024) == ((4, b // 64, 2), (4, b // 64, 2))
+        assert (b // rows) * tk.PIPELINED_CLUSTER[1024] == b // 32
+    assert tk.fwd_partials(2, 256, n, 768) == ((2, 4, n // 128), (2, 4, 6))
+
+
+def test_cpu_tensors_at_d1024_never_reach_the_kernel_build(monkeypatch):
+    """K1's and K1n's wrappers at D 1024 given CPU tensors run the plain
+    versions (K1n's dxh and loss sums K1's) and count no launch."""
+    from sparse_coding__tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("kernel build reached with CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    tk.reset_launches()
+    rng = np.random.default_rng(2)
+    M, B, N, D = 2, 64, 128, 1024
+    d = torch.tensor(rng.standard_normal((M, N, D)), dtype=torch.float32)
+    db = (d / d.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    xb = torch.tensor(rng.standard_normal((B, D)), dtype=torch.float32).to(torch.bfloat16)
+    bias = torch.tensor(rng.standard_normal((M, N)) * 0.01, dtype=torch.float32)
+    c, dxh, lrec, ll1 = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+    dxh_n, lrec_n, ll1_n = tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D))
+    c_p, ll1_p = tk._encode_plain(xb, db, bias)
+    assert torch.equal(c, c_p) and torch.equal(ll1, ll1_p)
+    assert torch.equal(dxh_n, dxh) and torch.equal(lrec_n, lrec) and torch.equal(ll1_n, ll1)
+    assert c.shape == (M, B, N) and dxh.shape == (M, B, D)
+    assert tk.LAUNCHES["tied_sae_fwd"] == 0 and tk.LAUNCHES["tied_sae_fwd_nocode"] == 0
 
 
 @pytest.mark.parametrize("d", sorted(tk.WIDTHS))

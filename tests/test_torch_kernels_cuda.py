@@ -72,18 +72,18 @@ from sparse_coding__tpu_torch.ops import topk_kernel as kk
 
 pytestmark = pytest.mark.cuda
 
-# M, B, N, D: every width the kernels take (the dense K2/K3 at D 768 and K2
-# rebuilding the code at D 1024 run the WMMA mainloop, D 768 single-buffering
-# x and D 1024 in 16-row batch stages; D 1024 on the stored code runs the
-# wgmma mainloop in a cluster of four blocks), then the two main paths' full
-# shapes (tied SAE, TopK config 4)
+# M, B, N, D: every width the kernels take (the dense K2/K3 at D 768 run the
+# WMMA mainloop, single-buffering x; at D 1024, on the stored code and
+# rebuilding it, the wgmma mainloop in a cluster of four blocks; K1 and K1n
+# at D 1024 the pipelined kernel in clusters of two), then the two main
+# paths' full shapes (tied SAE, TopK config 4)
 SHAPES = [(2, 256, 512, 128), (2, 128, 256, 256), (2, 256, 512, 768), (2, 256, 256, 1024),
           (8, 2048, 4096, 512), (7, 2048, 12288, 768)]
-# M, B, N, D at D 1024 on the stored code (a cluster of four blocks): one
-# cluster (N 128) at the smallest batch, a batch that wraps the ring of three
-# stages unevenly (B 320: 10 tiles), then BASELINE config 5 (Pythia-410M's
-# residual, 32x): K2 at its batch of 2048, K3 at the data axis' local batch
-# of 1024
+# M, B, N, D at D 1024 (the dense K2/K3 in a cluster of four blocks, K1 and
+# K1n in clusters of two): one cluster (N 128) at the smallest batch, a
+# batch that wraps the ring of three stages unevenly (B 320: 10 tiles), then
+# BASELINE config 5 (Pythia-410M's residual, 32x): K1 and K2 at its batch of
+# 2048, K3 at the data axis' local batch of 1024
 QUAD_SMALL = [(2, 64, 128, 1024), (3, 320, 256, 1024)]
 QUAD_K2_FULL, QUAD_K3_FULL = (4, 2048, 32768, 1024), (4, 1024, 32768, 1024)
 # M, B, N, D and k per member: the CPU tests' shape, then BASELINE config 4
@@ -523,8 +523,8 @@ def _moments(d_raw, mu_t, nu_t, seed):
 
 
 # K1n's shapes: every width, the smallest batch and dictionary it takes,
-# then B = 4096 at config 2's widths
-NOCODE_SHAPES = SHAPES + [(2, 64, 128, 256), (3, 64, 128, 512), (8, 4096, 4096, 512)]
+# then B = 4096 at config 2's widths, then config 5
+NOCODE_SHAPES = SHAPES + [(2, 64, 128, 256), (3, 64, 128, 512), (8, 4096, 4096, 512), QUAD_K2_FULL]
 
 
 @pytest.mark.parametrize("shape", NOCODE_SHAPES)
@@ -564,7 +564,7 @@ def test_wgmma_chain_gives_the_mma_sync_chain_bits(cuda):
     assert all(r["share_of_bits_differing"] == 0.0 for r in rows), rows
 
 
-@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2], SHAPES[4]])
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2], SHAPES[4], QUAD_K2_FULL])
 def test_fwd_nocode_gives_the_same_bits_twice(cuda, shape):
     """K1n's per-block loss sums add their warps in a fixed order: two
     launches on the same inputs give the same dxh, l_rec and l_l1 bits."""
@@ -575,16 +575,14 @@ def test_fwd_nocode_gives_the_same_bits_twice(cuda, shape):
     assert all(same_bits(a, b) for a, b in zip(*outs))
 
 
-@pytest.mark.parametrize("shape", SHAPES[:3] + SHAPES[4:5])
+@pytest.mark.parametrize("shape", SHAPES[:5] + QUAD_SMALL + [QUAD_K2_FULL])
 @pytest.mark.parametrize("tiers", [("bfloat16", "float32")] + TIERS)
 def test_bwd_adam_rebuild_is_bit_identical_to_the_stored_code(cuda, shape, tiers):
     """K2 rebuilding the code from x, D̂ and the bias == K2 on K1's stored
     code: d_new, the moments (codes and scales) and g_bias, bit for bit, at
-    every width where both routes run one mainloop. At D 1024 the stored
-    code runs the wgmma mainloop and the rebuild the WMMA one, which sum in
-    other orders (a fault against JAX's recompute, ROADMAP C8); there
-    `test_bwd_adam_compressed_epilogue_matches_plain` holds the rebuild in
-    these tiers."""
+    every width (at D 1024 the code of K1's order over the depth's quarters,
+    rebuilt in the cluster of four), at one cluster, a ragged batch and
+    config 5 there."""
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=5)
     c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
@@ -603,8 +601,8 @@ def test_bwd_adam_rebuild_is_bit_identical_to_the_stored_code(cuda, shape, tiers
 ALL_TIERS = [(mu, nu) for mu in ("float32", "bfloat16", "int8") for nu in ("float32", "bfloat16", "int8")]
 # shape, (mu, nu) tiers and whether K2 rebuilds the code: every width on the
 # stored code in the compressed tiers; D 1024's cluster of four in every
-# tier, at one cluster and at config 5; K2 rebuilding the code at D 1024 (the
-# WMMA mainloop) in the tiers the bit-identity test takes at other widths
+# tier, at one cluster and at config 5; K2 rebuilding the code at D 1024 in
+# the tiers the bit-identity test takes
 EPILOGUE_CASES = ([(s, t, False) for s in SHAPES for t in TIERS]
                   + [(s, t, False) for s in (QUAD_SMALL[0], QUAD_K2_FULL) for t in ALL_TIERS]
                   + [(SHAPES[3], t, True) for t in [("bfloat16", "float32")] + TIERS])
@@ -616,10 +614,10 @@ def test_bwd_adam_compressed_epilogue_matches_plain(cuda, shape, tiers, rebuild)
     stochastic stores draw the same counter-hash bits, so int8 codes and bf16
     nu agree in >= 99.9% of elements, never more than one code or ulp apart,
     scales within 1e-6. On the stored code the gradient is K3's, which runs
-    K2's gradient code on the same bf16 rows. Rebuilding the code (D 1024,
-    where no K3 runs that mainloop) it is the one K2 itself leaves in f32 mu
-    from zero moments at b1 = 0 (mu_new = 1 * g exactly), held against the
-    plain gradient of K1's code, with that launch's g_bias."""
+    K2's gradient code on the same bf16 rows. Rebuilding the code (D 1024)
+    it is the one K2 itself leaves in f32 mu from zero moments at b1 = 0
+    (mu_new = 1 * g exactly), held against the plain gradient of K1's code,
+    with that launch's g_bias."""
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=8)
     c, dxh, _, _ = tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
@@ -744,11 +742,13 @@ def test_dense_route_gives_the_same_bits_twice(cuda, shape, variant):
 
 
 def test_dense_d1024_plans_and_launches_a_cluster_of_four(cuda):
-    """The built libraries' plan at D 1024 on the stored code: clusters of
-    four blocks, at least two stages, within the shared memory a block may
-    use, in every int8 tier; the rebuilt route's library has no wgmma plan
-    there. A traced K3 and K2 at D 1024 run `wg_bwd_kernel<…, 1024>` and no
-    WMMA `bwd_kernel`."""
+    """The built libraries' plans at D 1024: the dense K2/K3 on the stored
+    code and K2 rebuilding it in clusters of four blocks, at least two
+    stages, within the shared memory a block may use, in every int8 tier;
+    K1/K1n's pipelined kernel in clusters of two. A traced K1, K1n, K3, K2
+    on the stored code and K2 rebuilding it at D 1024 run `pp_fwd_kernel<
+    1024, …>` and `wg_bwd_kernel<…, 1024>`, and no WMMA `encode_kernel`,
+    `decode_kernel`, `nocode_kernel` or `bwd_kernel`."""
     import ctypes
 
     from torch.profiler import ProfilerActivity, profile
@@ -758,11 +758,15 @@ def test_dense_d1024_plans_and_launches_a_cluster_of_four(cuda):
 
     libs = _build.load()
     for i8 in (0, 1, 2):
-        got = (ctypes.c_int * 3)()
-        assert libs["tied_sae_bwd"].sc_tied_sae_bwd_plan(1024, i8, ctypes.addressof(got)) == 0
-        stages, smem, cluster = list(got)
-        assert cluster == 4 and stages >= 2 and smem <= MAX_SMEM, (i8, list(got))
-        assert libs["tied_sae_bwd_rc"].sc_tied_sae_bwd_plan(1024, i8, ctypes.addressof(got)) != 0
+        for lib in ("tied_sae_bwd", "tied_sae_bwd_rc"):
+            got = (ctypes.c_int * 3)()
+            assert libs[lib].sc_tied_sae_bwd_plan(1024, i8, ctypes.addressof(got)) == 0
+            stages, smem, cluster = list(got)
+            assert cluster == 4 and stages >= 2 and smem <= MAX_SMEM, (lib, i8, list(got))
+    got = (ctypes.c_int * 3)()
+    assert libs["tied_sae_fwd"].sc_tied_sae_fwd_plan(1024, ctypes.addressof(got)) == 0
+    stages, smem, cluster = list(got)
+    assert cluster == 2 and stages >= 2 and smem <= MAX_SMEM, list(got)
     shape = QUAD_SMALL[0]
     M, B, N, D = shape
     d_raw, bias, xb, nrm, db, l1b = _inputs(shape, cuda, seed=40)
@@ -771,13 +775,19 @@ def test_dense_d1024_plans_and_launches_a_cluster_of_four(cuda):
     bc = torch.tensor([[0.1, 0.001]] * M, device=cuda)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tk.tied_sae_fwd(xb, db, bias, 2.0 / (B * D))
+        tk.tied_sae_fwd_nocode(xb, db, bias, 2.0 / (B * D))
         tk.tied_sae_bwd_grads(xb, dxh, c, nrm, db, l1b)
-        tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), mu, nu, l1b, bc, *HP)
+        tk.tied_sae_bwd_adam(xb, dxh, c, nrm, d_raw.clone(), clone_moment(mu), clone_moment(nu), l1b, bc, *HP)
+        tk.tied_sae_bwd_adam(xb, dxh, None, nrm, d_raw.clone(), mu, nu, l1b, bc, *HP, bias=bias)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    assert any("wg_bwd_kernel<false, 0, 0, false, 1024>" in n for n in names), names
-    assert any("wg_bwd_kernel<true, 1, 0, false, 1024>" in n for n in names), names
-    assert not any("::bwd_kernel<" in n for n in names), names
+    for kernel in ("pp_fwd_kernel<1024, true>", "pp_fwd_kernel<1024, false>",
+                   "wg_bwd_kernel<false, 0, 0, false, 1024>", "wg_bwd_kernel<true, 1, 0, false, 1024>",
+                   "wg_bwd_kernel<true, 1, 0, true, 1024>"):
+        assert any(kernel in n for n in names), (kernel, names)
+    for kernel in ("::encode_kernel(", "::decode_kernel(", "::nocode_kernel<", "::bwd_kernel<"):
+        assert not any(kernel in n for n in names), (kernel, names)
 
 
 # K_f: M, B, N, D, iterations — the shape where JAX picks `_fista_kernel`,
@@ -879,10 +889,12 @@ def test_fista_kernel_takes_widths_that_are_not_multiples_of_4(cuda, tol):
     _hold_fista(a_k, a_p, x, d)
 
 
-# K1 on the pipelined encode -> decode (D <= 512): every pipelined width at
-# the smallest batch and dictionary, then config 2 at B 64, 2048 and 4096
+# K1 on the pipelined encode -> decode: every pipelined width at the
+# smallest batch and dictionary, then config 2 at B 64, 2048 and 4096, then
+# D 1024's pair split at one cluster, a ragged batch and config 5
 K1_PP_SHAPES = [(2, 64, 128, 128), (2, 64, 128, 256), (2, 64, 128, 512), (2, 2048, 512, 256),
-                (8, 64, 4096, 512), (8, 2048, 4096, 512), (8, 4096, 4096, 512)]
+                (8, 64, 4096, 512), (8, 2048, 4096, 512), (8, 4096, 4096, 512),
+                (2, 64, 128, 1024), (3, 320, 256, 1024), QUAD_K2_FULL]
 
 
 @pytest.mark.parametrize("shape", K1_PP_SHAPES)
